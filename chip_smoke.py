@@ -1,0 +1,629 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check it end to end.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
+``nvidia-smi``, and imports nothing of JAX or of the JAX package. It
+exits non-zero, without printing a result, on any failure, on a
+machine without CUDA, and when the ``parallax_tpu_torch`` package is not
+beside it. Phases:
+
+1. Build both CUDA kernels from ``parallax_tpu_torch/csrc/`` (one nvcc
+   per source, started together) and print the card's name and power
+   limit.
+2. Kernel check: each kernel's wrapper against its plain PyTorch version
+   on the card, at the serving path's shapes and at the cases below, in
+   fp32 (TF32 off; atol 2e-5) and bf16 (atol 2e-2 x the plain output's
+   peak magnitude); each timed with CUDA events (warmup, then the
+   median of 20 runs; the paged kernel and its plain version after an
+   L2 flush, as a decode step finds the pool) beside the plain version,
+   the one library call
+   that computes the same function where there is one
+   (``scaled_dot_product_attention`` for the flash forward), and the
+   bound from the H100 SXM data sheet.
+3. Serve: NMT at its published widths (``NMTConfig()``: vocab 32000,
+   model 512, 8 heads, MLP 2048, 6+6 layers, bf16, flash encoder
+   attention) with random weights from a fixed seed, behind
+   ``ServeSession(program=NMTDecodeProgram(..., attn_impl="kernel"))``
+   with 64 slots; 256 requests. Every launch counter is zeroed just
+   before and read just after; each must equal the scheduler's own
+   count of prefills / decode steps times the 6 layers (plus the
+   warmup's one of each). Then 64 of the requests again under the
+   profiler, for the device's busy share and the kernels that take
+   the time.
+4. Agreement: 32 of the same requests served in fp32 (TF32 off) and
+   compared, request by request, with the standalone ``greedy_decode``
+   of the plain path (dense cache, plain attention, no kernel).
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+lists each kernel with its launches, error, times and bound. The whole
+record is also written to ``build/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
+SEED = 0
+# H100 SXM data sheet (dense): device memory 3.35 TB/s; 989 TF/s bf16 on
+# the tensor cores; 67 TF/s fp32 outside them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+FP32_ATOL = 2e-5
+BF16_REL = 2e-2
+REPS = 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- timing -----------------------------------------------------------------
+
+
+def time_ms(torch, fn, reps: int = REPS, per_round: int = 10,
+            warmup: int = 3, flush=None) -> float:
+    """Median over ``reps`` rounds of the device milliseconds per call
+    of ``fn``, measured between two CUDA events.
+
+    Without ``flush`` each round is ``per_round`` back-to-back calls: the
+    inputs stay in the L2 cache, and a call too small to cover its own
+    launch measures the launch rate, which is what a caller pays for it.
+    With ``flush`` (a buffer well past the 50 MB L2 cache) each round
+    first overwrites the buffer and then times one call. The call then
+    finds its inputs cold in device memory, as it does on the serving path.
+    The overwrite keeps the device busy while the host issues the call,
+    so no launch gap is timed."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    calls = per_round if flush is None else 1
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, kernel_name: str, calls: int = 10):
+    """Mean device time of the CUDA kernel named ``kernel_name`` per
+    call of ``fn``, from the profiler's CUDA activity (None when the
+    profiler records no such kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel_name in evt.key:
+            total_us += getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+            count += evt.count
+    return total_us / count / 1e3 if count else None
+
+
+def bound(bytes_moved: int, ops: int, dtype_name: str):
+    """(bound_ms, bound_by): the larger of the bytes over the memory
+    rate and the operations over the peak rate for the dtype."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(torch, got, want, dtype):
+    """(max_abs_err, tolerance) of a kernel result against its plain
+    version: atol 2e-5 in fp32, 2e-2 of the plain peak in bf16."""
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        return err, FP32_ATOL
+    return err, BF16_REL * max(want.float().abs().max().item(), 1e-6)
+
+
+# -- phase 1 ----------------------------------------------------------------
+
+
+def phase_build(torch):
+    from parallax_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    seconds = _cuda.build()
+    log(f"[build] {json.dumps(seconds)} (wall "
+        f"{time.perf_counter() - t0:.2f}s)")
+    for name in _cuda.KERNEL_SOURCES:
+        report = _cuda.library_path(name).with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[ptxas {name}] {line.strip()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)}")
+    return card
+
+
+# -- phase 2: the flash-attention forward ------------------------------------
+
+
+def flash_cases():
+    # (label, B, T, H, hd, causal, mask): "serve" is the encoder's
+    # shape on the serving path (one padded 64-token source)
+    return [("serve", 1, 64, 8, 64, False, "tail"),
+            ("masked_row", 2, 64, 8, 64, False, "row"),
+            ("t512", 8, 512, 8, 64, False, None),
+            ("t512_causal", 8, 512, 8, 64, True, None)]
+
+
+def run_flash_case(torch, case, dtype):
+    import torch.nn.functional as F
+
+    from parallax_tpu_torch.ops import flash_attention as fa
+    label, B, T, H, hd, causal, mask_kind = case
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q, k, v = (torch.randn((B, T, H, hd), generator=g, device=DEVICE,
+                           dtype=dtype) for _ in range(3))
+    mask = None
+    if mask_kind is not None:
+        mask = torch.ones((B, T), dtype=torch.int32, device=DEVICE)
+        mask[0, 40:] = 0              # a padded source of 40 tokens
+        if mask_kind == "row":
+            mask[1] = 0               # every query of batch 1 sees nothing
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal, kv_mask=mask)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            kv_mask=mask)
+    torch.cuda.synchronize()
+    err, tol = compare(torch, out, ref, dtype)
+    live = torch.ones((B,), dtype=torch.bool, device=DEVICE)
+    if mask is not None:
+        live = mask.sum(dim=1) > 0
+    lse_err = (lse[live] - ref_lse[live]).abs().max().item()
+    lse_tol = FP32_ATOL if dtype == torch.float32 else \
+        1e-2 * max(ref_lse[live].abs().max().item(), 1.0)
+    ok = err <= tol and lse_err <= lse_tol
+    if not live.all():
+        dead = ~live
+        ok = ok and bool((out[dead] == 0).all()) \
+            and bool((lse[dead] < -1e29).all())
+    scale = 1.0 / math.sqrt(hd)
+    kernel_ms = time_ms(torch, lambda: fa.flash_attention_lse(
+        q, k, v, causal=causal, kv_mask=mask))
+    kernel_device_ms = device_ms(torch, lambda: fa.flash_attention_lse(
+        q, k, v, causal=causal, kv_mask=mask), "flash_fwd_kernel")
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal, kv_mask=mask))
+    attn_mask = None if mask is None else \
+        (mask > 0)[:, None, None, :].expand(B, H, T, T)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=attn_mask, is_causal=causal, scale=scale))
+    itemsize = q.element_size()
+    bytes_moved = (4 * B * T * H * hd * itemsize + B * H * T * 4
+                   + (0 if mask is None else B * T * 4))
+    if causal:
+        pairs = B * T * (T + 1) // 2
+    elif mask is not None:
+        pairs = T * int(mask.sum().item())
+    else:
+        pairs = B * T * T
+    bound_ms, bound_by = bound(bytes_moved, 4 * H * hd * pairs,
+                               str(dtype).split(".")[-1])
+    return {"kernel": "flash_attention_fwd", "case": label,
+            "dtype": str(dtype).split(".")[-1],
+            "shape": {"B": B, "T": T, "H": H, "hd": hd, "causal": causal,
+                      "mask": mask_kind},
+            "ok": ok, "max_abs_err": err, "tol": tol,
+            "lse_max_abs_err": lse_err, "ms": kernel_ms,
+            "device_ms": kernel_device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# -- phase 2: the paged-decode attention --------------------------------------
+
+
+def paged_cases():
+    from parallax_tpu_torch.ops.paged_attention import FLAGSHIP_DECODE as F
+    # (label, S, G, D, heads, page_size, P, pool_pages, occupancy);
+    # "serve" is the decode step of the serving path below
+    out = [("serve", 64, 1, 512, 8, 16, 8, 512, None)]
+    for G in (1, 3):
+        for occ in (1.0, 0.25):
+            out.append((f"flagship_g{G}_occ{int(occ * 100)}", F["S"], G,
+                        F["D"], F["num_heads"], F["page_size"], F["P"],
+                        F["pool_pages"], occ))
+    return out
+
+
+def _paged_tables(case, rng):
+    """Page table and positions: ``occupancy`` of each slot's table
+    live (the flagship cases, slot 0 holding no page at all), or, for
+    the serving shape, each slot owning the pages of a random cap with
+    its frontier somewhere inside them."""
+    label, S, G, D, H, ps, P, pool_pages, occ = case
+    pages = np.full((S, P), pool_pages, np.int32)
+    pos = np.zeros((S, G), np.int32)
+    perm = rng.permutation(pool_pages)
+    nxt = 0
+    for s in range(S):
+        if occ is None:
+            cap = int(rng.integers(32, P * ps + 1))
+            n = -(-cap // ps)
+            last = int(rng.integers(G - 1, cap))
+        else:
+            n = 0 if s == 0 else int(P * occ)
+            last = max(n * ps - 1, G - 1)
+        pages[s, :n] = perm[nxt:nxt + n]
+        nxt += n
+        pos[s] = last - (G - 1) + np.arange(G)
+    return pages, pos
+
+
+def run_paged_case(torch, case, dtype, flush):
+    from parallax_tpu_torch.ops import paged_attention as pa
+    label, S, G, D, H, ps, P, pool_pages, occ = case
+    rng = np.random.default_rng(SEED)
+    pages_np, pos_np = _paged_tables(case, rng)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q = torch.randn((S, G, D), generator=g, device=DEVICE, dtype=dtype)
+    # the port's pool layout: one spare page past pool_pages
+    kp = torch.randn((pool_pages + 1, ps, D), generator=g, device=DEVICE,
+                     dtype=dtype)
+    vp = torch.randn((pool_pages + 1, ps, D), generator=g, device=DEVICE,
+                     dtype=dtype)
+    pages = torch.from_numpy(pages_np).to(DEVICE)
+    pos = torch.from_numpy(pos_np).to(DEVICE)
+    kw = dict(num_heads=H, page_size=ps, pool_pages=pool_pages)
+    out = pa.paged_decode_attention(q, kp, vp, pages, pos, **kw)
+    ref = pa.paged_decode_attention_plain(q, kp, vp, pages, pos, **kw)
+    torch.cuda.synchronize()
+    err, tol = compare(torch, out, ref, dtype)
+    ok = err <= tol and bool(torch.isfinite(out).all())
+    if occ is not None:
+        ok = ok and bool((out[0] == 0).all())   # the slot with no page
+    # a decode step reaches each layer's pool after the other layers'
+    # pools and weights went through the cache, so both versions are
+    # timed cold
+    kernel_ms = time_ms(torch, lambda: pa.paged_decode_attention(
+        q, kp, vp, pages, pos, **kw), flush=flush)
+    warm_ms = time_ms(torch, lambda: pa.paged_decode_attention(
+        q, kp, vp, pages, pos, **kw))
+    kernel_device_ms = device_ms(torch, lambda: pa.paged_decode_attention(
+        q, kp, vp, pages, pos, **kw), "paged_decode_kernel")
+    plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(
+        q, kp, vp, pages, pos, **kw), flush=flush)
+    # what this run's data needs: every live position some query of its
+    # slot sees (the kernel reads nothing else), q and out once
+    live = pages_np < pool_pages
+    visible_pages = 0
+    visible_positions = 0
+    for s in range(S):
+        frontier = int(pos_np[s].max())
+        visible_pages += int(live[s, :frontier // ps + 1].sum())
+        for g_ in range(G):
+            tpos = np.arange(P * ps)
+            visible_positions += int(
+                (np.repeat(live[s], ps) & (tpos <= pos_np[s, g_])).sum())
+    itemsize = q.element_size()
+    nbytes = pa.kernel_hbm_bytes(S, G, D, ps, visible_pages,
+                                 itemsize)["total_bytes"] \
+        + pages_np.nbytes + pos_np.nbytes
+    bound_ms, bound_by = bound(nbytes, 4 * D * visible_positions,
+                               str(dtype).split(".")[-1])
+    return {"kernel": "paged_decode_attention", "case": label,
+            "dtype": str(dtype).split(".")[-1],
+            "shape": {"S": S, "G": G, "D": D, "heads": H, "page_size": ps,
+                      "P": P, "pool_pages": pool_pages,
+                      "occupancy": occ, "live_pages": visible_pages},
+            "ok": ok, "max_abs_err": err, "tol": tol, "ms": kernel_ms,
+            "warm_ms": warm_ms, "device_ms": kernel_device_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_kernels(torch):
+    # overwritten before each cold timing: 512 MiB, ten times the L2
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEVICE)
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in flash_cases():
+            results.append(run_flash_case(torch, case, dtype))
+        for case in paged_cases():
+            results.append(run_paged_case(torch, case, dtype, flush))
+    del flush
+    for r in results:
+        warm = f" cold, {r['warm_ms']:.4f} ms warm" if "warm_ms" in r \
+            else ""
+        log(f"[kernel] {r['kernel']} {r['case']} {r['dtype']}: "
+            f"{'ok' if r['ok'] else 'FAILED'} err {r['max_abs_err']:.3g} "
+            f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms{warm} (device "
+            f"{r['device_ms']} ms) plain "
+            f"{r['plain_ms']:.4f} ms library {r['library_ms']} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
+# -- phase 3: serve ---------------------------------------------------------
+
+
+def make_requests(n: int, rng, vocab: int, max_src_len: int = 64,
+                  max_len: int = 128):
+    """Sources of length uniform in [16, max_src_len], tokens uniform
+    in [3, vocab), token caps uniform in [32, max_len]."""
+    return [(rng.integers(3, vocab, (int(rng.integers(16, max_src_len + 1)),))
+             .astype(np.int32), int(rng.integers(32, max_len + 1)))
+            for _ in range(n)]
+
+
+# the serving configuration: 64 slots over a 512-page pool of 16-token
+# pages, sources padded to 64 tokens, at most 128 tokens per request
+SERVE = dict(max_src_len=64, max_len=128, page_size=16, pool_pages=512,
+             max_batch=64, max_queue=512)
+
+
+def serve(torch, cfg, params, requests):
+    import parallax_tpu_torch as pt
+    prog = pt.NMTDecodeProgram(
+        cfg, max_src_len=SERVE["max_src_len"], max_len=SERVE["max_len"],
+        page_size=SERVE["page_size"], pool_pages=SERVE["pool_pages"],
+        attn_impl="kernel", device=DEVICE)
+    sess = pt.ServeSession(
+        program=prog, params=params, device=DEVICE,
+        config=pt.Config(serve_config=pt.ServeConfig(
+            max_batch=SERVE["max_batch"], max_queue=SERVE["max_queue"])))
+    t0 = time.perf_counter()
+    try:
+        reqs = [sess.submit({"src": src}, max_new_tokens=cap)
+                for src, cap in requests]
+        outs = []
+        for r in reqs:
+            outs.append(r.result(timeout=900))
+        wall = time.perf_counter() - t0
+    finally:
+        sess.close()
+    return outs, wall, sess.stats()
+
+
+def check_outputs(requests, outs, vocab):
+    for (src, cap), out in zip(requests, outs):
+        if out.ndim != 1 or not 1 <= len(out) <= cap:
+            raise AssertionError(f"bad output length {out.shape} for cap "
+                                 f"{cap}")
+        if out.min() < 0 or out.max() >= vocab:
+            raise AssertionError(f"token out of range [0, {vocab})")
+        if len(out) < cap and out[-1] != 2:
+            raise AssertionError("a request stopped early without EOS")
+
+
+def phase_serve(torch, cfg, requests):
+    from parallax_tpu_torch.models import nmt
+    from parallax_tpu_torch.ops import flash_attention as fa
+    from parallax_tpu_torch.ops import paged_attention as pa
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = nmt.init_params(cfg, g, device=DEVICE)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    pa.launches = 0
+    outs, wall, stats = serve(torch, cfg, params, requests)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": fa.launches,
+                "paged_decode_attention": pa.launches}
+    check_outputs(requests, outs, cfg.vocab_size)
+    L = cfg.num_layers
+    want = {"flash_attention_fwd": (stats["serve.prefills"] + 1) * L,
+            "paged_decode_attention":
+                (stats["serve.decode_steps"] + 1) * L}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != scheduler "
+                             f"counts {want}")
+    if stats["serve.kv_pages_in_use"] != 0:
+        raise AssertionError(f"{stats['serve.kv_pages_in_use']} KV pages "
+                             f"leaked after close")
+    if stats["serve.completed"] != len(requests):
+        raise AssertionError(f"{stats['serve.completed']} of "
+                             f"{len(requests)} requests completed")
+    tokens = int(sum(len(o) for o in outs))
+    summary = {"requests": len(requests), "tokens": tokens,
+               "wall_s": wall, "tokens_per_sec": tokens / wall,
+               "ttft_ms_p50": stats["serve.ttft_ms"]["p50"],
+               "ttft_ms_p95": stats["serve.ttft_ms"]["p95"],
+               "step_ms_p50": stats["serve.step_ms"]["p50"],
+               "step_ms_p95": stats["serve.step_ms"]["p95"],
+               "decode_steps": stats["serve.decode_steps"],
+               "prefills": stats["serve.prefills"],
+               "kv_refill_deferred": stats["serve.kv_refill_deferred"],
+               "launches": launches}
+    log(f"[serve] {json.dumps(summary)}")
+    return params, summary
+
+
+def phase_profile(torch, cfg, params, requests):
+    """Where a serve run's time goes: the same serving stack under the
+    profiler's CUDA activity (kernels, copies and fills, from CUPTI),
+    with the device's busy time summed over the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve(torch, cfg, params, requests)
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    busy_s = sum(us for us, _, _ in rows) / 1e6
+    rows.sort(reverse=True)
+    summary = {"requests": len(requests), "window_s": window,
+               "device_busy_s": busy_s,
+               "device_idle_share": 1.0 - busy_s / window,
+               "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
+                        "share_of_busy": us / 1e6 / busy_s}
+                       for us, n, key in rows[:10]]}
+    log(f"[profile] {json.dumps(summary)}")
+    return summary
+
+
+# -- phase 4: fp32 agreement --------------------------------------------------
+
+
+def top2_gap(torch, params, cfg, src, position):
+    """The plain path's top-2 logit gap and the two tokens at decode
+    ``position`` of one request (its own greedy prefix fed back)."""
+    from parallax_tpu_torch.models import nmt
+    src_t = torch.as_tensor(src[None], device=DEVICE).long()
+    enc, valid = nmt._encode(cfg, params, src_t)
+    ck, cv = nmt._cross_kv(cfg, params, enc)
+    kc, vc = nmt._init_self_cache(cfg, 1, position + 1, DEVICE)
+    tok = torch.full((1,), nmt.BOS_ID, device=DEVICE, dtype=torch.long)
+    for t in range(position + 1):
+        logits, kc, vc = nmt._decode_step_cached_multi(
+            cfg, params, tok, torch.full((1,), t, dtype=torch.int32,
+                                         device=DEVICE),
+            kc, vc, ck, cv, valid)
+        tok = logits.argmax(dim=-1)
+    top = logits[0].topk(2)
+    return (top.values[0] - top.values[1]).item(), top.indices.tolist()
+
+
+def phase_agreement(torch, params, cfg_bf16, requests):
+    from parallax_tpu_torch.models import nmt
+    cfg = dataclasses.replace(cfg_bf16, compute_dtype=torch.float32)
+    ref_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    outs, _, stats = serve(torch, cfg, params, requests)
+    check_outputs(requests, outs, cfg.vocab_size)
+    mismatches = []
+    for i, ((src, cap), out) in enumerate(zip(requests, outs)):
+        ref = nmt.greedy_decode(params, ref_cfg, src[None],
+                                max_len=cap)[0].cpu().numpy()
+        eos = np.flatnonzero(ref == nmt.EOS_ID)
+        if eos.size:
+            ref = ref[:eos[0] + 1]
+        if len(ref) == len(out) and np.array_equal(ref, out):
+            continue
+        n = min(len(ref), len(out))
+        first = int(np.flatnonzero(ref[:n] != out[:n])[0]) if \
+            not np.array_equal(ref[:n], out[:n]) else n
+        gap, top2 = top2_gap(torch, params, ref_cfg, src, first)
+        mismatches.append({"request": i, "position": first,
+                           "top2_gap": gap, "top2_tokens": top2})
+        lo = max(first - 3, 0)
+        log(f"[agree] request {i}: first difference at position {first}, "
+            f"plain top-2 logit gap {gap:.3g} between tokens {top2}; "
+            f"tokens {lo}..{first}: served {out[lo:first + 1].tolist()}, "
+            f"plain {ref[lo:first + 1].tolist()}")
+        if not gap <= 1e-3:               # NaN fails too
+            raise AssertionError(
+                f"request {i} differs at position {first} where the plain "
+                f"path's top-2 gap is {gap:.3g} > 1e-3")
+    summary = {"requests": len(requests), "identical":
+               len(requests) - len(mismatches), "near_ties": mismatches,
+               "kv_pages_in_use": stats["serve.kv_pages_in_use"]}
+    if stats["serve.kv_pages_in_use"] != 0:
+        raise AssertionError("KV pages leaked in the agreement phase")
+    log(f"[agree] {json.dumps(summary)}")
+    return summary
+
+
+# -- the run ----------------------------------------------------------------
+
+
+def kernel_line(results, launches):
+    """One entry per kernel, at the serving path's shape in bf16 (the
+    shape and type the main path launched it at)."""
+    meta = {
+        "flash_attention_fwd": (
+            "parallax_tpu_torch/csrc/flash_attention.cu",
+            "parallax_tpu/ops/pallas_attention.py:141"),
+        "paged_decode_attention": (
+            "parallax_tpu_torch/csrc/paged_attention.cu",
+            "parallax_tpu/ops/pallas_paged_attention.py:278"),
+    }
+    out = []
+    for name, (source, replaces) in meta.items():
+        r = next(r for r in results if r["kernel"] == name
+                 and r["case"] == "serve" and r["dtype"] == "bfloat16")
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    return {"kernels": out}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not (ROOT / "parallax_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no parallax_tpu_torch package beside "
+              f"{Path(__file__).name}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    # every fp32 comparison below runs in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = phase_build(torch)
+    results = phase_kernels(torch)
+    failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in results
+              if not r["ok"]]
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain "
+                             f"versions: {failed}")
+    from parallax_tpu_torch.models import nmt
+    cfg = nmt.NMTConfig(use_pallas_attention=True, num_partitions=1)
+    requests = make_requests(256, np.random.default_rng(SEED),
+                             cfg.vocab_size)
+    params, serve_summary = phase_serve(torch, cfg, requests)
+    profile_summary = phase_profile(torch, cfg, params, requests[:64])
+    agree = phase_agreement(torch, params, cfg, requests[:32])
+    line = kernel_line(results, serve_summary["launches"])
+    record = {"card": card, "kernels": line["kernels"], "cases": results,
+              "serve": serve_summary, "profile": profile_summary,
+              "agreement": agree,
+              "wall_s": time.perf_counter() - t_start}
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    log(f"[done] {record['wall_s']:.1f}s")
+    print(card)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,144 @@
+"""Serving configuration: ``ServeConfig`` and the top-level ``Config``.
+
+Copies of ``parallax_tpu.common.config.ServeConfig`` (same fields, same
+validation) and of ``ParallaxConfig`` reduced to the one field serving
+reads, so code that builds a JAX-package config builds this one with
+the same keywords.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Online-serving knobs.
+
+    * ``max_batch``: the slot count of the continuous-decode scheduler.
+    * ``max_wait_ms``: batch-formation deadline of the one-shot
+      micro-batcher (kept for config compatibility; the continuous
+      scheduler does not read it).
+    * ``max_queue``: admission bound. A submit beyond this many waiting
+      requests is SHED (``ServeOverloaded`` raised to the caller,
+      ``serve.shed`` counted).
+    * ``default_deadline_ms``: per-request latency budget when the
+      caller doesn't pass one. A request whose deadline expires before
+      it completes is dropped (``DeadlineExceeded`` on its future,
+      ``serve.timeouts`` counted). None = no deadline.
+    * ``batch_buckets`` / ``length_buckets``: the one-shot mode's
+      signature set (validated, not read by continuous decode).
+    * ``drain_timeout_s``: ``close()`` stops admission and serves the
+      already-accepted queue to completion, up to this long; whatever
+      is still queued after it is failed with ``ServeClosed``.
+    * ``prefix_cache`` / ``prefix_cache_max_pages`` /
+      ``prefix_cache_max_entries``: prefix-aware KV reuse. Not ported
+      yet: the continuous scheduler refuses ``prefix_cache=True``.
+    * ``tenant_quotas`` / ``default_tenant_quota``: per-tenant
+      admission quotas — a tenant's admitted-but-unfinished requests
+      are capped at its quota, shed with ``TenantQuotaExceeded``.
+    * ``slo_classes``: named service classes, ``{name: {"priority":
+      int, "deadline_ms": float | None}}``; ``submit(slo_class=...)``
+      inherits the class deadline and the queue serves lower priority
+      ranks first (FIFO within a class).
+    """
+
+    max_batch: int = 8
+    max_wait_ms: float = 5.0
+    max_queue: int = 128
+    default_deadline_ms: Optional[float] = None
+    batch_buckets: Optional[Sequence[int]] = None
+    length_buckets: Optional[Sequence[int]] = None
+    drain_timeout_s: float = 30.0
+    prefix_cache: bool = False
+    prefix_cache_max_pages: Optional[int] = None
+    prefix_cache_max_entries: Optional[int] = None
+    tenant_quotas: Optional[Dict[Any, int]] = None
+    default_tenant_quota: Optional[int] = None
+    slo_classes: Optional[Dict[str, Dict[str, Any]]] = None
+
+    def __post_init__(self):
+        if int(self.max_batch) < 1:
+            raise ValueError(
+                f"serve max_batch must be >= 1, got {self.max_batch}")
+        if float(self.max_wait_ms) < 0:
+            raise ValueError(
+                f"serve max_wait_ms must be >= 0, got {self.max_wait_ms}")
+        if int(self.max_queue) < 1:
+            raise ValueError(
+                f"serve max_queue must be >= 1, got {self.max_queue}")
+        if self.default_deadline_ms is not None \
+                and float(self.default_deadline_ms) <= 0:
+            raise ValueError(
+                f"serve default_deadline_ms must be > 0, got "
+                f"{self.default_deadline_ms}")
+        for name in ("batch_buckets", "length_buckets"):
+            v = getattr(self, name)
+            if v is None:
+                continue
+            v = tuple(sorted({int(b) for b in v}))
+            if not v or any(b < 1 for b in v):
+                raise ValueError(
+                    f"serve {name} must be positive sizes, got "
+                    f"{getattr(self, name)!r}")
+            setattr(self, name, v)
+        if self.batch_buckets is not None \
+                and self.batch_buckets[-1] < int(self.max_batch):
+            raise ValueError(
+                f"serve batch_buckets {self.batch_buckets} do not cover "
+                f"max_batch={self.max_batch}; the largest bucket must "
+                f"fit a full batch")
+        for name in ("prefix_cache_max_pages",
+                     "prefix_cache_max_entries"):
+            v = getattr(self, name)
+            if v is not None and int(v) < 0:
+                raise ValueError(
+                    f"serve {name} must be >= 0, got {v}")
+        for name, q in (self.tenant_quotas or {}).items():
+            if int(q) < 1:
+                raise ValueError(
+                    f"serve tenant quota for {name!r} must be >= 1, "
+                    f"got {q}")
+        if self.default_tenant_quota is not None \
+                and int(self.default_tenant_quota) < 1:
+            raise ValueError(
+                f"serve default_tenant_quota must be >= 1, got "
+                f"{self.default_tenant_quota}")
+        for name, cls in (self.slo_classes or {}).items():
+            if not isinstance(cls, dict) or "priority" not in cls:
+                raise ValueError(
+                    f"serve slo_classes[{name!r}] must be a dict with "
+                    f"a 'priority' key, got {cls!r}")
+            ddl = cls.get("deadline_ms")
+            if ddl is not None and float(ddl) <= 0:
+                raise ValueError(
+                    f"serve slo_classes[{name!r}] deadline_ms must be "
+                    f"> 0 or None, got {ddl}")
+
+    def resolve_slo_class(self, name: Optional[str]):
+        """``(priority_rank, class_deadline_ms)`` for an SLO class
+        name (rank 0 / no deadline for None); unknown names are
+        refused loudly."""
+        if name is None:
+            return 0, None
+        classes = self.slo_classes or {}
+        if name not in classes:
+            raise ValueError(
+                f"unknown slo_class {name!r}; declared: "
+                f"{sorted(classes) or '(none)'}")
+        cls = classes[name]
+        ddl = cls.get("deadline_ms")
+        return int(cls["priority"]), (float(ddl) if ddl is not None
+                                      else None)
+
+
+@dataclasses.dataclass
+class ParallaxConfig:
+    """Top-level config, reduced to what serving reads."""
+
+    serve_config: ServeConfig = dataclasses.field(
+        default_factory=ServeConfig)
+
+
+Config = ParallaxConfig
