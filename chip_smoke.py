@@ -11,7 +11,7 @@ exits non-zero, without printing a result, on any failure, on a
 machine without CUDA, and when the ``parallax_tpu_torch`` package is not
 beside it. Phases:
 
-1. Build both CUDA kernels from ``parallax_tpu_torch/csrc/`` (one nvcc
+1. Build every CUDA kernel from ``parallax_tpu_torch/csrc/`` (one nvcc
    per source, started together) and print the card's name and power
    limit.
 2. Kernel check: each kernel's wrapper against its plain PyTorch version
@@ -37,6 +37,27 @@ beside it. Phases:
 4. Agreement: 32 of the same requests served in fp32 (TF32 off) and
    compared, request by request, with the standalone ``greedy_decode``
    of the plain path (dense cache, plain attention, no kernel).
+5. LSTM kernels (B1 forward, B2 forward with residuals, B3 backward)
+   against their plain versions at the training shape (T 20, B 128,
+   H 2048, P 512) and one ragged shape, in bf16 (atol 2e-2 of the plain
+   peak) and fp32 with TF32 off (atol 1e-4 of max(1, plain peak)); each
+   timed beside the plain version, cuDNN's ``torch.nn.LSTM`` with the
+   same projection (which also runs the input projection the kernels
+   leave to the hoisted matmul) and the bound.
+6. Train: LM1B at its published widths (``LM1BConfig()``: vocab 793470
+   padded to 793472 for 8 partitions, emb 512, hidden 2048, proj 512,
+   8192 sampled candidates, keep_prob 0.9, bf16 compute, fp32 tables)
+   through ``parallel_run(..., Config(run_option="HYBRID",
+   sparse_grad_mode="slices"))`` with ``lstm_impl="kernel"``, random
+   weights from seed 0: 5 warmup and 30 timed steps over 4 cycled
+   batches of 128 x 20, words/sec and step ms, then one held-out
+   no-grad loss. The LSTM counters are zeroed before and read after:
+   B2 and B3 once per step, B1 none until the held-out loss, then once.
+   Losses finite and falling; the padded vocab rows untouched. Then 5
+   steps under the profiler.
+7. Train agreement: 3 steps in fp32 (TF32 off, keep_prob 1) from the
+   same weights and generator with ``lstm_impl="kernel"`` and
+   ``"scan"``; per-step losses within 1e-4 relative.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error, times and bound. The whole
@@ -553,24 +574,352 @@ def phase_agreement(torch, params, cfg_bf16, requests):
     return summary
 
 
+# -- phase 5: the LSTM kernels ------------------------------------------------
+
+LSTM_FP32_TOL = 1e-4
+# kernel names of each LSTM op, for its device time in the profiler
+LSTM_KERNELS = {"lstm_fwd": ("lstm_gates_kernel", "lstm_proj_"),
+                "lstm_fwd_res": ("lstm_gates_kernel", "lstm_proj_"),
+                "lstm_bwd": ("lstm_bwd_", "Memcpy")}
+
+
+def device_ms_per_call(torch, fn, names, calls: int = 5):
+    """Device milliseconds per call of ``fn`` summed over every CUDA
+    activity whose name holds one of ``names`` (None when the profiler
+    records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if any(n in evt.key for n in names):
+            total_us += getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+    return total_us / calls / 1e3 if total_us else None
+
+
+def lstm_cases():
+    # (label, T, B, E, H, P): "train" is the LM1B flagship per-card shape
+    # (bench.py:420); "ragged" puts B, H and P off every tile
+    return [("train", 20, 128, 512, 2048, 512),
+            ("ragged", 7, 100, 200, 1000, 300)]
+
+
+def lstm_close(torch, got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    tol = LSTM_FP32_TOL * max(1.0, peak) if dtype == torch.float32 \
+        else BF16_REL * max(peak, 1e-6)
+    return err, tol
+
+
+def cudnn_lstm(torch, x, w, b, w_proj):
+    """``torch.nn.LSTM`` (cuDNN) with the same weights: the same gate
+    order i|f|g|o, the forget +1 folded into ``bias_hh``. It runs the
+    input projection too, which the kernels leave to the hoisted
+    matmul."""
+    E, H4 = w.shape[0] - w_proj.shape[1], w.shape[1]
+    H, P = w_proj.shape
+    mod = torch.nn.LSTM(E, H, proj_size=P).to(device=DEVICE, dtype=x.dtype)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(w[:E].t())
+        mod.weight_hh_l0.copy_(w[E:].t())
+        mod.bias_ih_l0.copy_(b)
+        forget = torch.zeros(H4, dtype=x.dtype, device=DEVICE)
+        forget[H:2 * H] = 1.0
+        mod.bias_hh_l0.copy_(forget)
+        mod.weight_hr_l0.copy_(w_proj.t())
+    mod.flatten_parameters()    # one weight buffer, as cuDNN wants it
+    return mod
+
+
+def run_lstm_case(torch, case, dtype):
+    from parallax_tpu_torch.ops import lstm
+    label, T, B, E, H, P = case
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def r(shape, scale, dt=dtype):
+        return (torch.randn(shape, generator=g, device=DEVICE)
+                * scale).to(dt)
+    x = r((T, B, E), 1.0)
+    w = r((E + P, 4 * H), 1.0 / math.sqrt(E + P))
+    b = r((4 * H,), 0.1)
+    w_proj = r((H, P), 1.0 / math.sqrt(H))
+    gout = r((T, B, P), 1.0, torch.float32)
+    w_x, w_h = lstm._split_w(w, w_proj)
+    xw = lstm._hoisted_xw(x, w_x, b)
+    ref = lstm.lstm_recurrence_plain(xw, w_h, w_proj, residuals=True)
+    outs = {
+        "lstm_fwd": (lambda: lstm.lstm_recurrence(xw, w_h, w_proj),
+                     lambda: lstm.lstm_recurrence_plain(xw, w_h, w_proj)),
+        "lstm_fwd_res": (
+            lambda: lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True),
+            lambda: lstm.lstm_recurrence_plain(xw, w_h, w_proj,
+                                               residuals=True)),
+        "lstm_bwd": (
+            lambda: lstm.lstm_bwd_recurrence(gout, ref[1], ref[2], w_h,
+                                             w_proj),
+            lambda: lstm.lstm_bwd_recurrence_plain(gout, ref[1], ref[2],
+                                                   w_h, w_proj)),
+    }
+    # cuDNN: the forward with autograd on (B1's and B2's yardstick) and
+    # the forward plus backward, less the forward (B3's)
+    mod = cudnn_lstm(torch, x, w, b, w_proj)
+    xg = x.clone().requires_grad_()
+    lib_fwd = time_ms(torch, lambda: mod(xg), reps=5, per_round=3)
+    lib_fb = time_ms(torch, lambda: torch.autograd.backward(
+        mod(xg)[0], gout.to(dtype)), reps=5, per_round=3)
+    library = {"lstm_fwd": lib_fwd, "lstm_fwd_res": lib_fwd,
+               "lstm_bwd": max(lib_fb - lib_fwd, 0.0)}
+    del mod, xg
+    xs, ws = x.element_size(), w.element_size()
+    flops = lstm.pass_flops(T, B, H, P)
+    kb = {k: lstm.kernel_hbm_bytes(T, B, E, H, P, xs, ws, bwd=k)
+          for k in ("recompute", "scan", "kernel")}
+    wbytes = kb["recompute"]["resident_bytes_per_device"]
+    nbytes = {"lstm_fwd": kb["recompute"]["stream_bytes"] + wbytes,
+              "lstm_fwd_res": kb["scan"]["stream_bytes"] + wbytes,
+              "lstm_bwd": kb["kernel"]["stream_bytes"]
+              - kb["scan"]["stream_bytes"] + wbytes}
+    results = []
+    for name, (kernel, plain) in outs.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [lstm_close(torch, a, e, dtype) for a, e in zip(got, want)]
+        ok = all(err <= tol for err, tol in errs) and all(
+            bool(torch.isfinite(a.float()).all()) for a in got)
+        err = max(e for e, _ in errs)
+        tol = min(t for _, t in errs)
+        bound_ms, bound_by = bound(nbytes[name], flops,
+                                   str(dtype).split(".")[-1])
+        results.append({
+            "kernel": name, "case": label,
+            "dtype": str(dtype).split(".")[-1],
+            "shape": {"T": T, "B": B, "E": E, "H": H, "P": P},
+            "ok": ok, "max_abs_err": err, "tol": tol,
+            "errs": [e for e, _ in errs],
+            "ms": time_ms(torch, kernel, reps=10, per_round=3),
+            "device_ms": device_ms_per_call(torch, kernel,
+                                            LSTM_KERNELS[name]),
+            "plain_ms": time_ms(torch, plain, reps=3, per_round=1,
+                                warmup=1),
+            "library_ms": library[name], "library": "torch.nn.LSTM (cuDNN)",
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    return results
+
+
+def phase_lstm_kernels(torch):
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in lstm_cases():
+            results.extend(run_lstm_case(torch, case, dtype))
+    for r in results:
+        log(f"[kernel] {r['kernel']} {r['case']} {r['dtype']}: "
+            f"{'ok' if r['ok'] else 'FAILED'} err {r['max_abs_err']:.3g} "
+            f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']} ms) plain {r['plain_ms']:.4f} ms cuDNN "
+            f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return results
+
+
+# -- phase 6: LM1B training ---------------------------------------------------
+
+TRAIN = dict(batch=128, num_steps=20, warmup=5, steps=30, profile_steps=5,
+             num_partitions=8)
+LSTM_COUNTERS = ("launches_fwd", "launches_fwd_res", "launches_bwd")
+
+
+def lm1b_session(torch, lstm_impl="kernel", **cfg_kw):
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import lm1b
+    cfg = lm1b.LM1BConfig(num_partitions=TRAIN["num_partitions"],
+                          sparse_grad_mode="slices", lstm_impl=lstm_impl,
+                          **cfg_kw)
+    sess, *_ = pt.parallel_run(
+        lm1b.build_model(cfg),
+        parallax_config=pt.Config(run_option="HYBRID",
+                                  sparse_grad_mode="slices"),
+        seed=SEED, device=DEVICE)
+    return cfg, sess
+
+
+def lm1b_batches(cfg):
+    from parallax_tpu_torch.models import lm1b
+    rng = np.random.default_rng(SEED)
+    return [lm1b.make_batch(rng, TRAIN["batch"], TRAIN["num_steps"],
+                            cfg.vocab_size) for _ in range(4)]
+
+
+def padded_rows(sess, cfg):
+    p = sess.state.params
+    return {k: p[k][cfg.vocab_size:].clone()
+            for k in ("emb", "softmax_w", "softmax_b")}
+
+
+def phase_train(torch):
+    from parallax_tpu_torch.ops import lstm
+    torch.cuda.reset_peak_memory_stats()
+    cfg, sess = lm1b_session(torch)
+    batches = lm1b_batches(cfg)
+    t_build = time.perf_counter()
+    sess.prepare(batches[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    pad_before = padded_rows(sess, cfg)
+    words_per_batch = [float(b["w"].sum()) for b in batches]
+    torch.cuda.synchronize()
+    for name in LSTM_COUNTERS:
+        setattr(lstm, name, 0)
+    losses = []
+    for i in range(TRAIN["warmup"]):
+        losses.append(sess.run("loss", feed_dict=batches[i % 4]))
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    words = 0.0
+    feed = (batches[i % 4] for i in range(TRAIN["steps"]))
+    for i, loss in enumerate(sess.run_iter(feed, fetches="loss")):
+        losses.append(loss)
+        words += words_per_batch[i % 4]
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    float(losses[-1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    in_train = {n: getattr(lstm, n) for n in LSTM_COUNTERS}
+    held = float(sess.evaluate(batches[1]))
+    torch.cuda.synchronize()
+    launches = {"lstm_fwd": lstm.launches_fwd,
+                "lstm_fwd_res": lstm.launches_fwd_res,
+                "lstm_bwd": lstm.launches_bwd}
+    steps_run = TRAIN["warmup"] + TRAIN["steps"]
+    want = {"lstm_fwd": 1, "lstm_fwd_res": steps_run,
+            "lstm_bwd": steps_run}
+    if launches != want or in_train["launches_fwd"] != 0:
+        raise AssertionError(f"LSTM launch counts {launches} (B1 during "
+                             f"training {in_train['launches_fwd']}) != "
+                             f"{want} with B1 0 during training")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses + [held]):
+        raise AssertionError(f"non-finite loss: {losses} held {held}")
+    if not statistics.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]}, last "
+                             f"five {losses[-5:]}")
+    for k, v in padded_rows(sess, cfg).items():
+        if not torch.equal(v, pad_before[k]):
+            raise AssertionError(f"padded vocab rows of {k} changed")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    summary = {
+        "config": {"vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
+                   "emb": cfg.emb_dim, "hidden": cfg.hidden_dim,
+                   "proj": cfg.proj_dim, "num_samples": cfg.num_samples,
+                   "keep_prob": cfg.keep_prob, "compute": "bfloat16",
+                   "batch": TRAIN["batch"], "num_steps": TRAIN["num_steps"]},
+        "lm1b_words_per_sec_per_chip": words / wall,
+        "timed_steps": TRAIN["steps"], "wall_s": wall,
+        "step_ms_p50": statistics.median(step_ms),
+        "step_ms_p95": step_ms[min(len(step_ms) - 1,
+                                   int(math.ceil(0.95 * len(step_ms))) - 1)],
+        "first_loss": losses[0], "last5_mean_loss":
+            statistics.mean(losses[-5:]), "held_out_loss": held,
+        "losses": losses, "engine_build_s": build_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    log(f"[train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
+    profile = profile_train(torch, sess, batches)
+    sess.close()
+    return summary, profile
+
+
+def profile_train(torch, sess, batches):
+    """Where a training step's time goes: ``profile_steps`` steps under
+    the profiler's CUDA activity, the device's busy time over the
+    window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        last = None
+        for i in range(TRAIN["profile_steps"]):
+            last = sess.run("loss", feed_dict=batches[i % 4])
+        float(last)
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    busy_s = sum(us for us, _, _ in rows) / 1e6
+    rows.sort(reverse=True)
+    summary = {"steps": TRAIN["profile_steps"], "window_s": window,
+               "device_busy_s": busy_s,
+               "device_idle_share": 1.0 - busy_s / window,
+               "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
+                        "share_of_busy": us / 1e6 / busy_s}
+                       for us, n, key in rows[:12]]}
+    log(f"[train-profile] {json.dumps(summary)}")
+    return summary
+
+
+# -- phase 7: kernel vs plain scan, fp32 --------------------------------------
+
+
+def phase_train_agreement(torch):
+    losses = {}
+    for impl in ("kernel", "scan"):
+        cfg, sess = lm1b_session(torch, lstm_impl=impl,
+                                 compute_dtype=torch.float32, keep_prob=1.0)
+        batches = lm1b_batches(cfg)
+        losses[impl] = [float(sess.run("loss", feed_dict=batches[i]))
+                        for i in range(3)]
+        sess.close()
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
+                                               losses["scan"])]
+    summary = {"losses": losses, "max_rel_diff": max(rel), "tol": 1e-4}
+    log(f"[train-agree] {json.dumps(summary)}")
+    if not max(rel) <= 1e-4:
+        raise AssertionError(f"kernel and scan losses differ by {max(rel)} "
+                             f"relative > 1e-4")
+    return summary
+
+
 # -- the run ----------------------------------------------------------------
 
 
 def kernel_line(results, launches):
-    """One entry per kernel, at the serving path's shape in bf16 (the
-    shape and type the main path launched it at)."""
+    """One entry per kernel, at its main path's shape in bf16 (the shape
+    and type the main path launched it at): the serving shape for B4
+    and B7, the training shape for B1-B3."""
+    lstm_src = "parallax_tpu_torch/csrc/lstm.cu"
     meta = {
         "flash_attention_fwd": (
             "parallax_tpu_torch/csrc/flash_attention.cu",
-            "parallax_tpu/ops/pallas_attention.py:141"),
+            "parallax_tpu/ops/pallas_attention.py:141", "serve"),
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",
-            "parallax_tpu/ops/pallas_paged_attention.py:278"),
+            "parallax_tpu/ops/pallas_paged_attention.py:278", "serve"),
+        "lstm_fwd": (lstm_src, "parallax_tpu/ops/pallas_lstm.py:290",
+                     "train"),
+        "lstm_fwd_res": (lstm_src, "parallax_tpu/ops/pallas_lstm.py:299",
+                         "train"),
+        "lstm_bwd": (lstm_src, "parallax_tpu/ops/pallas_lstm.py:477",
+                     "train"),
     }
     out = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, case) in meta.items():
         r = next(r for r in results if r["kernel"] == name
-                 and r["case"] == "serve" and r["dtype"] == "bfloat16")
+                 and r["case"] == case and r["dtype"] == "bfloat16")
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -608,10 +957,22 @@ def main() -> int:
     params, serve_summary = phase_serve(torch, cfg, requests)
     profile_summary = phase_profile(torch, cfg, params, requests[:64])
     agree = phase_agreement(torch, params, cfg, requests[:32])
-    line = kernel_line(results, serve_summary["launches"])
-    record = {"card": card, "kernels": line["kernels"], "cases": results,
+    del params
+    lstm_results = phase_lstm_kernels(torch)
+    failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in lstm_results
+              if not r["ok"]]
+    if failed:
+        raise AssertionError(f"LSTM kernels disagree with their plain "
+                             f"versions: {failed}")
+    train, train_profile = phase_train(torch)
+    train_agree = phase_train_agreement(torch)
+    line = kernel_line(results + lstm_results,
+                       {**serve_summary["launches"], **train["launches"]})
+    record = {"card": card, "kernels": line["kernels"],
+              "cases": results + lstm_results,
               "serve": serve_summary, "profile": profile_summary,
-              "agreement": agree,
+              "agreement": agree, "train": train,
+              "train_profile": train_profile, "train_agreement": train_agree,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

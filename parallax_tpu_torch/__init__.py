@@ -1,12 +1,19 @@
 """parallax_tpu_torch — the PyTorch and CUDA port of parallax_tpu.
 
-It runs on one NVIDIA H100 (Hopper, sm_90a). This package holds the
-NMT continuous-decode serving path: ``ServeSession`` drives a
-``ContinuousScheduler`` over an ``NMTDecodeProgram``. The encoder's
-attention runs in a hand-written CUDA flash-attention forward kernel
-(ops/flash_attention.py). The paged self-attention of every decode step
-runs in a hand-written CUDA paged-decode kernel (ops/paged_attention.py).
-Both kernels are built from ``csrc/`` at first use. The JAX package
+It runs on one NVIDIA H100 (Hopper, sm_90a). Two slices are ported:
+
+* LM1B training: ``parallel_run(lm1b.build_model(cfg),
+  parallax_config=Config(run_option="HYBRID", sparse_grad_mode="slices"))``
+  classifies the parameters, routes the LSTM group through a global-norm
+  clip and Adagrad and the tables through scatter-only slice Adagrad, and
+  runs the LSTM recurrence in hand-written CUDA kernels: forward,
+  forward with residuals and time-reversed backward (ops/lstm.py).
+* NMT continuous-decode serving: ``ServeSession`` drives a
+  ``ContinuousScheduler`` over an ``NMTDecodeProgram``, with a CUDA
+  flash-attention forward (ops/flash_attention.py) and a CUDA
+  paged-decode kernel (ops/paged_attention.py).
+
+The kernels are built from ``csrc/`` at first use. The JAX package
 ``parallax_tpu`` is the reference; this package imports neither it nor
 JAX.
 """
@@ -14,10 +21,14 @@ JAX.
 from parallax_tpu_torch.common.config import (Config, ParallaxConfig,
                                               ServeConfig)
 from parallax_tpu_torch.common.lib import parallax_log as log
-from parallax_tpu_torch.models import nmt
+from parallax_tpu_torch.core.engine import Model, TrainState
+from parallax_tpu_torch.models import lm1b, nmt
+from parallax_tpu_torch.runner import parallel_run
 from parallax_tpu_torch.serve import NMTDecodeProgram, ServeSession
+from parallax_tpu_torch.session import Fetch, ParallaxSession, materialize
 
 __version__ = "0.1.0"
 
-__all__ = ["ServeSession", "ServeConfig", "Config", "ParallaxConfig",
-           "NMTDecodeProgram", "nmt", "log"]
+__all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
+           "Model", "TrainState", "ParallaxSession", "Fetch", "materialize",
+           "ServeSession", "NMTDecodeProgram", "lm1b", "nmt"]

@@ -1,15 +1,17 @@
-"""Serving configuration: ``ServeConfig`` and the top-level ``Config``.
+"""Configuration: ``ServeConfig`` and the top-level ``Config``.
 
 Copies of ``parallax_tpu.common.config.ServeConfig`` (same fields, same
-validation) and of ``ParallaxConfig`` reduced to the one field serving
-reads, so code that builds a JAX-package config builds this one with
-the same keywords.
+validation) and of ``ParallaxConfig`` reduced to the fields serving and
+training read, so code that builds a JAX-package config builds this one
+with the same keywords.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Sequence
+
+from parallax_tpu_torch.common import consts
 
 
 @dataclasses.dataclass
@@ -135,10 +137,55 @@ class ServeConfig:
 
 @dataclasses.dataclass
 class ParallaxConfig:
-    """Top-level config, reduced to what serving reads."""
+    """Top-level config, reduced to what serving and training read.
 
+    * ``run_option``: 'AR' | 'SHARD' | 'HYBRID' (legacy aliases 'MPI' |
+      'PS' | 'HYBRID' accepted). HYBRID routes each variable by its
+      class: dense -> replicated, sparse -> row-sharded (one shard on
+      one card).
+    * ``sparse_grad_mode``: 'dense' (table grads are dense [V, D]
+      tensors through the model's optimizer) or 'slices' (tables in
+      ``Model.slice_updaters`` get their per-occurrence row grads
+      applied scatter-only, outside the optimizer and its clip).
+    * ``average_sparse``: average duplicate row updates by occurrence
+      count instead of summing them.
+    * ``sync`` / ``resource_info``: set by ``parallel_run`` through the
+      reference-style setters. Only ``sync=True`` is ported.
+    """
+
+    run_option: str = consts.RUN_HYBRID
+    sparse_grad_mode: str = "dense"
+    average_sparse: bool = False
     serve_config: ServeConfig = dataclasses.field(
         default_factory=ServeConfig)
+    # injected by parallel_run (reference config.py:168-179)
+    sync: bool = True
+    resource_info: Any = None
+
+    def __post_init__(self):
+        self.run_option = normalize_run_option(self.run_option)
+        if self.sparse_grad_mode not in ("dense", "slices"):
+            raise ValueError(
+                f"sparse_grad_mode must be 'dense' or 'slices', got "
+                f"{self.sparse_grad_mode!r}")
+
+    # Reference-style setters (kept so ported driver code works unchanged).
+    def set_sync(self, sync: bool) -> None:
+        self.sync = sync
+
+    def set_resource_info(self, resource_info) -> None:
+        self.resource_info = resource_info
 
 
+def normalize_run_option(run_option: str) -> str:
+    opt = (run_option or consts.RUN_HYBRID).upper()
+    opt = consts.LEGACY_RUN_ALIASES.get(opt, opt)
+    if opt not in (consts.RUN_AR, consts.RUN_SHARD, consts.RUN_HYBRID):
+        raise ValueError(
+            f"unknown run_option {run_option!r}; expected one of "
+            f"AR/SHARD/HYBRID (or legacy MPI/PS/HYBRID)")
+    return opt
+
+
+# The reference exports `Config` as an alias of ParallaxConfig.
 Config = ParallaxConfig

@@ -1,1 +1,2 @@
-"""Models of the port (the NMT encoder-decoder, inference half)."""
+"""Models of the port: LM1B (training) and the NMT encoder-decoder
+(inference half)."""

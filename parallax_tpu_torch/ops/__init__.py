@@ -1,3 +1,4 @@
-"""Operators of the serving slice: the dense embedding helpers and the
-two attention kernels (``flash_attention``, ``paged_attention``), each
-a CUDA kernel beside its plain PyTorch version."""
+"""Operators of the port: embedding helpers and the slices-mode capture,
+sampled softmax, scatter-only Adagrad, and the CUDA kernels beside their
+plain PyTorch versions (``flash_attention``, ``paged_attention``,
+``lstm``)."""

@@ -28,7 +28,7 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "parallax_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("flash_attention", "paged_attention")
+KERNEL_SOURCES = ("flash_attention", "paged_attention", "lstm")
 
 _libs: Dict[str, object] = {}   # loaded libraries and typed launchers
 _lock = threading.Lock()

@@ -1,0 +1,438 @@
+"""The LSTM scan of LM1B: three CUDA kernels and their plain versions.
+
+Counterpart of ``parallax_tpu/ops/pallas_lstm.py``. The gate matrix
+w = [w_x; w_h] ([E+P, 4H], gate order i|f|g|o) splits by row:
+
+- ``x @ w_x`` for all timesteps is hoisted out of the recurrence into
+  one batched matmul (``_hoisted_xw``), stored at the compute dtype;
+- ``h @ w_h`` is the recurrence, which runs in a hand-written kernel:
+  B1 (the primal forward), B2 (the forward under differentiation, which
+  also saves the post-activation gates and the c trajectory) and B3
+  (the time-reversed backward, which streams ``d_xw`` and the fp32
+  ``dh_total`` out). The kernels are ``parallax_tpu_torch/csrc/lstm.cu``;
+  its header says how they are laid out and what bounds them.
+
+Every weight gradient leaves the recurrence as one batched product with
+fp32 accumulation (``_bwd_epilogue``), the mirror of the hoist; these
+and the hoist are plain large products and stay ``torch.matmul``, as
+the JAX package left them to XLA.
+
+Numerics (the Pallas kernels', kept by the kernels and the plain
+versions alike): the (c, h) carries and the (dc, dh) cotangent carries
+are fp32; each recurrent product rounds its activation operand to the
+weight dtype and accumulates in fp32; xw, the residuals and d_xw are
+stored at the compute dtype.
+
+``lstm_scan(impl="kernel")`` runs B2 and B3 through an
+``autograd.Function`` when a gradient is wanted and B1 when it is not
+(grad mode off, or no input requires grad): the ``custom_vjp`` primal /
+fwd split of the JAX package. ``impl="scan"`` is the plain reference
+scan under autograd (the JAX package's ``"xla"``). ``bwd_impl``:
+``"kernel"`` (B3), ``"scan"`` (the plain residual backward, same
+algorithm in torch ops), ``"recompute"`` (no residuals: B1 forward, the
+backward re-runs the reference scan widened to fp32 under autograd), or
+``"auto"`` = ``"kernel"`` on the card and ``"scan"`` on the CPU. The
+env var ``PARALLAX_LSTM_BWD`` overrides the argument. The Pallas
+version's VMEM fit logic is TPU-only and has no counterpart.
+
+Executor: for CUDA tensors each kernel wrapper launches its kernel or
+raises; for CPU tensors it runs the plain version, which is also what
+``chip_smoke.py`` holds the kernels against on the card. Each wrapper
+counts its launches in a module-level integer (``launches_fwd`` for B1,
+``launches_fwd_res`` for B2, ``launches_bwd`` for B3); reset by
+assignment.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from parallax_tpu_torch.ops import _cuda
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+BWD_IMPLS = ("auto", "kernel", "scan", "recompute")
+# pt_lstm_fwd(xw, w_h, w_proj, hs, gates, cseq, c, hfull, ws, ks, T, B, H,
+#             P, is_bf16, stream)
+_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+# pt_lstm_bwd(g, gates, cseq, w_h, w_proj, dxw, dhtot, dc, ws, ks, T, B, H,
+#             P, is_bf16, stream)
+_BWD_ARGTYPES = _FWD_ARGTYPES
+# the kernels split a contraction of length K into this many slices, of
+# at least 256 each, for at most 32
+_SPLIT_MIN, _SPLIT_MAX = 256, 32
+
+# kernel launches since the last reset (assign 0 to reset)
+launches_fwd = 0        # B1
+launches_fwd_res = 0    # B2
+launches_bwd = 0        # B3
+
+
+def _split_w(w: torch.Tensor, w_proj: torch.Tensor):
+    """w [E+P, 4H] -> (w_x [E, 4H], w_h [P, 4H]); E = rows - P."""
+    P = w_proj.shape[1]
+    return w[:-P], w[-P:]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, md: torch.dtype) -> torch.Tensor:
+    """``a @ b`` with both operands rounded to ``md`` and an fp32
+    result. Products of bf16 values are exact in fp32, so the fp32
+    product of the rounded operands is the fp32-accumulated bf16
+    product, with no bf16 rounding of the result."""
+    return torch.matmul(a.to(md).float(), b.to(md).float())
+
+
+def _hoisted_xw(x_seq, w_x, b, matmul_dtype=None, store_dtype=None):
+    """The input-projection half of the gate pre-activation for all
+    timesteps as one product: [T, B, E] -> [T, B, 4H] at ``store_dtype``
+    (default: x_seq's), from ``matmul_dtype`` operands (default: w_x's)
+    with the bias added before the one rounding. In fp32 this is the JAX
+    function exactly; in bf16 ``addmm`` adds the bias to the fp32
+    accumulator on the card."""
+    md = matmul_dtype or w_x.dtype
+    sd = store_dtype or x_seq.dtype
+    T, B, E = x_seq.shape
+    xw = torch.addmm(b.to(md), x_seq.reshape(T * B, E).to(md), w_x.to(md))
+    return xw.reshape(T, B, -1).to(sd)
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def _recurrence_plain(xw, w_h, w_proj, md, od, residuals):
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    c = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
+    h = torch.zeros((B, P), dtype=torch.float32, device=xw.device)
+    hs, gl, cl = [], [], []
+    for t in range(T):
+        gates = xw[t].float() + _dot(h, w_h, md)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f = torch.sigmoid(i), torch.sigmoid(f + 1.0)
+        g, o = torch.tanh(g), torch.sigmoid(o)
+        c = f * c + i * g
+        h = _dot(o * torch.tanh(c), w_proj, md)
+        hs.append(h.to(od))
+        if residuals:
+            gl.append(torch.cat([i, f, g, o], dim=-1).to(xw.dtype))
+            cl.append(c.to(xw.dtype))
+    out = torch.stack(hs) if hs else xw.new_zeros((0, B, P), dtype=od)
+    if not residuals:
+        return out
+    return out, torch.stack(gl), torch.stack(cl)
+
+
+def lstm_recurrence_plain(xw, w_h, w_proj, residuals: bool = False):
+    """The plain version of B1 (``residuals=False``: hs [T, B, P]) and B2
+    (``residuals=True``: (hs, gates [T, B, 4H], c [T, B, H]))."""
+    return _recurrence_plain(xw, w_h, w_proj, w_h.dtype, xw.dtype,
+                             residuals)
+
+
+def lstm_bwd_recurrence_plain(g, gates, cseq, w_h, w_proj):
+    """The plain version of B3: (d_xw [T, B, 4H] compute dtype,
+    dh_total [T, B, P] fp32) from the cotangent g [T, B, P] and the
+    saved residuals, time-reversed with fp32 (dc, dh) carries."""
+    T, B, P = g.shape
+    H = w_proj.shape[0]
+    md = w_h.dtype
+    f32 = torch.float32
+    dc = torch.zeros((B, H), dtype=f32, device=g.device)
+    dh = torch.zeros((B, P), dtype=f32, device=g.device)
+    dxw = torch.empty((T, B, 4 * H), dtype=gates.dtype, device=g.device)
+    dhtot = torch.empty((T, B, P), dtype=f32, device=g.device)
+    for s in reversed(range(T)):
+        i, f, ga, o = gates[s].float().chunk(4, dim=-1)
+        c_t = cseq[s].float()
+        c_prev = cseq[s - 1].float() if s > 0 else torch.zeros_like(c_t)
+        dh_tot = g[s].float() + dh
+        dhtot[s] = dh_tot
+        d_hfull = _dot(dh_tot, w_proj.t(), md)
+        tc = torch.tanh(c_t)
+        d_o = d_hfull * tc
+        dc_tot = dc + d_hfull * o * (1.0 - tc * tc)
+        d_i, d_f, d_g = dc_tot * ga, dc_tot * c_prev, dc_tot * i
+        dc = dc_tot * f
+        d_gates = torch.cat([d_i * i * (1.0 - i), d_f * f * (1.0 - f),
+                             d_g * (1.0 - ga * ga), d_o * o * (1.0 - o)],
+                            dim=-1)
+        dxw[s] = d_gates.to(gates.dtype)
+        dh = _dot(d_gates, w_h.t(), md)
+    return dxw, dhtot
+
+
+def lstm_scan_reference(x_seq, w, b, w_proj, *, out_dtype=None,
+                        matmul_dtype=None, store_dtype=None):
+    """The plain scan with the kernels' numerics: the x-projection
+    hoisted, fp32 (c, h) carries whatever the input dtype. The dtype
+    hooks pin the rounding points to the original dtypes when the
+    inputs arrive widened to fp32 (the recompute backward)."""
+    md = matmul_dtype or w.dtype
+    od = out_dtype or x_seq.dtype
+    w_x, w_h = _split_w(w, w_proj)
+    xw = _hoisted_xw(x_seq, w_x, b, matmul_dtype=md,
+                     store_dtype=store_dtype)
+    return _recurrence_plain(xw, w_h, w_proj, md, od, residuals=False)
+
+
+# -- the kernels --------------------------------------------------------------
+
+
+def _ksplit(K: int) -> int:
+    """How many slices the kernels split a contraction of length K into
+    (the [B, P] products have too few output tiles to fill the card)."""
+    return max(1, min(_SPLIT_MAX, -(-K // _SPLIT_MIN)))
+
+
+def _check(name, xw_like, tensors):
+    for what, x in tensors:
+        if not x.is_cuda or x.device != xw_like.device:
+            raise ValueError(f"{name}: {what} on {x.device}, expected "
+                             f"{xw_like.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _kernel_fwd(xw, w_h, w_proj, residuals):
+    global launches_fwd, launches_fwd_res
+    name = "lstm_fwd_res" if residuals else "lstm_fwd"
+    dt = xw.dtype
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"{name} kernel takes {KERNEL_DTYPES}, got {dt}")
+    if w_h.dtype != dt or w_proj.dtype != dt:
+        raise ValueError(f"{name} kernel takes one dtype for xw, w_h and "
+                         f"w_proj, got {dt}, {w_h.dtype}, {w_proj.dtype}")
+    T, B, H4 = xw.shape
+    H, P = w_proj.shape
+    if H4 != 4 * H or tuple(w_h.shape) != (P, 4 * H):
+        raise ValueError(f"{name}: xw {tuple(xw.shape)}, w_h "
+                         f"{tuple(w_h.shape)}, w_proj {tuple(w_proj.shape)}"
+                         f" do not fit [T, B, 4H], [P, 4H], [H, P]")
+    _check(name, xw, (("xw", xw), ("w_h", w_h), ("w_proj", w_proj)))
+    hs = torch.empty((T, B, P), dtype=dt, device=xw.device)
+    gates = cseq = None
+    if residuals:
+        gates = torch.empty((T, B, 4 * H), dtype=dt, device=xw.device)
+        cseq = torch.empty((T, B, H), dtype=dt, device=xw.device)
+    if T * B * H * P == 0:
+        return (hs, gates, cseq) if residuals else hs
+    c = torch.empty((B, H), dtype=torch.float32, device=xw.device)
+    hfull = torch.empty((B, H), dtype=dt, device=xw.device)
+    ks = _ksplit(H)
+    ws = torch.empty((ks, B, P), dtype=torch.float32, device=xw.device)
+    fn = _cuda.function("lstm", "pt_lstm_fwd", _FWD_ARGTYPES)
+    code = fn(xw.data_ptr(), w_h.data_ptr(), w_proj.data_ptr(),
+              hs.data_ptr(), None if gates is None else gates.data_ptr(),
+              None if cseq is None else cseq.data_ptr(), c.data_ptr(),
+              hfull.data_ptr(), ws.data_ptr(), ks, T, B, H, P,
+              int(dt == torch.bfloat16),
+              torch.cuda.current_stream(xw.device).cuda_stream)
+    _cuda.check("lstm", code, name)
+    if residuals:
+        launches_fwd_res += 1
+        return hs, gates, cseq
+    launches_fwd += 1
+    return hs
+
+
+def _kernel_bwd(g, gates, cseq, w_h, w_proj):
+    global launches_bwd
+    dt = gates.dtype
+    if dt not in KERNEL_DTYPES or g.dtype != torch.float32:
+        raise ValueError(f"lstm_bwd kernel takes fp32 g and residuals in "
+                         f"{KERNEL_DTYPES}, got {g.dtype} and {dt}")
+    if cseq.dtype != dt or w_h.dtype != dt or w_proj.dtype != dt:
+        raise ValueError(f"lstm_bwd kernel takes one dtype for gates, c, "
+                         f"w_h and w_proj, got {dt}, {cseq.dtype}, "
+                         f"{w_h.dtype}, {w_proj.dtype}")
+    T, B, P = g.shape
+    H = w_proj.shape[0]
+    if (tuple(gates.shape) != (T, B, 4 * H)
+            or tuple(cseq.shape) != (T, B, H)
+            or tuple(w_h.shape) != (P, 4 * H)
+            or tuple(w_proj.shape) != (H, P)):
+        raise ValueError(f"lstm_bwd: g {tuple(g.shape)}, gates "
+                         f"{tuple(gates.shape)}, c {tuple(cseq.shape)}, w_h "
+                         f"{tuple(w_h.shape)}, w_proj {tuple(w_proj.shape)} "
+                         f"do not fit one (T, B, H, P)")
+    _check("lstm_bwd", g, (("g", g), ("gates", gates), ("c", cseq),
+                           ("w_h", w_h), ("w_proj", w_proj)))
+    dxw = torch.empty((T, B, 4 * H), dtype=dt, device=g.device)
+    dhtot = torch.empty((T, B, P), dtype=torch.float32, device=g.device)
+    if T * B * H * P == 0:
+        return dxw.zero_(), dhtot.zero_()
+    dc = torch.empty((B, H), dtype=torch.float32, device=g.device)
+    ks = _ksplit(4 * H)
+    ws = torch.empty((ks, B, P), dtype=torch.float32, device=g.device)
+    fn = _cuda.function("lstm", "pt_lstm_bwd", _BWD_ARGTYPES)
+    code = fn(g.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
+              w_h.data_ptr(), w_proj.data_ptr(), dxw.data_ptr(),
+              dhtot.data_ptr(), dc.data_ptr(), ws.data_ptr(), ks, T, B, H,
+              P, int(dt == torch.bfloat16),
+              torch.cuda.current_stream(g.device).cuda_stream)
+    _cuda.check("lstm", code, "lstm_bwd")
+    launches_bwd += 1
+    return dxw, dhtot
+
+
+def lstm_recurrence(xw, w_h, w_proj, residuals: bool = False):
+    """B1 (``residuals=False``) or B2 over the hoisted xw [T, B, 4H]:
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if xw.is_cuda:
+        return _kernel_fwd(xw, w_h, w_proj, residuals)
+    return lstm_recurrence_plain(xw, w_h, w_proj, residuals)
+
+
+def lstm_bwd_recurrence(g, gates, cseq, w_h, w_proj):
+    """B3: the kernel for CUDA tensors, the plain version for CPU
+    tensors. ``g`` is the fp32 cotangent of hs."""
+    if g.is_cuda:
+        return _kernel_bwd(g, gates, cseq, w_h, w_proj)
+    return lstm_bwd_recurrence_plain(g, gates, cseq, w_h, w_proj)
+
+
+# -- the gradient ---------------------------------------------------------------
+
+
+def _bwd_epilogue(x_seq, w, b, w_proj, gates, cseq, hs, dxw, dhtot):
+    """The hoisted half of the residual backward: one product per
+    weight gradient, fp32 accumulation, each cotangent rounded to its
+    input's dtype once, at the end."""
+    T, B, E = x_seq.shape
+    H, P = w_proj.shape
+    w_x, _ = _split_w(w, w_proj)
+    wd = w.dtype
+    dxw_m = dxw.to(wd).reshape(T * B, 4 * H)
+    dx = torch.matmul(dxw_m, w_x.t()).to(x_seq.dtype).reshape(T, B, E)
+    dw_x = torch.matmul(x_seq.to(wd).reshape(T * B, E).t(), dxw_m)
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]], dim=0)
+    dw_h = torch.matmul(h_prev.to(wd).reshape(T * B, P).t(), dxw_m)
+    db = dxw.float().sum(dim=(0, 1))
+    # h_full = o * tanh(c), recomputed from the residuals and rounded to
+    # the projection dtype as the forward rounded it
+    o = gates[..., 3 * H:].float()
+    h_full = (o * torch.tanh(cseq.float())).to(w_proj.dtype).float()
+    dw_proj = torch.matmul(h_full.reshape(T * B, H).t(),
+                           dhtot.reshape(T * B, P))
+    dw = torch.cat([dw_x, dw_h], dim=0).to(w.dtype)
+    return dx, dw, db.to(b.dtype), dw_proj.to(w_proj.dtype)
+
+
+def _bwd_recompute(x_seq, w, b, w_proj, g):
+    """Re-run the reference scan on fp32-widened inputs with the
+    rounding points pinned to the original dtypes, and differentiate it:
+    every weight gradient accumulates in fp32, and g enters unrounded."""
+    f32 = torch.float32
+    with torch.enable_grad():
+        wide = [t.detach().to(f32).requires_grad_()
+                for t in (x_seq, w, b, w_proj)]
+        out = lstm_scan_reference(*wide, out_dtype=f32,
+                                  matmul_dtype=w.dtype,
+                                  store_dtype=x_seq.dtype)
+        grads = torch.autograd.grad(out, wide, g.to(f32))
+    return tuple(d.to(t.dtype) for d, t in zip(grads, (x_seq, w, b, w_proj)))
+
+
+class _LSTMScanKernel(torch.autograd.Function):
+    """B2 in ``forward`` (B1 under ``bwd_impl="recompute"``, which saves
+    no residuals), B3 or its plain version in ``backward``."""
+
+    @staticmethod
+    def forward(ctx, x_seq, w, b, w_proj, bwd_impl):
+        w_x, w_h = _split_w(w, w_proj)
+        xw = _hoisted_xw(x_seq, w_x, b)
+        ctx.bwd_impl = bwd_impl
+        if bwd_impl == "recompute":
+            hs = lstm_recurrence(xw, w_h, w_proj)
+            ctx.save_for_backward(x_seq, w, b, w_proj)
+            return hs
+        hs, gates, cseq = lstm_recurrence(xw, w_h, w_proj, residuals=True)
+        ctx.save_for_backward(x_seq, w, b, w_proj, gates, cseq, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd_impl == "recompute":
+            x_seq, w, b, w_proj = ctx.saved_tensors
+            return (*_bwd_recompute(x_seq, w, b, w_proj, g), None)
+        x_seq, w, b, w_proj, gates, cseq, hs = ctx.saved_tensors
+        _, w_h = _split_w(w, w_proj)
+        g32 = g.to(torch.float32).contiguous()
+        if ctx.bwd_impl == "kernel":
+            dxw, dhtot = lstm_bwd_recurrence(g32, gates, cseq, w_h, w_proj)
+        else:
+            dxw, dhtot = lstm_bwd_recurrence_plain(g32, gates, cseq, w_h,
+                                                   w_proj)
+        return (*_bwd_epilogue(x_seq, w, b, w_proj, gates, cseq, hs, dxw,
+                               dhtot), None)
+
+
+def resolve_bwd_impl(bwd_impl: str, device: torch.device) -> str:
+    """``PARALLAX_LSTM_BWD`` over the argument; ``auto`` is ``kernel`` on
+    the card and ``scan`` on the CPU."""
+    bwd_impl = os.environ.get("PARALLAX_LSTM_BWD") or bwd_impl
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"unknown lstm bwd_impl {bwd_impl!r}; expected "
+                         f"one of {BWD_IMPLS}")
+    if bwd_impl == "auto":
+        return "kernel" if device.type == "cuda" else "scan"
+    return bwd_impl
+
+
+def lstm_scan(x_seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              w_proj: torch.Tensor, *, impl: str = "scan",
+              bwd_impl: str = "auto") -> torch.Tensor:
+    """Fused-gate LSTM scan with projection, x_seq [T, B, E] ->
+    hs [T, B, P]; w [E+P, 4H] (i|f|g|o), b [4H], w_proj [H, P].
+    ``impl="kernel"``: the hoisted projection plus the CUDA recurrence
+    (B1/B2/B3 on the card); ``"scan"``: the plain reference scan."""
+    if impl not in ("scan", "kernel"):
+        raise ValueError(f"unknown lstm impl {impl!r}; expected 'scan' or "
+                         f"'kernel'")
+    if impl == "scan":
+        return lstm_scan_reference(x_seq, w, b, w_proj)
+    bwd_impl = resolve_bwd_impl(bwd_impl, x_seq.device)
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x_seq, w, b, w_proj))
+    if not wants_grad:
+        w_x, w_h = _split_w(w, w_proj)
+        return lstm_recurrence(_hoisted_xw(x_seq, w_x, b), w_h, w_proj)
+    return _LSTMScanKernel.apply(x_seq, w, b, w_proj, bwd_impl)
+
+
+def kernel_hbm_bytes(T, B, E, H, P, x_itemsize, w_itemsize, *,
+                     bwd="kernel", g_itemsize=4):
+    """Per-step-batch device-memory bytes of the recurrence kernels under
+    training (a copy of the JAX package's byte model): the forward's
+    xw read and out write, plus the residual writes when a residual
+    backward consumes them, plus — with ``bwd='kernel'`` — the backward's
+    streams. ``resident_bytes_per_device`` is the weights' one read per
+    call. The hoisted and epilogue products are not counted."""
+    wbytes = (P * 4 * H + H * P) * w_itemsize          # w_h + w_proj
+    stream = T * B * (4 * H + P) * x_itemsize
+    resident = wbytes
+    if bwd in ("kernel", "scan"):
+        stream += T * B * (4 * H + H) * x_itemsize     # gates + c traj
+    if bwd == "kernel":
+        stream += T * B * (P * g_itemsize              # g read
+                           + 4 * H * x_itemsize        # gates read
+                           + 2 * H * x_itemsize        # c + c_prev
+                           + 4 * H * x_itemsize        # d_xw write
+                           + P * 4)                    # dh_total write
+        resident += wbytes
+    return {"stream_bytes": int(stream),
+            "resident_bytes_per_device": int(resident)}
+
+
+def pass_flops(T, B, H, P) -> int:
+    """Operations of one pass of the recurrence (forward or backward):
+    the two recurrent products of every step."""
+    return 2 * T * B * (P * 4 * H + H * P)
+
+
+__all__ = ["lstm_scan", "lstm_scan_reference", "lstm_recurrence",
+           "lstm_recurrence_plain", "lstm_bwd_recurrence",
+           "lstm_bwd_recurrence_plain", "kernel_hbm_bytes", "pass_flops"]

@@ -1,6 +1,8 @@
 """Carry parameters across from the JAX package.
 
-``params_from_jax`` turns the JAX NMT parameter tree (``emb``, ``pos``,
+``lm1b_params_from_jax`` maps the JAX LM1B tree (``emb``,
+``lstm/{w,b,w_proj}``, ``softmax_w``, ``softmax_b``) onto the port's
+tree unchanged. ``params_from_jax`` turns the JAX NMT parameter tree (``emb``, ``pos``,
 ``enc``/``dec`` lists of blocks, ``out_proj``), with its leaves given as
 numpy arrays, into the port's tree of fp32 tensors. The layout is kept
 as it is — ``[in, out]`` weights applied as ``x @ w`` — so nothing is
@@ -13,7 +15,40 @@ import numpy as np
 import torch
 
 from parallax_tpu_torch.common.lib import resolve_device
+from parallax_tpu_torch.models.lm1b import LM1BConfig
 from parallax_tpu_torch.models.nmt import NMTConfig
+
+
+def _leaf(x, shape, path, dtype, dev, who):
+    a = np.asarray(x, dtype=np.float32)
+    if a.shape != tuple(shape):
+        raise ValueError(f"{who}: {path} has shape {a.shape}, the config "
+                         f"wants {tuple(shape)}")
+    return torch.from_numpy(a.copy()).to(device=dev, dtype=dtype)
+
+
+def lm1b_params_from_jax(np_params, cfg: LM1BConfig, device="cuda"):
+    """The port's LM1B parameters from a JAX tree of numpy arrays, on
+    ``device``: the LSTM group in fp32, the tables in
+    ``cfg.table_dtype``. Checks every shape against ``cfg``."""
+    dev = resolve_device(device)
+    V, E, H, P = cfg.padded_vocab, cfg.emb_dim, cfg.hidden_dim, cfg.proj_dim
+    td, f32 = cfg.table_dtype, torch.float32
+    who = "lm1b_params_from_jax"
+    lstm = np_params["lstm"]
+    return {
+        "emb": _leaf(np_params["emb"], (V, E), "emb", td, dev, who),
+        "lstm": {
+            "w": _leaf(lstm["w"], (E + P, 4 * H), "lstm/w", f32, dev, who),
+            "b": _leaf(lstm["b"], (4 * H,), "lstm/b", f32, dev, who),
+            "w_proj": _leaf(lstm["w_proj"], (H, P), "lstm/w_proj", f32,
+                            dev, who),
+        },
+        "softmax_w": _leaf(np_params["softmax_w"], (V, P), "softmax_w", td,
+                           dev, who),
+        "softmax_b": _leaf(np_params["softmax_b"], (V, 1), "softmax_b", td,
+                           dev, who),
+    }
 
 
 def params_from_jax(np_params, cfg: NMTConfig, device="cuda"):
@@ -31,11 +66,7 @@ def params_from_jax(np_params, cfg: NMTConfig, device="cuda"):
     }
 
     def leaf(x, shape, path):
-        a = np.asarray(x, dtype=np.float32)
-        if a.shape != tuple(shape):
-            raise ValueError(f"params_from_jax: {path} has shape "
-                             f"{a.shape}, the config wants {shape}")
-        return torch.from_numpy(a.copy()).to(dev)
+        return _leaf(x, shape, path, torch.float32, dev, "params_from_jax")
 
     def block(p, path):
         return {grp: {n: leaf(p[grp][n], shape, f"{path}/{grp}/{n}")

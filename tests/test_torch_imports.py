@@ -52,6 +52,12 @@ def test_package_imports_with_jax_blocked():
         "from parallax_tpu_torch.ops import flash_attention, "
         "paged_attention, _cuda\n"
         "from parallax_tpu_torch.serve import session, adapters\n"
+        "from parallax_tpu_torch.ops import lstm, sampled_softmax, "
+        "sparse_optim\n"
+        "from parallax_tpu_torch.core import classify, engine, mesh, "
+        "optim, specs\n"
+        "from parallax_tpu_torch import runner\n"
+        "from parallax_tpu_torch.models import lm1b\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"

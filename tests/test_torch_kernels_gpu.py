@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain versions, on the card.
 
-Ragged and odd shapes the serving path does not reach (Tq and Tk off
-the 64-row tile, Tq != Tk under causal masking, hd = 128, G = 2, page
-sizes that do not divide the 128-position chunk), fp32 with TF32 off
-(atol 2e-5) and bf16 (atol 2e-2 of the plain output's peak). Every test
+Ragged and odd shapes the main paths do not reach (Tq and Tk off the
+64-row tile, Tq != Tk under causal masking, hd = 128, G = 2, page sizes
+that do not divide the 128-position chunk; LSTM B, H and P off every
+tile, T = 1, B = 1), fp32 with TF32 off (atol 2e-5; the LSTM kernels
+1e-4 of max(1, peak), their time loops compound the reassociation) and
+bf16 (atol 2e-2 of the plain output's peak). Every test
 here needs a CUDA card and skips without one; run them on the card
 with ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q``.
 """
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from parallax_tpu_torch.ops import flash_attention as fa
+from parallax_tpu_torch.ops import lstm
 from parallax_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.gpu
@@ -116,3 +119,92 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="G <="):
         pa.paged_decode_attention(q, pool, pool, pages, pos, num_heads=2,
                                   page_size=4)
+
+
+def _lstm_close(got, want, dtype, what):
+    got, want = got.float(), want.float()
+    peak = want.abs().max().item()
+    tol = 1e-4 * max(1.0, peak) if dtype == torch.float32 else 2e-2 * peak
+    err = (got - want).abs().max().item()
+    assert err <= tol, (what, err, tol)
+
+
+def _lstm_inputs(cuda, dtype, T, B, H, P):
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(shape, scale, dt=dtype):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).to(dt)
+    return (r((T, B, 4 * H), 1.0), r((P, 4 * H), 1.0 / np.sqrt(P)),
+            r((H, P), 1.0 / np.sqrt(H)), r((T, B, P), 1.0, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H,P", [
+    (5, 6, 40, 24),
+    (1, 3, 12, 8),
+    (3, 1, 70, 33),
+    (4, 130, 100, 65),
+    (2, 128, 2048, 512),
+])
+def test_lstm_kernels_match_plain(cuda, dtype, T, B, H, P):
+    xw, w_h, w_proj, gout = _lstm_inputs(cuda, dtype, T, B, H, P)
+    before = (lstm.launches_fwd, lstm.launches_fwd_res, lstm.launches_bwd)
+    hs = lstm.lstm_recurrence(xw, w_h, w_proj)
+    res = lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+    ref = lstm.lstm_recurrence_plain(xw, w_h, w_proj, residuals=True)
+    # B3 on the plain residuals, so both versions see the same inputs
+    dxw, dhtot = lstm.lstm_bwd_recurrence(gout, ref[1], ref[2], w_h,
+                                          w_proj)
+    ref_dxw, ref_dhtot = lstm.lstm_bwd_recurrence_plain(
+        gout, ref[1], ref[2], w_h, w_proj)
+    torch.cuda.synchronize()
+    assert (lstm.launches_fwd, lstm.launches_fwd_res,
+            lstm.launches_bwd) == tuple(n + 1 for n in before)
+    _lstm_close(hs, ref[0], dtype, "B1 hs")
+    for got, want, what in zip(res, ref, ("hs", "gates", "c")):
+        assert got.dtype == dtype
+        _lstm_close(got, want, dtype, f"B2 {what}")
+    assert dxw.dtype == dtype and dhtot.dtype == torch.float32
+    _lstm_close(dxw, ref_dxw, dtype, "B3 d_xw")
+    _lstm_close(dhtot, ref_dhtot, dtype, "B3 dh_total")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_kernel_grads_match_scan_backward(cuda, dtype):
+    """The autograd.Function on the card: B2 forward and B3 backward
+    against the plain residual backward (``bwd_impl="scan"``)."""
+    T, B, E, H, P = 4, 10, 24, 36, 20
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def r(shape, scale):
+        return (torch.randn(shape, generator=g, device=cuda)
+                * scale).to(dtype).requires_grad_()
+    args = (r((T, B, E), 0.5), r((E + P, 4 * H), 1.0 / np.sqrt(E + P)),
+            r((4 * H,), 0.1), r((H, P), 1.0 / np.sqrt(H)))
+    gout = torch.randn((T, B, P), generator=g, device=cuda)
+    grads = {}
+    for bwd in ("kernel", "scan"):
+        before = (lstm.launches_fwd_res, lstm.launches_bwd)
+        out = lstm.lstm_scan(*args, impl="kernel", bwd_impl=bwd)
+        grads[bwd] = torch.autograd.grad((out.float() * gout).sum(), args)
+        torch.cuda.synchronize()
+        assert lstm.launches_fwd_res == before[0] + 1
+        assert lstm.launches_bwd == before[1] + (bwd == "kernel")
+    for got, want, name in zip(grads["kernel"], grads["scan"],
+                               ("x", "w", "b", "w_proj")):
+        _lstm_close(got, want, dtype, name)
+
+
+def test_lstm_kernels_refuse_what_they_do_not_take(cuda):
+    xw = torch.zeros((2, 3, 32), device=cuda)
+    w_h = torch.zeros((4, 32), device=cuda)
+    w_proj = torch.zeros((8, 4), device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        lstm.lstm_recurrence(xw, w_h.bfloat16(), w_proj)
+    with pytest.raises(ValueError, match="takes"):
+        lstm.lstm_recurrence(xw.half(), w_h.half(), w_proj.half())
+    with pytest.raises(ValueError, match="do not fit"):
+        lstm.lstm_recurrence(xw, w_h[:, :16], w_proj)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm.lstm_recurrence(xw.transpose(0, 1).contiguous().transpose(0, 1),
+                             w_h, w_proj)
