@@ -58,6 +58,29 @@ beside it. Phases:
 7. Train agreement: 3 steps in fp32 (TF32 off, keep_prob 1) from the
    same weights and generator with ``lstm_impl="kernel"`` and
    ``"scan"``; per-step losses within 1e-4 relative.
+8. NMT training: ``NMTConfig(use_pallas_attention=True, max_len=64,
+   warmup_steps=10)`` at its published widths (vocab 32000, model 512,
+   8 heads, MLP 2048, 6+6 layers, bf16) through ``parallel_run(...,
+   Config(run_option="HYBRID"))``, random weights from seed 0: 5 warmup
+   and 30 timed steps over 4 cycled batches of 64 x 64 x 64 tokens
+   (``make_batch``, each source row padded after a length drawn in
+   [16, 64]), target words/sec and step ms. The flash counters are
+   zeroed before and read after: the forward, dq and dk/dv kernels 18
+   times a step each (6 encoder self, 6 decoder causal self, 6 cross
+   attentions), the paged kernel none. Losses finite and falling; the
+   classifier finds ``emb`` alone sparse. Then 5 steps under the
+   profiler.
+9. NMT train agreement: 3 steps in fp32 (TF32 off) from the same weights
+   through the flash kernels and through the plain attention with
+   autograd; per-step losses within 1e-4 relative.
+
+Phase 2 also holds the flash backward (B5 dq, B6 dk/dv) against its
+plain versions at the three training attentions, at T 512 (causal and
+not), hd 128, a ragged Tq 100 / Tk 37, a batch that sees no key (exact
+zero gradients) and an lse cotangent, in fp32 (atol 2e-5 of max(1,
+peak)) and bf16; each timed beside the plain version, the bound and
+``scaled_dot_product_attention``'s backward (its forward plus backward
+less its forward).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error, times and bound. The whole
@@ -195,11 +218,46 @@ def phase_build(torch):
 
 def flash_cases():
     # (label, B, T, H, hd, causal, mask): "serve" is the encoder's
-    # shape on the serving path (one padded 64-token source)
+    # shape on the serving path (one padded 64-token source); "train_enc"
+    # and "train_dec" are the NMT training step's (64 x 64 tokens: the
+    # encoder and cross attentions with the source pad mask, the decoder
+    # causal self-attention)
     return [("serve", 1, 64, 8, 64, False, "tail"),
             ("masked_row", 2, 64, 8, 64, False, "row"),
             ("t512", 8, 512, 8, 64, False, None),
-            ("t512_causal", 8, 512, 8, 64, True, None)]
+            ("t512_causal", 8, 512, 8, 64, True, None),
+            ("train_enc", 64, 64, 8, 64, False, "pad"),
+            ("train_dec", 64, 64, 8, 64, True, None)]
+
+
+def make_mask(torch, kind, B, Tk):
+    """kv_mask [B, Tk] int32: "tail" pads batch 0 after 40 tokens, "row"
+    also masks every key of batch 1; "pad" gives each row a length drawn
+    in [16, Tk] (numpy seed 0), "zero" also masks every key of batch 1."""
+    if kind is None:
+        return None
+    if kind in ("tail", "row"):
+        mask = torch.ones((B, Tk), dtype=torch.int32, device=DEVICE)
+        mask[0, 40:] = 0              # a padded source of 40 tokens
+    else:
+        lengths = np.random.default_rng(SEED).integers(min(16, Tk), Tk + 1,
+                                                       B)
+        mask = (torch.arange(Tk, device=DEVICE)[None, :] < torch.as_tensor(
+            lengths, device=DEVICE)[:, None]).to(torch.int32)
+    if kind in ("row", "zero"):
+        mask[1] = 0                   # every query of batch 1 sees nothing
+    return mask
+
+
+def attended_pairs(torch, B, Tq, Tk, causal, mask):
+    """The (batch, query, key) pairs the inputs let attend: the work a
+    kernel that skips nothing it needs must do."""
+    ok = torch.ones((B, Tq, Tk), dtype=torch.bool, device=DEVICE)
+    if causal:
+        ok &= torch.ones((Tq, Tk), dtype=torch.bool, device=DEVICE).tril()
+    if mask is not None:
+        ok &= (mask > 0)[:, None, :]
+    return int(ok.sum().item())
 
 
 def run_flash_case(torch, case, dtype):
@@ -210,12 +268,7 @@ def run_flash_case(torch, case, dtype):
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     q, k, v = (torch.randn((B, T, H, hd), generator=g, device=DEVICE,
                            dtype=dtype) for _ in range(3))
-    mask = None
-    if mask_kind is not None:
-        mask = torch.ones((B, T), dtype=torch.int32, device=DEVICE)
-        mask[0, 40:] = 0              # a padded source of 40 tokens
-        if mask_kind == "row":
-            mask[1] = 0               # every query of batch 1 sees nothing
+    mask = make_mask(torch, mask_kind, B, T)
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal, kv_mask=mask)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                             kv_mask=mask)
@@ -247,12 +300,7 @@ def run_flash_case(torch, case, dtype):
     itemsize = q.element_size()
     bytes_moved = (4 * B * T * H * hd * itemsize + B * H * T * 4
                    + (0 if mask is None else B * T * 4))
-    if causal:
-        pairs = B * T * (T + 1) // 2
-    elif mask is not None:
-        pairs = T * int(mask.sum().item())
-    else:
-        pairs = B * T * T
+    pairs = attended_pairs(torch, B, T, T, causal, mask)
     bound_ms, bound_by = bound(bytes_moved, 4 * H * hd * pairs,
                                str(dtype).split(".")[-1])
     return {"kernel": "flash_attention_fwd", "case": label,
@@ -387,6 +435,145 @@ def phase_kernels(torch):
             f"{r['device_ms']} ms) plain "
             f"{r['plain_ms']:.4f} ms library {r['library_ms']} ms bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
+# -- phase 2: the flash-attention backward -----------------------------------
+
+
+def flash_bwd_cases():
+    # (label, B, Tq, Tk, H, hd, causal, mask, lse cotangent): "train_*" are
+    # the NMT training step's three attentions at full width
+    return [("train_enc", 64, 64, 64, 8, 64, False, "pad", False),
+            ("train_dec", 64, 64, 64, 8, 64, True, None, False),
+            ("train_cross", 64, 64, 64, 8, 64, False, "pad", False),
+            ("t512", 8, 512, 512, 8, 64, False, None, False),
+            ("t512_causal", 8, 512, 512, 8, 64, True, None, False),
+            ("hd128", 4, 256, 256, 4, 128, True, "pad", False),
+            ("ragged", 2, 100, 37, 8, 64, False, "pad", False),
+            ("zero_mask", 4, 64, 64, 8, 64, False, "zero", False),
+            ("lse_cotangent", 8, 128, 128, 8, 64, True, None, True)]
+
+
+def grad_compare(torch, got, want, dtype):
+    """(max_abs_err, tolerance) of a gradient against its plain version:
+    atol 2e-5 of max(1, peak) in fp32 (a gradient sums over the whole
+    sequence), 2e-2 of the plain peak in bf16."""
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    if dtype == torch.float32:
+        return err, FP32_ATOL * max(1.0, peak)
+    return err, BF16_REL * max(peak, 1e-6)
+
+
+def sdpa_backward_ms(torch, q, k, v, dout, mask, causal, scale):
+    """``scaled_dot_product_attention``'s forward plus backward, less its
+    forward, with the same mask: the library yardstick of the flash
+    backward (it computes dq, dk and dv together). Timed here only."""
+    import torch.nn.functional as F
+    B, Tq, H, _ = q.shape
+    Tk = k.shape[1]
+    attn_mask, is_causal = None, causal
+    if mask is not None:
+        attn_mask = (mask > 0)[:, None, None, :].expand(B, H, Tq, Tk)
+        if causal:
+            attn_mask = attn_mask & torch.ones(
+                (Tq, Tk), dtype=torch.bool, device=DEVICE).tril()
+            is_causal = False
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gt = dout.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask, is_causal=is_causal,
+            scale=scale)
+
+    fwd_ms = time_ms(torch, fwd, reps=10, per_round=5)
+    fb_ms = time_ms(torch, lambda: torch.autograd.grad(fwd(), (qt, kt, vt),
+                                                       gt),
+                    reps=10, per_round=5)
+    return max(fb_ms - fwd_ms, 0.0)
+
+
+def run_flash_bwd_case(torch, case, dtype):
+    from parallax_tpu_torch.ops import flash_attention as fa
+    label, B, Tq, Tk, H, hd, causal, mask_kind, with_dlse = case
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def r(shape):
+        return torch.randn(shape, generator=g, device=DEVICE, dtype=dtype)
+    q, k, v = r((B, Tq, H, hd)), r((B, Tk, H, hd)), r((B, Tk, H, hd))
+    dout = r((B, Tq, H, hd))
+    dlse = torch.randn((B, H, Tq), generator=g, device=DEVICE) \
+        if with_dlse else None
+    mask = make_mask(torch, mask_kind, B, Tk)
+    scale = 1.0 / math.sqrt(hd)
+    # both versions take the same out and lse (the plain forward's)
+    out, lse = fa.flash_attention_plain(q, k, v, causal, scale, mask)
+    delta = fa.flash_delta(out, dout, dlse)
+    args = (q, k, v, mask, dout, lse, delta, causal, scale)
+    got = {"flash_attention_dq": (fa.flash_dq(*args),),
+           "flash_attention_dkv": fa.flash_dkv(*args)}
+    want = {"flash_attention_dq": (fa.flash_dq_plain(*args),),
+            "flash_attention_dkv": fa.flash_dkv_plain(*args)}
+    torch.cuda.synchronize()
+    library_ms = sdpa_backward_ms(torch, q, k, v, dout, mask, causal, scale)
+    pairs = attended_pairs(torch, B, Tq, Tk, causal, mask)
+    itemsize = q.element_size()
+    in_bytes = ((2 * B * Tq + 2 * B * Tk) * H * hd * itemsize
+                + 2 * B * H * Tq * 4
+                + (0 if mask is None else B * Tk * 4))
+    calls = {
+        "flash_attention_dq": (lambda: fa.flash_dq(*args),
+                               lambda: fa.flash_dq_plain(*args),
+                               "flash_dq_kernel", 3,
+                               B * Tq * H * hd * itemsize),
+        "flash_attention_dkv": (lambda: fa.flash_dkv(*args),
+                                lambda: fa.flash_dkv_plain(*args),
+                                "flash_dkv_kernel", 4,
+                                2 * B * Tk * H * hd * itemsize),
+    }
+    results = []
+    for name, (kernel, plain, kname, products, out_bytes) in calls.items():
+        errs = [grad_compare(torch, a, e, dtype)
+                for a, e in zip(got[name], want[name])]
+        ok = all(err <= tol for err, tol in errs) and all(
+            bool(torch.isfinite(a.float()).all()) for a in got[name])
+        if mask_kind == "zero":
+            # batch 1 sees no key: its gradients are exact zeros
+            ok = ok and all(bool((a[1] == 0).all()) for a in got[name])
+        bound_ms, bound_by = bound(in_bytes + out_bytes,
+                                   products * 2 * H * hd * pairs,
+                                   str(dtype).split(".")[-1])
+        results.append({
+            "kernel": name, "case": label, "dtype": str(dtype).split(".")[-1],
+            "shape": {"B": B, "Tq": Tq, "Tk": Tk, "H": H, "hd": hd,
+                      "causal": causal, "mask": mask_kind,
+                      "lse_cotangent": with_dlse, "pairs": pairs},
+            "ok": ok, "max_abs_err": max(e for e, _ in errs),
+            "tol": min(t for _, t in errs),
+            "ms": time_ms(torch, kernel),
+            "device_ms": device_ms(torch, kernel, kname),
+            "plain_ms": time_ms(torch, plain, reps=5, per_round=2),
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention backward (dq, dk, dv)",
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    return results
+
+
+def phase_flash_bwd_kernels(torch):
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in flash_bwd_cases():
+            results.extend(run_flash_bwd_case(torch, case, dtype))
+    for r in results:
+        log(f"[kernel] {r['kernel']} {r['case']} {r['dtype']}: "
+            f"{'ok' if r['ok'] else 'FAILED'} err {r['max_abs_err']:.3g} "
+            f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']} ms) plain {r['plain_ms']:.4f} ms SDPA bwd "
+            f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
     return results
 
 
@@ -839,7 +1026,7 @@ def phase_train(torch):
     return summary, profile
 
 
-def profile_train(torch, sess, batches):
+def profile_train(torch, sess, batches, label="train-profile"):
     """Where a training step's time goes: ``profile_steps`` steps under
     the profiler's CUDA activity, the device's busy time over the
     window's wall time."""
@@ -864,10 +1051,12 @@ def profile_train(torch, sess, batches):
     summary = {"steps": TRAIN["profile_steps"], "window_s": window,
                "device_busy_s": busy_s,
                "device_idle_share": 1.0 - busy_s / window,
+               "device_launches_per_step": sum(n for _, n, _ in rows)
+               / TRAIN["profile_steps"],
                "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
                         "share_of_busy": us / 1e6 / busy_s}
                        for us, n, key in rows[:12]]}
-    log(f"[train-profile] {json.dumps(summary)}")
+    log(f"[{label}] {json.dumps(summary)}")
     return summary
 
 
@@ -894,18 +1083,170 @@ def phase_train_agreement(torch):
     return summary
 
 
+# -- phase 8: NMT Transformer training -----------------------------------------
+
+# the defaults of examples/nmt_driver.py:24-26: 64 rows of 64 source and
+# 64 target tokens
+NMT_TRAIN = dict(batch=64, src_len=64, tgt_len=64, warmup=5, steps=30)
+FLASH_COUNTERS = ("launches", "launches_dq", "launches_dkv")
+
+
+def nmt_train_session(torch, use_pallas_attention=True, **cfg_kw):
+    """NMTConfig() at its published widths, with the max_len that
+    examples/nmt_driver.py sets and a 10-step warmup (the published 4000
+    keeps the learning rate below 1e-5 for the whole run)."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import nmt
+    cfg = nmt.NMTConfig(use_pallas_attention=use_pallas_attention,
+                        num_partitions=1, max_len=NMT_TRAIN["src_len"],
+                        warmup_steps=10, **cfg_kw)
+    sess, *_ = pt.parallel_run(
+        nmt.build_model(cfg), parallax_config=pt.Config(run_option="HYBRID"),
+        seed=SEED, device=DEVICE)
+    return cfg, sess
+
+
+def nmt_batches(cfg):
+    """4 ``make_batch`` batches (numpy seed 0), each source row padded
+    after a length drawn in [16, 64]."""
+    from parallax_tpu_torch.models import nmt
+    rng = np.random.default_rng(SEED)
+    out = []
+    for _ in range(4):
+        b = nmt.make_batch(rng, NMT_TRAIN["batch"], NMT_TRAIN["src_len"],
+                           NMT_TRAIN["tgt_len"], cfg.vocab_size)
+        lengths = rng.integers(16, NMT_TRAIN["src_len"] + 1,
+                               NMT_TRAIN["batch"])
+        for i, n in enumerate(lengths):
+            b["src"][i, n:] = nmt.PAD_ID
+        out.append(b)
+    return out
+
+
+def phase_nmt_train(torch):
+    from parallax_tpu_torch.ops import flash_attention as fa
+    from parallax_tpu_torch.ops import paged_attention as pa
+    torch.cuda.reset_peak_memory_stats()
+    cfg, sess = nmt_train_session(torch)
+    batches = nmt_batches(cfg)
+    t_build = time.perf_counter()
+    sess.prepare(batches[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    sparse = sorted(p for p, v in sess.engine.plan.var_specs.items()
+                    if v.is_sparse)
+    if sparse != ["emb"]:
+        raise AssertionError(f"classifier found {sparse} sparse, expected "
+                             f"['emb']")
+    torch.cuda.synchronize()
+    for name in FLASH_COUNTERS:
+        setattr(fa, name, 0)
+    pa.launches = 0
+    losses, words = [], []
+    for i in range(NMT_TRAIN["warmup"]):
+        losses.append(sess.run("loss", feed_dict=batches[i % 4]))
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    feed = (batches[i % 4] for i in range(NMT_TRAIN["steps"]))
+    for loss, w in sess.run_iter(feed, fetches=["loss", "words"]):
+        losses.append(loss)
+        words.append(w)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_dq": fa.launches_dq,
+                "flash_attention_dkv": fa.launches_dkv,
+                "paged_decode_attention": pa.launches}
+    steps_run = NMT_TRAIN["warmup"] + NMT_TRAIN["steps"]
+    per_step = 3 * cfg.num_layers     # enc self, dec self, cross
+    want = {"flash_attention_fwd": per_step * steps_run,
+            "flash_attention_dq": per_step * steps_run,
+            "flash_attention_dkv": per_step * steps_run,
+            "paged_decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"NMT training launch counts {launches} != "
+                             f"{want}")
+    losses = [float(x) for x in losses]
+    total_words = sum(float(w) for w in words)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite NMT loss: {losses}")
+    if not statistics.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"NMT loss did not fall: first {losses[0]}, "
+                             f"last five {losses[-5:]}")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    summary = {
+        "config": {"vocab": cfg.vocab_size, "model": cfg.model_dim,
+                   "heads": cfg.num_heads, "mlp": cfg.mlp_dim,
+                   "layers": cfg.num_layers, "max_len": cfg.max_len,
+                   "warmup_steps": cfg.warmup_steps, "compute": "bfloat16",
+                   "batch": NMT_TRAIN["batch"],
+                   "src_len": NMT_TRAIN["src_len"],
+                   "tgt_len": NMT_TRAIN["tgt_len"]},
+        "nmt_target_words_per_sec": total_words / wall,
+        "timed_steps": NMT_TRAIN["steps"], "words": total_words,
+        "wall_s": wall, "step_ms_p50": statistics.median(step_ms),
+        "step_ms_p95": step_ms[min(len(step_ms) - 1,
+                                   int(math.ceil(0.95 * len(step_ms))) - 1)],
+        "first_loss": losses[0],
+        "last5_mean_loss": statistics.mean(losses[-5:]), "losses": losses,
+        "engine_build_s": build_s, "sparse": sparse,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    log(f"[nmt-train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
+    profile = profile_train(torch, sess, batches, label="nmt-train-profile")
+    sess.close()
+    torch.cuda.empty_cache()
+    return summary, profile
+
+
+def phase_nmt_train_agreement(torch):
+    """3 steps in fp32 (TF32 off) from the same weights through the
+    flash kernels and through the plain attention with autograd."""
+    losses = {}
+    for name, pallas in (("kernel", True), ("plain", False)):
+        cfg, sess = nmt_train_session(torch, use_pallas_attention=pallas,
+                                      compute_dtype=torch.float32)
+        batches = nmt_batches(cfg)
+        losses[name] = [float(sess.run("loss", feed_dict=batches[i]))
+                        for i in range(3)]
+        sess.close()
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
+                                               losses["plain"])]
+    summary = {"losses": losses, "max_rel_diff": max(rel), "tol": 1e-4}
+    log(f"[nmt-train-agree] {json.dumps(summary)}")
+    if not max(rel) <= 1e-4:
+        raise AssertionError(f"NMT kernel and plain losses differ by "
+                             f"{max(rel)} relative > 1e-4")
+    return summary
+
+
 # -- the run ----------------------------------------------------------------
 
 
 def kernel_line(results, launches):
     """One entry per kernel, at its main path's shape in bf16 (the shape
     and type the main path launched it at): the serving shape for B4
-    and B7, the training shape for B1-B3."""
+    and B7, the LM1B training shape for B1-B3, the NMT training step's
+    encoder self-attention (B 64, T 64, H 8, hd 64, pad mask) for B5 and
+    B6. B4's launches are the serving and the NMT training paths'."""
     lstm_src = "parallax_tpu_torch/csrc/lstm.cu"
+    bwd_src = "parallax_tpu_torch/csrc/flash_attention_bwd.cu"
     meta = {
         "flash_attention_fwd": (
             "parallax_tpu_torch/csrc/flash_attention.cu",
             "parallax_tpu/ops/pallas_attention.py:141", "serve"),
+        "flash_attention_dq": (
+            bwd_src, "parallax_tpu/ops/pallas_attention.py:298",
+            "train_enc"),
+        "flash_attention_dkv": (
+            bwd_src, "parallax_tpu/ops/pallas_attention.py:326",
+            "train_enc"),
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",
             "parallax_tpu/ops/pallas_paged_attention.py:278", "serve"),
@@ -944,7 +1285,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = phase_build(torch)
-    results = phase_kernels(torch)
+    results = phase_kernels(torch) + phase_flash_bwd_kernels(torch)
     failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in results
               if not r["ok"]]
     if failed:
@@ -966,13 +1307,19 @@ def main() -> int:
                              f"versions: {failed}")
     train, train_profile = phase_train(torch)
     train_agree = phase_train_agreement(torch)
-    line = kernel_line(results + lstm_results,
-                       {**serve_summary["launches"], **train["launches"]})
+    nmt_train, nmt_profile = phase_nmt_train(torch)
+    nmt_agree = phase_nmt_train_agreement(torch)
+    launches = {**serve_summary["launches"], **train["launches"]}
+    for name, n in nmt_train["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
               "cases": results + lstm_results,
               "serve": serve_summary, "profile": profile_summary,
               "agreement": agree, "train": train,
               "train_profile": train_profile, "train_agreement": train_agree,
+              "nmt_train": nmt_train, "nmt_train_profile": nmt_profile,
+              "nmt_train_agreement": nmt_agree,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -1,5 +1,4 @@
-"""NMT — the Transformer encoder-decoder of ``parallax_tpu.models.nmt``,
-inference half.
+"""NMT — the Transformer encoder-decoder of ``parallax_tpu.models.nmt``.
 
 Same configuration fields, the same parameter tree (a dict of plain
 tensors, ``[in, out]`` weights applied as ``x @ w``, fp32 parameters cast
@@ -8,16 +7,30 @@ blocks, the shared embedding scaled by ``sqrt(model_dim)`` plus learned
 positions, fp32 output projection with the phantom padded-vocab classes
 pushed to -1e9.
 
-What runs here: the encoder (prefill), the per-layer cross-attention
-K/V, the KV-cached decoder step over a dense or a paged self-KV cache,
-and the cached greedy decode used as the standalone reference. The
-loss, the optimizer, beam search and tensor parallelism are not ported.
+Training: ``build_model(cfg)`` is the JAX ``build_model``: the causal
+decoder with cross-attention over the encoder, label-smoothed
+cross-entropy over the real vocabulary with a ``{"words": sum(w)}``
+metric, and ``chain(clip_by_global_norm(5), adam(join_schedules([
+linear_schedule(0, lr, warmup), constant_schedule(lr)], [warmup])))``
+(core/optim.py). As in the JAX ``loss_fn``, no dropout is applied,
+whatever ``cfg.dropout`` says. The embedding is read only through
+lookups, so the classifier finds it sparse; under HYBRID with dense
+sparse gradients its [V, D] gradient goes through the optimizer with
+the rest.
+
+Serving: the encoder (prefill), the per-layer cross-attention K/V, the
+KV-cached decoder step over a dense or a paged self-KV cache, and the
+cached greedy decode used as the standalone reference. Beam search and
+tensor parallelism are not ported.
 
 Attention executors:
 
-* ``cfg.use_pallas_attention`` (the JAX field name is kept) runs the
-  encoder's self-attention through ``ops.flash_attention`` — the CUDA
-  flash-attention forward on the card;
+* ``cfg.use_pallas_attention`` (the JAX field name is kept) runs every
+  attention of ``_self_block`` through ``ops.flash_attention``: the
+  encoder self-attention with the source pad mask, the decoder causal
+  self-attention and the cross-attention with the source pad mask. On
+  the card that is the CUDA flash forward, and under autograd the CUDA
+  dq and dk/dv kernels;
 * the paged decode step runs its self-attention through
   ``ops.paged_attention`` (``attn_impl='kernel'``, the default) — the
   CUDA paged-decode kernel on the card — or through the clip-then-mask
@@ -27,7 +40,7 @@ Attention executors:
 
 Rounding points are the JAX package's: ``_attention`` accumulates
 scores in fp32, divides by ``sqrt(hd)`` after the dot and casts the
-softmax back to the compute dtype before PV; the flash kernel scales q
+softmax back to the compute dtype before PV; the flash kernels scale q
 in the compute dtype before the dot; the paged kernel divides its fp32
 scores and keeps p in fp32.
 
@@ -42,9 +55,12 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from parallax_tpu_torch.common.lib import resolve_device
+from parallax_tpu_torch.core import optim
+from parallax_tpu_torch.core.engine import Model
 from parallax_tpu_torch.ops import embedding as emb_ops
 from parallax_tpu_torch.ops import flash_attention as fa_ops
 from parallax_tpu_torch.ops import paged_attention as pa_ops
@@ -64,7 +80,7 @@ class NMTConfig:
     label_smoothing: float = 0.1
     learning_rate: float = 1e-3
     warmup_steps: int = 4000
-    # encoder self-attention through the flash-attention kernel
+    # all three attention kinds through the flash-attention kernels
     use_pallas_attention: bool = False
     # not ported: refused at construction
     tensor_parallel: bool = False
@@ -158,12 +174,19 @@ def _attend(cfg, dt, x_q, x_kv, w, *, causal=False, kv_mask=None):
     return _attention(q, k, v, mask, cfg.num_heads)
 
 
-def _self_block(cfg, dt, p, x, *, self_causal=False, self_kv_mask=None):
-    """One encoder block: self-attention, then the MLP, each post-LN."""
+def _self_block(cfg, dt, p, x, cross_kv=None, *, self_causal=False,
+                self_kv_mask=None, cross_kv_mask=None):
+    """One block: self-attention, then (decoder) cross-attention over
+    ``cross_kv``, then the MLP, each post-LN."""
     a = p["attn"]
     y = _attend(cfg, dt, x, x, a, causal=self_causal,
                 kv_mask=self_kv_mask) @ a["wo"].to(dt)
     x = _layer_norm(x + y, p["ln1"]["s"].to(dt), p["ln1"]["b"].to(dt))
+    if cross_kv is not None:
+        c = p["cross"]
+        y = _attend(cfg, dt, x, cross_kv, c,
+                    kv_mask=cross_kv_mask) @ c["wo"].to(dt)
+        x = _layer_norm(x + y, p["ln3"]["s"].to(dt), p["ln3"]["b"].to(dt))
     m = p["mlp"]
     y = torch.relu(x @ m["w1"].to(dt)) @ m["w2"].to(dt)
     return _layer_norm(x + y, p["ln2"]["s"].to(dt), p["ln2"]["b"].to(dt))
@@ -193,6 +216,27 @@ def _encode(cfg, params, src):
     x, src_valid = _encode_embed(cfg, params, src)
     x = _encode_layers(cfg, params, x, src_valid, 0, len(params["enc"]))
     return x, src_valid
+
+
+def _decode_hidden(cfg, params, tgt_in, enc_out, src_valid):
+    """Run the causal decoder stack; returns hidden states [B, Tt, D]."""
+    dt = cfg.compute_dtype
+    Tt = tgt_in.shape[1]
+    pos = params["pos"].to(dt)
+    x = (emb_ops.embedding_lookup(params["emb"], tgt_in).to(dt)
+         * _emb_scale(cfg) + pos[None, :Tt])
+    for p in params["dec"]:
+        x = _self_block(cfg, dt, p, x, cross_kv=enc_out, self_causal=True,
+                        cross_kv_mask=src_valid)
+    return x
+
+
+def _decode_logits(cfg, params, tgt_in, enc_out, src_valid):
+    """Causal decoder + output projection; fp32 logits [B, Tt, V] with
+    the phantom padded-vocab classes pushed to -1e9."""
+    x = _decode_hidden(cfg, params, tgt_in, enc_out, src_valid)
+    logits = x.float() @ params["out_proj"]
+    return emb_ops.mask_padded_logits(logits, cfg.vocab_size)
 
 
 # ----- KV-cached incremental decoding -------------------------------------
@@ -335,11 +379,14 @@ def init_params(cfg: NMTConfig, generator: torch.Generator,
     ``device``. Same distributions as the JAX ``init_fn``: N(0, 0.02²)
     embedding and positions, N(0, 1/fan_in) dense weights, unit/zero
     layer norms. The numbers differ from JAX's for the same seed; use
-    ``weights.params_from_jax`` to carry a JAX tree across."""
+    ``weights.params_from_jax`` to carry a JAX tree across.
+    ``device="meta"`` gives the shapes alone."""
     dev = resolve_device(device)
     V, D = cfg.padded_vocab, cfg.model_dim
 
     def normal(shape, std):
+        if dev.type == "meta":
+            return torch.empty(shape, device=dev)
         return (torch.randn(shape, generator=generator,
                             device=generator.device) * std).to(dev)
 
@@ -392,3 +439,59 @@ def greedy_decode(params, cfg: NMTConfig, src,
         tgt[:, t + 1] = nxt
         done = done | (nxt == EOS_ID)
     return tgt[:, 1:]
+
+
+def _label_smoothed_nll(cfg, logits, labels):
+    """Per-token loss over [N, V] fp32 logits: label-smoothed
+    cross-entropy whose smoothing mass spreads over the real vocabulary
+    only, or plain cross-entropy when ``label_smoothing`` is 0."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    if cfg.label_smoothing > 0:
+        eps = cfg.label_smoothing
+        nll = (1 - eps) * nll - eps * logp[:, :cfg.vocab_size].mean(dim=-1)
+    return nll
+
+
+def build_model(cfg: NMTConfig) -> Model:
+    """The JAX ``build_model``: init, loss and optimizer. Batch feeds
+    "src" [B, Ts], "tgt_in" and "tgt_out" [B, Tt] int32 and an optional
+    "w" [B, Tt] (default: target tokens that are not PAD); the "words"
+    metric is sum(w)."""
+    V = cfg.padded_vocab
+
+    def init_fn(gen, device):
+        return init_params(cfg, gen, device)
+
+    def loss_fn(params, batch, gen):
+        src, tgt_in, tgt_out = batch["src"], batch["tgt_in"], batch["tgt_out"]
+        w = batch.get("w")
+        if w is None:
+            w = (tgt_out > PAD_ID).float()
+        B, Tt = tgt_in.shape
+        enc_out, src_valid = _encode(cfg, params, src)
+        logits = _decode_logits(cfg, params, tgt_in, enc_out,
+                                src_valid).reshape(B * Tt, V)
+        nll = _label_smoothed_nll(cfg, logits,
+                                  tgt_out.reshape(B * Tt).long())
+        wf = w.reshape(B * Tt).float()
+        total_w = torch.clamp(wf.sum(), min=1e-8)
+        return (nll * wf).sum() / total_w, {"words": wf.sum()}
+
+    sched = optim.join_schedules(
+        [optim.linear_schedule(0.0, cfg.learning_rate, cfg.warmup_steps),
+         optim.constant_schedule(cfg.learning_rate)],
+        [cfg.warmup_steps])
+    tx = optim.chain(optim.clip_by_global_norm(5.0), optim.adam(sched))
+    return Model(init_fn, loss_fn, optimizer=tx)
+
+
+def make_batch(rng: np.random.Generator, batch_size: int, src_len: int,
+               tgt_len: int, vocab_size: int):
+    """Synthetic batch with the JAX ``make_batch``'s feed keys: tokens
+    uniform in [3, vocab_size), no padding."""
+    src = rng.integers(3, vocab_size, (batch_size, src_len))
+    tgt = rng.integers(3, vocab_size, (batch_size, tgt_len + 1))
+    return {"src": src.astype(np.int32),
+            "tgt_in": tgt[:, :-1].astype(np.int32),
+            "tgt_out": tgt[:, 1:].astype(np.int32)}

@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain versions, on the card.
 
 Ragged and odd shapes the main paths do not reach (Tq and Tk off the
-64-row tile, Tq != Tk under causal masking, hd = 128, G = 2, page sizes
+64-row tile, Tq != Tk under causal masking, hd = 128, fully masked rows
+for the flash forward and backward, G = 2, page sizes
 that do not divide the 128-position chunk; LSTM B, H and P off every
-tile, T = 1, B = 1), fp32 with TF32 off (atol 2e-5; the LSTM kernels
+tile, T = 1, B = 1), fp32 with TF32 off (atol 2e-5; the flash gradients
+2e-5 of max(1, peak), they sum over a whole sequence; the LSTM kernels
 1e-4 of max(1, peak), their time loops compound the reassociation) and
 bf16 (atol 2e-2 of the plain output's peak). Every test
 here needs a CUDA card and skips without one; run them on the card
@@ -66,6 +68,106 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, Tq, Tk, H, hd, causal,
                                rtol=1e-5)
     if masked:
         assert torch.all(out[0] == 0)
+
+
+def _grad_close(got, want, dtype):
+    """Gradients sum over a whole sequence: fp32 atol 2e-5 of max(1,
+    peak), bf16 2e-2 of the peak."""
+    peak = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2e-5 * max(1.0, peak) if dtype == torch.float32 else 2e-2 * peak
+    assert err <= tol, (err, tol)
+
+
+def _flash_bwd_inputs(cuda, dtype, B, Tq, Tk, H, hd, masked, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(shape):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    q, k, v, dout = r((B, Tq, H, hd)), r((B, Tk, H, hd)), \
+        r((B, Tk, H, hd)), r((B, Tq, H, hd))
+    mask = None
+    if masked:
+        mask = (torch.rand((B, Tk), generator=g, device=cuda) < 0.6).int()
+        mask[0] = 0                      # batch 0: every row fully masked
+    return q, k, v, dout, mask
+
+
+FLASH_BWD_CASES = [
+    (2, 100, 37, 3, 64, False, True),
+    (1, 37, 100, 2, 128, True, False),
+    (3, 130, 130, 2, 128, True, True),
+    (1, 1, 65, 1, 64, False, True),
+    (2, 65, 64, 2, 64, True, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,Tk,H,hd,causal,masked", FLASH_BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, dtype, B, Tq, Tk, H, hd,
+                                            causal, masked):
+    """B5 and B6 against their plain versions on the same out and lse."""
+    q, k, v, dout, mask = _flash_bwd_inputs(cuda, dtype, B, Tq, Tk, H, hd,
+                                            masked)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal, kv_mask=mask)
+    delta = fa.flash_delta(out, dout)
+    args = (q, k, v, mask, dout, lse, delta, causal)
+    before = (fa.launches_dq, fa.launches_dkv)
+    dq = fa.flash_dq(*args)
+    dk, dv = fa.flash_dkv(*args)
+    ref_dq = fa.flash_dq_plain(*args)
+    ref_dk, ref_dv = fa.flash_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == tuple(n + 1 for n in before)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype
+        _grad_close(got, want, dtype)
+    if masked:
+        for got in (dq, dk, dv):
+            assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_is_bitwise_repeatable_and_launches_once(cuda,
+                                                                dtype):
+    """Two backward runs give the same bits (no atomics); each autograd
+    call launches the forward, dq and dk/dv kernels once each, and the
+    gradient agrees with the plain attention's own gradient."""
+    q, k, v, dout, mask = _flash_bwd_inputs(cuda, dtype, 2, 70, 90, 2, 64,
+                                            True, seed=3)
+    grads = []
+    for _ in range(2):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+        out, lse = fa.flash_attention_lse(*qkv, kv_mask=mask)
+        torch.autograd.backward((out, lse), (dout, torch.ones_like(lse)))
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+            tuple(n + 1 for n in before)
+        grads.append([t.grad for t in qkv])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = fa.flash_attention_lse(*qkv, kv_mask=mask, xla_backward=True)
+    torch.autograd.backward((out, lse), (dout, torch.ones_like(lse)))
+    for got, want in zip(grads[0], (t.grad for t in qkv)):
+        _grad_close(got, want, dtype)
+
+
+def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda):
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="takes"):
+        fa.flash_dq(q, q, q, None, q, lse, lse)
+    q = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_dkv(q, q, q, None, q, lse, lse)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_dq(q, q.cpu(), q, None, q, lse, lse)
+    with pytest.raises(ValueError, match="dO"):
+        fa.flash_dq(q, q, q, None, q.transpose(1, 2).contiguous()
+                    .transpose(1, 2), lse, lse)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
