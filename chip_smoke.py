@@ -22,8 +22,11 @@ beside it. Phases:
    L2 flush, as a decode step finds the pool) beside the plain version,
    the one library call
    that computes the same function where there is one
-   (``scaled_dot_product_attention`` for the flash forward), and the
-   bound from the H100 SXM data sheet.
+   (``scaled_dot_product_attention`` for the flash forward), the
+   bound from the H100 SXM data sheet and, for the flash kernels, the
+   achieved TF/s (operations over device time). bf16 flash forward and
+   dq run the sm90 kernels (TMA + wgmma), fp32 the first kernels; the
+   T 2048 cases (B 2, H 8, hd 64, causal and not) run in bf16 only.
 3. Serve: NMT at its published widths (``NMTConfig()``: vocab 32000,
    model 512, 8 heads, MLP 2048, 6+6 layers, bf16, flash encoder
    attention) with random weights from a fixed seed, behind
@@ -33,7 +36,8 @@ beside it. Phases:
    count of prefills / decode steps times the 6 layers (plus the
    warmup's one of each). Then 64 of the requests again under the
    profiler, for the device's busy share and the kernels that take
-   the time.
+   the time; the profile must show ``flash_fwd_kernel_sm90`` and no
+   first flash kernel.
 4. Agreement: 32 of the same requests served in fp32 (TF32 off) and
    compared, request by request, with the standalone ``greedy_decode``
    of the plain path (dense cache, plain attention, no kernel).
@@ -69,7 +73,9 @@ beside it. Phases:
    times a step each (6 encoder self, 6 decoder causal self, 6 cross
    attentions), the paged kernel none. Losses finite and falling; the
    classifier finds ``emb`` alone sparse. Then 5 steps under the
-   profiler.
+   profiler, which must show ``flash_fwd_kernel_sm90``,
+   ``flash_dq_kernel_sm90`` and ``flash_dkv_kernel`` and no first
+   forward or dq kernel.
 9. NMT train agreement: 3 steps in fp32 (TF32 off) from the same weights
    through the flash kernels and through the plain attention with
    autograd; per-step losses within 1e-4 relative.
@@ -77,8 +83,9 @@ beside it. Phases:
 Phase 2 also holds the flash backward (B5 dq, B6 dk/dv) against its
 plain versions at the three training attentions, at T 512 (causal and
 not), hd 128, a ragged Tq 100 / Tk 37, a batch that sees no key (exact
-zero gradients) and an lse cotangent, in fp32 (atol 2e-5 of max(1,
-peak)) and bf16; each timed beside the plain version, the bound and
+zero gradients), an lse cotangent and, in bf16 only, T 2048, in fp32
+(atol 2e-5 of max(1, peak)) and bf16; each timed beside the plain
+version, the bound, its achieved TF/s and
 ``scaled_dot_product_attention``'s backward (its forward plus backward
 less its forward).
 
@@ -92,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -170,6 +178,24 @@ def device_ms(torch, fn, kernel_name: str, calls: int = 10):
     return total_us / count / 1e3 if count else None
 
 
+def flash_kernels_seen(rows, want):
+    """{kernel name: launches} of the flash kernels in a profile's rows
+    ``(us, count, name)``; raises unless every name in ``want`` launched
+    and no first (fp32-FMA) forward or dq kernel did, which on a bf16 path
+    would mean a fallback."""
+    seen = {}
+    for _, n, key in rows:
+        m = re.search(r"flash_\w+kernel\w*", key)
+        if m:
+            seen[m.group(0)] = seen.get(m.group(0), 0) + n
+    missing = [w for w in want if w not in seen]
+    stale = [k for k in seen if k in ("flash_fwd_kernel", "flash_dq_kernel")]
+    if missing or stale:
+        raise AssertionError(f"profile flash kernels {seen}: missing "
+                             f"{missing}, first kernels {stale}")
+    return seen
+
+
 def bound(bytes_moved: int, ops: int, dtype_name: str):
     """(bound_ms, bound_by): the larger of the bytes over the memory
     rate and the operations over the peak rate for the dtype."""
@@ -227,7 +253,29 @@ def flash_cases():
             ("t512", 8, 512, 8, 64, False, None),
             ("t512_causal", 8, 512, 8, 64, True, None),
             ("train_enc", 64, 64, 8, 64, False, "pad"),
-            ("train_dec", 64, 64, 8, 64, True, None)]
+            ("train_dec", 64, 64, 8, 64, True, None),
+            ("t2048", 2, 2048, 8, 64, False, None),
+            ("t2048_causal", 2, 2048, 8, 64, True, None)]
+
+
+# bf16 only: the long sequences where the sm90 kernels' ring reaches its
+# steady state (fp32 stays on the first kernels, measured at T 512)
+BF16_ONLY = ("t2048", "t2048_causal")
+
+
+def flash_kernel_name(kernel, dtype_name):
+    """The CUDA kernel a flash wrapper launches for the dtype: the sm90
+    (TMA + wgmma) kernels in bf16, except dk/dv."""
+    if dtype_name == "bfloat16" and kernel != "flash_dkv_kernel":
+        return f"{kernel}_sm90"
+    return kernel
+
+
+def tflops(r):
+    """Achieved TF/s of a kernel case: its operations over its device time
+    (the call's time when the profiler saw no kernel)."""
+    t = r["device_ms"] if r["device_ms"] else r["ms"]
+    return r["ops"] / (t * 1e-3) / 1e12
 
 
 def make_mask(torch, kind, B, Tk):
@@ -288,8 +336,10 @@ def run_flash_case(torch, case, dtype):
     scale = 1.0 / math.sqrt(hd)
     kernel_ms = time_ms(torch, lambda: fa.flash_attention_lse(
         q, k, v, causal=causal, kv_mask=mask))
+    dtype_name = str(dtype).split(".")[-1]
     kernel_device_ms = device_ms(torch, lambda: fa.flash_attention_lse(
-        q, k, v, causal=causal, kv_mask=mask), "flash_fwd_kernel")
+        q, k, v, causal=causal, kv_mask=mask),
+        flash_kernel_name("flash_fwd_kernel", dtype_name))
     plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, causal=causal, kv_mask=mask))
     attn_mask = None if mask is None else \
@@ -301,17 +351,17 @@ def run_flash_case(torch, case, dtype):
     bytes_moved = (4 * B * T * H * hd * itemsize + B * H * T * 4
                    + (0 if mask is None else B * T * 4))
     pairs = attended_pairs(torch, B, T, T, causal, mask)
-    bound_ms, bound_by = bound(bytes_moved, 4 * H * hd * pairs,
-                               str(dtype).split(".")[-1])
+    ops = 4 * H * hd * pairs
+    bound_ms, bound_by = bound(bytes_moved, ops, dtype_name)
     return {"kernel": "flash_attention_fwd", "case": label,
-            "dtype": str(dtype).split(".")[-1],
+            "dtype": dtype_name,
             "shape": {"B": B, "T": T, "H": H, "hd": hd, "causal": causal,
                       "mask": mask_kind},
             "ok": ok, "max_abs_err": err, "tol": tol,
             "lse_max_abs_err": lse_err, "ms": kernel_ms,
             "device_ms": kernel_device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops}
 
 
 # -- phase 2: the paged-decode attention --------------------------------------
@@ -422,6 +472,8 @@ def phase_kernels(torch):
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         for case in flash_cases():
+            if dtype == torch.float32 and case[0] in BF16_ONLY:
+                continue
             results.append(run_flash_case(torch, case, dtype))
         for case in paged_cases():
             results.append(run_paged_case(torch, case, dtype, flush))
@@ -429,10 +481,16 @@ def phase_kernels(torch):
     for r in results:
         warm = f" cold, {r['warm_ms']:.4f} ms warm" if "warm_ms" in r \
             else ""
+        rate = ""
+        if "ops" in r:
+            # the profiler must see the kernel the dtype routes to
+            r["ok"] = r["ok"] and r["device_ms"] is not None
+            r["tflops"] = tflops(r)
+            rate = f", {r['tflops']:.1f} TF/s"
         log(f"[kernel] {r['kernel']} {r['case']} {r['dtype']}: "
             f"{'ok' if r['ok'] else 'FAILED'} err {r['max_abs_err']:.3g} "
             f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms{warm} (device "
-            f"{r['device_ms']} ms) plain "
+            f"{r['device_ms']} ms{rate}) plain "
             f"{r['plain_ms']:.4f} ms library {r['library_ms']} ms bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
@@ -452,7 +510,9 @@ def flash_bwd_cases():
             ("hd128", 4, 256, 256, 4, 128, True, "pad", False),
             ("ragged", 2, 100, 37, 8, 64, False, "pad", False),
             ("zero_mask", 4, 64, 64, 8, 64, False, "zero", False),
-            ("lse_cotangent", 8, 128, 128, 8, 64, True, None, True)]
+            ("lse_cotangent", 8, 128, 128, 8, 64, True, None, True),
+            ("t2048", 2, 2048, 2048, 8, 64, False, None, False),
+            ("t2048_causal", 2, 2048, 2048, 8, 64, True, None, False)]
 
 
 def grad_compare(torch, got, want, dtype):
@@ -535,6 +595,7 @@ def run_flash_bwd_case(torch, case, dtype):
                                 2 * B * Tk * H * hd * itemsize),
     }
     results = []
+    dtype_name = str(dtype).split(".")[-1]
     for name, (kernel, plain, kname, products, out_bytes) in calls.items():
         errs = [grad_compare(torch, a, e, dtype)
                 for a, e in zip(got[name], want[name])]
@@ -543,22 +604,22 @@ def run_flash_bwd_case(torch, case, dtype):
         if mask_kind == "zero":
             # batch 1 sees no key: its gradients are exact zeros
             ok = ok and all(bool((a[1] == 0).all()) for a in got[name])
-        bound_ms, bound_by = bound(in_bytes + out_bytes,
-                                   products * 2 * H * hd * pairs,
-                                   str(dtype).split(".")[-1])
+        ops = products * 2 * H * hd * pairs
+        bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype_name)
         results.append({
-            "kernel": name, "case": label, "dtype": str(dtype).split(".")[-1],
+            "kernel": name, "case": label, "dtype": dtype_name,
             "shape": {"B": B, "Tq": Tq, "Tk": Tk, "H": H, "hd": hd,
                       "causal": causal, "mask": mask_kind,
                       "lse_cotangent": with_dlse, "pairs": pairs},
             "ok": ok, "max_abs_err": max(e for e, _ in errs),
             "tol": min(t for _, t in errs),
             "ms": time_ms(torch, kernel),
-            "device_ms": device_ms(torch, kernel, kname),
+            "device_ms": device_ms(torch, kernel,
+                                   flash_kernel_name(kname, dtype_name)),
             "plain_ms": time_ms(torch, plain, reps=5, per_round=2),
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention backward (dq, dk, dv)",
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops})
     return results
 
 
@@ -566,12 +627,18 @@ def phase_flash_bwd_kernels(torch):
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         for case in flash_bwd_cases():
+            if dtype == torch.float32 and case[0] in BF16_ONLY:
+                continue
             results.extend(run_flash_bwd_case(torch, case, dtype))
     for r in results:
+        # the profiler must see the kernel the dtype routes to
+        r["ok"] = r["ok"] and r["device_ms"] is not None
+        r["tflops"] = tflops(r)
         log(f"[kernel] {r['kernel']} {r['case']} {r['dtype']}: "
             f"{'ok' if r['ok'] else 'FAILED'} err {r['max_abs_err']:.3g} "
             f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms (device "
-            f"{r['device_ms']} ms) plain {r['plain_ms']:.4f} ms SDPA bwd "
+            f"{r['device_ms']} ms, {r['tflops']:.1f} TF/s) plain "
+            f"{r['plain_ms']:.4f} ms SDPA bwd "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
     return results
@@ -693,6 +760,8 @@ def phase_profile(torch, cfg, params, requests):
     summary = {"requests": len(requests), "window_s": window,
                "device_busy_s": busy_s,
                "device_idle_share": 1.0 - busy_s / window,
+               "flash_kernels": flash_kernels_seen(
+                   rows, ["flash_fwd_kernel_sm90"]),
                "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
                         "share_of_busy": us / 1e6 / busy_s}
                        for us, n, key in rows[:10]]}
@@ -1026,10 +1095,11 @@ def phase_train(torch):
     return summary, profile
 
 
-def profile_train(torch, sess, batches, label="train-profile"):
+def profile_train(torch, sess, batches, label="train-profile", flash=()):
     """Where a training step's time goes: ``profile_steps`` steps under
     the profiler's CUDA activity, the device's busy time over the
-    window's wall time."""
+    window's wall time; ``flash`` names the flash kernels the steps must
+    launch."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1049,6 +1119,7 @@ def profile_train(torch, sess, batches, label="train-profile"):
     busy_s = sum(us for us, _, _ in rows) / 1e6
     rows.sort(reverse=True)
     summary = {"steps": TRAIN["profile_steps"], "window_s": window,
+               "flash_kernels": flash_kernels_seen(rows, flash),
                "device_busy_s": busy_s,
                "device_idle_share": 1.0 - busy_s / window,
                "device_launches_per_step": sum(n for _, n, _ in rows)
@@ -1198,7 +1269,10 @@ def phase_nmt_train(torch):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches}
     log(f"[nmt-train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
-    profile = profile_train(torch, sess, batches, label="nmt-train-profile")
+    profile = profile_train(
+        torch, sess, batches, label="nmt-train-profile",
+        flash=["flash_fwd_kernel_sm90", "flash_dq_kernel_sm90",
+               "flash_dkv_kernel"])
     sess.close()
     torch.cuda.empty_cache()
     return summary, profile
@@ -1236,16 +1310,16 @@ def kernel_line(results, launches):
     encoder self-attention (B 64, T 64, H 8, hd 64, pad mask) for B5 and
     B6. B4's launches are the serving and the NMT training paths'."""
     lstm_src = "parallax_tpu_torch/csrc/lstm.cu"
-    bwd_src = "parallax_tpu_torch/csrc/flash_attention_bwd.cu"
+    sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
-            "parallax_tpu_torch/csrc/flash_attention.cu",
-            "parallax_tpu/ops/pallas_attention.py:141", "serve"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:141", "serve"),
         "flash_attention_dq": (
-            bwd_src, "parallax_tpu/ops/pallas_attention.py:298",
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:298",
             "train_enc"),
         "flash_attention_dkv": (
-            bwd_src, "parallax_tpu/ops/pallas_attention.py:326",
+            "parallax_tpu_torch/csrc/flash_attention_bwd.cu",
+            "parallax_tpu/ops/pallas_attention.py:326",
             "train_enc"),
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",

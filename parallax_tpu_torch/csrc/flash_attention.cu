@@ -10,7 +10,8 @@
 //   * a fully masked row yields out = 0 and lse = m + log(1e-30).
 // Inputs and output keep the public [B, T, H, hd] layout (the kernel
 // walks the strides, so no transpose is materialised); lse is
-// [B, H, Tq] fp32. fp32 and bf16 inputs, hd in {64, 128}, any Tq / Tk.
+// [B, H, Tq] fp32. fp32 inputs, hd in {64, 128}, any Tq / Tk; bf16 inputs
+// go to the wgmma kernel of flash_attention_sm90.cu.
 //
 // What bounds it on the H100: the q/k/v/out bytes over 3.35 TB/s and the
 // 4*B*H*Tq*Tk*hd operations over 989 TF/s bf16 (data sheet) are close at
@@ -24,8 +25,8 @@
 // of device memory, as the TPU kernel does: one block per
 // (64-row q tile, head, batch) stages its q tile once, then streams
 // 64-row K/V tiles through shared memory with the online softmax held in
-// registers, and skips K tiles wholly past the causal diagonal. Moving
-// the two products onto wgmma with TMA-fed tiles is the later work.
+// registers, and skips K tiles wholly past the causal diagonal. The bf16
+// forward runs on wgmma with TMA-fed tiles (flash_attention_sm90.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,20 +190,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             const void* kv_mask, void* out, void* lse, int B,
                             int H, int Tq, int Tk, int hd, float scale,
-                            int causal, int is_bf16, void* stream) {
+                            int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) {
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, kv_mask, out, lse, B,
-                                               H, Tq, Tk, scale, causal, st)
-                   : launch<float, 64>(q, k, v, kv_mask, out, lse, B, H, Tq,
-                                       Tk, scale, causal, st);
-  }
-  if (hd == 128) {
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, kv_mask, out, lse, B,
-                                                H, Tq, Tk, scale, causal, st)
-                   : launch<float, 128>(q, k, v, kv_mask, out, lse, B, H, Tq,
-                                        Tk, scale, causal, st);
-  }
+  if (hd == 64)
+    return launch<float, 64>(q, k, v, kv_mask, out, lse, B, H, Tq, Tk, scale,
+                             causal, st);
+  if (hd == 128)
+    return launch<float, 128>(q, k, v, kv_mask, out, lse, B, H, Tq, Tk,
+                              scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

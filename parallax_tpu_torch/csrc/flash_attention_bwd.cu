@@ -16,9 +16,11 @@
 //   * dq = scale * sum_k ds.k, rounded to q's dtype once; dk = sum_q ds.(scale
 //     q) is written unscaled (q was pre-scaled), dv = sum_q p.dO.
 // Inputs and outputs keep the public [B, T, H, hd] layout (the kernels walk
-// the strides); lse and delta are [B, H, Tq] fp32. fp32 and bf16 inputs, hd
-// in {64, 128}, any Tq / Tk (the ragged tile edge is masked). `causal` is
-// the top-left aligned tril of the forward: q row i sees keys j <= i.
+// the strides); lse and delta are [B, H, Tq] fp32. fp32 and bf16 inputs to
+// dk/dv, fp32 to dq (bf16 dq is the wgmma kernel of
+// flash_attention_sm90.cu); hd in {64, 128}, any Tq / Tk (the ragged tile
+// edge is masked). `causal` is the top-left aligned tril of the forward: q
+// row i sees keys j <= i.
 //
 // Two kernels and no atomics: dq is reduced over the k tiles inside one
 // block, dk and dv over the q tiles inside another, each in a fixed order,
@@ -36,8 +38,9 @@
 // device memory, as the TPU kernels do: dq streams 64-row K/V tiles past a
 // resident q/dO tile and stops at the last tile the causal diagonal reaches;
 // dk/dv streams 64-row q/dO tiles past a resident K/V tile, starting at the
-// first q tile that reaches the diagonal. Moving the products onto wgmma
-// with TMA-fed tiles and warp specialisation is later work.
+// first q tile that reaches the diagonal. bf16 dq runs on wgmma with
+// TMA-fed tiles (flash_attention_sm90.cu); moving dk/dv there is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -363,14 +366,13 @@ extern "C" int pt_flash_dq(const void* q, const void* k, const void* v,
                            const void* kv_mask, const void* dout,
                            const void* lse, const void* delta, void* dq,
                            int B, int H, int Tq, int Tk, int hd, float scale,
-                           int causal, int is_bf16, void* stream) {
+                           int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_DQ(T, HD)                                                      \
-  launch_dq<T, HD>(q, k, v, kv_mask, dout, lse, delta, dq, B, H, Tq, Tk, \
-                   scale, causal, st)
-  if (hd == 64) return is_bf16 ? PT_DQ(__nv_bfloat16, 64) : PT_DQ(float, 64);
-  if (hd == 128)
-    return is_bf16 ? PT_DQ(__nv_bfloat16, 128) : PT_DQ(float, 128);
+#define PT_DQ(HD)                                                             \
+  launch_dq<float, HD>(q, k, v, kv_mask, dout, lse, delta, dq, B, H, Tq, Tk, \
+                       scale, causal, st)
+  if (hd == 64) return PT_DQ(64);
+  if (hd == 128) return PT_DQ(128);
 #undef PT_DQ
   return (int)cudaErrorInvalidValue;
 }

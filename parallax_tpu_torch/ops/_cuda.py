@@ -28,8 +28,8 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "parallax_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd",
-                  "paged_attention", "lstm")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_sm90",
+                  "flash_attention_bwd", "paged_attention", "lstm")
 
 _libs: Dict[str, object] = {}   # loaded libraries and typed launchers
 _lock = threading.Lock()

@@ -2,14 +2,17 @@
 versions and the gradient that joins them.
 
 Replaces ``parallax_tpu/ops/pallas_attention.py``: the forward TPU
-kernel ``_flash_fwd_kernel`` (``csrc/flash_attention.cu``) and the two
-backward ones, ``_flash_dq_kernel`` and ``_flash_dkv_kernel``
-(``csrc/flash_attention_bwd.cu``). The forward streams 64-row K/V tiles
-past a resident q tile with the online softmax in registers; the
-backward recomputes p from the forward's lse, dq in one kernel (a block
-per q tile, streaming K/V) and dk/dv in another (a block per k tile,
-streaming q/dO), so no [Tq, Tk] matrix reaches device memory. Each
-source says what bounds it on the H100.
+kernel ``_flash_fwd_kernel`` and the two backward ones,
+``_flash_dq_kernel`` and ``_flash_dkv_kernel``. bf16 forward and dq run
+in ``csrc/flash_attention_sm90.cu`` (TMA-fed tiles, wgmma products, a
+producer warp); fp32 forward and dq, and dk/dv in both dtypes, in
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (fp32
+FMAs). The forward streams 64-row K/V tiles past a resident q tile with
+the online softmax in registers; the backward recomputes p from the
+forward's lse, dq in one kernel (a block per q tile, streaming K/V) and
+dk/dv in another (a block per k tile, streaming q/dO), so no [Tq, Tk]
+matrix reaches device memory. Each source says what bounds it on the
+H100.
 
 The public layout is the JAX package's: q, k, v ``[B, T, H, hd]`` in
 and out, lse ``[B, H, Tq]`` fp32, ``kv_mask [B, Tk]`` marking
@@ -19,7 +22,11 @@ before each dot, dO, k and v are widened to fp32, products accumulate in
 fp32 with fp32 p, masked scores are -1e30 and p is zeroed where the
 score is at or below -1e30 / 2 (a fully masked row gives out = 0, lse =
 m + log(1e-30), and zero gradients), dq is scaled once at the end and dk
-is not (q was pre-scaled).
+is not (q was pre-scaled). One exception, bf16 only: the sm90 kernels
+round p (forward) and ds (dq) to bf16 before the second product (P.V,
+dS.K), which the TPU kernels and the plain versions here take in fp32;
+the kernels are held to the plain versions within 2e-2 of the plain
+output's peak, as every bf16 kernel is.
 
 The gradient (``_FlashAttention``, the counterpart of the JAX
 ``custom_vjp`` pair) saves q, k, v, kv_mask, out and lse, and computes
@@ -29,7 +36,8 @@ differentiates the plain attention instead (``_xla_attention_lse``): an
 explicit choice, never a fallback.
 
 Executor: a CUDA tensor launches the kernels (or raises: wrong dtype, an
-unsupported head dim, a failed build); a CPU tensor takes the plain
+unsupported head dim, a bf16 base pointer off the 16 bytes TMA needs, a
+failed build); a CPU tensor takes the plain
 versions, which are also what ``chip_smoke.py`` holds the kernels
 against on the card. Launches are counted in ``launches`` (forward),
 ``launches_dq`` and ``launches_dkv``.
@@ -48,16 +56,24 @@ from parallax_tpu_torch.ops import _cuda
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# pt_flash_fwd(q, k, v, kv_mask, out, lse, B, H, Tq, Tk, hd, scale,
-#              causal, is_bf16, stream)
+# pt_flash_fwd (fp32) and pt_flash_fwd_sm90 (bf16): (q, k, v, kv_mask,
+# out, lse, B, H, Tq, Tk, hd, scale, causal, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-# pt_flash_dq(q, k, v, kv_mask, dout, lse, delta, dq, B, H, Tq, Tk, hd,
-#             scale, causal, is_bf16, stream); pt_flash_dkv takes dk, dv
-_TAIL = ([ctypes.c_int] * 5
-         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-_DQ_ARGTYPES = [ctypes.c_void_p] * 8 + _TAIL
-_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + _TAIL
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# pt_flash_dq (fp32) and pt_flash_dq_sm90 (bf16): (q, k, v, kv_mask, dout,
+# lse, delta, dq, B, H, Tq, Tk, hd, scale, causal, stream)
+_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# pt_flash_dkv(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H, Tq, Tk,
+#              hd, scale, causal, is_bf16, stream)
+_DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
+# (source, launcher) of the forward and dq kernels by input dtype
+_FWD = {torch.float32: ("flash_attention", "pt_flash_fwd"),
+        torch.bfloat16: ("flash_attention_sm90", "pt_flash_fwd_sm90")}
+_DQ = {torch.float32: ("flash_attention_bwd", "pt_flash_dq"),
+       torch.bfloat16: ("flash_attention_sm90", "pt_flash_dq_sm90")}
 
 # kernel launches since the last reset (``launches = 0`` etc.)
 launches = 0        # forward
@@ -201,6 +217,22 @@ def _check_backward_inputs(q, k, v, kv_mask, dout, lse, delta) -> None:
                 f"{x.device}")
 
 
+def _check_tma_inputs(*tensors) -> None:
+    """What the bf16 (TMA) kernels need beyond the common checks: each
+    base pointer on 16 bytes, and at least one key."""
+    q, k = tensors[0], tensors[1]
+    if q.dtype != torch.bfloat16:
+        return
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError(
+                "flash_attention: the bf16 kernels load by TMA, which "
+                "needs each tensor's base 16-byte aligned; got a view at "
+                f"{x.data_ptr():#x} (pass a contiguous copy)")
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention: the bf16 kernels need Tk >= 1")
+
+
 def _mask_ptr(kv_mask):
     return None if kv_mask is None else kv_mask.data_ptr()
 
@@ -214,13 +246,14 @@ def _kernel(q, k, v, causal, scale, kv_mask):
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if B * Tq * H == 0:
         return out, lse
-    fn = _cuda.function("flash_attention", "pt_flash_fwd", _ARGTYPES)
+    _check_tma_inputs(q, k, v)
+    source, symbol = _FWD[q.dtype]
+    fn = _cuda.function(source, symbol, _ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               out.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, hd,
               float(scale), int(bool(causal)),
-              int(q.dtype == torch.bfloat16),
               torch.cuda.current_stream(q.device).cuda_stream)
-    _cuda.check("flash_attention", code, "flash_attention")
+    _cuda.check(source, code, "flash_attention")
     launches += 1
     return out, lse
 
@@ -233,13 +266,15 @@ def _dq_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
     dq = torch.empty_like(q)
     if B * Tq * H == 0:
         return dq
-    fn = _cuda.function("flash_attention_bwd", "pt_flash_dq", _DQ_ARGTYPES)
+    _check_tma_inputs(q, k, v, dout)
+    source, symbol = _DQ[q.dtype]
+    fn = _cuda.function(source, symbol, _DQ_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dq.data_ptr(), B, H, Tq, Tk, hd, float(scale),
-              int(bool(causal)), int(q.dtype == torch.bfloat16),
+              int(bool(causal)),
               torch.cuda.current_stream(q.device).cuda_stream)
-    _cuda.check("flash_attention_bwd", code, "flash_attention dq")
+    _cuda.check(source, code, "flash_attention dq")
     launches_dq += 1
     return dq
 

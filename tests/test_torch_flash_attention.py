@@ -7,6 +7,8 @@ version, the function the CUDA kernel is held to on the card). fp32,
 atol 2e-5: the two sum the same products in another order.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,3 +104,68 @@ def test_scale_applies_in_the_input_dtype():
         out.float().numpy(),
         torch.einsum("bhqk,bkhd->bqhd", ref, vb.float()).numpy(),
         atol=2e-2)
+
+
+# -- the bf16 kernel's rounding points, emulated ---------------------------------
+
+# chip_smoke.py's shapes (B, Tq, Tk, H, hd, causal, mask): the NMT
+# training encoder, T 512 with and without the causal mask, hd 128, and a
+# ragged Tq 100 / Tk 37
+SM90_CASES = {
+    "train_enc": (64, 64, 64, 8, 64, False, "pad"),
+    "t512": (8, 512, 512, 8, 64, False, None),
+    "t512_causal": (8, 512, 512, 8, 64, True, None),
+    "hd128": (4, 256, 256, 4, 128, True, "pad"),
+    "ragged": (2, 100, 37, 8, 64, False, "pad"),
+}
+GPU_BF16_REL = 2e-2     # the card's bf16 tolerance: 2e-2 x the plain peak
+
+
+def _bf16_inputs(B, Tq, Tk, H, hd, mask_kind, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (B, T, H, hd)).astype(np.float32)).bfloat16() for T in (Tq, Tk, Tk))
+    mask = None
+    if mask_kind == "pad":              # each row padded after [16, Tk] keys
+        lengths = rng.integers(min(16, Tk), Tk + 1, B)
+        mask = torch.from_numpy(
+            (np.arange(Tk)[None, :] < lengths[:, None]).astype(np.int32))
+    return q, k, v, mask
+
+
+def _sm90_forward(q, k, v, causal, kv_mask, block_k=64):
+    """The bf16 sm90 forward's arithmetic in plain torch: fp32 scores of
+    the bf16-scaled q, 64-key tiles through the online softmax, row sums of
+    fp32 p, and p rounded to bf16 before P.V."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = tfa._masked_scores((q * scale).to(q.dtype), k, causal, kv_mask)
+    B, H, Tq, Tk = s.shape
+    m = torch.full((B, H, Tq), -1e30)
+    l = torch.zeros((B, H, Tq))
+    acc = torch.zeros((B, H, Tq, q.shape[-1]))
+    for j in range(0, Tk, block_k):
+        st = s[..., j:j + block_k]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        alpha = torch.exp(torch.clamp(m - m_new, max=0.0))
+        p = torch.where(st > -1e30 / 2, torch.exp(st - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.bfloat16().float(),
+            v[:, j:j + block_k].float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", list(SM90_CASES))
+def test_bf16_p_rounding_stays_within_the_gpu_tolerance(case):
+    """The sm90 kernel rounds p to bf16 before P.V where every other
+    version keeps it fp32; at chip_smoke.py's shapes that moves the output
+    well inside the card's bf16 tolerance of the plain version."""
+    B, Tq, Tk, H, hd, causal, mask_kind = SM90_CASES[case]
+    q, k, v, mask = _bf16_inputs(B, Tq, Tk, H, hd, mask_kind)
+    want, _ = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                        kv_mask=mask)
+    got = _sm90_forward(q, k, v, causal, mask)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_BF16_REL * want.float().abs().max().item(), err

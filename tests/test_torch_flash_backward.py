@@ -17,6 +17,7 @@ import torch
 
 from parallax_tpu.ops import pallas_attention as jfa
 from parallax_tpu_torch.ops import flash_attention as tfa
+from test_torch_flash_attention import GPU_BF16_REL, SM90_CASES, _bf16_inputs
 
 ATOL = 2e-5
 RTOL = 1e-5
@@ -179,3 +180,27 @@ def test_kernel_entry_refuses_what_it_does_not_take():
         tfa._dq_kernel(q, q, q, None, q, lse.double(), lse, False, 0.125)
     with pytest.raises(ValueError, match="dO"):
         tfa._dkv_kernel(q, q, q, None, q.bfloat16(), lse, lse, False, 0.125)
+
+
+# -- the bf16 dq kernel's rounding point, emulated --------------------------------
+
+
+@pytest.mark.parametrize("case", list(SM90_CASES))
+def test_bf16_ds_rounding_stays_within_the_gpu_tolerance(case):
+    """The sm90 dq kernel rounds ds to bf16 before dS.K where every other
+    version keeps it fp32; at chip_smoke.py's shapes that moves dq well
+    inside the card's bf16 tolerance of the plain version."""
+    B, Tq, Tk, H, hd, causal, mask_kind = SM90_CASES[case]
+    q, k, v, mask = _bf16_inputs(B, Tq, Tk, H, hd, mask_kind)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, Tq, H, hd)).astype(np.float32)).bfloat16()
+    scale = 1.0 / np.sqrt(hd)
+    out, lse = tfa.flash_attention_plain(q, k, v, causal, scale, mask)
+    delta = tfa.flash_delta(out, dout)
+    want = tfa.flash_dq_plain(q, k, v, mask, dout, lse, delta, causal, scale)
+    _, _, ds = tfa._backward_terms(q, k, v, mask, dout, lse, delta, causal,
+                                   scale)
+    got = (torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(), k.float())
+           * scale).bfloat16()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_BF16_REL * want.float().abs().max().item(), err

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions, on the card.
 
 Ragged and odd shapes the main paths do not reach (Tq and Tk off the
-64-row tile, Tq != Tk under causal masking, hd = 128, fully masked rows
-for the flash forward and backward, G = 2, page sizes
+64-row tile, Tq != Tk under causal masking, hd = 128, more K/V tiles
+than the bf16 kernels' ring has stages (Tk 300 and 1024), fully masked
+rows for the flash forward and backward, G = 2, page sizes
 that do not divide the 128-position chunk; LSTM B, H and P off every
 tile, T = 1, B = 1), fp32 with TF32 off (atol 2e-5; the flash gradients
 2e-5 of max(1, peak), they sum over a whole sequence; the LSTM kernels
@@ -12,10 +13,15 @@ here needs a CUDA card and skips without one; run them on the card
 with ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q``.
 """
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
+from parallax_tpu_torch.ops import _cuda
 from parallax_tpu_torch.ops import flash_attention as fa
 from parallax_tpu_torch.ops import lstm
 from parallax_tpu_torch.ops import paged_attention as pa
@@ -44,6 +50,8 @@ def _close(got, want, dtype):
     (1, 37, 100, 2, 128, True, False),
     (3, 130, 130, 2, 128, True, True),
     (1, 1, 65, 1, 64, False, True),
+    (2, 300, 300, 2, 64, False, True),
+    (1, 1024, 1024, 2, 128, True, False),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, Tq, Tk, H, hd, causal,
                                     masked):
@@ -68,6 +76,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, Tq, Tk, H, hd, causal,
                                rtol=1e-5)
     if masked:
         assert torch.all(out[0] == 0)
+        assert torch.all(lse[0] < -1e29)
 
 
 def _grad_close(got, want, dtype):
@@ -99,6 +108,8 @@ FLASH_BWD_CASES = [
     (3, 130, 130, 2, 128, True, True),
     (1, 1, 65, 1, 64, False, True),
     (2, 65, 64, 2, 64, True, False),
+    (2, 300, 300, 2, 64, False, True),
+    (1, 1024, 1024, 2, 128, True, False),
 ]
 
 
@@ -168,6 +179,81 @@ def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dO"):
         fa.flash_dq(q, q, q, None, q.transpose(1, 2).contiguous()
                     .transpose(1, 2), lse, lse)
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels ``fn`` launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dtype_picks_the_kernel(cuda, dtype):
+    """bf16 forward and dq launch the sm90 (TMA + wgmma) kernels, fp32 the
+    fp32-FMA ones; each call counts one launch either way."""
+    q, k, v, dout, mask = _flash_bwd_inputs(cuda, dtype, 2, 64, 64, 2, 64,
+                                            True)
+    out, lse = fa.flash_attention_plain(q, k, v, kv_mask=mask)
+    delta = fa.flash_delta(out, dout)
+    before = (fa.launches, fa.launches_dq)
+    names = _kernel_names(lambda: (
+        fa.flash_attention_lse(q, k, v, kv_mask=mask),
+        fa.flash_dq(q, k, v, mask, dout, lse, delta)))
+    assert (fa.launches, fa.launches_dq) == tuple(n + 1 for n in before)
+    for kernel in ("flash_fwd_kernel", "flash_dq_kernel"):
+        sm90 = [n for n in names if f"{kernel}_sm90" in n]
+        fp32 = [n for n in names if kernel in n and "sm90" not in n]
+        assert (len(sm90), len(fp32)) == \
+            ((1, 0) if dtype == torch.bfloat16 else (0, 1)), names
+
+
+def test_flash_bf16_refuses_a_misaligned_view(cuda):
+    """TMA needs each base pointer on 16 bytes: a contiguous view that
+    starts one element in raises instead of launching anything."""
+    shape = (1, 64, 2, 64)
+    flat = torch.zeros(int(np.prod(shape)) + 1, device=cuda,
+                       dtype=torch.bfloat16)
+    bad = flat[1:].view(shape)
+    good = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    before = (fa.launches, fa.launches_dq)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(bad, good, good)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_dq(good, good, good, None, bad, lse, lse)
+    assert (fa.launches, fa.launches_dq) == before
+
+
+def _cuobjdump():
+    tool = shutil.which("cuobjdump")
+    if tool is None and os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        tool = "/usr/local/cuda/bin/cuobjdump"
+    if tool is None:
+        pytest.skip("cuobjdump not found (PATH, /usr/local/cuda/bin)")
+    return tool
+
+
+def test_flash_sm90_kernels_use_tma_and_wgmma(cuda):
+    """The built library's SASS: both kernels (at hd 64 and 128) issue
+    HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    _cuda.library("flash_attention_sm90")
+    sass = subprocess.run(
+        [_cuobjdump(), "-sass",
+         str(_cuda.library_path("flash_attention_sm90"))],
+        capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for part in sass.split("Function : ")[1:]:
+        functions[part.split("\n", 1)[0].strip()] = part
+    for kernel in ("flash_fwd_kernel_sm90", "flash_dq_kernel_sm90"):
+        bodies = [b for name, b in functions.items() if kernel in name]
+        assert len(bodies) == 2, (kernel, list(functions))   # hd 64, 128
+        for body in bodies:
+            assert "HGMMA" in body and "UTMALDG" in body, kernel
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
