@@ -24,9 +24,9 @@ beside it. Phases:
    that computes the same function where there is one
    (``scaled_dot_product_attention`` for the flash forward), the
    bound from the H100 SXM data sheet and, for the flash kernels, the
-   achieved TF/s (operations over device time). bf16 flash forward and
-   dq run the sm90 kernels (TMA + wgmma), fp32 the first kernels; the
-   T 2048 cases (B 2, H 8, hd 64, causal and not) run in bf16 only.
+   achieved TF/s (operations over device time). bf16 flash forward, dq
+   and dk/dv run the sm90 kernels (TMA + wgmma), fp32 the first kernels;
+   the T 2048 cases (B 2, H 8, hd 64, causal and not) run in bf16 only.
 3. Serve: NMT at its published widths (``NMTConfig()``: vocab 32000,
    model 512, 8 heads, MLP 2048, 6+6 layers, bf16, flash encoder
    attention) with random weights from a fixed seed, behind
@@ -74,8 +74,8 @@ beside it. Phases:
    attentions), the paged kernel none. Losses finite and falling; the
    classifier finds ``emb`` alone sparse. Then 5 steps under the
    profiler, which must show ``flash_fwd_kernel_sm90``,
-   ``flash_dq_kernel_sm90`` and ``flash_dkv_kernel`` and no first
-   forward or dq kernel.
+   ``flash_dq_kernel_sm90`` and ``flash_dkv_kernel_sm90`` and no first
+   forward, dq or dk/dv kernel.
 9. NMT train agreement: 3 steps in fp32 (TF32 off) from the same weights
    through the flash kernels and through the plain attention with
    autograd; per-step losses within 1e-4 relative.
@@ -181,15 +181,16 @@ def device_ms(torch, fn, kernel_name: str, calls: int = 10):
 def flash_kernels_seen(rows, want):
     """{kernel name: launches} of the flash kernels in a profile's rows
     ``(us, count, name)``; raises unless every name in ``want`` launched
-    and no first (fp32-FMA) forward or dq kernel did, which on a bf16 path
-    would mean a fallback."""
+    and no first (fp32-FMA) flash kernel did, which on a bf16 path would
+    mean a fallback."""
     seen = {}
     for _, n, key in rows:
         m = re.search(r"flash_\w+kernel\w*", key)
         if m:
             seen[m.group(0)] = seen.get(m.group(0), 0) + n
     missing = [w for w in want if w not in seen]
-    stale = [k for k in seen if k in ("flash_fwd_kernel", "flash_dq_kernel")]
+    stale = [k for k in seen if k in ("flash_fwd_kernel", "flash_dq_kernel",
+                                      "flash_dkv_kernel")]
     if missing or stale:
         raise AssertionError(f"profile flash kernels {seen}: missing "
                              f"{missing}, first kernels {stale}")
@@ -265,10 +266,8 @@ BF16_ONLY = ("t2048", "t2048_causal")
 
 def flash_kernel_name(kernel, dtype_name):
     """The CUDA kernel a flash wrapper launches for the dtype: the sm90
-    (TMA + wgmma) kernels in bf16, except dk/dv."""
-    if dtype_name == "bfloat16" and kernel != "flash_dkv_kernel":
-        return f"{kernel}_sm90"
-    return kernel
+    (TMA + wgmma) kernels in bf16, the first kernels in fp32."""
+    return f"{kernel}_sm90" if dtype_name == "bfloat16" else kernel
 
 
 def tflops(r):
@@ -1272,7 +1271,7 @@ def phase_nmt_train(torch):
     profile = profile_train(
         torch, sess, batches, label="nmt-train-profile",
         flash=["flash_fwd_kernel_sm90", "flash_dq_kernel_sm90",
-               "flash_dkv_kernel"])
+               "flash_dkv_kernel_sm90"])
     sess.close()
     torch.cuda.empty_cache()
     return summary, profile
@@ -1318,8 +1317,7 @@ def kernel_line(results, launches):
             sm90_src, "parallax_tpu/ops/pallas_attention.py:298",
             "train_enc"),
         "flash_attention_dkv": (
-            "parallax_tpu_torch/csrc/flash_attention_bwd.cu",
-            "parallax_tpu/ops/pallas_attention.py:326",
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:326",
             "train_enc"),
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",

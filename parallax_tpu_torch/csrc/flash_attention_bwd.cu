@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a): dq and dk/dv.
+// Flash-attention backward for Hopper (sm_90a) in fp32: dq and dk/dv.
 //
 // Replaces the two TPU backward kernels of
 // parallax_tpu/ops/pallas_attention.py, launched by `_flash_backward`:
@@ -16,21 +16,19 @@
 //   * dq = scale * sum_k ds.k, rounded to q's dtype once; dk = sum_q ds.(scale
 //     q) is written unscaled (q was pre-scaled), dv = sum_q p.dO.
 // Inputs and outputs keep the public [B, T, H, hd] layout (the kernels walk
-// the strides); lse and delta are [B, H, Tq] fp32. fp32 and bf16 inputs to
-// dk/dv, fp32 to dq (bf16 dq is the wgmma kernel of
-// flash_attention_sm90.cu); hd in {64, 128}, any Tq / Tk (the ragged tile
-// edge is masked). `causal` is the top-left aligned tril of the forward: q
-// row i sees keys j <= i.
+// the strides); lse and delta are [B, H, Tq] fp32. fp32 inputs only: bf16
+// dq and dk/dv are the wgmma kernels of flash_attention_sm90.cu; hd in
+// {64, 128}, any Tq / Tk (the ragged tile edge is masked). `causal` is the
+// top-left aligned tril of the forward: q row i sees keys j <= i.
 //
 // Two kernels and no atomics: dq is reduced over the k tiles inside one
 // block, dk and dv over the q tiles inside another, each in a fixed order,
 // so the gradients are bitwise the same from run to run.
 //
 // What bounds it on the H100: dq does three products of 2*Tq*Tk*hd
-// operations per (batch, head), dk/dv four; over 989 TF/s bf16 (data
-// sheet) that is a few microseconds at the NMT training shape (B 64, T 64,
-// H 8, hd 64), where the q/k/v/dO bytes over 3.35 TB/s are of the same
-// order. These first kernels, like the forward, do not reach for the
+// operations per (batch, head), dk/dv four; over 67 TF/s fp32 outside the
+// tensor cores (data sheet) that is about 0.1 ms at T 512 (B 8, H 8, hd
+// 64), where the q/k/v/dO bytes over 3.35 TB/s take a tenth of that. These first kernels, like the forward, do not reach for the
 // tensor cores: their dots are fp32 FMAs on the CUDA cores out of shared
 // memory, which keeps fp32 results within 2e-5 of the plain version and
 // keeps the code short; the shared-memory reads that feed each FMA are what
@@ -38,11 +36,10 @@
 // device memory, as the TPU kernels do: dq streams 64-row K/V tiles past a
 // resident q/dO tile and stops at the last tile the causal diagonal reaches;
 // dk/dv streams 64-row q/dO tiles past a resident K/V tile, starting at the
-// first q tile that reaches the diagonal. bf16 dq runs on wgmma with
-// TMA-fed tiles (flash_attention_sm90.cu); moving dk/dv there is later
-// work.
+// first q tile that reaches the diagonal. A wgmma on fp32 operands is
+// TF32, about 3 decimal digits, which would break the fp32 contract; bf16
+// runs on wgmma with TMA-fed tiles instead (flash_attention_sm90.cu).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -52,18 +49,12 @@ constexpr int BQ = 64;   // q rows per tile
 constexpr int BK = 64;   // k/v rows per tile
 constexpr int NT = 128;  // threads per block: two per resident row
 
+// the element type's widening and rounding (identities for fp32)
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // p, zeroed where the (masked) score is at or below -1e30 / 2
 __device__ __forceinline__ float prob(float s, bool ok, float lse) {
@@ -381,16 +372,13 @@ extern "C" int pt_flash_dkv(const void* q, const void* k, const void* v,
                             const void* kv_mask, const void* dout,
                             const void* lse, const void* delta, void* dk,
                             void* dv, int B, int H, int Tq, int Tk, int hd,
-                            float scale, int causal, int is_bf16,
-                            void* stream) {
+                            float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_DKV(T, HD)                                                       \
-  launch_dkv<T, HD>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H, Tq, \
-                    Tk, scale, causal, st)
-  if (hd == 64)
-    return is_bf16 ? PT_DKV(__nv_bfloat16, 64) : PT_DKV(float, 64);
-  if (hd == 128)
-    return is_bf16 ? PT_DKV(__nv_bfloat16, 128) : PT_DKV(float, 128);
+#define PT_DKV(HD)                                                            \
+  launch_dkv<float, HD>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H, Tq, \
+                        Tk, scale, causal, st)
+  if (hd == 64) return PT_DKV(64);
+  if (hd == 128) return PT_DKV(128);
 #undef PT_DKV
   return (int)cudaErrorInvalidValue;
 }

@@ -1,40 +1,51 @@
-// Flash-attention forward (B4) and dq (B5) in bf16 for Hopper (sm_90a):
-// TMA-fed tiles, wgmma products, a producer and a consumer warpgroup.
+// Flash-attention forward (B4), dq (B5) and dk/dv (B6) in bf16 for Hopper
+// (sm_90a): TMA-fed tiles, wgmma products, a producer warp and a consumer
+// warpgroup.
 //
 // Replaces, for bf16 inputs, the TPU kernels of
 // parallax_tpu/ops/pallas_attention.py:
 //   * pt_flash_fwd_sm90 <- `_flash_fwd_kernel` (line 46; pl.pallas_call at
 //     line 141);
 //   * pt_flash_dq_sm90  <- `_flash_dq_kernel`  (line 160; pl.pallas_call at
-//     line 298).
+//     line 298);
+//   * pt_flash_dkv_sm90 <- `_flash_dkv_kernel` (line 208; pl.pallas_call at
+//     line 326).
 // fp32 inputs stay on csrc/flash_attention.cu and csrc/flash_attention_bwd.cu
 // (fp32 FMAs): a wgmma on fp32 operands is TF32, about 3 decimal digits.
 //
 // Same function as those kernels: q is multiplied by `scale` in bf16 before
 // every dot; masked scores (kv_mask == 0, causal k > q, the ragged Tk edge)
 // are -1e30 and their p is zeroed where the score is at or below -1e30 / 2;
-// a row with no key gives out = 0, lse = m + log(1e-30) and dq = 0; dq is
-// scaled once at the end and rounded once to bf16. Two rounding points are
-// new and bf16-only: p (forward) and ds (dq) are rounded to bf16 before the
-// second product (O += P.V, dq += dS.K), which the TPU kernels take in fp32
-// (pallas_attention.py:91 and :202). The row sums l of the forward stay
-// sums of fp32 p. The plain versions in ops/flash_attention.py keep fp32 p
-// and ds; the kernels are held to them within 2e-2 of the plain peak.
+// a row with no key gives out = 0, lse = m + log(1e-30) and dq = 0, a key
+// with kv_mask 0 dk = dv = 0; dq is scaled once at the end, dk is not (q
+// was pre-scaled); each output is rounded once to bf16. Rounding points
+// that are new and bf16-only: p (forward, dk/dv) and ds (dq, dk/dv) are
+// rounded to bf16 before the second product (O += P.V, dq += dS.K, dV +=
+// P^T.dO, dK += dS^T.q^), which the TPU kernels take in fp32
+// (pallas_attention.py:91, :202, :251-258). The row sums l of the forward
+// stay sums of fp32 p. dk/dv also folds `scale` into its fp32 products
+// instead of rounding q^ = bf16(q scale): its scores are scale (K.q^T) and
+// its dK is scale (dS^T.q). At hd 64 scale is 2^-3, so the fold gives the
+// same bits; at hd 128 (scale 2^-3.5) it skips q^'s rounding, one more
+// rounding point. The plain versions in ops/flash_attention.py keep fp32 p
+// and ds and the rounded q^; the kernels are held to them within 2e-2 of
+// the plain peak.
 //
 // Layout: q, k, v, dO are [B, T, H, hd] bf16, contiguous, base 16-byte
 // aligned (TMA); lse and delta [B, H, Tq] fp32; kv_mask [B, Tk] int32 or
-// null; hd in {64, 128}; any Tq, Tk >= 1; causal is the top-left tril.
+// null; hd in {64, 128}; any Tq, Tk >= 1 (dk/dv also Tq 0); causal is the
+// top-left tril.
 //
-// Design. One block per (64-row q tile, head, batch), 256 threads: warpgroup
-// 0 consumes, warpgroup 1 produces (one thread issues every TMA load, then
-// the warpgroup gives its registers to the consumer with setmaxnreg). Every
-// operand has one tensor map over the 4-D view (hd, H, T, B) of its
-// [B, T, H, hd] tensor, box (64, 1, 64, 1) with the 128-byte swizzle: a
-// 64-row tile is one box at hd 64 and two at hd 128 (a box's inner
-// dimension is at most 128 bytes under that swizzle). The producer loads
-// the q tile (and the dO tile for dq) once, then streams 64-row K/V tiles
-// into a ring (3 stages at hd 64, 2 at hd 128) guarded by full/empty
-// mbarrier pairs; loads of tile j+1 run while the
+// Design of B4 and B5. One block per (64-row q tile, head, batch), 256
+// threads: warpgroup 0 consumes, warpgroup 1 produces (one thread issues
+// every TMA load, then the warpgroup gives its registers to the consumer
+// with setmaxnreg). Every operand has one tensor map over the 4-D view
+// (hd, H, T, B) of its [B, T, H, hd] tensor, box (64, 1, 64, 1) with the
+// 128-byte swizzle: a 64-row tile is one box at hd 64 and two at hd 128 (a
+// box's inner dimension is at most 128 bytes under that swizzle). The
+// producer loads the q tile (and the dO tile for dq) once, then streams
+// 64-row K/V tiles into a ring (3 stages at hd 64, 2 at hd 128) guarded by
+// full/empty mbarrier pairs; loads of tile j+1 run while the
 // consumer multiplies tile j. TMA's zero fill covers the ragged Tk and Tq
 // edges; the mask still sets those scores to -1e30. The consumer scales
 // its q tile in shared memory, then for each K/V tile:
@@ -55,24 +66,55 @@
 // its q tile's dq and sums the K tiles in order, so it is bitwise
 // repeatable. Causal blocks stop at the last K tile the diagonal reaches.
 //
-// Tiling by shape: every shape takes 64-row q tiles and 64-row K/V tiles,
-// one consumer warpgroup per block. The main paths' shapes (serving B 1 and
-// NMT training B 64, both T 64, H 8, hd 64) give blocks that hold one q
-// tile and see one K tile: one load of each operand, two (forward) or
-// three (dq) wgmma batches. T 512 gives 8 K tiles per block, T 2048 32,
-// where the ring's steady state shows.
+// Design of B6, the same parts with the roles swapped: one block per (head,
+// batch, 64-row K/V tile), the K tile slowest so that under causal the blocks
+// with the most q tiles start first, keeps its K and V tiles resident (one TMA
+// load each) and streams 64-row q and dO tiles through a 4-stage ring, with
+// each stage's lse (times log2 e) and delta beside them. lse and delta cannot
+// ride TMA (a map over [B, H, Tq] fp32 needs Tq 4 to be a multiple of 16), so
+// the producer warp's 32 lanes load them with plain loads into the stage and
+// count on its full barrier (33 arrivals: lane 0's first, with the TMA bytes,
+// before the loads, then one from every lane after its stores). The consumer
+// computes the transposed scores directly, rows k and columns q, so nothing is
+// transposed through shared memory: S^T = K.q^T and dP^T = V.dO^T
+// (shared-memory wgmmas, K-major), P^T = exp(scale S^T - lse[col]) and dS^T =
+// P^T (dP^T - delta[col]) in registers, then dV += P^T.dO and dK += dS^T.q (P^T
+// and dS^T from registers in bf16, dO and q as stored, the MN-major B operand).
+// Masks in that layout: kv_mask and the Tk edge depend on the row only, so a
+// block computes them once and writes zeros for its masked rows at the end (a
+// row's sums depend on that row of P^T and dS^T alone); the Tq edge and causal
+// are per column, applied only on the tiles that need them (the last, ragged q
+// tile; under causal the diagonal tile, the first the block sees: earlier q
+// tiles see none of its keys). TMA's zero fill at the Tq edge gives q = 0, so s
+// = 0 and p = exp(-lse) there, not 0: the column mask zeroes it. dk and dv have
+// no atomics: one block owns its K/V tile and sums the q tiles in order. B6
+// uses no setmaxnreg: 160 threads (the consumer warpgroup and one producer
+// warp) under __launch_bounds__(160, 2) at hd 64 give each thread up to 200
+// registers (dK, dV, S^T and dP^T live together: 4 x 32 fp32 a thread), two
+// blocks per SM; at hd 128 (dK and dV alone take 128) one block per SM and up
+// to 255.
+//
+// Tiling by shape: every shape takes 64-row tiles, one consumer warpgroup
+// per block. The main paths' shapes (serving B 1 and NMT training B 64,
+// both T 64, H 8, hd 64) give blocks that hold one tile and see one tile
+// of the other side: one load of each operand, two (forward), three (dq)
+// or four (dk/dv) wgmma batches; B64 H8 is 512 blocks, two waves at two
+// blocks per SM. T 512 gives 8 streamed tiles per block, T 2048 32, where
+// the ring's steady state shows.
 //
 // What bounds it on the H100: 4 B H Tq Tk hd operations (forward; 6 for
-// dq) over 989 TF/s bf16, against the q/k/v/out bytes over 3.35 TB/s. At
-// T 512 (B 8, H 8, hd 64) the two bounds are about 4 and 5 us; at T 64 the
-// bytes bound. This design runs each tile's products and its softmax one
-// after the other within the warpgroup, so the softmax's instructions and
-// the wgmma latency, not the tensor cores, set the pace: two blocks per SM
-// (128 registers a thread) overlap one block's softmax with the other's
+// dq, 8 for dk/dv) over 989 TF/s bf16, against the q/k/v/out bytes over
+// 3.35 TB/s. At T 512 (B 8, H 8, hd 64) the two bounds are about 4 and 5
+// us (dk/dv: 9 us of operations); at T 64 the bytes bound. This design
+// runs each tile's products and its elementwise pass one after the other
+// within the warpgroup, so the elementwise instructions and the wgmma
+// latency, not the tensor cores, set the pace: two blocks per SM (B4 and
+// B5: 128 registers a thread) overlap one block's softmax with the other's
 // products, tiles that every row sees whole skip the mask, and exp runs as
-// ex2 on the special-function unit. ptxas compiles the consumer for the
-// launch bound's 128 registers whatever setmaxnreg grants it, so dq at hd
-// 128 (S, dP and a 64 x 128 accumulator live together) spills a little.
+// ex2 on the special-function unit. ptxas compiles B4's and B5's consumer
+// for the launch bound's 128 registers whatever setmaxnreg grants it, so
+// dq at hd 128 (S, dP and a 64 x 128 accumulator live together) spills a
+// little.
 
 #include <cuda.h>          // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
@@ -665,6 +707,182 @@ __global__ void __launch_bounds__(NT, kBlocksPerSM) flash_dq_kernel_sm90(
   }
 }
 
+// B6's shared memory: K and V resident, the q/dO ring, each stage's lse
+// (base 2) and delta of its 64 q rows, then the barriers: full[stages],
+// empty[stages], kv. Two blocks per SM at hd 64 (83 KB each), one at 128.
+template <int HD>
+struct DkvLayout {
+  static constexpr int kStages = 4;
+  static constexpr int kBlocksPerSM = HD == 64 ? 2 : 1;
+  static constexpr int kTile = (HD / 64) * kBox;
+  static constexpr int kRows = (2 + 2 * kStages) * kTile;   // lse / delta
+  static constexpr int kBars = kRows + kStages * 2 * BQ * 4;
+  static constexpr size_t kBytes = 1024 + kBars + 8 * (2 * kStages + 1);
+};
+constexpr int kDkvThreads = kConsumers + 32;   // + one producer warp
+
+// B6: one block per (head, batch, 64-row K/V tile); dk and dv summed over the
+// q tiles in order inside the block.
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, DkvLayout<HD>::kBlocksPerSM)
+    flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const int* __restrict__ kv_mask,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int H, int Tq,
+                          int Tk, float scale, int causal) {
+  using L = DkvLayout<HD>;
+  constexpr int S = L::kStages, TILE = L::kTile;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sK = smem_u32(smem);
+  const uint32_t sV = sK + TILE;
+  const uint32_t sRing = sV + TILE;  // stage s: q at 2s tiles, dO after it
+  // stage s: lse2 (lse log2 e) of its q rows at 2 BQ s, delta after it
+  float* rows = reinterpret_cast<float*>(smem + L::kRows);
+  const uint32_t bars = sK + L::kBars;
+  const uint32_t kv_bar = bars + 16 * S;
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 33);   // lane 0 twice, lanes 1-31 once
+      mbar_init(bars + 8 * (S + s), kConsumers);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // q tiles wholly before this K tile's diagonal see none of its keys
+  const int q_lo = causal ? (kt * BK) / BQ : 0;
+  const int n_q = max((Tq + BQ - 1) / BQ - q_lo, 0);
+
+  if (tid >= kConsumers) {  // producer warp
+    const int lane = tid - kConsumers;
+    if (n_q > 0 && lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * TILE);
+      load_tile<HD>(sK, &tm_k, kv_bar, h, kt * BK, b);
+      load_tile<HD>(sV, &tm_v, kv_bar, h, kt * BK, b);
+    }
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % S, qt = q_lo + j;
+      mbar_wait(bars + 8 * (S + s), ((j / S) & 1) ^ 1);
+      const uint32_t full = bars + 8 * s;
+      if (lane == 0) {   // the TMA loads first: the plain loads overlap them
+        mbar_expect_tx(full, 2 * TILE);
+        load_tile<HD>(sRing + 2 * s * TILE, &tm_q, full, h, qt * BQ, b);
+        load_tile<HD>(sRing + (2 * s + 1) * TILE, &tm_do, full, h, qt * BQ,
+                      b);
+      }
+      float* st = rows + 2 * BQ * s;
+#pragma unroll
+      for (int half = 0; half < BQ / 32; ++half) {
+        const int c = lane + 32 * half;
+        const int qpos = qt * BQ + c;
+        const long row = ((long)b * H + h) * Tq + qpos;
+        st[c] = qpos < Tq ? lse[row] * kLog2e : 0.f;
+        st[BQ + c] = qpos < Tq ? delta[row] : 0.f;
+      }
+      mbar_arrive(full);   // releases this lane's lse / delta stores
+    }
+  } else {  // consumer warpgroup
+    const int lane = tid % 32;
+    const int r0 = (tid / 32) * 16 + lane / 4;   // k rows r0 and r0 + 8
+    const int kpos[2] = {kt * BK + r0, kt * BK + r0 + 8};
+    bool key_ok[2];   // inside Tk, kv_mask > 0: dk and dv are not zeroed
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      key_ok[hh] = kpos[hh] < Tk && (kv_mask == nullptr ||
+                                     kv_mask[(long)b * Tk + kpos[hh]] > 0);
+    const float c2 = scale * kLog2e;              // scale folded into ex2
+    float ak[HD / 2], av[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) ak[i] = av[i] = 0.f;
+    if (n_q > 0) mbar_wait(kv_bar, 0);
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % S, qt = q_lo + j;
+      // the ragged Tq edge, or (causal) a key past some column's q position
+      const bool masked = (qt + 1) * BQ > Tq ||
+                          (causal && qt * BQ < (kt + 1) * BK - 1);
+      const uint32_t sQ = sRing + 2 * s * TILE, sO = sQ + TILE;
+      mbar_wait(bars + 8 * s, (j / S) & 1);
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      pin(st);
+      pin(dpt);
+      wg_fence();
+      product_nt<HD>(st, sK, sQ);    // S^T / scale
+      product_nt<HD>(dpt, sV, sO);   // dP^T
+      wg_commit();
+      wg_wait_all();
+      pin(st);
+      pin(dpt);
+
+      const float* lse2 = rows + 2 * BQ * s;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * i + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(lse2 + BQ + col);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * i + 2 * hh + e;
+            float p = ex2(fmaf(st[x], c2, -(e ? l2.y : l2.x)));
+            if (masked) {
+              const int qpos = qt * BQ + col + e;
+              const bool ok = qpos < Tq && (!causal || kpos[hh] <= qpos);
+              p = ok ? p : 0.f;
+            }
+            st[x] = p;
+            dpt[x] = p * (dpt[x] - (e ? d2.y : d2.x));   // ds
+          }
+        }
+      }
+      uint32_t pf[4][4], dsf[4][4];
+      to_fragments(st, pf);
+      to_fragments(dpt, dsf);
+
+      pin(av);
+      pin(ak);
+      wg_fence();
+      product_nn<HD>(av, pf, sO);    // dV += P^T.dO
+      product_nn<HD>(ak, dsf, sQ);   // dK += dS^T.q
+      wg_commit();
+      wg_wait_all();
+      pin(av);
+      pin(ak);
+      mbar_arrive(bars + 8 * (S + s));  // this thread is done with stage s
+    }
+
+    const long rs = (long)H * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (kpos[hh] >= Tk) continue;
+      const long off = ((long)b * Tk + kpos[hh]) * rs + (long)h * HD;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        const int col = 8 * i + 2 * (lane % 4);
+        const int x = 4 * i + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+            key_ok[hh]
+                ? __floats2bfloat162_rn(ak[x] * scale, ak[x + 1] * scale)
+                : __floats2bfloat162_rn(0.f, 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+            key_ok[hh] ? __floats2bfloat162_rn(av[x], av[x + 1])
+                       : __floats2bfloat162_rn(0.f, 0.f);
+      }
+    }
+  }
+}
+
 // -- host ---------------------------------------------------------------------
 
 // cuTensorMapEncodeTiled belongs to libcuda, which this library does not
@@ -714,22 +932,24 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int T, int H,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Shared memory past 48 KB, and a check of the register count the kernel
-// starts with: two blocks of 256 threads give each thread 128 registers,
-// and setmaxnreg moves 128 * (128 - 40) of them from the producer
-// warpgroup to the consumer warpgroup (216 = 128 + 88), which only
-// balances at 128; a consumer waiting on registers no one frees would
-// hang. Done once per kernel (the launchers keep the result).
-constexpr int kEntryRegs = 128;
+// Shared memory past 48 KB, and, for a kernel that moves registers with
+// setmaxnreg (B4, B5), a check of the register count it starts with: two
+// blocks of 256 threads give each thread 128 registers, and setmaxnreg
+// moves 128 * (128 - 40) of them from the producer warpgroup to the
+// consumer warpgroup (216 = 128 + 88), which only balances at 128; a
+// consumer waiting on registers no one frees would hang. B6 uses no
+// setmaxnreg (entry_regs 0: no check). Done once per kernel (the launchers
+// keep the result).
+constexpr int kSetmaxnregEntry = 128;
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
+cudaError_t prepare(Kernel kernel, size_t smem, int entry_regs) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || entry_regs == 0) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  return attr.numRegs == kEntryRegs ? cudaSuccess
+  return attr.numRegs == entry_regs ? cudaSuccess
                                     : cudaErrorInvalidKernelImage;
 }
 
@@ -744,7 +964,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   if ((err = make_map(&mk, k, B, Tk, H, HD)) != cudaSuccess) return err;
   if ((err = make_map(&mv, v, B, Tk, H, HD)) != cudaSuccess) return err;
   const size_t smem = Layout<HD, 1>::kBytes;
-  static const cudaError_t ready = prepare(flash_fwd_kernel_sm90<HD>, smem);
+  static const cudaError_t ready =
+      prepare(flash_fwd_kernel_sm90<HD>, smem, kSetmaxnregEntry);
   if (ready != cudaSuccess) return ready;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel_sm90<HD><<<grid, NT, smem, stream>>>(
@@ -766,13 +987,43 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   if ((err = make_map(&mv, v, B, Tk, H, HD)) != cudaSuccess) return err;
   if ((err = make_map(&mo, dout, B, Tq, H, HD)) != cudaSuccess) return err;
   const size_t smem = Layout<HD, 2>::kBytes;
-  static const cudaError_t ready = prepare(flash_dq_kernel_sm90<HD>, smem);
+  static const cudaError_t ready =
+      prepare(flash_dq_kernel_sm90<HD>, smem, kSetmaxnregEntry);
   if (ready != cudaSuccess) return ready;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_dq_kernel_sm90<HD><<<grid, NT, smem, stream>>>(
       mq, mk, mv, mo, static_cast<const int*>(kv_mask),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), H, Tq, Tk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* kv_mask, const void* dout, const void* lse,
+                       const void* delta, void* dk, void* dv, int B, int H,
+                       int Tq, int Tk, float scale, int causal,
+                       cudaStream_t stream) {
+  CUtensorMap mq{}, mk, mv, mo{};
+  cudaError_t err;
+  if (Tq > 0) {   // with no q row no block reads q or dO
+    if ((err = make_map(&mq, q, B, Tq, H, HD)) != cudaSuccess) return err;
+    if ((err = make_map(&mo, dout, B, Tq, H, HD)) != cudaSuccess) return err;
+  }
+  if ((err = make_map(&mk, k, B, Tk, H, HD)) != cudaSuccess) return err;
+  if ((err = make_map(&mv, v, B, Tk, H, HD)) != cudaSuccess) return err;
+  const size_t smem = DkvLayout<HD>::kBytes;
+  static const cudaError_t ready =
+      prepare(flash_dkv_kernel_sm90<HD>, smem, 0);
+  if (ready != cudaSuccess) return ready;
+  // the K tile is the slowest grid dimension: under causal the first K
+  // tiles see the most q tiles, and their blocks start first
+  const dim3 grid(H, B, (Tk + BK - 1) / BK);
+  flash_dkv_kernel_sm90<HD><<<grid, kDkvThreads, smem, stream>>>(
+      mq, mk, mv, mo, static_cast<const int*>(kv_mask),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
+      Tq, Tk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -804,6 +1055,22 @@ extern "C" int pt_flash_dq_sm90(const void* q, const void* k, const void* v,
   if (hd == 128)
     return launch_dq<128>(q, k, v, kv_mask, dout, lse, delta, dq, B, H, Tq,
                           Tk, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int pt_flash_dkv_sm90(const void* q, const void* k, const void* v,
+                                 const void* kv_mask, const void* dout,
+                                 const void* lse, const void* delta, void* dk,
+                                 void* dv, int B, int H, int Tq, int Tk,
+                                 int hd, float scale, int causal,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch_dkv<64>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H,
+                          Tq, Tk, scale, causal, st);
+  if (hd == 128)
+    return launch_dkv<128>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H,
+                           Tq, Tk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,16 +3,15 @@ versions and the gradient that joins them.
 
 Replaces ``parallax_tpu/ops/pallas_attention.py``: the forward TPU
 kernel ``_flash_fwd_kernel`` and the two backward ones,
-``_flash_dq_kernel`` and ``_flash_dkv_kernel``. bf16 forward and dq run
-in ``csrc/flash_attention_sm90.cu`` (TMA-fed tiles, wgmma products, a
-producer warp); fp32 forward and dq, and dk/dv in both dtypes, in
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (fp32
-FMAs). The forward streams 64-row K/V tiles past a resident q tile with
-the online softmax in registers; the backward recomputes p from the
-forward's lse, dq in one kernel (a block per q tile, streaming K/V) and
-dk/dv in another (a block per k tile, streaming q/dO), so no [Tq, Tk]
-matrix reaches device memory. Each source says what bounds it on the
-H100.
+``_flash_dq_kernel`` and ``_flash_dkv_kernel``. bf16 forward, dq and
+dk/dv run in ``csrc/flash_attention_sm90.cu`` (TMA-fed tiles, wgmma
+products, a producer warp); fp32 in ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu`` (fp32 FMAs). The forward streams 64-row
+K/V tiles past a resident q tile with the online softmax in registers;
+the backward recomputes p from the forward's lse, dq in one kernel (a
+block per q tile, streaming K/V) and dk/dv in another (a block per k
+tile, streaming q/dO), so no [Tq, Tk] matrix reaches device memory.
+Each source says what bounds it on the H100.
 
 The public layout is the JAX package's: q, k, v ``[B, T, H, hd]`` in
 and out, lse ``[B, H, Tq]`` fp32, ``kv_mask [B, Tk]`` marking
@@ -22,11 +21,14 @@ before each dot, dO, k and v are widened to fp32, products accumulate in
 fp32 with fp32 p, masked scores are -1e30 and p is zeroed where the
 score is at or below -1e30 / 2 (a fully masked row gives out = 0, lse =
 m + log(1e-30), and zero gradients), dq is scaled once at the end and dk
-is not (q was pre-scaled). One exception, bf16 only: the sm90 kernels
-round p (forward) and ds (dq) to bf16 before the second product (P.V,
-dS.K), which the TPU kernels and the plain versions here take in fp32;
-the kernels are held to the plain versions within 2e-2 of the plain
-output's peak, as every bf16 kernel is.
+is not (q was pre-scaled). Exceptions, bf16 only: the sm90 kernels
+round p (forward, dk/dv) and ds (dq, dk/dv) to bf16 before the second
+product (P.V, dS.K, Pᵀ.dO, dSᵀ.q̂), which the TPU kernels and the plain
+versions here take in fp32; and dk/dv folds ``scale`` into its fp32
+products (scores scale·(K.qᵀ), dK scale·(dSᵀ.q)) instead of rounding q̂,
+which gives the same bits at hd 64 (scale 2⁻³) and skips q̂'s rounding at
+hd 128. The kernels are held to the plain versions within 2e-2 of the
+plain output's peak, as every bf16 kernel is.
 
 The gradient (``_FlashAttention``, the counterpart of the JAX
 ``custom_vjp`` pair) saves q, k, v, kv_mask, out and lse, and computes
@@ -64,16 +66,17 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 # lse, delta, dq, B, H, Tq, Tk, hd, scale, causal, stream)
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# pt_flash_dkv(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H, Tq, Tk,
-#              hd, scale, causal, is_bf16, stream)
+# pt_flash_dkv (fp32) and pt_flash_dkv_sm90 (bf16): (q, k, v, kv_mask,
+# dout, lse, delta, dk, dv, B, H, Tq, Tk, hd, scale, causal, stream)
 _DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p])
-# (source, launcher) of the forward and dq kernels by input dtype
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# (source, launcher) of the forward, dq and dk/dv kernels by input dtype
 _FWD = {torch.float32: ("flash_attention", "pt_flash_fwd"),
         torch.bfloat16: ("flash_attention_sm90", "pt_flash_fwd_sm90")}
 _DQ = {torch.float32: ("flash_attention_bwd", "pt_flash_dq"),
        torch.bfloat16: ("flash_attention_sm90", "pt_flash_dq_sm90")}
+_DKV = {torch.float32: ("flash_attention_bwd", "pt_flash_dkv"),
+        torch.bfloat16: ("flash_attention_sm90", "pt_flash_dkv_sm90")}
 
 # kernel launches since the last reset (``launches = 0`` etc.)
 launches = 0        # forward
@@ -287,14 +290,15 @@ def _dkv_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if B * Tk * H == 0:
         return dk, dv
-    fn = _cuda.function("flash_attention_bwd", "pt_flash_dkv",
-                        _DKV_ARGTYPES)
+    _check_tma_inputs(q, k, v, dout)
+    source, symbol = _DKV[q.dtype]
+    fn = _cuda.function(source, symbol, _DKV_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, hd, float(scale),
-              int(bool(causal)), int(q.dtype == torch.bfloat16),
+              int(bool(causal)),
               torch.cuda.current_stream(q.device).cuda_stream)
-    _cuda.check("flash_attention_bwd", code, "flash_attention dk/dv")
+    _cuda.check(source, code, "flash_attention dk/dv")
     launches_dkv += 1
     return dk, dv
 

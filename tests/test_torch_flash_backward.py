@@ -204,3 +204,49 @@ def test_bf16_ds_rounding_stays_within_the_gpu_tolerance(case):
            * scale).bfloat16()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= GPU_BF16_REL * want.float().abs().max().item(), err
+
+
+# -- the bf16 dk/dv kernel's arithmetic, emulated ---------------------------------
+
+
+def _sm90_dkv(q, k, v, kv_mask, dout, lse, delta, causal, scale):
+    """The bf16 sm90 dk/dv kernel's arithmetic in plain torch: scores of
+    the unscaled bf16 q times ``scale`` in fp32 (the fold), p rounded to
+    bf16 before Pᵀ.dO, ds rounded to bf16 before dSᵀ.q, dK scaled once at
+    the end; each output rounded once to bf16."""
+    s = tfa._masked_scores(q, k, causal, kv_mask) * scale
+    p = torch.exp(s - lse[..., None])
+    p = torch.where(s > -1e30 / 2 * scale, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.bfloat16().float(),
+                      q.float()) * scale
+    return dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("case", list(SM90_CASES))
+def test_bf16_dkv_rounding_stays_within_the_gpu_tolerance(case):
+    """The sm90 dk/dv kernel rounds p and ds to bf16 before Pᵀ.dO and
+    dSᵀ.q and folds the scale into its fp32 products, where the plain
+    version keeps fp32 p and ds and the bf16-rounded q̂; at chip_smoke.py's
+    shapes that moves dk and dv well inside the card's bf16 tolerance of
+    the plain version."""
+    B, Tq, Tk, H, hd, causal, mask_kind = SM90_CASES[case]
+    q, k, v, mask = _bf16_inputs(B, Tq, Tk, H, hd, mask_kind)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, Tq, H, hd)).astype(np.float32)).bfloat16()
+    scale = 1.0 / np.sqrt(hd)
+    out, lse = tfa.flash_attention_plain(q, k, v, causal, scale, mask)
+    delta = tfa.flash_delta(out, dout)
+    want = tfa.flash_dkv_plain(q, k, v, mask, dout, lse, delta, causal,
+                               scale)
+    got = _sm90_dkv(q, k, v, mask, dout, lse, delta, causal, scale)
+    for name, a, b in zip(("dk", "dv"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= GPU_BF16_REL * b.float().abs().max().item(), (name,
+                                                                     err)
+    if mask is not None:
+        # keys with kv_mask 0 get exact zeros
+        for a in got:
+            assert torch.all(a[mask == 0] == 0)

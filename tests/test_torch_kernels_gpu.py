@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions, on the card.
 
 Ragged and odd shapes the main paths do not reach (Tq and Tk off the
-64-row tile, Tq != Tk under causal masking, hd = 128, more K/V tiles
-than the bf16 kernels' ring has stages (Tk 300 and 1024), fully masked
+64-row tile, Tq != Tk under causal masking, hd = 128, more streamed
+tiles than the bf16 kernels' ring has stages (T 300 and 1024), fully masked
 rows for the flash forward and backward, G = 2, page sizes
 that do not divide the 128-position chunk; LSTM B, H and P off every
 tile, T = 1, B = 1), fp32 with TF32 off (atol 2e-5; the flash gradients
@@ -165,6 +165,20 @@ def test_flash_gradient_is_bitwise_repeatable_and_launches_once(cuda,
         _grad_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dkv_without_queries_gives_zeros(cuda, dtype):
+    """Tq = 0: no query sees a key, so dk and dv are zeros; the bf16
+    kernel builds no tensor map over the empty q and dO."""
+    q = torch.zeros((2, 0, 2, 64), device=cuda, dtype=dtype)
+    k = torch.randn((2, 70, 2, 64), device=cuda, dtype=dtype)
+    lse = torch.zeros((2, 2, 0), device=cuda)
+    before = fa.launches_dkv
+    dk, dv = fa.flash_dkv(q, k, k, None, q, lse, lse)
+    torch.cuda.synchronize()
+    assert fa.launches_dkv == before + 1
+    assert torch.all(dk == 0) and torch.all(dv == 0)
+
+
 def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda):
     lse = torch.zeros((1, 2, 8), device=cuda)
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
@@ -193,18 +207,21 @@ def _kernel_names(fn):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_dtype_picks_the_kernel(cuda, dtype):
-    """bf16 forward and dq launch the sm90 (TMA + wgmma) kernels, fp32 the
-    fp32-FMA ones; each call counts one launch either way."""
+    """bf16 forward, dq and dk/dv launch the sm90 (TMA + wgmma) kernels,
+    fp32 the fp32-FMA ones; each call counts one launch either way."""
     q, k, v, dout, mask = _flash_bwd_inputs(cuda, dtype, 2, 64, 64, 2, 64,
                                             True)
     out, lse = fa.flash_attention_plain(q, k, v, kv_mask=mask)
     delta = fa.flash_delta(out, dout)
-    before = (fa.launches, fa.launches_dq)
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
     names = _kernel_names(lambda: (
         fa.flash_attention_lse(q, k, v, kv_mask=mask),
-        fa.flash_dq(q, k, v, mask, dout, lse, delta)))
-    assert (fa.launches, fa.launches_dq) == tuple(n + 1 for n in before)
-    for kernel in ("flash_fwd_kernel", "flash_dq_kernel"):
+        fa.flash_dq(q, k, v, mask, dout, lse, delta),
+        fa.flash_dkv(q, k, v, mask, dout, lse, delta)))
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+        tuple(n + 1 for n in before)
+    for kernel in ("flash_fwd_kernel", "flash_dq_kernel",
+                   "flash_dkv_kernel"):
         sm90 = [n for n in names if f"{kernel}_sm90" in n]
         fp32 = [n for n in names if kernel in n and "sm90" not in n]
         assert (len(sm90), len(fp32)) == \
@@ -220,13 +237,15 @@ def test_flash_bf16_refuses_a_misaligned_view(cuda):
     bad = flat[1:].view(shape)
     good = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
     assert bad.is_contiguous() and bad.data_ptr() % 16
-    before = (fa.launches, fa.launches_dq)
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention(bad, good, good)
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_dq(good, good, good, None, bad, lse, lse)
-    assert (fa.launches, fa.launches_dq) == before
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_dkv(good, good, good, None, bad, lse, lse)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == before
 
 
 def _cuobjdump():
@@ -239,8 +258,8 @@ def _cuobjdump():
 
 
 def test_flash_sm90_kernels_use_tma_and_wgmma(cuda):
-    """The built library's SASS: both kernels (at hd 64 and 128) issue
-    HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    """The built library's SASS: the three kernels (at hd 64 and 128)
+    issue HGMMA (wgmma) and UTMALDG (TMA loads)."""
     _cuda.library("flash_attention_sm90")
     sass = subprocess.run(
         [_cuobjdump(), "-sass",
@@ -249,7 +268,8 @@ def test_flash_sm90_kernels_use_tma_and_wgmma(cuda):
     functions = {}
     for part in sass.split("Function : ")[1:]:
         functions[part.split("\n", 1)[0].strip()] = part
-    for kernel in ("flash_fwd_kernel_sm90", "flash_dq_kernel_sm90"):
+    for kernel in ("flash_fwd_kernel_sm90", "flash_dq_kernel_sm90",
+                   "flash_dkv_kernel_sm90"):
         bodies = [b for name, b in functions.items() if kernel in name]
         assert len(bodies) == 2, (kernel, list(functions))   # hd 64, 128
         for body in bodies:
