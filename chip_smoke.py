@@ -47,7 +47,13 @@ beside it. Phases:
    peak) and fp32 with TF32 off (atol 1e-4 of max(1, plain peak)); each
    timed beside the plain version, cuDNN's ``torch.nn.LSTM`` with the
    same projection (which also runs the input projection the kernels
-   leave to the hoisted matmul) and the bound.
+   leave to the hoisted matmul), the bound and the achieved TF/s. B1 and
+   B2 run the kernel ``ops/lstm.py``'s ``fwd_route`` picks, printed with
+   each case: the persistent kernel (``csrc/lstm_sm90.cu``) in bf16 at
+   the training shape, which must take it, the first kernel in fp32 and
+   at the ragged shape. Then 10 back-to-back bf16 B2 calls at the
+   training shape must give bit-identical results, and B2's device time
+   over T 1-40 (three allocations each) gives its time a step.
 6. Train: LM1B at its published widths (``LM1BConfig()``: vocab 793470
    padded to 793472 for 8 partitions, emb 512, hidden 2048, proj 512,
    8192 sampled candidates, keep_prob 0.9, bf16 compute, fp32 tables)
@@ -58,7 +64,8 @@ beside it. Phases:
    no-grad loss. The LSTM counters are zeroed before and read after:
    B2 and B3 once per step, B1 none until the held-out loss, then once.
    Losses finite and falling; the padded vocab rows untouched. Then 5
-   steps under the profiler.
+   steps under the profiler (launches and busy ms a step), which must
+   show ``lstm_fwd_kernel_sm90`` and B3 and no first forward kernel.
 7. Train agreement: 3 steps in fp32 (TF32 off, keep_prob 1) from the
    same weights and generator with ``lstm_impl="kernel"`` and
    ``"scan"``; per-step losses within 1e-4 relative.
@@ -92,6 +99,10 @@ less its forward).
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error, times and bound. The whole
 record is also written to ``build/chip_smoke.json``.
+
+``python3 chip_smoke.py --pair DIR`` is an A/B on one card instead: the
+LSTM kernel phase and LM1B training of the checkout in DIR and of this
+one, in the order DIR, this, this, DIR, twice (``run_pair``).
 """
 
 from __future__ import annotations
@@ -159,18 +170,46 @@ def time_ms(torch, fn, reps: int = REPS, per_round: int = 10,
     return statistics.median(times)
 
 
+# profiler windows tried before a kernel counts as missed
+PROFILE_WINDOWS = 4
+
+
+def profile_events(torch, fn, calls: int, want=()):
+    """The profiler's CUDA activity over ``calls`` calls of ``fn``, as
+    ``key_averages()`` rows with device time. The CUDA activity tracing
+    now and then delivers a window without some or all of its kernels
+    (on an H100 with torch 2.11: a window with no row at all, and one
+    with other rows but none of a correct fp32 flash dq that launched).
+    So a window with no device row, or with no row whose name holds one
+    of ``want``, is profiled again, up to ``PROFILE_WINDOWS`` windows; a
+    kernel that does not launch is missed in every one of them, and the
+    last window is returned as it is."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = []
+    for window in range(PROFILE_WINDOWS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [evt for evt in prof.key_averages()
+                if getattr(evt, "device_time_total",
+                           getattr(evt, "cuda_time_total", 0.0)) > 0]
+        if rows and (not want
+                     or any(n in evt.key for evt in rows for n in want)):
+            return rows
+        log(f"[profile] window {window + 1} of {PROFILE_WINDOWS}: "
+            f"{'no device activity' if not rows else f'no {list(want)}'}"
+            f" recorded")
+    return rows
+
+
 def device_ms(torch, fn, kernel_name: str, calls: int = 10):
     """Mean device time of the CUDA kernel named ``kernel_name`` per
     call of ``fn``, from the profiler's CUDA activity (None when the
     profiler records no such kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     total_us, count = 0.0, 0
-    for evt in prof.key_averages():
+    for evt in profile_events(torch, fn, calls, want=(kernel_name,)):
         if kernel_name in evt.key:
             total_us += getattr(evt, "device_time_total",
                                 getattr(evt, "cuda_time_total", 0.0))
@@ -598,8 +637,9 @@ def run_flash_bwd_case(torch, case, dtype):
     for name, (kernel, plain, kname, products, out_bytes) in calls.items():
         errs = [grad_compare(torch, a, e, dtype)
                 for a, e in zip(got[name], want[name])]
-        ok = all(err <= tol for err, tol in errs) and all(
-            bool(torch.isfinite(a.float()).all()) for a in got[name])
+        finite = all(bool(torch.isfinite(a.float()).all())
+                     for a in got[name])
+        ok = all(err <= tol for err, tol in errs) and finite
         if mask_kind == "zero":
             # batch 1 sees no key: its gradients are exact zeros
             ok = ok and all(bool((a[1] == 0).all()) for a in got[name])
@@ -610,7 +650,9 @@ def run_flash_bwd_case(torch, case, dtype):
             "shape": {"B": B, "Tq": Tq, "Tk": Tk, "H": H, "hd": hd,
                       "causal": causal, "mask": mask_kind,
                       "lse_cotangent": with_dlse, "pairs": pairs},
-            "ok": ok, "max_abs_err": max(e for e, _ in errs),
+            "ok": ok, "finite": finite,
+            "errs": [e for e, _ in errs], "tols": [t for _, t in errs],
+            "max_abs_err": max(e for e, _ in errs),
             "tol": min(t for _, t in errs),
             "ms": time_ms(torch, kernel),
             "device_ms": device_ms(torch, kernel,
@@ -832,24 +874,27 @@ def phase_agreement(torch, params, cfg_bf16, requests):
 # -- phase 5: the LSTM kernels ------------------------------------------------
 
 LSTM_FP32_TOL = 1e-4
-# kernel names of each LSTM op, for its device time in the profiler
-LSTM_KERNELS = {"lstm_fwd": ("lstm_gates_kernel", "lstm_proj_"),
-                "lstm_fwd_res": ("lstm_gates_kernel", "lstm_proj_"),
+# kernel names of each LSTM op by route, for its device time in the
+# profiler: B1 and B2 run the persistent kernel (csrc/lstm_sm90.cu) or the
+# first one (csrc/lstm.cu, three launches a step), as ops/lstm.py's
+# fwd_route picks; B3 runs the first kernel
+LSTM_KERNELS = {"lstm_sm90": ("lstm_fwd_kernel_sm90",),
+                "lstm": ("lstm_gates_kernel", "lstm_proj_"),
                 "lstm_bwd": ("lstm_bwd_", "Memcpy")}
+LSTM_REPEATS = 10
+
+
+def lstm_kernel_names(name, route):
+    """The CUDA kernels an LSTM op launches on its route."""
+    return LSTM_KERNELS["lstm_bwd" if name == "lstm_bwd" else route]
 
 
 def device_ms_per_call(torch, fn, names, calls: int = 5):
     """Device milliseconds per call of ``fn`` summed over every CUDA
     activity whose name holds one of ``names`` (None when the profiler
     records none)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     total_us = 0.0
-    for evt in prof.key_averages():
+    for evt in profile_events(torch, fn, calls, want=names):
         if any(n in evt.key for n in names):
             total_us += getattr(evt, "device_time_total",
                                 getattr(evt, "cuda_time_total", 0.0))
@@ -939,8 +984,10 @@ def run_lstm_case(torch, case, dtype):
               "lstm_fwd_res": kb["scan"]["stream_bytes"] + wbytes,
               "lstm_bwd": kb["kernel"]["stream_bytes"]
               - kb["scan"]["stream_bytes"] + wbytes}
+    route = lstm.device_fwd_route(xw, w_proj)
     results = []
     for name, (kernel, plain) in outs.items():
+        kroute = "lstm" if name == "lstm_bwd" else route.source
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -952,20 +999,91 @@ def run_lstm_case(torch, case, dtype):
         tol = min(t for _, t in errs)
         bound_ms, bound_by = bound(nbytes[name], flops,
                                    str(dtype).split(".")[-1])
+        dev = device_ms_per_call(torch, kernel,
+                                 lstm_kernel_names(name, kroute))
         results.append({
             "kernel": name, "case": label,
             "dtype": str(dtype).split(".")[-1],
             "shape": {"T": T, "B": B, "E": E, "H": H, "P": P},
+            "route": kroute, "source": f"parallax_tpu_torch/csrc/"
+                                       f"{kroute}.cu",
+            "groups": route.groups if kroute == "lstm_sm90" else None,
+            "stages": route.stages if kroute == "lstm_sm90" else None,
             "ok": ok, "max_abs_err": err, "tol": tol,
             "errs": [e for e, _ in errs],
             "ms": time_ms(torch, kernel, reps=10, per_round=3),
-            "device_ms": device_ms_per_call(torch, kernel,
-                                            LSTM_KERNELS[name]),
+            "device_ms": dev, "ops": flops,
+            "tflops": flops / (dev * 1e-3) / 1e12 if dev else None,
             "plain_ms": time_ms(torch, plain, reps=3, per_round=1,
                                 warmup=1),
             "library_ms": library[name], "library": "torch.nn.LSTM (cuDNN)",
             "bound_ms": bound_ms, "bound_by": bound_by})
     return results
+
+
+def lstm_repeatability(torch):
+    """LSTM_REPEATS back-to-back bf16 B2 calls at the LM1B training shape:
+    hs, gates and c must be bit-identical (the persistent kernel's grid
+    barriers and cross-block reads must not depend on timing)."""
+    from parallax_tpu_torch.ops import lstm
+    _, T, B, E, H, P = lstm_cases()[0]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+
+    def r(shape, scale):
+        return (torch.randn(shape, generator=g, device=DEVICE)
+                * scale).bfloat16()
+    xw = r((T, B, 4 * H), 1.0)
+    w_h = r((P, 4 * H), 1.0 / math.sqrt(P))
+    w_proj = r((H, P), 1.0 / math.sqrt(H))
+    runs = [lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+            for _ in range(LSTM_REPEATS)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(run, runs[0]))
+    summary = {"calls": LSTM_REPEATS, "bitwise_identical": same,
+               "route": lstm.device_fwd_route(xw, w_proj).source}
+    log(f"[lstm-repeat] {json.dumps(summary)}")
+    if not same:
+        raise AssertionError("bf16 B2 calls at the training shape differ "
+                             "from one another")
+    return summary
+
+
+LSTM_SWEEP_T = (1, 10, 20, 40)
+
+
+def lstm_step_sweep(torch):
+    """Device ms of a bf16 B2 call at the training shape (B 128, H 2048,
+    P 512) over T in LSTM_SWEEP_T, each T in 3 fresh allocations (the
+    inputs land at other addresses each time): the slope over T is the
+    persistent kernel's time a step, the intercept its fixed cost (the
+    weight copy into shared memory, the launch)."""
+    from parallax_tpu_torch.ops import lstm
+    _, _, B, _, H, P = lstm_cases()[0]
+    rows = []
+    for T in LSTM_SWEEP_T:
+        times = []
+        for alloc in range(3):
+            g = torch.Generator(device=DEVICE).manual_seed(SEED + alloc)
+            pad = torch.empty((1 << 20) * (alloc + 1), device=DEVICE)
+            xw = torch.randn((T, B, 4 * H), generator=g,
+                             device=DEVICE).bfloat16()
+            w_h = (torch.randn((P, 4 * H), generator=g, device=DEVICE)
+                   / math.sqrt(P)).bfloat16()
+            w_proj = (torch.randn((H, P), generator=g, device=DEVICE)
+                      / math.sqrt(H)).bfloat16()
+            times.append(device_ms_per_call(
+                torch, lambda: lstm.lstm_recurrence(xw, w_h, w_proj,
+                                                    residuals=True),
+                LSTM_KERNELS["lstm_sm90"], calls=10))
+            del pad
+        rows.append({"T": T, "device_ms": times})
+    per_step = [(b - a) / (LSTM_SWEEP_T[-1] - LSTM_SWEEP_T[0])
+                for a, b in zip(rows[0]["device_ms"], rows[-1]["device_ms"])]
+    summary = {"shape": {"B": B, "H": H, "P": P}, "rows": rows,
+               "ms_per_step": per_step}
+    log(f"[lstm-sweep] {json.dumps(summary)}")
+    return summary
 
 
 def phase_lstm_kernels(torch):
@@ -974,11 +1092,13 @@ def phase_lstm_kernels(torch):
         for case in lstm_cases():
             results.extend(run_lstm_case(torch, case, dtype))
     for r in results:
-        log(f"[kernel] {r['kernel']} {r['case']} {r['dtype']}: "
+        tf = f"{r['tflops']:.1f}" if r["tflops"] else "n/a"
+        log(f"[kernel] {r['kernel']} {r['case']} {r['dtype']} "
+            f"[{r['route']}]: "
             f"{'ok' if r['ok'] else 'FAILED'} err {r['max_abs_err']:.3g} "
             f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms (device "
-            f"{r['device_ms']} ms) plain {r['plain_ms']:.4f} ms cuDNN "
-            f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+            f"{r['device_ms']} ms, {tf} TF/s) plain {r['plain_ms']:.4f} ms "
+            f"cuDNN {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
     return results
 
@@ -1089,16 +1209,37 @@ def phase_train(torch):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches}
     log(f"[train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
-    profile = profile_train(torch, sess, batches)
+    profile = profile_train(torch, sess, batches,
+                            lstm=["lstm_fwd_kernel_sm90", "lstm_bwd_"])
     sess.close()
     return summary, profile
 
 
-def profile_train(torch, sess, batches, label="train-profile", flash=()):
+def lstm_kernels_seen(rows, want):
+    """{kernel name: launches} of the LSTM kernels in a profile's rows;
+    raises unless every name in ``want`` launched and, when ``want`` holds
+    the persistent forward, no first forward kernel did (on the bf16 LM1B
+    path that would mean the route fell back)."""
+    seen = {}
+    for _, n, key in rows:
+        m = re.search(r"lstm_\w+kernel\w*", key)
+        if m:
+            seen[m.group(0)] = seen.get(m.group(0), 0) + n
+    missing = [w for w in want if not any(k.startswith(w) for k in seen)]
+    stale = [k for k in seen if "lstm_fwd_kernel_sm90" in want
+             and k.startswith(("lstm_gates_", "lstm_proj_"))]
+    if missing or stale:
+        raise AssertionError(f"profile LSTM kernels {seen}: missing "
+                             f"{missing}, first forward kernels {stale}")
+    return seen
+
+
+def profile_train(torch, sess, batches, label="train-profile", flash=(),
+                  lstm=()):
     """Where a training step's time goes: ``profile_steps`` steps under
     the profiler's CUDA activity, the device's busy time over the
-    window's wall time; ``flash`` names the flash kernels the steps must
-    launch."""
+    window's wall time; ``flash`` and ``lstm`` name the kernels the steps
+    must launch."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1119,7 +1260,10 @@ def profile_train(torch, sess, batches, label="train-profile", flash=()):
     rows.sort(reverse=True)
     summary = {"steps": TRAIN["profile_steps"], "window_s": window,
                "flash_kernels": flash_kernels_seen(rows, flash),
+               "lstm_kernels": lstm_kernels_seen(rows, lstm),
                "device_busy_s": busy_s,
+               "device_busy_ms_per_step": busy_s * 1e3
+               / TRAIN["profile_steps"],
                "device_idle_share": 1.0 - busy_s / window,
                "device_launches_per_step": sum(n for _, n, _ in rows)
                / TRAIN["profile_steps"],
@@ -1307,8 +1451,8 @@ def kernel_line(results, launches):
     and type the main path launched it at): the serving shape for B4
     and B7, the LM1B training shape for B1-B3, the NMT training step's
     encoder self-attention (B 64, T 64, H 8, hd 64, pad mask) for B5 and
-    B6. B4's launches are the serving and the NMT training paths'."""
-    lstm_src = "parallax_tpu_torch/csrc/lstm.cu"
+    B6. B4's launches are the serving and the NMT training paths'. An
+    LSTM entry names the source of the route its case ran on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
@@ -1322,24 +1466,79 @@ def kernel_line(results, launches):
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",
             "parallax_tpu/ops/pallas_paged_attention.py:278", "serve"),
-        "lstm_fwd": (lstm_src, "parallax_tpu/ops/pallas_lstm.py:290",
+        "lstm_fwd": (None, "parallax_tpu/ops/pallas_lstm.py:290",
                      "train"),
-        "lstm_fwd_res": (lstm_src, "parallax_tpu/ops/pallas_lstm.py:299",
+        "lstm_fwd_res": (None, "parallax_tpu/ops/pallas_lstm.py:299",
                          "train"),
-        "lstm_bwd": (lstm_src, "parallax_tpu/ops/pallas_lstm.py:477",
+        "lstm_bwd": (None, "parallax_tpu/ops/pallas_lstm.py:477",
                      "train"),
     }
     out = []
     for name, (source, replaces, case) in meta.items():
         r = next(r for r in results if r["kernel"] == name
                  and r["case"] == case and r["dtype"] == "bfloat16")
-        out.append({"name": name, "route": "cuda", "source": source,
+        out.append({"name": name, "route": "cuda",
+                    "source": source or r["source"],
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
     return {"kernels": out}
+
+
+# one run of the A/B: the child process imports chip_smoke and the
+# package from its working directory (this checkout or the other one)
+PAIR_CHILD = """
+import json, torch
+import chip_smoke as c
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.phase_build(torch)
+kernels = [r for r in c.phase_lstm_kernels(torch)
+           if r["case"] == "train" and r["dtype"] == "bfloat16"]
+train, prof = c.phase_train(torch)
+steps = prof["steps"]
+print("PAIR " + json.dumps({
+    "words_per_sec": train["lm1b_words_per_sec_per_chip"],
+    "step_ms_p50": train["step_ms_p50"], "step_ms_p95": train["step_ms_p95"],
+    "busy_ms_per_step": prof["device_busy_s"] * 1e3 / steps,
+    "launches_per_step": prof["device_launches_per_step"],
+    "idle_share": prof["device_idle_share"],
+    "lstm": {r["kernel"]: {k: r.get(k) for k in
+                           ("device_ms", "ms", "library_ms", "route")}
+             for r in kernels}}))
+"""
+
+
+PAIR_ORDER = ("other", "this", "this", "other") * 2
+
+
+def run_pair(other: Path) -> int:
+    """A/B of LM1B training and the LSTM kernel phase between the checkout
+    at ``other`` (for example the parent commit, unpacked with ``git
+    archive``) and this one, on one card in one call: ``other``, this,
+    this, ``other``, twice, each a fresh process running its own
+    ``phase_build``, ``phase_lstm_kernels`` and ``phase_train``. Prints one
+    JSON line per run and writes them to ``build/chip_smoke_pair.json``."""
+    runs = []
+    for label in PAIR_ORDER:
+        root = ROOT if label == "this" else other
+        proc = subprocess.run([sys.executable, "-c", PAIR_CHILD],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=900)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("PAIR ")]
+        if proc.returncode != 0 or not line:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"A/B run of {root} failed "
+                                 f"(exit {proc.returncode})")
+        run = {"tree": label, "root": str(root), **json.loads(line[0][5:])}
+        runs.append(run)
+        log(f"[pair] {json.dumps(run)}")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_pair.json").write_text(json.dumps(runs, indent=1))
+    return 0
 
 
 def main() -> int:
@@ -1352,6 +1551,8 @@ def main() -> int:
               f"{Path(__file__).name}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--pair"]:
+        return run_pair(Path(sys.argv[2]).resolve())
     # every fp32 comparison below runs in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1377,6 +1578,15 @@ def main() -> int:
     if failed:
         raise AssertionError(f"LSTM kernels disagree with their plain "
                              f"versions: {failed}")
+    train_route = {r["kernel"]: r["route"] for r in lstm_results
+                   if r["case"] == "train" and r["dtype"] == "bfloat16"}
+    if train_route != {"lstm_fwd": "lstm_sm90", "lstm_fwd_res": "lstm_sm90",
+                       "lstm_bwd": "lstm"}:
+        raise AssertionError(f"bf16 LSTM routes at the training shape "
+                             f"{train_route}: B1 and B2 must take the "
+                             f"persistent kernel")
+    lstm_repeat = lstm_repeatability(torch)
+    lstm_sweep = lstm_step_sweep(torch)
     train, train_profile = phase_train(torch)
     train_agree = phase_train_agreement(torch)
     nmt_train, nmt_profile = phase_nmt_train(torch)
@@ -1386,7 +1596,8 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
-              "cases": results + lstm_results,
+              "cases": results + lstm_results, "lstm_repeat": lstm_repeat,
+              "lstm_sweep": lstm_sweep,
               "serve": serve_summary, "profile": profile_summary,
               "agreement": agree, "train": train,
               "train_profile": train_profile, "train_agreement": train_agree,

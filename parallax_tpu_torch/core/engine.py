@@ -176,14 +176,16 @@ class Engine:
         self.metrics = metrics if metrics is not None \
             else obs_metrics.MetricsRegistry()
         meta_params = model.init_fn(torch.Generator(), "meta")
-        self.plan = build_plan(model, mesh, config, meta_params,
-                               _to_meta(example_batch))
-        self._slice_resolved = self._resolve_slice_updaters()
+        meta_batch = _to_meta(example_batch)
+        self.plan = build_plan(model, mesh, config, meta_params, meta_batch)
+        self._slice_resolved = self._resolve_slice_updaters(meta_params,
+                                                            meta_batch)
         self._dense_paths = [p for p in self.plan.var_specs
                              if p not in self._slice_resolved]
         self.metrics.counter("engine.builds").inc()
 
-    def _resolve_slice_updaters(self) -> Dict[str, Any]:
+    def _resolve_slice_updaters(self, meta_params,
+                                meta_batch) -> Dict[str, Any]:
         """{exact param path: updater} for sparse_grad_mode='slices'."""
         if (self.config.sparse_grad_mode != "slices"
                 or not self.model.slice_updaters):
@@ -213,6 +215,21 @@ class Engine:
                 f"loss uses other than through embedding_lookup "
                 f"({[self.plan.var_specs[p].reason for p in dense]}); "
                 f"their gradients would be lost")
+        # a table read by a gather other than embedding_lookup
+        # (index_select, table[ids], F.embedding) is classified sparse but
+        # never captured, so it would never be updated: one forward on the
+        # meta tensors under a capture finds the tables that are looked up
+        # (the reference's abstract discovery pass, engine.py:506-536)
+        flat = dict(classify.flatten(meta_params))
+        cap = embedding.SliceCapture({id(flat[p]): p for p in resolved})
+        with torch.no_grad(), embedding.slice_capture_scope(cap):
+            self.model.call_loss(meta_params, meta_batch, torch.Generator())
+        missing = set(resolved) - {p for p, _, _ in cap.captured}
+        if missing:
+            raise ValueError(
+                f"slice_updaters registered for {sorted(missing)} but no "
+                f"embedding_lookup of those tables was traced; their "
+                f"gradients would be silently lost")
         parallax_log.info("sparse_grad_mode=slices over %s", sorted(resolved))
         return resolved
 

@@ -23,6 +23,14 @@ are fp32; each recurrent product rounds its activation operand to the
 weight dtype and accumulates in fp32; xw, the residuals and d_xw are
 stored at the compute dtype.
 
+Routing of B1 and B2 (``fwd_route``, a pure function of dtype, shape
+and the card's SM count, decided before the launch): bf16 on the shapes
+the persistent kernel takes goes to ``csrc/lstm_sm90.cu`` (one
+cooperative launch per pass, the weights resident in shared memory, the
+products on wgmma); fp32 (a TF32 wgmma would break the 1e-4 contract)
+and other bf16 shapes go to the first kernel, ``csrc/lstm.cu``. B3 is
+the first kernel in both dtypes.
+
 ``lstm_scan(impl="kernel")`` runs B2 and B3 through an
 ``autograd.Function`` when a gradient is wanted and B1 when it is not
 (grad mode off, or no input requires grad): the ``custom_vjp`` primal /
@@ -46,7 +54,9 @@ assignment.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -61,9 +71,20 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
 # pt_lstm_bwd(g, gates, cseq, w_h, w_proj, dxw, dhtot, dc, ws, ks, T, B, H,
 #             P, is_bf16, stream)
 _BWD_ARGTYPES = _FWD_ARGTYPES
+# pt_lstm_fwd_sm90(xw, w_h, w_proj, hs, gates, cseq, hfull, counter, T,
+#                  B, H, P, groups, stages, stream)
+_SM90_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
 # the kernels split a contraction of length K into this many slices, of
 # at least 256 each, for at most 32
 _SPLIT_MIN, _SPLIT_MAX = 256, 32
+# the persistent kernel: at most 227 KB of shared memory a block (sm_90),
+# one 64-row tile per warpgroup, 16 hidden units per group, its ring
+# stages tried from the deepest
+SM90_SMEM = 232448
+SM90_MAX_B = 128
+SM90_GROUPS = (1, 2)
+SM90_STAGES = (4, 3, 2)
 
 # kernel launches since the last reset (assign 0 to reset)
 launches_fwd = 0        # B1
@@ -181,6 +202,62 @@ def lstm_scan_reference(x_seq, w, b, w_proj, *, out_dtype=None,
 # -- the kernels --------------------------------------------------------------
 
 
+class FwdRoute(NamedTuple):
+    """Which kernel runs a B1/B2 call: ``source`` is ``"lstm_sm90"`` (the
+    persistent kernel, ``groups`` x 16 hidden units a block, ``stages``
+    ring stages) or ``"lstm"`` (the first kernel; groups = stages = 0)."""
+    source: str
+    groups: int = 0
+    stages: int = 0
+
+
+def sm90_smem_bytes(groups: int, H: int, P: int, stages: int) -> int:
+    """Dynamic shared memory of the persistent kernel (its ``Smem``): the
+    w_h slice, the w_proj slice, two rings of 8 KB boxes, the projection's
+    half sums, the ring barriers and 1 KB for alignment."""
+    kc, kh = -(-P // 64), -(-H // 64)
+    return 1024 + groups * kc * 8192 + kh * 1024 + 2 * stages * 8192 \
+        + 2048 + 2 * stages * 8
+
+
+def fwd_route(dtype: torch.dtype, T: int, B: int, H: int, P: int,
+              sm_count: int) -> FwdRoute:
+    """The kernel for a B1/B2 call, from dtype, shape and the card's SM
+    count alone. The persistent kernel takes bf16 with B <= 128, P a
+    multiple of 8 (16-byte TMA strides), H a multiple of 16 G for some G
+    in (1, 2) whose H / 16G blocks all fit on the card (one a SM; the
+    grid barriers need them all resident), P / 8 projection column tiles
+    dividing the blocks, and shared memory that fits; it takes the
+    smallest such G and the deepest ring that fits. Everything else
+    runs the first kernel."""
+    first = FwdRoute("lstm")
+    if dtype != torch.bfloat16 or not (1 <= B <= SM90_MAX_B) \
+            or T < 1 or P < 8 or P % 8:
+        return first
+    for groups in SM90_GROUPS:
+        if H % (16 * groups):
+            continue
+        blocks = H // (16 * groups)
+        if blocks > sm_count or blocks % (P // 8):
+            continue
+        for stages in SM90_STAGES:
+            if sm90_smem_bytes(groups, H, P, stages) <= SM90_SMEM:
+                return FwdRoute("lstm_sm90", groups, stages)
+    return first
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_fwd_route(xw: torch.Tensor, w_proj: torch.Tensor) -> FwdRoute:
+    """``fwd_route`` for CUDA tensors of a B1/B2 call on their card."""
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    return fwd_route(xw.dtype, T, B, H, P, _sm_count(xw.device.index or 0))
+
+
 def _ksplit(K: int) -> int:
     """How many slices the kernels split a contraction of length K into
     (the [B, P] products have too few output tiles to fill the card)."""
@@ -219,6 +296,40 @@ def _kernel_fwd(xw, w_h, w_proj, residuals):
         cseq = torch.empty((T, B, H), dtype=dt, device=xw.device)
     if T * B * H * P == 0:
         return (hs, gates, cseq) if residuals else hs
+    route = device_fwd_route(xw, w_proj)
+    if route.source == "lstm_sm90":
+        _sm90_fwd(name, route, xw, w_h, w_proj, hs, gates, cseq)
+    else:
+        _first_fwd(name, xw, w_h, w_proj, hs, gates, cseq)
+    if residuals:
+        launches_fwd_res += 1
+        return hs, gates, cseq
+    launches_fwd += 1
+    return hs
+
+
+def _sm90_fwd(name, route, xw, w_h, w_proj, hs, gates, cseq):
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    for what, x in (("xw", xw), ("w_h", w_h), ("w_proj", w_proj)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte "
+                             f"boundary for the bf16 kernel")
+    hfull = torch.empty((2, B, H), dtype=xw.dtype, device=xw.device)
+    counter = torch.zeros((1,), dtype=torch.int32, device=xw.device)
+    fn = _cuda.function("lstm_sm90", "pt_lstm_fwd_sm90", _SM90_ARGTYPES)
+    code = fn(xw.data_ptr(), w_h.data_ptr(), w_proj.data_ptr(),
+              hs.data_ptr(), None if gates is None else gates.data_ptr(),
+              None if cseq is None else cseq.data_ptr(), hfull.data_ptr(),
+              counter.data_ptr(), T, B, H, P, route.groups, route.stages,
+              torch.cuda.current_stream(xw.device).cuda_stream)
+    _cuda.check("lstm_sm90", code, name)
+
+
+def _first_fwd(name, xw, w_h, w_proj, hs, gates, cseq):
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    dt = xw.dtype
     c = torch.empty((B, H), dtype=torch.float32, device=xw.device)
     hfull = torch.empty((B, H), dtype=dt, device=xw.device)
     ks = _ksplit(H)
@@ -231,11 +342,6 @@ def _kernel_fwd(xw, w_h, w_proj, residuals):
               int(dt == torch.bfloat16),
               torch.cuda.current_stream(xw.device).cuda_stream)
     _cuda.check("lstm", code, name)
-    if residuals:
-        launches_fwd_res += 1
-        return hs, gates, cseq
-    launches_fwd += 1
-    return hs
 
 
 def _kernel_bwd(g, gates, cseq, w_h, w_proj):
@@ -434,5 +540,6 @@ def pass_flops(T, B, H, P) -> int:
 
 
 __all__ = ["lstm_scan", "lstm_scan_reference", "lstm_recurrence",
+           "fwd_route", "FwdRoute",
            "lstm_recurrence_plain", "lstm_bwd_recurrence",
            "lstm_bwd_recurrence_plain", "kernel_hbm_bytes", "pass_flops"]

@@ -192,9 +192,17 @@ class ParallaxSession:
                         f"contract: one array per local replica)")
                 value = np.concatenate([np.asarray(v) for v in value],
                                        axis=0)
+            # float64 runs as float32, as the JAX session's jitted step
+            # runs it with x64 off (parallax_tpu/session.py:1944-1958);
+            # integer feeds keep their dtype (torch indexes with int64)
             if isinstance(value, torch.Tensor):
+                if value.dtype == torch.float64:
+                    value = value.float()
                 batch[name] = value.to(self._device, non_blocking=True)
             else:
+                value = np.asarray(value)
+                if value.dtype == np.float64:
+                    value = value.astype(np.float32)
                 t = torch.from_numpy(np.ascontiguousarray(value))
                 if self._device.type == "cuda":
                     t = t.pin_memory()

@@ -353,6 +353,13 @@ def _lstm_inputs(cuda, dtype, T, B, H, P):
     (3, 1, 70, 33),
     (4, 130, 100, 65),
     (2, 128, 2048, 512),
+    # bf16 runs these on the persistent kernel (csrc/lstm_sm90.cu): T 1
+    # and B 1; B 100 (a ragged second row tile); H 1040 and P 520 (P and H
+    # off the 64-wide chunks: zero fill); H 4096 (32 units a block)
+    (1, 1, 256, 64),
+    (3, 100, 512, 128),
+    (3, 128, 1040, 520),
+    (2, 64, 4096, 256),
 ])
 def test_lstm_kernels_match_plain(cuda, dtype, T, B, H, P):
     xw, w_h, w_proj, gout = _lstm_inputs(cuda, dtype, T, B, H, P)
@@ -416,3 +423,73 @@ def test_lstm_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         lstm.lstm_recurrence(xw.transpose(0, 1).contiguous().transpose(0, 1),
                              w_h, w_proj)
+
+
+def test_lstm_sm90_kernel_uses_tma_and_wgmma(cuda):
+    """The built library's SASS: the persistent forward (B1 and B2, 16 and
+    32 units a block) issues HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    _cuda.library("lstm_sm90")
+    sass = subprocess.run(
+        [_cuobjdump(), "-sass", str(_cuda.library_path("lstm_sm90"))],
+        capture_output=True, text=True, check=True).stdout
+    bodies = [part for part in sass.split("Function : ")[1:]
+              if "lstm_fwd_kernel_sm90" in part.split("\n", 1)[0]]
+    assert len(bodies) == 4, sass[:2000]    # G 1, 2 x B1, B2
+    for body in bodies:
+        assert "HGMMA" in body and "UTMALDG" in body
+
+
+def test_lstm_bf16_lm1b_shape_takes_the_sm90_route(cuda):
+    """At the LM1B step's shape bf16 B1 and B2 launch the persistent
+    kernel, one launch a call, and fp32 the first kernel; each call counts
+    one launch either way."""
+    T, B, H, P = 20, 128, 2048, 512
+    for dtype, sm90 in ((torch.bfloat16, True), (torch.float32, False)):
+        xw, w_h, w_proj, _ = _lstm_inputs(cuda, dtype, T, B, H, P)
+        assert (lstm.device_fwd_route(xw, w_proj).source == "lstm_sm90") \
+            == sm90
+        before = (lstm.launches_fwd, lstm.launches_fwd_res)
+        names = _kernel_names(lambda: (
+            lstm.lstm_recurrence(xw, w_h, w_proj),
+            lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)))
+        assert (lstm.launches_fwd, lstm.launches_fwd_res) == \
+            (before[0] + 1, before[1] + 1)
+        persistent = [n for n in names if "lstm_fwd_kernel_sm90" in n]
+        first = [n for n in names if "lstm_gates_kernel" in n]
+        assert (len(persistent), len(first)) == \
+            ((2, 0) if sm90 else (0, 2)), names
+
+
+def test_lstm_sm90_is_bitwise_repeatable(cuda):
+    """10 back-to-back B2 calls at the LM1B shape give the same bits in
+    hs, gates and c, and so do calls on a second stream (each call zeroes
+    its own grid-barrier counter on the stream it runs on)."""
+    xw, w_h, w_proj, _ = _lstm_inputs(cuda, torch.bfloat16, 20, 128, 2048,
+                                      512)
+    first = lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+    runs = [lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+            for _ in range(9)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs += [lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+                 for _ in range(2)]
+    torch.cuda.synchronize()
+    for run in runs:
+        for got, want in zip(run, first):
+            assert torch.equal(got, want)
+
+
+def test_lstm_sm90_refuses_a_misaligned_weight(cuda):
+    """The persistent kernel copies w_h and w_proj with 16-byte loads: a
+    contiguous view that starts one element in raises before anything
+    launches."""
+    xw, w_h, w_proj, _ = _lstm_inputs(cuda, torch.bfloat16, 2, 64, 256, 64)
+    flat = torch.zeros(w_proj.numel() + 1, device=cuda,
+                       dtype=torch.bfloat16)
+    bad = flat[1:].view(w_proj.shape)
+    bad.copy_(w_proj)
+    before = lstm.launches_fwd
+    with pytest.raises(ValueError, match="16-byte"):
+        lstm.lstm_recurrence(xw, w_h, bad)
+    assert lstm.launches_fwd == before

@@ -186,3 +186,102 @@ def test_kernel_hbm_bytes_is_the_jax_byte_model():
             pallas_lstm.kernel_hbm_bytes(*flagship, bwd=bwd)
     assert tl.pass_flops(20, 128, 2048, 512) == \
         2 * 20 * 128 * (512 * 4 * 2048 + 2048 * 512)
+
+
+# -- the persistent bf16 forward (csrc/lstm_sm90.cu): its route and its
+# arithmetic ----------------------------------------------------------------
+
+LM1B = (20, 128, 2048, 512)     # T, B, H, P of the LM1B training step
+
+
+@pytest.mark.parametrize("dtype,shape,sms,want", [
+    # the LM1B step on an H100 SXM: 128 blocks of 16 units
+    (torch.bfloat16, LM1B, 132, ("lstm_sm90", 1, 4)),
+    # fp32 keeps the first kernel (a TF32 wgmma breaks the 1e-4 contract)
+    (torch.float32, LM1B, 132, ("lstm", 0, 0)),
+    # P 33 (66-byte rows: no TMA), H 70 (not 16-unit groups), B 1
+    (torch.bfloat16, (3, 1, 70, 33), 132, ("lstm", 0, 0)),
+    # 114 SMs (H100 PCIe): 128 blocks of 16 cannot all be resident, 64
+    # blocks of 32 units can, with a 3-stage ring to fit 227 KB
+    (torch.bfloat16, LM1B, 114, ("lstm_sm90", 2, 3)),
+    # more blocks than SMs at every group size: the first kernel
+    (torch.bfloat16, LM1B, 60, ("lstm", 0, 0)),
+    # B past two 64-row tiles
+    (torch.bfloat16, (20, 130, 2048, 512), 132, ("lstm", 0, 0)),
+    # H 4096: 16-unit groups would need 256 blocks
+    (torch.bfloat16, (2, 64, 4096, 256), 132, ("lstm_sm90", 2, 4)),
+])
+def test_fwd_route_is_a_function_of_dtype_shape_and_sms(dtype, shape, sms,
+                                                        want):
+    T, B, H, P = shape
+    route = tl.fwd_route(dtype, T, B, H, P, sms)
+    assert tuple(route) == want
+    if route.source == "lstm_sm90":
+        blocks = H // (16 * route.groups)
+        assert blocks <= sms and blocks % (P // 8) == 0
+        assert tl.sm90_smem_bytes(route.groups, H, P, route.stages) \
+            <= tl.SM90_SMEM
+
+
+def _sigmoid_ex2(x):
+    return 1.0 / (1.0 + torch.exp2(-x * 1.4426950408889634))
+
+
+def _tanh_ex2(x):
+    return 1.0 - 2.0 / (1.0 + torch.exp2(2.0 * 1.4426950408889634 * x))
+
+
+def _chunked(a, b, lo, hi):
+    """sum over 64-wide chunks k0 in [lo, hi) of a[:, k0:] @ b[k0:], in
+    order, each chunk's product in fp32 (a wgmma chunk)."""
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(lo, hi, 64):
+        acc = acc + a[:, k0:k0 + 64] @ b[k0:k0 + 64]
+    return acc
+
+
+def _sm90_emulation(xw, w_h, w_proj):
+    """The persistent kernel's arithmetic on the CPU: gates summed over
+    64-wide chunks of P, sigma and tanh through 2^x and a reciprocal, the
+    projection's two halves over H (one per warpgroup) summed in chunks
+    and added once, bf16 stores."""
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    wh, wp = w_h.float(), w_proj.float()
+    half = (-(-H // 64) + 1) // 2 * 64
+    c = torch.zeros((B, H))
+    hs, gates, cs = [], [], []
+    for t in range(T):
+        g = xw[t].float()
+        if t > 0:
+            g = _chunked(hs[-1].float(), wh, 0, P) + g
+        i, f, gg, o = g.chunk(4, dim=-1)
+        i, f = _sigmoid_ex2(i), _sigmoid_ex2(f + 1.0)
+        gg, o = _tanh_ex2(gg), _sigmoid_ex2(o)
+        c = f * c + i * gg
+        hf = (o * _tanh_ex2(c)).bfloat16().float()
+        hs.append((_chunked(hf, wp, 0, half)
+                   + _chunked(hf, wp, half, H)).bfloat16())
+        gates.append(torch.cat([i, f, gg, o], dim=-1).bfloat16())
+        cs.append(c.bfloat16())
+    return torch.stack(hs), torch.stack(gates), torch.stack(cs)
+
+
+def test_sm90_arithmetic_stays_within_the_bf16_budget():
+    """The kernel's accumulation split and its sigma/tanh, emulated at the
+    LM1B shape over all T = 20 steps, stay within 2e-2 of the plain
+    version's peak in hs, the gates and c (the c carry compounds any
+    error of the transcendentals)."""
+    T, B, H, P = LM1B
+    rng = np.random.default_rng(0)
+
+    def t(s, scale):
+        return torch.from_numpy(
+            (rng.standard_normal(s) * scale).astype(np.float32)).bfloat16()
+    xw = t((T, B, 4 * H), 1.0)
+    w_h = t((P, 4 * H), 1.0 / np.sqrt(P))
+    w_proj = t((H, P), 1.0 / np.sqrt(H))
+    got = _sm90_emulation(xw, w_h, w_proj)
+    want = tl.lstm_recurrence_plain(xw, w_h, w_proj, residuals=True)
+    for g, w, what in zip(got, want, ("hs", "gates", "c")):
+        _close(g.float().numpy(), w.float().numpy(), "bfloat16", what)

@@ -202,3 +202,119 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported():
     assert tparallax.Config(run_option="ps").run_option == "SHARD"
     with pytest.raises(ValueError, match="run_option"):
         tparallax.Config(run_option="ring")
+
+
+def _slice_table_read_by_a_gather_models():
+    """The same model in both packages: ``emb`` registered for slice
+    updates but read through a plain gather (``torch.index_select`` /
+    ``jnp.take``), never through ``embedding_lookup``."""
+    from parallax_tpu.core.engine import Model as JModel
+    from parallax_tpu.ops.sparse_optim import SliceAdagrad as JSliceAdagrad
+    from parallax_tpu_torch.core.engine import Model as TModel
+    from parallax_tpu_torch.ops.sparse_optim import SliceAdagrad
+
+    def t_init(gen, device):
+        return {"emb": torch.ones((16, 4), device=device),
+                "w": torch.ones((4,), device=device)}
+
+    def t_loss(params, batch):
+        rows = torch.index_select(params["emb"], 0, batch["ids"])
+        return (rows @ params["w"]).sum()
+
+    def j_init(rng):
+        return {"emb": jnp.ones((16, 4)), "w": jnp.ones((4,))}
+
+    def j_loss(params, batch):
+        return jnp.sum(jnp.take(params["emb"], batch["ids"], axis=0)
+                       @ params["w"])
+
+    tmodel = TModel(t_init, t_loss, slice_updaters={"emb": SliceAdagrad(
+        0.1, initial_accumulator_value=1.0)})
+    jmodel = JModel(j_init, j_loss, slice_updaters={"emb": JSliceAdagrad(
+        0.1, initial_accumulator_value=1.0)})
+    return tmodel, jmodel
+
+
+def test_slice_table_read_outside_embedding_lookup_is_refused():
+    """A slice-updated table that no embedding_lookup reads would never
+    be trained: both engines refuse it when the step is built."""
+    tmodel, jmodel = _slice_table_read_by_a_gather_models()
+    batch = {"ids": np.array([1, 3, 3, 7], np.int64)}
+    msg = "no embedding_lookup of those tables was traced"
+    jsess, *_ = jparallax.parallel_run(jmodel,
+                                       parallax_config=_config(jparallax))
+    try:
+        with pytest.raises(ValueError, match=msg):
+            jsess.prepare({"ids": batch["ids"].astype(np.int32)})
+    finally:
+        jsess.close()
+    tsess, *_ = tparallax.parallel_run(tmodel,
+                                       parallax_config=_config(tparallax),
+                                       device="cpu")
+    with pytest.raises(ValueError, match=msg):
+        tsess.prepare(batch)
+    tsess.close()
+
+
+def _linear_models():
+    """y = x . w + b with a squared loss, fixed initial values, SGD, in
+    both packages."""
+    import optax
+
+    from parallax_tpu.core.engine import Model as JModel
+    from parallax_tpu_torch.core import optim as toptim
+    from parallax_tpu_torch.core.engine import Model as TModel
+    w0, b0 = [0.5, -0.25, 1.0], 0.1
+
+    def t_init(gen, device):
+        return {"w": torch.tensor(w0, device=device),
+                "b": torch.tensor(b0, device=device)}
+
+    def t_loss(params, batch):
+        pred = batch["x"] @ params["w"] + params["b"]
+        return ((pred - batch["y"]) ** 2).mean()
+
+    def j_init(rng):
+        return {"w": jnp.asarray(w0, jnp.float32),
+                "b": jnp.asarray(b0, jnp.float32)}
+
+    def j_loss(params, batch):
+        pred = batch["x"] @ params["w"] + params["b"]
+        return jnp.mean((pred - batch["y"]) ** 2)
+
+    return (TModel(t_init, t_loss, optimizer=toptim.sgd(0.1)),
+            JModel(j_init, j_loss, optimizer=optax.sgd(0.1)))
+
+
+def test_float64_feeds_train_as_float32():
+    """numpy's default float64 feeds run as float32 (the JAX session
+    runs them so with x64 off): the float32 feeds' losses to the bit,
+    and the JAX session's within 1e-5; a float64 tensor feed too."""
+    rng = np.random.default_rng(0)
+    feeds = [{"x": rng.standard_normal((8, 3)),
+              "y": rng.standard_normal((8,))} for _ in range(STEPS)]
+    assert feeds[0]["x"].dtype == np.float64
+
+    def port_losses(convert):
+        tmodel, _ = _linear_models()
+        sess, *_ = tparallax.parallel_run(tmodel, device="cpu")
+        out = [sess.run("loss", feed_dict={k: convert(v)
+                                           for k, v in f.items()})
+               for f in feeds]
+        dtypes = {p: t.dtype for p, t in sess.state.params.items()}
+        sess.close()
+        return [float(x) for x in out], dtypes
+
+    f64, dt64 = port_losses(lambda v: v)
+    f32, dt32 = port_losses(lambda v: v.astype(np.float32))
+    t64, _ = port_losses(torch.from_numpy)
+    assert dt64 == dt32 == {"w": torch.float32, "b": torch.float32}
+    assert f64 == f32 == t64
+    _, jmodel = _linear_models()
+    jsess, *_ = jparallax.parallel_run(jmodel,
+                                       parallax_config=_config(jparallax))
+    try:
+        jlosses = [float(jsess.run("loss", feed_dict=f)) for f in feeds]
+    finally:
+        jsess.close()
+    np.testing.assert_allclose(f64, jlosses, rtol=1e-5, atol=1e-6)
