@@ -47,13 +47,17 @@ beside it. Phases:
    peak) and fp32 with TF32 off (atol 1e-4 of max(1, plain peak)); each
    timed beside the plain version, cuDNN's ``torch.nn.LSTM`` with the
    same projection (which also runs the input projection the kernels
-   leave to the hoisted matmul), the bound and the achieved TF/s. B1 and
-   B2 run the kernel ``ops/lstm.py``'s ``fwd_route`` picks, printed with
-   each case: the persistent kernel (``csrc/lstm_sm90.cu``) in bf16 at
-   the training shape, which must take it, the first kernel in fp32 and
-   at the ragged shape. Then 10 back-to-back bf16 B2 calls at the
-   training shape must give bit-identical results, and B2's device time
-   over T 1-40 (three allocations each) gives its time a step.
+   leave to the hoisted matmul; for B3 its forward plus backward less
+   its forward), the bound and the achieved TF/s. Each runs the kernel
+   ``ops/lstm.py``'s ``fwd_route`` or ``bwd_route`` picks, printed with
+   each case: the persistent kernels (``csrc/lstm_sm90.cu``) in bf16 at
+   the training shape, which must take them, the first kernels in fp32
+   and at the ragged shape. Then 10 back-to-back bf16 B2 calls and 10 B3
+   calls at the training shape must each give bit-identical results, and
+   B2's and B3's device time over T 1-40 (three allocations each) gives
+   each one's time a step (``lstm-sweep``, ``lstm-bwd-sweep``), and B3 on
+   the persistent kernel with 16 and with 32 units a block, in turns,
+   shows what its route's choice rests on (``lstm-bwd-groups``).
 6. Train: LM1B at its published widths (``LM1BConfig()``: vocab 793470
    padded to 793472 for 8 partitions, emb 512, hidden 2048, proj 512,
    8192 sampled candidates, keep_prob 0.9, bf16 compute, fp32 tables)
@@ -65,7 +69,8 @@ beside it. Phases:
    B2 and B3 once per step, B1 none until the held-out loss, then once.
    Losses finite and falling; the padded vocab rows untouched. Then 5
    steps under the profiler (launches and busy ms a step), which must
-   show ``lstm_fwd_kernel_sm90`` and B3 and no first forward kernel.
+   show ``lstm_fwd_kernel_sm90`` and ``lstm_bwd_kernel_sm90`` and no
+   first LSTM kernel.
 7. Train agreement: 3 steps in fp32 (TF32 off, keep_prob 1) from the
    same weights and generator with ``lstm_impl="kernel"`` and
    ``"scan"``; per-step losses within 1e-4 relative.
@@ -170,8 +175,10 @@ def time_ms(torch, fn, reps: int = REPS, per_round: int = 10,
     return statistics.median(times)
 
 
-# profiler windows tried before a kernel counts as missed
+# profiler windows tried before a kernel counts as missed, and the fills
+# that pad each window's ends
 PROFILE_WINDOWS = 4
+PROFILE_PAD = 16
 
 
 def profile_events(torch, fn, calls: int, want=()):
@@ -183,14 +190,21 @@ def profile_events(torch, fn, calls: int, want=()):
     So a window with no device row, or with no row whose name holds one
     of ``want``, is profiled again, up to ``PROFILE_WINDOWS`` windows; a
     kernel that does not launch is missed in every one of them, and the
-    last window is returned as it is."""
+    last window is returned as it is. The window starts and ends with
+    PROFILE_PAD one-element fills, so that a record lost at a window's edge
+    is not one of ``fn``'s."""
     from torch.profiler import ProfilerActivity, profile
     rows = []
+    pad = torch.empty(1, device=DEVICE)
     for window in range(PROFILE_WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                pad.fill_(0.0)
             for _ in range(calls):
                 fn()
+            for _ in range(PROFILE_PAD):
+                pad.fill_(0.0)
             torch.cuda.synchronize()
         rows = [evt for evt in prof.key_averages()
                 if getattr(evt, "device_time_total",
@@ -874,31 +888,50 @@ def phase_agreement(torch, params, cfg_bf16, requests):
 # -- phase 5: the LSTM kernels ------------------------------------------------
 
 LSTM_FP32_TOL = 1e-4
-# kernel names of each LSTM op by route, for its device time in the
-# profiler: B1 and B2 run the persistent kernel (csrc/lstm_sm90.cu) or the
-# first one (csrc/lstm.cu, three launches a step), as ops/lstm.py's
-# fwd_route picks; B3 runs the first kernel
-LSTM_KERNELS = {"lstm_sm90": ("lstm_fwd_kernel_sm90",),
-                "lstm": ("lstm_gates_kernel", "lstm_proj_"),
-                "lstm_bwd": ("lstm_bwd_", "Memcpy")}
 LSTM_REPEATS = 10
 
 
-def lstm_kernel_names(name, route):
-    """The CUDA kernels an LSTM op launches on its route."""
-    return LSTM_KERNELS["lstm_bwd" if name == "lstm_bwd" else route]
+def lstm_kernel_records(name, route, T):
+    """{CUDA activity name: records one call leaves} of an LSTM op on its
+    route, as ops/lstm.py's fwd_route and bwd_route pick it: the
+    persistent kernels (csrc/lstm_sm90.cu) launch once a call; the first
+    ones (csrc/lstm.cu) three times a step, B3 once fewer and a memcpy of
+    dh_tot's last step."""
+    if route == "lstm_sm90":
+        return {"lstm_bwd_kernel_sm90" if name == "lstm_bwd"
+                else "lstm_fwd_kernel_sm90": 1}
+    if name == "lstm_bwd":
+        return {"Memcpy DtoD": 1, "lstm_bwd_cell_kernel": T,
+                "lstm_bwd_dh_kernel": T - 1,
+                "lstm_bwd_dh_reduce_kernel": T - 1}
+    return {"lstm_gates_kernel": T, "lstm_proj_kernel": T,
+            "lstm_proj_reduce_kernel": T}
 
 
-def device_ms_per_call(torch, fn, names, calls: int = 5):
-    """Device milliseconds per call of ``fn`` summed over every CUDA
-    activity whose name holds one of ``names`` (None when the profiler
-    records none)."""
+def device_ms_per_call(torch, fn, records, calls: int = 5):
+    """Device milliseconds per call of ``fn``: for each CUDA activity name
+    in ``records`` ({name: records one call leaves}), the mean time of the
+    records the profiler kept times the records a call leaves. The
+    profiler can lose records, inside a window as well as at its edges, so
+    a total over the calls made would read low. None when a name that a
+    call must leave has no record."""
+    rows = profile_events(torch, fn, calls,
+                          want=tuple(n for n, k in records.items() if k))
     total_us = 0.0
-    for evt in profile_events(torch, fn, calls, want=names):
-        if any(n in evt.key for n in names):
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-    return total_us / calls / 1e3 if total_us else None
+    for name, per_call in records.items():
+        if not per_call:
+            continue
+        us, count = 0.0, 0
+        for evt in rows:
+            # a CUDA runtime call (cudaMemcpyAsync) is not the activity
+            if name in evt.key and not evt.key.startswith("cuda"):
+                us += getattr(evt, "device_time_total",
+                              getattr(evt, "cuda_time_total", 0.0))
+                count += evt.count
+        if not count:
+            return None
+        total_us += us / count * per_call
+    return total_us / 1e3
 
 
 def lstm_cases():
@@ -980,14 +1013,18 @@ def run_lstm_case(torch, case, dtype):
     kb = {k: lstm.kernel_hbm_bytes(T, B, E, H, P, xs, ws, bwd=k)
           for k in ("recompute", "scan", "kernel")}
     wbytes = kb["recompute"]["resident_bytes_per_device"]
+    # each input read once, each output written once: the JAX byte model
+    # counts B3's c trajectory twice (as c and as c_prev)
     nbytes = {"lstm_fwd": kb["recompute"]["stream_bytes"] + wbytes,
               "lstm_fwd_res": kb["scan"]["stream_bytes"] + wbytes,
               "lstm_bwd": kb["kernel"]["stream_bytes"]
-              - kb["scan"]["stream_bytes"] + wbytes}
-    route = lstm.device_fwd_route(xw, w_proj)
+              - kb["scan"]["stream_bytes"] - T * B * H * xs + wbytes}
+    routes = {"lstm_fwd": lstm.device_fwd_route(xw, w_proj),
+              "lstm_bwd": lstm.device_bwd_route(gout, w_proj)}
     results = []
     for name, (kernel, plain) in outs.items():
-        kroute = "lstm" if name == "lstm_bwd" else route.source
+        route = routes["lstm_bwd" if name == "lstm_bwd" else "lstm_fwd"]
+        kroute = route.source
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -1000,7 +1037,7 @@ def run_lstm_case(torch, case, dtype):
         bound_ms, bound_by = bound(nbytes[name], flops,
                                    str(dtype).split(".")[-1])
         dev = device_ms_per_call(torch, kernel,
-                                 lstm_kernel_names(name, kroute))
+                                 lstm_kernel_records(name, kroute, T))
         results.append({
             "kernel": name, "case": label,
             "dtype": str(dtype).split(".")[-1],
@@ -1021,68 +1058,128 @@ def run_lstm_case(torch, case, dtype):
     return results
 
 
-def lstm_repeatability(torch):
-    """LSTM_REPEATS back-to-back bf16 B2 calls at the LM1B training shape:
-    hs, gates and c must be bit-identical (the persistent kernel's grid
-    barriers and cross-block reads must not depend on timing)."""
+def lstm_sm90_inputs(torch, T, seed):
+    """bf16 inputs of B2 and B3 at the training shape over T steps: xw,
+    w_h, w_proj, the fp32 cotangent g, and B2's residuals of xw."""
     from parallax_tpu_torch.ops import lstm
-    _, T, B, E, H, P = lstm_cases()[0]
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    _, _, B, _, H, P = lstm_cases()[0]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
 
-    def r(shape, scale):
+    def r(shape, scale, dt=torch.bfloat16):
         return (torch.randn(shape, generator=g, device=DEVICE)
-                * scale).bfloat16()
+                * scale).to(dt)
     xw = r((T, B, 4 * H), 1.0)
     w_h = r((P, 4 * H), 1.0 / math.sqrt(P))
     w_proj = r((H, P), 1.0 / math.sqrt(H))
-    runs = [lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
-            for _ in range(LSTM_REPEATS)]
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for run in runs[1:]
-               for a, b in zip(run, runs[0]))
-    summary = {"calls": LSTM_REPEATS, "bitwise_identical": same,
-               "route": lstm.device_fwd_route(xw, w_proj).source}
+    gout = r((T, B, P), 1.0, torch.float32)
+    _, gates, cseq = lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+    return xw, w_h, w_proj, gout, gates, cseq
+
+
+def lstm_repeatability(torch):
+    """LSTM_REPEATS back-to-back bf16 B2 calls and as many B3 calls at the
+    LM1B training shape: hs, gates and c, and d_xw and dh_total, must be
+    bit-identical (the persistent kernels' grid barriers and cross-block
+    reads must not depend on timing)."""
+    from parallax_tpu_torch.ops import lstm
+    T = lstm_cases()[0][1]
+    xw, w_h, w_proj, gout, gates, cseq = lstm_sm90_inputs(torch, T,
+                                                          SEED + 1)
+    calls = {
+        "lstm_fwd_res": lambda: lstm.lstm_recurrence(xw, w_h, w_proj,
+                                                     residuals=True),
+        "lstm_bwd": lambda: lstm.lstm_bwd_recurrence(gout, gates, cseq,
+                                                     w_h, w_proj)}
+    summary = {"calls": LSTM_REPEATS,
+               "route": {"lstm_fwd_res":
+                         lstm.device_fwd_route(xw, w_proj).source,
+                         "lstm_bwd":
+                         lstm.device_bwd_route(gout, w_proj).source}}
+    for name, call in calls.items():
+        runs = [call() for _ in range(LSTM_REPEATS)]
+        torch.cuda.synchronize()
+        summary[name] = all(torch.equal(a, b) for run in runs[1:]
+                            for a, b in zip(run, runs[0]))
     log(f"[lstm-repeat] {json.dumps(summary)}")
-    if not same:
-        raise AssertionError("bf16 B2 calls at the training shape differ "
-                             "from one another")
+    differ = [name for name in calls if not summary[name]]
+    if differ:
+        raise AssertionError(f"bf16 {differ} calls at the training shape "
+                             f"differ from one another")
     return summary
 
 
 LSTM_SWEEP_T = (1, 10, 20, 40)
 
 
-def lstm_step_sweep(torch):
-    """Device ms of a bf16 B2 call at the training shape (B 128, H 2048,
-    P 512) over T in LSTM_SWEEP_T, each T in 3 fresh allocations (the
-    inputs land at other addresses each time): the slope over T is the
-    persistent kernel's time a step, the intercept its fixed cost (the
-    weight copy into shared memory, the launch)."""
+def lstm_step_sweep(torch, name="lstm_fwd_res"):
+    """Device ms of a bf16 B2 (``lstm_fwd_res``) or B3 (``lstm_bwd``) call
+    at the training shape (B 128, H 2048, P 512) over T in LSTM_SWEEP_T,
+    each T in 3 fresh allocations (the inputs land at other addresses each
+    time): the slope over T is the persistent kernel's time a step, the
+    intercept its fixed cost (the weight copy into shared memory, the
+    launch)."""
     from parallax_tpu_torch.ops import lstm
     _, _, B, _, H, P = lstm_cases()[0]
+    kernels = lstm_kernel_records(name, "lstm_sm90", 1)
     rows = []
     for T in LSTM_SWEEP_T:
         times = []
         for alloc in range(3):
-            g = torch.Generator(device=DEVICE).manual_seed(SEED + alloc)
             pad = torch.empty((1 << 20) * (alloc + 1), device=DEVICE)
-            xw = torch.randn((T, B, 4 * H), generator=g,
-                             device=DEVICE).bfloat16()
-            w_h = (torch.randn((P, 4 * H), generator=g, device=DEVICE)
-                   / math.sqrt(P)).bfloat16()
-            w_proj = (torch.randn((H, P), generator=g, device=DEVICE)
-                      / math.sqrt(H)).bfloat16()
-            times.append(device_ms_per_call(
-                torch, lambda: lstm.lstm_recurrence(xw, w_h, w_proj,
-                                                    residuals=True),
-                LSTM_KERNELS["lstm_sm90"], calls=10))
+            xw, w_h, w_proj, gout, gates, cseq = lstm_sm90_inputs(
+                torch, T, SEED + alloc)
+            if name == "lstm_bwd":
+                call = lambda: lstm.lstm_bwd_recurrence(  # noqa: E731
+                    gout, gates, cseq, w_h, w_proj)
+            else:
+                call = lambda: lstm.lstm_recurrence(  # noqa: E731
+                    xw, w_h, w_proj, residuals=True)
+            times.append(device_ms_per_call(torch, call, kernels,
+                                            calls=10))
             del pad
         rows.append({"T": T, "device_ms": times})
     per_step = [(b - a) / (LSTM_SWEEP_T[-1] - LSTM_SWEEP_T[0])
                 for a, b in zip(rows[0]["device_ms"], rows[-1]["device_ms"])]
-    summary = {"shape": {"B": B, "H": H, "P": P}, "rows": rows,
-               "ms_per_step": per_step}
-    log(f"[lstm-sweep] {json.dumps(summary)}")
+    summary = {"kernel": name, "shape": {"B": B, "H": H, "P": P},
+               "rows": rows, "ms_per_step": per_step}
+    label = "lstm-bwd-sweep" if name == "lstm_bwd" else "lstm-sweep"
+    log(f"[{label}] {json.dumps(summary)}")
+    return summary
+
+
+def lstm_bwd_groups(torch):
+    """bf16 B3 at the training shape on the persistent backward with 16 and
+    with 32 hidden units a block (G 1: 128 blocks, G 2: 64; each with
+    bwd_route's ring), timed with CUDA events in turns (G 1, 2, 2, 1):
+    what bwd_route's preference for the fewest blocks rests on. Each must
+    agree with the plain version."""
+    from parallax_tpu_torch.ops import lstm
+    T = lstm_cases()[0][1]
+    xw, w_h, w_proj, gout, gates, cseq = lstm_sm90_inputs(torch, T,
+                                                          SEED + 2)
+    ref = lstm.lstm_bwd_recurrence_plain(gout, gates, cseq, w_h, w_proj)
+
+    def call(groups):
+        dxw, dhtot = torch.empty_like(gates), torch.empty_like(gout)
+        lstm._sm90_bwd(lstm.FwdRoute("lstm_sm90", groups,
+                                     lstm.SM90_BWD_STAGES),
+                       gout, gates, cseq, w_h, w_proj, dxw, dhtot)
+        return dxw, dhtot
+    summary = {"T": T, "stages": lstm.SM90_BWD_STAGES,
+               "route_groups": lstm.device_bwd_route(gout, w_proj).groups}
+    for groups in (1, 2):
+        got = call(groups)
+        torch.cuda.synchronize()
+        errs = [lstm_close(torch, a, e, torch.bfloat16)
+                for a, e in zip(got, ref)]
+        if not all(err <= tol for err, tol in errs):
+            raise AssertionError(f"B3 with G {groups} disagrees with the "
+                                 f"plain version: {errs}")
+        summary[f"G{groups}_ms"] = []
+    for groups in (1, 2, 2, 1):
+        summary[f"G{groups}_ms"].append(
+            time_ms(torch, lambda: call(groups), reps=5, per_round=10))
+    log(f"[lstm-bwd-groups] {json.dumps(summary)}")
     return summary
 
 
@@ -1210,7 +1307,8 @@ def phase_train(torch):
         "launches": launches}
     log(f"[train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
     profile = profile_train(torch, sess, batches,
-                            lstm=["lstm_fwd_kernel_sm90", "lstm_bwd_"])
+                            lstm=["lstm_fwd_kernel_sm90",
+                                  "lstm_bwd_kernel_sm90"])
     sess.close()
     return summary, profile
 
@@ -1218,19 +1316,22 @@ def phase_train(torch):
 def lstm_kernels_seen(rows, want):
     """{kernel name: launches} of the LSTM kernels in a profile's rows;
     raises unless every name in ``want`` launched and, when ``want`` holds
-    the persistent forward, no first forward kernel did (on the bf16 LM1B
-    path that would mean the route fell back)."""
+    a persistent kernel, no first kernel of that pass did (on the bf16
+    LM1B path that would mean the route fell back)."""
     seen = {}
     for _, n, key in rows:
         m = re.search(r"lstm_\w+kernel\w*", key)
         if m:
             seen[m.group(0)] = seen.get(m.group(0), 0) + n
     missing = [w for w in want if not any(k.startswith(w) for k in seen)]
-    stale = [k for k in seen if "lstm_fwd_kernel_sm90" in want
-             and k.startswith(("lstm_gates_", "lstm_proj_"))]
+    first = {"lstm_fwd_kernel_sm90": ("lstm_gates_", "lstm_proj_"),
+             "lstm_bwd_kernel_sm90": ("lstm_bwd_cell_kernel",
+                                      "lstm_bwd_dh_")}
+    stale = [k for w, names in first.items() if w in want
+             for k in seen if k.startswith(names)]
     if missing or stale:
         raise AssertionError(f"profile LSTM kernels {seen}: missing "
-                             f"{missing}, first forward kernels {stale}")
+                             f"{missing}, first kernels {stale}")
     return seen
 
 
@@ -1580,13 +1681,15 @@ def main() -> int:
                              f"versions: {failed}")
     train_route = {r["kernel"]: r["route"] for r in lstm_results
                    if r["case"] == "train" and r["dtype"] == "bfloat16"}
-    if train_route != {"lstm_fwd": "lstm_sm90", "lstm_fwd_res": "lstm_sm90",
-                       "lstm_bwd": "lstm"}:
+    if train_route != dict.fromkeys(("lstm_fwd", "lstm_fwd_res",
+                                     "lstm_bwd"), "lstm_sm90"):
         raise AssertionError(f"bf16 LSTM routes at the training shape "
-                             f"{train_route}: B1 and B2 must take the "
-                             f"persistent kernel")
+                             f"{train_route}: B1, B2 and B3 must take the "
+                             f"persistent kernels")
     lstm_repeat = lstm_repeatability(torch)
     lstm_sweep = lstm_step_sweep(torch)
+    lstm_bwd_sweep = lstm_step_sweep(torch, "lstm_bwd")
+    lstm_groups = lstm_bwd_groups(torch)
     train, train_profile = phase_train(torch)
     train_agree = phase_train_agreement(torch)
     nmt_train, nmt_profile = phase_nmt_train(torch)
@@ -1597,7 +1700,8 @@ def main() -> int:
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
               "cases": results + lstm_results, "lstm_repeat": lstm_repeat,
-              "lstm_sweep": lstm_sweep,
+              "lstm_sweep": lstm_sweep, "lstm_bwd_sweep": lstm_bwd_sweep,
+              "lstm_bwd_groups": lstm_groups,
               "serve": serve_summary, "profile": profile_summary,
               "agreement": agree, "train": train,
               "train_profile": train_profile, "train_agreement": train_agree,

@@ -1,13 +1,16 @@
-// The bf16 LSTM recurrence forward for Hopper (sm_90a): one persistent,
-// weight-stationary launch per pass, its products on wgmma.
+// The bf16 LSTM recurrence for Hopper (sm_90a): the forward and the
+// time-reversed backward, each one persistent, weight-stationary launch per
+// pass, their products on wgmma.
 //
 // Replaces, for bf16 inputs on the shapes that ops/lstm.py routes here
-// (`fwd_route`), the TPU kernels of parallax_tpu/ops/pallas_lstm.py:
+// (`fwd_route`, `bwd_route`), the TPU kernels of
+// parallax_tpu/ops/pallas_lstm.py:
 //   B1 `_lstm_kernel`     (pl.pallas_call at line 290): pt_lstm_fwd_sm90
 //                          with gates == cseq == nullptr
 //   B2 `_lstm_kernel_res` (pl.pallas_call at line 299): pt_lstm_fwd_sm90
 //                          with the two residual outputs
-// fp32, and bf16 shapes this kernel does not take, stay on csrc/lstm.cu (a
+//   B3 `_lstm_bwd_kernel` (pl.pallas_call at line 477): pt_lstm_bwd_sm90
+// fp32, and bf16 shapes these kernels do not take, stay on csrc/lstm.cu (a
 // wgmma on fp32 operands is TF32, about 3 decimal digits).
 //
 // Same function and rounding points as csrc/lstm.cu:
@@ -17,18 +20,25 @@
 //   * hs_t = round_bf16(sigma(o) tanh c) . w_proj, fp32 accumulation,
 //     stored in bf16;
 //   * B2 also stores the post-activation gates [T, B, 4H] and c [T, B, H]
-//     in bf16, in the layout B3 and _bwd_epilogue read.
+//     in bf16, in the layout B3 and _bwd_epilogue read;
+//   * B3, for s = T-1 .. 0 with fp32 (dc, dh) carries from 0: dh_tot = g_s
+//     + dh, stored in fp32; d_hfull = round_bf16(dh_tot) . w_proj^T; the
+//     cell backward from the saved gates and c (c_prev = 0 at s = 0); d_xw_s
+//     = d_gates in bf16; dh = round_bf16(d_gates) . w_h^T, skipped after
+//     s = 0.
 // sigma(x) = 1 / (1 + 2^(-x log2 e)) and tanh(x) = 1 - 2 / (1 + 2^(2x log2
 // e)), with ex2.approx and a correctly rounded reciprocal: about 1e-7 from
 // expf/tanhf, far below the bf16 rounding of h. Products sum their
 // contraction in 64-wide chunks, in order; the projection's two halves (one
-// per warpgroup) are added once at the end. tests/test_torch_lstm.py
-// emulates that arithmetic on the CPU against the plain version.
+// per warpgroup) are added once at the end; B3's dh is one fp32 partial per
+// block (its 64 G gate columns) summed in block order.
+// tests/test_torch_lstm.py emulates that arithmetic on the CPU against the
+// plain version.
 //
-// Design. A grid of nb = H / U blocks, U = 16 G hidden units a block (G = 1
-// or 2, from the SM count: every block must be resident), 256 threads (two
-// warpgroups), one block per SM, launched cooperatively. Block j owns units
-// u0 = j U .. u0 + U - 1.
+// Forward design. A grid of nb = H / U blocks, U = 16 G hidden units a
+// block (G = 1 or 2, from the SM count: every block must be resident), 256
+// threads (two warpgroups), one block per SM, launched cooperatively. Block
+// j owns units u0 = j U .. u0 + U - 1.
 //   * Resident weights: at the start the block copies its slice of w_h once
 //     into shared memory: for each group of 16 units, the 64 columns {gate q
 //     H + u0 + 16 g + ul}, K-major (rows = those columns, P contiguous) with
@@ -59,13 +69,45 @@
 // 8 would read 8 times less, but needs a DSMEM reduction and a cooperative
 // launch with clusters; this is the simpler first design.
 //
+// Backward design (B3). The forward's blocks of 16 G units, warpgroup rows
+// and launch, with G taken the other way round: bwd_route prefers G = 2,
+// the fewest blocks, because every block writes a whole [B, P] fp32
+// partial of dh that the owners read back (64 blocks at the LM1B shape:
+// 16 + 16 MB of partials a step where 128 would move 32 + 32).
+//   * Resident weights: the same w_h slice as the forward, stored the same
+//     way; for dh it is the B operand MN-major (k = the block's 64 G gate
+//     columns, n = P contiguous; the transpose bit). The block's 16 G rows
+//     of w_proj, K-major (P contiguous), 2 KB per group and 64-wide k chunk
+//     (16 KB at P 512), the B operand of d_hfull. The fp32 dc of the block's
+//     units lives in registers for the whole pass.
+//   * Prologue: block j owns a fixed slice of the B x P elements (B P / nb
+//     of them, contiguous); it writes dh_tot_{T-1} = g_{T-1} into dh_total
+//     and, rounded, into a bf16 broadcast buffer dh_bf [2, B, P] (buffer s
+//     mod 2). Grid barrier.
+//   * Step s, phase 1: each warpgroup streams its 64 rows of dh_bf[s mod 2]
+//     through its TMA ring into d_hfull = [64, P] . [P, 16] per group
+//     (m64n16k16); runs the cell backward in registers on the residuals it
+//     prefetched (gates_s, c_s, c_{s-1}); stores d_xw_s; then, for s > 0,
+//     the partial dh_j = round(d_gates)[64, 64 G] . w_h slice^T [64 G, P]
+//     (m64n128k16 / m64n64k16, A straight from registers: each gate's
+//     m64n16 accumulator is a k16 A fragment, as FlashAttention-3 feeds P
+//     to P.V) into an fp32 workspace ws [nb, B, P]. It prefetches the next
+//     step's residuals. Grid barrier.
+//   * Phase 2 (s > 0): each block sums ws[0 .. nb-1] over its owned slice
+//     in block order, adds g_{s-1}, and writes dh_total[s-1] and dh_bf[(s-1)
+//     mod 2]. Grid barrier.
+// One owner per element, a fixed order everywhere, no data atomics: bitwise
+// repeatable.
+//
 // What bounds it on the H100: one pass at the LM1B shape (T 20, B 128, H
 // 2048, P 512) is 27 GFLOP, 0.027 ms at 989 TF/s; its device-memory bytes
-// 0.03 ms. The design moves per step 16 MB (h to every block) + 32 MB
-// (hfull rows to every projection tile) through L2, runs 2 grid barriers,
-// and runs the cell's 10 special-function operations per cell on 2048
-// cells a block; L2 bandwidth, the barriers' latency and the serial chain
-// of each step (load, wgmma, cell, barrier) bound it, not the tensor cores.
+// 0.03-0.04 ms. The forward moves per step 16 MB (h to every block) + 32 MB
+// (hfull rows to every projection tile) through L2; the backward, over nb
+// blocks, nb 128 KB (dh_bf to every block) + nb 256 KB of partials written
+// and as many read + about 5 MB of residuals and outputs (45 MB at nb 64).
+// Each step runs 2 grid barriers and a
+// serial chain (load, wgmma, cell, wgmma, store, barrier); L2 bandwidth,
+// the barriers' latency and that chain bound it, not the tensor cores.
 //
 // Hazards, and what the code does about each:
 //  1. Co-residency: a grid barrier over blocks that are not all resident
@@ -73,26 +115,27 @@
 //     refuses a grid that cannot be resident; ops/lstm.py sizes the grid
 //     from the SM count. Every spin (grid barrier, mbarrier) traps after 4
 //     s, which the caller sees as a launch error, not a hang.
-//  2. Ordering across proxies: hfull and hs_t are written by other blocks
-//     with generic stores and read here by TMA (the async proxy). The
+//  2. Ordering across proxies: hfull, hs_t and dh_bf are written by other
+//     blocks with generic stores and read here by TMA (the async proxy). The
 //     barrier releases at GPU scope after __syncthreads and __threadfence;
 //     each thread that issues TMA loads acquires the counter itself and
-//     then runs fence.proxy.async.global before its loads.
+//     then runs fence.proxy.async.global before its loads. B3's partials
+//     are read with ld.global.cg (L2, never a stale L1 line).
 //  3. Barrier state across launches and streams: the counter is a fresh
 //     zeroed int per call (the wrapper's torch.zeros on the caller's
-//     stream); barrier k waits for the count k nb. The kernel allocates
+//     stream); barrier k waits for the count k nb. The kernels allocate
 //     nothing.
-//  4. Shared memory: w_h slice + w_proj slice + 2 S ring stages + 2 KB must
-//     fit in 227 KB; fwd_route picks S (4 down to 2) to fit, and the
-//     launcher raises the dynamic shared-memory limit before the launch.
-//  5. Layouts and edges: xw and gates are [T, B, 4H], gate-major, so a
+//  4. Shared memory: the weight slices + 2 S ring stages (+ 2 KB for the
+//     forward) must fit in 227 KB; the routes pick S to fit, and the
+//     launchers raise the dynamic shared-memory limit before the launch.
+//  5. Layouts and edges: xw, gates and d_xw are [T, B, 4H], gate-major, so a
 //     group's columns are four runs of 16 units. B not a multiple of 64
 //     and P or H not a multiple of 64 rely on TMA's zero fill (the weight
 //     slices are zero past P and H) and on masked stores. TMA needs
 //     16-byte strides (P, H multiples of 8); the weight copies use 16-byte
-//     loads (w_h and w_proj 16-byte aligned, which the wrapper checks).
+//     loads (16-byte aligned bases, which the wrappers check).
 //  6. Transcendentals: see above; no tanh.approx, whose 2^-11 error would
-//     compound through c.
+//     compound through c; B3 recomputes tanh(c_s) from the stored bf16 c.
 
 #include <cuda.h>          // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
@@ -216,11 +259,14 @@ __device__ __forceinline__ void grid_sync(unsigned* counter,
 
 // -- wgmma ------------------------------------------------------------------------
 
-// Shared-memory matrix descriptor, K-major, 128-byte swizzle: SBO = 1024
-// (eight 128-byte rows); LBO is unused for swizzled K-major tiles.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+// Shared-memory matrix descriptor, 128-byte swizzle: SBO = 1024 (eight
+// 128-byte rows). K-major tiles (the contraction contiguous) leave LBO
+// unused; MN-major ones (N contiguous) set it to the distance between
+// 64-column boxes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr,
+                                              uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -276,6 +322,72 @@ __device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 16] += A[64 x 16] . B[16 x 16], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t desc_a,
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (bf16 pairs in
+// the accumulator's row/column order), B from shared memory MN-major (N
+// contiguous, the 128-byte swizzle; the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], as wgmma_rs_n64 over two
+// 64-column boxes (LBO apart).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // -- the cell -------------------------------------------------------------------
 
 __device__ __forceinline__ float ex2(float x) {
@@ -303,6 +415,72 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // xor (n mod 8)), as TMA writes it; k < 64.
 __device__ __forceinline__ uint32_t swz(int n, int k) {
   return n * 128 + (((k >> 3) ^ (n & 7)) << 4) + (k & 7) * 2;
+}
+
+// -- the pieces both kernels share -------------------------------------------
+
+// A warpgroup's TMA ring of S stages of one 64 x 64 box each, with a full
+// barrier per stage: chunk n of the pass sits in stage n mod S and
+// completes phase (n / S) mod 2 of that stage's barrier. Thread 0 of the
+// warpgroup issues the loads.
+struct Ring {
+  uint32_t stages, full;   // shared addresses: the boxes, the barriers
+  int S, wg, wt;
+  uint32_t n_done = 0;
+
+  // stream `count` boxes at k = 64 (c0 + i), rows 64 m of slab `slab`
+  // through the ring, calling mma(stage address, chunk index) on each
+  template <typename Mma>
+  __device__ __forceinline__ void stream(const CUtensorMap* map, int c0,
+                                         int count, int m, int slab,
+                                         Mma mma) {
+    if (wt == 0)
+      for (int i = 0; i < min(S, count); ++i) {
+        const int s = (n_done + i) % S;
+        mbar_expect_tx(full + 8 * s, kBox);
+        tma_load(stages + s * kBox, map, full + 8 * s, 64 * (c0 + i), 64 * m,
+                 slab);
+      }
+    for (int i = 0; i < count; ++i) {
+      const uint32_t n = n_done + i, s = n % S;
+      mbar_wait(full + 8 * s, (n / S) & 1);
+      mma(stages + s * kBox, c0 + i);
+      if (i + S < count) {
+        wg_sync(wg);
+        if (wt == 0) {
+          mbar_expect_tx(full + 8 * s, kBox);
+          tma_load(stages + s * kBox, map, full + 8 * s, 64 * (c0 + i + S),
+                   64 * m, slab);
+        }
+      }
+    }
+    n_done += count;
+  }
+};
+
+// The block's w_h slice, copied once into K-major boxes at `wh`: for each
+// group g of 16 units, the 64 columns {gate q H + u0 + 16 g + ul} as rows
+// q 16 + ul, P contiguous in 64-wide chunks (zero past P). One 16-byte load
+// is 8 consecutive units of one gate at one k.
+template <int G>
+__device__ __forceinline__ void copy_wh_slice(uint8_t* wh,
+                                              const bf16* __restrict__ w_h,
+                                              int u0, int H, int P) {
+  const int KC = (P + 63) / 64;
+  const long H4 = 4L * H;
+  for (int v = threadIdx.x; v < G * 8 * KC * 64; v += NT) {
+    const int k = v / (G * 8), r = v % (G * 8);
+    const int g = r / 8, q = (r % 8) / 2, h8 = r % 2;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (k < P)
+      val = *reinterpret_cast<const uint4*>(
+          w_h + (long)k * H4 + (long)q * H + u0 + 16 * g + 8 * h8);
+    const bf16* e8 = reinterpret_cast<const bf16*>(&val);
+    bf16* box = reinterpret_cast<bf16*>(wh + (g * KC + k / 64) * kBox);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      box[swz(q * 16 + 8 * h8 + e, k % 64) / 2] = e8[e];
+  }
 }
 
 // -- the kernel -------------------------------------------------------------------
@@ -341,8 +519,8 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_kernel_sm90(
   float* red = reinterpret_cast<float*>(smem + L.red);
   const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
   const int lane = tid % 32;
-  const uint32_t ring = base + L.ring + wg * S * kBox;
-  const uint32_t full = base + L.bars + wg * S * 8;
+  Ring ring{base + L.ring + wg * S * kBox, base + L.bars + wg * S * 8, S,
+            wg, wt};
   const int nb = gridDim.x, j = blockIdx.x;
   const int u0 = j * 16 * G;
   const int MT = (B + 63) / 64;            // 64-row tiles of the batch
@@ -354,22 +532,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_kernel_sm90(
     for (int i = 0; i < 2 * S; ++i) mbar_init(base + L.bars + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the w_h slice, transposed into K-major boxes: one 16-byte load is 8
-  // consecutive units of one gate at one k
-  for (int v = tid; v < G * 8 * KC * 64; v += NT) {
-    const int k = v / (G * 8), r = v % (G * 8);
-    const int g = r / 8, q = (r % 8) / 2, h8 = r % 2;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (k < P)
-      val = *reinterpret_cast<const uint4*>(
-          w_h + (long)k * H4 + (long)q * H + u0 + 16 * g + 8 * h8);
-    const bf16* e8 = reinterpret_cast<const bf16*>(&val);
-    bf16* box = reinterpret_cast<bf16*>(smem + L.wh +
-                                        (g * KC + k / 64) * kBox);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      box[swz(q * 16 + 8 * h8 + e, k % 64) / 2] = e8[e];
-  }
+  copy_wh_slice<G>(smem + L.wh, w_h, u0, H, P);
   // the w_proj slice: columns cg * 8 .. cg * 8 + 7, one 16-byte load a k
   for (int k = tid; k < KH * 64; k += NT) {
     uint4 val = make_uint4(0, 0, 0, 0);
@@ -413,36 +576,6 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_kernel_sm90(
     for (int i = 0; i < 8; ++i) c_st[g][i] = 0.f;
   if (gate_wg) load_xw(0);
 
-  // the warpgroup's ring: chunk n of the pass sits in stage n mod S and
-  // completes phase (n / S) mod 2 of that stage's barrier
-  uint32_t n_done = 0;
-  // stream `count` boxes at k = 64 (c0 + i), rows 64 m of slab `slab`
-  // through the ring, calling mma(stage address, chunk index) on each
-  auto stream = [&](const CUtensorMap* map, int c0, int count, int m,
-                    int slab, auto mma) {
-    if (wt == 0)
-      for (int i = 0; i < min(S, count); ++i) {
-        const int s = (n_done + i) % S;
-        mbar_expect_tx(full + 8 * s, kBox);
-        tma_load(ring + s * kBox, map, full + 8 * s, 64 * (c0 + i), 64 * m,
-                 slab);
-      }
-    for (int i = 0; i < count; ++i) {
-      const uint32_t n = n_done + i, s = n % S;
-      mbar_wait(full + 8 * s, (n / S) & 1);
-      mma(ring + s * kBox, c0 + i);
-      if (i + S < count) {
-        wg_sync(wg);
-        if (wt == 0) {
-          mbar_expect_tx(full + 8 * s, kBox);
-          tma_load(ring + s * kBox, map, full + 8 * s, 64 * (c0 + i + S),
-                   64 * m, slab);
-        }
-      }
-    }
-    n_done += count;
-  };
-
   unsigned barrier = 0;
   for (int t = 0; t < T; ++t) {
     const int buf = t & 1;
@@ -455,7 +588,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_kernel_sm90(
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
       if (t > 0) {
-        stream(&tm_h, 0, KC, wg, t - 1, [&](uint32_t a, int c) {
+        ring.stream(&tm_h, 0, KC, wg, t - 1, [&](uint32_t a, int c) {
 #pragma unroll
           for (int g = 0; g < G; ++g) pin(acc[g]);
           wg_fence();
@@ -521,7 +654,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_kernel_sm90(
     const int c0 = wg == 0 ? 0 : kh0, count = wg == 0 ? kh0 : KH - kh0;
     for (int m = rsplit; m < MT; m += R) {
       float pacc[4] = {0.f, 0.f, 0.f, 0.f};
-      stream(&tm_f, c0, count, m, buf, [&](uint32_t a, int c) {
+      ring.stream(&tm_f, c0, count, m, buf, [&](uint32_t a, int c) {
         pin(pacc);
         wg_fence();
         const uint32_t b = sWp + c * kPBox;
@@ -551,6 +684,293 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_kernel_sm90(
       __syncthreads();
     }
     if (t + 1 < T) grid_sync(counter, ++barrier * nb);
+  }
+}
+
+// Layout of B3's dynamic shared memory (from a 1024-byte aligned base):
+// the w_h slice [G][KC] boxes, the w_proj rows [G][KC] chunks of 16 rows x
+// 64 k, the two warpgroups' rings [2][S] boxes, then the rings' full
+// barriers [2][S].
+constexpr int kRows = 16 * 64 * 2;     // 16 w_proj rows x 64 k, bf16
+struct BwdSmem {
+  int wh, wp, ring, bars, bytes;
+  __host__ __device__ BwdSmem(int G, int P, int S) {
+    const int KC = (P + 63) / 64;
+    wh = 0;
+    wp = G * KC * kBox;
+    ring = wp + G * KC * kRows;
+    bars = ring + 2 * S * kBox;
+    bytes = 1024 + bars + 2 * S * 8;
+  }
+};
+
+// An m64nN accumulator, M = N / 2 values a thread (acc[4 i + 2 hh + e]: row
+// r0 + 8 hh, column n0 + 8 i + cu + e), into the fp32 [B, P] rows of `part`,
+// masked to B and P.
+template <int M>
+__device__ __forceinline__ void store_partial(const float (&acc)[M],
+                                              float* part, int r0, int cu,
+                                              int n0, int B, int P) {
+#pragma unroll
+  for (int i = 0; i < M / 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh, col = n0 + 8 * i + cu;
+      if (row < B && col < P)
+        __stcg(reinterpret_cast<float2*>(part + (long)row * P + col),
+               make_float2(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]));
+    }
+}
+
+template <int G>
+__global__ void __launch_bounds__(NT, 1) lstm_bwd_kernel_sm90(
+    const __grid_constant__ CUtensorMap tm_d, const float* __restrict__ gout,
+    const bf16* __restrict__ gates, const bf16* __restrict__ cseq,
+    const bf16* __restrict__ w_h, const bf16* __restrict__ w_proj,
+    bf16* __restrict__ dxw, float* __restrict__ dhtot, bf16* dh_bf,
+    float* ws, unsigned* __restrict__ counter, int T, int B, int H, int P,
+    int S) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const BwdSmem L(G, P, S);
+  const int KC = (P + 63) / 64;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t sWh = base + L.wh, sWp = base + L.wp;
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int lane = tid % 32;
+  Ring ring{base + L.ring + wg * S * kBox, base + L.bars + wg * S * 8, S,
+            wg, wt};
+  const int nb = gridDim.x, j = blockIdx.x;
+  const int u0 = j * 16 * G;
+  const int MT = (B + 63) / 64;
+  const long H4 = 4L * H, BP = (long)B * P;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * S; ++i) mbar_init(base + L.bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  copy_wh_slice<G>(smem + L.wh, w_h, u0, H, P);
+  // the block's w_proj rows u0 + 16 g + n: one 16-byte load is 8
+  // consecutive k of one row, which is one swizzled 16-byte chunk
+  for (int v = tid; v < G * 16 * KC * 8; v += NT) {
+    const int row = v / (KC * 8), k = 8 * (v % (KC * 8));
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (k < P)
+      val = *reinterpret_cast<const uint4*>(w_proj +
+                                            (long)(u0 + row) * P + k);
+    *reinterpret_cast<uint4*>(smem + L.wp +
+                              ((row / 16) * KC + k / 64) * kRows +
+                              swz(row % 16, k % 64)) = val;
+  }
+  // the generic-proxy writes must be visible to wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // dh_tot_s = g_s (+ the sum of the partials in ws, in block order) over
+  // this block's slice of the B x P elements, as float2 pairs: into
+  // dh_total[s] and, rounded, into dh_bf[s mod 2]
+  const long n2 = BP / 2, e2 = (n2 + nb - 1) / nb;
+  const long lo = j * e2, hi = min(n2, lo + e2);
+  auto reduce = [&](int s, bool partials) {
+    const float2* gs = reinterpret_cast<const float2*>(gout + s * BP);
+    const float2* w2 = reinterpret_cast<const float2*>(ws);
+    float2* out = reinterpret_cast<float2*>(dhtot + s * BP);
+    uint32_t* out_bf = reinterpret_cast<uint32_t*>(dh_bf + (s & 1) * BP);
+    for (long i = lo + tid; i < hi; i += NT) {
+      float2 sum = make_float2(0.f, 0.f);
+      if (partials) {
+#pragma unroll 16
+        for (int z = 0; z < nb; ++z) {
+          const float2 v = __ldcg(w2 + z * n2 + i);
+          sum.x += v.x;
+          sum.y += v.y;
+        }
+      }
+      const float2 gi = gs[i];
+      const float2 d = make_float2(gi.x + sum.x, gi.y + sum.y);
+      out[i] = d;
+      out_bf[i] = pack(d.x, d.y);
+    }
+  };
+
+  // this thread's rows (r0, r0 + 8) and units (u0 + 16 g + 8 p + cu + e)
+  const int r0 = 64 * wg + (wt / 32) * 16 + lane / 4;
+  const int cu = 2 * (lane % 4);
+  const bool gate_wg = wg < MT;
+  float dc[G][8];        // [g][p * 4 + hh * 2 + e]
+  uint32_t gv[G][16];    // gates_s pairs, [g][q * 4 + p * 2 + hh]
+  uint32_t cv[G][4];     // c_s pairs, [g][p * 2 + hh]
+  uint32_t pv[G][4];     // c_{s-1} pairs (0 at s = 0)
+  auto load_gates = [&](int s) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r0 + 8 * hh;
+            gv[g][q * 4 + p * 2 + hh] =
+                row < B ? *reinterpret_cast<const uint32_t*>(
+                              gates + ((long)s * B + row) * H4 + (long)q * H +
+                              u0 + 16 * g + 8 * p + cu)
+                        : 0u;
+          }
+  };
+  auto load_c = [&](uint32_t (&c)[G][4], int s) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = r0 + 8 * hh;
+          c[g][p * 2 + hh] =
+              s >= 0 && row < B
+                  ? *reinterpret_cast<const uint32_t*>(
+                        cseq + ((long)s * B + row) * H + u0 + 16 * g + 8 * p +
+                        cu)
+                  : 0u;
+        }
+  };
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dc[g][i] = 0.f;
+  if (gate_wg) {
+    load_gates(T - 1);
+    load_c(cv, T - 1);
+    load_c(pv, T - 2);
+  }
+
+  unsigned barrier = 0;
+  reduce(T - 1, false);
+  grid_sync(counter, ++barrier * nb);
+  for (int s = T - 1; s >= 0; --s) {
+    // ---- phase 1: d_hfull, the cell backward, d_xw_s, the partial of dh --
+    if (gate_wg) {
+      float dhf[G][8];   // d_hfull, [g][4 p + 2 hh + e]
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dhf[g][i] = 0.f;
+      ring.stream(&tm_d, 0, KC, wg, s & 1, [&](uint32_t a, int c) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) pin(dhf[g]);
+        wg_fence();
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const uint32_t b = sWp + (g * KC + c) * kRows;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_n16(dhf[g], smem_desc(a + kk * 32), smem_desc(b + kk * 32));
+        }
+        wg_commit();
+        wg_wait_all();
+#pragma unroll
+        for (int g = 0; g < G; ++g) pin(dhf[g]);
+      });
+      // af[g][q]: gate q's d_gates of group g as the A fragment of one k16
+      // step (register p * 2 + hh holds row r0 + 8 hh, units 8 p + cu + e)
+      uint32_t af[G][4][4];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r0 + 8 * hh;
+            float2 x[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              x[q] = unpack(gv[g][q * 4 + p * 2 + hh]);
+            const float2 ct = unpack(cv[g][p * 2 + hh]);
+            const float2 cp = unpack(pv[g][p * 2 + hh]);
+            float dg[4][2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ig = e ? x[0].y : x[0].x, fg = e ? x[1].y : x[1].x;
+              const float gg = e ? x[2].y : x[2].x, og = e ? x[3].y : x[3].x;
+              const float dh = dhf[g][4 * p + 2 * hh + e];
+              const float tc = tanh_f(e ? ct.y : ct.x);
+              const float d_o = dh * tc;
+              float& d = dc[g][p * 4 + hh * 2 + e];
+              const float dc_tot = d + dh * og * (1.f - tc * tc);
+              const float d_i = dc_tot * gg, d_f = dc_tot * (e ? cp.y : cp.x);
+              const float d_g = dc_tot * ig;
+              d = dc_tot * fg;
+              dg[0][e] = d_i * ig * (1.f - ig);
+              dg[1][e] = d_f * fg * (1.f - fg);
+              dg[2][e] = d_g * (1.f - gg * gg);
+              dg[3][e] = d_o * og * (1.f - og);
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              af[g][q][p * 2 + hh] = pack(dg[q][0], dg[q][1]);
+            if (row >= B) continue;
+            bf16* dx = dxw + ((long)s * B + row) * H4 + u0 + 16 * g + 8 * p +
+                       cu;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              *reinterpret_cast<uint32_t*>(dx + (long)q * H) =
+                  af[g][q][p * 2 + hh];
+          }
+      if (s > 0) {
+        // dh's partial over the block's gate columns, 128 (or 64) columns
+        // of P at a time, into ws[j]
+        float* part = ws + (long)j * BP;
+        for (int kc = 0; kc < KC; kc += 2) {
+          if (kc + 1 < KC) {
+            float acc[64];
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+            pin(acc);
+            wg_fence();
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                wgmma_rs_n128(acc, af[g][q],
+                              smem_desc(sWh + (g * KC + kc) * kBox + q * 2048,
+                                        kBox));
+            wg_commit();
+            wg_wait_all();
+            pin(acc);
+            store_partial(acc, part, r0, cu, 64 * kc, B, P);
+          } else {
+            float acc[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+            pin(acc);
+            wg_fence();
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                wgmma_rs_n64(acc, af[g][q],
+                             smem_desc(sWh + (g * KC + kc) * kBox + q * 2048,
+                                       kBox));
+            wg_commit();
+            wg_wait_all();
+            pin(acc);
+            store_partial(acc, part, r0, cu, 64 * kc, B, P);
+          }
+        }
+        // the next step's residuals land while the grid waits
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cv[g][i] = pv[g][i];
+        load_gates(s - 1);
+        load_c(pv, s - 2);
+      }
+    }
+    if (s == 0) break;
+    grid_sync(counter, ++barrier * nb);
+    // ---- phase 2: dh_tot_{s-1} over this block's slice -------------------
+    reduce(s - 1, true);
+    grid_sync(counter, ++barrier * nb);
   }
 }
 
@@ -635,6 +1055,38 @@ cudaError_t launch(const void* xw, const void* w_h, const void* w_proj,
       dim3(NT), args, Smem(G, P, H, S).bytes, stream);
 }
 
+template <int G>
+cudaError_t launch_bwd(const void* g, const void* gates, const void* cseq,
+                       const void* w_h, const void* w_proj, void* dxw,
+                       void* dhtot, void* dh_bf, void* ws, void* counter,
+                       int T, int B, int H, int P, int S,
+                       cudaStream_t stream) {
+  CUtensorMap tm_d;
+  cudaError_t err;
+  if ((err = make_map(&tm_d, dh_bf, 2, B, P)) != cudaSuccess) return err;
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      lstm_bwd_kernel_sm90<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (ready != cudaSuccess) return ready;
+  const float* a_g = static_cast<const float*>(g);
+  const bf16* a_gates = static_cast<const bf16*>(gates);
+  const bf16* a_cseq = static_cast<const bf16*>(cseq);
+  const bf16* a_wh = static_cast<const bf16*>(w_h);
+  const bf16* a_wp = static_cast<const bf16*>(w_proj);
+  bf16* a_dxw = static_cast<bf16*>(dxw);
+  float* a_dhtot = static_cast<float*>(dhtot);
+  bf16* a_dhbf = static_cast<bf16*>(dh_bf);
+  float* a_ws = static_cast<float*>(ws);
+  unsigned* a_counter = static_cast<unsigned*>(counter);
+  void* args[] = {&tm_d,  &a_g,    &a_gates, &a_cseq, &a_wh,
+                  &a_wp,  &a_dxw,  &a_dhtot, &a_dhbf, &a_ws,
+                  &a_counter, &T,  &B,       &H,      &P,
+                  &S};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(lstm_bwd_kernel_sm90<G>),
+      dim3(H / (16 * G)), dim3(NT), args, BwdSmem(G, P, S).bytes, stream);
+}
+
 }  // namespace
 
 // B1 (gates == cseq == nullptr) and B2 in bf16: xw [T, B, 4H], w_h
@@ -664,6 +1116,30 @@ extern "C" int pt_lstm_fwd_sm90(const void* xw, const void* w_h,
                                     counter, T, B, H, P, stages, st)
              : (int)launch<2, false>(xw, w_h, w_proj, hs, gates, cseq, hfull,
                                      counter, T, B, H, P, stages, st);
+}
+
+// B3 in bf16: g [T, B, P] fp32, gates [T, B, 4H], cseq [T, B, H], w_h
+// [P, 4H], w_proj [H, P]; d_xw [T, B, 4H] bf16 and dh_total [T, B, P] fp32
+// out; scratch dh_bf [2, B, P] bf16, ws [H / 16G, B, P] fp32 and counter,
+// one zeroed 32-bit int. groups (G) and stages (S) come from ops/lstm.py's
+// bwd_route; a shape outside what the kernel takes returns
+// cudaErrorInvalidValue.
+extern "C" int pt_lstm_bwd_sm90(const void* g, const void* gates,
+                                const void* cseq, const void* w_h,
+                                const void* w_proj, void* dxw, void* dhtot,
+                                void* dh_bf, void* ws, void* counter, int T,
+                                int B, int H, int P, int groups, int stages,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((groups != 1 && groups != 2) || stages < 2 || T < 1 || B < 1 ||
+      B > 128 || P < 8 || P % 8 != 0 || H % (16 * groups) != 0 ||
+      BwdSmem(groups, P, stages).bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  return groups == 1
+             ? (int)launch_bwd<1>(g, gates, cseq, w_h, w_proj, dxw, dhtot,
+                                  dh_bf, ws, counter, T, B, H, P, stages, st)
+             : (int)launch_bwd<2>(g, gates, cseq, w_h, w_proj, dxw, dhtot,
+                                  dh_bf, ws, counter, T, B, H, P, stages, st);
 }
 
 extern "C" const char* pt_error_string(int code) {

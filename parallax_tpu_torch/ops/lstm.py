@@ -9,8 +9,9 @@ w = [w_x; w_h] ([E+P, 4H], gate order i|f|g|o) splits by row:
   B1 (the primal forward), B2 (the forward under differentiation, which
   also saves the post-activation gates and the c trajectory) and B3
   (the time-reversed backward, which streams ``d_xw`` and the fp32
-  ``dh_total`` out). The kernels are ``parallax_tpu_torch/csrc/lstm.cu``;
-  its header says how they are laid out and what bounds them.
+  ``dh_total`` out). The kernels are ``parallax_tpu_torch/csrc/lstm.cu``
+  and, for bf16, ``csrc/lstm_sm90.cu``; their headers say how they are
+  laid out and what bounds them.
 
 Every weight gradient leaves the recurrence as one batched product with
 fp32 accumulation (``_bwd_epilogue``), the mirror of the hoist; these
@@ -23,13 +24,14 @@ are fp32; each recurrent product rounds its activation operand to the
 weight dtype and accumulates in fp32; xw, the residuals and d_xw are
 stored at the compute dtype.
 
-Routing of B1 and B2 (``fwd_route``, a pure function of dtype, shape
-and the card's SM count, decided before the launch): bf16 on the shapes
-the persistent kernel takes goes to ``csrc/lstm_sm90.cu`` (one
-cooperative launch per pass, the weights resident in shared memory, the
-products on wgmma); fp32 (a TF32 wgmma would break the 1e-4 contract)
-and other bf16 shapes go to the first kernel, ``csrc/lstm.cu``. B3 is
-the first kernel in both dtypes.
+Routing (``fwd_route`` for B1 and B2, ``bwd_route`` for B3, pure
+functions of dtype, shape and the card's SM count, decided before the
+launch): bf16 on the shapes the persistent kernels take goes to
+``csrc/lstm_sm90.cu`` (one cooperative launch per pass, the weights
+resident in shared memory, the products on wgmma); fp32 (a TF32 wgmma
+would break the 1e-4 contract) and other bf16 shapes go to the first
+kernels, ``csrc/lstm.cu``. Nothing falls back: a build or launch failure
+raises.
 
 ``lstm_scan(impl="kernel")`` runs B2 and B3 through an
 ``autograd.Function`` when a gradient is wanted and B1 when it is not
@@ -75,6 +77,10 @@ _BWD_ARGTYPES = _FWD_ARGTYPES
 #                  B, H, P, groups, stages, stream)
 _SM90_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p]
+# pt_lstm_bwd_sm90(g, gates, cseq, w_h, w_proj, dxw, dhtot, dh_bf, ws,
+#                  counter, T, B, H, P, groups, stages, stream)
+_SM90_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
 # the kernels split a contraction of length K into this many slices, of
 # at least 256 each, for at most 32
 _SPLIT_MIN, _SPLIT_MAX = 256, 32
@@ -85,6 +91,13 @@ SM90_SMEM = 232448
 SM90_MAX_B = 128
 SM90_GROUPS = (1, 2)
 SM90_STAGES = (4, 3, 2)
+# the backward tries the fewest blocks first: each block writes a whole
+# fp32 [B, P] partial of dh and the owners read them all back, so the
+# partials' L2 traffic grows with the block count (at the LM1B shape on an
+# H100, 64 blocks of 32 units took 0.47 ms a call against 0.62 for 128 of
+# 16); a deeper ring than 2 stages was no faster
+SM90_BWD_GROUPS = (2, 1)
+SM90_BWD_STAGES = 2
 
 # kernel launches since the last reset (assign 0 to reset)
 launches_fwd = 0        # B1
@@ -203,9 +216,10 @@ def lstm_scan_reference(x_seq, w, b, w_proj, *, out_dtype=None,
 
 
 class FwdRoute(NamedTuple):
-    """Which kernel runs a B1/B2 call: ``source`` is ``"lstm_sm90"`` (the
-    persistent kernel, ``groups`` x 16 hidden units a block, ``stages``
-    ring stages) or ``"lstm"`` (the first kernel; groups = stages = 0)."""
+    """Which kernel runs a B1/B2 (or, from ``bwd_route``, a B3) call:
+    ``source`` is ``"lstm_sm90"`` (the persistent kernel, ``groups`` x 16
+    hidden units a block, ``stages`` ring stages) or ``"lstm"`` (the first
+    kernel; groups = stages = 0)."""
     source: str
     groups: int = 0
     stages: int = 0
@@ -246,6 +260,36 @@ def fwd_route(dtype: torch.dtype, T: int, B: int, H: int, P: int,
     return first
 
 
+def sm90_bwd_smem_bytes(groups: int, P: int, stages: int) -> int:
+    """Dynamic shared memory of the persistent backward (its ``BwdSmem``):
+    the w_h slice, the block's 16-row w_proj chunks, two rings of 8 KB
+    boxes, the ring barriers and 1 KB for alignment."""
+    kc = -(-P // 64)
+    return 1024 + groups * kc * (8192 + 2048) + 2 * stages * 8192 \
+        + 2 * stages * 8
+
+
+def bwd_route(dtype: torch.dtype, T: int, B: int, H: int, P: int,
+              sm_count: int) -> FwdRoute:
+    """The kernel for a B3 call, from dtype, shape and the card's SM count
+    alone. The persistent backward takes bf16 with B <= 128, P a multiple
+    of 8, H a multiple of 16 G for some G in (2, 1) whose H / 16G blocks
+    all fit on the card, and shared memory that fits; it takes the
+    largest such G (the fewest blocks, so the fewest partials of dh) and
+    a 2-stage ring. Everything else, fp32 always, runs the first
+    kernel."""
+    first = FwdRoute("lstm")
+    if dtype != torch.bfloat16 or not (1 <= B <= SM90_MAX_B) \
+            or T < 1 or P < 8 or P % 8:
+        return first
+    for groups in SM90_BWD_GROUPS:
+        if H % (16 * groups) or H // (16 * groups) > sm_count:
+            continue
+        if sm90_bwd_smem_bytes(groups, P, SM90_BWD_STAGES) <= SM90_SMEM:
+            return FwdRoute("lstm_sm90", groups, SM90_BWD_STAGES)
+    return first
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -256,6 +300,15 @@ def device_fwd_route(xw: torch.Tensor, w_proj: torch.Tensor) -> FwdRoute:
     T, B, _ = xw.shape
     H, P = w_proj.shape
     return fwd_route(xw.dtype, T, B, H, P, _sm_count(xw.device.index or 0))
+
+
+def device_bwd_route(g: torch.Tensor, w_proj: torch.Tensor) -> FwdRoute:
+    """``bwd_route`` for CUDA tensors of a B3 call (g [T, B, P] and the
+    weights' dtype) on their card."""
+    T, B, P = g.shape
+    H = w_proj.shape[0]
+    return bwd_route(w_proj.dtype, T, B, H, P,
+                     _sm_count(g.device.index or 0))
 
 
 def _ksplit(K: int) -> int:
@@ -308,13 +361,19 @@ def _kernel_fwd(xw, w_h, w_proj, residuals):
     return hs
 
 
-def _sm90_fwd(name, route, xw, w_h, w_proj, hs, gates, cseq):
-    T, B, _ = xw.shape
-    H, P = w_proj.shape
-    for what, x in (("xw", xw), ("w_h", w_h), ("w_proj", w_proj)):
+def _check_aligned(name, tensors):
+    """The persistent kernels load with 16-byte vectors and TMA: every
+    base must start on a 16-byte boundary."""
+    for what, x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must start on a 16-byte "
                              f"boundary for the bf16 kernel")
+
+
+def _sm90_fwd(name, route, xw, w_h, w_proj, hs, gates, cseq):
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    _check_aligned(name, (("xw", xw), ("w_h", w_h), ("w_proj", w_proj)))
     hfull = torch.empty((2, B, H), dtype=xw.dtype, device=xw.device)
     counter = torch.zeros((1,), dtype=torch.int32, device=xw.device)
     fn = _cuda.function("lstm_sm90", "pt_lstm_fwd_sm90", _SM90_ARGTYPES)
@@ -370,6 +429,38 @@ def _kernel_bwd(g, gates, cseq, w_h, w_proj):
     dhtot = torch.empty((T, B, P), dtype=torch.float32, device=g.device)
     if T * B * H * P == 0:
         return dxw.zero_(), dhtot.zero_()
+    route = device_bwd_route(g, w_proj)
+    if route.source == "lstm_sm90":
+        _sm90_bwd(route, g, gates, cseq, w_h, w_proj, dxw, dhtot)
+    else:
+        _first_bwd(g, gates, cseq, w_h, w_proj, dxw, dhtot)
+    launches_bwd += 1
+    return dxw, dhtot
+
+
+def _sm90_bwd(route, g, gates, cseq, w_h, w_proj, dxw, dhtot):
+    T, B, P = g.shape
+    H = w_proj.shape[0]
+    _check_aligned("lstm_bwd", (("g", g), ("gates", gates), ("c", cseq),
+                                ("w_h", w_h), ("w_proj", w_proj)))
+    dev = g.device
+    dh_bf = torch.empty((2, B, P), dtype=w_proj.dtype, device=dev)
+    ws = torch.empty((H // (16 * route.groups), B, P), dtype=torch.float32,
+                     device=dev)
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    fn = _cuda.function("lstm_sm90", "pt_lstm_bwd_sm90", _SM90_BWD_ARGTYPES)
+    code = fn(g.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
+              w_h.data_ptr(), w_proj.data_ptr(), dxw.data_ptr(),
+              dhtot.data_ptr(), dh_bf.data_ptr(), ws.data_ptr(),
+              counter.data_ptr(), T, B, H, P, route.groups, route.stages,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check("lstm_sm90", code, "lstm_bwd")
+
+
+def _first_bwd(g, gates, cseq, w_h, w_proj, dxw, dhtot):
+    T, B, P = g.shape
+    H = w_proj.shape[0]
+    dt = gates.dtype
     dc = torch.empty((B, H), dtype=torch.float32, device=g.device)
     ks = _ksplit(4 * H)
     ws = torch.empty((ks, B, P), dtype=torch.float32, device=g.device)
@@ -380,8 +471,6 @@ def _kernel_bwd(g, gates, cseq, w_h, w_proj):
               P, int(dt == torch.bfloat16),
               torch.cuda.current_stream(g.device).cuda_stream)
     _cuda.check("lstm", code, "lstm_bwd")
-    launches_bwd += 1
-    return dxw, dhtot
 
 
 def lstm_recurrence(xw, w_h, w_proj, residuals: bool = False):
@@ -540,6 +629,6 @@ def pass_flops(T, B, H, P) -> int:
 
 
 __all__ = ["lstm_scan", "lstm_scan_reference", "lstm_recurrence",
-           "fwd_route", "FwdRoute",
+           "fwd_route", "bwd_route", "FwdRoute",
            "lstm_recurrence_plain", "lstm_bwd_recurrence",
            "lstm_bwd_recurrence_plain", "kernel_hbm_bytes", "pass_flops"]

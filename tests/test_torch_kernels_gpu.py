@@ -196,11 +196,18 @@ def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda):
 
 
 def _kernel_names(fn):
-    """Names of the CUDA kernels ``fn`` launches, from the profiler."""
+    """Names of the CUDA kernels ``fn`` launches, from the profiler. The
+    window starts and ends with 16 one-element fills, so that a record the
+    profiler loses at a window's edge is not one of ``fn``'s."""
     from torch.profiler import ProfilerActivity, profile
+    pad = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(16):
+            pad.fill_(0.0)
         fn()
+        for _ in range(16):
+            pad.fill_(0.0)
         torch.cuda.synchronize()
     return [e.key for e in prof.key_averages()]
 
@@ -493,3 +500,108 @@ def test_lstm_sm90_refuses_a_misaligned_weight(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         lstm.lstm_recurrence(xw, w_h, bad)
     assert lstm.launches_fwd == before
+
+
+# -- the persistent bf16 backward (B3, csrc/lstm_sm90.cu) ----------------------
+
+
+@pytest.mark.parametrize("T,B,H,P,groups", [
+    (20, 128, 2048, 512, 2),    # the LM1B step: 64 blocks of 32 units
+    (1, 1, 256, 64, 2),         # T 1 (no partial, no reduction), B 1
+    (5, 100, 1040, 72, 1),      # ragged B; P off 64; 65 blocks of 16
+    (3, 128, 2048, 1024, 1),    # P 1024: 16 units a block to fit
+    (2, 64, 4096, 256, 2),      # 128 blocks of 32
+])
+def test_lstm_sm90_bwd_matches_plain(cuda, T, B, H, P, groups):
+    """bf16 B3 on the persistent backward against its plain version on the
+    same residuals, within 2e-2 of the plain peak; one launch a call."""
+    xw, w_h, w_proj, gout = _lstm_inputs(cuda, torch.bfloat16, T, B, H, P)
+    _, gates, cseq = lstm.lstm_recurrence_plain(xw, w_h, w_proj,
+                                                residuals=True)
+    route = lstm.device_bwd_route(gout, w_proj)
+    assert (route.source, route.groups) == ("lstm_sm90", groups)
+    before = lstm.launches_bwd
+    dxw, dhtot = lstm.lstm_bwd_recurrence(gout, gates, cseq, w_h, w_proj)
+    ref_dxw, ref_dhtot = lstm.lstm_bwd_recurrence_plain(gout, gates, cseq,
+                                                        w_h, w_proj)
+    torch.cuda.synchronize()
+    assert lstm.launches_bwd == before + 1
+    assert dxw.dtype == torch.bfloat16 and dhtot.dtype == torch.float32
+    _lstm_close(dxw, ref_dxw, torch.bfloat16, "B3 d_xw")
+    _lstm_close(dhtot, ref_dhtot, torch.bfloat16, "B3 dh_total")
+
+
+def test_lstm_sm90_bwd_kernel_uses_tma_and_wgmma(cuda):
+    """The built library's SASS: the persistent backward (16 and 32 units a
+    block) issues HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    _cuda.library("lstm_sm90")
+    sass = subprocess.run(
+        [_cuobjdump(), "-sass", str(_cuda.library_path("lstm_sm90"))],
+        capture_output=True, text=True, check=True).stdout
+    bodies = [part for part in sass.split("Function : ")[1:]
+              if "lstm_bwd_kernel_sm90" in part.split("\n", 1)[0]]
+    assert len(bodies) == 2, sass[:2000]    # G 1, 2
+    for body in bodies:
+        assert "HGMMA" in body and "UTMALDG" in body
+
+
+def test_lstm_bf16_lm1b_shape_takes_the_sm90_bwd_route(cuda):
+    """At the LM1B step's shape bf16 B3 launches the persistent backward,
+    once a call, and fp32 the first kernels (cell and dh, a step each);
+    each call counts one launch either way."""
+    T, B, H, P = 20, 128, 2048, 512
+    for dtype, sm90 in ((torch.bfloat16, True), (torch.float32, False)):
+        xw, w_h, w_proj, gout = _lstm_inputs(cuda, dtype, T, B, H, P)
+        _, gates, cseq = lstm.lstm_recurrence_plain(xw, w_h, w_proj,
+                                                    residuals=True)
+        assert (lstm.device_bwd_route(gout, w_proj).source == "lstm_sm90") \
+            == sm90
+        before = lstm.launches_bwd
+        names = _kernel_names(lambda: lstm.lstm_bwd_recurrence(
+            gout, gates, cseq, w_h, w_proj))
+        assert lstm.launches_bwd == before + 1
+        persistent = [n for n in names if "lstm_bwd_kernel_sm90" in n]
+        first = [n for n in names
+                 if "lstm_bwd_cell_kernel" in n or "lstm_bwd_dh_" in n]
+        assert (len(persistent), bool(first)) == \
+            ((1, False) if sm90 else (0, True)), names
+
+
+def test_lstm_sm90_bwd_is_bitwise_repeatable(cuda):
+    """10 back-to-back bf16 B3 calls at the LM1B shape give the same bits
+    in d_xw and dh_total, and so do calls on a second stream (one owner
+    sums each element's partials in block order; no atomics)."""
+    xw, w_h, w_proj, gout = _lstm_inputs(cuda, torch.bfloat16, 20, 128,
+                                         2048, 512)
+    _, gates, cseq = lstm.lstm_recurrence_plain(xw, w_h, w_proj,
+                                                residuals=True)
+
+    def call():
+        return lstm.lstm_bwd_recurrence(gout, gates, cseq, w_h, w_proj)
+    first = call()
+    runs = [call() for _ in range(9)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs += [call() for _ in range(2)]
+    torch.cuda.synchronize()
+    for run in runs:
+        for got, want in zip(run, first):
+            assert torch.equal(got, want)
+
+
+def test_lstm_sm90_bwd_refuses_a_misaligned_view(cuda):
+    """The persistent backward loads g with 8-byte and the weights with
+    16-byte vectors: a contiguous view that starts one element in raises
+    before anything launches."""
+    xw, w_h, w_proj, gout = _lstm_inputs(cuda, torch.bfloat16, 2, 64, 256,
+                                         64)
+    _, gates, cseq = lstm.lstm_recurrence_plain(xw, w_h, w_proj,
+                                                residuals=True)
+    flat = torch.zeros(gout.numel() + 1, device=cuda)
+    bad = flat[1:].view(gout.shape)
+    bad.copy_(gout)
+    before = lstm.launches_bwd
+    with pytest.raises(ValueError, match="16-byte"):
+        lstm.lstm_bwd_recurrence(bad, gates, cseq, w_h, w_proj)
+    assert lstm.launches_bwd == before

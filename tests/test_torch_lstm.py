@@ -285,3 +285,105 @@ def test_sm90_arithmetic_stays_within_the_bf16_budget():
     want = tl.lstm_recurrence_plain(xw, w_h, w_proj, residuals=True)
     for g, w, what in zip(got, want, ("hs", "gates", "c")):
         _close(g.float().numpy(), w.float().numpy(), "bfloat16", what)
+
+
+# -- the persistent bf16 backward (csrc/lstm_sm90.cu): its route and its
+# arithmetic ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,shape,sms,want", [
+    # the LM1B step on an H100 SXM: 64 blocks of 32 units (fewer partials
+    # of dh than 128 blocks of 16), a 2-stage ring
+    (torch.bfloat16, LM1B, 132, ("lstm_sm90", 2, 2)),
+    # and on a card with fewer SMs than even 64 blocks: the first kernel
+    (torch.bfloat16, LM1B, 60, ("lstm", 0, 0)),
+    # fp32 keeps the first kernel (a TF32 wgmma breaks the 1e-4 contract)
+    (torch.float32, LM1B, 132, ("lstm", 0, 0)),
+    # B past two 64-row tiles
+    (torch.bfloat16, (20, 130, 2048, 512), 132, ("lstm", 0, 0)),
+    # P 33 (66-byte rows: no TMA)
+    (torch.bfloat16, (3, 1, 64, 33), 132, ("lstm", 0, 0)),
+    # H 1040: 65 blocks of 16 units, not of 32
+    (torch.bfloat16, (3, 128, 1040, 520), 132, ("lstm_sm90", 1, 2)),
+    # P 1024: 32 units' slices do not fit 227 KB, 16 units' do
+    (torch.bfloat16, (3, 128, 2048, 1024), 132, ("lstm_sm90", 1, 2)),
+    # H 4096: 128 blocks of 32 units; H 8192 would need 256
+    (torch.bfloat16, (2, 64, 4096, 256), 132, ("lstm_sm90", 2, 2)),
+    (torch.bfloat16, (2, 64, 8192, 256), 132, ("lstm", 0, 0)),
+])
+def test_bwd_route_is_a_function_of_dtype_shape_and_sms(dtype, shape, sms,
+                                                        want):
+    T, B, H, P = shape
+    route = tl.bwd_route(dtype, T, B, H, P, sms)
+    assert tuple(route) == want
+    if route.source == "lstm_sm90":
+        assert H // (16 * route.groups) <= sms
+        assert tl.sm90_bwd_smem_bytes(route.groups, P, route.stages) \
+            <= tl.SM90_SMEM
+
+
+def _sm90_bwd_emulation(g, gates, cseq, w_h, w_proj, units=32):
+    """The persistent backward's arithmetic on the CPU: d_hfull summed over
+    64-wide chunks of P from the bf16 dh_tot; tanh(c) through 2^x and a
+    reciprocal; dh as one fp32 partial per block of ``units`` hidden units
+    (its 4 x units gate columns), the partials summed in block order and
+    then added to g; d_xw stored in bf16."""
+    T, B, P = g.shape
+    H = w_proj.shape[0]
+    nb = H // units
+    wh, wpt = w_h.float(), w_proj.float().t()
+    # block j's gate columns, gate-major: q H + j units + ul
+    cols = (torch.arange(4)[:, None] * H
+            + torch.arange(units)[None, :]).reshape(-1)
+    cols = cols[None, :] + (torch.arange(nb) * units)[:, None]   # [nb, 4U]
+    wh_blocks = wh[:, cols]                                      # [P, nb, 4U]
+    dc = torch.zeros((B, H))
+    dh = torch.zeros((B, P))
+    dxw, dhtot = [], []
+    for s in reversed(range(T)):
+        i, f, ga, o = gates[s].float().chunk(4, dim=-1)
+        c_t = cseq[s].float()
+        c_prev = cseq[s - 1].float() if s > 0 else torch.zeros_like(c_t)
+        dh_tot = g[s] + dh
+        dhtot.append(dh_tot)
+        d_hfull = _chunked(dh_tot.bfloat16().float(), wpt, 0, P)
+        tc = _tanh_ex2(c_t)
+        d_o = d_hfull * tc
+        dc_tot = dc + d_hfull * o * (1.0 - tc * tc)
+        d_i, d_f, d_g = dc_tot * ga, dc_tot * c_prev, dc_tot * i
+        dc = dc_tot * f
+        d_gates = torch.cat([d_i * i * (1.0 - i), d_f * f * (1.0 - f),
+                             d_g * (1.0 - ga * ga), d_o * o * (1.0 - o)],
+                            dim=-1).bfloat16()
+        dxw.append(d_gates)
+        parts = torch.einsum("bjk,pjk->jbp", d_gates.float()[:, cols],
+                             wh_blocks)
+        dh = torch.zeros((B, P))
+        for part in parts:
+            dh = dh + part
+    return torch.stack(dxw[::-1]), torch.stack(dhtot[::-1])
+
+
+def test_sm90_bwd_arithmetic_stays_within_the_bf16_budget():
+    """The persistent backward's accumulation split (64-wide chunks for
+    d_hfull, per-block partials of dh summed in block order) and its tanh,
+    emulated at the LM1B shape over all T = 20 steps, stay within 2e-2 of
+    the plain version's peak in d_xw and dh_total (the dc and dh carries
+    compound any error)."""
+    T, B, H, P = LM1B
+    rng = np.random.default_rng(1)
+
+    def t(s, scale):
+        return torch.from_numpy(
+            (rng.standard_normal(s) * scale).astype(np.float32)).bfloat16()
+    xw = t((T, B, 4 * H), 1.0)
+    w_h = t((P, 4 * H), 1.0 / np.sqrt(P))
+    w_proj = t((H, P), 1.0 / np.sqrt(H))
+    g = t((T, B, P), 1.0).float()
+    _, gates, cseq = tl.lstm_recurrence_plain(xw, w_h, w_proj,
+                                              residuals=True)
+    got = _sm90_bwd_emulation(g, gates, cseq, w_h, w_proj)
+    want = tl.lstm_bwd_recurrence_plain(g, gates, cseq, w_h, w_proj)
+    for gt, wt, what in zip(got, want, ("d_xw", "dh_total")):
+        assert gt.dtype == wt.dtype
+        _close(gt.float().numpy(), wt.float().numpy(), "bfloat16", what)
