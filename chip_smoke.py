@@ -27,6 +27,10 @@ beside it. Phases:
    achieved TF/s (operations over device time). bf16 flash forward, dq
    and dk/dv run the sm90 kernels (TMA + wgmma), fp32 the first kernels;
    the T 2048 cases (B 2, H 8, hd 64, causal and not) run in bf16 only.
+   The paged kernel (split-KV, ``paged_decode_kernel_sm90`` and, where
+   its ``split_plan`` splits the positions, ``paged_combine_kernel``)
+   runs at the serving shape and ``FLAGSHIP_DECODE`` (G 1 and 3,
+   occupancy 100 and 25 %); each case prints its plan.
 3. Serve: NMT at its published widths (``NMTConfig()``: vocab 32000,
    model 512, 8 heads, MLP 2048, 6+6 layers, bf16, flash encoder
    attention) with random weights from a fixed seed, behind
@@ -34,10 +38,12 @@ beside it. Phases:
    with 64 slots; 256 requests. Every launch counter is zeroed just
    before and read just after; each must equal the scheduler's own
    count of prefills / decode steps times the 6 layers (plus the
-   warmup's one of each). Then 64 of the requests again under the
-   profiler, for the device's busy share and the kernels that take
-   the time; the profile must show ``flash_fwd_kernel_sm90`` and no
-   first flash kernel.
+   warmup's one of each; the paged combine kernel as often as the
+   paged kernel when its plan splits). Then 64 of the requests again
+   under the profiler, for the device's busy share, the busy and paged
+   kernel time a decode step and the kernels that take the time; the
+   profile must show ``flash_fwd_kernel_sm90`` and
+   ``paged_decode_kernel_sm90`` and no first flash or paged kernel.
 4. Agreement: 32 of the same requests served in fp32 (TF32 off) and
    compared, request by request, with the standalone ``greedy_decode``
    of the plain path (dense cache, plain attention, no kernel).
@@ -99,7 +105,10 @@ zero gradients), an lse cotangent and, in bf16 only, T 2048, in fp32
 (atol 2e-5 of max(1, peak)) and bf16; each timed beside the plain
 version, the bound, its achieved TF/s and
 ``scaled_dot_product_attention``'s backward (its forward plus backward
-less its forward).
+less its forward). Then ``paged-splits``: bf16 B7 at the serving shape
+and two flagship cases under every split of the positions from 1 to 32
+ranges (the split ones through the combine kernel), each held to the
+plain version and timed cold in turns.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error, times and bound. The whole
@@ -108,6 +117,8 @@ record is also written to ``build/chip_smoke.json``.
 ``python3 chip_smoke.py --pair DIR`` is an A/B on one card instead: the
 LSTM kernel phase and LM1B training of the checkout in DIR and of this
 one, in the order DIR, this, this, DIR, twice (``run_pair``).
+``python3 chip_smoke.py --pair DIR serve`` does the same with the paged
+kernel cases, the serve phase and a profiled serve run.
 """
 
 from __future__ import annotations
@@ -229,6 +240,23 @@ def device_ms(torch, fn, kernel_name: str, calls: int = 10):
                                 getattr(evt, "cuda_time_total", 0.0))
             count += evt.count
     return total_us / count / 1e3 if count else None
+
+
+def paged_kernels_seen(rows):
+    """{kernel name: launches} of the paged kernels in a profile's rows
+    ``(us, count, name)``; raises unless ``paged_decode_kernel_sm90``
+    launched and no first paged kernel (``paged_decode_kernel``) did."""
+    seen = {}
+    for _, n, key in rows:
+        m = re.search(r"paged_\w+kernel\w*", key)
+        if m:
+            seen[m.group(0)] = seen.get(m.group(0), 0) + n
+    if "paged_decode_kernel_sm90" not in seen or "paged_decode_kernel" \
+            in seen:
+        raise AssertionError(f"profile paged kernels {seen}: want "
+                             f"paged_decode_kernel_sm90 and no first "
+                             f"kernel")
+    return seen
 
 
 def flash_kernels_seen(rows, want):
@@ -471,6 +499,11 @@ def run_paged_case(torch, case, dtype, flush):
     pages = torch.from_numpy(pages_np).to(DEVICE)
     pos = torch.from_numpy(pos_np).to(DEVICE)
     kw = dict(num_heads=H, page_size=ps, pool_pages=pool_pages)
+    plan = pa.split_plan(S, H, D // H, P, ps, q.element_size(),
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    log(f"[kernel] paged_decode_attention {label} "
+        f"{str(dtype).split('.')[-1]}: split_plan {plan._asdict()}")
     out = pa.paged_decode_attention(q, kp, vp, pages, pos, **kw)
     ref = pa.paged_decode_attention_plain(q, kp, vp, pages, pos, **kw)
     torch.cuda.synchronize()
@@ -485,8 +518,13 @@ def run_paged_case(torch, case, dtype, flush):
         q, kp, vp, pages, pos, **kw), flush=flush)
     warm_ms = time_ms(torch, lambda: pa.paged_decode_attention(
         q, kp, vp, pages, pos, **kw))
-    kernel_device_ms = device_ms(torch, lambda: pa.paged_decode_attention(
-        q, kp, vp, pages, pos, **kw), "paged_decode_kernel")
+    # a call launches the decode kernel once, and the combine kernel once
+    # more when the plan splits each slot's positions
+    kernel_device_ms = device_ms_per_call(
+        torch, lambda: pa.paged_decode_attention(q, kp, vp, pages, pos,
+                                                 **kw),
+        {"paged_decode_kernel_sm90": 1,
+         "paged_combine_kernel": int(plan.nsplit > 1)})
     plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(
         q, kp, vp, pages, pos, **kw), flush=flush)
     # what this run's data needs: every live position some query of its
@@ -512,10 +550,63 @@ def run_paged_case(torch, case, dtype, flush):
             "shape": {"S": S, "G": G, "D": D, "heads": H, "page_size": ps,
                       "P": P, "pool_pages": pool_pages,
                       "occupancy": occ, "live_pages": visible_pages},
-            "ok": ok, "max_abs_err": err, "tol": tol, "ms": kernel_ms,
+            "plan": plan._asdict(), "bytes": nbytes,
+            "ok": ok and kernel_device_ms is not None,
+            "max_abs_err": err, "tol": tol, "ms": kernel_ms,
             "warm_ms": warm_ms, "device_ms": kernel_device_ms,
             "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def paged_split_sweep(torch):
+    """bf16 B7 at the serving shape and the flagship cases under each
+    split of the positions (1 to 32 ranges, none under 64 positions; the
+    split ones launch the combine kernel), each checked against the plain
+    version and timed cold (CUDA events, an L2 flush before each call) in
+    turns: what ``split_plan``'s choice of the fewest splits that give
+    every SM a block rests on."""
+    from parallax_tpu_torch.ops import paged_attention as pa
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEVICE)
+    out = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for case in paged_cases():
+        label, S, G, D, H, ps, P, pool_pages, occ = case
+        pages_np, pos_np = _paged_tables(case, np.random.default_rng(SEED))
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        q, kp, vp = (torch.randn(shape, generator=g, device=DEVICE,
+                                 dtype=torch.bfloat16)
+                     for shape in ((S, G, D), (pool_pages + 1, ps, D),
+                                   (pool_pages + 1, ps, D)))
+        pages = torch.from_numpy(pages_np).to(DEVICE)
+        pos = torch.from_numpy(pos_np).to(DEVICE)
+        args = (q, kp, vp, pages, pos, H, ps, pool_pages)
+        ref = pa.paged_decode_attention_plain(
+            q, kp, vp, pages, pos, num_heads=H, page_size=ps,
+            pool_pages=pool_pages)
+        planned = pa.split_plan(S, H, D // H, P, ps, 2, sms)
+        T = P * ps
+        plans = []
+        for nsplit in (1, 2, 4, 8, 16, 32):
+            positions = -(-T // nsplit // pa.CHUNK) * pa.CHUNK
+            if nsplit == 1 or positions >= pa.MIN_SPLIT:
+                plans.append(pa.SplitPlan(planned.heads,
+                                          -(-T // positions), positions))
+        times = {p.nsplit: [] for p in plans}
+        for p in plans:
+            err, tol = compare(torch, pa._launch(*args, p), ref,
+                               torch.bfloat16)
+            if not err <= tol:
+                raise AssertionError(f"B7 {label} under {p}: err {err} > "
+                                     f"{tol}")
+        for p in plans + plans[::-1]:
+            times[p.nsplit].append(time_ms(
+                torch, lambda: pa._launch(*args, p), reps=10, flush=flush))
+        row = {"case": label, "planned_nsplit": planned.nsplit,
+               "positions": {p.nsplit: p.positions for p in plans},
+               "ms": times}
+        log(f"[paged-splits] {json.dumps(row)}")
+        out.append(row)
+    return out
 
 
 def phase_kernels(torch):
@@ -760,18 +851,29 @@ def phase_serve(torch, cfg, requests):
     torch.cuda.synchronize()
     fa.launches = 0
     pa.launches = 0
+    pa.launches_combine = 0
     outs, wall, stats = serve(torch, cfg, params, requests)
     torch.cuda.synchronize()
     launches = {"flash_attention_fwd": fa.launches,
                 "paged_decode_attention": pa.launches}
+    combine = pa.launches_combine
     check_outputs(requests, outs, cfg.vocab_size)
     L = cfg.num_layers
     want = {"flash_attention_fwd": (stats["serve.prefills"] + 1) * L,
             "paged_decode_attention":
                 (stats["serve.decode_steps"] + 1) * L}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != scheduler "
-                             f"counts {want}")
+    # the decode step's shape: every slot, the whole page table
+    plan = pa.split_plan(SERVE["max_batch"], cfg.num_heads,
+                         cfg.model_dim // cfg.num_heads,
+                         -(-SERVE["max_len"] // SERVE["page_size"]),
+                         SERVE["page_size"], 2,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    want_combine = want["paged_decode_attention"] * int(plan.nsplit > 1)
+    if launches != want or combine != want_combine:
+        raise AssertionError(f"launch counts {launches}, combine "
+                             f"{combine} != scheduler counts {want}, "
+                             f"combine {want_combine} ({plan})")
     if stats["serve.kv_pages_in_use"] != 0:
         raise AssertionError(f"{stats['serve.kv_pages_in_use']} KV pages "
                              f"leaked after close")
@@ -788,7 +890,8 @@ def phase_serve(torch, cfg, requests):
                "decode_steps": stats["serve.decode_steps"],
                "prefills": stats["serve.prefills"],
                "kv_refill_deferred": stats["serve.kv_refill_deferred"],
-               "launches": launches}
+               "launches": launches, "paged_combine_launches": combine,
+               "paged_plan": plan._asdict()}
     log(f"[serve] {json.dumps(summary)}")
     return params, summary
 
@@ -801,7 +904,7 @@ def phase_profile(torch, cfg, params, requests):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        serve(torch, cfg, params, requests)
+        _, _, stats = serve(torch, cfg, params, requests)
         torch.cuda.synchronize()
     window = time.perf_counter() - t0
     rows = []
@@ -811,12 +914,19 @@ def phase_profile(torch, cfg, params, requests):
         if us > 0:
             rows.append((us, evt.count, evt.key))
     busy_s = sum(us for us, _, _ in rows) / 1e6
+    paged_s = sum(us for us, _, key in rows if "paged_" in key) / 1e6
     rows.sort(reverse=True)
+    steps = stats["serve.decode_steps"]
     summary = {"requests": len(requests), "window_s": window,
                "device_busy_s": busy_s,
                "device_idle_share": 1.0 - busy_s / window,
+               "decode_steps": steps,
+               "busy_ms_per_decode_step": busy_s * 1e3 / steps,
+               "paged_ms_per_decode_step": paged_s * 1e3 / steps,
+               "paged_share_of_busy": paged_s / busy_s,
                "flash_kernels": flash_kernels_seen(
                    rows, ["flash_fwd_kernel_sm90"]),
+               "paged_kernels": paged_kernels_seen(rows),
                "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
                         "share_of_busy": us / 1e6 / busy_s}
                        for us, n, key in rows[:10]]}
@@ -1612,20 +1722,75 @@ print("PAIR " + json.dumps({
 """
 
 
+# the same for serving: the paged kernel cases (bf16, and the serving
+# shape in fp32), the serve phase, and 64 requests under the profiler for
+# the busy time a decode step and the paged kernels' share of it
+PAIR_CHILD_SERVE = """
+import json, re, torch, numpy as np
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as c
+from parallax_tpu_torch.models import nmt
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.phase_build(torch)
+flush = torch.empty(512 << 20, dtype=torch.uint8, device=c.DEVICE)
+kernels = []
+for dtype in (torch.bfloat16, torch.float32):
+    for case in c.paged_cases():
+        if dtype == torch.float32 and case[0] != "serve":
+            continue
+        r = c.run_paged_case(torch, case, dtype, flush)
+        assert r["ok"], r
+        kernels.append({k: r.get(k) for k in (
+            "case", "dtype", "device_ms", "ms", "warm_ms", "bound_ms",
+            "max_abs_err", "plan")})
+del flush
+cfg = nmt.NMTConfig(use_pallas_attention=True, num_partitions=1)
+requests = c.make_requests(256, np.random.default_rng(c.SEED),
+                           cfg.vocab_size)
+params, serve = c.phase_serve(torch, cfg, requests)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    _, _, stats = c.serve(torch, cfg, params, requests[:64])
+    torch.cuda.synchronize()
+busy = paged = 0.0
+names = {}
+for e in prof.key_averages():
+    us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+    busy += us
+    m = re.search(r"paged_\\w+kernel\\w*", e.key)
+    if m and us > 0:
+        paged += us
+        names[m.group(0)] = names.get(m.group(0), 0) + e.count
+steps = stats["serve.decode_steps"]
+print("PAIR " + json.dumps({
+    "tokens_per_sec": serve["tokens_per_sec"],
+    "step_ms_p50": serve["step_ms_p50"], "step_ms_p95": serve["step_ms_p95"],
+    "profile_decode_steps": steps,
+    "busy_ms_per_decode_step": busy / 1e3 / steps,
+    "paged_ms_per_decode_step": paged / 1e3 / steps,
+    "paged_share_of_busy": paged / busy, "paged_kernels": names,
+    "paged": kernels}))
+"""
+
+
 PAIR_ORDER = ("other", "this", "this", "other") * 2
 
 
-def run_pair(other: Path) -> int:
-    """A/B of LM1B training and the LSTM kernel phase between the checkout
-    at ``other`` (for example the parent commit, unpacked with ``git
-    archive``) and this one, on one card in one call: ``other``, this,
-    this, ``other``, twice, each a fresh process running its own
-    ``phase_build``, ``phase_lstm_kernels`` and ``phase_train``. Prints one
-    JSON line per run and writes them to ``build/chip_smoke_pair.json``."""
+def run_pair(other: Path, what: str = "lm1b") -> int:
+    """A/B between the checkout at ``other`` (for example the parent
+    commit, unpacked with ``git archive``) and this one, on one card in
+    one call: ``other``, this, this, ``other``, twice, each a fresh process
+    running its own ``phase_build`` and then, for ``what`` "lm1b", its
+    ``phase_lstm_kernels`` and ``phase_train``; for "serve", its paged
+    kernel cases, ``phase_serve`` and a profiled serve run. Prints one
+    JSON line per run and writes them to ``build/chip_smoke_pair.json``
+    (``chip_smoke_pair_serve.json`` for "serve")."""
+    child = {"lm1b": PAIR_CHILD, "serve": PAIR_CHILD_SERVE}[what]
     runs = []
     for label in PAIR_ORDER:
         root = ROOT if label == "this" else other
-        proc = subprocess.run([sys.executable, "-c", PAIR_CHILD],
+        proc = subprocess.run([sys.executable, "-c", child],
                               cwd=root, capture_output=True, text=True,
                               timeout=900)
         line = [x for x in proc.stdout.splitlines() if x.startswith("PAIR ")]
@@ -1638,7 +1803,9 @@ def run_pair(other: Path) -> int:
         log(f"[pair] {json.dumps(run)}")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_pair.json").write_text(json.dumps(runs, indent=1))
+    name = "chip_smoke_pair.json" if what == "lm1b" else \
+        f"chip_smoke_pair_{what}.json"
+    (out_dir / name).write_text(json.dumps(runs, indent=1))
     return 0
 
 
@@ -1653,13 +1820,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--pair"]:
-        return run_pair(Path(sys.argv[2]).resolve())
+        return run_pair(Path(sys.argv[2]).resolve(), *sys.argv[3:4])
     # every fp32 comparison below runs in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = phase_build(torch)
     results = phase_kernels(torch) + phase_flash_bwd_kernels(torch)
+    paged_splits = paged_split_sweep(torch)
     failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in results
               if not r["ok"]]
     if failed:
@@ -1699,7 +1867,8 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
-              "cases": results + lstm_results, "lstm_repeat": lstm_repeat,
+              "cases": results + lstm_results, "paged_splits": paged_splits,
+              "lstm_repeat": lstm_repeat,
               "lstm_sweep": lstm_sweep, "lstm_bwd_sweep": lstm_bwd_sweep,
               "lstm_bwd_groups": lstm_groups,
               "serve": serve_summary, "profile": profile_summary,

@@ -2,11 +2,14 @@
 
 Replaces ``parallax_tpu/ops/pallas_paged_attention.py`` (the TPU kernel
 ``_paged_attn_kernel``). The kernel is
-``parallax_tpu_torch/csrc/paged_attention.cu``: one block per (slot,
-head) reads its own page-table row and positions, walks only the
-positions up to ``max_g pos[s, g]``, skips sentinel pages, stages K/V
-head slices in shared memory and keeps the online softmax per query.
-Its source says what bounds it on the H100.
+``parallax_tpu_torch/csrc/paged_attention.cu``
+(``paged_decode_kernel_sm90``): flash-decoding over the page table. A
+block takes one slot, a group of heads (``split_plan``) and one range of
+positions; it loads its range's page ids once, streams the live, visible
+K/V rows through a ring of 16-byte ``cp.async`` copies, and keeps the
+online softmax per query in fp32. When a slot's positions are split
+over several blocks, ``paged_combine_kernel`` merges their partials in
+split order. Its source says what bounds it on the H100.
 
 Semantics, shared by the kernel and the plain version:
 
@@ -38,8 +41,9 @@ kernel against on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,10 +53,18 @@ _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_MAX_G = 4
-# pt_paged_decode(q, k_pool, v_pool, pages, pos, out, S, G, H, hd, P,
-#                 page_size, pool_pages, sqrt_hd, is_bf16, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+# pt_paged_decode(q, k_pool, v_pool, pages, pos, out, ws, S, G, H, hd, P,
+#                 page_size, pool_pages, hb, nsplit, range, sqrt_hd,
+#                 is_bf16, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# the kernel's chunk (csrc/paged_attention.cu CH): a split's range is a
+# multiple of it
+CHUNK = 32
+# a split takes at least MIN_SPLIT positions and at most MAX_SPLIT (its
+# page ids sit in shared memory)
+MIN_SPLIT = 64
+MAX_SPLIT = 4096
 
 # The flagship decode shape (the JAX package's FLAGSHIP_DECODE):
 # continuous serving of the transformer NMT flagship (D=512, 8 heads)
@@ -61,8 +73,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
 FLAGSHIP_DECODE = dict(S=64, G=3, D=512, num_heads=8, page_size=128,
                        P=16, pool_pages=1024)
 
-# kernel launches since the last reset (``launches = 0``)
+# kernel calls since the last reset (``launches = 0``): each launches
+# ``paged_decode_kernel_sm90`` once, and ``paged_combine_kernel`` once
+# more when its plan splits the positions (``launches_combine``)
 launches = 0
+launches_combine = 0
 
 
 # -- sentinel semantics -----------------------------------------------------
@@ -134,6 +149,54 @@ def paged_decode_attention_plain(q, k_pool, v_pool, pages, pos, *,
 # -- the kernel --------------------------------------------------------------
 
 
+class SplitPlan(NamedTuple):
+    """How the kernel cuts one call: ``heads`` heads a block, each slot's
+    positions in ``nsplit`` ranges of ``positions`` (a multiple of
+    ``CHUNK``). The grid is ``(H // heads, S, nsplit)``."""
+    heads: int
+    nsplit: int
+    positions: int
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(S: int, H: int, hd: int, P: int, page_size: int,
+               itemsize: int, sm_count: int) -> SplitPlan:
+    """The kernel's work split, a function of shapes alone: it never reads
+    ``pos`` or ``pages``, which would sync the host in every layer.
+
+    Heads a block: as many as make one position's row segment 256
+    contiguous bytes (bf16 hd 64: 2; hd 128 or fp32: 1; 1 for an odd head
+    count). Splits: the fewest, a power of two, that give every SM a
+    block, but no range under ``MIN_SPLIT`` positions (or one range when
+    the table is shorter) and none over ``MAX_SPLIT``. More splits cost
+    the combine kernel and a block's start for little: on an H100 the
+    serving shape and ``FLAGSHIP_DECODE`` (64 slots, a grid of 256 blocks
+    unsplit) ran fastest unsplit (``chip_smoke.py``'s ``paged-splits``).
+    The ranges cover ``P * page_size``, the last one ragged; none lies
+    wholly past it."""
+    heads = 2 if itemsize == 2 and hd == 64 and H % 2 == 0 else 1
+    T = P * page_size
+    chunks = max(-(-T // CHUNK), 1)
+    want = -(-sm_count // max(S * (H // heads), 1))
+    want = 1 << (want - 1).bit_length()
+    nsplit = max(min(want, T // MIN_SPLIT), -(-T // MAX_SPLIT), 1)
+    positions = -(-chunks // nsplit) * CHUNK
+    return SplitPlan(heads, max(-(-T // positions), 1), positions)
+
+
+_sm_counts = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _sm_counts.get(index)
+    if n is None:
+        n = torch.cuda.get_device_properties(index).multi_processor_count
+        _sm_counts[index] = n
+    return n
+
+
 def _check_kernel_inputs(q, k_pool, v_pool, pages, pos, num_heads):
     for name, x in (("k_pool", k_pool), ("v_pool", v_pool)):
         if x.dtype != q.dtype:
@@ -162,25 +225,50 @@ def _check_kernel_inputs(q, k_pool, v_pool, pages, pos, num_heads):
         raise ValueError(f"paged_decode_attention kernel takes 1 <= G <= "
                          f"{KERNEL_MAX_G} queries per slot, got "
                          f"{q.shape[1]}")
+    # 16-byte cp.async copies and vector loads: every row starts on 16
+    # bytes when the bases do (D * itemsize is a multiple of 16 at hd 64
+    # and 128)
+    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"paged_decode_attention: {name} must start "
+                             f"on a 16-byte boundary")
 
 
 def _kernel(q, k_pool, v_pool, pages, pos, num_heads, page_size,
             pool_pages):
-    global launches
     _check_kernel_inputs(q, k_pool, v_pool, pages, pos, num_heads)
+    S, G, D = q.shape
+    plan = split_plan(S, num_heads, D // num_heads, pages.shape[1],
+                      page_size, q.element_size(), _sm_count(q.device))
+    return _launch(q, k_pool, v_pool, pages, pos, num_heads, page_size,
+                   pool_pages, plan)
+
+
+def _launch(q, k_pool, v_pool, pages, pos, num_heads, page_size,
+            pool_pages, plan: SplitPlan):
+    """The kernel call under ``plan`` (checked inputs)."""
+    global launches, launches_combine
     S, G, D = q.shape
     out = torch.empty_like(q)
     if S == 0:
         return out
-    fn = _cuda.function("paged_attention", "pt_paged_decode", _ARGTYPES)
     hd = D // num_heads
+    ws = None
+    if plan.nsplit > 1:
+        ws = torch.empty((S, plan.nsplit, G, num_heads, hd + 2),
+                         dtype=torch.float32, device=q.device)
+    fn = _cuda.function("paged_attention", "pt_paged_decode", _ARGTYPES)
     code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-              pages.data_ptr(), pos.data_ptr(), out.data_ptr(), S, G,
-              num_heads, hd, pages.shape[1], page_size, pool_pages,
-              float(math.sqrt(hd)), int(q.dtype == torch.bfloat16),
+              pages.data_ptr(), pos.data_ptr(), out.data_ptr(),
+              None if ws is None else ws.data_ptr(), S, G, num_heads, hd,
+              pages.shape[1], page_size, pool_pages, plan.heads,
+              plan.nsplit, plan.positions, float(math.sqrt(hd)),
+              int(q.dtype == torch.bfloat16),
               torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check("paged_attention", code, "paged_decode_attention")
     launches += 1
+    if plan.nsplit > 1:
+        launches_combine += 1
     return out
 
 
@@ -240,4 +328,4 @@ def kernel_hbm_bytes(S, G, D, page_size, live_pages, itemsize,
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_gather", "sentinel_write_coords", "kernel_hbm_bytes",
-           "FLAGSHIP_DECODE"]
+           "split_plan", "SplitPlan", "FLAGSHIP_DECODE"]

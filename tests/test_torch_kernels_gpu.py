@@ -4,7 +4,8 @@ Ragged and odd shapes the main paths do not reach (Tq and Tk off the
 64-row tile, Tq != Tk under causal masking, hd = 128, more streamed
 tiles than the bf16 kernels' ring has stages (T 300 and 1024), fully masked
 rows for the flash forward and backward, G = 2, page sizes
-that do not divide the 128-position chunk; LSTM B, H and P off every
+that do not divide the 32-position chunk, paged ranges wholly past a
+frontier or holding only sentinel pages; LSTM B, H and P off every
 tile, T = 1, B = 1), fp32 with TF32 off (atol 2e-5; the flash gradients
 2e-5 of max(1, peak), they sum over a whole sequence; the LSTM kernels
 1e-4 of max(1, peak), their time loops compound the reassociation) and
@@ -318,6 +319,165 @@ def test_paged_kernel_matches_plain(cuda, dtype, S, G, H, hd, ps, P):
     assert pa.launches == before + 1
     _close(out, ref, dtype)
     assert torch.all(out[3] == 0)         # the slot with no page
+
+
+def _paged_inputs(cuda, dtype, pages, pos, H, hd, ps, pool_pages, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    S, G = pos.shape
+    q = torch.randn((S, G, H * hd), generator=g, device=cuda, dtype=dtype)
+    # the port's pool layout: one spare page past pool_pages
+    kp = torch.randn((pool_pages + 1, ps, H * hd), generator=g, device=cuda,
+                     dtype=dtype)
+    vp = torch.randn((pool_pages + 1, ps, H * hd), generator=g, device=cuda,
+                     dtype=dtype)
+    return (q, kp, vp, torch.from_numpy(pages).to(cuda),
+            torch.from_numpy(pos).to(cuda))
+
+
+def _paged_plan(args, H):
+    q, kp, _, pages, _ = args
+    return pa.split_plan(q.shape[0], H, q.shape[2] // H, pages.shape[1],
+                         kp.shape[1], q.element_size(),
+                         torch.cuda.get_device_properties(q.device)
+                         .multi_processor_count)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,H,hd,ps,P", [
+    (3, 2, 64, 12, 40),
+    (1, 4, 128, 4, 64),
+    (4, 3, 64, 1, 300),
+    (2, 2, 64, 256, 3),
+])
+def test_paged_kernel_splits_match_plain(cuda, dtype, G, H, hd, ps, P):
+    """Shapes whose plan splits each slot's positions: slot 0 owns every
+    page but a sentinel hole where its second range begins, slot 1 half
+    its pages (later ranges lie past its frontier), slot 2 one page with
+    its frontier at the table's end (later ranges hold only sentinel
+    pages), slot 3 none (exact zeros). Each call launches the decode
+    kernel once and the combine kernel once, as ``split_plan`` says."""
+    pool_pages = 4 * P
+    rng = np.random.default_rng(1)
+    perm = rng.permutation(pool_pages).astype(np.int32)
+    pages = np.full((4, P), pool_pages, np.int32)
+    pages[0] = perm[:P]
+    pages[1, :P // 2] = perm[P:P + P // 2]
+    pages[2, 0] = perm[2 * P]
+    last = np.asarray([P * ps - 1, (P // 2) * ps - 1, P * ps - 1, G - 1])
+    pos = (last[:, None] - (G - 1) + np.arange(G)[None, :]).astype(np.int32)
+    pos[0, 0] = min(40, P * ps - 1)   # verify queries at other frontiers
+    args = _paged_inputs(cuda, dtype, pages, pos, H, hd, ps, pool_pages)
+    plan = _paged_plan(args, H)
+    assert plan.nsplit > 1
+    pages[0, plan.positions // ps] = pool_pages
+    args = args[:3] + (torch.from_numpy(pages).to(cuda),) + args[4:]
+    kw = dict(num_heads=H, page_size=ps, pool_pages=pool_pages)
+    before = (pa.launches, pa.launches_combine)
+    out = pa.paged_decode_attention(*args, **kw)
+    ref = pa.paged_decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_combine) == (before[0] + 1,
+                                                  before[1] + 1)
+    _close(out, ref, dtype)
+    assert torch.all(out[3] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("occupancy", [1.0, 0.25])
+def test_paged_kernel_matches_plain_at_flagship(cuda, dtype, G, occupancy):
+    """FLAGSHIP_DECODE (64 slots, 8 heads of 64, 16 pages of 128): each
+    slot but slot 0 (no page) owns ``occupancy`` of its table, frontier
+    at its last live position."""
+    F = pa.FLAGSHIP_DECODE
+    S, P, ps, pool_pages = F["S"], F["P"], F["page_size"], F["pool_pages"]
+    rng = np.random.default_rng(2)
+    perm = rng.permutation(pool_pages).astype(np.int32)
+    pages = np.full((S, P), pool_pages, np.int32)
+    pos = np.zeros((S, G), np.int32)
+    n = int(P * occupancy)
+    for s in range(1, S):
+        pages[s, :n] = perm[(s - 1) * n:s * n]
+        pos[s] = n * ps - G + np.arange(G)
+    pos[0] = np.arange(G)
+    args = _paged_inputs(cuda, dtype, pages, pos, F["num_heads"],
+                         F["D"] // F["num_heads"], ps, pool_pages)
+    kw = dict(num_heads=F["num_heads"], page_size=ps, pool_pages=pool_pages)
+    plan = _paged_plan(args, F["num_heads"])
+    before = (pa.launches, pa.launches_combine)
+    out = pa.paged_decode_attention(*args, **kw)
+    ref = pa.paged_decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_combine) == (
+        before[0] + 1, before[1] + int(plan.nsplit > 1))
+    _close(out, ref, dtype)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_bitwise_repeatable(cuda, dtype):
+    """No atomics: 10 back-to-back calls and a call on a second stream
+    give the same bits, at a shape whose plan splits the positions."""
+    S, G, H, hd, ps, P = 8, 3, 8, 64, 16, 32
+    pool_pages = S * P
+    rng = np.random.default_rng(3)
+    pages = rng.permutation(pool_pages).astype(np.int32).reshape(S, P)
+    pages[1, 5:] = pool_pages
+    pos = (rng.integers(G, P * ps, (S, 1)) - np.arange(G)).astype(np.int32)
+    args = _paged_inputs(cuda, dtype, pages, pos, H, hd, ps, pool_pages)
+    assert _paged_plan(args, H).nsplit > 1
+    kw = dict(num_heads=H, page_size=ps, pool_pages=pool_pages)
+    outs = [pa.paged_decode_attention(*args, **kw) for _ in range(10)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs.append(pa.paged_decode_attention(*args, **kw))
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    _close(outs[0], pa.paged_decode_attention_plain(*args, **kw), dtype)
+
+
+def test_paged_kernel_refuses_a_misaligned_pool(cuda):
+    """16-byte cp.async copies: a contiguous pool view that starts one
+    element in raises instead of launching anything."""
+    H, hd, ps = 2, 64, 4
+    flat = torch.zeros(5 * ps * H * hd + 1, device=cuda,
+                       dtype=torch.bfloat16)
+    bad = flat[1:].view(5, ps, H * hd)
+    good = torch.zeros((5, ps, H * hd), device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros((2, 1, H * hd), device=cuda, dtype=torch.bfloat16)
+    pages = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    pos = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    before = (pa.launches, pa.launches_combine)
+    for k, v in ((bad, good), (good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            pa.paged_decode_attention(q, k, v, pages, pos, num_heads=H,
+                                      page_size=ps, pool_pages=4)
+    assert (pa.launches, pa.launches_combine) == before
+
+
+def test_paged_kernel_uses_cp_async(cuda):
+    """The built library's SASS: the decode kernel (20 instantiations:
+    fp32 hd 64/128, bf16 hd 64 with one or two heads a block and hd 128,
+    each for G 1-4) issues LDGSTS (cp.async), and no first kernel is
+    left in it."""
+    _cuda.library("paged_attention")
+    sass = subprocess.run(
+        [_cuobjdump(), "-sass", str(_cuda.library_path("paged_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for part in sass.split("Function : ")[1:]:
+        functions[part.split("\n", 1)[0].strip()] = part
+    bodies = [b for name, b in functions.items()
+              if "paged_decode_kernel_sm90" in name]
+    assert len(bodies) == 20, list(functions)
+    for body in bodies:
+        assert "LDGSTS" in body
+    stale = [n for n in functions if "paged_decode_kernel" in n
+             and "paged_decode_kernel_sm90" not in n]
+    assert not stale, stale
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -10,6 +10,8 @@ the read gather against JAX's, and the port's own pool layout — the
 spare page that sentinel writes land in.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,3 +128,195 @@ def test_decode_writes_land_in_own_pages_or_the_spare_page():
     for layer in range(cfg.num_layers):
         hit = {(int(p), int(o)) for p, o in written[layer].nonzero()}
         assert hit == {(1, 1), (pool_pages, 1)}
+
+
+# -- the kernel's work split and arithmetic ---------------------------------
+
+
+@pytest.mark.parametrize("args,want", [
+    # the serving path's decode step: 64 slots, 8 heads of 64, 8 pages of 16
+    ((64, 8, 64, 8, 16, 2), (2, 1, 128)),
+    ((64, 8, 64, 8, 16, 4), (1, 1, 128)),
+    # FLAGSHIP_DECODE: 64 slots, 16 pages of 128
+    ((64, 8, 64, 16, 128, 2), (2, 1, 2048)),
+    ((64, 8, 64, 16, 128, 4), (1, 1, 2048)),
+    # eight slots of the flagship spread over eight ranges
+    ((8, 8, 64, 16, 128, 2), (2, 8, 256)),
+    # the gpu tests' shapes
+    ((5, 4, 64, 6, 12, 2), (2, 1, 96)),
+    ((4, 2, 128, 2, 256, 2), (1, 8, 64)),
+    ((4, 8, 64, 200, 1, 2), (2, 3, 96)),
+    ((4, 2, 64, 40, 12, 2), (2, 5, 96)),
+    # an odd head count keeps one head a block; an empty table one range
+    ((3, 3, 64, 10, 16, 2), (1, 2, 96)),
+    ((4, 8, 64, 0, 16, 2), (2, 1, 32)),
+])
+def test_split_plan_is_a_function_of_shapes(args, want):
+    plan = tppa.split_plan(*args, 132)
+    assert tuple(plan) == want
+    S, H, hd, P, ps, itemsize = args
+    T = P * ps
+    # ranges of whole chunks that cover the table, none wholly past it
+    assert plan.positions % tppa.CHUNK == 0
+    assert plan.nsplit * plan.positions >= T
+    assert (plan.nsplit - 1) * plan.positions < max(T, 1)
+    assert plan.nsplit == 1 or plan.positions >= tppa.MIN_SPLIT
+    assert plan.positions <= max(tppa.MAX_SPLIT, tppa.CHUNK)
+    assert H % plan.heads == 0
+    # a row segment of heads * hd elements is 256 bytes where it can be
+    if itemsize == 2 and H % 2 == 0:
+        assert plan.heads * hd * itemsize == 256
+
+
+def test_split_plan_spreads_few_slots_and_caps_long_tables():
+    """Few slots spread over more ranges; a long table is cut into
+    ranges of at most MAX_SPLIT positions whatever the slot count."""
+    few = tppa.split_plan(2, 8, 64, 64, 16, 2, 132)
+    many = tppa.split_plan(512, 8, 64, 64, 16, 2, 132)
+    assert few.nsplit > many.nsplit == 1
+    long = tppa.split_plan(512, 8, 64, 1000, 16, 2, 132)
+    assert long.positions <= tppa.MAX_SPLIT and long.nsplit == 4
+
+
+def _emulate_kernel(q, kp, vp, pages, pos, H, ps, pool_pages, plan):
+    """``csrc/paged_attention.cu``'s arithmetic in plain fp32 torch: each
+    split's range cut at the slot's frontier (empty past it); in each
+    range, chunks of CHUNK positions, sub-warp ``sw`` of 8 (the fp32
+    kernel's; 16 in bf16) taking positions ``8 i + sw`` of a chunk with
+    its own online softmax updated
+    once a chunk; the sub-warps merged in order, then the splits in order
+    (those with l = 0 skipped); a sentinel page or a position past the
+    range zero-filled and masked."""
+    S, G, D = q.shape
+    hd = D // H
+    T = pages.shape[1] * ps
+    nsw = 8
+    neg = -1e30
+    out = torch.zeros((S, G, H, hd))
+    for s in range(S):
+        frontier = int(pos[s].max())
+        qh = q[s].reshape(G, H, hd)
+        parts = []
+        for split in range(plan.nsplit):
+            t0 = split * plan.positions
+            t_end = min(t0 + plan.positions, frontier + 1, T)
+            if t0 >= t_end:
+                parts.append((torch.full((G, H), neg), torch.zeros((G, H)),
+                              torch.zeros((G, H, hd))))
+                continue
+            m = torch.full((nsw, G, H), neg)
+            l = torch.zeros((nsw, G, H))
+            acc = torch.zeros((nsw, G, H, hd))
+            for cs in range(t0, t_end, tppa.CHUNK):
+                for sw in range(nsw):
+                    ts = range(cs + sw, cs + tppa.CHUNK, nsw)
+                    sc = torch.full((len(ts), G, H), neg)
+                    vr = torch.zeros((len(ts), H, hd))
+                    for i, t in enumerate(ts):
+                        page = int(pages[s, t // ps]) if t < t_end else -1
+                        if not 0 <= page < pool_pages:
+                            continue
+                        k = kp[page, t % ps].reshape(H, hd)
+                        vr[i] = vp[page, t % ps].reshape(H, hd)
+                        dot = (qh * k).sum(-1) / math.sqrt(hd)
+                        sc[i] = torch.where((t <= pos[s])[:, None], dot,
+                                            torch.tensor(neg))
+                    mx = torch.maximum(m[sw], sc.amax(0))
+                    alpha = torch.exp(m[sw] - mx)
+                    p = torch.where(sc > neg / 2, torch.exp(sc - mx), 0.0)
+                    l[sw] = l[sw] * alpha + p.sum(0)
+                    acc[sw] = acc[sw] * alpha[..., None] + torch.einsum(
+                        "igh,ihd->ghd", p, vr)
+                    m[sw] = mx
+            parts.append(_merge_in_order(m, l, acc, neg))
+        M, L, A = _merge_in_order(*map(torch.stack, zip(*parts)), neg)
+        out[s] = A / L.clamp_min(1e-30)[..., None]
+    return out.reshape(S, G, D)
+
+
+def _merge_in_order(m, l, acc, neg):
+    """(m, l, acc) partials along dim 0 merged in index order; a partial
+    that saw no visible position (l = 0) adds nothing."""
+    M = m.amax(0)
+    L = torch.zeros_like(l[0])
+    A = torch.zeros_like(acc[0])
+    for i in range(m.shape[0]):
+        e = torch.where(l[i] > 0, torch.exp(m[i] - M), 0.0)
+        L = L + l[i] * e
+        A = A + acc[i] * e[..., None]
+    return M, L, A
+
+
+def _split_table(G, ps, seed, T=96):
+    """Four slots over a T-position table: slot 0 owns every page but
+    two sentinel holes (page 1, and the page holding position T / 3,
+    where the second of three ranges begins); slot 1 half its pages with its frontier
+    at their end, so later ranges lie wholly past it; slot 2 one page
+    with its frontier at the table's end, so later ranges hold only
+    sentinel pages; slot 3 no page (exact zeros)."""
+    P = T // ps
+    pool = 4 * P
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((4, G, D)).astype(np.float32)
+    kp = rng.standard_normal((pool, ps, D)).astype(np.float32)
+    vp = rng.standard_normal((pool, ps, D)).astype(np.float32)
+    perm = rng.permutation(pool).astype(np.int32)
+    pages = np.full((4, P), pool, np.int32)
+    pages[0] = perm[:P]
+    pages[0, [1, T // 3 // ps]] = pool
+    pages[1, :P // 2] = perm[P:P + P // 2]
+    pages[2, 0] = perm[2 * P]
+    last = np.asarray([P * ps - 1, (P // 2) * ps - 1, P * ps - 1, G - 1])
+    pos = (last[:, None] - (G - 1) + np.arange(G)[None, :]).astype(np.int32)
+    pos[0, 0] = 40                    # verify queries at other frontiers
+    return q, kp, vp, pages, pos, pool
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+@pytest.mark.parametrize("G,ps", [(1, 1), (2, 4), (3, 12), (4, 4),
+                                  (3, 1), (1, 12)])
+def test_kernel_arithmetic_matches_jax_kernel_and_plain(G, ps, nsplit):
+    q, kp, vp, pages, pos, pool = _split_table(G, ps, seed=G * 13 + ps)
+    kw = dict(num_heads=H, page_size=ps)
+    ref = np.asarray(jppa.paged_decode_attention(
+        *map(jnp.asarray, (q, kp, vp, pages, pos)), impl="kernel",
+        interpret=True, **kw))
+    t = [torch.from_numpy(x) for x in (q, kp, vp, pages, pos)]
+    plain = tppa.paged_decode_attention_plain(*t, **kw)
+    plan = tppa.SplitPlan(1, nsplit, -(-96 // nsplit))
+    assert plan.positions % tppa.CHUNK == 0
+    got = _emulate_kernel(*t, H, ps, pool, plan)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+def test_kernel_arithmetic_under_the_planned_split():
+    """The split ``split_plan`` picks for a few slots on a small card
+    (several ranges, some wholly past a frontier) gives the plain
+    version's result."""
+    q, kp, vp, pages, pos, pool = _split_table(3, 4, seed=5, T=192)
+    plan = tppa.split_plan(4, H, D // H, pages.shape[1], 4, 4, 32)
+    assert tuple(plan) == (1, 3, 64)
+    t = [torch.from_numpy(x) for x in (q, kp, vp, pages, pos)]
+    plain = tppa.paged_decode_attention_plain(*t, num_heads=H, page_size=4)
+    got = _emulate_kernel(*t, H, 4, pool, plan)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+
+
+def test_kernel_refuses_a_misaligned_base():
+    """16-byte copies: a q or pool view that starts off a 16-byte
+    boundary is refused before anything launches."""
+    hd, heads = 64, 2
+    flat = torch.zeros(4 * 4 * heads * hd + 1, dtype=torch.bfloat16)
+    pool = flat[1:].view(4, 4, heads * hd)
+    assert pool.is_contiguous() and pool.data_ptr() % 16
+    q = torch.zeros((2, 1, heads * hd), dtype=torch.bfloat16)
+    good = torch.zeros((4, 4, heads * hd), dtype=torch.bfloat16)
+    pages = torch.zeros((2, 1), dtype=torch.int32)
+    pos = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tppa._check_kernel_inputs(q, pool, good, pages, pos, heads)
+    with pytest.raises(ValueError, match="16-byte"):
+        tppa._check_kernel_inputs(q, good, pool, pages, pos, heads)
+    tppa._check_kernel_inputs(q, good, good, pages, pos, heads)
