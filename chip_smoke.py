@@ -97,6 +97,27 @@ beside it. Phases:
 9. NMT train agreement: 3 steps in fp32 (TF32 off) from the same weights
    through the flash kernels and through the plain attention with
    autograd; per-step losses within 1e-4 relative.
+10. ResNet-50 training (``resnet-train``): ``cnn.build_model(
+    "resnet50_v1.5")`` at its published widths (224 px, 1000 classes,
+    bf16 compute, fp32 parameters and BatchNorm statistics) through
+    ``parallel_run(..., Config(run_option="AR"))``, random weights from
+    seed 0, batch 256 (``examples/cnn_benchmark_driver.py``'s default): 5
+    warmup and 30 timed steps over 4 cycled synthetic batches,
+    images/sec, step ms, peak memory and the model FLOPs (counted on meta
+    tensors) as a share of 989 TF/s. Losses finite at every step, every
+    ``model_state`` leaf changed by the first step, no parameter
+    non-finite. No TPU kernel lies on this path: convolutions and
+    BatchNorm are cuDNN/ATen calls.
+11. ``resnet-profile``: 5 steps under the profiler: launches a step, the
+    idle share, busy time by group (cuDNN convolutions by direction,
+    BatchNorm, the optimizer, the images' copy, the rest). It fails on
+    any NCHW/NHWC layout-transpose kernel.
+12. ``resnet-agree``: one step of the 4-stage ``[1, 1, 1, 1]`` ResNet at
+    full width (batch 4, 224 px) on the card against the CPU, in fp32
+    (TF32 off) and in float64: loss, every gradient and the new
+    statistics, at ``RESNET_AGREE``'s tolerances.
+
+Every phase's seconds are printed (``[phase-seconds]``).
 
 Phase 2 also holds the flash backward (B5 dq, B6 dk/dv) against its
 plain versions at the three training attentions, at T 512 (causal and
@@ -1654,6 +1675,313 @@ def phase_nmt_train_agreement(torch):
     return summary
 
 
+# -- phases 10-12: ResNet-50 v1.5 training -------------------------------------
+
+# examples/cnn_benchmark_driver.py's defaults: resnet50_v1.5 at 224 px,
+# 1000 classes, a global batch of 256 (all on the one card), 4 cycled
+# synthetic batches (cnn.make_batch, numpy seed 0)
+RESNET = dict(name="resnet50_v1.5", batch=256, image_size=224, classes=1000,
+              warmup=5, steps=30, profile_steps=5)
+# resnet-agree: one step of the 4-stage [1, 1, 1, 1] ResNet at full width
+# on the card against the CPU, in fp32 and in float64. In fp32 a
+# pre-activation within about 1e-6 of 0 takes the other ReLU branch on
+# one device, and the last stage has only 196 positions a channel, so one
+# such flip moves its gradients by about 0.5 %: the port's own fp32 CPU
+# gradients are up to 6.5e-2 of a leaf's peak off float64. So fp32 holds
+# the loss (1e-5 relative) and the new statistics (1e-4 of each leaf's
+# peak) and bounds the gradients at 0.1 of the peak; float64, where no
+# branch flips, holds all three to 1e-9.
+RESNET_AGREE = dict(batch=4, image_size=224, classes=1000, tol={
+    "float32": {"loss": 1e-5, "grads": 0.1, "stats": 1e-4},
+    "float64": {"loss": 1e-9, "grads": 1e-9, "stats": 1e-9}})
+# device kernels by group, first match wins (names of cuDNN's sm90
+# convolution kernels carry fprop, dgrad or wgrad; cuDNN runs many 1x1
+# convolutions as cuBLAS (nvjet) or CUTLASS GEMMs whose names do not
+# say the direction, and the dense layer's three GEMMs a step are among
+# them)
+RESNET_GROUPS = (
+    ("conv_wgrad", r"wgrad"),
+    ("conv_dgrad", r"dgrad"),
+    ("conv_fprop", r"fprop"),
+    ("conv_gemm", r"nvjet|gemm|ImplicitGemmConvolution|cutlass"),
+    ("batch_norm", r"batch_norm"),
+    ("optimizer", r"multi_tensor_apply"),
+    ("h2d_copy", r"Memcpy HtoD"),
+)
+# layout conversions that cuDNN inserts when activations and weights
+# are not both channels_last
+TRANSPOSE = r"(?i)nchw_?to_?nhwc|nhwc_?to_?nchw"
+
+
+def model_flops(torch, module, image_size):
+    """Model FLOPs of one image: 2 x the multiply-adds of the
+    convolutions and the dense layer in one forward (counted on meta
+    tensors), and 3 times that for a training step (the forward and the
+    backward's two products)."""
+    from torch.overrides import TorchFunctionMode
+    from parallax_tpu_torch.models import _nn
+    macs = 0
+
+    class Count(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            nonlocal macs
+            out = func(*args, **(kwargs or {}))
+            if func is torch.conv2d:
+                w = args[1]
+                macs += out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+            elif func is torch.addmm:
+                macs += args[1].shape[0] * args[1].shape[1] * \
+                    args[2].shape[1]
+            return out
+
+    params, stats = _nn.init(module, torch.Generator(), "meta", image_size)
+    with Count():
+        _nn.apply(module, params, stats, torch.empty(
+            (1, image_size, image_size, 3), device="meta"))
+    return {"forward_gflop": 2 * macs / 1e9, "train_gflop": 6 * macs / 1e9}
+
+
+def resnet_batches():
+    from parallax_tpu_torch.models import cnn
+    rng = np.random.default_rng(SEED)
+    return [cnn.make_batch(rng, RESNET["batch"], RESNET["image_size"],
+                           RESNET["classes"]) for _ in range(4)]
+
+
+def phase_resnet_train(torch):
+    """ResNet-50 v1.5 through parallel_run(Config(run_option="AR")):
+    5 warmup and 30 timed steps, images/sec, step ms from CUDA events,
+    peak memory and the model-FLOPs share of the bf16 peak; then
+    ``resnet-profile``."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.core import classify
+    from parallax_tpu_torch.models import cnn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = cnn.build_model(RESNET["name"], num_classes=RESNET["classes"],
+                            image_size=RESNET["image_size"])
+    if not model.stateful:
+        raise AssertionError("ResNet-50's Model is not stateful")
+    sess, *_ = pt.parallel_run(
+        model, parallax_config=pt.Config(run_option="AR"), seed=SEED,
+        device=DEVICE)
+    batches = resnet_batches()
+    t_build = time.perf_counter()
+    sess.prepare(batches[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    placements = set(sess.engine.plan.placements.values())
+    if placements != {"replicated"}:
+        raise AssertionError(f"AR placements {placements}")
+    state0 = {p: t.clone()
+              for p, t in classify.flatten(sess.state.model_state)}
+    losses = [sess.run("loss", feed_dict=batches[0])]
+    unchanged = [p for p, t in classify.flatten(sess.state.model_state)
+                 if torch.equal(t, state0[p])]
+    if unchanged or len(state0) != 2 * 53:
+        raise AssertionError(f"model_state after the first step: "
+                             f"{len(unchanged)} of {len(state0)} leaves "
+                             f"unchanged (want 0 of 106)")
+    for i in range(1, RESNET["warmup"]):
+        losses.append(sess.run("loss", feed_dict=batches[i % 4]))
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    feed = (batches[i % 4] for i in range(RESNET["steps"]))
+    accs = []
+    for loss, acc in sess.run_iter(feed, fetches=["loss", "accuracy"]):
+        losses.append(loss)
+        accs.append(acc)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite ResNet loss: {losses}")
+    leaves = [t for _, t in classify.flatten(sess.state.params)]
+    if not bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all()):
+        raise AssertionError("a ResNet parameter is not finite")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    images_per_sec = RESNET["steps"] * RESNET["batch"] / wall
+    flops = model_flops(torch, cnn.build_module(
+        RESNET["name"], RESNET["classes"])[0], RESNET["image_size"])
+    achieved = images_per_sec * flops["train_gflop"] * 1e9
+    summary = {
+        "config": {**{k: RESNET[k] for k in ("name", "batch", "image_size",
+                                             "classes")},
+                   "compute": "bfloat16", "run_option": "AR",
+                   "params": sum(t.numel() for t in leaves)},
+        "images_per_sec": images_per_sec, "timed_steps": RESNET["steps"],
+        "wall_s": wall, "step_ms_p50": statistics.median(step_ms),
+        "step_ms_p95": step_ms[min(len(step_ms) - 1,
+                                   int(math.ceil(0.95 * len(step_ms))) - 1)],
+        "first_loss": losses[0], "last5_mean_loss":
+            statistics.mean(losses[-5:]),
+        "last_accuracy": float(accs[-1]), "losses": losses,
+        "engine_build_s": build_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "model_gflop_per_image": flops,
+        "model_tflops": achieved / 1e12,
+        "share_of_bf16_peak": achieved / PEAK_OPS_PER_S["bfloat16"]}
+    log(f"[resnet-train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
+    profile = profile_resnet(torch, sess, batches,
+                             wall * 1e3 / RESNET["steps"])
+    sess.close()
+    torch.cuda.empty_cache()
+    return summary, profile
+
+
+def profile_resnet(torch, sess, batches, timed_step_ms):
+    """``profile_steps`` steps under the profiler's CUDA activity: launches
+    a step, the device's idle share, and busy time by group
+    (``RESNET_GROUPS``; the rest is every other kernel). Fails on a
+    layout-transpose kernel. The idle share of the profiled window counts
+    the pipeline's fill and the profiler's own host cost; the timed steps'
+    idle share is 1 - busy ms a step / ``timed_step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        feed = (batches[i % 4] for i in range(RESNET["profile_steps"]))
+        for loss in sess.run_iter(feed, fetches="loss"):
+            pass
+        float(loss)
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    if not rows:
+        raise AssertionError("the ResNet profile recorded no device activity")
+    rows.sort(reverse=True)
+    steps = RESNET["profile_steps"]
+    busy_us = sum(us for us, _, _ in rows)
+
+    def group(key):
+        return next((g for g, pat in RESNET_GROUPS if re.search(pat, key)),
+                    "rest")
+
+    by_group = {}
+    for us, n, key in rows:
+        g = by_group.setdefault(group(key), {"ms_per_step": 0.0,
+                                             "launches_per_step": 0.0})
+        g["ms_per_step"] += us / 1e3 / steps
+        g["launches_per_step"] += n / steps
+    for g in by_group.values():
+        g["share_of_busy"] = g["ms_per_step"] * 1e3 * steps / busy_us
+    by_group["conv_all"] = {k: sum(by_group.get(g, {}).get(k, 0.0) for g in (
+        "conv_fprop", "conv_dgrad", "conv_wgrad", "conv_gemm"))
+        for k in ("ms_per_step", "launches_per_step", "share_of_busy")}
+    transposes = [key for _, _, key in rows if re.search(TRANSPOSE, key)]
+    summary = {"steps": steps, "window_s": window,
+               "device_busy_ms_per_step": busy_us / 1e3 / steps,
+               "device_idle_share": 1.0 - busy_us / 1e6 / window,
+               "device_idle_share_timed": 1.0 - busy_us / 1e3 / steps
+               / timed_step_ms,
+               "device_launches_per_step": sum(n for _, n, _ in rows) / steps,
+               "by_group": by_group, "transposes": transposes,
+               "kernels": [{"name": key, "group": group(key), "calls": n,
+                            "ms": us / 1e3, "share_of_busy": us / busy_us}
+                           for us, n, key in rows]}
+    shown = {**summary, "kernels": [{**k, "name": k["name"][:110]}
+                                    for k in summary["kernels"][:25]]}
+    log(f"[resnet-profile] {json.dumps(shown)}")
+    if transposes:
+        raise AssertionError(f"layout-transpose kernels in the ResNet "
+                             f"step: {transposes}")
+    return summary
+
+
+def phase_resnet_agree(torch):
+    """One step of ResNet(stage_sizes=[1, 1, 1, 1]) at full width (64
+    filters, 224 px, 1000 classes, batch 4) on the card against the
+    port's own CPU run of the same step, in fp32 (TF32 off) and in
+    float64: the loss, every gradient and the new batch statistics, each
+    within ``RESNET_AGREE``'s tolerance (gradients and statistics as the
+    largest error of a leaf over its peak). Every BatchNorm scale is
+    drawn in [0.5, 1.5], so that no gradient is zero by construction
+    (the blocks' last scales start at zero)."""
+    from parallax_tpu_torch.core import classify
+    from parallax_tpu_torch.models import cnn, resnet
+    c = RESNET_AGREE
+    params, state = cnn.module_model(resnet.ResNet(
+        stage_sizes=(1, 1, 1, 1), num_classes=c["classes"]),
+        c["image_size"]).init_fn(torch.Generator().manual_seed(SEED), "cpu")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for path, t in classify.flatten(params):
+        if path.endswith("scale"):
+            t.uniform_(0.5, 1.5, generator=gen)
+    batch = cnn.make_batch(np.random.default_rng(SEED), c["batch"],
+                           c["image_size"], c["classes"])
+
+    def on(tree, dev, dtype):
+        if isinstance(tree, dict):
+            return {k: on(v, dev, dtype) for k, v in tree.items()}
+        return tree.detach().to(dev, dtype).clone()
+
+    def step(dtype, dev):
+        model = cnn.module_model(resnet.ResNet(
+            stage_sizes=(1, 1, 1, 1), num_classes=c["classes"],
+            dtype=dtype), c["image_size"])
+        p, s = on(params, dev, dtype), on(state, dev, dtype)
+        flat = classify.flatten(p)
+        for _, t in flat:
+            t.requires_grad_(True)
+        b = {"images": torch.from_numpy(batch["images"]).to(dev, dtype),
+             "labels": torch.from_numpy(batch["labels"]).to(dev)}
+        t0 = time.perf_counter()
+        loss, _, new = model.call_loss(p, b, torch.Generator(device=dev), s)
+        grads = torch.autograd.grad(loss, [t for _, t in flat])
+        return {"loss": loss.item(),
+                "grads": {path: g.cpu() for (path, _), g in
+                          zip(flat, grads)},
+                "stats": {path: t.cpu() for path, t in
+                          classify.flatten(new)},
+                "s": time.perf_counter() - t0}
+
+    def worst(got, want):
+        """(largest error of a leaf over its peak, that leaf)."""
+        out = (0.0, None)
+        for path, w in want.items():
+            peak = w.abs().max().item()
+            err = (got[path] - w).abs().max().item()
+            rel = err / peak if peak > 0 else (0.0 if err == 0 else math.inf)
+            if out[1] is None or rel > out[0]:
+                out = (rel, path)
+        return out
+
+    summary = {"config": {"stage_sizes": [1, 1, 1, 1], "filters": 64,
+                          "image_size": c["image_size"], "batch": c["batch"],
+                          "tf32": False}, "tol": c["tol"]}
+    ok = True
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        cpu, card = step(dtype, "cpu"), step(dtype, DEVICE)
+        grads, grad_leaf = worst(card["grads"], cpu["grads"])
+        stats, stat_leaf = worst(card["stats"], cpu["stats"])
+        got = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+               "grads": grads, "stats": stats}
+        summary[name] = {"loss_cpu": cpu["loss"], "loss_card": card["loss"],
+                         **{f"{k}_err": v for k, v in got.items()},
+                         "worst_grad_leaf": grad_leaf,
+                         "worst_stat_leaf": stat_leaf,
+                         "cpu_s": cpu["s"], "card_s": card["s"]}
+        ok = ok and all(got[k] <= c["tol"][name][k] for k in got)
+    summary["leaves"] = len(cpu["grads"])
+    summary["stat_leaves"] = len(cpu["stats"])
+    log(f"[resnet-agree] {json.dumps(summary)}")
+    if not ok:
+        raise AssertionError("the ResNet step on the card disagrees with the "
+                             "CPU beyond the stated tolerances")
+    return summary
+
+
 # -- the run ----------------------------------------------------------------
 
 
@@ -1825,9 +2153,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card = phase_build(torch)
-    results = phase_kernels(torch) + phase_flash_bwd_kernels(torch)
-    paged_splits = paged_split_sweep(torch)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    card = phase("build", phase_build, torch)
+    results = phase("kernels", phase_kernels, torch) + \
+        phase("flash-bwd-kernels", phase_flash_bwd_kernels, torch)
+    paged_splits = phase("paged-splits", paged_split_sweep, torch)
     failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in results
               if not r["ok"]]
     if failed:
@@ -1837,11 +2174,13 @@ def main() -> int:
     cfg = nmt.NMTConfig(use_pallas_attention=True, num_partitions=1)
     requests = make_requests(256, np.random.default_rng(SEED),
                              cfg.vocab_size)
-    params, serve_summary = phase_serve(torch, cfg, requests)
-    profile_summary = phase_profile(torch, cfg, params, requests[:64])
-    agree = phase_agreement(torch, params, cfg, requests[:32])
+    params, serve_summary = phase("serve", phase_serve, torch, cfg, requests)
+    profile_summary = phase("profile", phase_profile, torch, cfg, params,
+                            requests[:64])
+    agree = phase("agreement", phase_agreement, torch, params, cfg,
+                  requests[:32])
     del params
-    lstm_results = phase_lstm_kernels(torch)
+    lstm_results = phase("lstm-kernels", phase_lstm_kernels, torch)
     failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in lstm_results
               if not r["ok"]]
     if failed:
@@ -1854,14 +2193,18 @@ def main() -> int:
         raise AssertionError(f"bf16 LSTM routes at the training shape "
                              f"{train_route}: B1, B2 and B3 must take the "
                              f"persistent kernels")
-    lstm_repeat = lstm_repeatability(torch)
-    lstm_sweep = lstm_step_sweep(torch)
-    lstm_bwd_sweep = lstm_step_sweep(torch, "lstm_bwd")
-    lstm_groups = lstm_bwd_groups(torch)
-    train, train_profile = phase_train(torch)
-    train_agree = phase_train_agreement(torch)
-    nmt_train, nmt_profile = phase_nmt_train(torch)
-    nmt_agree = phase_nmt_train_agreement(torch)
+    lstm_repeat = phase("lstm-repeat", lstm_repeatability, torch)
+    lstm_sweep = phase("lstm-sweep", lstm_step_sweep, torch)
+    lstm_bwd_sweep = phase("lstm-bwd-sweep", lstm_step_sweep, torch,
+                           "lstm_bwd")
+    lstm_groups = phase("lstm-bwd-groups", lstm_bwd_groups, torch)
+    train, train_profile = phase("train", phase_train, torch)
+    train_agree = phase("train-agree", phase_train_agreement, torch)
+    nmt_train, nmt_profile = phase("nmt-train", phase_nmt_train, torch)
+    nmt_agree = phase("nmt-train-agree", phase_nmt_train_agreement, torch)
+    resnet_train, resnet_profile = phase("resnet-train", phase_resnet_train,
+                                         torch)
+    resnet_agree = phase("resnet-agree", phase_resnet_agree, torch)
     launches = {**serve_summary["launches"], **train["launches"]}
     for name, n in nmt_train["launches"].items():
         launches[name] = launches.get(name, 0) + n
@@ -1876,10 +2219,13 @@ def main() -> int:
               "train_profile": train_profile, "train_agreement": train_agree,
               "nmt_train": nmt_train, "nmt_train_profile": nmt_profile,
               "nmt_train_agreement": nmt_agree,
+              "resnet_train": resnet_train, "resnet_profile": resnet_profile,
+              "resnet_agreement": resnet_agree, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    log(f"[phase-seconds] {json.dumps(seconds)}")
     log(f"[done] {record['wall_s']:.1f}s")
     print(card)
     print(json.dumps(line))

@@ -1,6 +1,6 @@
 """parallax_tpu_torch — the PyTorch and CUDA port of parallax_tpu.
 
-It runs on one NVIDIA H100 (Hopper, sm_90a). Two slices are ported:
+It runs on one NVIDIA H100 (Hopper, sm_90a). Ported slices:
 
 * LM1B training: ``parallel_run(lm1b.build_model(cfg),
   parallax_config=Config(run_option="HYBRID", sparse_grad_mode="slices"))``
@@ -8,10 +8,16 @@ It runs on one NVIDIA H100 (Hopper, sm_90a). Two slices are ported:
   clip and Adagrad and the tables through scatter-only slice Adagrad, and
   runs the LSTM recurrence in hand-written CUDA kernels: forward,
   forward with residuals and time-reversed backward (ops/lstm.py).
+* NMT training through ``parallel_run(nmt.build_model(cfg))``, with the
+  CUDA flash-attention forward and backward kernels.
 * NMT continuous-decode serving: ``ServeSession`` drives a
   ``ContinuousScheduler`` over an ``NMTDecodeProgram``, with a CUDA
   flash-attention forward (ops/flash_attention.py) and a CUDA
   paged-decode kernel (ops/paged_attention.py).
+* Dense CNN training: ``parallel_run(cnn.build_model("resnet50_v1.5"),
+  parallax_config=Config(run_option="AR"))`` and the rest of the CNN zoo,
+  a stateful model (BatchNorm statistics) with momentum SGD; no TPU
+  kernel lies on this path. ``simple`` is the linear-regression smoke.
 
 The kernels are built from ``csrc/`` at first use. The JAX package
 ``parallax_tpu`` is the reference; this package imports neither it nor
@@ -22,7 +28,7 @@ from parallax_tpu_torch.common.config import (Config, ParallaxConfig,
                                               ServeConfig)
 from parallax_tpu_torch.common.lib import parallax_log as log
 from parallax_tpu_torch.core.engine import Model, TrainState
-from parallax_tpu_torch.models import lm1b, nmt
+from parallax_tpu_torch.models import cnn, lm1b, nmt, simple
 from parallax_tpu_torch.runner import parallel_run
 from parallax_tpu_torch.serve import NMTDecodeProgram, ServeSession
 from parallax_tpu_torch.session import Fetch, ParallaxSession, materialize
@@ -31,4 +37,5 @@ __version__ = "0.1.0"
 
 __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
            "Model", "TrainState", "ParallaxSession", "Fetch", "materialize",
-           "ServeSession", "NMTDecodeProgram", "lm1b", "nmt"]
+           "ServeSession", "NMTDecodeProgram", "cnn", "lm1b", "nmt",
+           "simple"]

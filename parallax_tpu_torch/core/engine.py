@@ -22,8 +22,14 @@ returns a new state; in place, a step allocates nothing table-sized).
 Each step draws its randomness (dropout masks, sampled-softmax
 candidates) from a ``torch.Generator`` seeded from the run's seed and
 the step counter, the counterpart of ``fold_in(PRNGKey(seed + 1),
-step)``. ``sync=False`` (the delayed-gradient emulation of async PS),
-the numerics observatory and multiple ranks are not ported.
+step)``.
+
+A stateful model (``Model(stateful=True)``, e.g. BatchNorm statistics)
+carries ``TrainState.model_state`` beside the parameters: the loss
+returns the new state, which replaces the old after the step; only
+``params`` get gradients (engine.py:636, :719). ``sync=False`` (the
+delayed-gradient emulation of async PS), the numerics observatory and
+multiple ranks are not ported.
 """
 
 from __future__ import annotations
@@ -55,9 +61,13 @@ class Model:
     * ``init_fn(gen, device) -> params``: a nested dict of tensors on
       ``device``, drawn from the ``torch.Generator`` ``gen``. The engine
       also calls it with ``device="meta"`` (and a CPU generator) for the
-      shapes alone.
+      shapes alone. For a *stateful* model (``stateful=True``) it returns
+      ``(params, model_state)``.
     * ``loss_fn(params, batch[, gen]) -> loss | (loss, metrics)``: the
-      forward and loss on one batch of tensors.
+      forward and loss on one batch of tensors. A stateful model takes
+      ``loss_fn(params, model_state, batch[, gen])`` and returns
+      ``(loss, metrics, new_model_state)``, the new state computed
+      without gradient.
     * ``optimizer``: a core/optim.py transformation (default sgd(0.01)).
     * ``sparse_params`` / ``dense_params``: path overrides for the
       classifier.
@@ -65,36 +75,52 @@ class Model:
       (ops/sparse_optim.py), used under ``sparse_grad_mode="slices"``.
       A table registered here must be touched only through
       ``embedding_lookup``; the engine refuses one that is not.
+      Stateless models only.
     """
 
     def __init__(self, init_fn: Callable, loss_fn: Callable,
                  optimizer: Optional[optim.GradientTransformation] = None,
                  sparse_params: Sequence[str] = (),
                  dense_params: Sequence[str] = (),
+                 stateful: bool = False,
                  slice_updaters: Optional[Dict[str, Any]] = None):
         self.init_fn = init_fn
         self.loss_fn = loss_fn
         self.optimizer = optimizer or optim.sgd(0.01)
         self.sparse_params = tuple(sparse_params)
         self.dense_params = tuple(dense_params)
+        self.stateful = stateful
         self.slice_updaters = dict(slice_updaters or {})
+        if stateful and self.slice_updaters:
+            raise ValueError("slice_updaters is stateless-model only")
         try:
             n_pos = len([
                 p for p in inspect.signature(loss_fn).parameters.values()
                 if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)])
         except (TypeError, ValueError):
-            n_pos = 2
-        self._loss_takes_gen = n_pos >= 3
+            n_pos = 4 if stateful else 2
+        self._loss_takes_gen = n_pos >= (4 if stateful else 3)
 
-    def call_loss(self, params, batch, gen):
-        """Returns (loss, metrics)."""
-        out = (self.loss_fn(params, batch, gen) if self._loss_takes_gen
-               else self.loss_fn(params, batch))
+    def call_init(self, gen, device):
+        """Returns (params, model_state); model_state is None for
+        stateless models."""
+        out = self.init_fn(gen, device)
+        return out if self.stateful else (out, None)
+
+    def call_loss(self, params, batch, gen, model_state=None):
+        """Returns (loss, metrics, new_model_state)."""
+        args = (params, model_state, batch) if self.stateful \
+            else (params, batch)
+        out = self.loss_fn(*args, gen) if self._loss_takes_gen \
+            else self.loss_fn(*args)
+        if self.stateful:
+            loss, metrics, new_state = out
+            return loss, dict(metrics), new_state
         if isinstance(out, tuple):
             loss, metrics = out
         else:
             loss, metrics = out, {}
-        return loss, dict(metrics)
+        return loss, dict(metrics), None
 
 
 @dataclasses.dataclass
@@ -103,6 +129,8 @@ class TrainState:
     params: Any
     opt_state: Any
     seed: int
+    # non-trainable state (e.g. BatchNorm statistics); stateful models only
+    model_state: Any = None
     # sparse_grad_mode="slices" only: {table path: updater state}
     slice_state: Optional[Dict[str, Any]] = None
 
@@ -130,12 +158,14 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
 
 
 def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
-               meta_params, meta_batch) -> ShardingPlan:
+               meta_params, meta_batch, meta_state=None) -> ShardingPlan:
     """Classify variables (one recorded forward on meta tensors) and
-    choose a placement for each (the 'graph transform')."""
+    choose a placement for each (the 'graph transform'). The model
+    state's leaves are inputs of that forward, not variables: they are
+    not classified."""
     var_specs = classify.classify_params(
         model.call_loss, meta_params, meta_batch, torch.Generator(),
-        sparse_override=model.sparse_params,
+        meta_state, sparse_override=model.sparse_params,
         dense_override=model.dense_params)
     p = mesh_lib.num_shards(mesh)
 
@@ -175,9 +205,10 @@ class Engine:
         self.device = mesh.device
         self.metrics = metrics if metrics is not None \
             else obs_metrics.MetricsRegistry()
-        meta_params = model.init_fn(torch.Generator(), "meta")
+        meta_params, meta_state = model.call_init(torch.Generator(), "meta")
         meta_batch = _to_meta(example_batch)
-        self.plan = build_plan(model, mesh, config, meta_params, meta_batch)
+        self.plan = build_plan(model, mesh, config, meta_params, meta_batch,
+                               meta_state)
         self._slice_resolved = self._resolve_slice_updaters(meta_params,
                                                             meta_batch)
         self._dense_paths = [p for p in self.plan.var_specs
@@ -237,7 +268,7 @@ class Engine:
 
     def init_state(self, seed: int = 0) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = self.model.init_fn(gen, self.device)
+        params, model_state = self.model.call_init(gen, self.device)
         flat = dict(classify.flatten(params))
         for path in self._dense_paths:
             flat[path].requires_grad_(True)
@@ -248,7 +279,8 @@ class Engine:
                            for p, upd in self._slice_resolved.items()} \
                 or None
         return TrainState(step=0, params=params, opt_state=opt_state,
-                          seed=seed, slice_state=slice_state)
+                          seed=seed, model_state=model_state,
+                          slice_state=slice_state)
 
     # -- the step ---------------------------------------------------------
 
@@ -264,7 +296,8 @@ class Engine:
                 {id(flat[p]): p for p in self._slice_resolved})
             scope = embedding.slice_capture_scope(cap)
         with scope:
-            loss, metrics = self.model.call_loss(state.params, batch, gen)
+            loss, metrics, new_model_state = self.model.call_loss(
+                state.params, batch, gen, state.model_state)
         leaves = [flat[p] for p in self._dense_paths]
         rows = [r for _, _, r in cap.captured] if cap is not None else []
         grads = torch.autograd.grad(loss, leaves + rows, allow_unused=True)
@@ -278,6 +311,8 @@ class Engine:
             if cap is not None:
                 self._apply_slices(flat, state, cap.captured,
                                    grads[len(leaves):])
+        if self.model.stateful:
+            state.model_state = new_model_state
         state.step += 1
         self.metrics.counter("engine.steps").inc()
         outputs = {"loss": loss.detach(), "global_step": state.step}
@@ -302,8 +337,10 @@ class Engine:
 
     def evaluate(self, state: TrainState, batch, seed: int = 0):
         """The loss and metrics of ``batch`` with no gradient (a held-out
-        loss): the forward alone, no update."""
+        loss): the forward alone, no update; the model state is read and
+        left as it was."""
         gen = step_generator(self.device, seed, 0)
         with torch.no_grad():
-            loss, metrics = self.model.call_loss(state.params, batch, gen)
+            loss, metrics, _ = self.model.call_loss(
+                state.params, batch, gen, state.model_state)
         return loss, metrics

@@ -5,7 +5,9 @@ The LM1B model trains its LSTM group with
 initial_accumulator_value=1.0))`` (models/lm1b.py:219-222), the NMT
 model with ``chain(clip_by_global_norm(5), adam(join_schedules([
 linear_schedule(0, lr, warmup), constant_schedule(lr)], [warmup])))``
-(models/nmt.py:563-567). PyTorch's own ``Adagrad`` divides by
+(models/nmt.py:563-567), the CNN models with
+``chain(add_decayed_weights(4e-5, mask=ndim > 1), sgd(0.1,
+momentum=0.9))`` (models/cnn.py). PyTorch's own ``Adagrad`` divides by
 ``sqrt(acc) + eps`` where optax multiplies by ``rsqrt(acc + eps)``,
 ``clip_grad_norm_`` adds 1e-6 to the norm, and its ``Adam`` and
 schedulers count steps otherwise; each would break step parity with the
@@ -15,12 +17,15 @@ lr 0, so the first NMT update is exactly zero in both packages.
 
 A transformation is an ``(init, update)`` pair over a dict ``{path:
 tensor}``, as in optax; ``update`` returns new updates and a new state
-and writes nothing in place.
+and writes nothing in place. ``scale``, ``add_decayed_weights``,
+``trace`` and ``apply_updates`` run over lists with ``torch._foreach_*``
+(one multi-tensor launch for many leaves on the card, the same
+arithmetic as a loop).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -76,9 +81,58 @@ def scale_by_rss(initial_accumulator_value: float = 0.1,
 def scale(factor: float) -> GradientTransformation:
 
     def update(updates, state, params=None):
-        return {k: u * factor for k, u in updates.items()}, state
+        if not updates:
+            return {}, state
+        keys = list(updates)
+        return dict(zip(keys, torch._foreach_mul(
+            [updates[k] for k in keys], factor))), state
 
     return GradientTransformation(_empty_init, update)
+
+
+def add_decayed_weights(weight_decay: float,
+                        mask=None) -> GradientTransformation:
+    """optax.add_decayed_weights: ``g + weight_decay * p`` on the leaves
+    ``mask`` selects, the rest unchanged. ``mask`` is a dict ``{path:
+    bool}`` or a callable that takes the params dict and returns one;
+    None selects every leaf."""
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError("add_decayed_weights needs the params")
+        chosen = mask(params) if callable(mask) else mask
+        keys = [k for k in updates if chosen is None or chosen[k]]
+        out = dict(updates)
+        if keys:
+            out.update(zip(keys, torch._foreach_add(
+                [updates[k] for k in keys], torch._foreach_mul(
+                    [params[k] for k in keys], weight_decay))))
+        return out, state
+
+    return GradientTransformation(_empty_init, update)
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax.trace: ``t = g + decay * t``; the update is ``t``, or
+    ``g + decay * t`` with ``nesterov`` (not PyTorch's dampened
+    momentum)."""
+
+    def init(params):
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+
+    def update(updates, state, params=None):
+        if not updates:
+            return {}, state
+        keys = list(updates)
+        g = [updates[k] for k in keys]
+        # product and sum rounded apart, as optax's ``g + decay * t``
+        t = torch._foreach_add(g, torch._foreach_mul(
+            [state[k] for k in keys], decay))
+        out = torch._foreach_add(g, torch._foreach_mul(t, decay)) \
+            if nesterov else t
+        return dict(zip(keys, out)), dict(zip(keys, t))
+
+    return GradientTransformation(init, update)
 
 
 def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
@@ -88,8 +142,14 @@ def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
                  scale(-learning_rate))
 
 
-def sgd(learning_rate: float) -> GradientTransformation:
-    return scale(-learning_rate)
+def sgd(learning_rate, momentum: Optional[float] = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """optax.sgd: ``trace(momentum, nesterov)`` when ``momentum`` is
+    given, then scale by the (scheduled) -learning_rate."""
+    by_lr = scale_by_learning_rate(learning_rate)
+    if momentum is None:
+        return by_lr
+    return chain(trace(momentum, nesterov), by_lr)
 
 
 # -- schedules: count -> value, in fp32 as optax computes them ----------------
@@ -201,5 +261,7 @@ def apply_updates(params: Dict[str, torch.Tensor],
                   updates: Dict[str, torch.Tensor]) -> None:
     """params[k] += updates[k], in place (optax.apply_updates casts the
     update to the parameter's dtype the same way)."""
-    for k, u in updates.items():
-        params[k].add_(u.to(params[k].dtype))
+    if updates:
+        keys = list(updates)
+        torch._foreach_add_([params[k] for k in keys],
+                            [updates[k].to(params[k].dtype) for k in keys])

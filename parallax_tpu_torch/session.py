@@ -14,7 +14,8 @@ on the card until first read, so the host does not wait for a step
 before issuing the next one. ``run_iter()`` drives a batch iterator,
 with batch t+1 converted and copied to the card while step t runs.
 
-Ported: ``run``, ``run_iter``, ``Fetch``, ``state``, ``engine``,
+Ported: ``run``, ``run_iter``, ``Fetch``, ``state`` (with its ``model_state``
+for a stateful model), ``engine``,
 ``evaluate``, ``close`` and ``metrics_snapshot``. The rest of the JAX
 session (checkpoints, profiling hooks, recovery, health and anomaly
 monitors, warmup, serving handoff) is not.

@@ -1,6 +1,10 @@
 """Carry parameters across from the JAX package.
 
-``lm1b_params_from_jax`` maps the JAX LM1B tree (``emb``,
+``simple_params_from_jax`` carries the linear regression's ``w`` and
+``b``. ``cnn_params_from_jax`` turns a flax CNN's ``{"params",
+"batch_stats"}`` into the port's ``(params, model_state)``: conv kernels
+go from flax's HWIO to OIHW (stored channels_last), every other leaf
+keeps its shape. ``lm1b_params_from_jax`` maps the JAX LM1B tree (``emb``,
 ``lstm/{w,b,w_proj}``, ``softmax_w``, ``softmax_b``) onto the port's
 tree unchanged. ``params_from_jax`` turns the JAX NMT parameter tree (``emb``, ``pos``,
 ``enc``/``dec`` lists of blocks, ``out_proj``), with its leaves given as
@@ -15,6 +19,8 @@ import numpy as np
 import torch
 
 from parallax_tpu_torch.common.lib import resolve_device
+from parallax_tpu_torch.core.classify import flatten
+from parallax_tpu_torch.models import _nn, cnn
 from parallax_tpu_torch.models.lm1b import LM1BConfig
 from parallax_tpu_torch.models.nmt import NMTConfig
 
@@ -87,3 +93,56 @@ def params_from_jax(np_params, cfg: NMTConfig, device="cuda"):
                 for i, p in enumerate(np_params["dec"])],
         "out_proj": leaf(np_params["out_proj"], (D, V), "out_proj"),
     }
+
+
+def simple_params_from_jax(np_params, device="cuda"):
+    """The linear regression's ``{"w", "b"}``, each of shape (1,)."""
+    dev = resolve_device(device)
+    return {k: _leaf(np_params[k], (1,), k, torch.float32, dev,
+                     "simple_params_from_jax") for k in ("w", "b")}
+
+
+def cnn_params_from_jax(np_variables, name, num_classes: int,
+                        image_size: int, device="cuda"):
+    """``(params, model_state)`` of a CNN from flax's ``{"params",
+    "batch_stats"}`` trees of numpy arrays; ``model_state`` is None for
+    a model without BatchNorm. ``name`` is a registry name
+    (models/cnn.py) or a module. Each leaf is checked against the port's
+    own tree (built on meta tensors); the call raises if a flax leaf is
+    left over or a port leaf is not filled."""
+    dev = resolve_device(device)
+    who = "cnn_params_from_jax"
+    module = (cnn.build_module(name, num_classes)[0]
+              if isinstance(name, str) else name)
+    want_params, want_stats = _nn.init(module, torch.Generator(), "meta",
+                                       image_size)
+    given = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in flatten(np_variables.get(coll, {})):
+            given[f"{coll}/{path}"] = leaf
+
+    def carry(coll, tree):
+        out = {}
+        for path, want in flatten(tree):
+            key = f"{coll}/{path}"
+            if key not in given:
+                raise ValueError(f"{who}: the JAX tree has no {key}")
+            a = np.asarray(given.pop(key), dtype=np.float32)
+            if want.dim() == 4:             # HWIO -> OIHW
+                a = a.transpose(3, 2, 0, 1)
+            t = _leaf(a, want.shape, key, torch.float32, dev, who)
+            if want.dim() == 4:
+                t = t.contiguous(memory_format=torch.channels_last)
+            node = out
+            *parents, last = path.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[last] = t
+        return out
+
+    params = carry("params", want_params)
+    stats = carry("batch_stats", want_stats)
+    if given:
+        raise ValueError(f"{who}: JAX leaves the port's {name!r} does not "
+                         f"have: {sorted(given)}")
+    return params, ({"batch_stats": stats} if want_stats else None)

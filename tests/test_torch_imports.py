@@ -58,6 +58,8 @@ def test_package_imports_with_jax_blocked():
         "optim, specs\n"
         "from parallax_tpu_torch import runner\n"
         "from parallax_tpu_torch.models import lm1b\n"
+        "from parallax_tpu_torch.models import cnn, cnn_zoo, resnet, "
+        "simple\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"

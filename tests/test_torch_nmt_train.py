@@ -115,8 +115,8 @@ def test_loss_and_every_gradient_match_jax_pallas(jparams):
     for _, leaf in flat:
         leaf.requires_grad_(True)
     before = (tfa.launches, tfa.launches_dq, tfa.launches_dkv)
-    loss, metrics = tmodel.call_loss(params, _torch_batch(batch),
-                                     torch.Generator())
+    loss, metrics, _ = tmodel.call_loss(params, _torch_batch(batch),
+                                        torch.Generator())
     # the encoder blocks' cross-attention weights and ln3 are unused, and
     # their JAX gradients are zeros
     grads = [torch.zeros_like(leaf) if g is None else g for (_, leaf), g in

@@ -7,6 +7,7 @@ formulas in fp32, so updates and parameters agree to rtol 1e-6 (atol
 1e-9 for the exact zeros of the first update).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -105,3 +106,70 @@ def test_constant_learning_rate_adam_matches_optax():
                          ttx.init({"p": torch.from_numpy(p)}))
     np.testing.assert_allclose(tupd["p"].numpy(), np.asarray(jupd),
                                rtol=1e-6)
+
+
+def _ndim_mask(params):
+    return jax.tree.map(lambda x: x.ndim > 1, params)
+
+
+@pytest.mark.parametrize("momentum,nesterov,mask", [
+    (0.9, False, "callable"), (0.9, True, "callable"), (0.9, False, "dict"),
+    (None, False, "callable")],
+    ids=["momentum", "nesterov", "dict_mask", "no_momentum"])
+def test_sgd_with_masked_weight_decay_matches_optax(momentum, nesterov,
+                                                    mask):
+    """The CNN chain, ``add_decayed_weights(wd, mask=ndim > 1)`` then
+    ``sgd(lr, momentum)``, over 3 updates: optax's trace is ``g + m * t``
+    and its update ``-lr * t`` (no dampening). Leaves of one dimension
+    (BatchNorm scale and bias, dense bias) are not decayed. fp32, rtol
+    1e-6."""
+    rng = np.random.default_rng(2)
+    shapes = {"conv/kernel": (3, 3, 4, 8), "dense/kernel": (8, 5),
+              "bn/scale": (8,), "dense/bias": (5,)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    wd, lr = 4e-2, 0.1
+    jtx = optax.chain(optax.add_decayed_weights(wd, mask=_ndim_mask),
+                      optax.sgd(lr, momentum=momentum, nesterov=nesterov))
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = jtx.init(jp)
+    tmask = (lambda p: {k: v.dim() > 1 for k, v in p.items()}) \
+        if mask == "callable" else {k: len(s) > 1 for k, s in shapes.items()}
+    ttx = optim.chain(optim.add_decayed_weights(wd, mask=tmask),
+                      optim.sgd(lr, momentum=momentum, nesterov=nesterov))
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = ttx.init(tp)
+    for step, g in enumerate(grads):
+        jupd, jstate = jtx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                  jstate, jp)
+        jp = optax.apply_updates(jp, jupd)
+        tupd, tstate = ttx.update({k: torch.from_numpy(v)
+                                   for k, v in g.items()}, tstate, tp)
+        optim.apply_updates(tp, tupd)
+        for k in shapes:
+            np.testing.assert_allclose(tupd[k].numpy(), np.asarray(jupd[k]),
+                                       rtol=1e-6, atol=1e-9,
+                                       err_msg=f"step {step} {k}")
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, err_msg=f"step {step} {k}")
+    if momentum is not None:
+        ttrace = tstate[1][0]
+        jtrace = jstate[1][0].trace
+        for k in shapes:
+            np.testing.assert_allclose(ttrace[k].numpy(),
+                                       np.asarray(jtrace[k]), rtol=1e-6)
+    # an undecayed one-dimensional leaf moves by the gradients alone
+    if momentum is None:
+        want = params["bn/scale"] - lr * sum(g["bn/scale"] for g in grads)
+        np.testing.assert_allclose(tp["bn/scale"].numpy(), want, rtol=1e-6)
+
+
+def test_sgd_without_momentum_is_the_scaled_gradient():
+    tx = optim.sgd(0.5)
+    upd, state = tx.update({"p": torch.tensor([2.0, -4.0])},
+                           tx.init({"p": torch.zeros(2)}))
+    assert state == () and torch.equal(upd["p"], torch.tensor([-1.0, 2.0]))
+    with pytest.raises(ValueError, match="params"):
+        optim.add_decayed_weights(0.1).update({"p": torch.ones(1)}, ())
