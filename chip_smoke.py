@@ -35,11 +35,13 @@ beside it. Phases:
    model 512, 8 heads, MLP 2048, 6+6 layers, bf16, flash encoder
    attention) with random weights from a fixed seed, behind
    ``ServeSession(program=NMTDecodeProgram(..., attn_impl="kernel"))``
-   with 64 slots; 256 requests. Every launch counter is zeroed just
-   before and read just after; each must equal the scheduler's own
-   count of prefills / decode steps times the 6 layers (plus the
-   warmup's one of each; the paged combine kernel as often as the
-   paged kernel when its plan splits). Then 64 of the requests again
+   with 64 slots; 256 requests. The scheduler's warmup captures the
+   prefill and the decode step as CUDA graphs, which the loop replays.
+   Every launch counter is zeroed just before and read just after; each
+   must equal the scheduler's own count of prefills / decode steps times
+   the 6 layers (plus the warmup's eager call of each; the paged combine
+   kernel as often as the paged kernel when its plan splits; a replay
+   adds what its graph launched at capture). Then 64 of the requests again
    under the profiler, for the device's busy share, the busy and paged
    kernel time a decode step and the kernels that take the time; the
    profile must show ``flash_fwd_kernel_sm90`` and
@@ -69,9 +71,10 @@ beside it. Phases:
    8192 sampled candidates, keep_prob 0.9, bf16 compute, fp32 tables)
    through ``parallel_run(..., Config(run_option="HYBRID",
    sparse_grad_mode="slices"))`` with ``lstm_impl="kernel"``, random
-   weights from seed 0: 5 warmup and 30 timed steps over 4 cycled
-   batches of 128 x 20, words/sec and step ms, then one held-out
-   no-grad loss. The LSTM counters are zeroed before and read after:
+   weights from seed 0: the step's CUDA graph captured ahead of step 0
+   (``sess.warmup``: capture seconds, the memory it took), then 5 warmup
+   and 30 timed steps over 4 cycled batches of 128 x 20, words/sec and
+   step ms, then one held-out no-grad loss. The LSTM counters are zeroed before and read after:
    B2 and B3 once per step, B1 none until the held-out loss, then once.
    Losses finite and falling; the padded vocab rows untouched. Then 5
    steps under the profiler (launches and busy ms a step), which must
@@ -116,6 +119,22 @@ beside it. Phases:
     full width (batch 4, 224 px) on the card against the CPU, in fp32
     (TF32 off) and in float64: loss, every gradient and the new
     statistics, at ``RESNET_AGREE``'s tolerances.
+
+13. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
+    eagerly (``compile.disable_capture()``) and 5 as graph replays from
+    fresh sessions of one seed on the same batches: losses and the final
+    state compared leaf by leaf (bitwise, else within 1e-6 of the leaf's
+    peak).
+
+The timed training phases (6, 8, 10) capture their step ahead of step 0
+and then, in the same session, run ``graph-pair``: 15 steps eagerly, 15
+as replays, 15 replays, 15 eager, each with its words, tokens or images
+a second and step ms p50 and p95, then 5 steps of each mode under the
+profiler (the card's busy ms and idle share, kernels and the host's
+launch calls a step). ``serve-graph-pair`` does the same for serving:
+the 256 requests eagerly twice and on graphs once more beside the serve
+phase's run, every run's tokens identical, then 64 requests of each
+mode under the profiler, per decode step.
 
 Every phase's seconds are printed (``[phase-seconds]``).
 
@@ -849,7 +868,7 @@ def serve(torch, cfg, params, requests):
         wall = time.perf_counter() - t0
     finally:
         sess.close()
-    return outs, wall, sess.stats()
+    return outs, wall, sess.stats(), prog
 
 
 def check_outputs(requests, outs, vocab):
@@ -873,7 +892,7 @@ def phase_serve(torch, cfg, requests):
     fa.launches = 0
     pa.launches = 0
     pa.launches_combine = 0
-    outs, wall, stats = serve(torch, cfg, params, requests)
+    outs, wall, stats, prog = serve(torch, cfg, params, requests)
     torch.cuda.synchronize()
     launches = {"flash_attention_fwd": fa.launches,
                 "paged_decode_attention": pa.launches}
@@ -912,9 +931,15 @@ def phase_serve(torch, cfg, requests):
                "prefills": stats["serve.prefills"],
                "kv_refill_deferred": stats["serve.kv_refill_deferred"],
                "launches": launches, "paged_combine_launches": combine,
-               "paged_plan": plan._asdict()}
+               "paged_plan": plan._asdict(),
+               "capture_s": stats["serve.compile_seconds"]["max"],
+               "graphs": prog._graphs is not None,
+               "pool_bytes": pool_bytes(torch, [prog._graphs[2].graph,
+                                                prog._graphs[3].graph])}
+    if not summary["graphs"]:
+        raise AssertionError("the serving program captured no graphs")
     log(f"[serve] {json.dumps(summary)}")
-    return params, summary
+    return params, summary, outs
 
 
 def phase_profile(torch, cfg, params, requests):
@@ -925,7 +950,7 @@ def phase_profile(torch, cfg, params, requests):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, stats = serve(torch, cfg, params, requests)
+        _, _, stats, _ = serve(torch, cfg, params, requests)
         torch.cuda.synchronize()
     window = time.perf_counter() - t0
     rows = []
@@ -955,6 +980,62 @@ def phase_profile(torch, cfg, params, requests):
     return summary
 
 
+def phase_serve_pair(torch, cfg, params, requests, graph_outs,
+                     graph_summary):
+    """Serving eagerly (``compile.disable_capture()``) against graph
+    replays: the 256 requests in the order graph (the serve phase's run),
+    eager, eager, graph; every run's tokens identical to the serve
+    phase's. Then ``PAIR["serve_profile_requests"]`` requests of each
+    mode under the profiler, normalised by decode steps."""
+    runs = {"eager": [], "graph": [{
+        "tokens_per_sec": graph_summary["tokens_per_sec"],
+        "step_ms_p50": graph_summary["step_ms_p50"],
+        "step_ms_p95": graph_summary["step_ms_p95"]}]}
+    differ = []
+    for mode in ("eager", "eager", "graph"):
+        with mode_ctx(mode):
+            outs, wall, stats, prog = serve(torch, cfg, params, requests)
+        if (prog._graphs is not None) != (mode == "graph"):
+            raise AssertionError(f"serving {mode}: graphs "
+                                 f"{prog._graphs is not None}")
+        differ += [i for i, (a, b) in enumerate(zip(outs, graph_outs))
+                   if not np.array_equal(a, b)]
+        runs[mode].append({
+            "tokens_per_sec": sum(len(o) for o in outs) / wall,
+            "step_ms_p50": stats["serve.step_ms"]["p50"],
+            "step_ms_p95": stats["serve.step_ms"]["p95"]})
+    out = {"identical_tokens": not differ, "differing_requests":
+           sorted(set(differ))}
+    n = PAIR["serve_profile_requests"]
+    for mode in ("eager", "graph"):
+        got = {}
+
+        def run():
+            got["stats"] = serve(torch, cfg, params, requests[:n])[2]
+
+        with mode_ctx(mode):
+            prof = host_profile(torch, run, 1)
+        steps = got["stats"]["serve.decode_steps"]
+        out[mode] = {
+            **{k: [r[k] for r in runs[mode]] for k in runs[mode][0]},
+            "profile_decode_steps": steps,
+            "device_busy_ms_per_decode_step":
+                prof["device_busy_ms_per_step"] / steps,
+            "device_idle_share": prof["device_idle_share"],
+            "device_kernels_per_decode_step":
+                prof["device_kernels_per_step"] / steps,
+            "host_launches_per_decode_step":
+                prof["host_launches_per_step"] / steps,
+            "host_launch_calls": prof["host_launch_calls"]}
+    out["graph"]["capture_s"] = graph_summary["capture_s"]
+    out["graph"]["pool_bytes"] = graph_summary["pool_bytes"]
+    log(f"[graph-pair:serve] {json.dumps(out)}")
+    if differ:
+        raise AssertionError(f"serving tokens differ between graphs and "
+                             f"eager in requests {sorted(set(differ))}")
+    return out
+
+
 # -- phase 4: fp32 agreement --------------------------------------------------
 
 
@@ -981,7 +1062,7 @@ def phase_agreement(torch, params, cfg_bf16, requests):
     from parallax_tpu_torch.models import nmt
     cfg = dataclasses.replace(cfg_bf16, compute_dtype=torch.float32)
     ref_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
-    outs, _, stats = serve(torch, cfg, params, requests)
+    outs, _, stats, _ = serve(torch, cfg, params, requests)
     check_outputs(requests, outs, cfg.vocab_size)
     mismatches = []
     for i, ((src, cap), out) in enumerate(zip(requests, outs)):
@@ -1374,6 +1455,7 @@ def phase_train(torch):
     sess.prepare(batches[0])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
+    capture = capture_train(torch, sess, TRAIN["batch"])
     pad_before = padded_rows(sess, cfg)
     words_per_batch = [float(b["w"].sum()) for b in batches]
     torch.cuda.synchronize()
@@ -1435,11 +1517,14 @@ def phase_train(torch):
             statistics.mean(losses[-5:]), "held_out_loss": held,
         "losses": losses, "engine_build_s": build_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}
+        "launches": launches, "capture": capture}
     log(f"[train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
     profile = profile_train(torch, sess, batches,
                             lstm=["lstm_fwd_kernel_sm90",
                                   "lstm_bwd_kernel_sm90"])
+    summary["graph_pair"] = graph_pair(
+        torch, sess, batches, lambda b: float(b["w"].sum()), "lm1b")
+    summary["graph_pair"]["graph"].update(capture)
     sess.close()
     return summary, profile
 
@@ -1570,6 +1655,7 @@ def nmt_batches(cfg):
 
 
 def phase_nmt_train(torch):
+    from parallax_tpu_torch.models import nmt
     from parallax_tpu_torch.ops import flash_attention as fa
     from parallax_tpu_torch.ops import paged_attention as pa
     torch.cuda.reset_peak_memory_stats()
@@ -1584,6 +1670,7 @@ def phase_nmt_train(torch):
     if sparse != ["emb"]:
         raise AssertionError(f"classifier found {sparse} sparse, expected "
                              f"['emb']")
+    capture = capture_train(torch, sess, NMT_TRAIN["batch"])
     torch.cuda.synchronize()
     for name in FLASH_COUNTERS:
         setattr(fa, name, 0)
@@ -1642,12 +1729,16 @@ def phase_nmt_train(torch):
         "last5_mean_loss": statistics.mean(losses[-5:]), "losses": losses,
         "engine_build_s": build_s, "sparse": sparse,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}
+        "launches": launches, "capture": capture}
     log(f"[nmt-train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
     profile = profile_train(
         torch, sess, batches, label="nmt-train-profile",
         flash=["flash_fwd_kernel_sm90", "flash_dq_kernel_sm90",
                "flash_dkv_kernel_sm90"])
+    summary["graph_pair"] = graph_pair(
+        torch, sess, batches,
+        lambda b: float((b["tgt_out"] > nmt.PAD_ID).sum()), "nmt")
+    summary["graph_pair"]["graph"].update(capture)
     sess.close()
     torch.cuda.empty_cache()
     return summary, profile
@@ -1773,6 +1864,7 @@ def phase_resnet_train(torch):
     placements = set(sess.engine.plan.placements.values())
     if placements != {"replicated"}:
         raise AssertionError(f"AR placements {placements}")
+    capture = capture_train(torch, sess, RESNET["batch"])
     state0 = {p: t.clone()
               for p, t in classify.flatten(sess.state.model_state)}
     losses = [sess.run("loss", feed_dict=batches[0])]
@@ -1825,10 +1917,14 @@ def phase_resnet_train(torch):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "model_gflop_per_image": flops,
         "model_tflops": achieved / 1e12,
-        "share_of_bf16_peak": achieved / PEAK_OPS_PER_S["bfloat16"]}
+        "share_of_bf16_peak": achieved / PEAK_OPS_PER_S["bfloat16"],
+        "capture": capture}
     log(f"[resnet-train] {json.dumps({k: v for k, v in summary.items() if k != 'losses'})}")
     profile = profile_resnet(torch, sess, batches,
                              wall * 1e3 / RESNET["steps"])
+    summary["graph_pair"] = graph_pair(
+        torch, sess, batches, lambda b: float(len(b["labels"])), "resnet")
+    summary["graph_pair"]["graph"].update(capture)
     sess.close()
     torch.cuda.empty_cache()
     return summary, profile
@@ -1979,6 +2075,193 @@ def phase_resnet_agree(torch):
     if not ok:
         raise AssertionError("the ResNet step on the card disagrees with the "
                              "CPU beyond the stated tolerances")
+    return summary
+
+
+# -- graphs: capture, graph-agree and graph-pair ------------------------------
+
+# graph-pair: each path's steps eagerly (compile.disable_capture()) and as
+# replays of its captured graph, in the order eager, graph, graph, eager
+# within one session; then profile_steps of each under the profiler
+PAIR = dict(steps=15, profile_steps=5, serve_profile_requests=64)
+PAIR_ORDER_MODES = ("eager", "graph", "graph", "eager")
+# host calls that put work on the card's queue
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+               "cudaLaunchCooperativeKernel", "cudaGraphLaunch",
+               "cudaMemcpyAsync", "cudaMemsetAsync", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+# graph-agree: steps of each training path, eager against graphs
+AGREE_STEPS = 5
+
+
+def mode_ctx(mode):
+    import contextlib
+    from parallax_tpu_torch.compile import graphs
+    return graphs.disable_capture() if mode == "eager" \
+        else contextlib.nullcontext()
+
+
+def p95(sorted_ms):
+    return sorted_ms[min(len(sorted_ms) - 1,
+                         int(math.ceil(0.95 * len(sorted_ms))) - 1)]
+
+
+def pool_bytes(torch, graphs_):
+    """Bytes of the memory segments the graphs' private pools hold (None
+    where the allocator's snapshot does not say)."""
+    try:
+        pools = {tuple(g.pool()) for g in graphs_}
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) in pools)
+    except Exception:               # an allocator without pool ids
+        return None
+
+
+def capture_train(torch, sess, batch_size):
+    """``sess.warmup`` for one batch size: its capture seconds, the rise
+    in ``max_memory_allocated`` while it ran (the state's copy, the warm
+    step and the graph's pool) and the pool's own segments."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    seconds = sess.warmup(batch_sizes=[batch_size])
+    torch.cuda.synchronize()
+    graphs_ = [g for g in sess.engine._executables.values() if g is not None]
+    return {"capture_s": seconds[batch_size],
+            "warmup_peak_rise_bytes": torch.cuda.max_memory_allocated() - base,
+            "pool_bytes": pool_bytes(torch, [g.graph for g in graphs_]),
+            "graph_launches": {f"{m.rsplit('.', 1)[-1]}.{n}": k for (m, n), k
+                               in graphs_[0].launches.items()}}
+
+
+def timed_steps(torch, sess, batches, steps, units_of):
+    """``steps`` steps through ``run_iter``: units (words, images) a
+    second and step ms (CUDA events between step ends) p50 and p95."""
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    units = 0.0
+    last = None
+    feed = (batches[i % 4] for i in range(steps))
+    for i, last in enumerate(sess.run_iter(feed, fetches="loss")):
+        units += units_of(batches[i % 4])
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    float(last)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return {"per_sec": units / wall, "step_ms_p50": statistics.median(step_ms),
+            "step_ms_p95": p95(step_ms)}
+
+
+def host_profile(torch, run, steps):
+    """``run()`` under the profiler's CPU and CUDA activity: the card's busy
+    ms a step and idle share, its kernels a step, and the host's calls
+    that queue work on it (``LAUNCH_APIS``) a step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    busy_us = kernels = 0
+    api = {}
+    for evt in prof.key_averages():
+        if evt.key in LAUNCH_APIS:
+            api[evt.key] = evt.count
+        elif evt.device_type == DeviceType.CUDA:
+            busy_us += getattr(evt, "device_time_total",
+                               getattr(evt, "cuda_time_total", 0.0))
+            kernels += evt.count
+    return {"device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e6 / window,
+            "device_kernels_per_step": kernels / steps,
+            "host_launches_per_step": sum(api.values()) / steps,
+            "host_launch_calls": api}
+
+
+def graph_pair(torch, sess, batches, units_of, label):
+    """The eager step against the graph replay in one session: ``PAIR``
+    steps in the order eager, graph, graph, eager, then a profile of each
+    mode."""
+    runs = {"eager": [], "graph": []}
+    for mode in PAIR_ORDER_MODES:
+        with mode_ctx(mode):
+            runs[mode].append(timed_steps(torch, sess, batches,
+                                          PAIR["steps"], units_of))
+    out = {}
+    for mode, rs in runs.items():
+        def run():
+            last = None
+            for i in range(PAIR["profile_steps"]):
+                last = sess.run("loss", feed_dict=batches[i % 4])
+            float(last)
+
+        with mode_ctx(mode):
+            prof = host_profile(torch, run, PAIR["profile_steps"])
+        out[mode] = {"per_sec": [r["per_sec"] for r in rs],
+                     "step_ms_p50": [r["step_ms_p50"] for r in rs],
+                     "step_ms_p95": [r["step_ms_p95"] for r in rs], **prof}
+    log(f"[graph-pair:{label}] {json.dumps(out)}")
+    return out
+
+
+def phase_graph_agree(torch):
+    """LM1B (keep_prob 0.9: dropout masks and sampled candidates from the
+    step's generator) and NMT training, ``AGREE_STEPS`` steps eagerly and
+    as graph replays, each from a fresh session of seed 0 on the same
+    batches: the losses and the final state, leaf by leaf, compared
+    bitwise; where a leaf differs, its largest difference over its peak
+    is recorded and held to 1e-6."""
+    from parallax_tpu_torch.core.engine import state_tensors
+    summary = {}
+    for name, make, batches_of in (("lm1b", lm1b_session, lm1b_batches),
+                                   ("nmt", nmt_train_session, nmt_batches)):
+        runs = {}
+        for mode in ("eager", "graph"):
+            cfg, sess = make(torch)
+            batches = batches_of(cfg)
+            sess.prepare(batches[0])
+            with mode_ctx(mode):
+                losses = [float(sess.run("loss", feed_dict=batches[i % 4]))
+                          for i in range(AGREE_STEPS)]
+            captured = sum(g is not None
+                           for g in sess.engine._executables.values())
+            if captured != (mode == "graph"):
+                raise AssertionError(f"{name} {mode}: {captured} graphs")
+            runs[mode] = (losses, [t.detach().clone()
+                                   for t in state_tensors(sess.state)])
+            sess.close()
+            del sess
+            torch.cuda.empty_cache()
+        (le, se), (lg, sg) = runs["eager"], runs["graph"]
+        worst, differ = 0.0, 0
+        for a, b in zip(se, sg):
+            if torch.equal(a, b):
+                continue
+            differ += 1
+            peak = a.double().abs().max().item()
+            err = (a.double() - b.double()).abs().max().item()
+            worst = max(worst, err / peak if peak > 0 else math.inf)
+        summary[name] = {"eager_losses": le, "graph_losses": lg,
+                         "losses_bitwise": le == lg, "leaves": len(se),
+                         "leaves_differing": differ,
+                         "max_rel_diff": worst}
+        del runs, se, sg
+        torch.cuda.empty_cache()
+    log(f"[graph-agree] {json.dumps(summary)}")
+    for name, r in summary.items():
+        rel = max([abs(a - b) / abs(b) for a, b in zip(r["eager_losses"],
+                                                       r["graph_losses"])])
+        if not (r["max_rel_diff"] <= 1e-6 and rel <= 1e-6):
+            raise AssertionError(f"{name}: graph and eager steps differ "
+                                 f"beyond 1e-6 of the peak: {r}")
     return summary
 
 
@@ -2174,9 +2457,13 @@ def main() -> int:
     cfg = nmt.NMTConfig(use_pallas_attention=True, num_partitions=1)
     requests = make_requests(256, np.random.default_rng(SEED),
                              cfg.vocab_size)
-    params, serve_summary = phase("serve", phase_serve, torch, cfg, requests)
+    params, serve_summary, served = phase("serve", phase_serve, torch, cfg,
+                                          requests)
     profile_summary = phase("profile", phase_profile, torch, cfg, params,
                             requests[:64])
+    serve_pair = phase("serve-graph-pair", phase_serve_pair, torch, cfg,
+                       params, requests, served, serve_summary)
+    del served
     agree = phase("agreement", phase_agreement, torch, params, cfg,
                   requests[:32])
     del params
@@ -2205,6 +2492,11 @@ def main() -> int:
     resnet_train, resnet_profile = phase("resnet-train", phase_resnet_train,
                                          torch)
     resnet_agree = phase("resnet-agree", phase_resnet_agree, torch)
+    graph_agree = phase("graph-agree", phase_graph_agree, torch)
+    graph_pairs = {"serve": serve_pair, "lm1b": train["graph_pair"],
+                   "nmt": nmt_train["graph_pair"],
+                   "resnet": resnet_train["graph_pair"]}
+    log(f"[graph-pair] {json.dumps(graph_pairs)}")
     launches = {**serve_summary["launches"], **train["launches"]}
     for name, n in nmt_train["launches"].items():
         launches[name] = launches.get(name, 0) + n
@@ -2220,7 +2512,8 @@ def main() -> int:
               "nmt_train": nmt_train, "nmt_train_profile": nmt_profile,
               "nmt_train_agreement": nmt_agree,
               "resnet_train": resnet_train, "resnet_profile": resnet_profile,
-              "resnet_agreement": resnet_agree, "phase_seconds": seconds,
+              "resnet_agreement": resnet_agree, "graph_agree": graph_agree,
+              "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -19,6 +19,9 @@ It runs on one NVIDIA H100 (Hopper, sm_90a). Ported slices:
   a stateful model (BatchNorm statistics) with momentum SGD; no TPU
   kernel lies on this path. ``simple`` is the linear-regression smoke.
 
+On the card every train step and every serving decode step is a replay
+of a CUDA graph captured ahead of step 0 (``compile/``: bucketing,
+warmup, caches; ``ParallaxSession.warmup``, ``compile.disable_capture``).
 The kernels are built from ``csrc/`` at first use. The JAX package
 ``parallax_tpu`` is the reference; this package imports neither it nor
 JAX.

@@ -9,7 +9,7 @@ with the same keywords.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 from parallax_tpu_torch.common import consts
 
@@ -151,6 +151,20 @@ class ParallaxConfig:
       count instead of summing them.
     * ``sync`` / ``resource_info``: set by ``parallel_run`` through the
       reference-style setters. Only ``sync=True`` is ported.
+    * ``shape_buckets``: ascending batch sizes every feed batch is
+      padded up to (the smallest bucket that fits), or ``"auto"`` (the
+      first batch's size). Each bucket is one signature, so one captured
+      CUDA graph of the step (compile/). None: no bucketing; every new
+      batch shape is captured on first sight and counted in
+      ``engine.recompiles``.
+    * ``bucket_mask_feed``: the per-example weight feed bucketing masks:
+      an existing feed of this name has its padded rows zeroed; when it
+      is absent a ``[bucket]`` float32 mask (1 real, 0 padding) is added
+      under this name on every batch (compile/bucketing.py).
+    * ``compilation_cache_dir``: where the CUDA kernels are built and
+      kept (compile/cache.py ``enable_persistent_cache``): a relaunch
+      with the same sources loads them instead of running nvcc.
+      Process-wide. None leaves the default build directory.
     """
 
     run_option: str = consts.RUN_HYBRID
@@ -161,6 +175,10 @@ class ParallaxConfig:
     # injected by parallel_run (reference config.py:168-179)
     sync: bool = True
     resource_info: Any = None
+    # -- compile-ahead engine (compile/) ---------------------------------
+    shape_buckets: Union[None, str, Sequence[int]] = None
+    bucket_mask_feed: str = "w"
+    compilation_cache_dir: Optional[str] = None
 
     def __post_init__(self):
         self.run_option = normalize_run_option(self.run_option)
@@ -168,6 +186,16 @@ class ParallaxConfig:
             raise ValueError(
                 f"sparse_grad_mode must be 'dense' or 'slices', got "
                 f"{self.sparse_grad_mode!r}")
+        if self.shape_buckets is not None:
+            # one validation rule, owned by compile/bucketing.py; 'auto'
+            # stays the string and resolves against the first batch
+            from parallax_tpu_torch.compile.bucketing import \
+                resolve_buckets
+            resolved = resolve_buckets(self.shape_buckets, 1)
+            if not isinstance(self.shape_buckets, str):
+                self.shape_buckets = resolved
+        if not self.bucket_mask_feed:
+            raise ValueError("bucket_mask_feed must be a feed name")
 
     # Reference-style setters (kept so ported driver code works unchanged).
     def set_sync(self, sync: bool) -> None:

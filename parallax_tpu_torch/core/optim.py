@@ -16,11 +16,18 @@ earlier updates and compute in fp32, as optax does; the warmup starts at
 lr 0, so the first NMT update is exactly zero in both packages.
 
 A transformation is an ``(init, update)`` pair over a dict ``{path:
-tensor}``, as in optax; ``update`` returns new updates and a new state
-and writes nothing in place. ``scale``, ``add_decayed_weights``,
-``trace`` and ``apply_updates`` run over lists with ``torch._foreach_*``
-(one multi-tensor launch for many leaves on the card, the same
-arithmetic as a loop).
+tensor}``, as in optax. ``update`` returns the updates and the state;
+unlike optax it writes the state's tensors IN PLACE and returns the same
+objects, so a step captured as a CUDA graph reads and writes the same
+buffers at every replay (a fresh state tensor would be one the graph
+never sees again). Every per-step scalar lives on the device with the
+state: Adam's count and bias corrections, the schedules' counts and
+values. The update tensors are fresh, or (``trace``) the state's own,
+and no transformation writes its input updates. The per-leaf work runs
+over lists with ``torch._foreach_*`` (one multi-tensor launch for many
+leaves on the card), in optax's operation order, so each entry is
+rounded as optax rounds it; ``global_norm`` alone sums per-leaf norms
+rather than per-leaf sums of squares.
 """
 
 from __future__ import annotations
@@ -40,40 +47,64 @@ def _empty_init(params):
     return ()
 
 
+def _device_of(params) -> torch.device:
+    for p in params.values():
+        return p.device
+    return torch.device("cpu")
+
+
 def global_norm(updates: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every squared entry (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(u * u) for u in updates.values()))
+    """sqrt of the sum of every squared entry (optax.global_norm): the
+    leaves' norms in one multi-tensor pass, then their root sum of
+    squares, in fp32."""
+    vals = list(updates.values())
+    if not vals:
+        return torch.zeros(())
+    norms = torch._foreach_norm(vals)
+    return torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """Scale every update by ``max_norm / norm`` when the global norm is
     not below ``max_norm`` (optax: ``select(norm < max, t, t / norm *
-    max)``, no epsilon)."""
+    max)``, no epsilon). The select is folded into the two scalars: below
+    the threshold they are 1 and 1, and ``t / 1 * 1`` is ``t`` exactly."""
 
     def update(updates, state, params=None):
+        if not updates:
+            return {}, state
+        keys = list(updates)
         g_norm = global_norm(updates)
         trigger = g_norm < max_norm
-        return ({k: torch.where(trigger, u, (u / g_norm.to(u.dtype))
-                                * max_norm)
-                 for k, u in updates.items()}, state)
+        one = torch.ones_like(g_norm)
+        denom = torch.where(trigger, one, g_norm)
+        mult = torch.where(trigger, one, torch.full_like(g_norm, max_norm))
+        out = torch._foreach_div([updates[k] for k in keys], denom)
+        torch._foreach_mul_(out, mult)
+        return dict(zip(keys, out)), state
 
     return GradientTransformation(_empty_init, update)
 
 
 def scale_by_rss(initial_accumulator_value: float = 0.1,
                  eps: float = 1e-7) -> GradientTransformation:
-    """acc += g^2; g *= where(acc > 0, rsqrt(acc + eps), 0)."""
+    """acc += g^2 (in place); g *= where(acc > 0, rsqrt(acc + eps), 0)."""
 
     def init(params):
         return {k: torch.full_like(p, initial_accumulator_value)
                 for k, p in params.items()}
 
     def update(updates, state, params=None):
-        acc = {k: u * u + state[k] for k, u in updates.items()}
-        out = {k: torch.where(acc[k] > 0, torch.rsqrt(acc[k] + eps),
-                              torch.zeros_like(acc[k])) * u
-               for k, u in updates.items()}
-        return out, acc
+        if not updates:
+            return {}, state
+        keys = list(updates)
+        g = [updates[k] for k in keys]
+        acc = [state[k] for k in keys]
+        torch._foreach_add_(acc, torch._foreach_mul(g, g))
+        inv = torch._foreach_add(acc, eps)
+        torch._foreach_rsqrt_(inv)
+        inv = [torch.where(a > 0, r, 0.0) for a, r in zip(acc, inv)]
+        return dict(zip(keys, torch._foreach_mul(inv, g))), state
 
     return GradientTransformation(init, update)
 
@@ -113,8 +144,8 @@ def add_decayed_weights(weight_decay: float,
 
 
 def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
-    """optax.trace: ``t = g + decay * t``; the update is ``t``, or
-    ``g + decay * t`` with ``nesterov`` (not PyTorch's dampened
+    """optax.trace: ``t = g + decay * t`` (in place); the update is
+    ``t``, or ``g + decay * t`` with ``nesterov`` (not PyTorch's dampened
     momentum)."""
 
     def init(params):
@@ -125,12 +156,13 @@ def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
             return {}, state
         keys = list(updates)
         g = [updates[k] for k in keys]
+        t = [state[k] for k in keys]
         # product and sum rounded apart, as optax's ``g + decay * t``
-        t = torch._foreach_add(g, torch._foreach_mul(
-            [state[k] for k in keys], decay))
+        torch._foreach_mul_(t, decay)
+        torch._foreach_add_(t, g)
         out = torch._foreach_add(g, torch._foreach_mul(t, decay)) \
             if nesterov else t
-        return dict(zip(keys, out)), dict(zip(keys, t))
+        return dict(zip(keys, out)), state
 
     return GradientTransformation(init, update)
 
@@ -153,83 +185,127 @@ def sgd(learning_rate, momentum: Optional[float] = None,
 
 
 # -- schedules: count -> value, in fp32 as optax computes them ----------------
+#
+# A schedule takes the int32 count of earlier updates as a 0-d tensor and
+# returns a 0-d fp32 tensor on its device, computed there (the optimizer
+# calls it inside the captured step). Called with a Python int, it
+# returns a float, from the same arithmetic on the CPU.
 
 
-def constant_schedule(value: float) -> Callable[[int], float]:
-    return lambda count: float(np.float32(value))
+def _f32(x: float) -> float:
+    """``x`` rounded to fp32, so a scalar operand means the same in any
+    kernel, whatever width it reads the scalar at."""
+    return float(np.float32(x))
+
+
+def _schedule(fn: Callable[[torch.Tensor], torch.Tensor]) -> Callable:
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            return fn(count)
+        return float(fn(torch.tensor(count, dtype=torch.int32)))
+
+    return schedule
+
+
+def constant_schedule(value: float) -> Callable:
+    v = _f32(value)
+    return _schedule(lambda count: torch.full((), v, dtype=torch.float32,
+                                              device=count.device))
 
 
 def linear_schedule(init_value: float, end_value: float,
-                    transition_steps: int) -> Callable[[int], float]:
+                    transition_steps: int) -> Callable:
     """optax.linear_schedule: from ``init_value`` to ``end_value`` over
     the first ``transition_steps`` counts."""
     if transition_steps <= 0:
         return constant_schedule(init_value)
+    span, end = _f32(init_value - end_value), _f32(end_value)
 
-    def schedule(count):
-        c = np.float32(min(max(count, 0), transition_steps))
-        frac = np.float32(1) - c / np.float32(transition_steps)
-        return float(np.float32(init_value - end_value) * frac
-                     + np.float32(end_value))
+    def fn(count):
+        c = count.clamp(0, transition_steps).to(torch.float32)
+        frac = 1.0 - c / float(transition_steps)
+        return frac * span + end
 
-    return schedule
+    return _schedule(fn)
 
 
-def join_schedules(schedules, boundaries) -> Callable[[int], float]:
+def join_schedules(schedules, boundaries) -> Callable:
     """optax.join_schedules: past each boundary the next schedule runs
     on the count less that boundary."""
 
-    def schedule(count):
+    def fn(count):
         out = schedules[0](count)
         for boundary, sched in zip(boundaries, schedules[1:]):
-            if count >= boundary:
-                out = sched(count - boundary)
+            out = torch.where(count >= boundary, sched(count - boundary),
+                              out)
         return out
 
-    return schedule
+    return _schedule(fn)
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                   eps_root: float = 0.0) -> GradientTransformation:
     """optax.scale_by_adam: mu and nu are moving averages of g and g²,
     bias-corrected with the count after this update (``count + 1``);
-    the update is ``mu_hat / (sqrt(nu_hat + eps_root) + eps)``. The count
-    is a host integer, so the bias corrections cost no device sync."""
+    the update is ``mu_hat / (sqrt(nu_hat + eps_root) + eps)``. The
+    count is an int32 tensor on the device, and so are the bias
+    corrections: nothing of the step is read on the host."""
 
     def init(params):
-        return {"count": 0,
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=_device_of(params)),
                 "mu": {k: torch.zeros_like(p) for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     def update(updates, state, params=None):
-        count = state["count"] + 1
-        mu = {k: (1 - b1) * u + b1 * state["mu"][k]
-              for k, u in updates.items()}
-        nu = {k: (1 - b2) * (u * u) + b2 * state["nu"][k]
-              for k, u in updates.items()}
-        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        out = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2 + eps_root) + eps)
-               for k in updates}
-        return out, {"count": count, "mu": mu, "nu": nu}
+        keys = list(updates)
+        g = [updates[k] for k in keys]
+        mu = [state["mu"][k] for k in keys]
+        nu = [state["nu"][k] for k in keys]
+        # mu = (1 - b1) * g + b1 * mu; nu = (1 - b2) * g² + b2 * nu, each
+        # product rounded before the sum, as optax
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, g2)
+        count = state["count"]
+        count.add_(1)
+        cf = count.to(torch.float32)
+        c1 = 1.0 - torch.pow(b1, cf)
+        c2 = 1.0 - torch.pow(b2, cf)
+        if not keys:
+            return {}, state
+        den = torch._foreach_div(nu, c2)
+        if eps_root:
+            torch._foreach_add_(den, eps_root)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        out = torch._foreach_div(torch._foreach_div(mu, c1), den)
+        return dict(zip(keys, out)), state
 
     return GradientTransformation(init, update)
 
 
 def scale_by_learning_rate(learning_rate) -> GradientTransformation:
     """Scale by ``-learning_rate``; a callable is a schedule, called
-    with the count of earlier updates (0 at the first)."""
+    with the device count of earlier updates (0 at the first)."""
     if not callable(learning_rate):
         return scale(-learning_rate)
 
     def init(params):
-        return {"count": 0}
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=_device_of(params))}
 
     def update(updates, state, params=None):
-        step = float(np.float32(-1) * np.float32(learning_rate(
-            state["count"])))
-        return ({k: u * step for k, u in updates.items()},
-                {"count": state["count"] + 1})
+        count = state["count"]
+        step = learning_rate(count) * -1.0
+        keys = list(updates)
+        out = torch._foreach_mul([updates[k] for k in keys], step) \
+            if keys else []
+        count.add_(1)
+        return dict(zip(keys, out)), state
 
     return GradientTransformation(init, update)
 

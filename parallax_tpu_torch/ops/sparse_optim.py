@@ -49,36 +49,64 @@ class SliceAdagrad:
         """Apply slices (ids [N], drows [N, D]) to (param, acc) [V, D] in
         place. Duplicate ids are combined BEFORE squaring into the
         accumulator, as the dense scatter-add gradient would be; ids
-        outside [0, V) are dropped."""
-        uids, gsum = combine_slices(ids, drows, param.shape[0], average,
+        outside [0, V) are dropped.
+
+        ``combine_slices`` returns N slots whatever the ids, the unused
+        ones holding the sentinel V (the JAX ``mode="drop"`` rows). A
+        sentinel slot is pointed at the first slot's row and writes the
+        very value that slot writes (with no valid id at all, row V-1's
+        own value back), so every row gets one value however the writes
+        are ordered, and no row a valid id did not name changes."""
+        V = param.shape[0]
+        uids, gsum = combine_slices(ids, drows, V, average,
                                     self.grad_scale)
-        acc_rows = acc.index_select(0, uids) + gsum * gsum
+        if uids.numel() == 0:
+            return
+        valid = (uids < V)[:, None]
+        gsum = torch.where(valid, gsum, 0.0)
+        tgt = torch.where(uids < V, uids, uids[:1].clamp(max=V - 1))
+        acc_rows = acc.index_select(0, tgt) + gsum * gsum
         inv_rt = torch.where(acc_rows > 0,
-                             torch.rsqrt(acc_rows + self.eps),
-                             torch.zeros_like(acc_rows))
+                             torch.rsqrt(acc_rows + self.eps), 0.0)
         u_rows = (inv_rt * gsum) * -self.learning_rate
-        acc.index_copy_(0, uids, acc_rows)
-        param.index_add_(0, uids, u_rows.to(param.dtype))
+        p_rows = param.index_select(0, tgt) + u_rows.to(param.dtype)
+        acc.index_copy_(0, tgt, torch.where(valid, acc_rows, acc_rows[:1]))
+        param.index_copy_(0, tgt, torch.where(valid, p_rows, p_rows[:1]))
 
 
 def combine_slices(ids: torch.Tensor, drows: torch.Tensor, V: int,
                    average: bool = False, grad_scale: float = 1.0):
-    """Flatten, scale, drop ids outside [0, V), then sum (or, with
-    ``average``, take the occurrence mean of) the rows of each distinct
-    id. Returns (uids [U] int64, gsum [U, D] fp32), uids sorted."""
+    """Flatten, scale, move ids outside [0, V) onto the sentinel V, then
+    sum (or, with ``average``, take the occurrence mean of) the rows of
+    each distinct id: the JAX ``_combine_slices``, with its static size.
+    Returns (uids [N] int64, gsum [N, D] fp32) for the N = ``ids.numel()``
+    slots: the distinct ids ascending (V, if any id was dropped, last
+    among them, with the dropped rows' sum), then slots of the sentinel V
+    with zero rows. Sort-based and of fixed shape, so it never waits for
+    the card and can be captured in a CUDA graph (``torch.unique`` does
+    both)."""
     ids = ids.reshape(-1).long()
-    drows = drows.reshape(ids.shape[0], -1).float()
+    cap = ids.shape[0]
+    drows = drows.reshape(cap, drows.shape[-1]).float()
     if grad_scale != 1.0:
         drows = drows * grad_scale
-    ids = torch.where((ids >= 0) & (ids < V), ids, torch.full_like(ids, V))
-    uids, inv = torch.unique(ids, return_inverse=True)
-    gsum = torch.zeros((uids.shape[0], drows.shape[1]), dtype=drows.dtype,
-                       device=drows.device).index_add_(0, inv, drows)
+    ids = torch.where((ids >= 0) & (ids < V), ids, V)
+    # stable: each slot sums its rows in their order, as a sequential
+    # scatter-add does
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    first = torch.ones_like(sorted_ids, dtype=torch.bool)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(first, 0) - 1               # slot of each sorted id
+    # duplicates write the same id into their slot
+    uids = torch.full_like(ids, V).scatter_(0, seg, sorted_ids)
+    counts = torch.zeros_like(seg).scatter_add_(0, seg,
+                                                torch.ones_like(seg))
+    # one sequential sum a slot (0 for the unused ones): deterministic on
+    # the card as well, where a scatter-add's atomics are not
+    gsum = torch.segment_reduce(drows[perm], "sum", lengths=counts, axis=0,
+                                unsafe=True)
     if average:
-        cnt = torch.zeros((uids.shape[0],), dtype=torch.float32,
-                          device=drows.device).index_add_(
-                              0, inv, torch.ones_like(inv,
-                                                      dtype=torch.float32))
-        gsum = gsum / cnt.clamp_min(1.0)[:, None]
-    keep = uids < V          # the sentinel V collects the dropped ids
-    return uids[keep], gsum[keep]
+        cnt = counts.to(torch.float32)
+        gsum = gsum * torch.where(cnt > 0, 1.0 / cnt.clamp_min(1.0),
+                                  0.0)[:, None]
+    return uids, gsum

@@ -26,9 +26,14 @@ speculative decoding, the prefix cache and prompt-KV insertion through
 the page table. A program or a ``ServeConfig`` that asks for one of
 them is refused with ``ValueError`` at construction.
 
-The JAX scheduler compiles every device callable ahead of time; here
-nothing compiles, and the warmup runs each callable once on dummy
-inputs (which also builds the CUDA kernels on first use).
+The JAX scheduler compiles every device callable ahead of time
+(``parallax_tpu/serve/continuous.py:318-371``). Here the warmup hands the
+live state to the program's ``capture``, which on the card captures the
+one-request prefill and the decode step for the slot count as CUDA
+graphs (``NMTDecodeProgram.capture``); the loop then replays them, with
+one device-to-host copy of the next tokens a step. A program without
+``capture`` is warmed by running each callable once on a throwaway
+state. Either way the CUDA kernels are built before the first request.
 """
 
 from __future__ import annotations
@@ -155,8 +160,8 @@ class ContinuousScheduler:
         self._t = np.zeros((self._S,), np.int32)
         self._stop = threading.Event()
         self._kick = threading.Event()
+        self._state = None
         self._warm()
-        self._state = program.init_state(params, self._S)
         self._thread = threading.Thread(target=self._loop,
                                         name="parallax-serve-decode",
                                         daemon=True)
@@ -171,25 +176,34 @@ class ContinuousScheduler:
         return self._program.step(self._params, state, tok, t)
 
     def _warm(self) -> None:
-        """Run every callable the serving loop can call once on dummy
-        inputs — prefill, insert and step — on a throwaway state, so
-        the first request pays no one-time cost (the CUDA kernels are
-        built at their first launch)."""
+        """Make the live state and prepare every callable the serving
+        loop can call: through the program's ``capture`` (prefill and
+        step captured as graphs on the card, on this state) or, for a
+        program without one, by running prefill, insert and step once on
+        a throwaway state. Either way the first request pays no one-time
+        cost. Records ``serve.compile_seconds``."""
         prog, params = self._program, self._params
         t0 = time.perf_counter()
-        with trace.span("serve.warmup", mode="decode"):
-            state = prog.init_state(params, self._S)
-            rs = prog.prefill(params, prog.prepare_feed(prog.example_feed()))
-            state = prog.insert(state, 0, rs)
-            tok = np.full((self._S,), prog.bos_id, np.int32)
-            nxt, state = self._step(state, tok,
-                                    np.zeros((self._S,), np.int32))
-            np.asarray(nxt)
+        with trace.span("serve.warmup_compile", mode="decode"):
+            self._state = prog.init_state(params, self._S)
+            capture = getattr(prog, "capture", None)
+            if capture is not None:
+                capture(params, self._state)
+            else:
+                state = prog.init_state(params, self._S)
+                rs = prog.prefill(params,
+                                  prog.prepare_feed(prog.example_feed()))
+                state = prog.insert(state, 0, rs)
+                tok = np.full((self._S,), prog.bos_id, np.int32)
+                nxt, state = self._step(state, tok,
+                                        np.zeros((self._S,), np.int32))
+                np.asarray(nxt)
         dt = time.perf_counter() - t0
-        self.metrics.histogram("serve.warmup_seconds").record(dt)
+        self.metrics.histogram("serve.compile_seconds").record(dt)
         parallax_log.info(
-            "serve decode warmup: prefill/insert/step ran in %.2fs "
-            "(%d slots%s)", dt, self._S,
+            "serve decode warmup: prefill/insert/step %s in %.2fs "
+            "(%d slots%s)", "captured" if capture is not None else "ran",
+            dt, self._S,
             f", {self._sentinel}-page pool" if self._paged else "")
 
     # -- admission hooks (called by ServeSession) --------------------------

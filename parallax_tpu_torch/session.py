@@ -14,11 +14,20 @@ on the card until first read, so the host does not wait for a step
 before issuing the next one. ``run_iter()`` drives a batch iterator,
 with batch t+1 converted and copied to the card while step t runs.
 
+Compile-ahead (``parallax_tpu/session.py:1713-1797``): ``warmup()``
+captures the step's CUDA graph for every declared
+``Config.shape_buckets`` bucket before step 0, and ``compile_stats()``
+reports the buckets, the capture seconds and the cache counters. With
+buckets declared every feed is padded onto its bucket before it is
+copied to the card. On the card, feeds are copied from pinned host
+memory into the engine's static input buffers, which the step's graph
+reads.
+
 Ported: ``run``, ``run_iter``, ``Fetch``, ``state`` (with its ``model_state``
-for a stateful model), ``engine``,
-``evaluate``, ``close`` and ``metrics_snapshot``. The rest of the JAX
-session (checkpoints, profiling hooks, recovery, health and anomaly
-monitors, warmup, serving handoff) is not.
+for a stateful model), ``engine``, ``evaluate``, ``warmup``,
+``compile_stats``, ``close`` and ``metrics_snapshot``. The rest of the
+JAX session (checkpoints, profiling hooks, recovery, health and anomaly
+monitors, the partition search, serving handoff) is not.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ import torch
 
 from parallax_tpu_torch.common.config import ParallaxConfig
 from parallax_tpu_torch.common.lib import parallax_log, resolve_device
+from parallax_tpu_torch.compile import bucketing, cache as compile_cache
 from parallax_tpu_torch.core import engine as engine_lib, mesh as mesh_lib
+from parallax_tpu_torch.obs import trace
 from parallax_tpu_torch.obs.metrics import MetricsRegistry
 
 
@@ -178,10 +189,16 @@ class ParallaxSession:
         self._engine: Optional[engine_lib.Engine] = None
         self._state: Optional[engine_lib.TrainState] = None
         self._closed = False
+        # built engines keyed by (plan, bucketed example signature)
+        self._engine_cache = compile_cache.EngineCache(self.metrics)
+        if config.compilation_cache_dir:
+            compile_cache.enable_persistent_cache(
+                config.compilation_cache_dir)
 
     # -- feeds and fetches ------------------------------------------------
 
-    def _convert_feed(self, feed_dict: Dict[str, Any]):
+    def _host_feed(self, feed_dict: Dict[str, Any]) -> Dict[str, Any]:
+        """The feed as one host array (or tensor) per name."""
         batch = {}
         for name, value in feed_dict.items():
             if isinstance(value, (list, tuple)):
@@ -199,25 +216,61 @@ class ParallaxSession:
             if isinstance(value, torch.Tensor):
                 if value.dtype == torch.float64:
                     value = value.float()
-                batch[name] = value.to(self._device, non_blocking=True)
             else:
                 value = np.asarray(value)
                 if value.dtype == np.float64:
                     value = value.astype(np.float32)
-                t = torch.from_numpy(np.ascontiguousarray(value))
-                if self._device.type == "cuda":
-                    t = t.pin_memory()
-                batch[name] = t.to(self._device, non_blocking=True)
+            batch[name] = value
         return batch
+
+    def _convert_feed(self, feed_dict: Dict[str, Any],
+                      static: bool = True):
+        """The feed bucketed and on the card (in the step's static input
+        buffers when ``static`` and steps replay graphs)."""
+        host = self._host_feed(feed_dict)
+        self._ensure_engine(host)
+        return self._engine.place(host, static=static)
 
     def _ensure_engine(self, batch) -> None:
         if self._closed:
             raise RuntimeError("ParallaxSession is closed")
         if self._engine is None:
-            self._engine = engine_lib.Engine(
-                self._model, mesh_lib.build_mesh(self._device),
-                self._config, batch, metrics=self.metrics)
-            self._state = self._engine.init_state(self._seed)
+            self._build_engine(batch)
+
+    def _build_engine(self, example_batch) -> None:
+        """Get or build the engine of this plan and example signature
+        (``compile.cache.EngineCache``); the state is made once."""
+        example = self._bucketed_example(example_batch)
+        cfg = self._config
+        key = (cfg.run_option, cfg.sync, cfg.sparse_grad_mode,
+               cfg.average_sparse,
+               bucketing.batch_signature(engine_lib._to_meta(example)))
+        engine = self._engine_cache.get(key)
+        if engine is None:
+            engine = engine_lib.Engine(
+                self._model, mesh_lib.build_mesh(self._device), cfg,
+                example_batch, metrics=self.metrics)
+            self._engine_cache.put(key, engine)
+        self._engine = engine
+        if self._state is None:
+            self._state = engine.init_state(self._seed)
+
+    def _bucketed_example(self, example_batch):
+        """The example batch as the engine will see it: bucketed when
+        ``Config.shape_buckets`` is declared (buckets from the live
+        engine when there is one, so 'auto' stays pinned to the first
+        batch)."""
+        cfg = self._config
+        if cfg.shape_buckets is None:
+            return example_batch
+        buckets = self._engine._buckets if self._engine is not None \
+            else None
+        if buckets is None:
+            lead = bucketing._leading_dim(example_batch)
+            buckets = bucketing.resolve_buckets(cfg.shape_buckets,
+                                                lead if lead else 1)
+        return bucketing.bucket_batch(example_batch, buckets,
+                                      cfg.bucket_mask_feed)[0]
 
     def _ready_fn(self):
         if self._device.type != "cuda":
@@ -253,7 +306,7 @@ class ParallaxSession:
     def prepare(self, feed_dict: Dict[str, Any]) -> int:
         """Build the engine and the initial state from an example batch
         without running a step; returns the global step (0)."""
-        self._ensure_engine(self._convert_feed(feed_dict))
+        self._ensure_engine(self._host_feed(feed_dict))
         return int(self._state.step)
 
     def run(self, fetches: Union[None, str, Sequence[str]] = None,
@@ -261,16 +314,14 @@ class ParallaxSession:
         if feed_dict is None:
             raise ValueError(
                 "ParallaxSession.run requires feed_dict (the batch)")
-        batch = self._convert_feed(feed_dict)
-        self._ensure_engine(batch)
-        return self._run_step(fetches, batch)
+        return self._run_step(fetches, self._convert_feed(feed_dict))
 
     def run_iter(self, batches: Iterable[Dict[str, Any]],
                  fetches: Union[None, str, Sequence[str]] = None):
         """Yields one ``run()`` result per feed dict of ``batches``, in
         order. Each next batch is converted and its copy to the card
-        issued before the current step's result is yielded, so the copy
-        overlaps the step on the card."""
+        queued before the current step's result is yielded, so the
+        host's work on it overlaps the step on the card."""
         it = iter(batches)
         try:
             nxt = self._convert_feed(next(it))
@@ -278,7 +329,6 @@ class ParallaxSession:
             return
         while nxt is not None:
             batch = nxt
-            self._ensure_engine(batch)
             out = self._run_step(fetches, batch)
             try:
                 nxt = self._convert_feed(next(it))
@@ -289,10 +339,69 @@ class ParallaxSession:
     def evaluate(self, feed_dict: Dict[str, Any], fetches="loss"):
         """A held-out loss (and metrics) on ``feed_dict``: the forward
         with no gradient and no update."""
-        batch = self._convert_feed(feed_dict)
-        self._ensure_engine(batch)
+        batch = self._convert_feed(feed_dict, static=False)
         loss, metrics = self._engine.evaluate(self._state, batch)
         return self._convert_fetch(fetches, {"loss": loss, **metrics})
+
+    # -- compile-ahead engine (compile/) ----------------------------------
+
+    def warmup(self, feed_dict: Optional[Dict[str, Any]] = None,
+               batch_sizes: Optional[Sequence[int]] = None,
+               background: bool = False) -> Dict[int, float]:
+        """Capture the step's graph for every declared batch bucket
+        (``Config.shape_buckets``), or explicit ``batch_sizes``, ahead of
+        step 0, so the first step of each bucket replays a ready graph.
+        The state is left bitwise as it was. Returns {batch_size:
+        seconds}. On the CPU there is nothing to capture: the signatures
+        are registered and the steps run eagerly.
+
+        ``feed_dict``: an example feed to build the engine from when it
+        does not exist yet (``prepare(feed_dict)`` first).
+        ``background=True`` is refused: a capture from a second thread
+        would race the training stream for the card (the capture's own
+        eager step and the graph's pool share the device with the steps
+        the loop dispatches meanwhile)."""
+        if background:
+            raise NotImplementedError(
+                "warmup(background=True) is not ported: capturing the "
+                "step's CUDA graph on a second thread would race the "
+                "training loop on the card; warm up before the loop")
+        if feed_dict is not None:
+            self.prepare(feed_dict)
+        if self._engine is None:
+            raise ValueError(
+                "warmup needs an engine: pass feed_dict (or call "
+                "prepare(example_feed)) first")
+        with trace.span("session.warmup"):
+            return self._engine.warmup(self._state, batch_sizes)
+
+    def compile_stats(self) -> Dict[str, Any]:
+        """JSON-ready compile/caching report, with the JAX session's keys:
+        declared bucket sizes, per-bucket warmup seconds, and the
+        executable (captured graph) and engine cache hit and miss
+        counters."""
+        eng = self._engine
+        return {
+            "shape_buckets": (list(eng._buckets)
+                              if eng is not None and eng._buckets
+                              else None),
+            "warmup_compile_seconds": (
+                {str(k): round(v, 3)
+                 for k, v in sorted(eng.warmup_seconds.items())}
+                if eng is not None else {}),
+            "executable_cache": {
+                "hits": self.metrics.counter(
+                    "engine.executable_cache.hits").value,
+                "misses": self.metrics.counter(
+                    "engine.executable_cache.misses").value,
+            },
+            "engine_cache": {
+                "hits": self.metrics.counter(
+                    "session.engine_cache.hits").value,
+                "misses": self.metrics.counter(
+                    "session.engine_cache.misses").value,
+            },
+        }
 
     @property
     def state(self) -> Optional[engine_lib.TrainState]:
@@ -320,6 +429,7 @@ class ParallaxSession:
         self._closed = True
         self._engine = None
         self._state = None
+        self._engine_cache.prune(keep=None)
         parallax_log.info("session closed after %d steps",
                           self._steps.value)
 

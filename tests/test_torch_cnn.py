@@ -542,23 +542,29 @@ def _flax_layout(tree):
 # off a float64 run; at 64 and 139 px they see 8 and 18. Inception-v3's
 # 94 BatchNorms keep the JAX forward 2e-4 of its peak off float64 even
 # there (the port's 8e-5), so it is held to 1e-3, the rest to 1e-4.
-ZOO = [("lenet", jzoo.LeNet, tzoo.LeNet, 28, 1e-4),
-       ("vgg11", jzoo.VGG11, tzoo.VGG11, 32, 1e-4),
-       ("googlenet", jzoo.GoogLeNet, tzoo.GoogLeNet, 32, 1e-4),
-       ("inception3", jzoo.InceptionV3, tzoo.InceptionV3, 139, 1e-3),
-       ("densenet121", jzoo.DenseNet, tzoo.DenseNet, 64, 1e-4)]
+# ResNet-50 v1 (the stride on the first 1x1 of each block, not the 3x3)
+# gives the same logits as v1.5 from one initial tree, since each block's
+# last BatchNorm scale is zero; only its batch statistics tell the two
+# apart, at batch 4 and 64 px.
+ZOO = [("lenet", jzoo.LeNet, tzoo.LeNet, 28, 1e-4, 2),
+       ("vgg11", jzoo.VGG11, tzoo.VGG11, 32, 1e-4, 2),
+       ("googlenet", jzoo.GoogLeNet, tzoo.GoogLeNet, 32, 1e-4, 2),
+       ("inception3", jzoo.InceptionV3, tzoo.InceptionV3, 139, 1e-3, 2),
+       ("densenet121", jzoo.DenseNet, tzoo.DenseNet, 64, 1e-4, 2),
+       ("resnet50", lambda **kw: jresnet.ResNet50(v1_5=False, **kw),
+        lambda **kw: tresnet.ResNet50(v1_5=False, **kw), 64, 1e-4, 4)]
 
 
-@pytest.mark.parametrize("name,jmod,tmod,size,tol", ZOO,
+@pytest.mark.parametrize("name,jmod,tmod,size,tol,batch", ZOO,
                          ids=[z[0] for z in ZOO])
-def test_zoo_forward_matches_jax(name, jmod, tmod, size, tol):
+def test_zoo_forward_matches_jax(name, jmod, tmod, size, tol, batch):
     """The port's own initial tree, in flax's layout, runs the JAX module
     (which checks every name and shape) and comes back through
     ``cnn_params_from_jax`` unchanged."""
     jmodule = jmod(num_classes=CLASSES, dtype=jnp.float32)
     tmodule = tmod(num_classes=CLASSES, dtype=torch.float32)
     x = np.random.default_rng(4).standard_normal(
-        (2, size, size, 3)).astype(np.float32)
+        (batch, size, size, 3)).astype(np.float32)
     params, stats = _nn.init(tmodule, torch.Generator().manual_seed(1),
                              "cpu", size)
     variables = {"params": _flax_layout(params)}

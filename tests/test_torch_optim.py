@@ -173,3 +173,47 @@ def test_sgd_without_momentum_is_the_scaled_gradient():
     assert state == () and torch.equal(upd["p"], torch.tensor([-1.0, 2.0]))
     with pytest.raises(ValueError, match="params"):
         optim.add_decayed_weights(0.1).update({"p": torch.ones(1)}, ())
+
+
+def test_nmt_chain_with_device_counts_matches_optax_over_twelve_updates():
+    """NMT's own optimizer, clip then Adam on the warmup-then-constant
+    schedule, in both packages over 12 updates that cross the warmup
+    (4): the count and the bias corrections are int32 and fp32 tensors
+    on the params' device, updated in place, and the run agrees with
+    optax at this file's tolerances."""
+    from parallax_tpu.models import nmt as jnmt
+    from parallax_tpu_torch.models import nmt as tnmt
+    jtx = jnmt.build_model(jnmt.tiny_config(warmup_steps=4)).optimizer
+    ttx = tnmt.build_model(tnmt.tiny_config(warmup_steps=4)).optimizer
+    rng = np.random.default_rng(3)
+    shapes = {"a": (4, 3), "b": (5,)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = jtx.init(jp)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = ttx.init(tp)
+    adam, sched = tstate[1]
+    assert adam["count"].dtype == torch.int32 and adam["count"].dim() == 0
+    tensors = [adam["count"], sched["count"], *adam["mu"].values(),
+               *adam["nu"].values()]
+    ptrs = [t.data_ptr() for t in tensors]
+    for step in range(12):
+        g = {k: (rng.standard_normal(s) * 3).astype(np.float32)
+             for k, s in shapes.items()}
+        jupd, jstate = jtx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                  jstate, jp)
+        jp = optax.apply_updates(jp, jupd)
+        tupd, tstate = ttx.update({k: torch.from_numpy(v)
+                                   for k, v in g.items()}, tstate, tp)
+        optim.apply_updates(tp, tupd)
+        for k in shapes:
+            np.testing.assert_allclose(tupd[k].numpy(), np.asarray(jupd[k]),
+                                       rtol=1e-6, atol=1e-9,
+                                       err_msg=f"step {step} {k}")
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, err_msg=f"step {step} {k}")
+    assert tstate[1][0] is adam and tstate[1][1] is sched
+    assert [t.data_ptr() for t in tensors] == ptrs
+    assert int(adam["count"]) == int(jstate[1][0].count) == 12
+    assert int(sched["count"]) == int(jstate[1][1].count) == 12

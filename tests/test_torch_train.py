@@ -318,3 +318,49 @@ def test_float64_feeds_train_as_float32():
     finally:
         jsess.close()
     np.testing.assert_allclose(f64, jlosses, rtol=1e-5, atol=1e-6)
+
+
+def test_step_keeps_every_state_tensor_in_place():
+    """The property a captured graph of the step needs: after steps every
+    parameter and every tensor of the optimizer and slice states (the
+    tables' accumulators) keeps its storage."""
+    from parallax_tpu_torch.core.engine import state_tensors
+    cfg, sess = _session(lstm_impl="kernel")
+    batches = _batches(cfg.vocab_size)
+    sess.prepare(batches[0])
+    before = [(t, t.data_ptr()) for t in state_tensors(sess.state)]
+    assert len(sess.state.slice_state) == 3
+    for b in batches:
+        sess.run("loss", feed_dict=b)
+    after = [(t, t.data_ptr()) for t in state_tensors(sess.state)]
+    assert len(after) == len(before)
+    for (t0, p0), (t1, p1) in zip(before, after):
+        assert t0 is t1 and p0 == p1
+    sess.close()
+
+
+def test_engine_generator_draws_the_step_generator_candidates(monkeypatch):
+    """The engine reseeds one generator before each step; the candidates
+    it draws are those of a fresh ``step_generator(seed, step)``."""
+    from parallax_tpu_torch.core.engine import step_generator
+    real = tss.log_uniform_candidates
+    drawn = []
+
+    def spy(gen, num_samples, vocab_size, device=None):
+        ids = real(gen, num_samples, vocab_size, device)
+        if ids.device.type != "meta":
+            drawn.append(ids.clone())
+        return ids
+
+    monkeypatch.setattr(tss, "log_uniform_candidates", spy)
+    cfg, sess = _session(lstm_impl="kernel", keep_prob=0.5)
+    for b in _batches(cfg.vocab_size):
+        sess.run("loss", feed_dict=b)
+    assert len(drawn) == STEPS
+    for step, ids in enumerate(drawn):
+        gen = step_generator("cpu", 0, step)
+        # the step's dropout masks draw first, from the same generator
+        torch.rand((16, 6, cfg.emb_dim), generator=gen)
+        torch.rand((6, 16, cfg.proj_dim), generator=gen)
+        assert torch.equal(ids, real(gen, cfg.num_samples, cfg.vocab_size))
+    sess.close()
