@@ -80,6 +80,16 @@ beside it. Phases:
    steps under the profiler (launches and busy ms a step), which must
    show ``lstm_fwd_kernel_sm90`` and ``lstm_bwd_kernel_sm90`` and no
    first LSTM kernel.
+6b. ``dist-train``: the same LM1B (config, seed, batches, warmup and
+   timed steps) through ``parallel_run`` as rank 0 of a one-rank NCCL
+   process group (the launcher's environment set in this process; a
+   failed ``init_process_group`` or collective fails the phase), the
+   step captured with its NCCL all-reduce of the dense gradients
+   inside. At one rank the all-reduce is the identity, so every loss
+   must equal the train phase's bit for bit. B2 and B3 once a step.
+   Words/s and step p50/p95, then 5 profiled steps: host launches,
+   busy ms and NCCL's device ms a step and its share of busy, beside
+   the card's name and power limit.
 7. Train agreement: 3 steps in fp32 (TF32 off, keep_prob 1) from the
    same weights and generator with ``lstm_impl="kernel"`` and
    ``"scan"``; per-step losses within 1e-4 relative.
@@ -1622,6 +1632,153 @@ NMT_TRAIN = dict(batch=64, src_len=64, tgt_len=64, warmup=5, steps=30)
 FLASH_COUNTERS = ("launches", "launches_dq", "launches_dkv")
 
 
+# -- dist-train: LM1B in a one-rank NCCL process group ------------------------
+
+
+def nccl_group_env():
+    """The environment ``parallel_run`` reads as a launched rank: rank 0 of
+    a world of 1 on chip 0, its rendezvous a file under a new directory."""
+    import tempfile
+    from parallax_tpu_torch.common import consts
+    from parallax_tpu_torch.common.lib import (HostInfo,
+                                               serialize_resource_info)
+    rdv = Path(tempfile.mkdtemp(prefix="parallax_rdv_")) / "store"
+    return {consts.PARALLAX_RUN_OPTION: "WORKER", consts.PARALLAX_RANK: "0",
+            consts.PARALLAX_WORLD_SIZE: "1", consts.PARALLAX_LOCAL_CHIP: "0",
+            consts.PARALLAX_RESOURCE_INFO: serialize_resource_info(
+                [HostInfo("localhost", (0,))]),
+            consts.PARALLAX_RENDEZVOUS: f"file://{rdv}"}
+
+
+def phase_dist_train(torch, train_losses, card):
+    """The train phase's LM1B (same config, seed and batches) through
+    ``parallel_run`` as rank 0 of a one-rank NCCL process group: the step
+    captured with its NCCL all-reduce of the dense gradients inside. At
+    one rank the all-reduce is the identity, so the losses must equal the
+    train phase's bit for bit. Words/s and step p50/p95 over the same 30
+    timed steps, then 5 profiled steps: host launches, busy ms and NCCL's
+    device ms a step with its share of busy."""
+    import os
+    from parallax_tpu_torch.ops import lstm
+    dist = torch.distributed
+    env = nccl_group_env()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg, sess = lm1b_session(torch)
+        if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1):
+            raise AssertionError("dist-train: parallel_run did not join a "
+                                 "one-rank NCCL process group")
+        batches = lm1b_batches(cfg)
+        sess.prepare(batches[0])
+        capture = capture_train(torch, sess, TRAIN["batch"])
+        torch.cuda.synchronize()
+        for name in LSTM_COUNTERS:
+            setattr(lstm, name, 0)
+        losses = [sess.run("loss", feed_dict=batches[i % 4])
+                  for i in range(TRAIN["warmup"])]
+        timed = timed_steps_losses(torch, sess, batches, TRAIN["steps"])
+        losses += timed.pop("losses")
+        launches = {"lstm_fwd": lstm.launches_fwd,
+                    "lstm_fwd_res": lstm.launches_fwd_res,
+                    "lstm_bwd": lstm.launches_bwd}
+        steps_run = TRAIN["warmup"] + TRAIN["steps"]
+        if launches != {"lstm_fwd": 0, "lstm_fwd_res": steps_run,
+                        "lstm_bwd": steps_run}:
+            raise AssertionError(f"dist-train LSTM launch counts {launches}"
+                                 f" over {steps_run} steps")
+        losses = [float(x) for x in losses]
+        if losses != train_losses:
+            bad = [i for i, (a, b) in enumerate(zip(losses, train_losses))
+                   if a != b]
+            raise AssertionError(f"dist-train losses differ from the train "
+                                 f"phase's at steps {bad[:5]}: "
+                                 f"{losses[:3]} vs {train_losses[:3]}")
+        prof = nccl_profile(torch, sess, batches)
+        summary = {"card": card, "world": dist.get_world_size(),
+                   "backend": dist.get_backend(),
+                   "losses_bitwise_equal_train": True, **timed, **prof,
+                   "capture": capture, "launches": launches}
+        log(f"[dist-train] {json.dumps(summary)}")
+        sess.close()
+        return summary
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def timed_steps_losses(torch, sess, batches, steps):
+    """``timed_steps`` keeping every step's loss: words/s and step ms
+    (CUDA events between step ends) p50 and p95."""
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    words, losses = 0.0, []
+    feed = (batches[i % 4] for i in range(steps))
+    for i, loss in enumerate(sess.run_iter(feed, fetches="loss")):
+        losses.append(loss)
+        words += float(batches[i % 4]["w"].sum())
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    float(losses[-1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return {"words_per_sec": words / wall,
+            "step_ms_p50": statistics.median(step_ms),
+            "step_ms_p95": p95(step_ms), "losses": losses}
+
+
+def nccl_profile(torch, sess, batches):
+    """``PAIR["profile_steps"]`` steps under the profiler's CPU and CUDA
+    activity: the card's busy ms and idle share, NCCL's kernels' device
+    ms a step and share of busy, the host's launch calls a step; the
+    steps must launch the persistent LSTM kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    steps = PAIR["profile_steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        last = None
+        for i in range(steps):
+            last = sess.run("loss", feed_dict=batches[i % 4])
+        float(last)
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    busy_us = nccl_us = 0.0
+    api, rows, nccl = {}, [], {}
+    for evt in prof.key_averages():
+        if evt.key in LAUNCH_APIS:
+            api[evt.key] = evt.count
+        elif evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0))
+            busy_us += us
+            rows.append((us, evt.count, evt.key))
+            if "nccl" in evt.key.lower():
+                nccl_us += us
+                nccl[evt.key[:90]] = evt.count
+    lstm_kernels_seen(rows, ["lstm_fwd_kernel_sm90", "lstm_bwd_kernel_sm90"])
+    return {"profile_steps": steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e6 / window,
+            "nccl_ms_per_step": nccl_us / 1e3 / steps,
+            "nccl_share_of_busy": nccl_us / busy_us if busy_us else 0.0,
+            "nccl_kernels": nccl,
+            "host_launches_per_step": sum(api.values()) / steps,
+            "host_launch_calls": api}
+
+
 def nmt_train_session(torch, use_pallas_attention=True, **cfg_kw):
     """NMTConfig() at its published widths, with the max_len that
     examples/nmt_driver.py sets and a 10-step warmup (the published 4000
@@ -2486,6 +2643,8 @@ def main() -> int:
                            "lstm_bwd")
     lstm_groups = phase("lstm-bwd-groups", lstm_bwd_groups, torch)
     train, train_profile = phase("train", phase_train, torch)
+    dist_train = phase("dist-train", phase_dist_train, torch,
+                       train["losses"], card)
     train_agree = phase("train-agree", phase_train_agreement, torch)
     nmt_train, nmt_profile = phase("nmt-train", phase_nmt_train, torch)
     nmt_agree = phase("nmt-train-agree", phase_nmt_train_agreement, torch)
@@ -2498,7 +2657,8 @@ def main() -> int:
                    "resnet": resnet_train["graph_pair"]}
     log(f"[graph-pair] {json.dumps(graph_pairs)}")
     launches = {**serve_summary["launches"], **train["launches"]}
-    for name, n in nmt_train["launches"].items():
+    for name, n in list(nmt_train["launches"].items()) + list(
+            dist_train["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -2509,6 +2669,7 @@ def main() -> int:
               "serve": serve_summary, "profile": profile_summary,
               "agreement": agree, "train": train,
               "train_profile": train_profile, "train_agreement": train_agree,
+              "dist_train": dist_train,
               "nmt_train": nmt_train, "nmt_train_profile": nmt_profile,
               "nmt_train_agreement": nmt_agree,
               "resnet_train": resnet_train, "resnet_profile": resnet_profile,

@@ -1,6 +1,6 @@
 """parallax_tpu_torch — the PyTorch and CUDA port of parallax_tpu.
 
-It runs on one NVIDIA H100 (Hopper, sm_90a). Ported slices:
+It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
 
 * LM1B training: ``parallel_run(lm1b.build_model(cfg),
   parallax_config=Config(run_option="HYBRID", sparse_grad_mode="slices"))``
@@ -18,6 +18,12 @@ It runs on one NVIDIA H100 (Hopper, sm_90a). Ported slices:
   parallax_config=Config(run_option="AR"))`` and the rest of the CNN zoo,
   a stateful model (BatchNorm statistics) with momentum SGD; no TPU
   kernel lies on this path. ``simple`` is the linear-regression smoke.
+
+The stateless training paths run over N ranks too (one process a card,
+the JAX package's ``('repl', 'shard')`` mesh over ``torch.distributed``:
+dense gradients all-reduced, sparse tables row-sharded and looked up
+through all-gather and reduce-scatter; ``parallel_run(resource_info=
+"localhost:0,1,...")`` starts the ranks).
 
 On the card every train step and every serving decode step is a replay
 of a CUDA graph captured ahead of step 0 (``compile/``: bucketing,

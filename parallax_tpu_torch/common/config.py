@@ -1,9 +1,11 @@
-"""Configuration: ``ServeConfig`` and the top-level ``Config``.
+"""Configuration: ``ServeConfig``, ``PSConfig``, ``CommunicationConfig``
+and the top-level ``Config``.
 
-Copies of ``parallax_tpu.common.config.ServeConfig`` (same fields, same
-validation) and of ``ParallaxConfig`` reduced to the fields serving and
-training read, so code that builds a JAX-package config builds this one
-with the same keywords.
+Copies of ``parallax_tpu.common.config``'s ``ServeConfig`` (same
+fields, same validation), and of ``PSConfig``, ``CommunicationConfig``
+and ``ParallaxConfig`` reduced to the fields serving and training read,
+so code that builds a JAX-package config builds this one with the same
+keywords.
 """
 
 from __future__ import annotations
@@ -136,6 +138,43 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class PSConfig:
+    """Row-sharded (reference: parameter-server) path options
+    (reference config.py:21-49).
+
+    * ``replicate_variables``: True keeps dense variables replicated on
+      every rank; False row-shards every dense variable whose leading
+      dim divides the shard axis (HYBRID), all-gathered for use and its
+      gradient reduce-scattered (core/engine.py).
+    * ``local_aggregation``: the two-stage sparse combine: each rank
+      sums its duplicate ids into unique slots before the cross-shard
+      exchange (ops/embedding.py ``_dedup_capacity``). Exact.
+    * ``dedup_capacity``: a declared unique-id slot count (int, or a
+      dict keyed by parameter path or table-shape tuple) below the exact
+      bound. Never lossy: a step on which some rank has more distinct
+      ids than that takes the uncompressed exchange (a mesh-uniform
+      choice). Such a lookup needs one host read of the decision a step,
+      so its steps run eagerly.
+    * ``cross_replica_sparse``: how a row-sharded table's gradient
+      merges over the 'repl' axis: None picks by bytes, True gathers the
+      deduplicated (ids, rows) over the whole mesh, False all-reduces
+      the [rows/shard, dim] shard gradient over 'repl'.
+    """
+
+    replicate_variables: bool = True
+    local_aggregation: bool = True
+    dedup_capacity: Union[int, Dict[Any, int], None] = None
+    cross_replica_sparse: Optional[bool] = None
+
+
+@dataclasses.dataclass
+class CommunicationConfig:
+    """Bundle of per-path comm options (reference config.py:72-81)."""
+
+    ps_config: PSConfig = dataclasses.field(default_factory=PSConfig)
+
+
+@dataclasses.dataclass
 class ParallaxConfig:
     """Top-level config, reduced to what serving and training read.
 
@@ -150,7 +189,11 @@ class ParallaxConfig:
     * ``average_sparse``: average duplicate row updates by occurrence
       count instead of summing them.
     * ``sync`` / ``resource_info``: set by ``parallel_run`` through the
-      reference-style setters. Only ``sync=True`` is ported.
+      reference-style setters. ``sync=False`` runs bounded-staleness
+      delayed gradients: each step applies the gradients computed
+      ``staleness`` steps earlier (core/engine.py).
+    * ``staleness``: that k (>= 1); above 1 only with ``sync=False``.
+    * ``communication_config``: its ``ps_config`` (``PSConfig``).
     * ``shape_buckets``: ascending batch sizes every feed batch is
       padded up to (the smallest bucket that fits), or ``"auto"`` (the
       first batch's size). Each bucket is one signature, so one captured
@@ -175,6 +218,9 @@ class ParallaxConfig:
     # injected by parallel_run (reference config.py:168-179)
     sync: bool = True
     resource_info: Any = None
+    staleness: int = 1
+    communication_config: CommunicationConfig = dataclasses.field(
+        default_factory=CommunicationConfig)
     # -- compile-ahead engine (compile/) ---------------------------------
     shape_buckets: Union[None, str, Sequence[int]] = None
     bucket_mask_feed: str = "w"
@@ -196,6 +242,9 @@ class ParallaxConfig:
                 self.shape_buckets = resolved
         if not self.bucket_mask_feed:
             raise ValueError("bucket_mask_feed must be a feed name")
+        if int(self.staleness) < 1:
+            raise ValueError(
+                f"staleness must be >= 1, got {self.staleness}")
 
     # Reference-style setters (kept so ported driver code works unchanged).
     def set_sync(self, sync: bool) -> None:

@@ -3,18 +3,23 @@ grammar.
 
 ``parallax_log`` is the counterpart of ``parallax_tpu.common.lib``'s
 (same logger name, same format, same level variable), so one log
-configuration covers both packages. ``HostInfo`` and
-``parse_resource_info`` are copies of the JAX package's (reference
-lib.py:121-150).
+configuration covers both packages. ``HostInfo``,
+``parse_resource_info`` and ``serialize_resource_info`` /
+``deserialize_resource_info`` are copies of the JAX package's
+(reference lib.py:121-176). ``rank_layout`` is the port's own: one rank
+per (host, chip), the PyTorch idiom of one process per card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import ipaddress
+import json
 import logging
+import socket
 import os
 import sys
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +57,15 @@ class HostInfo:
 
     hostname: str
     devices: Optional[tuple] = None
+
+    def to_json(self):
+        return {"hostname": self.hostname,
+                "devices": list(self.devices) if self.devices else None}
+
+    @staticmethod
+    def from_json(d) -> "HostInfo":
+        devs = d.get("devices")
+        return HostInfo(d["hostname"], tuple(devs) if devs else None)
 
 
 def _parse_resource_line(line: str) -> Optional[HostInfo]:
@@ -92,3 +106,48 @@ def parse_resource_info(resource_info: Optional[str]) -> List[HostInfo]:
             raise ValueError(f"duplicate host {h.hostname!r} in resource_info")
         seen.add(h.hostname)
     return hosts
+
+
+def serialize_resource_info(hosts: Sequence[HostInfo]) -> str:
+    """The env-var form of a parsed resource spec (JSON)."""
+    return json.dumps([h.to_json() for h in hosts])
+
+
+def deserialize_resource_info(serialized: str) -> List[HostInfo]:
+    return [HostInfo.from_json(d) for d in json.loads(serialized)]
+
+
+def is_local_host(hostname: str) -> bool:
+    """True for ``localhost``, a loopback address (all of 127/8) and
+    this machine's own host name. Nothing is resolved."""
+    if hostname == "localhost":
+        return True
+    try:
+        if ipaddress.ip_address(hostname).is_loopback:
+            return True
+    except ValueError:
+        pass
+    return hostname == socket.gethostname()
+
+
+def rank_layout(hosts: Sequence[HostInfo],
+                device_type: str = "cuda") -> List[Tuple[str, int]]:
+    """``[(hostname, chip)]`` by rank: one rank per (host, chip), hosts
+    in the spec's order, chips in their listed order. A host listed
+    without chips takes every visible card (one rank on the CPU).
+    Ranks on hosts other than this one need a remote launcher, which is
+    not ported: such a spec raises ``NotImplementedError``."""
+    remote = [h.hostname for h in hosts if not is_local_host(h.hostname)]
+    if remote:
+        raise NotImplementedError(
+            f"resource_info names remote hosts {remote}: the ssh launcher "
+            f"and elastic restart are not ported; every rank must run on "
+            f"this host")
+    out = []
+    for h in hosts:
+        chips = h.devices
+        if chips is None:
+            n = torch.cuda.device_count() if device_type == "cuda" else 1
+            chips = tuple(range(max(n, 1)))
+        out.extend((h.hostname, int(c)) for c in chips)
+    return out

@@ -1,2 +1,3 @@
-"""The engine of the port: variable specs, the one-card mesh record,
-the dense/sparse classifier, the optimizer chain and the train step."""
+"""The engine of the port: variable specs, the ``('repl', 'shard')``
+mesh over the ranks, the dense/sparse classifier, the optimizer chain
+and the train step."""

@@ -1,12 +1,30 @@
-"""The hybrid parallelization engine, on one card
-(``parallax_tpu/core/engine.py``: ``Model``, ``TrainState``,
-``build_plan`` and ``Engine.init_state`` / ``step`` in sync mode).
+"""The hybrid parallelization engine (``parallax_tpu/core/engine.py``:
+``Model``, ``TrainState``, ``build_plan``, ``Engine.init_state`` /
+``step``, sync and bounded-staleness, ``sparse_wire_bytes_per_step``).
 
-Routing rule (reference: common/runner.py:93-119): a dense variable is
-replicated and its gradient all-reduced; a sparse variable is
-row-sharded and its rows exchanged. On one card both keep the whole
-tensor, but the plan still routes each parameter to its own update
-path, and that is what runs here:
+Routing rule (reference: common/runner.py:93-119), over the mesh of
+core/mesh.py (one rank per card; one rank and no process group on one
+card):
+
+* a replicated variable lives whole on every rank; its gradient is
+  all-reduced over the world group in flat buckets, one collective a
+  bucket, and averaged over the world size;
+* a sparse variable the plan row-shards lives on each rank as its rows
+  over 'shard'; ``embedding_lookup`` moves ids and rows through
+  all-gather and reduce-scatter (ops/embedding.py), and its backward
+  brings each rank the gradient of its own rows from the whole mesh;
+* a dense variable the plan row-shards (SHARD, or HYBRID with
+  ``PSConfig.replicate_variables=False``) is all-gathered for the loss,
+  and its gradient reduce-scattered back onto the shards;
+* run_option AR replicates everything, SHARD row-shards whatever
+  divides the shard axis, HYBRID follows the class;
+  ``Model.param_specs`` overrides by fnmatch (``P()`` or the row spec;
+  tensor-parallel specs are not ported).
+
+Every gradient that crosses ranks is averaged over the world size;
+losses normalised over the batch use ``ops.collectives.global_sum`` so
+that this gives the JAX package's gradients of the global loss. The
+routes per update path:
 
 * the dense group goes through the model's optimizer (for LM1B,
   ``clip_by_global_norm`` then Adagrad, core/optim.py);
@@ -28,7 +46,21 @@ seed and the step counter before the step, the counterpart of
 A stateful model (``Model(stateful=True)``, e.g. BatchNorm statistics)
 carries ``TrainState.model_state`` beside the parameters: the loss
 returns the new state, which is copied over the old after the step; only
-``params`` get gradients (engine.py:636, :719).
+``params`` get gradients (engine.py:636, :719). On more than one rank it
+is refused: the JAX package takes BatchNorm statistics over the global
+batch, and cross-rank BatchNorm is not ported.
+
+``sync=False`` is bounded-staleness delayed-gradient training
+(engine.py:575-677): each step applies the gradients computed
+``Config.staleness`` steps earlier, kept in one pending buffer a
+variable at k = 1 and in a ring of k at k > 1; the first k steps apply
+zeros.
+
+Per-rank state: every rank initialises the whole tree from the same
+generator and keeps its own rows of each row-sharded leaf, with the
+optimizer and slice state of those rows. Every rank seeds the step's
+generator identically, so sampled candidates and dropout masks agree
+across ranks.
 
 Compile-ahead (``parallax_tpu/core/engine.py:345-424, 767-916``): on
 the card each batch signature (``compile.bucketing.batch_signature``)
@@ -42,8 +74,15 @@ declared ``Config.shape_buckets`` bucket, whose signatures are
 registered as expected at build. On the CPU, and inside
 ``compile.disable_capture()``, the step runs eagerly.
 
-``sync=False`` (the delayed-gradient emulation of async PS), the
-numerics observatory and multiple ranks are not ported.
+On the card the collectives are NCCL's and are captured inside the
+step's graph (the capture's eager call runs them first, which sets up
+the communicators; every rank captures in the same order). A declared
+``dedup_capacity`` below the exact bound needs a host read of the
+mesh-uniform overflow flag each step, so such an engine runs its steps
+eagerly (``compile_stats()["step_capture"]`` says so).
+
+Not ported: tensor and pipeline parallelism (``Model.batch_specs``,
+``value_and_grad_fn``, ``pipeline_info``), and the numerics observatory.
 """
 
 from __future__ import annotations
@@ -56,6 +95,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from parallax_tpu_torch.common import consts
 from parallax_tpu_torch.common.config import ParallaxConfig
@@ -66,7 +106,8 @@ from parallax_tpu_torch.core import classify, mesh as mesh_lib, \
     optim, specs as specs_lib
 from parallax_tpu_torch.obs import _state as obs_state
 from parallax_tpu_torch.obs import metrics as obs_metrics, trace
-from parallax_tpu_torch.ops import embedding
+from parallax_tpu_torch.ops import collectives, embedding
+from parallax_tpu_torch.tune import costmodel
 
 REPLICATED = "replicated"
 ROW_SHARDED = "row_sharded"
@@ -94,6 +135,14 @@ class Model:
       A table registered here must be touched only through
       ``embedding_lookup``; the engine refuses one that is not.
       Stateless models only.
+    * ``param_specs``: path pattern (fnmatch) -> ``core.mesh.P`` override
+      of the plan: ``P()`` replicates, ``P('shard', None, ...)``
+      row-shards; any other (tensor-parallel) spec raises at build.
+    * ``batch_specs``, ``value_and_grad_fn``, ``pipeline_info``: kept for
+      the JAX package's signature; not ported (the engine refuses a model
+      that sets one).
+    * A row-sharded table must be read through ``embedding_lookup``: a
+      rank holds only its rows.
     """
 
     def __init__(self, init_fn: Callable, loss_fn: Callable,
@@ -101,7 +150,15 @@ class Model:
                  sparse_params: Sequence[str] = (),
                  dense_params: Sequence[str] = (),
                  stateful: bool = False,
-                 slice_updaters: Optional[Dict[str, Any]] = None):
+                 batch_specs: Optional[Dict[str, Any]] = None,
+                 param_specs: Optional[Dict[str, Any]] = None,
+                 slice_updaters: Optional[Dict[str, Any]] = None,
+                 value_and_grad_fn: Optional[Callable] = None,
+                 pipeline_info: Optional[Dict[str, Any]] = None):
+        self.batch_specs = dict(batch_specs or {})
+        self.param_specs = dict(param_specs or {})
+        self.value_and_grad_fn = value_and_grad_fn
+        self.pipeline_info = dict(pipeline_info) if pipeline_info else None
         self.init_fn = init_fn
         self.loss_fn = loss_fn
         self.optimizer = optimizer or optim.sgd(0.01)
@@ -151,6 +208,9 @@ class TrainState:
     model_state: Any = None
     # sparse_grad_mode="slices" only: {table path: updater state}
     slice_state: Optional[Dict[str, Any]] = None
+    # sync=False only: {path: the pending gradient} (k = 1) or {path:
+    # a ring [k, ...] of them, oldest first} (k > 1)
+    pending_grads: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -164,6 +224,23 @@ class ShardingPlan:
     def describe(self) -> str:
         return specs_lib.summarize(self.var_specs)
 
+    @property
+    def sharded_tables(self) -> List[str]:
+        """Sparse variables the plan row-shards: the collective lookup's
+        tables."""
+        return [p for p, v in self.var_specs.items()
+                if v.is_sparse and self.placements[p] == ROW_SHARDED]
+
+    @property
+    def gathered(self) -> List[str]:
+        """Dense variables the plan row-shards: all-gathered for use."""
+        return [p for p, v in self.var_specs.items()
+                if not v.is_sparse and self.placements[p] == ROW_SHARDED]
+
+    @property
+    def sharded_shapes(self) -> Tuple[Tuple[int, ...], ...]:
+        return tuple(self.var_specs[p].shape for p in self.sharded_tables)
+
 
 def step_seed(seed: int, step: int) -> int:
     """The seed of one step, from the run's seed and the step counter
@@ -176,30 +253,81 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
+def _spec_placement(spec, shape, p: int, path: str) -> Optional[str]:
+    """The placement a ``param_specs`` override asks for: REPLICATED for
+    ``P()``, ROW_SHARDED for the row spec (None when dim 0 does not
+    divide the shard axis); anything else is tensor parallelism."""
+    entries = tuple(spec)
+    if all(e is None for e in entries):
+        return REPLICATED
+    if entries[0] == mesh_lib.AXIS_SHARD \
+            and all(e is None for e in entries[1:]):
+        if len(shape) >= 1 and shape[0] % p == 0:
+            return ROW_SHARDED if p > 1 else REPLICATED
+        parallax_log.warning(
+            "param_specs override for %s: dim 0 (%d) not divisible by "
+            "shard (%d); replicating", path, shape[0] if shape else 0, p)
+        return None
+    raise NotImplementedError(
+        f"param_specs override {spec!r} for {path}: tensor-parallel "
+        f"layouts are not ported (only P() and the row spec "
+        f"P('shard', None, ...) are)")
+
+
 def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
                meta_params, meta_batch, meta_state=None) -> ShardingPlan:
     """Classify variables (one recorded forward on meta tensors) and
-    choose a placement for each (the 'graph transform'). The model
-    state's leaves are inputs of that forward, not variables: they are
-    not classified."""
+    choose a placement for each (the 'graph transform', reference
+    engine.py:204-302). The model state's leaves are inputs of that
+    forward, not variables: they are not classified."""
     var_specs = classify.classify_params(
         model.call_loss, meta_params, meta_batch, torch.Generator(),
         meta_state, sparse_override=model.sparse_params,
         dense_override=model.dense_params)
     p = mesh_lib.num_shards(mesh)
+    replicate_dense = \
+        config.communication_config.ps_config.replicate_variables
 
-    def choose(vs: specs_lib.VariableSpec) -> str:
-        shardable = len(vs.shape) >= 1 and vs.shape[0] % p == 0
+    def choose(path, vs: specs_lib.VariableSpec) -> str:
+        shardable = len(vs.shape) >= 1 and vs.shape[0] % p == 0 and p > 1
         if config.run_option == consts.RUN_AR:
             return REPLICATED
         if config.run_option == consts.RUN_SHARD:
             return ROW_SHARDED if shardable else REPLICATED
-        return ROW_SHARDED if vs.is_sparse and shardable else REPLICATED
+        if vs.is_sparse and shardable:
+            return ROW_SHARDED
+        if vs.is_sparse and p > 1:
+            parallax_log.warning(
+                "sparse variable %s has leading dim %s not divisible by "
+                "shard axis %d; replicating (pad with "
+                "ops.embedding.pad_vocab to shard it)", path,
+                vs.shape[:1], p)
+        if not vs.is_sparse and not replicate_dense and shardable:
+            return ROW_SHARDED
+        return REPLICATED
 
-    placements = {path: choose(vs) for path, vs in var_specs.items()}
+    def with_override(path, vs, placement):
+        for pattern, spec in model.param_specs.items():
+            if fnmatch.fnmatch(path, pattern):
+                return _spec_placement(spec, vs.shape, p, path) \
+                    or placement
+        return placement
+
+    placements = {path: with_override(path, vs, choose(path, vs))
+                  for path, vs in var_specs.items()}
     plan = ShardingPlan(mesh, var_specs, placements)
-    parallax_log.info("sharding plan: %s (run_option=%s, shard axis=%d)",
-                      plan.describe(), config.run_option, p)
+    for path, vs in var_specs.items():
+        if vs.shape in plan.sharded_shapes and not vs.is_sparse:
+            parallax_log.warning(
+                "dense variable %s shares shape %s with a row-sharded "
+                "sparse variable (the JAX package would route its lookups "
+                "through the collective path; here lookups route by "
+                "tensor, so nothing is misrouted)", path, vs.shape)
+    parallax_log.info("sharding plan: %s (run_option=%s, mesh %dx%d, "
+                      "row-sharded %s)", plan.describe(), config.run_option,
+                      mesh.repl, p, sorted(
+                          q for q, pl in placements.items()
+                          if pl == ROW_SHARDED))
     return plan
 
 
@@ -217,10 +345,48 @@ def _to_meta(batch):
 
 def state_tensors(state: "TrainState") -> List[torch.Tensor]:
     """Every tensor a step reads and writes: the parameters, the
-    optimizer, model and slice states."""
+    optimizer, model and slice states, the pending gradients."""
     return [leaf for _, leaf in classify.flatten(
         [state.params, state.opt_state, state.model_state,
-         state.slice_state]) if isinstance(leaf, torch.Tensor)]
+         state.slice_state, state.pending_grads])
+        if isinstance(leaf, torch.Tensor)]
+
+
+def _with_leaves(tree, leaves: Dict[str, Any], prefix: str = ""):
+    """A copy of the nested dict/list ``tree`` with the leaves at the
+    paths of ``leaves`` replaced (the rest shared)."""
+    if isinstance(tree, dict):
+        return {k: _with_leaves(v, leaves, f"{prefix}/{k}" if prefix
+                                else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_leaves(v, leaves, f"{prefix}/{i}" if prefix
+                                       else str(i))
+                          for i, v in enumerate(tree))
+    return leaves.get(prefix, tree)
+
+
+class _ShardReads(TorchFunctionMode):
+    """Records every torch call that reads one of the watched tensors
+    (``{id: path}``) outside the sharded lookup; metadata queries are not
+    reads."""
+
+    def __init__(self, watched: Dict[int, str]):
+        super().__init__()
+        self.watched = watched
+        self.found: Dict[str, set] = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", str(func))
+        if not embedding.in_sharded_lookup() and name != "__get__" \
+                and func not in classify._METADATA:
+            for x in list(args) + list(kwargs.values()):
+                for leaf in (x if isinstance(x, (list, tuple)) else (x,)):
+                    path = self.watched.get(id(leaf)) \
+                        if isinstance(leaf, torch.Tensor) else None
+                    if path is not None:
+                        self.found.setdefault(path, set()).add(name)
+        return func(*args, **kwargs)
 
 
 def _host_tensor(v) -> torch.Tensor:
@@ -230,16 +396,35 @@ def _host_tensor(v) -> torch.Tensor:
 
 
 class Engine:
-    """Owns the plan, the optimizer grouping and the train step for one
-    card."""
+    """Owns the plan, the optimizer grouping and the train step of one
+    rank of the mesh."""
 
     def __init__(self, model: Model, mesh: mesh_lib.Mesh,
                  config: ParallaxConfig, example_batch,
                  metrics: Optional[obs_metrics.MetricsRegistry] = None):
-        if not config.sync:
+        missing = [name for name, v in (
+            ("batch_specs", model.batch_specs),
+            ("value_and_grad_fn", model.value_and_grad_fn),
+            ("pipeline_info", model.pipeline_info)) if v]
+        if missing:
             raise NotImplementedError(
-                "sync=False (bounded-staleness delayed-gradient training) "
-                "is not ported; pass sync=True")
+                f"Model.{', '.join(missing)}: tensor and pipeline "
+                f"parallelism are not ported")
+        if model.stateful and mesh.size > 1:
+            raise NotImplementedError(
+                f"a stateful model on {mesh.size} ranks: cross-rank "
+                f"BatchNorm (statistics over the global batch) is not "
+                f"ported; run it on one rank")
+        if config.sync and int(config.staleness) > 1:
+            raise ValueError(
+                f"staleness={config.staleness} has no effect with "
+                f"sync=True; pass sync=False to parallel_run for "
+                f"bounded-staleness training")
+        if not config.sync:
+            parallax_log.info(
+                "sync=False: bounded-staleness delayed-gradient training "
+                "(each step applies the gradients computed %d step(s) "
+                "earlier)", int(config.staleness))
         self.model = model
         self.mesh = mesh
         self.config = config
@@ -288,14 +473,70 @@ class Engine:
                 meta_batch, self._example_batch_dim, self._buckets))
         self.plan = build_plan(model, mesh, config, meta_params, meta_batch,
                                meta_state)
-        self._slice_resolved = self._resolve_slice_updaters(meta_params,
-                                                            meta_batch)
+        self._row_sharded = [p for p, pl in self.plan.placements.items()
+                             if pl == ROW_SHARDED]
+        self._lookup_records: list = []
+        self._slice_resolved = self._resolve_slice_updaters()
+        self._guarded = self._meta_pass(meta_params, meta_batch) \
+            if self._slice_resolved or self.plan.sharded_tables else []
+        if self._guarded:
+            parallax_log.warning(
+                "dedup_capacity below the exact bound for %s: each step "
+                "reads the mesh-uniform overflow flag on the host, so the "
+                "steps run eagerly (no CUDA graph)", self._guarded)
+        if self._slice_resolved and not config.sync:
+            raise ValueError(
+                "sparse_grad_mode='slices' requires sync=True (the "
+                "delayed-gradient emulation stashes dense gradients)")
         self._dense_paths = [p for p in self.plan.var_specs
                              if p not in self._slice_resolved]
         self.metrics.counter("engine.builds").inc()
 
-    def _resolve_slice_updaters(self, meta_params,
-                                meta_batch) -> Dict[str, Any]:
+    def _lookup_scope(self, flat, records):
+        """The sharded-lookup scope of a step over the leaves ``flat``
+        (this rank's row shards, or meta tensors of whole tables)."""
+        ps = self.config.communication_config.ps_config
+        return embedding.sharded_lookup_scope(
+            self.mesh, [(flat[p], self.plan.var_specs[p].shape, p)
+                        for p in self.plan.sharded_tables],
+            self.config.average_sparse, records,
+            local_aggregation=ps.local_aggregation,
+            dedup_capacity=ps.dedup_capacity,
+            cross_replica_sparse=ps.cross_replica_sparse)
+
+    def _meta_pass(self, meta_params, meta_batch):
+        """One forward on meta tensors under the step's scopes (the
+        reference's abstract discovery pass, engine.py:506-536). Refuses a
+        slice table that no ``embedding_lookup`` reads (a gather other
+        than it would never be captured, so the table never updated) and
+        a row-sharded table that the loss reads other than through
+        ``embedding_lookup`` (a rank holds only its rows). Returns the
+        tables whose lookups a declared ``dedup_capacity`` guards."""
+        flat = dict(classify.flatten(meta_params))
+        cap = embedding.SliceCapture(
+            {id(flat[p]): p for p in self._slice_resolved})
+        reads = _ShardReads({id(flat[p]): p
+                             for p in self.plan.sharded_tables})
+        with torch.no_grad(), embedding.slice_capture_scope(cap), \
+                self._lookup_scope(flat, None) as lctx, reads:
+            self.model.call_loss(meta_params, meta_batch, torch.Generator())
+        missing = set(self._slice_resolved) - {p for p, _, _ in cap.captured}
+        if missing:
+            raise ValueError(
+                f"slice_updaters registered for {sorted(missing)} but no "
+                f"embedding_lookup of those tables was traced; their "
+                f"gradients would be silently lost")
+        if reads.found:
+            raise ValueError(
+                f"row-sharded tables read other than through "
+                f"embedding_lookup: { {p: sorted(f) for p, f in
+                                       sorted(reads.found.items())} }; a "
+                f"rank holds only its rows of each (pass the table itself "
+                f"to embedding_lookup, or Model(dense_params=...) to "
+                f"replicate it)")
+        return sorted(set(lctx.guarded))
+
+    def _resolve_slice_updaters(self) -> Dict[str, Any]:
         """{exact param path: updater} for sparse_grad_mode='slices'."""
         if (self.config.sparse_grad_mode != "slices"
                 or not self.model.slice_updaters):
@@ -325,29 +566,21 @@ class Engine:
                 f"loss uses other than through embedding_lookup "
                 f"({[self.plan.var_specs[p].reason for p in dense]}); "
                 f"their gradients would be lost")
-        # a table read by a gather other than embedding_lookup
-        # (index_select, table[ids], F.embedding) is classified sparse but
-        # never captured, so it would never be updated: one forward on the
-        # meta tensors under a capture finds the tables that are looked up
-        # (the reference's abstract discovery pass, engine.py:506-536)
-        flat = dict(classify.flatten(meta_params))
-        cap = embedding.SliceCapture({id(flat[p]): p for p in resolved})
-        with torch.no_grad(), embedding.slice_capture_scope(cap):
-            self.model.call_loss(meta_params, meta_batch, torch.Generator())
-        missing = set(resolved) - {p for p, _, _ in cap.captured}
-        if missing:
-            raise ValueError(
-                f"slice_updaters registered for {sorted(missing)} but no "
-                f"embedding_lookup of those tables was traced; their "
-                f"gradients would be silently lost")
         parallax_log.info("sparse_grad_mode=slices over %s", sorted(resolved))
         return resolved
 
     # -- state ------------------------------------------------------------
 
     def init_state(self, seed: int = 0) -> TrainState:
+        """The whole tree from the seed's generator (the same on every
+        rank), then this rank's rows of each row-sharded leaf, with the
+        optimizer, slice and pending state of what it keeps."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params, model_state = self.model.call_init(gen, self.device)
+        if self._row_sharded:
+            flat = dict(classify.flatten(params))
+            params = _with_leaves(params, {
+                p: self._own_rows(flat[p]) for p in self._row_sharded})
         flat = dict(classify.flatten(params))
         for path in self._dense_paths:
             flat[path].requires_grad_(True)
@@ -357,9 +590,32 @@ class Engine:
             slice_state = {p: upd.init(flat[p])
                            for p, upd in self._slice_resolved.items()} \
                 or None
+            pending = None
+            if not self.config.sync:
+                k = int(self.config.staleness)
+                pending = {p: torch.zeros(((k,) if k > 1 else ())
+                                          + tuple(flat[p].shape),
+                                          dtype=flat[p].dtype,
+                                          device=self.device)
+                           for p in self._dense_paths}
         return TrainState(step=0, params=params, opt_state=opt_state,
                           seed=seed, model_state=model_state,
-                          slice_state=slice_state)
+                          slice_state=slice_state, pending_grads=pending)
+
+    def _own_rows(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a row-sharded leaf, as its own tensor."""
+        n = whole.shape[0] // self.mesh.shard
+        lo = self.mesh.coords[1] * n
+        return whole[lo:lo + n].detach().clone()
+
+    def gather_params(self, state: TrainState):
+        """The parameter tree with every row-sharded leaf gathered whole
+        (a collective: every rank calls it); the rest as they are."""
+        flat = dict(classify.flatten(state.params))
+        with torch.no_grad():
+            return _with_leaves(state.params, {
+                p: collectives.all_gather(flat[p], self.mesh.shard_group)
+                for p in self._row_sharded})
 
     # -- feeds --------------------------------------------------------------
 
@@ -386,7 +642,7 @@ class Engine:
         if cuda:
             host = {k: (t.pin_memory() if t.device.type == "cpu" else t)
                     for k, t in host.items()}
-        if static and graphs_lib.capture_enabled(self.device):
+        if static and self._captures():
             return self._static_inputs(
                 bucketing.batch_signature(host), host)
         return {k: t.to(self.device, non_blocking=cuda)
@@ -426,7 +682,7 @@ class Engine:
         sig = bucketing.batch_signature(batch)
         self._note_batch_signature(sig)
         with trace.span("engine.step"):
-            if graphs_lib.capture_enabled(self.device):
+            if self._captures():
                 outputs = self._replay(state, sig, batch)
             else:
                 self._reseed(state)
@@ -440,11 +696,22 @@ class Engine:
     def _reseed(self, state: TrainState) -> None:
         self._gen.manual_seed(step_seed(state.seed, state.step))
 
+    def _loss_view(self, state: TrainState, flat):
+        """The parameters the loss reads: row-sharded dense leaves
+        gathered whole (their gradient reduce-scattered back), the rest
+        (row-sharded tables too) as this rank holds them."""
+        gathered = self.plan.gathered
+        if not gathered:
+            return state.params
+        return _with_leaves(state.params, {
+            p: collectives.gather_rows(flat[p], self.mesh)
+            for p in gathered})
+
     def _compute(self, state: TrainState, batch) -> Dict[str, Any]:
         """The step's device work, every state tensor written in place:
-        forward, gradients, the optimizer, the slice updates and the new
-        model state. Returns the loss and metrics (tensors on the
-        device)."""
+        forward, gradients, their combine across ranks, the optimizer,
+        the slice updates and the new model state. Returns the loss and
+        metrics (tensors on the device)."""
         flat = dict(classify.flatten(state.params))
         cap = None
         scope = contextlib.nullcontext()
@@ -452,19 +719,28 @@ class Engine:
             cap = embedding.SliceCapture(
                 {id(flat[p]): p for p in self._slice_resolved})
             scope = embedding.slice_capture_scope(cap)
-        with scope:
+        self._lookup_records = records = []
+        with scope, self._lookup_scope(flat, records):
             loss, metrics, new_model_state = self.model.call_loss(
-                state.params, batch, self._gen, state.model_state)
+                self._loss_view(state, flat), batch, self._gen,
+                state.model_state)
         leaves = [flat[p] for p in self._dense_paths]
         rows = [r for _, _, r in cap.captured] if cap is not None else []
         grads = torch.autograd.grad(loss, leaves + rows, allow_unused=True)
         with torch.no_grad():
             dense = {p: (g if g is not None else torch.zeros_like(flat[p]))
                      for p, g in zip(self._dense_paths, grads)}
-            updates, _ = self.model.optimizer.update(
-                dense, state.opt_state,
-                {p: flat[p] for p in self._dense_paths})
+            self._combine(dense)
+            apply = dense
+            if not self.config.sync:
+                apply = self._delayed(state, dense)
+            with optim.sharded_scope(self._row_sharded, self.mesh):
+                updates, _ = self.model.optimizer.update(
+                    apply, state.opt_state,
+                    {p: flat[p] for p in self._dense_paths})
             optim.apply_updates(flat, updates)
+            if not self.config.sync:
+                self._push_pending(state, dense)
             if cap is not None:
                 self._apply_slices(flat, state, cap.captured,
                                    grads[len(leaves):])
@@ -481,6 +757,41 @@ class Engine:
         outputs.update({k: (v.detach() if isinstance(v, torch.Tensor)
                             else v) for k, v in metrics.items()})
         return outputs
+
+    def _combine(self, dense: Dict[str, torch.Tensor]) -> None:
+        """Average the dense gradients over the ranks, in place:
+        replicated ones all-reduced in flat buckets over the world group
+        (a process group of one rank runs the collective too); row-shard
+        gradients, which their backward already summed over the mesh,
+        scaled alone."""
+        world = self.mesh.world
+        if world is None:
+            return
+        scale = 1.0 / world.size if world.size > 1 else None
+        collectives.flat_all_reduce_(
+            [g for p, g in dense.items()
+             if self.plan.placements[p] == REPLICATED], world, scale)
+        shards = [g for p, g in dense.items()
+                  if self.plan.placements[p] == ROW_SHARDED]
+        if shards and scale is not None:
+            torch._foreach_mul_(shards, scale)
+
+    def _delayed(self, state: TrainState, grads) -> Dict[str, Any]:
+        """The gradients due this step under ``sync=False``: the pending
+        buffer (k = 1) or the ring's oldest slot (k > 1)."""
+        k = int(self.config.staleness)
+        return {p: (b if k == 1 else b[0])
+                for p, b in state.pending_grads.items()}
+
+    def _push_pending(self, state: TrainState, grads) -> None:
+        """This step's gradients into the pending buffer, or onto the
+        ring's newest slot with the rest moved one older."""
+        k = int(self.config.staleness)
+        for p, b in state.pending_grads.items():
+            if k == 1:
+                b.copy_(grads[p])
+            else:
+                b.copy_(torch.cat([b[1:], grads[p][None]]))
 
     def _replay(self, state: TrainState, sig, batch) -> Dict[str, Any]:
         inputs = self._static_inputs(sig, batch)
@@ -549,7 +860,7 @@ class Engine:
         return warmup_lib.aot_warmup(self, state, batch_sizes)
 
     def _captures(self) -> bool:
-        return graphs_lib.capture_enabled(self.device)
+        return graphs_lib.capture_enabled(self.device) and not self._guarded
 
     def _compile(self, state: TrainState, sig) -> None:
         """Warmup's unit of work for one signature: capture it on the
@@ -586,25 +897,69 @@ class Engine:
 
     def _apply_slices(self, flat, state, captured, row_grads):
         """Scatter-only table updates from the captured slices; duplicate
-        ids combine inside the updater."""
+        ids combine inside the updater. On a mesh the step's slices are
+        gathered from every rank (averaged over the world size, as every
+        gradient that crosses ranks is) and each rank updates the rows it
+        holds, its ids shifted to its shard."""
         per_path: Dict[str, list] = {}
         for (path, ids, rows), g in zip(captured, row_grads):
             if g is None:
                 g = torch.zeros_like(rows)
             per_path.setdefault(path, []).append((ids, g))
+        world = self.mesh.world
         for path, items in per_path.items():
-            ids = torch.cat([i.reshape(-1) for i, _ in items])
+            ids = torch.cat([i.reshape(-1).long() for i, _ in items])
             drows = torch.cat([d.reshape(-1, d.shape[-1]) for _, d in items])
+            if world is not None and world.size > 1:
+                ids = collectives.all_gather(ids, world)
+                drows = collectives.all_gather(drows, world) \
+                    * (1.0 / world.size)
+            if self.plan.placements[path] == ROW_SHARDED:
+                ids = ids - self.mesh.coords[1] * flat[path].shape[0]
             self._slice_resolved[path].update(
                 flat[path], state.slice_state[path], ids, drows,
                 average=self.config.average_sparse)
+
+    def sparse_wire_bytes_per_step(self) -> Dict[str, Any]:
+        """Bytes on the wire a step for the sparse path against the dense
+        alternative (BASELINE's "sparse-grad bytes on wire"; reference
+        engine.py:998-1064), from one record per sharded lookup of the
+        last traced step, over ``tune/costmodel.py``'s formulas. Exact but
+        for a guarded ``dedup_capacity``, where it is a lower bound (an
+        overflowing step ships the uncompressed exchange). Mesh totals:
+        every rank reports the same numbers."""
+        if not self._lookup_records and self.plan.sharded_tables:
+            raise RuntimeError(
+                "sparse_wire_bytes_per_step() called before any step "
+                "was traced; run at least one session step first")
+        sparse_bytes = 0
+        per_lookup = []
+        for tshape, n_ids, n_cnt, repl_bytes, sparse_repl, elem in \
+                self._lookup_records:
+            sparse_bytes += costmodel.lookup_wire_bytes(
+                tshape, n_ids, n_cnt, repl_bytes, elem)
+            per_lookup.append({
+                "table_shape": tshape, "ids_on_wire": n_ids,
+                "counts_on_wire": n_cnt, "cross_replica_bytes": repl_bytes,
+                "cross_replica_sparse": sparse_repl, "elem_bytes": elem})
+        dense_bytes = 0
+        for path in self.plan.sharded_tables:
+            vs = self.plan.var_specs[path]
+            e = torch.empty((), dtype=vs.dtype).element_size() \
+                if vs.dtype is not None else 4
+            dense_bytes += costmodel.dense_alternative_bytes(vs.shape, e)
+        return {"sparse_path_bytes": sparse_bytes,
+                "dense_allreduce_bytes": dense_bytes,
+                "per_lookup": per_lookup}
 
     def evaluate(self, state: TrainState, batch, seed: int = 0):
         """The loss and metrics of ``batch`` with no gradient (a held-out
         loss): the forward alone, no update; the model state is read and
         left as it was."""
         gen = step_generator(self.device, seed, 0)
-        with torch.no_grad():
+        flat = dict(classify.flatten(state.params))
+        with torch.no_grad(), self._lookup_scope(flat, None):
             loss, metrics, _ = self.model.call_loss(
-                state.params, batch, gen, state.model_state)
+                self._loss_view(state, flat), batch, gen,
+                state.model_state)
         return loss, metrics

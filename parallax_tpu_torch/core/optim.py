@@ -28,14 +28,45 @@ over lists with ``torch._foreach_*`` (one multi-tensor launch for many
 leaves on the card), in optax's operation order, so each entry is
 rounded as optax rounds it; ``global_norm`` alone sums per-leaf norms
 rather than per-leaf sums of squares.
+
+On a mesh the engine runs the update inside ``sharded_scope``, which
+names the leaves that are a rank's row shard of a larger variable:
+``global_norm`` then adds their squared norms over the 'shard' group,
+so the clip sees the norm of the whole gradient, as the JAX package's
+global arrays do, and ``row_sparse_adagrad`` (ops/sparse_optim.py)
+picks its rows from the whole table.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+# (names of the row-shard leaves, their mesh) of the running update
+_SHARDED: contextvars.ContextVar = contextvars.ContextVar(
+    "parallax_optim_sharded", default=(frozenset(), None))
+
+
+@contextlib.contextmanager
+def sharded_scope(keys, mesh):
+    """Inside, the leaves named by ``keys`` are row shards over
+    ``mesh``'s 'shard' axis (the engine's row-sharded variables)."""
+    token = _SHARDED.set((frozenset(keys), mesh))
+    try:
+        yield
+    finally:
+        _SHARDED.reset(token)
+
+
+def shard_mesh(key):
+    """The mesh leaf ``key`` is a row shard over, or None."""
+    keys, mesh = _SHARDED.get()
+    return mesh if key in keys and mesh is not None \
+        and mesh.shard > 1 else None
 
 
 class GradientTransformation(NamedTuple):
@@ -60,8 +91,17 @@ def global_norm(updates: Dict[str, torch.Tensor]) -> torch.Tensor:
     vals = list(updates.values())
     if not vals:
         return torch.zeros(())
-    norms = torch._foreach_norm(vals)
-    return torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
+    norms = [n.float() for n in torch._foreach_norm(vals)]
+    sharded = [n for k, n in zip(updates, norms) if shard_mesh(k)]
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from parallax_tpu_torch.ops import collectives
+    mesh = shard_mesh(next(k for k in updates if shard_mesh(k)))
+    sq = torch.stack(sharded).square().sum().reshape(1)
+    collectives.all_reduce_(sq, mesh.shard_group)
+    rest = [n for k, n in zip(updates, norms) if not shard_mesh(k)]
+    total = sq[0] + (torch.stack(rest).square().sum() if rest else 0.0)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
@@ -328,6 +368,38 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
             updates, s = tx.update(updates, s, params)
             new_state.append(s)
         return updates, tuple(new_state)
+
+    return GradientTransformation(init, update)
+
+
+def multi_transform(transforms: Dict[str, GradientTransformation],
+                    param_labels) -> GradientTransformation:
+    """optax.multi_transform: each leaf goes through the transformation
+    of its label; ``param_labels`` is a dict ``{path: label}`` or a
+    callable that takes the params (or updates) dict and returns one."""
+
+    def labels(tree):
+        return param_labels(tree) if callable(param_labels) \
+            else param_labels
+
+    def split(tree):
+        lab = labels(tree)
+        return {name: {k: v for k, v in tree.items() if lab[k] == name}
+                for name in transforms}
+
+    def init(params):
+        return {name: transforms[name].init(sub)
+                for name, sub in split(params).items()}
+
+    def update(updates, state, params=None):
+        parts = split(updates)
+        pparts = split(params) if params is not None else {}
+        out = {}
+        for name, sub in parts.items():
+            new, state[name] = transforms[name].update(
+                sub, state[name], pparts.get(name))
+            out.update(new)
+        return {k: out[k] for k in updates}, state
 
     return GradientTransformation(init, update)
 

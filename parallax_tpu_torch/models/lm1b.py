@@ -21,12 +21,18 @@ ops/lstm.py (fp32 carries; the JAX ``"pallas"``); ``"scan"`` is this
 model's own plain cell loop with compute-dtype carries (the JAX
 ``"xla"``). In fp32 the two compute the same function.
 
-Not ported: ``row_sparse_adagrad`` (``max_touched_rows``), training the
-full-softmax model, and the serving adapter.
+In dense mode ``max_touched_rows`` gives the tables ``emb`` and
+``softmax_w`` the scatter-style ``row_sparse_adagrad`` after the clip
+(reference lm1b.py:229-245). The LSTM weights are pinned replicated
+(``param_specs={"lstm/*": P()}``) in every plan, as in the JAX model.
+
+Not ported: training the full-softmax model, and the serving adapter.
 
 Batch contract (reference lm1b_distributed_driver.py:84-96): feeds "x"
 [B, T] int32, "y" [B, T] int32, "w" [B, T] float weights; the "words"
-metric is sum(w).
+metric is sum(w). On several ranks each feeds its share; the loss
+divides by sum(w) over the global batch and "words" is the global sum
+(``ops.collectives.global_sum``), as the JAX loss over the global array.
 """
 
 from __future__ import annotations
@@ -41,10 +47,13 @@ import torch
 from parallax_tpu_torch.common.lib import resolve_device
 from parallax_tpu_torch.core import optim
 from parallax_tpu_torch.core.engine import Model
+from parallax_tpu_torch.core.mesh import replicated_spec
+from parallax_tpu_torch.ops import collectives
 from parallax_tpu_torch.ops import embedding as emb_ops
 from parallax_tpu_torch.ops import lstm as lstm_ops
 from parallax_tpu_torch.ops import sampled_softmax as ss_ops
-from parallax_tpu_torch.ops.sparse_optim import SliceAdagrad
+from parallax_tpu_torch.ops.sparse_optim import (SliceAdagrad,
+                                                  row_sparse_adagrad)
 
 LSTM_IMPLS = ("scan", "kernel")
 
@@ -62,8 +71,8 @@ class LM1BConfig:
     num_partitions: Optional[int] = None  # vocab padding multiple (None: 1)
     compute_dtype: torch.dtype = torch.bfloat16
     table_dtype: torch.dtype = torch.float32
-    # scatter-only Adagrad over a bounded set of touched rows (the JAX
-    # package's row_sparse_adagrad): not ported, must stay None
+    # dense mode: Adagrad of emb and softmax_w over at most this many
+    # touched rows a step (row_sparse_adagrad); None: dense Adagrad
     max_touched_rows: Optional[int] = None
     # "slices": table grads stay (ids, rows) pairs and take SliceAdagrad,
     # outside the clip; needs Config(sparse_grad_mode="slices").
@@ -148,10 +157,6 @@ def build_model(cfg: LM1BConfig, full_softmax: bool = False) -> Model:
         raise NotImplementedError(
             "training the full-softmax LM1B baseline is not ported; "
             "ops.sampled_softmax.full_softmax_loss is")
-    if cfg.max_touched_rows:
-        raise NotImplementedError(
-            "max_touched_rows (row_sparse_adagrad) is not ported; use "
-            "sparse_grad_mode='slices' for scatter-only table updates")
     cdt = cfg.compute_dtype
     P = cfg.proj_dim
 
@@ -183,18 +188,33 @@ def build_model(cfg: LM1BConfig, full_softmax: bool = False) -> Model:
             params["softmax_w"], params["softmax_b"], hidden,
             y.reshape(B * T), gen, cfg.num_samples, cfg.vocab_size)
         wf = w.reshape(B * T).float()
-        total_w = torch.clamp(wf.sum(), min=1e-8)
-        return (losses * wf).sum() / total_w, {"words": wf.sum()}
+        words = collectives.global_sum(wf.sum())
+        total_w = torch.clamp(words, min=1e-8)
+        return collectives.global_sum((losses * wf).sum()) / total_w, \
+            {"words": words}
 
-    tx = optim.chain(optim.clip_by_global_norm(cfg.max_grad_norm),
-                     optim.adagrad(cfg.learning_rate,
-                                   initial_accumulator_value=1.0))
+    pinned = {"lstm/*": replicated_spec()}
+    adagrad = optim.adagrad(cfg.learning_rate, initial_accumulator_value=1.0)
     if cfg.sparse_grad_mode == "slices":
+        tx = optim.chain(optim.clip_by_global_norm(cfg.max_grad_norm),
+                         adagrad)
         sl = SliceAdagrad(cfg.learning_rate, initial_accumulator_value=1.0)
-        return Model(init_fn, loss_fn, optimizer=tx,
+        return Model(init_fn, loss_fn, optimizer=tx, param_specs=pinned,
                      slice_updaters={"emb": sl, "softmax_w": sl,
                                      "softmax_b": sl})
-    return Model(init_fn, loss_fn, optimizer=tx)
+    if cfg.max_touched_rows:
+        # the clip sees the whole gradients, then the tables take the
+        # touched-rows path: dense Adagrad's trajectory
+        tables = {"emb": "table", "softmax_w": "table"}
+        adagrad = optim.multi_transform(
+            {"table": row_sparse_adagrad(cfg.learning_rate,
+                                         cfg.max_touched_rows,
+                                         initial_accumulator_value=1.0),
+             "rest": adagrad},
+            param_labels=lambda params: {k: tables.get(k, "rest")
+                                         for k in params})
+    tx = optim.chain(optim.clip_by_global_norm(cfg.max_grad_norm), adagrad)
+    return Model(init_fn, loss_fn, optimizer=tx, param_specs=pinned)
 
 
 def make_batch(rng: np.random.Generator, batch_size: int, num_steps: int,

@@ -61,6 +61,7 @@ import torch
 from parallax_tpu_torch.common.lib import resolve_device
 from parallax_tpu_torch.core import optim
 from parallax_tpu_torch.core.engine import Model
+from parallax_tpu_torch.ops import collectives
 from parallax_tpu_torch.ops import embedding as emb_ops
 from parallax_tpu_torch.ops import flash_attention as fa_ops
 from parallax_tpu_torch.ops import paged_attention as pa_ops
@@ -475,8 +476,11 @@ def build_model(cfg: NMTConfig) -> Model:
         nll = _label_smoothed_nll(cfg, logits,
                                   tgt_out.reshape(B * Tt).long())
         wf = w.reshape(B * Tt).float()
-        total_w = torch.clamp(wf.sum(), min=1e-8)
-        return (nll * wf).sum() / total_w, {"words": wf.sum()}
+        # over the global batch on several ranks (ops/collectives.py)
+        words = collectives.global_sum(wf.sum())
+        total_w = torch.clamp(words, min=1e-8)
+        return collectives.global_sum((nll * wf).sum()) / total_w, \
+            {"words": words}
 
     sched = optim.join_schedules(
         [optim.linear_schedule(0.0, cfg.learning_rate, cfg.warmup_steps),

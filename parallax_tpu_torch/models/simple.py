@@ -15,6 +15,7 @@ import torch
 
 from parallax_tpu_torch.core import optim
 from parallax_tpu_torch.core.engine import Model
+from parallax_tpu_torch.ops import collectives
 
 
 def build_model(learning_rate: float = 0.01) -> Model:
@@ -26,7 +27,8 @@ def build_model(learning_rate: float = 0.01) -> Model:
 
     def loss_fn(params, batch):
         pred = params["w"] * batch["x"] + params["b"]
-        loss = torch.mean((pred - batch["y"]) ** 2)
+        # the mean over the global batch on several ranks
+        loss = collectives.global_mean((pred - batch["y"]) ** 2)
         # copies: the engine updates the parameters in place, and a fetch
         # is read after the step; the JAX metric is the value before it
         return loss, {"w": params["w"][0].clone(),

@@ -4,10 +4,18 @@
 ``run(fetches, feed_dict)`` executes one train step and returns the
 requested named outputs. Feed contract (reference
 session_context.py:205-233): each feed value is one array covering the
-whole local batch, or a list of ``num_replicas_per_worker`` per-replica
-arrays, concatenated on dim 0. Fetch contract: names among
-{"loss", "global_step"} and the model's metric names; a single name
-returns one value, a list returns a list, None returns a dict.
+whole local batch, or a list of ``num_replicas_per_worker`` (one)
+per-replica arrays, concatenated on dim 0. On several ranks each rank
+feeds its own share of the global batch, rank ``r * shard + s`` the
+share of the JAX mesh's device ``(r, s)`` (the JAX multi-process
+contract, engine.py:844-860); every rank must run every step. Fetch
+contract: names among {"loss", "global_step"} and the model's metric
+names; a single name returns one value, a list returns a list, None
+returns a dict. A model whose loss and metrics reduce over the batch
+with ``ops.collectives.global_sum`` (the ported models) fetches the
+global values, the same on every rank. ``gather_params()`` reads the
+parameters with every row-sharded leaf whole (the counterpart of
+``np.asarray(sess.state.params[...])``).
 
 Fetches are lazy: ``run()`` returns ``Fetch`` handles whose value stays
 on the card until first read, so the host does not wait for a step
@@ -25,7 +33,8 @@ reads.
 
 Ported: ``run``, ``run_iter``, ``Fetch``, ``state`` (with its ``model_state``
 for a stateful model), ``engine``, ``evaluate``, ``warmup``,
-``compile_stats``, ``close`` and ``metrics_snapshot``. The rest of the
+``compile_stats``, ``gather_params``, ``sparse_wire_bytes_per_step``,
+``close`` and ``metrics_snapshot``. The rest of the
 JAX session (checkpoints, profiling hooks, recovery, health and anomaly
 monitors, the partition search, serving handoff) is not.
 """
@@ -168,14 +177,14 @@ def materialize(value):
 
 
 class ParallaxSession:
-    """One model trained on one card. Built by ``parallel_run``; the
-    engine (plan, optimizer grouping, step) is built from the first
-    batch."""
+    """One rank's share of training a model. Built by ``parallel_run``;
+    the mesh is built with the session (every rank together), the
+    engine (plan, optimizer grouping, step) from the first batch."""
 
     def __init__(self, model: engine_lib.Model, config: ParallaxConfig,
                  num_workers: int = 1, worker_id: int = 0,
                  num_replicas_per_worker: int = 1, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", num_partitions: Optional[int] = None):
         self._model = model
         self._config = config
         self.num_workers = num_workers
@@ -183,6 +192,8 @@ class ParallaxSession:
         self.num_replicas_per_worker = num_replicas_per_worker
         self._seed = int(seed)
         self._device = resolve_device(device)
+        self.mesh = mesh_lib.build_mesh(self._device,
+                                        num_partitions=num_partitions)
         self.metrics = MetricsRegistry()
         self._steps = self.metrics.counter("session.steps")
         self._step_ms = self.metrics.histogram("session.dispatch_ms")
@@ -243,13 +254,13 @@ class ParallaxSession:
         example = self._bucketed_example(example_batch)
         cfg = self._config
         key = (cfg.run_option, cfg.sync, cfg.sparse_grad_mode,
-               cfg.average_sparse,
+               cfg.average_sparse, self.mesh.repl, self.mesh.shard,
                bucketing.batch_signature(engine_lib._to_meta(example)))
         engine = self._engine_cache.get(key)
         if engine is None:
             engine = engine_lib.Engine(
-                self._model, mesh_lib.build_mesh(self._device), cfg,
-                example_batch, metrics=self.metrics)
+                self._model, self.mesh, cfg, example_batch,
+                metrics=self.metrics)
             self._engine_cache.put(key, engine)
         self._engine = engine
         if self._state is None:
@@ -379,9 +390,12 @@ class ParallaxSession:
         """JSON-ready compile/caching report, with the JAX session's keys:
         declared bucket sizes, per-bucket warmup seconds, and the
         executable (captured graph) and engine cache hit and miss
-        counters."""
+        counters. An engine whose steps run eagerly because a declared
+        ``dedup_capacity`` guards a lookup adds ``eager_steps``, which
+        says why (the JAX package has no such case: its guard is a
+        ``lax.cond`` inside the compiled step)."""
         eng = self._engine
-        return {
+        stats = {
             "shape_buckets": (list(eng._buckets)
                               if eng is not None and eng._buckets
                               else None),
@@ -402,6 +416,27 @@ class ParallaxSession:
                     "session.engine_cache.misses").value,
             },
         }
+        if eng is not None and eng._guarded:
+            stats["eager_steps"] = (
+                f"dedup_capacity guards the lookups of {eng._guarded}: "
+                f"each step reads the overflow flag on the host")
+        return stats
+
+    def gather_params(self):
+        """The parameter tree with every row-sharded leaf gathered whole,
+        on this rank's device (a collective: every rank calls it)."""
+        if self._engine is None:
+            raise ValueError("gather_params needs a built engine: run a "
+                             "step or prepare(example_feed) first")
+        return self._engine.gather_params(self._state)
+
+    def sparse_wire_bytes_per_step(self) -> Dict[str, Any]:
+        """The engine's wire-byte accounting of the last traced step
+        (``Engine.sparse_wire_bytes_per_step``)."""
+        if self._engine is None:
+            raise RuntimeError("sparse_wire_bytes_per_step() called before "
+                               "any step was traced; run a step first")
+        return self._engine.sparse_wire_bytes_per_step()
 
     @property
     def state(self) -> Optional[engine_lib.TrainState]:

@@ -11,6 +11,9 @@ tree unchanged. ``params_from_jax`` turns the JAX NMT parameter tree (``emb``, `
 numpy arrays, into the port's tree of fp32 tensors. The layout is kept
 as it is — ``[in, out]`` weights applied as ``x @ w`` — so nothing is
 transposed and each tensor is the JAX leaf of the same path.
+
+``rank_shard`` cuts any of those whole trees down to what one rank of a
+mesh holds: its rows of each leaf the engine's plan row-shards.
 """
 
 from __future__ import annotations
@@ -146,3 +149,14 @@ def cnn_params_from_jax(np_variables, name, num_classes: int,
         raise ValueError(f"{who}: JAX leaves the port's {name!r} does not "
                          f"have: {sorted(given)}")
     return params, ({"batch_stats": stats} if want_stats else None)
+
+
+def rank_shard(params, engine):
+    """``params`` (a whole tree of tensors in the port's layout, e.g. from
+    one of the functions above) as ``engine``'s rank holds it: the rank's
+    rows of every leaf the plan row-shards, every other leaf as it is.
+    Copy the result into ``sess.state.params`` leaf by leaf."""
+    from parallax_tpu_torch.core.engine import _with_leaves
+    flat = dict(flatten(params))
+    return _with_leaves(params, {p: engine._own_rows(flat[p])
+                                 for p in engine._row_sharded})

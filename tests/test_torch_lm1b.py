@@ -301,7 +301,12 @@ def test_params_from_jax_and_padding_match():
 def test_config_validation():
     with pytest.raises(ValueError, match="lstm_impl"):
         tlm1b.LM1BConfig(lstm_impl="pallas")
-    with pytest.raises(NotImplementedError, match="row_sparse_adagrad"):
-        tlm1b.build_model(tlm1b.tiny_config(max_touched_rows=128))
+    # max_touched_rows builds: row_sparse_adagrad for the two tables
+    model = tlm1b.build_model(tlm1b.tiny_config(max_touched_rows=128))
+    state = model.optimizer.init({"emb": torch.zeros(4, 2),
+                                  "softmax_w": torch.zeros(4, 2),
+                                  "lstm/w": torch.zeros(3)})
+    assert sorted(state[1]) == ["rest", "table"]
+    assert sorted(state[1]["table"].sum_of_squares) == ["emb", "softmax_w"]
     with pytest.raises(NotImplementedError, match="full-softmax"):
         tlm1b.build_model(tlm1b.tiny_config(), full_softmax=True)

@@ -174,8 +174,11 @@ def test_three_session_steps_match_jax(jax_session, pallas):
     assert rest == [1, 0, 1]
     assert tsess.prepare(batches[0]) == 0
     plan = tsess.engine.plan
-    assert plan.placements["emb"] == "row_sharded"
-    assert plan.placements["pos"] == "replicated"
+    # one rank, one shard: the sparse table stays whole (build_plan
+    # row-shards only over a shard axis wider than 1, as the JAX plan)
+    assert plan.var_specs["emb"].is_sparse
+    assert not plan.var_specs["pos"].is_sparse
+    assert plan.placements["emb"] == plan.placements["pos"] == "replicated"
     carried = dict(tclassify.flatten(params_from_jax(jinit, tcfg, "cpu")))
     with torch.no_grad():
         for path, leaf in tclassify.flatten(tsess.state.params):

@@ -11,6 +11,8 @@ keep_prob is 1, so no other randomness enters. Per-step losses and the
 final parameters agree to 1e-4 relative.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,7 +134,9 @@ def test_plan_routes_tables_to_slices_and_lstm_to_the_optimizer():
     eng = sess.engine
     assert {p for p, s in eng.plan.var_specs.items() if s.is_sparse} == \
         {"emb", "softmax_w", "softmax_b"}
-    assert eng.plan.placements["emb"] == "row_sharded"
+    # one rank, one shard: the tables stay whole (build_plan row-shards
+    # only over a shard axis wider than 1, as the JAX plan)
+    assert eng.plan.placements["emb"] == "replicated"
     assert eng.plan.placements["lstm/w"] == "replicated"
     assert sorted(sess.state.slice_state) == ["emb", "softmax_b",
                                               "softmax_w"]
@@ -190,13 +194,33 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported():
             tparallax.parallel_run(model)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tlm1b.init_params(tlm1b.tiny_config(), torch.Generator())
-    with pytest.raises(NotImplementedError, match="sync=False"):
-        tparallax.parallel_run(model, sync=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="2 hosts"):
+    # remote hosts need the ssh launcher, which is not ported
+    with pytest.raises(NotImplementedError, match="remote hosts"):
         tparallax.parallel_run(model, resource_info="a:0;b:0",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="num_partitions"):
-        tparallax.parallel_run(model, num_partitions=4, device="cpu")
+    # sync=False and num_partitions run (one process: one rank, so the
+    # partition count snaps to 1)
+    batch = tlm1b.make_batch(np.random.default_rng(0), 4, 3, 1000)
+    for kw in (dict(sync=False), dict(num_partitions=4)):
+        sess, *rest = tparallax.parallel_run(
+            tlm1b.build_model(tlm1b.tiny_config()), device="cpu", **kw)
+        assert rest == [1, 0, 1]
+        assert math.isfinite(float(sess.run("loss", feed_dict=batch)))
+        assert sess.mesh.shape == {"repl": 1, "shard": 1}
+        sess.close()
+    # a stateful model on more than one rank, and tensor-parallel specs
+    from parallax_tpu_torch.core import engine as tengine, mesh as tmesh
+    two = tmesh.Mesh(torch.device("cpu"), repl=2, shard=1)
+    with pytest.raises(NotImplementedError, match="cross-rank BatchNorm"):
+        tengine.Engine(tparallax.cnn.build_model("resnet50_v1.5",
+                                                 image_size=32), two,
+                       tparallax.Config(run_option="AR"),
+                       tparallax.cnn.make_batch(
+                           np.random.default_rng(0), 2, 32, 1000))
+    tp = tlm1b.build_model(tlm1b.tiny_config())
+    tp.param_specs["emb"] = tmesh.P(None, "shard")
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        tparallax.parallel_run(tp, device="cpu")[0].prepare(batch)
     with pytest.raises(ValueError, match="sparse_grad_mode"):
         tparallax.Config(sparse_grad_mode="Slices")
     assert tparallax.Config(run_option="ps").run_option == "SHARD"

@@ -1,0 +1,250 @@
+"""Rank bodies for ``tests/test_torch_dist.py``.
+
+Each function here runs in one spawned rank of a gloo process group
+(``run_rank``) and returns a picklable result; the test process holds
+the results against the JAX package. This module imports torch and the
+port only, never JAX: the ranks are the port alone.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+
+import numpy as np
+import torch
+
+TIMEOUT_S = 60
+
+
+def run_rank(rank, world, store, fn_name, kwargs, out_dir):
+    """Join the group through a FileStore, run ``fn_name``, write the
+    result to ``out_dir/rank<rank>.pkl``."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    torch.set_num_threads(1)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        out = globals()[fn_name](rank, world, **kwargs)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _flat_np(tree):
+    from parallax_tpu_torch.core.classify import flatten
+    return {p: _np(t) for p, t in flatten(tree)}
+
+
+# -- (a) the sharded lookup ---------------------------------------------------
+
+
+def lookup(rank, world, shapes, table, cases):
+    """For each mesh shape, each case: (name, kw, [(ids, cot)]): forward
+    rows and the table shard's gradient of sum(rows * cot), per
+    lookup."""
+    return {tuple(shape): _lookup(rank, world, shape, table, cases)
+            for shape in shapes}
+
+
+def _lookup(rank, world, shape, table, cases):
+    from parallax_tpu_torch.core import mesh as mesh_lib
+    from parallax_tpu_torch.ops import embedding
+
+    mesh = mesh_lib.build_mesh("cpu", shape=shape)
+    r, s = mesh.coords
+    V = table.shape[0]
+    rows_here = V // mesh.shard
+    out = {"coords": (r, s)}
+    for name, kw, steps in cases:
+        res = []
+        for ids, cot in steps:
+            n = ids.shape[0] // world
+            shard = torch.tensor(table[s * rows_here:(s + 1) * rows_here],
+                                 requires_grad=True)
+            ids_l = torch.from_numpy(ids[rank * n:(rank + 1) * n])
+            cot_l = torch.from_numpy(cot[rank * n:(rank + 1) * n])
+            records = []
+            with embedding.sharded_lookup_scope(
+                    mesh, [(shard, table.shape, "emb")], records=records,
+                    **kw) as ctx:
+                rows = embedding.embedding_lookup(shard, ids_l)
+            (rows * cot_l).sum().backward()
+            res.append({"rows": _np(rows), "grad": _np(shard.grad),
+                        "guarded": list(ctx.guarded),
+                        "records": records})
+        out[name] = res
+    return out
+
+
+# -- the toy model of tests/test_hybrid_e2e.py --------------------------------
+
+
+def toy_model(lr=0.1):
+    """``_make_model`` of tests/test_hybrid_e2e.py in the port; the loss
+    and metric are global means."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.core import optim
+    from parallax_tpu_torch.ops import collectives, embedding
+
+    V, D, H = 32, 8, 4
+
+    def init_fn(gen, device):
+        return {"emb": torch.randn((V, D), generator=gen, device=device),
+                "proj": {"w": torch.randn((D, H), generator=gen,
+                                          device=device)}}
+
+    def loss_fn(params, batch):
+        rows = embedding.embedding_lookup(params["emb"], batch["ids"])
+        h = rows @ params["proj"]["w"]
+        loss = collectives.global_mean((h - batch["y"]) ** 2)
+        return loss, {"h_norm": collectives.global_mean(h ** 2)}
+
+    return pt.Model(init_fn, loss_fn, optimizer=optim.sgd(lr))
+
+
+def _to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v) for v in tree)
+    return torch.from_numpy(np.array(tree, dtype=np.float32))
+
+
+def _load(sess, init, example):
+    """Copy the whole JAX tree ``init`` (numpy leaves, the port's layout)
+    into the session's state as this rank holds it."""
+    from parallax_tpu_torch import weights
+    from parallax_tpu_torch.core.classify import flatten
+    sess.prepare(example)
+    mine = dict(flatten(weights.rank_shard(_to_torch(init), sess.engine)))
+    with torch.no_grad():
+        for path, leaf in flatten(sess.state.params):
+            leaf.copy_(mine[path])
+
+
+def _share(batch, rank, world):
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0] // world
+        out[k] = v[rank * n:(rank + 1) * n]
+    return out
+
+
+def toy(rank, world, runs, init, batches):
+    """Each run: (name, Config kwargs, parallel_run kwargs); the
+    losses, metrics, the whole parameters after the steps, the plan and
+    the wire bytes."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.common.config import PSConfig
+
+    out = {}
+    for name, cfg_kw, run_kw in runs:
+        cfg_kw = dict(cfg_kw)
+        ps = cfg_kw.pop("ps", None)
+        config = pt.Config(**cfg_kw)
+        if ps:
+            config.communication_config.ps_config = PSConfig(**ps)
+        sess, n_workers, worker_id, n_rep = pt.parallel_run(
+            toy_model(), parallax_config=config, device="cpu", **run_kw)
+        _load(sess, init, _share(batches[0], rank, world))
+        losses, norms = [], []
+        for b in batches:
+            loss, h_norm = sess.run(["loss", "h_norm"],
+                                    feed_dict=_share(b, rank, world))
+            losses.append(float(loss))
+            norms.append(float(h_norm))
+        out[name] = {
+            "returned": (n_workers, worker_id, n_rep),
+            "mesh": (sess.mesh.repl, sess.mesh.shard, sess.mesh.coords,
+                     sess.mesh.shard_group.ranks,
+                     sess.mesh.repl_group.ranks),
+            "losses": losses, "h_norm": norms,
+            "params": _flat_np(sess.gather_params()),
+            "local_shapes": {p: tuple(v.shape) for p, v in
+                             _flat_np(sess.state.params).items()},
+            "placements": dict(sess.engine.plan.placements),
+            "eager_steps": sess.compile_stats().get("eager_steps"),
+            "wire": sess.sparse_wire_bytes_per_step()}
+        sess.close()
+    return out
+
+
+# -- LM1B and NMT ------------------------------------------------------------
+
+
+def _fake_candidates(ids_list):
+    """Hand the JAX session's sampled-softmax candidates to the port, one
+    list a step (the meta passes of the build draw none)."""
+    from parallax_tpu_torch.ops import sampled_softmax
+    it = iter(ids_list)
+
+    def fake(gen, num_samples, vocab_size, device=None):
+        if torch.device(device).type == "meta":
+            return torch.zeros((num_samples,), dtype=torch.long,
+                               device="meta")
+        return torch.tensor(next(it), dtype=torch.long, device=device)
+
+    sampled_softmax.log_uniform_candidates = fake
+
+
+def lm1b(rank, world, cfg_kw, config_kw, shape, init, batches, candidates):
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import lm1b as tlm1b
+    from parallax_tpu_torch.ops import sparse_optim
+
+    _fake_candidates(candidates)
+    cfg = tlm1b.tiny_config(compute_dtype=torch.float32, lstm_impl="kernel",
+                            **cfg_kw)
+    sess, *_ = pt.parallel_run(
+        tlm1b.build_model(cfg), parallax_config=pt.Config(**config_kw),
+        device="cpu", num_partitions=shape[1])
+    _load(sess, init, _share(batches[0], rank, world))
+    out = [sess.run(["loss", "words"], feed_dict=_share(b, rank, world))
+           for b in batches]
+    res = {"losses": [float(o[0]) for o in out],
+           "words": [float(o[1]) for o in out],
+           "local_words": [float(_share(b, rank, world)["w"].sum())
+                           for b in batches],
+           "mesh": (sess.mesh.repl, sess.mesh.shard),
+           "placements": dict(sess.engine.plan.placements),
+           "params": _flat_np(sess.gather_params()),
+           "overflow": sparse_optim.collect_overflow_steps(
+               sess.state.opt_state),
+           "wire": sess.sparse_wire_bytes_per_step()}
+    sess.close()
+    return res
+
+
+def nmt(rank, world, cfg_kw, init, batches):
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch import weights
+    from parallax_tpu_torch.core.classify import flatten
+    from parallax_tpu_torch.models import nmt as tnmt
+    from parallax_tpu_torch.weights import params_from_jax
+
+    cfg = tnmt.tiny_config(compute_dtype=torch.float32, **cfg_kw)
+    sess, *_ = pt.parallel_run(
+        tnmt.build_model(cfg),
+        parallax_config=pt.Config(run_option="HYBRID"), device="cpu")
+    sess.prepare(_share(batches[0], rank, world))
+    mine = dict(flatten(weights.rank_shard(
+        params_from_jax(init, cfg, "cpu"), sess.engine)))
+    with torch.no_grad():
+        for path, leaf in flatten(sess.state.params):
+            leaf.copy_(mine[path])
+    out = [sess.run(["loss", "words"], feed_dict=_share(b, rank, world))
+           for b in batches]
+    res = {"losses": [float(o[0]) for o in out],
+           "words": [float(o[1]) for o in out],
+           "placements": dict(sess.engine.plan.placements),
+           "params": _flat_np(sess.gather_params())}
+    sess.close()
+    return res
