@@ -26,7 +26,9 @@ beside it. Phases:
    bound from the H100 SXM data sheet and, for the flash kernels, the
    achieved TF/s (operations over device time). bf16 flash forward, dq
    and dk/dv run the sm90 kernels (TMA + wgmma), fp32 the first kernels;
-   the T 2048 cases (B 2, H 8, hd 64, causal and not) run in bf16 only.
+   the T 2048 cases (B 2, H 8, hd 64, causal and not) and BERT-large's
+   attention (``bert``: B 32, T 512, H 16, hd 64, a padding mask whose
+   lengths are drawn in [384, 512]) run in bf16 only.
    The paged kernel (split-KV, ``paged_decode_kernel_sm90`` and, where
    its ``split_plan`` splits the positions, ``paged_combine_kernel``)
    runs at the serving shape and ``FLAGSHIP_DECODE`` (G 1 and 3,
@@ -130,6 +132,25 @@ beside it. Phases:
     (TF32 off) and in float64: loss, every gradient and the new
     statistics, at ``RESNET_AGREE``'s tolerances.
 
+12b. ``bert-train``: BERT-large pretraining (MLM + NSP) at its
+    published widths (``BertConfig(use_pallas_attention=True)``: vocab
+    30522, hidden 1024, 16 heads, MLP 4096, 24 layers, bf16 compute, fp32
+    parameters) through ``parallel_run(..., Config(run_option=
+    "HYBRID"))``, random weights from seed 0, batches of 32 x 512 from
+    ``make_batch`` with 80 masked positions a row, each row padded (id 0)
+    after a length drawn in [384, 512] and its masked positions there
+    weighted 0: ``sess.warmup`` captures the step, then 10 timed steps:
+    sequences/s, step ms p50 and p95, peak memory, the model FLOPs
+    (counted from the shapes) as a share of 989 TF/s; B4, B5 and B6 must
+    launch 24 times a step each and every loss must be finite. Then 3
+    steps under the profiler: busy ms a step, the idle share, busy by
+    group (the flash kernels, the fp32 head products, the bf16 GEMMs,
+    the optimizer, reductions, elementwise passes) and the top kernels.
+12c. ``bert-agree``: 3 steps of the same BERT-large (batch 8 x 512)
+    from one init, eagerly, through the flash kernels and through the
+    plain attention core: losses within 2e-3 relative
+    (``tests/test_bert.py:55``'s tolerance).
+
 13. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
     eagerly (``compile.disable_capture()``) and 5 as graph replays from
     fresh sessions of one seed on the same batches: losses and the final
@@ -151,7 +172,8 @@ Every phase's seconds are printed (``[phase-seconds]``).
 Phase 2 also holds the flash backward (B5 dq, B6 dk/dv) against its
 plain versions at the three training attentions, at T 512 (causal and
 not), hd 128, a ragged Tq 100 / Tk 37, a batch that sees no key (exact
-zero gradients), an lse cotangent and, in bf16 only, T 2048, in fp32
+zero gradients), an lse cotangent and, in bf16 only, T 2048 and
+BERT-large's attention, in fp32
 (atol 2e-5 of max(1, peak)) and bf16; each timed beside the plain
 version, the bound, its achieved TF/s and
 ``scaled_dot_product_attention``'s backward (its forward plus backward
@@ -387,12 +409,15 @@ def flash_cases():
             ("train_enc", 64, 64, 8, 64, False, "pad"),
             ("train_dec", 64, 64, 8, 64, True, None),
             ("t2048", 2, 2048, 8, 64, False, None),
-            ("t2048_causal", 2, 2048, 8, 64, True, None)]
+            ("t2048_causal", 2, 2048, 8, 64, True, None),
+            ("bert", 32, 512, 16, 64, False, "bert")]
 
 
 # bf16 only: the long sequences where the sm90 kernels' ring reaches its
-# steady state (fp32 stays on the first kernels, measured at T 512)
-BF16_ONLY = ("t2048", "t2048_causal")
+# steady state (fp32 stays on the first kernels, measured at T 512), and
+# BERT-large's attention as bert-train runs it (B 32, T 512, 16 heads of
+# 64, the WordPiece padding mask)
+BF16_ONLY = ("t2048", "t2048_causal", "bert")
 
 
 def flash_kernel_name(kernel, dtype_name):
@@ -411,15 +436,16 @@ def tflops(r):
 def make_mask(torch, kind, B, Tk):
     """kv_mask [B, Tk] int32: "tail" pads batch 0 after 40 tokens, "row"
     also masks every key of batch 1; "pad" gives each row a length drawn
-    in [16, Tk] (numpy seed 0), "zero" also masks every key of batch 1."""
+    in [16, Tk] (numpy seed 0), "bert" one in [384, Tk] as bert-train's
+    batches, "zero" also masks every key of batch 1."""
     if kind is None:
         return None
     if kind in ("tail", "row"):
         mask = torch.ones((B, Tk), dtype=torch.int32, device=DEVICE)
         mask[0, 40:] = 0              # a padded source of 40 tokens
     else:
-        lengths = np.random.default_rng(SEED).integers(min(16, Tk), Tk + 1,
-                                                       B)
+        low = BERT_TRAIN["min_len"] if kind == "bert" else min(16, Tk)
+        lengths = np.random.default_rng(SEED).integers(low, Tk + 1, B)
         mask = (torch.arange(Tk, device=DEVICE)[None, :] < torch.as_tensor(
             lengths, device=DEVICE)[:, None]).to(torch.int32)
     if kind in ("row", "zero"):
@@ -705,7 +731,8 @@ def flash_bwd_cases():
             ("zero_mask", 4, 64, 64, 8, 64, False, "zero", False),
             ("lse_cotangent", 8, 128, 128, 8, 64, True, None, True),
             ("t2048", 2, 2048, 2048, 8, 64, False, None, False),
-            ("t2048_causal", 2, 2048, 2048, 8, 64, True, None, False)]
+            ("t2048_causal", 2, 2048, 2048, 8, 64, True, None, False),
+            ("bert", 32, 512, 512, 16, 64, False, "bert", False)]
 
 
 def grad_compare(torch, got, want, dtype):
@@ -1923,6 +1950,242 @@ def phase_nmt_train_agreement(torch):
     return summary
 
 
+# -- bert-train and bert-agree: BERT-large pretraining ------------------------
+
+# BERT-large at its published widths (BertConfig(): vocab 30522, hidden
+# 1024, 16 heads of 64, MLP 4096, 24 layers, max_len 512), batches of
+# 32 x 512 with 80 masked positions a row (BERT's max_predictions_per_seq
+# at length 512), each row padded after a length drawn in [384, 512]
+# (numpy seed 0) and its masked positions in the padding weighted 0; the
+# step's graph captured by sess.warmup, then 10 timed steps
+BERT_TRAIN = dict(batch=32, seq=512, masked=80, min_len=384, steps=10,
+                  profile_steps=3, agree_batch=8, agree_steps=3,
+                  agree_tol=2e-3)
+# busy-time groups of the BERT step, by kernel name (first match wins):
+# cuBLAS names its fp32 kernels sgemm / nvjet_s* / *f32f32_f32f32*
+BERT_GROUPS = (
+    ("flash B4-B6", r"flash_\w*kernel"),
+    ("fp32 GEMMs (MLM and NSP heads)",
+     r"(?i)sgemm|nvjet_s|f32f32_f32f32|gemm_f32"),
+    ("bf16 GEMMs", r"(?i)gemm|nvjet|xmma|cutlass|cublas"),
+    ("optimizer (multi-tensor)", r"(?i)multi_tensor|foreach"),
+    ("reductions (LayerNorm statistics, sums)", r"(?i)reduce"),
+    ("softmax", r"(?i)softmax"),
+    ("elementwise (LayerNorm, GELU, residuals, casts)",
+     r"(?i)elementwise|vectorized|unrolled"),
+    ("copies and fills", r"(?i)copy|memcpy|memset|fill|cat"),
+)
+
+
+def bert_session(torch, **cfg_kw):
+    """BertConfig() through parallel_run HYBRID on the card, seed 0."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import bert
+    cfg = bert.BertConfig(num_partitions=1, **cfg_kw)
+    sess, *_ = pt.parallel_run(
+        bert.build_model(cfg), parallax_config=pt.Config(run_option="HYBRID"),
+        seed=SEED, device=DEVICE)
+    return cfg, sess
+
+
+def bert_batches(cfg, batch, n=4):
+    """``n`` ``make_batch`` batches, each row padded after a length in
+    [min_len, seq], its masked positions in the padding weighted 0."""
+    from parallax_tpu_torch.models import bert
+    rng = np.random.default_rng(SEED)
+    out = []
+    for _ in range(n):
+        b = bert.make_batch(rng, batch, BERT_TRAIN["seq"],
+                            BERT_TRAIN["masked"], cfg.vocab_size)
+        lengths = rng.integers(BERT_TRAIN["min_len"], BERT_TRAIN["seq"] + 1,
+                               batch)
+        for i, n_i in enumerate(lengths):
+            b["input_ids"][i, n_i:] = 0
+        b["mask_weights"] = (b["mask_positions"]
+                             < lengths[:, None]).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def bert_model_flops(cfg, batch):
+    """Model FLOPs of one training step (forward x 3), counted dense from
+    the shapes: the blocks' bf16 products (q/k/v, output, MLP, and the
+    attention's two T x T products over every position, padding
+    included), and the fp32 heads (MLM at the masked positions: dense and
+    the [D, V] output; NSP)."""
+    D, M, V, L = cfg.hidden_dim, cfg.mlp_dim, cfg.padded_vocab, \
+        cfg.num_layers
+    T, masked = BERT_TRAIN["seq"], BERT_TRAIN["masked"]
+    tokens = batch * T
+    block = (2 * tokens * D * 3 * D + 2 * tokens * D * D
+             + 2 * 2 * tokens * D * M + 2 * 2 * batch * T * T * D)
+    heads = (2 * batch * masked * (D * D + D * V)
+             + 2 * batch * (D * D + 2 * D))
+    return {"bf16_tflop": 3 * L * block / 1e12,
+            "fp32_tflop": 3 * heads / 1e12,
+            "mlm_out_fwd_gflop": 2 * batch * masked * D * V / 1e9}
+
+
+def profile_bert(torch, sess, batches):
+    """``profile_steps`` steps under the profiler's CUDA activity: busy ms
+    a step, the idle share, busy by ``BERT_GROUPS`` and the top kernels;
+    the steps must launch the three sm90 flash kernels and no first
+    one."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = BERT_TRAIN["profile_steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        last = None
+        for i in range(steps):
+            last = sess.run("loss", feed_dict=batches[i % 4])
+        float(last)
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    busy_us = sum(us for us, _, _ in rows)
+    groups = {name: 0.0 for name, _ in BERT_GROUPS}
+    groups["other"] = 0.0
+    for us, _, key in rows:
+        name = next((n for n, pat in BERT_GROUPS if re.search(pat, key)),
+                    "other")
+        groups[name] += us
+    rows.sort(reverse=True)
+    return {"steps": steps, "window_s": window,
+            "flash_kernels": flash_kernels_seen(
+                rows, ["flash_fwd_kernel_sm90", "flash_dq_kernel_sm90",
+                       "flash_dkv_kernel_sm90"]),
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e6 / window,
+            "device_launches_per_step": sum(n for _, n, _ in rows) / steps,
+            "busy_ms_per_step_by_group": {
+                k: v / 1e3 / steps for k, v in groups.items()},
+            "busy_share_by_group": {k: v / busy_us if busy_us else 0.0
+                                    for k, v in groups.items()},
+            "top": [{"name": key[:110], "calls": n, "ms": us / 1e3,
+                     "share_of_busy": us / busy_us}
+                    for us, n, key in rows[:15]]}
+
+
+def phase_bert_train(torch, card):
+    """BERT-large through parallel_run HYBRID with the flash kernels, bf16
+    compute: ``sess.warmup`` captures the step, then ``steps`` timed
+    steps (sequences/s, step ms p50 and p95 from CUDA events, peak
+    memory, the model FLOPs' share of 989 TF/s); B4, B5 and B6 24 times
+    a step each; every loss finite; then ``profile_bert``."""
+    from parallax_tpu_torch.ops import flash_attention as fa
+    torch.cuda.empty_cache()
+    cfg, sess = bert_session(torch, use_pallas_attention=True)
+    batches = bert_batches(cfg, BERT_TRAIN["batch"])
+    t_build = time.perf_counter()
+    sess.prepare(batches[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    sparse = sorted(p for p, v in sess.engine.plan.var_specs.items()
+                    if v.is_sparse)
+    if sparse != ["word_emb"]:
+        raise AssertionError(f"classifier found {sparse} sparse, expected "
+                             f"['word_emb']")
+    capture = capture_train(torch, sess, BERT_TRAIN["batch"])
+    for name in FLASH_COUNTERS:
+        setattr(fa, name, 0)
+    steps = BERT_TRAIN["steps"]
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    losses, masked = [], []
+    feed = (batches[i % 4] for i in range(steps))
+    for loss, m in sess.run_iter(feed, fetches=["loss", "masked_tokens"]):
+        losses.append(loss)
+        masked.append(m)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_dq": fa.launches_dq,
+                "flash_attention_dkv": fa.launches_dkv}
+    per_step = {k: v / steps for k, v in launches.items()}
+    if set(per_step.values()) != {float(cfg.num_layers)}:
+        raise AssertionError(f"BERT flash launches a step {per_step}: want "
+                             f"{cfg.num_layers} of each")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite BERT loss: {losses}")
+    want_masked = [float(batches[i % 4]["mask_weights"].sum())
+                   for i in range(steps)]
+    if [float(m) for m in masked] != want_masked:
+        raise AssertionError(f"masked_tokens {masked} != {want_masked}")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    seq_per_s = steps * BERT_TRAIN["batch"] / wall
+    flops = bert_model_flops(cfg, BERT_TRAIN["batch"])
+    step_flop = (flops["bf16_tflop"] + flops["fp32_tflop"]) * 1e12
+    p50 = statistics.median(step_ms)
+    summary = {
+        "card": card,
+        "config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_dim,
+                   "heads": cfg.num_heads, "mlp": cfg.mlp_dim,
+                   "layers": cfg.num_layers, "compute": "bfloat16",
+                   "run_option": "HYBRID", **{k: BERT_TRAIN[k] for k in (
+                       "batch", "seq", "masked", "min_len")}},
+        "sequences_per_sec": seq_per_s, "timed_steps": steps,
+        "wall_s": wall, "step_ms_p50": p50, "step_ms_p95": p95(step_ms),
+        "losses": losses, "engine_build_s": build_s, "sparse": sparse,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "model_flops": flops,
+        "share_of_bf16_peak": seq_per_s / BERT_TRAIN["batch"] * step_flop
+        / PEAK_OPS_PER_S["bfloat16"],
+        "share_of_bf16_peak_at_p50": step_flop / (p50 * 1e-3)
+        / PEAK_OPS_PER_S["bfloat16"],
+        "launches": launches, "launches_per_step": per_step,
+        "capture": capture}
+    summary["profile"] = prof = profile_bert(torch, sess, batches)
+    # the timed steps' idle share: the profiled window also holds the
+    # profiler's own start
+    summary["timed_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] \
+        / (wall * 1e3 / steps)
+    log(f"[bert-train] {json.dumps(summary)}")
+    sess.close()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_bert_agree(torch):
+    """``agree_steps`` steps of BERT-large (bf16, batch ``agree_batch``)
+    from one init, eagerly, through the flash kernels and through the
+    plain attention core: per-step losses within 2e-3 relative, the
+    tolerance of the JAX package's flash-against-XLA BERT test
+    (tests/test_bert.py:55)."""
+    losses = {}
+    for name, pallas in (("flash", True), ("plain", False)):
+        cfg, sess = bert_session(torch, use_pallas_attention=pallas)
+        batches = bert_batches(cfg, BERT_TRAIN["agree_batch"])
+        with mode_ctx("eager"):
+            losses[name] = [float(sess.run("loss", feed_dict=batches[i]))
+                            for i in range(BERT_TRAIN["agree_steps"])]
+        sess.close()
+        del sess
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["flash"],
+                                               losses["plain"])]
+    summary = {"losses": losses, "max_rel_diff": max(rel),
+               "tol": BERT_TRAIN["agree_tol"]}
+    log(f"[bert-agree] {json.dumps(summary)}")
+    if not (all(math.isfinite(x) for v in losses.values() for x in v)
+            and max(rel) <= BERT_TRAIN["agree_tol"]):
+        raise AssertionError(f"BERT flash and plain losses differ by "
+                             f"{max(rel)} relative > "
+                             f"{BERT_TRAIN['agree_tol']}: {losses}")
+    return summary
+
+
 # -- phases 10-12: ResNet-50 v1.5 training -------------------------------------
 
 # examples/cnn_benchmark_driver.py's defaults: resnet50_v1.5 at 224 px,
@@ -2427,21 +2690,20 @@ def phase_graph_agree(torch):
 
 def kernel_line(results, launches):
     """One entry per kernel, at its main path's shape in bf16 (the shape
-    and type the main path launched it at): the serving shape for B4
-    and B7, the LM1B training shape for B1-B3, the NMT training step's
-    encoder self-attention (B 64, T 64, H 8, hd 64, pad mask) for B5 and
-    B6. B4's launches are the serving and the NMT training paths'. An
-    LSTM entry names the source of the route its case ran on."""
+    and type the main path launched it at): BERT-large's attention (B 32,
+    T 512, H 16, hd 64, padding mask) for B4, B5 and B6, the serving
+    shape for B7, the LM1B training shape for B1-B3. B4's launches are
+    the serving, NMT and BERT training paths', B5's and B6's the NMT and
+    BERT training paths'. An LSTM entry names the source of the route its
+    case ran on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:141", "serve"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:141", "bert"),
         "flash_attention_dq": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:298",
-            "train_enc"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:298", "bert"),
         "flash_attention_dkv": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:326",
-            "train_enc"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:326", "bert"),
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",
             "parallax_tpu/ops/pallas_paged_attention.py:278", "serve"),
@@ -2651,6 +2913,8 @@ def main() -> int:
     resnet_train, resnet_profile = phase("resnet-train", phase_resnet_train,
                                          torch)
     resnet_agree = phase("resnet-agree", phase_resnet_agree, torch)
+    bert_train = phase("bert-train", phase_bert_train, torch, card)
+    bert_agree = phase("bert-agree", phase_bert_agree, torch)
     graph_agree = phase("graph-agree", phase_graph_agree, torch)
     graph_pairs = {"serve": serve_pair, "lm1b": train["graph_pair"],
                    "nmt": nmt_train["graph_pair"],
@@ -2658,7 +2922,8 @@ def main() -> int:
     log(f"[graph-pair] {json.dumps(graph_pairs)}")
     launches = {**serve_summary["launches"], **train["launches"]}
     for name, n in list(nmt_train["launches"].items()) + list(
-            dist_train["launches"].items()):
+            dist_train["launches"].items()) + list(
+            bert_train["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -2673,7 +2938,8 @@ def main() -> int:
               "nmt_train": nmt_train, "nmt_train_profile": nmt_profile,
               "nmt_train_agreement": nmt_agree,
               "resnet_train": resnet_train, "resnet_profile": resnet_profile,
-              "resnet_agreement": resnet_agree, "graph_agree": graph_agree,
+              "resnet_agreement": resnet_agree, "bert_train": bert_train,
+              "bert_agreement": bert_agree, "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"

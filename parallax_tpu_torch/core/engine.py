@@ -18,13 +18,27 @@ card):
   and its gradient reduce-scattered back onto the shards;
 * run_option AR replicates everything, SHARD row-shards whatever
   divides the shard axis, HYBRID follows the class;
-  ``Model.param_specs`` overrides by fnmatch (``P()`` or the row spec;
-  tensor-parallel specs are not ported).
+  ``Model.param_specs`` overrides by fnmatch (``P()``, the row spec, or
+  a tensor-parallel spec);
+* a tensor-parallel variable (``ops.tensor_parallel``'s specs, a
+  ``mesh.TPSpec`` or a column spec ``P(None, 'shard')``) lives on each
+  rank as its column or row shard and is used as it is, never gathered
+  (the Megatron products of ``ops.tensor_parallel`` take the parts).
 
-Every gradient that crosses ranks is averaged over the world size;
-losses normalised over the batch use ``ops.collectives.global_sum`` so
-that this gives the JAX package's gradients of the global loss. The
-routes per update path:
+Every gradient that crosses ranks is averaged over the ranks the batch
+is split over: the world, or the repl group where ``Model.batch_specs``
+put the batch on 'repl' alone (JAX's ``_feed_process_scale``,
+engine.py:844-860: each rank feeds its repl row's share, alike across
+its shard group). Losses normalised over the batch use
+``ops.collectives.global_sum`` so that this gives the JAX package's
+gradients of the global loss. With the batch on 'repl' alone, the ranks
+of a shard group compute alike gradients for every replicated variable
+(the tensor-parallel operators sum the parts inside the backward), so a
+replicated or tensor-parallel gradient is all-reduced over the repl
+group only; a row-sharded one is summed over the mesh by its backward
+(the lookup reads each rank's chunk of the ids, ops/embedding.py) and
+scaled. Tensor parallelism needs the batch on 'repl' alone where the
+shard axis is wider than 1. The routes per update path:
 
 * the dense group goes through the model's optimizer (for LM1B,
   ``clip_by_global_norm`` then Adagrad, core/optim.py);
@@ -81,8 +95,10 @@ the communicators; every rank captures in the same order). A declared
 mesh-uniform overflow flag each step, so such an engine runs its steps
 eagerly (``compile_stats()["step_capture"]`` says so).
 
-Not ported: tensor and pipeline parallelism (``Model.batch_specs``,
-``value_and_grad_fn``, ``pipeline_info``), and the numerics observatory.
+Not ported: pipeline parallelism (``value_and_grad_fn``,
+``pipeline_info``), ``batch_specs`` other than the default and 'repl'
+alone on dim 0, tensor parallelism with ``sparse_grad_mode="slices"``,
+and the numerics observatory.
 """
 
 from __future__ import annotations
@@ -111,6 +127,10 @@ from parallax_tpu_torch.tune import costmodel
 
 REPLICATED = "replicated"
 ROW_SHARDED = "row_sharded"
+# tensor-parallel: each rank keeps and uses its part (last dim / dim 0)
+TP_COLUMN = "tp_column"
+TP_ROW = "tp_row"
+TP_PLACEMENTS = (TP_COLUMN, TP_ROW)
 
 
 class Model:
@@ -137,10 +157,13 @@ class Model:
       Stateless models only.
     * ``param_specs``: path pattern (fnmatch) -> ``core.mesh.P`` override
       of the plan: ``P()`` replicates, ``P('shard', None, ...)``
-      row-shards; any other (tensor-parallel) spec raises at build.
-    * ``batch_specs``, ``value_and_grad_fn``, ``pipeline_info``: kept for
-      the JAX package's signature; not ported (the engine refuses a model
-      that sets one).
+      row-shards (gathered for use), a ``TPSpec`` or ``P(None, ...,
+      'shard')`` is tensor-parallel (``ops.tensor_parallel``'s specs).
+    * ``batch_specs``: feed name -> spec of that feed; dim 0 on
+      ``('repl', 'shard')`` (the default) or on ``'repl'`` alone.
+    * ``value_and_grad_fn``, ``pipeline_info``: kept for the JAX
+      package's signature; not ported (the engine refuses a model that
+      sets one).
     * A row-sharded table must be read through ``embedding_lookup``: a
       rank holds only its rows.
     """
@@ -220,6 +243,8 @@ class ShardingPlan:
     mesh: mesh_lib.Mesh
     var_specs: Dict[str, specs_lib.VariableSpec]
     placements: Dict[str, str]
+    # tensor-parallel variables: path -> groups of the split dim
+    tp_groups: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def describe(self) -> str:
         return specs_lib.summarize(self.var_specs)
@@ -241,6 +266,12 @@ class ShardingPlan:
     def sharded_shapes(self) -> Tuple[Tuple[int, ...], ...]:
         return tuple(self.var_specs[p].shape for p in self.sharded_tables)
 
+    @property
+    def split(self) -> List[str]:
+        """Variables a rank holds a part of (row shards and tensor-
+        parallel shards)."""
+        return [p for p, pl in self.placements.items() if pl != REPLICATED]
+
 
 def step_seed(seed: int, step: int) -> int:
     """The seed of one step, from the run's seed and the step counter
@@ -256,22 +287,42 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
 def _spec_placement(spec, shape, p: int, path: str) -> Optional[str]:
     """The placement a ``param_specs`` override asks for: REPLICATED for
     ``P()``, ROW_SHARDED for the row spec (None when dim 0 does not
-    divide the shard axis); anything else is tensor parallelism."""
-    entries = tuple(spec)
+    divide the shard axis), TP_ROW for a row ``TPSpec`` and TP_COLUMN
+    for a column spec; any other layout raises."""
+    entries = tuple(mesh_lib.resolve_spec(spec))
+    tp = isinstance(spec, mesh_lib.TPSpec)
     if all(e is None for e in entries):
         return REPLICATED
-    if entries[0] == mesh_lib.AXIS_SHARD \
-            and all(e is None for e in entries[1:]):
-        if len(shape) >= 1 and shape[0] % p == 0:
+    if len(entries) > len(shape):
+        raise ValueError(f"param_specs override {spec!r} for {path}: "
+                         f"{len(entries)} entries for a {len(shape)}-d "
+                         f"variable {tuple(shape)}")
+    # trailing dims a spec leaves out are unsplit, as in JAX
+    entries += (None,) * (len(shape) - len(entries))
+    on = [i for i, e in enumerate(entries) if e is not None]
+    if len(on) != 1 or entries[on[0]] != mesh_lib.AXIS_SHARD \
+            or on[0] not in (0, len(entries) - 1):
+        raise NotImplementedError(
+            f"param_specs override {spec!r} for {path}: only P(), the "
+            f"row spec P('shard', None, ...) and the tensor-parallel "
+            f"column and row specs are ported")
+    dim = on[0]
+    column = dim == len(entries) - 1 and dim > 0
+    if not (tp or column):
+        if shape[0] % p == 0:
             return ROW_SHARDED if p > 1 else REPLICATED
         parallax_log.warning(
             "param_specs override for %s: dim 0 (%d) not divisible by "
-            "shard (%d); replicating", path, shape[0] if shape else 0, p)
+            "shard (%d); replicating", path, shape[0], p)
         return None
-    raise NotImplementedError(
-        f"param_specs override {spec!r} for {path}: tensor-parallel "
-        f"layouts are not ported (only P() and the row spec "
-        f"P('shard', None, ...) are)")
+    groups = getattr(spec, "groups", 1)
+    if shape[dim] % (groups * p):
+        raise ValueError(
+            f"tensor-parallel {spec!r} for {path}: dim {dim} ({shape[dim]}) "
+            f"does not split into {groups} block(s) over {p} shard(s)")
+    if p == 1:
+        return REPLICATED
+    return TP_COLUMN if column else TP_ROW
 
 
 def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
@@ -306,16 +357,20 @@ def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
             return ROW_SHARDED
         return REPLICATED
 
+    tp_groups = {}
+
     def with_override(path, vs, placement):
         for pattern, spec in model.param_specs.items():
             if fnmatch.fnmatch(path, pattern):
-                return _spec_placement(spec, vs.shape, p, path) \
-                    or placement
+                chosen = _spec_placement(spec, vs.shape, p, path)
+                if chosen in TP_PLACEMENTS:
+                    tp_groups[path] = getattr(spec, "groups", 1)
+                return chosen or placement
         return placement
 
     placements = {path: with_override(path, vs, choose(path, vs))
                   for path, vs in var_specs.items()}
-    plan = ShardingPlan(mesh, var_specs, placements)
+    plan = ShardingPlan(mesh, var_specs, placements, tp_groups)
     for path, vs in var_specs.items():
         if vs.shape in plan.sharded_shapes and not vs.is_sparse:
             parallax_log.warning(
@@ -324,11 +379,37 @@ def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
                 "through the collective path; here lookups route by "
                 "tensor, so nothing is misrouted)", path, vs.shape)
     parallax_log.info("sharding plan: %s (run_option=%s, mesh %dx%d, "
-                      "row-sharded %s)", plan.describe(), config.run_option,
-                      mesh.repl, p, sorted(
+                      "row-sharded %s, tensor-parallel %s)", plan.describe(),
+                      config.run_option, mesh.repl, p, sorted(
                           q for q, pl in placements.items()
-                          if pl == ROW_SHARDED))
+                          if pl == ROW_SHARDED), sorted(tp_groups))
     return plan
+
+
+def _batch_on_repl(model: Model, example_batch) -> bool:
+    """Whether ``Model.batch_specs`` put the batch on 'repl' alone: True
+    when every feed of the example batch rides 'repl' alone on dim 0,
+    False when every one takes the default ``('repl', 'shard')``."""
+    if not model.batch_specs:
+        return False
+    names = list(example_batch) if isinstance(example_batch, dict) else []
+    kinds = {}
+    for name in names:
+        spec = model.batch_specs.get(name)
+        axes = mesh_lib.BATCH_AXES if spec is None else \
+            mesh_lib.dim0_axes(mesh_lib.resolve_spec(spec))
+        if tuple(axes) not in (mesh_lib.BATCH_AXES, (mesh_lib.AXIS_REPL,)):
+            raise NotImplementedError(
+                f"batch_specs[{name!r}] = {spec!r}: dim 0 over "
+                f"{tuple(axes)}; only the default ('repl', 'shard') and "
+                f"'repl' alone are ported")
+        kinds[name] = tuple(axes) == (mesh_lib.AXIS_REPL,)
+    if len(set(kinds.values())) > 1:
+        raise NotImplementedError(
+            f"batch_specs put some feeds on 'repl' alone and others on "
+            f"('repl', 'shard'): {kinds}; one layout for every feed is "
+            f"ported")
+    return bool(kinds) and all(kinds.values())
 
 
 def _torch_dtype(v) -> torch.dtype:
@@ -403,13 +484,12 @@ class Engine:
                  config: ParallaxConfig, example_batch,
                  metrics: Optional[obs_metrics.MetricsRegistry] = None):
         missing = [name for name, v in (
-            ("batch_specs", model.batch_specs),
             ("value_and_grad_fn", model.value_and_grad_fn),
             ("pipeline_info", model.pipeline_info)) if v]
         if missing:
             raise NotImplementedError(
-                f"Model.{', '.join(missing)}: tensor and pipeline "
-                f"parallelism are not ported")
+                f"Model.{', '.join(missing)}: pipeline parallelism is not "
+                f"ported")
         if model.stateful and mesh.size > 1:
             raise NotImplementedError(
                 f"a stateful model on {mesh.size} ranks: cross-rank "
@@ -473,8 +553,15 @@ class Engine:
                 meta_batch, self._example_batch_dim, self._buckets))
         self.plan = build_plan(model, mesh, config, meta_params, meta_batch,
                                meta_state)
-        self._row_sharded = [p for p, pl in self.plan.placements.items()
-                             if pl == ROW_SHARDED]
+        self._batch_on_repl = _batch_on_repl(model, example_batch)
+        if self.plan.tp_groups and not self._batch_on_repl:
+            raise NotImplementedError(
+                f"tensor-parallel param_specs ({sorted(self.plan.tp_groups)}"
+                f") on a shard axis of {mesh.shard}: the shard group must "
+                f"hold the same rows; declare batch_specs that put every "
+                f"feed on 'repl' alone")
+        self._batch_group = mesh.repl_group if self._batch_on_repl \
+            else mesh.world
         self._lookup_records: list = []
         self._slice_resolved = self._resolve_slice_updaters()
         self._guarded = self._meta_pass(meta_params, meta_batch) \
@@ -488,6 +575,10 @@ class Engine:
             raise ValueError(
                 "sparse_grad_mode='slices' requires sync=True (the "
                 "delayed-gradient emulation stashes dense gradients)")
+        if self._slice_resolved and self._batch_on_repl:
+            raise NotImplementedError(
+                "sparse_grad_mode='slices' with batch_specs on 'repl' "
+                "alone is not ported (the slices gather over the world)")
         self._dense_paths = [p for p in self.plan.var_specs
                              if p not in self._slice_resolved]
         self.metrics.counter("engine.builds").inc()
@@ -502,7 +593,8 @@ class Engine:
             self.config.average_sparse, records,
             local_aggregation=ps.local_aggregation,
             dedup_capacity=ps.dedup_capacity,
-            cross_replica_sparse=ps.cross_replica_sparse)
+            cross_replica_sparse=ps.cross_replica_sparse,
+            batch_on_repl=self._batch_on_repl)
 
     def _meta_pass(self, meta_params, meta_batch):
         """One forward on meta tensors under the step's scopes (the
@@ -512,6 +604,10 @@ class Engine:
         a row-sharded table that the loss reads other than through
         ``embedding_lookup`` (a rank holds only its rows). Returns the
         tables whose lookups a declared ``dedup_capacity`` guards."""
+        # the loss reads a tensor-parallel weight as this rank's part; a
+        # row-sharded leaf stays whole (a table's lookup takes the whole
+        # shape; a dense one is gathered whole for use)
+        meta_params = self._local_tree(meta_params, TP_PLACEMENTS)
         flat = dict(classify.flatten(meta_params))
         cap = embedding.SliceCapture(
             {id(flat[p]): p for p in self._slice_resolved})
@@ -577,10 +673,7 @@ class Engine:
         optimizer, slice and pending state of what it keeps."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params, model_state = self.model.call_init(gen, self.device)
-        if self._row_sharded:
-            flat = dict(classify.flatten(params))
-            params = _with_leaves(params, {
-                p: self._own_rows(flat[p]) for p in self._row_sharded})
+        params = self._local_tree(params)
         flat = dict(classify.flatten(params))
         for path in self._dense_paths:
             flat[path].requires_grad_(True)
@@ -602,20 +695,58 @@ class Engine:
                           seed=seed, model_state=model_state,
                           slice_state=slice_state, pending_grads=pending)
 
-    def _own_rows(self, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a row-sharded leaf, as its own tensor."""
-        n = whole.shape[0] // self.mesh.shard
-        lo = self.mesh.coords[1] * n
-        return whole[lo:lo + n].detach().clone()
+    def local_part(self, path: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of variable ``path`` from the whole one, as its
+        own tensor: its rows of a row-sharded or row-parallel leaf, its
+        columns of a column-parallel one (of each of its ``groups``
+        blocks, in block order), the whole of a replicated one."""
+        placement = self.plan.placements[path]
+        if placement == REPLICATED:
+            return whole
+        p, s = self.mesh.shard, self.mesh.coords[1]
+        if placement == TP_COLUMN:
+            g = self.plan.tp_groups[path]
+            blocks = whole.reshape(whole.shape[:-1] + (g, -1))
+            n = blocks.shape[-1] // p
+            part = blocks[..., s * n:(s + 1) * n]
+            return part.reshape(whole.shape[:-1] + (g * n,)).detach() \
+                .clone()
+        n = whole.shape[0] // p
+        return whole[s * n:(s + 1) * n].detach().clone()
+
+    def _local_tree(self, params, placements=None):
+        """``params`` (whole leaves) as this rank holds them (only the
+        leaves of ``placements``, when given)."""
+        split = [p for p in self.plan.split if placements is None
+                 or self.plan.placements[p] in placements]
+        if not split:
+            return params
+        flat = dict(classify.flatten(params))
+        return _with_leaves(params, {p: self.local_part(p, flat[p])
+                                     for p in split})
+
+    def _whole(self, path: str, part: torch.Tensor) -> torch.Tensor:
+        """Variable ``path`` gathered whole from the shard group's parts
+        (``local_part``'s inverse; a collective)."""
+        group = self.mesh.shard_group
+        if self.plan.placements[path] != TP_COLUMN:
+            return collectives.all_gather(part, group)
+        g, p = self.plan.tp_groups[path], self.mesh.shard
+        cols = collectives.all_gather(part.movedim(-1, 0), group)
+        # [p * g * n, ...] in (rank, block, column) order -> (block, rank,
+        # column)
+        cols = cols.reshape((p, g, -1) + tuple(cols.shape[1:]))
+        return cols.transpose(0, 1).reshape((-1,) + tuple(cols.shape[3:])) \
+            .movedim(0, -1).contiguous()
 
     def gather_params(self, state: TrainState):
-        """The parameter tree with every row-sharded leaf gathered whole
-        (a collective: every rank calls it); the rest as they are."""
+        """The parameter tree with every split leaf (row-sharded, tensor-
+        parallel) gathered whole in the JAX package's global layout (a
+        collective: every rank calls it); the rest as they are."""
         flat = dict(classify.flatten(state.params))
         with torch.no_grad():
             return _with_leaves(state.params, {
-                p: collectives.all_gather(flat[p], self.mesh.shard_group)
-                for p in self._row_sharded})
+                p: self._whole(p, flat[p]) for p in self.plan.split})
 
     # -- feeds --------------------------------------------------------------
 
@@ -734,7 +865,7 @@ class Engine:
             apply = dense
             if not self.config.sync:
                 apply = self._delayed(state, dense)
-            with optim.sharded_scope(self._row_sharded, self.mesh):
+            with optim.sharded_scope(self.plan.split, self.mesh):
                 updates, _ = self.model.optimizer.update(
                     apply, state.opt_state,
                     {p: flat[p] for p in self._dense_paths})
@@ -759,18 +890,19 @@ class Engine:
         return outputs
 
     def _combine(self, dense: Dict[str, torch.Tensor]) -> None:
-        """Average the dense gradients over the ranks, in place:
-        replicated ones all-reduced in flat buckets over the world group
-        (a process group of one rank runs the collective too); row-shard
-        gradients, which their backward already summed over the mesh,
-        scaled alone."""
-        world = self.mesh.world
-        if world is None:
+        """Average the dense gradients over the ranks the batch is split
+        over, in place: replicated and tensor-parallel ones all-reduced
+        in flat buckets over that group (the world, or the repl group when
+        the batch rides 'repl' alone; a process group of one rank runs
+        the collective too); row-shard gradients, which their backward
+        already summed over the mesh, scaled alone."""
+        group = self._batch_group
+        if group is None:
             return
-        scale = 1.0 / world.size if world.size > 1 else None
+        scale = 1.0 / group.size if group.size > 1 else None
         collectives.flat_all_reduce_(
             [g for p, g in dense.items()
-             if self.plan.placements[p] == REPLICATED], world, scale)
+             if self.plan.placements[p] != ROW_SHARDED], group, scale)
         shards = [g for p, g in dense.items()
                   if self.plan.placements[p] == ROW_SHARDED]
         if shards and scale is not None:

@@ -8,6 +8,11 @@ device's slice of the batch (``batch_spec``: dim 0 over both axes).
 Dense variables are replicated on every rank; sparse tables are
 row-sharded over ``'shard'`` and replicated over ``'repl'``.
 
+``P`` specs follow the JAX package's ``PartitionSpec``; ``TPSpec``
+marks a tensor-parallel weight (``ops.tensor_parallel``), whose rank
+keeps and uses its part, and ``resolve_spec`` maps a spec onto this
+mesh's axes as JAX's does.
+
 Every rank builds one process group per repl row (the shard group, the
 ranks a table's rows are spread over) and one per shard column (the
 repl group), in one order, beside the world group. A group of one rank
@@ -27,6 +32,9 @@ from parallax_tpu_torch.common.lib import parallax_log
 
 AXIS_REPL = "repl"
 AXIS_SHARD = "shard"
+# the JAX mesh's pipeline axis: this mesh has none, and resolve_spec
+# maps it onto 'shard' as the JAX package does on a mesh without one
+AXIS_PIPE = "pipe"
 BATCH_AXES = (AXIS_REPL, AXIS_SHARD)
 
 
@@ -39,6 +47,53 @@ class P(tuple):
 
     def __repr__(self):
         return f"P{tuple(self)!r}"
+
+
+class TPSpec(P):
+    """A tensor-parallel spec (``ops.tensor_parallel``'s param specs):
+    the variable is split over 'shard' on the dim that names it, and
+    each rank computes with its own part, never gathered for use. A
+    column spec (the last dim over 'shard') splits output features, a
+    row spec (dim 0 over 'shard') input features; a plain ``P('shard',
+    None)`` keeps its meaning of a row-sharded variable gathered for
+    use. ``groups`` > 1 splits each of that many equal blocks of the
+    dim (a fused ``[q | k | v]``): a rank holds its part of every
+    block, in block order."""
+
+    def __new__(cls, *entries, groups: int = 1):
+        self = super().__new__(cls, *entries)
+        self.groups = int(groups)
+        return self
+
+    def __repr__(self):
+        g = f", groups={self.groups}" if self.groups != 1 else ""
+        return f"TPSpec{tuple(self)!r}"[:-1] + g + ")"
+
+
+def resolve_spec(spec: P, mesh: "Mesh" = None) -> P:
+    """``spec`` on this mesh's axes (``parallax_tpu/core/mesh.py``'s
+    ``resolve_spec``): a 'pipe' entry becomes 'shard', the
+    stages-over-shard placement of a mesh without a pipe axis; other
+    entries pass through. A ``TPSpec`` keeps its kind and groups."""
+
+    def one(entry):
+        if entry == AXIS_PIPE:
+            return AXIS_SHARD
+        if isinstance(entry, (tuple, list)):
+            return tuple(one(e) for e in entry)
+        return entry
+
+    entries = tuple(one(e) for e in spec)
+    if isinstance(spec, TPSpec):
+        return TPSpec(*entries, groups=spec.groups)
+    return P(*entries)
+
+
+def dim0_axes(spec: P) -> tuple:
+    """The mesh axes dim 0 of ``spec`` is split over (``()``: none)."""
+    if len(spec) == 0 or spec[0] is None:
+        return ()
+    return (spec[0],) if isinstance(spec[0], str) else tuple(spec[0])
 
 
 def batch_spec(ndim: int = 1) -> P:

@@ -7,8 +7,11 @@ model with ``chain(clip_by_global_norm(5), adam(join_schedules([
 linear_schedule(0, lr, warmup), constant_schedule(lr)], [warmup])))``
 (models/nmt.py:563-567), the CNN models with
 ``chain(add_decayed_weights(4e-5, mask=ndim > 1), sgd(0.1,
-momentum=0.9))`` (models/cnn.py). PyTorch's own ``Adagrad`` divides by
-``sqrt(acc) + eps`` where optax multiplies by ``rsqrt(acc + eps)``,
+momentum=0.9))`` (models/cnn.py), BERT with
+``chain(clip_by_global_norm(1), adamw(lr, weight_decay=0.01))``
+(models/bert.py:194-195), whose decay reaches every leaf. PyTorch's
+own ``Adagrad`` divides by ``sqrt(acc) + eps`` where optax multiplies
+by ``rsqrt(acc + eps)``,
 ``clip_grad_norm_`` adds 1e-6 to the norm, and its ``Adam`` and
 schedulers count steps otherwise; each would break step parity with the
 JAX package, so all are written out here. Schedules take the count of
@@ -30,7 +33,8 @@ rounded as optax rounds it; ``global_norm`` alone sums per-leaf norms
 rather than per-leaf sums of squares.
 
 On a mesh the engine runs the update inside ``sharded_scope``, which
-names the leaves that are a rank's row shard of a larger variable:
+names the leaves that are a rank's shard of a larger variable (row
+shards, and the tensor-parallel column and row shards):
 ``global_norm`` then adds their squared norms over the 'shard' group,
 so the clip sees the norm of the whole gradient, as the JAX package's
 global arrays do, and ``row_sparse_adagrad`` (ops/sparse_optim.py)
@@ -354,6 +358,18 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8, eps_root: float = 0.0) -> GradientTransformation:
     """optax.adam: scale_by_adam, then scale by the (scheduled) -lr."""
     return chain(scale_by_adam(b1, b2, eps, eps_root),
+                 scale_by_learning_rate(learning_rate))
+
+
+def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, eps_root: float = 0.0,
+          weight_decay: float = 1e-4, mask=None) -> GradientTransformation:
+    """optax.adamw: scale_by_adam, then add_decayed_weights(weight_decay,
+    mask) (None decays every leaf), then scale by the (scheduled) -lr.
+    The decay is elementwise, so a rank's shard decays as the whole
+    variable would."""
+    return chain(scale_by_adam(b1, b2, eps, eps_root),
+                 add_decayed_weights(weight_decay, mask),
                  scale_by_learning_rate(learning_rate))
 
 

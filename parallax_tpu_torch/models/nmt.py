@@ -20,8 +20,16 @@ the rest.
 
 Serving: the encoder (prefill), the per-layer cross-attention K/V, the
 KV-cached decoder step over a dense or a paged self-KV cache, and the
-cached greedy decode used as the standalone reference. Beam search and
-tensor parallelism are not ported.
+cached greedy decode used as the standalone reference. Beam search is
+not ported.
+
+Tensor parallelism (``tensor_parallel=True``, training): every attention
+(encoder self, decoder causal self, cross) and every MLP runs through
+``ops.tensor_parallel``'s Megatron operators over the mesh's 'shard'
+axis, with the JAX specs (``wq``/``wk``/``wv``/``w1`` column-,
+``wo``/``w2`` row-parallel) and the batch on 'repl' alone; the plain
+attention core, so TP with ``use_pallas_attention`` is refused, as in
+JAX.
 
 Attention executors:
 
@@ -59,12 +67,13 @@ import numpy as np
 import torch
 
 from parallax_tpu_torch.common.lib import resolve_device
-from parallax_tpu_torch.core import optim
+from parallax_tpu_torch.core import mesh as mesh_lib, optim
 from parallax_tpu_torch.core.engine import Model
 from parallax_tpu_torch.ops import collectives
 from parallax_tpu_torch.ops import embedding as emb_ops
 from parallax_tpu_torch.ops import flash_attention as fa_ops
 from parallax_tpu_torch.ops import paged_attention as pa_ops
+from parallax_tpu_torch.ops import tensor_parallel as tp_ops
 
 PAD_ID, BOS_ID, EOS_ID = 0, 1, 2
 
@@ -83,15 +92,10 @@ class NMTConfig:
     warmup_steps: int = 4000
     # all three attention kinds through the flash-attention kernels
     use_pallas_attention: bool = False
-    # not ported: refused at construction
+    # Megatron tensor parallelism over the 'shard' mesh axis
     tensor_parallel: bool = False
     num_partitions: Optional[int] = None
     compute_dtype: torch.dtype = torch.bfloat16
-
-    def __post_init__(self):
-        if self.tensor_parallel:
-            raise ValueError(
-                "tensor_parallel is not ported to parallax_tpu_torch")
 
     @property
     def padded_vocab(self) -> int:
@@ -178,18 +182,31 @@ def _attend(cfg, dt, x_q, x_kv, w, *, causal=False, kv_mask=None):
 def _self_block(cfg, dt, p, x, cross_kv=None, *, self_causal=False,
                 self_kv_mask=None, cross_kv_mask=None):
     """One block: self-attention, then (decoder) cross-attention over
-    ``cross_kv``, then the MLP, each post-LN."""
+    ``cross_kv``, then the MLP, each post-LN (under ``tensor_parallel``
+    through ``ops.tensor_parallel``)."""
+    tp = cfg.tensor_parallel
+
+    def attn_out(x_q, x_kv, w, causal, kv_mask):
+        """Attention and its output projection (row-parallel under TP)."""
+        if tp:
+            return tp_ops.tp_attention(x_q, x_kv, w, cfg.num_heads,
+                                       causal=causal, kv_mask=kv_mask,
+                                       dtype=dt)
+        return _attend(cfg, dt, x_q, x_kv, w, causal=causal,
+                       kv_mask=kv_mask) @ w["wo"].to(dt)
+
     a = p["attn"]
-    y = _attend(cfg, dt, x, x, a, causal=self_causal,
-                kv_mask=self_kv_mask) @ a["wo"].to(dt)
+    y = attn_out(x, x, a, self_causal, self_kv_mask)
     x = _layer_norm(x + y, p["ln1"]["s"].to(dt), p["ln1"]["b"].to(dt))
     if cross_kv is not None:
         c = p["cross"]
-        y = _attend(cfg, dt, x, cross_kv, c,
-                    kv_mask=cross_kv_mask) @ c["wo"].to(dt)
+        y = attn_out(x, cross_kv, c, False, cross_kv_mask)
         x = _layer_norm(x + y, p["ln3"]["s"].to(dt), p["ln3"]["b"].to(dt))
     m = p["mlp"]
-    y = torch.relu(x @ m["w1"].to(dt)) @ m["w2"].to(dt)
+    if tp:
+        y = tp_ops.tp_mlp(x, m["w1"], m["w2"], dtype=dt)
+    else:
+        y = torch.relu(x @ m["w1"].to(dt)) @ m["w2"].to(dt)
     return _layer_norm(x + y, p["ln2"]["s"].to(dt), p["ln2"]["b"].to(dt))
 
 
@@ -458,8 +475,14 @@ def build_model(cfg: NMTConfig) -> Model:
     """The JAX ``build_model``: init, loss and optimizer. Batch feeds
     "src" [B, Ts], "tgt_in" and "tgt_out" [B, Tt] int32 and an optional
     "w" [B, Tt] (default: target tokens that are not PAD); the "words"
-    metric is sum(w)."""
+    metric is sum(w). Under ``tensor_parallel`` the model also declares
+    the JAX package's tensor-parallel specs and batch specs."""
     V = cfg.padded_vocab
+    if cfg.tensor_parallel and cfg.use_pallas_attention:
+        raise ValueError(
+            "tensor_parallel uses the plain attention core (the flash "
+            "kernel is not split over heads here); unset one of "
+            "tensor_parallel / use_pallas_attention")
 
     def init_fn(gen, device):
         return init_params(cfg, gen, device)
@@ -487,7 +510,19 @@ def build_model(cfg: NMTConfig) -> Model:
          optim.constant_schedule(cfg.learning_rate)],
         [cfg.warmup_steps])
     tx = optim.chain(optim.clip_by_global_norm(5.0), optim.adam(sched))
-    return Model(init_fn, loss_fn, optimizer=tx)
+    specs, bspecs = {}, {}
+    if cfg.tensor_parallel:
+        for stack in ("enc", "dec"):
+            specs.update(tp_ops.attention_param_specs(
+                f"{stack}/*/attn", fused_qkv=False))
+            specs.update(tp_ops.attention_param_specs(
+                f"{stack}/*/cross", fused_qkv=False))
+            specs.update(tp_ops.mlp_param_specs(f"{stack}/*/mlp"))
+        # the batch rides 'repl' alone: 'shard' is the TP axis
+        bspecs = {k: mesh_lib.P(mesh_lib.AXIS_REPL, None)
+                  for k in ("src", "tgt_in", "tgt_out", "w")}
+    return Model(init_fn, loss_fn, optimizer=tx, param_specs=specs,
+                 batch_specs=bspecs)
 
 
 def make_batch(rng: np.random.Generator, batch_size: int, src_len: int,

@@ -17,6 +17,24 @@ process) or the group has one rank, so a model written with them runs
 unchanged on one card. The names used exist in torch 2.11 and 2.13:
 ``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``.
 Every rank calls every collective, in one order.
+
+Where a model's ``batch_specs`` put the batch on ``'repl'`` alone (the
+tensor-parallel models: ``'shard'`` is the tensor-parallel axis, so the
+ranks of a shard group hold the same rows), the batch is split over the
+repl group only: ``global_sum`` then all-reduces over the repl group and
+scales its backward by the repl size, and the engine averages over the
+repl group (``mesh_scope(..., batch_on_repl=True)``).
+
+The tensor-parallel operators (Megatron's f and g, and the
+sequence-parallel gathers and scatters) are ``torch.autograd.Function``s
+over a group of the mesh: ``copy_to`` (identity forward, all-reduce
+backward), ``reduce_from`` (all-reduce forward, identity backward),
+``gather_along`` (all-gather a dim forward; backward this member's chunk,
+or the reduce-scatter of the gradient), ``split_along`` (this member's
+chunk forward, all-gather backward) and ``reduce_scatter_along``
+(reduce-scatter forward, all-gather backward). On meta tensors every
+collective gives the shape it would and moves nothing, and
+``count_scope`` counts the collectives issued inside it.
 """
 
 from __future__ import annotations
@@ -31,14 +49,19 @@ import torch
 BUCKET_BYTES = 64 << 20
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar(
-    "parallax_collectives_mesh", default=None)
+    "parallax_collectives_mesh", default=(None, False))
+# {collective name: count} of the innermost count_scope, or None
+_COUNTS: contextvars.ContextVar = contextvars.ContextVar(
+    "parallax_collectives_counts", default=None)
 
 
 @contextlib.contextmanager
-def mesh_scope(mesh):
+def mesh_scope(mesh, batch_on_repl: bool = False):
     """Make ``mesh`` the current mesh for the collectives inside (the
-    engine installs it around the step's loss and updates)."""
-    token = _MESH.set(mesh)
+    engine installs it around the step's loss and updates);
+    ``batch_on_repl``: the batch rides 'repl' alone (see the module
+    doc)."""
+    token = _MESH.set((mesh, bool(batch_on_repl)))
     try:
         yield mesh
     finally:
@@ -48,7 +71,38 @@ def mesh_scope(mesh):
 def current_mesh():
     """The mesh the engine installed for the running step (None outside
     one, e.g. a single-process reference run)."""
-    return _MESH.get()
+    return _MESH.get()[0]
+
+
+def batch_on_repl() -> bool:
+    """True inside a scope whose batch rides 'repl' alone: the ranks of a
+    shard group hold the same rows."""
+    return _MESH.get()[1]
+
+
+def batch_group(mesh):
+    """The group the batch is split over: the repl group when the batch
+    rides 'repl' alone, else the world."""
+    return mesh.repl_group if batch_on_repl() else mesh.world
+
+
+@contextlib.contextmanager
+def count_scope():
+    """Count the collectives issued inside (groups of one rank issue
+    none): yields ``{"all_reduce", "all_gather", "reduce_scatter"}`` ->
+    count, filled as they run."""
+    counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+    token = _COUNTS.set(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTS.reset(token)
+
+
+def _count(name: str) -> None:
+    counts = _COUNTS.get()
+    if counts is not None:
+        counts[name] += 1
 
 
 def _pg(group):
@@ -58,7 +112,8 @@ def _pg(group):
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over ``group``, in place."""
     pg = _pg(group)
-    if pg is not None:
+    if pg is not None and x.device.type != "meta":
+        _count("all_reduce")
         torch.distributed.all_reduce(x, group=pg)
     return x
 
@@ -70,7 +125,9 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
         return x
     x = x.contiguous()
     out = x.new_empty((group.size * x.shape[0],) + tuple(x.shape[1:]))
-    torch.distributed.all_gather_into_tensor(out, x, group=pg)
+    if x.device.type != "meta":
+        _count("all_gather")
+        torch.distributed.all_gather_into_tensor(out, x, group=pg)
     return out
 
 
@@ -82,8 +139,130 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
         return x
     x = x.contiguous()
     out = x.new_empty((x.shape[0] // group.size,) + tuple(x.shape[1:]))
-    torch.distributed.reduce_scatter_tensor(out, x, group=pg)
+    if x.device.type != "meta":
+        _count("reduce_scatter")
+        torch.distributed.reduce_scatter_tensor(out, x, group=pg)
     return out
+
+
+def _on_dim(fn, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``fn`` (a dim-0 collective) applied along ``dim``."""
+    if dim % x.dim() == 0:
+        return fn(x, group)
+    return fn(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+def _chunk(x: torch.Tensor, group, index: int, dim: int) -> torch.Tensor:
+    """Member ``index``'s chunk of ``x`` along ``dim`` (of ``group.size``
+    equal chunks)."""
+    if group is None or group.size == 1:
+        return x
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, index * n, n).contiguous()
+
+
+def _fresh(g: torch.Tensor) -> torch.Tensor:
+    return g.clone(memory_format=torch.contiguous_format)
+
+
+class _CopyTo(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(_fresh(g), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(_fresh(x), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlong(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, index, dim, grad_sums):
+        ctx.cfg = (group, index, dim, grad_sums)
+        return _on_dim(all_gather, x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, index, dim, grad_sums = ctx.cfg
+        if grad_sums:
+            g = _on_dim(reduce_scatter, g, group, dim)
+        else:
+            g = _chunk(g, group, index, dim)
+        return g, None, None, None, None
+
+
+class _SplitAlong(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.cfg = (group, dim)
+        return _chunk(x, group, index, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.cfg
+        return _on_dim(all_gather, g, group, dim), None, None, None
+
+
+class _ReduceScatterAlong(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.cfg = (group, dim)
+        return _on_dim(reduce_scatter, x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.cfg
+        return _on_dim(all_gather, g, group, dim), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is; its gradient all-reduced over
+    ``group`` (each member's use of ``x`` contributes a part)."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: ``x`` summed over ``group``; the gradient as it is
+    (the sum is used alike on every member)."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_along(x: torch.Tensor, group, index: int, dim: int,
+                 grad_sums: bool = False) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim``; member ``index``'s
+    gradient is its chunk of the whole one (used alike on every
+    member), or with ``grad_sums`` the chunk of the members' gradients
+    summed (each member used the whole differently)."""
+    return _GatherAlong.apply(x, group, index, dim, grad_sums)
+
+
+def split_along(x: torch.Tensor, group, index: int, dim: int
+                ) -> torch.Tensor:
+    """Member ``index``'s chunk of ``x`` (alike on every member) along
+    ``dim``; the gradient is the members' chunks' gradients gathered."""
+    return _SplitAlong.apply(x, group, index, dim)
+
+
+def reduce_scatter_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` summed over ``group``, each member keeping its chunk along
+    ``dim``; the gradient is the members' chunks' gradients gathered."""
+    return _ReduceScatterAlong.apply(x, group, dim)
 
 
 class _GlobalSum(torch.autograd.Function):
@@ -99,13 +278,13 @@ class _GlobalSum(torch.autograd.Function):
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (a rank's partial sum) summed over every rank of the current
-    mesh; the gradient is scaled by the world size (see the module
-    doc)."""
+    """``x`` (a rank's partial sum) summed over the ranks the batch is
+    split over (``batch_group``); the gradient is scaled by their count
+    (see the module doc)."""
     mesh = current_mesh()
     if mesh is None or mesh.world is None:
         return x
-    return _GlobalSum.apply(x, mesh.world)
+    return _GlobalSum.apply(x, batch_group(mesh))
 
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
@@ -114,29 +293,32 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     mesh = current_mesh()
     if mesh is None or mesh.world is None:
         return torch.mean(x)
-    return global_sum(x.sum()) / (x.numel() * mesh.world.size)
+    return global_sum(x.sum()) / (x.numel() * batch_group(mesh).size)
 
 
 class _GatherRows(torch.autograd.Function):
     """A row-sharded variable's shards gathered for use; the gradient is
-    reduce-scattered back onto the shards over 'shard' and summed over
-    'repl'."""
+    reduce-scattered back onto the shards over 'shard' (or, where the
+    batch rides 'repl' alone and the shard group's gradients are alike,
+    each rank's own rows taken) and summed over 'repl'."""
 
     @staticmethod
-    def forward(ctx, shard, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, shard, mesh, alike):
+        ctx.mesh, ctx.alike = mesh, alike
         return all_gather(shard, mesh.shard_group)
 
     @staticmethod
     def backward(ctx, g):
-        g = reduce_scatter(g, ctx.mesh.shard_group)
-        return all_reduce_(g, ctx.mesh.repl_group), None
+        mesh = ctx.mesh
+        g = _chunk(g, mesh.shard_group, mesh.coords[1], 0) if ctx.alike \
+            else reduce_scatter(g, mesh.shard_group)
+        return all_reduce_(g, mesh.repl_group), None, None
 
 
 def gather_rows(shard: torch.Tensor, mesh) -> torch.Tensor:
     """The whole variable from this rank's row shard (every rank of the
     shard group calls it together)."""
-    return _GatherRows.apply(shard, mesh)
+    return _GatherRows.apply(shard, mesh, batch_on_repl())
 
 
 def flat_all_reduce_(tensors, group, scale: Optional[float] = None
@@ -145,8 +327,15 @@ def flat_all_reduce_(tensors, group, scale: Optional[float] = None
     buckets of at most ``BUCKET_BYTES`` per dtype (one collective a
     bucket), then multiply by ``scale`` when given. The collective runs
     on a group of one rank as well (where it is the identity), so a
-    one-rank process group runs the same step as a larger one."""
+    one-rank process group runs the same step as a larger one; a group
+    of one rank that has no process group of its own (a row or column
+    of one) moves nothing."""
     if group is None:
+        return
+    if group.pg is None:
+        tensors = list(tensors)
+        if scale is not None and tensors:
+            torch._foreach_mul_(tensors, scale)
         return
     buckets = {}
     for t in tensors:
@@ -158,6 +347,7 @@ def flat_all_reduce_(tensors, group, scale: Optional[float] = None
     for bs in buckets.values():
         for bucket in bs:
             flat = torch.cat([t.reshape(-1) for t in bucket])
+            _count("all_reduce")
             torch.distributed.all_reduce(flat, group=group.pg)
             if scale is not None:
                 flat.mul_(scale)

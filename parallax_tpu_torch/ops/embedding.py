@@ -25,6 +25,13 @@ engine's ``sharded_lookup_scope``, ``embedding_lookup`` of such a shard:
             combine, the gathers span the whole mesh instead)
 
 so the bytes on the wire are O(batch * dim), never O(vocab * dim).
+Where the batch rides 'repl' alone (``collectives.batch_on_repl()``: the
+tensor-parallel models, whose shard group holds the same rows), rank s of
+a shard group looks up chunk s of its ids along dim 0 and the rows are
+all-gathered over 'shard' after the exchange (backward: each rank's
+chunk of the gradient), as the JAX ``shard_map`` takes the ids as
+``P(('repl', 'shard'))``: every id crosses the wire once, and the
+lookup records and ``dedup_capacity`` count what the JAX ones count.
 ``average_duplicates`` divides each row's gradient by its occurrence
 count over the global batch (after the repl merge).
 ``local_aggregation`` first sums each rank's duplicate ids into unique
@@ -143,18 +150,21 @@ def sharded_lookup_scope(mesh, sharded_tables,
                          local_aggregation: bool = True,
                          dedup_capacity: Union[int, Dict[Any, int],
                                                None] = None,
-                         cross_replica_sparse: Optional[bool] = None):
+                         cross_replica_sparse: Optional[bool] = None,
+                         batch_on_repl: bool = False):
     """Engine-installed scope: inside it, ``embedding_lookup`` of a row
     shard listed in ``sharded_tables`` (``[(shard tensor, whole table
     shape, path)]``) runs the collective lookup, and ``current_mesh()``
-    is ``mesh``. Returns the scope's context (its ``guarded`` list)."""
+    is ``mesh`` (``batch_on_repl``: the batch rides 'repl' alone, see
+    ops/collectives.py). Returns the scope's context (its ``guarded``
+    list)."""
     ctx = _MeshCtx(mesh, {id(t): (path, tuple(shape))
                           for t, shape, path in sharded_tables},
                    average_duplicates, local_aggregation, dedup_capacity,
                    cross_replica_sparse, records)
     token = _CTX.set(ctx)
     try:
-        with collectives.mesh_scope(mesh):
+        with collectives.mesh_scope(mesh, batch_on_repl):
             yield ctx
     finally:
         _CTX.reset(token)
@@ -191,6 +201,23 @@ def embedding_lookup(table: torch.Tensor,
 
 
 def _sharded(ctx: _MeshCtx, table, ids, entry, slice_path):
+    mesh = ctx.mesh
+    if not collectives.batch_on_repl():
+        return _sharded_ids(ctx, table, ids, entry, slice_path)
+    # the shard group holds the same ids: each rank takes its chunk
+    group, index = mesh.shard_group, mesh.coords[1]
+    if ids.shape[0] % mesh.shard:
+        raise ValueError(
+            f"embedding_lookup: ids of batch {ids.shape[0]} ride 'repl' "
+            f"alone, so they split over the {mesh.shard} ranks of a shard "
+            f"group; the batch must divide by {mesh.shard}")
+    n = ids.shape[0] // mesh.shard
+    rows = _sharded_ids(ctx, table, ids[index * n:(index + 1) * n], entry,
+                        slice_path)
+    return collectives.gather_along(rows, group, index, 0)
+
+
+def _sharded_ids(ctx: _MeshCtx, table, ids, entry, slice_path):
     mesh = ctx.mesh
     _, shape = entry
     hint = ctx.dedup_capacity_hint

@@ -8,13 +8,18 @@ whole local batch, or a list of ``num_replicas_per_worker`` (one)
 per-replica arrays, concatenated on dim 0. On several ranks each rank
 feeds its own share of the global batch, rank ``r * shard + s`` the
 share of the JAX mesh's device ``(r, s)`` (the JAX multi-process
-contract, engine.py:844-860); every rank must run every step. Fetch
+contract, engine.py:844-860); where the model's ``batch_specs`` put the
+batch on 'repl' alone (the tensor-parallel models), each rank feeds its
+repl row's share, ``r``'s of ``repl`` equal shares, alike on every rank
+of its shard group (JAX's ``_feed_process_scale``); every rank must run
+every step. Fetch
 contract: names among {"loss", "global_step"} and the model's metric
 names; a single name returns one value, a list returns a list, None
 returns a dict. A model whose loss and metrics reduce over the batch
 with ``ops.collectives.global_sum`` (the ported models) fetches the
 global values, the same on every rank. ``gather_params()`` reads the
-parameters with every row-sharded leaf whole (the counterpart of
+parameters with every row-sharded and tensor-parallel leaf whole, in the
+JAX package's global layout (the counterpart of
 ``np.asarray(sess.state.params[...])``).
 
 Fetches are lazy: ``run()`` returns ``Fetch`` handles whose value stays
@@ -423,8 +428,9 @@ class ParallaxSession:
         return stats
 
     def gather_params(self):
-        """The parameter tree with every row-sharded leaf gathered whole,
-        on this rank's device (a collective: every rank calls it)."""
+        """The parameter tree with every row-sharded and tensor-parallel
+        leaf gathered whole in the JAX layout, on this rank's device (a
+        collective: every rank calls it)."""
         if self._engine is None:
             raise ValueError("gather_params needs a built engine: run a "
                              "step or prepare(example_feed) first")

@@ -12,8 +12,13 @@ numpy arrays, into the port's tree of fp32 tensors. The layout is kept
 as it is — ``[in, out]`` weights applied as ``x @ w`` — so nothing is
 transposed and each tensor is the JAX leaf of the same path.
 
+``bert_params_from_jax`` does the same for the JAX BERT tree
+(``word_emb``, ``pos_emb``, ``type_emb``, ``emb_ln``, ``mlm``, ``nsp``,
+the ``blocks`` list), unchanged in layout.
+
 ``rank_shard`` cuts any of those whole trees down to what one rank of a
-mesh holds: its rows of each leaf the engine's plan row-shards.
+mesh holds: its rows of each leaf the engine's plan row-shards, its
+shard of each tensor-parallel leaf.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from parallax_tpu_torch.common.lib import resolve_device
 from parallax_tpu_torch.core.classify import flatten
 from parallax_tpu_torch.models import _nn, cnn
+from parallax_tpu_torch.models.bert import BertConfig
 from parallax_tpu_torch.models.lm1b import LM1BConfig
 from parallax_tpu_torch.models.nmt import NMTConfig
 
@@ -98,6 +104,37 @@ def params_from_jax(np_params, cfg: NMTConfig, device="cuda"):
     }
 
 
+def bert_params_from_jax(np_params, cfg: BertConfig, device="cuda"):
+    """The port's BERT parameters (fp32) from a JAX tree of numpy arrays,
+    on ``device``. Checks every shape against ``cfg``."""
+    dev = resolve_device(device)
+    V, D, M = cfg.padded_vocab, cfg.hidden_dim, cfg.mlp_dim
+    ln = {"s": (D,), "b": (D,)}
+    want = {
+        "word_emb": (V, D), "pos_emb": (cfg.max_len, D),
+        "type_emb": (cfg.type_vocab, D), "emb_ln": ln,
+        "mlm": {"w": (D, D), "ln": ln, "out": (D, V), "bias": (V,)},
+        "nsp": {"pool": (D, D), "out": (D, 2)},
+    }
+    block = {"wqkv": (D, 3 * D), "wo": (D, D), "w1": (D, M), "w2": (M, D),
+             "ln1": ln, "ln2": ln}
+
+    def carry(tree, shapes, path):
+        if isinstance(shapes, dict):
+            return {k: carry(tree[k], v, f"{path}/{k}" if path else k)
+                    for k, v in shapes.items()}
+        return _leaf(tree, shapes, path, torch.float32, dev,
+                     "bert_params_from_jax")
+
+    if len(np_params["blocks"]) != cfg.num_layers:
+        raise ValueError(f"bert_params_from_jax: {len(np_params['blocks'])} "
+                         f"blocks, the config wants {cfg.num_layers}")
+    out = carry(np_params, want, "")
+    out["blocks"] = [carry(b, block, f"blocks/{i}")
+                     for i, b in enumerate(np_params["blocks"])]
+    return out
+
+
 def simple_params_from_jax(np_params, device="cuda"):
     """The linear regression's ``{"w", "b"}``, each of shape (1,)."""
     dev = resolve_device(device)
@@ -153,10 +190,9 @@ def cnn_params_from_jax(np_variables, name, num_classes: int,
 
 def rank_shard(params, engine):
     """``params`` (a whole tree of tensors in the port's layout, e.g. from
-    one of the functions above) as ``engine``'s rank holds it: the rank's
-    rows of every leaf the plan row-shards, every other leaf as it is.
-    Copy the result into ``sess.state.params`` leaf by leaf."""
-    from parallax_tpu_torch.core.engine import _with_leaves
-    flat = dict(flatten(params))
-    return _with_leaves(params, {p: engine._own_rows(flat[p])
-                                 for p in engine._row_sharded})
+    one of the functions above) as ``engine``'s rank holds it
+    (``Engine.local_part``): the rank's rows of every leaf the plan
+    row-shards, its shard of every tensor-parallel leaf (of a fused
+    ``wqkv``, the q, k and v columns of its heads), every other leaf as
+    it is. Copy the result into ``sess.state.params`` leaf by leaf."""
+    return engine._local_tree(params)

@@ -65,9 +65,10 @@ RTOL, ATOL = 1e-5, 1e-6
 DEADLINE_S = 90
 
 
-def run_ranks(tmp_path, world, fn_name, **kwargs):
-    """Spawn ``world`` ranks running ``bodies.<fn_name>``; their results
-    in rank order. Fails on a rank's error or past the deadline."""
+def start_ranks(tmp_path, world, fn_name, deadline_s=DEADLINE_S,
+                **kwargs):
+    """Spawn ``world`` ranks running ``bodies.<fn_name>``; returns the
+    handle ``join_ranks`` takes (the caller may work meanwhile)."""
     run_dir = Path(tmp_path) / f"{fn_name}_{time.monotonic_ns()}"
     run_dir.mkdir()
     ctx = multiprocessing.get_context("spawn")
@@ -77,21 +78,34 @@ def run_ranks(tmp_path, world, fn_name, **kwargs):
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + DEADLINE_S
+    return (fn_name, procs, run_dir, deadline_s,
+            time.monotonic() + deadline_s)
+
+
+def join_ranks(handle):
+    """The ranks' results in rank order. Fails on a rank's error or past
+    the deadline."""
+    fn_name, procs, run_dir, deadline_s, deadline = handle
     for p in procs:
         p.join(max(0.1, deadline - time.monotonic()))
     alive = [p for p in procs if p.is_alive()]
     for p in alive:
         p.kill()
         p.join()
-    assert not alive, f"{fn_name}: ranks still running after {DEADLINE_S}s"
+    assert not alive, f"{fn_name}: ranks still running after {deadline_s}s"
     codes = [p.exitcode for p in procs]
-    assert codes == [0] * world, f"{fn_name}: rank exit codes {codes}"
+    assert codes == [0] * len(procs), f"{fn_name}: rank exit codes {codes}"
     out = []
-    for r in range(world):
+    for r in range(len(procs)):
         with open(run_dir / f"rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def run_ranks(tmp_path, world, fn_name, **kwargs):
+    """Spawn ``world`` ranks running ``bodies.<fn_name>``; their results
+    in rank order. Fails on a rank's error or past the deadline."""
+    return join_ranks(start_ranks(tmp_path, world, fn_name, **kwargs))
 
 
 def shared(tmp_path_factory, name, compute):

@@ -59,7 +59,8 @@ def test_package_imports_with_jax_blocked():
         "from parallax_tpu_torch import runner\n"
         "from parallax_tpu_torch.models import lm1b\n"
         "from parallax_tpu_torch.models import cnn, cnn_zoo, resnet, "
-        "simple\n"
+        "simple, bert, nmt\n"
+        "from parallax_tpu_torch.ops import tensor_parallel\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"

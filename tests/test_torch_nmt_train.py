@@ -227,8 +227,16 @@ def test_first_update_is_zero_and_the_loss_falls():
 
 
 def test_build_model_refuses_what_is_not_ported():
+    # tensor parallelism runs the plain core, as the JAX build_model says
     with pytest.raises(ValueError, match="tensor_parallel"):
-        tnmt.tiny_config(tensor_parallel=True)
+        tnmt.build_model(tnmt.tiny_config(tensor_parallel=True,
+                                          use_pallas_attention=True))
+    with pytest.raises(ValueError, match="tensor_parallel"):
+        jnmt.build_model(jnmt.tiny_config(tensor_parallel=True,
+                                          use_pallas_attention=True))
+    tp = tnmt.build_model(tnmt.tiny_config(tensor_parallel=True))
+    assert set(tp.batch_specs) == {"src", "tgt_in", "tgt_out", "w"}
+    assert tp.param_specs["enc/*/attn/wo"] == ("shard", None)
     model = tnmt.build_model(tnmt.tiny_config())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

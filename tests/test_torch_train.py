@@ -208,7 +208,9 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported():
         assert math.isfinite(float(sess.run("loss", feed_dict=batch)))
         assert sess.mesh.shape == {"repl": 1, "shard": 1}
         sess.close()
-    # a stateful model on more than one rank, and tensor-parallel specs
+    # a stateful model on more than one rank; pipeline parallelism; and
+    # tensor-parallel specs on a shard axis of 2 whose batch is not on
+    # 'repl' alone (on one rank a tensor-parallel spec replicates)
     from parallax_tpu_torch.core import engine as tengine, mesh as tmesh
     two = tmesh.Mesh(torch.device("cpu"), repl=2, shard=1)
     with pytest.raises(NotImplementedError, match="cross-rank BatchNorm"):
@@ -217,10 +219,22 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported():
                        tparallax.Config(run_option="AR"),
                        tparallax.cnn.make_batch(
                            np.random.default_rng(0), 2, 32, 1000))
+    for field in ("value_and_grad_fn", "pipeline_info"):
+        piped = tlm1b.build_model(tlm1b.tiny_config())
+        setattr(piped, field, {"stages": 2} if field == "pipeline_info"
+                else (lambda *a: None))
+        with pytest.raises(NotImplementedError, match=field):
+            tparallax.parallel_run(piped, device="cpu")[0].prepare(batch)
     tp = tlm1b.build_model(tlm1b.tiny_config())
     tp.param_specs["emb"] = tmesh.P(None, "shard")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tparallax.parallel_run(tp, device="cpu")[0].prepare(batch)
+    sess = tparallax.parallel_run(tp, device="cpu")[0]
+    sess.prepare(batch)
+    assert sess.engine.plan.placements["emb"] == "replicated"
+    sess.close()
+    wide = tmesh.Mesh(torch.device("cpu"), repl=1, shard=2)
+    with pytest.raises(NotImplementedError, match="batch_specs"):
+        tengine.Engine(tp, wide, tparallax.Config(run_option="HYBRID"),
+                       batch)
     with pytest.raises(ValueError, match="sparse_grad_mode"):
         tparallax.Config(sparse_grad_mode="Slices")
     assert tparallax.Config(run_option="ps").run_option == "SHARD"

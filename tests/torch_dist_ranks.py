@@ -248,3 +248,152 @@ def nmt(rank, world, cfg_kw, init, batches):
            "params": _flat_np(sess.gather_params())}
     sess.close()
     return res
+
+
+# -- tensor parallelism (tests/test_torch_tp.py) ------------------------------
+
+
+def tp_part(w, kind, groups, s, p):
+    """Rank ``s`` of ``p``'s part of a whole weight (numpy): its columns of
+    each of ``groups`` blocks ("col"), its rows ("row"), or the whole."""
+    if kind == "col":
+        blocks = w.reshape(w.shape[:-1] + (groups, -1))
+        n = blocks.shape[-1] // p
+        return blocks[..., s * n:(s + 1) * n].reshape(w.shape[:-1] + (-1,))
+    if kind == "row":
+        n = w.shape[0] // p
+        return w[s * n:(s + 1) * n]
+    return w
+
+
+def _tp_case(mesh, case):
+    """One op-level case on this rank: (outputs, input grads, local
+    weight grads, collective counts of the forward)."""
+    from parallax_tpu_torch.ops import tensor_parallel as tp
+    name, fn_name, inputs, weights, kw, cot = case
+    s, p = mesh.coords[1], mesh.shard
+    sp = kw.get("sequence_parallel", False)
+
+    def local_input(a):
+        t = torch.tensor(a)
+        if sp:               # this rank's T/p of the sequence
+            n = t.shape[1] // p
+            t = t[:, s * n:(s + 1) * n]
+        return t.clone().requires_grad_()
+
+    xs = {k: local_input(v) for k, v in inputs.items()}
+    ws = {k: torch.tensor(tp_part(w, kind, g, s, p)).requires_grad_()
+          for k, (w, kind, g) in weights.items()}
+    kwargs = dict(kw)
+    heads = kwargs.pop("heads", None)
+    if "kv_mask" in kwargs:
+        kwargs["kv_mask"] = torch.tensor(kwargs["kv_mask"])
+
+    def run():
+        if fn_name == "column_row":
+            return tp.row_parallel(tp.column_parallel(
+                xs["x"], ws["w1"], mesh=mesh, **kwargs), ws["w2"],
+                mesh=mesh, **kwargs)
+        if fn_name == "mlp":
+            return tp.tp_mlp(xs["x"], ws["w1"], ws["w2"], mesh=mesh,
+                             **kwargs)
+        attn = {k: ws[k] for k in ("wqkv", "wq", "wk", "wv", "wo")
+                if k in ws}
+        if fn_name == "attention":
+            x_kv = xs["x_kv"] if "x_kv" in xs else xs["x"]
+            return tp.tp_attention(xs["x"], x_kv, attn, heads, mesh=mesh,
+                                   **kwargs)
+        # the Megatron block of tests/test_tensor_parallel.py:_block_fwd
+        x = xs["x"]
+        y = x + tp.tp_attention(x, x, attn, heads, mesh=mesh, **kwargs)
+        return y + tp.tp_mlp(y, ws["w1"], ws["w2"], mesh=mesh,
+                             sequence_parallel=sp)
+
+    counts = tp.count_collectives(lambda: run())
+    out = run()
+    c = torch.tensor(cot)
+    if sp:
+        n = c.shape[1] // p
+        c = c[:, s * n:(s + 1) * n]
+    (out * c).sum().backward()
+    return {"out": _np(out), "counts": counts,
+            "x_grads": {k: _np(v.grad) for k, v in xs.items()},
+            "w_grads": {k: _np(v.grad) for k, v in ws.items()}}
+
+
+def tp_ops(rank, world, cases, norm_leaves):
+    """Each op-level case on a (1, world) mesh, and ``global_norm`` over
+    this rank's parts of ``norm_leaves`` ({path: (whole, kind,
+    groups)}) with the split ones named in ``sharded_scope``."""
+    from parallax_tpu_torch.core import mesh as mesh_lib, optim
+    mesh = mesh_lib.build_mesh("cpu", shape=(1, world))
+    s = mesh.coords[1]
+    parts = {k: torch.tensor(tp_part(w, kind, g, s, world))
+             for k, (w, kind, g) in norm_leaves.items()}
+    split = [k for k, (_, kind, _) in norm_leaves.items() if kind != "rep"]
+    with optim.sharded_scope(split, mesh):
+        norm = float(optim.global_norm(parts))
+    return {"coords": mesh.coords, "global_norm": norm,
+            **{case[0]: _tp_case(mesh, case) for case in cases}}
+
+
+def _row_share(batch, mesh):
+    """This rank's feed when the batch rides 'repl' alone: its repl row's
+    share, alike across its shard group."""
+    r = mesh.coords[0]
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0] // mesh.repl
+        out[k] = v[r * n:(r + 1) * n]
+    return out
+
+
+def tp_models(rank, world, runs):
+    """Each run: (name, model family, config kwargs, num_partitions,
+    feed layout, SGD learning rate or None for the model's own
+    optimizer, whole initial params, batches): losses, the gathered
+    parameters, the local shapes and the plan."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch import weights
+    from parallax_tpu_torch.core import optim
+    from parallax_tpu_torch.core.classify import flatten
+    from parallax_tpu_torch.models import bert as tbert, nmt as tnmt
+
+    out = {}
+    for name, family, cfg_kw, parts, feed, sgd, init, batches in runs:
+        if family == "bert":
+            cfg = tbert.tiny_config(compute_dtype=torch.float32, **cfg_kw)
+            model = tbert.build_model(cfg)
+            whole = weights.bert_params_from_jax(init, cfg, "cpu")
+        else:
+            cfg = tnmt.tiny_config(compute_dtype=torch.float32, **cfg_kw)
+            model = tnmt.build_model(cfg)
+            whole = weights.params_from_jax(init, cfg, "cpu")
+        if sgd is not None:
+            model.optimizer = optim.sgd(sgd)
+        sess, *_ = pt.parallel_run(
+            model, parallax_config=pt.Config(run_option="HYBRID"),
+            device="cpu", num_partitions=parts)
+        mesh = sess.mesh
+
+        def share(b):
+            return _row_share(b, mesh) if feed == "repl" \
+                else _share(b, rank, world)
+
+        sess.prepare(share(batches[0]))
+        mine = dict(flatten(weights.rank_shard(whole, sess.engine)))
+        with torch.no_grad():
+            for path, leaf in flatten(sess.state.params):
+                leaf.copy_(mine[path])
+        losses = [float(sess.run("loss", feed_dict=share(b)))
+                  for b in batches]
+        out[name] = {
+            "mesh": (mesh.repl, mesh.shard, mesh.coords),
+            "losses": losses,
+            "params": _flat_np(sess.gather_params()),
+            "local_shapes": {p: tuple(v.shape) for p, v in
+                             _flat_np(sess.state.params).items()},
+            "placements": dict(sess.engine.plan.placements),
+            "wire": sess.sparse_wire_bytes_per_step()}
+        sess.close()
+    return out
