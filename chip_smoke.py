@@ -151,6 +151,39 @@ beside it. Phases:
     plain attention core: losses within 2e-3 relative
     (``tests/test_bert.py:55``'s tolerance).
 
+12d. ``lc-train``: the long-context causal LM at its published widths
+    (``LongContextConfig()``: vocab 32000, D 512, 8 heads of 64, MLP
+    2048, 6 layers, ``parallelism="ring"``, bf16) through
+    ``parallel_run(..., Config(run_option="HYBRID"))`` on one card, where
+    the ring has one block: one causal flash tile a layer, merged through
+    its lse. Batches of 8 x 8192 from ``make_batch``; ``sess.warmup``
+    captures the step, then 10 timed steps: tokens/s, step ms p50 and
+    p95, peak memory, the model FLOPs (causal attention counted as half)
+    as a share of 989 TF/s; B4, B5 and B6 must launch 6 times a step
+    each, every loss must be finite and ``tokens`` 8 x 8191. Then 3 steps
+    under the profiler, busy by ``LC_GROUPS``.
+12e. ``lc-agree``: 3 eager steps of the same model at 2 x 2048 from one
+    init, the ring's flash blocks against the plain causal core: losses
+    within 2e-3 relative.
+12f. ``lc-serve``: the same model, random weights from seed 0, behind
+    ``ServeSession(program=CausalLMDecodeProgram(..., max_src_len=512,
+    max_len=256, page_size=16, pool_pages=3072, attn_impl="kernel"))``
+    with 64 slots: 256 requests with prompts of 64-512 ids, each prompt's
+    K/V inserted through its slot's page row. The warmup captures the
+    prefill and the decode step. B7 must launch 6 times a decode step
+    (plus the warmup's call), B4 never; no page may stay in use after
+    close. Then 64 requests under the profiler (``lc-serve-profile``):
+    busy and B7 ms a decode step and the idle share.
+12g. ``lc-serve-agree``: 32 of the requests served in fp32 (TF32 off)
+    through B7 against ``standalone_greedy`` of the dense program (plain
+    attention), request by request, with ``agreement``'s top-2-gap rule.
+
+The kernel phase adds the ``lc_train`` cases (bf16 B4, and B5/B6 with an
+lse cotangent, at B 8, T 8192, 8 heads of 64, causal; held to the plain
+versions on 4 of the 8 rows, whose [T, T] scores fit, and timed on all
+8) and ``lc_serve`` (bf16 and fp32 B7 at S 64, 48 pages of 16, last
+positions drawn in [63, 766]).
+
 13. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
     eagerly (``compile.disable_capture()``) and 5 as graph replays from
     fresh sessions of one seed on the same batches: losses and the final
@@ -410,14 +443,22 @@ def flash_cases():
             ("train_dec", 64, 64, 8, 64, True, None),
             ("t2048", 2, 2048, 8, 64, False, None),
             ("t2048_causal", 2, 2048, 8, 64, True, None),
-            ("bert", 32, 512, 16, 64, False, "bert")]
+            ("bert", 32, 512, 16, 64, False, "bert"),
+            ("lc_train", 8, 8192, 8, 64, True, None)]
 
+
+# cases whose plain version runs on the first rows only: its fp32 [T, T]
+# scores of all 8 rows at T 8192 would take 17 GB each (the kernel runs
+# and is timed on every row; rows are independent)
+PLAIN_ROWS = {"lc_train": 4}
 
 # bf16 only: the long sequences where the sm90 kernels' ring reaches its
 # steady state (fp32 stays on the first kernels, measured at T 512), and
 # BERT-large's attention as bert-train runs it (B 32, T 512, 16 heads of
-# 64, the WordPiece padding mask)
-BF16_ONLY = ("t2048", "t2048_causal", "bert")
+# 64, the WordPiece padding mask), and the long-context LM's as lc-train
+# runs it (B 8, T 8192, 8 heads of 64, causal; the backward with the lse
+# cotangent of the ring's merge)
+BF16_ONLY = ("t2048", "t2048_causal", "bert", "lc_train")
 
 
 def flash_kernel_name(kernel, dtype_name):
@@ -473,14 +514,18 @@ def run_flash_case(torch, case, dtype):
     q, k, v = (torch.randn((B, T, H, hd), generator=g, device=DEVICE,
                            dtype=dtype) for _ in range(3))
     mask = make_mask(torch, mask_kind, B, T)
+    rows = PLAIN_ROWS.get(label, B)
+    sub = [x[:rows] for x in (q, k, v)]
+    sub_mask = None if mask is None else mask[:rows]
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal, kv_mask=mask)
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
-                                            kv_mask=mask)
+    ref, ref_lse = fa.flash_attention_plain(*sub, causal=causal,
+                                            kv_mask=sub_mask)
     torch.cuda.synchronize()
+    out, lse = out[:rows], lse[:rows]
     err, tol = compare(torch, out, ref, dtype)
-    live = torch.ones((B,), dtype=torch.bool, device=DEVICE)
+    live = torch.ones((rows,), dtype=torch.bool, device=DEVICE)
     if mask is not None:
-        live = mask.sum(dim=1) > 0
+        live = sub_mask.sum(dim=1) > 0
     lse_err = (lse[live] - ref_lse[live]).abs().max().item()
     lse_tol = FP32_ATOL if dtype == torch.float32 else \
         1e-2 * max(ref_lse[live].abs().max().item(), 1.0)
@@ -496,8 +541,10 @@ def run_flash_case(torch, case, dtype):
     kernel_device_ms = device_ms(torch, lambda: fa.flash_attention_lse(
         q, k, v, causal=causal, kv_mask=mask),
         flash_kernel_name("flash_fwd_kernel", dtype_name))
+    del out, lse, ref, ref_lse
     plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, causal=causal, kv_mask=mask))
+        *sub, causal=causal, kv_mask=sub_mask),
+        **({} if rows == B else dict(reps=5, per_round=2)))
     attn_mask = None if mask is None else \
         (mask > 0)[:, None, None, :].expand(B, H, T, T)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -513,7 +560,7 @@ def run_flash_case(torch, case, dtype):
             "dtype": dtype_name,
             "shape": {"B": B, "T": T, "H": H, "hd": hd, "causal": causal,
                       "mask": mask_kind},
-            "ok": ok, "max_abs_err": err, "tol": tol,
+            "ok": ok, "max_abs_err": err, "tol": tol, "plain_rows": rows,
             "lse_max_abs_err": lse_err, "ms": kernel_ms,
             "device_ms": kernel_device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
@@ -527,7 +574,12 @@ def paged_cases():
     from parallax_tpu_torch.ops.paged_attention import FLAGSHIP_DECODE as F
     # (label, S, G, D, heads, page_size, P, pool_pages, occupancy);
     # "serve" is the decode step of the serving path below
-    out = [("serve", 64, 1, 512, 8, 16, 8, 512, None)]
+    # "lc_serve" is lc-serve's decode step: 48 pages of 16 a slot over a
+    # 3072-page pool, each slot's last position drawn in [63, 766] (the
+    # longest prompt's last position to its last decode step's) with the
+    # pages that reach it
+    out = [("serve", 64, 1, 512, 8, 16, 8, 512, None),
+           ("lc_serve", 64, 1, 512, 8, 16, 48, 3072, "lc")]
     for G in (1, 3):
         for occ in (1.0, 0.25):
             out.append((f"flagship_g{G}_occ{int(occ * 100)}", F["S"], G,
@@ -547,7 +599,12 @@ def _paged_tables(case, rng):
     perm = rng.permutation(pool_pages)
     nxt = 0
     for s in range(S):
-        if occ is None:
+        if occ == "lc":
+            last = int(rng.integers(LC_SERVE["max_src_len"] - 1,
+                                    LC_SERVE["max_src_len"]
+                                    + LC_SERVE["max_len"] - 1))
+            n = last // ps + 1
+        elif occ is None:
             cap = int(rng.integers(32, P * ps + 1))
             n = -(-cap // ps)
             last = int(rng.integers(G - 1, cap))
@@ -585,7 +642,7 @@ def run_paged_case(torch, case, dtype, flush):
     torch.cuda.synchronize()
     err, tol = compare(torch, out, ref, dtype)
     ok = err <= tol and bool(torch.isfinite(out).all())
-    if occ is not None:
+    if isinstance(occ, float):
         ok = ok and bool((out[0] == 0).all())   # the slot with no page
     # a decode step reaches each layer's pool after the other layers'
     # pools and weights went through the cache, so both versions are
@@ -732,7 +789,8 @@ def flash_bwd_cases():
             ("lse_cotangent", 8, 128, 128, 8, 64, True, None, True),
             ("t2048", 2, 2048, 2048, 8, 64, False, None, False),
             ("t2048_causal", 2, 2048, 2048, 8, 64, True, None, False),
-            ("bert", 32, 512, 512, 16, 64, False, "bert", False)]
+            ("bert", 32, 512, 512, 16, 64, False, "bert", False),
+            ("lc_train", 8, 8192, 8192, 8, 64, True, None, True)]
 
 
 def grad_compare(torch, got, want, dtype):
@@ -789,14 +847,23 @@ def run_flash_bwd_case(torch, case, dtype):
         if with_dlse else None
     mask = make_mask(torch, mask_kind, B, Tk)
     scale = 1.0 / math.sqrt(hd)
-    # both versions take the same out and lse (the plain forward's)
-    out, lse = fa.flash_attention_plain(q, k, v, causal, scale, mask)
+    rows = PLAIN_ROWS.get(label, B)
+    # both versions take the same out and lse: the plain forward's, or the
+    # kernel forward's where the plain version runs on the first rows only
+    out, lse = (fa.flash_attention_plain if rows == B else fa.flash_forward)(
+        q, k, v, causal, scale, mask)
     delta = fa.flash_delta(out, dout, dlse)
+    del out
     args = (q, k, v, mask, dout, lse, delta, causal, scale)
-    got = {"flash_attention_dq": (fa.flash_dq(*args),),
-           "flash_attention_dkv": fa.flash_dkv(*args)}
-    want = {"flash_attention_dq": (fa.flash_dq_plain(*args),),
-            "flash_attention_dkv": fa.flash_dkv_plain(*args)}
+    plain_args = args if rows == B else tuple(
+        None if a is None else (a[:rows].contiguous()
+                                if isinstance(a, torch.Tensor) else a)
+        for a in args)
+    got = {"flash_attention_dq": (fa.flash_dq(*args)[:rows],),
+           "flash_attention_dkv": tuple(g[:rows]
+                                        for g in fa.flash_dkv(*args))}
+    want = {"flash_attention_dq": (fa.flash_dq_plain(*plain_args),),
+            "flash_attention_dkv": fa.flash_dkv_plain(*plain_args)}
     torch.cuda.synchronize()
     library_ms = sdpa_backward_ms(torch, q, k, v, dout, mask, causal, scale)
     pairs = attended_pairs(torch, B, Tq, Tk, causal, mask)
@@ -806,11 +873,11 @@ def run_flash_bwd_case(torch, case, dtype):
                 + (0 if mask is None else B * Tk * 4))
     calls = {
         "flash_attention_dq": (lambda: fa.flash_dq(*args),
-                               lambda: fa.flash_dq_plain(*args),
+                               lambda: fa.flash_dq_plain(*plain_args),
                                "flash_dq_kernel", 3,
                                B * Tq * H * hd * itemsize),
         "flash_attention_dkv": (lambda: fa.flash_dkv(*args),
-                                lambda: fa.flash_dkv_plain(*args),
+                                lambda: fa.flash_dkv_plain(*plain_args),
                                 "flash_dkv_kernel", 4,
                                 2 * B * Tk * H * hd * itemsize),
     }
@@ -829,6 +896,7 @@ def run_flash_bwd_case(torch, case, dtype):
         bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype_name)
         results.append({
             "kernel": name, "case": label, "dtype": dtype_name,
+            "plain_rows": rows,
             "shape": {"B": B, "Tq": Tq, "Tk": Tk, "H": H, "hd": hd,
                       "causal": causal, "mask": mask_kind,
                       "lse_cotangent": with_dlse, "pairs": pairs},
@@ -2027,12 +2095,16 @@ def bert_model_flops(cfg, batch):
 
 
 def profile_bert(torch, sess, batches):
-    """``profile_steps`` steps under the profiler's CUDA activity: busy ms
-    a step, the idle share, busy by ``BERT_GROUPS`` and the top kernels;
-    the steps must launch the three sm90 flash kernels and no first
-    one."""
+    return profile_groups(torch, sess, batches, BERT_TRAIN["profile_steps"],
+                          BERT_GROUPS)
+
+
+def profile_groups(torch, sess, batches, steps, groups_of):
+    """``steps`` steps under the profiler's CUDA activity: busy ms a step,
+    the idle share, busy by ``groups_of`` ((name, kernel-name pattern),
+    first match wins) and the top kernels; the steps must launch the
+    three sm90 flash kernels and no first one."""
     from torch.profiler import ProfilerActivity, profile
-    steps = BERT_TRAIN["profile_steps"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2049,10 +2121,10 @@ def profile_bert(torch, sess, batches):
         if us > 0:
             rows.append((us, evt.count, evt.key))
     busy_us = sum(us for us, _, _ in rows)
-    groups = {name: 0.0 for name, _ in BERT_GROUPS}
+    groups = {name: 0.0 for name, _ in groups_of}
     groups["other"] = 0.0
     for us, _, key in rows:
-        name = next((n for n, pat in BERT_GROUPS if re.search(pat, key)),
+        name = next((n for n, pat in groups_of if re.search(pat, key)),
                     "other")
         groups[name] += us
     rows.sort(reverse=True)
@@ -2183,6 +2255,372 @@ def phase_bert_agree(torch):
         raise AssertionError(f"BERT flash and plain losses differ by "
                              f"{max(rel)} relative > "
                              f"{BERT_TRAIN['agree_tol']}: {losses}")
+    return summary
+
+
+# -- the long-context causal LM: lc-train, lc-agree, lc-serve -----------------
+
+# LongContextConfig() at its published widths (vocab 32000, D 512, 8 heads
+# of 64, MLP 2048, 6 layers, max_len 32768, bf16, parallelism 'ring': one
+# block on one card) through parallel_run HYBRID, batches of 8 x 8192
+# (examples/long_context_driver.py's default batch and sequence), the
+# step's graph captured by sess.warmup, then 10 timed steps
+LC_TRAIN = dict(batch=8, seq=8192, steps=10, profile_steps=3, agree_batch=2,
+                agree_seq=2048, agree_steps=3, agree_tol=2e-3)
+LC_GROUPS = (
+    ("flash B4-B6", r"flash_\w*kernel"),
+    ("fp32 head products ([65536, 512] x [512, 32000])",
+     r"(?i)sgemm|nvjet_s|f32f32_f32f32|gemm_f32"),
+    ("bf16 GEMMs", r"(?i)gemm|nvjet|xmma|cutlass|cublas"),
+    ("Adam and the clip (multi-tensor)", r"(?i)multi_tensor|foreach"),
+    ("log-softmax", r"(?i)softmax"),
+    ("reductions (LayerNorm statistics, sums)", r"(?i)reduce"),
+    ("elementwise (LayerNorm, ReLU, residuals, casts)",
+     r"(?i)elementwise|vectorized|unrolled"),
+    ("copies, fills and gathers", r"(?i)copy|memcpy|memset|fill|cat|gather|"
+                                  r"index"),
+)
+# lc-serve: LongContextConfig() behind CausalLMDecodeProgram with prompts
+# padded to 512, at most 256 new tokens, 48 pages of 16 a slot over a
+# 3072-page pool (64 slots x 48), 64 slots; 256 requests with prompt
+# lengths drawn in [64, 512] and ids in [1, 32000)
+LC_SERVE = dict(max_src_len=512, max_len=256, page_size=16, pool_pages=3072,
+                max_batch=64, max_queue=512, requests=256, min_prompt=64,
+                profile_requests=64, agree_requests=32)
+
+
+def lc_session(torch, **cfg_kw):
+    """LongContextConfig() through parallel_run HYBRID on the card, seed
+    0."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import long_context as lc
+    cfg = lc.LongContextConfig(**cfg_kw)
+    sess, *_ = pt.parallel_run(
+        lc.build_model(cfg), parallax_config=pt.Config(run_option="HYBRID"),
+        seed=SEED, device=DEVICE)
+    return cfg, sess
+
+
+def lc_batches(cfg, batch, seq, n=4):
+    from parallax_tpu_torch.models import long_context as lc
+    rng = np.random.default_rng(SEED)
+    return [lc.make_batch(rng, batch, seq, cfg.vocab_size) for _ in range(n)]
+
+
+def lc_model_flops(cfg, batch, seq):
+    """Model FLOPs of one training step (forward x 3) from the shapes: the
+    blocks' bf16 products (q/k/v, output, MLP, and the attention's two
+    T x T products counted over the causal half), and the fp32 head."""
+    D, M, V, L = cfg.model_dim, cfg.mlp_dim, cfg.vocab_size, cfg.num_layers
+    tokens = batch * seq
+    block = (2 * tokens * D * 3 * D + 2 * tokens * D * D
+             + 2 * 2 * tokens * D * M + 2 * 2 * batch * seq * seq * D // 2)
+    return {"bf16_tflop": 3 * L * block / 1e12,
+            "fp32_tflop": 3 * 2 * tokens * D * V / 1e12}
+
+
+def phase_lc_train(torch, card):
+    """The long-context LM through parallel_run HYBRID on one card, bf16:
+    ``sess.warmup`` captures the step, then ``steps`` timed steps (tokens
+    a second, step ms p50 and p95 from CUDA events, peak memory, the
+    model FLOPs' share of 989 TF/s); the ring's one block must run B4, B5
+    and B6 once a layer a step (6 each), every loss finite, ``tokens`` B
+    (T - 1); then ``profile_groups`` by ``LC_GROUPS``."""
+    from parallax_tpu_torch.ops import flash_attention as fa
+    torch.cuda.empty_cache()
+    cfg, sess = lc_session(torch)
+    B, T, steps = LC_TRAIN["batch"], LC_TRAIN["seq"], LC_TRAIN["steps"]
+    batches = lc_batches(cfg, B, T)
+    t_build = time.perf_counter()
+    sess.prepare(batches[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    if sess.engine.batch_layout != "sequence":
+        raise AssertionError(f"the ring model's batch layout is "
+                             f"{sess.engine.batch_layout}, not sequence")
+    capture = capture_train(torch, sess, B)
+    for name in FLASH_COUNTERS:
+        setattr(fa, name, 0)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    losses, tokens = [], []
+    feed = (batches[i % 4] for i in range(steps))
+    for loss, tok in sess.run_iter(feed, fetches=["loss", "tokens"]):
+        losses.append(loss)
+        tokens.append(tok)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_dq": fa.launches_dq,
+                "flash_attention_dkv": fa.launches_dkv}
+    per_step = {k: v / steps for k, v in launches.items()}
+    if set(per_step.values()) != {float(cfg.num_layers)}:
+        raise AssertionError(f"lc-train flash launches a step {per_step}: "
+                             f"want {cfg.num_layers} of each (the ring's "
+                             f"one block a layer)")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite lc-train loss: {losses}")
+    if [float(t) for t in tokens] != [float(B * (T - 1))] * steps:
+        raise AssertionError(f"tokens {tokens} != {B * (T - 1)}")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    p50 = statistics.median(step_ms)
+    flops = lc_model_flops(cfg, B, T)
+    step_flop = (flops["bf16_tflop"] + flops["fp32_tflop"]) * 1e12
+    summary = {
+        "card": card,
+        "config": {"vocab": cfg.vocab_size, "model_dim": cfg.model_dim,
+                   "heads": cfg.num_heads, "mlp": cfg.mlp_dim,
+                   "layers": cfg.num_layers, "parallelism": cfg.parallelism,
+                   "compute": "bfloat16", "run_option": "HYBRID",
+                   "batch": B, "seq": T},
+        "tokens_per_sec": steps * B * T / wall, "timed_steps": steps,
+        "wall_s": wall, "step_ms_p50": p50, "step_ms_p95": p95(step_ms),
+        "losses": losses, "engine_build_s": build_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "model_flops": flops,
+        "share_of_bf16_peak": steps / wall * step_flop
+        / PEAK_OPS_PER_S["bfloat16"],
+        "share_of_bf16_peak_at_p50": step_flop / (p50 * 1e-3)
+        / PEAK_OPS_PER_S["bfloat16"],
+        "launches": launches, "launches_per_step": per_step,
+        "capture": capture}
+    summary["profile"] = prof = profile_groups(
+        torch, sess, batches, LC_TRAIN["profile_steps"], LC_GROUPS)
+    summary["timed_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] \
+        / (wall * 1e3 / steps)
+    log(f"[lc-train] {json.dumps(summary)}")
+    sess.close()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_lc_agree(torch):
+    """``agree_steps`` eager steps of the same model at batch 2 x 2048 from
+    one init: the ring with flash blocks (B4-B6, 6 launches a step each)
+    against the plain causal core (``parallelism='data'``: the math of the
+    ring's one plain block); losses within 2e-3 relative
+    (tests/test_long_context.py:34's tolerance)."""
+    from parallax_tpu_torch.ops import flash_attention as fa
+    losses, launches = {}, {}
+    for name, kw in (("ring_flash", {}), ("plain", {"parallelism": "data"})):
+        cfg, sess = lc_session(torch, **kw)
+        batches = lc_batches(cfg, LC_TRAIN["agree_batch"],
+                             LC_TRAIN["agree_seq"], LC_TRAIN["agree_steps"])
+        before = fa.launches
+        with mode_ctx("eager"):
+            losses[name] = [float(sess.run("loss", feed_dict=b))
+                            for b in batches]
+        launches[name] = fa.launches - before
+        sess.close()
+        del sess
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["ring_flash"],
+                                               losses["plain"])]
+    summary = {"losses": losses, "max_rel_diff": max(rel),
+               "tol": LC_TRAIN["agree_tol"], "flash_launches": launches}
+    log(f"[lc-agree] {json.dumps(summary)}")
+    want = {"ring_flash": LC_TRAIN["agree_steps"] * 6, "plain": 0}
+    if launches != want:
+        raise AssertionError(f"lc-agree B4 launches {launches} != {want}")
+    if not (all(math.isfinite(x) for v in losses.values() for x in v)
+            and max(rel) <= LC_TRAIN["agree_tol"]):
+        raise AssertionError(f"ring (flash) and plain losses differ by "
+                             f"{max(rel)} relative > "
+                             f"{LC_TRAIN['agree_tol']}: {losses}")
+    return summary
+
+
+def lc_prompts(n, rng, vocab):
+    return [rng.integers(1, vocab, (int(rng.integers(
+        LC_SERVE["min_prompt"], LC_SERVE["max_src_len"] + 1)),))
+        .astype(np.int32) for _ in range(n)]
+
+
+def lc_serve(torch, cfg, params, prompts, **prog_kw):
+    """``prompts`` through ServeSession(CausalLMDecodeProgram(...)), each
+    to the program's cap: (outputs, wall s, stats, program)."""
+    import parallax_tpu_torch as pt
+    kw = dict(page_size=LC_SERVE["page_size"],
+              pool_pages=LC_SERVE["pool_pages"], attn_impl="kernel")
+    kw.update(prog_kw)
+    prog = pt.CausalLMDecodeProgram(
+        cfg, max_src_len=LC_SERVE["max_src_len"],
+        max_len=LC_SERVE["max_len"], device=DEVICE, **kw)
+    sess = pt.ServeSession(
+        program=prog, params=params, device=DEVICE,
+        config=pt.Config(serve_config=pt.ServeConfig(
+            max_batch=LC_SERVE["max_batch"],
+            max_queue=LC_SERVE["max_queue"])))
+    t0 = time.perf_counter()
+    try:
+        reqs = [sess.submit({"ids": p}) for p in prompts]
+        outs = [r.result(timeout=900) for r in reqs]
+        wall = time.perf_counter() - t0
+    finally:
+        sess.close()
+    cap = LC_SERVE["max_len"]
+    for out in outs:
+        if out.ndim != 1 or not 1 <= len(out) <= cap:
+            raise AssertionError(f"bad output length {out.shape}")
+        if out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError("token out of range")
+        if len(out) < cap and out[-1] != 0:
+            raise AssertionError("a request stopped early without EOS")
+    return outs, wall, sess.stats(), prog
+
+
+def phase_lc_serve(torch, cfg, params, prompts):
+    """The long-context LM served: the scheduler's warmup captures the
+    prefill and the decode step; B7 must launch 6 times a decode step
+    (plus the warmup's eager call), B4 never (the prefill runs the plain
+    causal attention, as in JAX), and no page may stay in use after
+    close."""
+    from parallax_tpu_torch.ops import flash_attention as fa
+    from parallax_tpu_torch.ops import paged_attention as pa
+    torch.cuda.synchronize()
+    fa.launches = pa.launches = pa.launches_combine = 0
+    outs, wall, stats, prog = lc_serve(torch, cfg, params, prompts)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    plan = pa.split_plan(LC_SERVE["max_batch"], cfg.num_heads,
+                         cfg.model_dim // cfg.num_heads, prog.pages_per_seq,
+                         LC_SERVE["page_size"], 2,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    launches = {"paged_decode_attention": pa.launches,
+                "flash_attention_fwd": fa.launches}
+    want = {"paged_decode_attention": (stats["serve.decode_steps"] + 1) * L,
+            "flash_attention_fwd": 0}
+    want_combine = want["paged_decode_attention"] * int(plan.nsplit > 1)
+    if launches != want or pa.launches_combine != want_combine:
+        raise AssertionError(f"lc-serve launches {launches}, combine "
+                             f"{pa.launches_combine} != {want}, "
+                             f"{want_combine} ({plan})")
+    if stats["serve.kv_pages_in_use"] != 0:
+        raise AssertionError(f"{stats['serve.kv_pages_in_use']} KV pages "
+                             f"left in use after close")
+    if stats["serve.completed"] != len(prompts):
+        raise AssertionError(f"{stats['serve.completed']} of "
+                             f"{len(prompts)} requests completed")
+    if prog._graphs is None:
+        raise AssertionError("the causal-LM program captured no graphs")
+    tokens = int(sum(len(o) for o in outs))
+    summary = {"requests": len(prompts), "tokens": tokens, "wall_s": wall,
+               "prompt_tokens": int(sum(len(p) for p in prompts)),
+               "tokens_per_sec": tokens / wall,
+               "ttft_ms_p50": stats["serve.ttft_ms"]["p50"],
+               "ttft_ms_p95": stats["serve.ttft_ms"]["p95"],
+               "step_ms_p50": stats["serve.step_ms"]["p50"],
+               "step_ms_p95": stats["serve.step_ms"]["p95"],
+               "decode_steps": stats["serve.decode_steps"],
+               "prefills": stats["serve.prefills"],
+               "kv_refill_deferred": stats["serve.kv_refill_deferred"],
+               "launches": launches,
+               "paged_combine_launches": pa.launches_combine,
+               "paged_plan": plan._asdict(),
+               "capture_s": stats["serve.compile_seconds"]["max"]}
+    log(f"[lc-serve] {json.dumps(summary)}")
+    return summary
+
+
+def phase_lc_serve_profile(torch, cfg, params, prompts):
+    """``profile_requests`` requests under the profiler's CUDA activity:
+    busy and B7 ms a decode step, the idle share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, stats, _ = lc_serve(torch, cfg, params, prompts)
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    busy_s = sum(us for us, _, _ in rows) / 1e6
+    paged_s = sum(us for us, _, key in rows if "paged_" in key) / 1e6
+    rows.sort(reverse=True)
+    steps = stats["serve.decode_steps"]
+    summary = {"requests": len(prompts), "window_s": window,
+               "device_busy_s": busy_s,
+               "device_idle_share": 1.0 - busy_s / window,
+               "decode_steps": steps, "prefills": stats["serve.prefills"],
+               "busy_ms_per_decode_step": busy_s * 1e3 / steps,
+               "paged_ms_per_decode_step": paged_s * 1e3 / steps,
+               "paged_share_of_busy": paged_s / busy_s,
+               "paged_kernels": paged_kernels_seen(rows),
+               "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
+                        "share_of_busy": us / 1e6 / busy_s}
+                       for us, n, key in rows[:10]]}
+    log(f"[lc-serve-profile] {json.dumps(summary)}")
+    return summary
+
+
+def lc_top2_gap(torch, prog, params, prompt, position):
+    """The dense plain program's top-2 logit gap and the two tokens at
+    decode ``position`` of one request (its own greedy prefix fed
+    back)."""
+    from parallax_tpu_torch.models import long_context as lc
+    cp = prog._compute_params(params)
+    rs = prog.prefill(params, prog.prepare_feed({"ids": prompt}))
+    state = prog.init_state(params, 1)
+    prog.insert(state, 0, rs)
+    tok = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+    for t in range(position + 1):
+        logits, _, _ = lc._decode_step_cached(
+            prog.cfg, cp, tok, torch.full((1,), t, dtype=torch.int32,
+                                          device=DEVICE),
+            state["base"], state["first"], state["kc"], state["vc"])
+        tok = logits.argmax(dim=-1).to(torch.int32)
+    top = logits[0].topk(2)
+    return (top.values[0] - top.values[1]).item(), top.indices.tolist()
+
+
+def phase_lc_serve_agree(torch, params, prompts):
+    """``agree_requests`` requests served in fp32 (TF32 off) through the
+    B7 kernel against ``standalone_greedy`` of the dense program (plain
+    attention, no kernel), request by request; a difference passes only
+    where the plain path's top-2 logit gap is at most 1e-3 (a near tie),
+    as in the NMT agreement phase."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import long_context as lc
+    from parallax_tpu_torch.serve import standalone_greedy
+    cfg = lc.LongContextConfig(compute_dtype=torch.float32)
+    outs, _, stats, _ = lc_serve(torch, cfg, params, prompts)
+    dense = pt.CausalLMDecodeProgram(cfg, LC_SERVE["max_src_len"],
+                                     LC_SERVE["max_len"], device=DEVICE)
+    mismatches = []
+    for i, (p, out) in enumerate(zip(prompts, outs)):
+        ref = np.asarray(standalone_greedy(dense, params, {"ids": p},
+                                           LC_SERVE["max_len"]))
+        if len(ref) == len(out) and np.array_equal(ref, out):
+            continue
+        n = min(len(ref), len(out))
+        first = int(np.flatnonzero(ref[:n] != out[:n])[0]) if \
+            not np.array_equal(ref[:n], out[:n]) else n
+        gap, top2 = lc_top2_gap(torch, dense, params, p, first)
+        mismatches.append({"request": i, "position": first,
+                           "top2_gap": gap, "top2_tokens": top2})
+        log(f"[lc-serve-agree] request {i}: first difference at position "
+            f"{first}, plain top-2 logit gap {gap:.3g} between {top2}")
+        if not gap <= 1e-3:
+            raise AssertionError(
+                f"request {i} differs at position {first} where the plain "
+                f"path's top-2 gap is {gap:.3g} > 1e-3")
+    summary = {"requests": len(prompts), "identical":
+               len(prompts) - len(mismatches), "near_ties": mismatches,
+               "kv_pages_in_use": stats["serve.kv_pages_in_use"]}
+    if stats["serve.kv_pages_in_use"] != 0:
+        raise AssertionError("KV pages left in use in lc-serve-agree")
+    log(f"[lc-serve-agree] {json.dumps(summary)}")
     return summary
 
 
@@ -2689,24 +3127,28 @@ def phase_graph_agree(torch):
 
 
 def kernel_line(results, launches):
-    """One entry per kernel, at its main path's shape in bf16 (the shape
-    and type the main path launched it at): BERT-large's attention (B 32,
-    T 512, H 16, hd 64, padding mask) for B4, B5 and B6, the serving
-    shape for B7, the LM1B training shape for B1-B3. B4's launches are
-    the serving, NMT and BERT training paths', B5's and B6's the NMT and
-    BERT training paths'. An LSTM entry names the source of the route its
-    case ran on."""
+    """One entry per kernel, at the newest main path's shape in bf16 (the
+    shape and type that path launched it at): the long-context LM's
+    attention (B 8, T 8192, H 8, hd 64, causal; the backward with the lse
+    cotangent) for B4, B5 and B6, lc-serve's decode step for B7, the LM1B
+    training shape for B1-B3. B4's launches are the NMT serving, NMT,
+    BERT and long-context training paths', B5's and B6's the three
+    training paths', B7's both serving paths'. An LSTM entry names the
+    source of the route its case ran on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:141", "bert"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:141",
+            "lc_train"),
         "flash_attention_dq": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:298", "bert"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:298",
+            "lc_train"),
         "flash_attention_dkv": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:326", "bert"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:326",
+            "lc_train"),
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",
-            "parallax_tpu/ops/pallas_paged_attention.py:278", "serve"),
+            "parallax_tpu/ops/pallas_paged_attention.py:278", "lc_serve"),
         "lstm_fwd": (None, "parallax_tpu/ops/pallas_lstm.py:290",
                      "train"),
         "lstm_fwd_res": (None, "parallax_tpu/ops/pallas_lstm.py:299",
@@ -2915,6 +3357,22 @@ def main() -> int:
     resnet_agree = phase("resnet-agree", phase_resnet_agree, torch)
     bert_train = phase("bert-train", phase_bert_train, torch, card)
     bert_agree = phase("bert-agree", phase_bert_agree, torch)
+    lc_train = phase("lc-train", phase_lc_train, torch, card)
+    lc_agree = phase("lc-agree", phase_lc_agree, torch)
+    from parallax_tpu_torch.models import long_context
+    lc_cfg = long_context.LongContextConfig()
+    lc_params = long_context.init_params(
+        lc_cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    prompts = lc_prompts(LC_SERVE["requests"], np.random.default_rng(SEED),
+                         lc_cfg.vocab_size)
+    lc_serve_summary = phase("lc-serve", phase_lc_serve, torch, lc_cfg,
+                             lc_params, prompts)
+    lc_serve_profile = phase("lc-serve-profile", phase_lc_serve_profile,
+                             torch, lc_cfg, lc_params,
+                             prompts[:LC_SERVE["profile_requests"]])
+    lc_serve_agree = phase("lc-serve-agree", phase_lc_serve_agree, torch,
+                           lc_params, prompts[:LC_SERVE["agree_requests"]])
+    del lc_params
     graph_agree = phase("graph-agree", phase_graph_agree, torch)
     graph_pairs = {"serve": serve_pair, "lm1b": train["graph_pair"],
                    "nmt": nmt_train["graph_pair"],
@@ -2923,7 +3381,9 @@ def main() -> int:
     launches = {**serve_summary["launches"], **train["launches"]}
     for name, n in list(nmt_train["launches"].items()) + list(
             dist_train["launches"].items()) + list(
-            bert_train["launches"].items()):
+            bert_train["launches"].items()) + list(
+            lc_train["launches"].items()) + list(
+            lc_serve_summary["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -2939,7 +3399,11 @@ def main() -> int:
               "nmt_train_agreement": nmt_agree,
               "resnet_train": resnet_train, "resnet_profile": resnet_profile,
               "resnet_agreement": resnet_agree, "bert_train": bert_train,
-              "bert_agreement": bert_agree, "graph_agree": graph_agree,
+              "bert_agreement": bert_agree, "lc_train": lc_train,
+              "lc_agreement": lc_agree, "lc_serve": lc_serve_summary,
+              "lc_serve_profile": lc_serve_profile,
+              "lc_serve_agreement": lc_serve_agree,
+              "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"

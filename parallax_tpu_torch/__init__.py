@@ -14,6 +14,12 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
   ``ContinuousScheduler`` over an ``NMTDecodeProgram``, with a CUDA
   flash-attention forward (ops/flash_attention.py) and a CUDA
   paged-decode kernel (ops/paged_attention.py).
+* The long-context causal LM: ``parallel_run(long_context.build_model(
+  LongContextConfig()))`` trains with ring attention over the mesh's
+  'shard' axis (one flash tile on one card), tensor parallelism with a
+  vocab-parallel head, or data parallelism; ``CausalLMDecodeProgram``
+  serves it through the paged-decode kernel, the prompt's K/V inserted
+  through the page table.
 * Dense CNN training: ``parallel_run(cnn.build_model("resnet50_v1.5"),
   parallax_config=Config(run_option="AR"))`` and the rest of the CNN zoo,
   a stateful model (BatchNorm statistics) with momentum SGD; no TPU
@@ -37,14 +43,15 @@ from parallax_tpu_torch.common.config import (Config, ParallaxConfig,
                                               ServeConfig)
 from parallax_tpu_torch.common.lib import parallax_log as log
 from parallax_tpu_torch.core.engine import Model, TrainState
-from parallax_tpu_torch.models import cnn, lm1b, nmt, simple
+from parallax_tpu_torch.models import cnn, lm1b, long_context, nmt, simple
 from parallax_tpu_torch.runner import parallel_run
-from parallax_tpu_torch.serve import NMTDecodeProgram, ServeSession
+from parallax_tpu_torch.serve import (CausalLMDecodeProgram,
+                                      NMTDecodeProgram, ServeSession)
 from parallax_tpu_torch.session import Fetch, ParallaxSession, materialize
 
 __version__ = "0.1.0"
 
 __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
            "Model", "TrainState", "ParallaxSession", "Fetch", "materialize",
-           "ServeSession", "NMTDecodeProgram", "cnn", "lm1b", "nmt",
-           "simple"]
+           "ServeSession", "NMTDecodeProgram", "CausalLMDecodeProgram",
+           "cnn", "lm1b", "long_context", "nmt", "simple"]

@@ -38,7 +38,14 @@ replicated or tensor-parallel gradient is all-reduced over the repl
 group only; a row-sharded one is summed over the mesh by its backward
 (the lookup reads each rank's chunk of the ids, ops/embedding.py) and
 scaled. Tensor parallelism needs the batch on 'repl' alone where the
-shard axis is wider than 1. The routes per update path:
+shard axis is wider than 1. Under the sequence layout (``P('repl',
+'shard')``, JAX's ``long_context.py:495-505``) each rank of a shard group
+is fed its repl row's whole rows and computes on its own block of the
+sequence (``collectives.shard_index``): the tokens are split over the
+world as in the default layout, so every replicated gradient, a partial
+one on each rank (``pos``'s rows differ by block), is summed over the
+world by the flat all-reduce and averaged as there, and ``global_sum``
+reduces over the world. The routes per update path:
 
 * the dense group goes through the model's optimizer (for LM1B,
   ``clip_by_global_norm`` then Adagrad, core/optim.py);
@@ -96,9 +103,9 @@ mesh-uniform overflow flag each step, so such an engine runs its steps
 eagerly (``compile_stats()["step_capture"]`` says so).
 
 Not ported: pipeline parallelism (``value_and_grad_fn``,
-``pipeline_info``), ``batch_specs`` other than the default and 'repl'
-alone on dim 0, tensor parallelism with ``sparse_grad_mode="slices"``,
-and the numerics observatory.
+``pipeline_info``), ``batch_specs`` other than the default, 'repl'
+alone on dim 0 and ``P('repl', 'shard')``, tensor parallelism with
+``sparse_grad_mode="slices"``, and the numerics observatory.
 """
 
 from __future__ import annotations
@@ -160,7 +167,9 @@ class Model:
       row-shards (gathered for use), a ``TPSpec`` or ``P(None, ...,
       'shard')`` is tensor-parallel (``ops.tensor_parallel``'s specs).
     * ``batch_specs``: feed name -> spec of that feed; dim 0 on
-      ``('repl', 'shard')`` (the default) or on ``'repl'`` alone.
+      ``('repl', 'shard')`` (the default), on ``'repl'`` alone, or
+      ``P('repl', 'shard')``: the batch on 'repl' and the sequence (dim
+      1) on 'shard' (the sequence layout of the long-context LM).
     * ``value_and_grad_fn``, ``pipeline_info``: kept for the JAX
       package's signature; not ported (the engine refuses a model that
       sets one).
@@ -386,30 +395,50 @@ def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
     return plan
 
 
-def _batch_on_repl(model: Model, example_batch) -> bool:
-    """Whether ``Model.batch_specs`` put the batch on 'repl' alone: True
-    when every feed of the example batch rides 'repl' alone on dim 0,
-    False when every one takes the default ``('repl', 'shard')``."""
+BATCH = "batch"          # the default: dim 0 over ('repl', 'shard')
+REPL = "repl"            # dim 0 over 'repl' alone (tensor parallelism)
+SEQUENCE = "sequence"    # dim 0 over 'repl', dim 1 over 'shard'
+
+
+def _feed_layout(name: str, spec) -> str:
+    """The layout one feed's ``batch_specs`` entry asks for; a layout
+    that is not ported raises."""
+    if spec is None:
+        return BATCH
+    spec = mesh_lib.resolve_spec(spec)
+    axes = mesh_lib.dim0_axes(spec)
+    rest = [e for e in tuple(spec)[1:] if e is not None]
+    if not rest:
+        if tuple(axes) == mesh_lib.BATCH_AXES:
+            return BATCH
+        if tuple(axes) == (mesh_lib.AXIS_REPL,):
+            return REPL
+    elif tuple(axes) == (mesh_lib.AXIS_REPL,) \
+            and tuple(spec)[1] == mesh_lib.AXIS_SHARD and len(rest) == 1:
+        return SEQUENCE
+    raise NotImplementedError(
+        f"batch_specs[{name!r}] = {spec!r}: only the default ('repl', "
+        f"'shard') on dim 0, 'repl' alone on dim 0, and P('repl', "
+        f"'shard') (the batch over 'repl', the sequence over 'shard') "
+        f"are ported")
+
+
+def _batch_layout(model: Model, example_batch) -> str:
+    """The layout ``Model.batch_specs`` gives every feed of the example
+    batch: ``BATCH`` (the default), ``REPL`` (the batch on 'repl' alone)
+    or ``SEQUENCE`` (``P('repl', 'shard')``: the batch on 'repl', dim 1
+    on 'shard'). A spec with an axis past dim 0 is read past dim 0, never
+    as its dim 0 alone; feeds of different layouts raise."""
     if not model.batch_specs:
-        return False
+        return BATCH
     names = list(example_batch) if isinstance(example_batch, dict) else []
-    kinds = {}
-    for name in names:
-        spec = model.batch_specs.get(name)
-        axes = mesh_lib.BATCH_AXES if spec is None else \
-            mesh_lib.dim0_axes(mesh_lib.resolve_spec(spec))
-        if tuple(axes) not in (mesh_lib.BATCH_AXES, (mesh_lib.AXIS_REPL,)):
-            raise NotImplementedError(
-                f"batch_specs[{name!r}] = {spec!r}: dim 0 over "
-                f"{tuple(axes)}; only the default ('repl', 'shard') and "
-                f"'repl' alone are ported")
-        kinds[name] = tuple(axes) == (mesh_lib.AXIS_REPL,)
+    kinds = {name: _feed_layout(name, model.batch_specs.get(name))
+             for name in names}
     if len(set(kinds.values())) > 1:
         raise NotImplementedError(
-            f"batch_specs put some feeds on 'repl' alone and others on "
-            f"('repl', 'shard'): {kinds}; one layout for every feed is "
-            f"ported")
-    return bool(kinds) and all(kinds.values())
+            f"batch_specs give the feeds different layouts: {kinds}; one "
+            f"layout for every feed is ported")
+    return next(iter(kinds.values()), BATCH)
 
 
 def _torch_dtype(v) -> torch.dtype:
@@ -553,7 +582,8 @@ class Engine:
                 meta_batch, self._example_batch_dim, self._buckets))
         self.plan = build_plan(model, mesh, config, meta_params, meta_batch,
                                meta_state)
-        self._batch_on_repl = _batch_on_repl(model, example_batch)
+        self.batch_layout = _batch_layout(model, example_batch)
+        self._batch_on_repl = self.batch_layout == REPL
         if self.plan.tp_groups and not self._batch_on_repl:
             raise NotImplementedError(
                 f"tensor-parallel param_specs ({sorted(self.plan.tp_groups)}"

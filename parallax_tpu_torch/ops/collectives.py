@@ -35,6 +35,26 @@ chunk forward, all-gather backward) and ``reduce_scatter_along``
 (reduce-scatter forward, all-gather backward). On meta tensors every
 collective gives the shape it would and moves nothing, and
 ``count_scope`` counts the collectives issued inside it.
+
+``ring_shift`` is the ring attention's K/V rotation over the shard group
+(``lax.ppermute`` with the ``(i, (i + 1) % n)`` pairs,
+``parallax_tpu/ops/ring_attention.py:174-179``): each member sends its
+tensors to the next member and receives the previous member's, by
+non-blocking point-to-point sends and receives that are all posted
+before any is waited on, so no member blocks on a send its neighbour has
+not yet received. Its backward shifts the gradients the other way. All
+the tensors of one rotation go in one autograd node, in one order, so
+every member's backward posts its sends and receives in the same order
+as its neighbours' (one node per rotation also chains the rotations,
+which fixes the order of their backwards). On a shard axis of 1 it is
+the identity and moves nothing.
+
+The sequence layout (``Model.batch_specs`` of ``P('repl', 'shard')``:
+the batch over 'repl', the sequence over 'shard') splits the batch's
+tokens over the world, as the default layout does, so ``global_sum``
+reduces over the world there too; each rank of a shard group is fed its
+repl row's whole rows and takes its own block of the sequence
+(``shard_index``).
 """
 
 from __future__ import annotations
@@ -89,9 +109,11 @@ def batch_group(mesh):
 @contextlib.contextmanager
 def count_scope():
     """Count the collectives issued inside (groups of one rank issue
-    none): yields ``{"all_reduce", "all_gather", "reduce_scatter"}`` ->
-    count, filled as they run."""
-    counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+    none): yields ``{"all_reduce", "all_gather", "reduce_scatter",
+    "collective_permute"}`` -> count, filled as they run (one
+    ``collective_permute`` a tensor ``ring_shift`` moves)."""
+    counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+              "collective_permute": 0}
     token = _COUNTS.set(counts)
     try:
         yield counts
@@ -109,12 +131,15 @@ def _pg(group):
     return None if group is None or group.size == 1 else group.pg
 
 
-def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``x`` over ``group``, in place."""
+def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """Sum ``x`` over ``group`` (or reduce it with ``op``, a
+    ``torch.distributed.ReduceOp``), in place."""
     pg = _pg(group)
     if pg is not None and x.device.type != "meta":
         _count("all_reduce")
-        torch.distributed.all_reduce(x, group=pg)
+        torch.distributed.all_reduce(
+            x, op=torch.distributed.ReduceOp.SUM if op is None else op,
+            group=pg)
     return x
 
 
@@ -143,6 +168,84 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
         _count("reduce_scatter")
         torch.distributed.reduce_scatter_tensor(out, x, group=pg)
     return out
+
+
+def shard_index(mesh=None) -> int:
+    """This rank's place on the shard axis (0 without a mesh): the
+    block of the sequence it holds under the sequence layout."""
+    mesh = mesh if mesh is not None else current_mesh()
+    return 0 if mesh is None else mesh.coords[1]
+
+
+def _shift(tensors, group, index: int, step: int):
+    """Each of ``tensors`` sent to member ``index + step`` of ``group``
+    and the same-shaped tensors of member ``index - step`` received, one
+    rotation; every send and receive posted before any is waited on."""
+    n = group.size
+    outs = [torch.empty_like(t, memory_format=torch.contiguous_format)
+            for t in tensors]
+    if tensors[0].device.type == "meta":
+        return outs
+    dst = group.ranks[(index + step) % n]
+    src = group.ranks[(index - step) % n]
+    dist = torch.distributed
+    ops = [dist.P2POp(dist.isend, t.contiguous(), dst, group.pg)
+           for t in tensors]
+    ops += [dist.P2POp(dist.irecv, o, src, group.pg) for o in outs]
+    for _ in tensors:
+        _count("collective_permute")
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
+class _RingShift(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, group, index, *tensors):
+        ctx.cfg = (group, index)
+        return tuple(_shift(tensors, group, index, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, index = ctx.cfg
+        return (None, None) + tuple(_shift(grads, group, index, -1))
+
+
+def ring_shift(tensors, group, index: int):
+    """The members' ``tensors`` rotated one place around ``group``: member
+    ``index`` gets member ``index - 1``'s (mod the group size); the
+    gradients rotate back. One rotation is one autograd node (see the
+    module doc). The identity on a group of one rank."""
+    tensors = tuple(tensors)
+    if _pg(group) is None:
+        return tensors
+    return _RingShift.apply(group, index, *tensors)
+
+
+class _Anchor(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, *tensors):
+        ctx.specs = [(t.shape, t.dtype, t.device) for t in tensors]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(s, dtype=d, device=v)
+                            for s, d, v in ctx.specs)
+
+
+def anchor(x: torch.Tensor, *tensors) -> torch.Tensor:
+    """``x`` as it is, with ``tensors`` given zero gradients through it:
+    puts a ring's last rotated blocks on the loss's path on every member,
+    so every member runs every rotation's backward (a member that used
+    no rotated block would otherwise skip the backwards its neighbours
+    wait for)."""
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in tensors):
+        return x
+    return _Anchor.apply(x, *tensors)
 
 
 def _on_dim(fn, x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -30,6 +30,13 @@ applied to the sequence-sharded rows (a LayerNorm between blocks) gets a
 partial gradient on each rank, which ``sequence_parallel_params`` sums
 over the shard group (Megatron-SP's shared-parameter rule).
 
+The vocab-parallel head (``vocab_parallel_nll``): an output matrix
+column-sharded over the vocabulary gives each rank its V/p logit
+columns, and the cross-entropy reduces over the ranks' columns with
+three all-reduces of [N] (the JAX model pins the fp32 logits
+``P('repl', None, 'shard')`` and lets XLA insert them,
+``parallax_tpu/models/long_context.py:369-376``).
+
 Local layouts: a fused ``wqkv`` [D, 3D] column shard is ``[q_s | k_s |
 v_s]``, the q, k and v columns of rank s's heads ([D, 3D/p]; JAX stores
 3D/p contiguous columns and GSPMD moves them into head order; the engine
@@ -149,14 +156,19 @@ def tp_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
                  causal: bool = False,
                  kv_mask: Optional[torch.Tensor] = None,
                  dtype: Optional[torch.dtype] = None, mesh=None,
-                 sequence_parallel: bool = False) -> torch.Tensor:
+                 sequence_parallel: bool = False,
+                 core=None) -> torch.Tensor:
     """Head-split multi-head attention, [B, Tq, D] -> [B, Tq, D] (under
     sequence parallelism [B, T/p, D] in and out).
 
     ``w`` holds a fused ``wqkv`` or separate ``wq``/``wk``/``wv`` (a
     cross-attention passes ``x_kv`` other than ``x_q``), each this
     rank's column shard, and ``wo``, its row shard. ``kv_mask`` [B, Tk]
-    is whole on every rank."""
+    is whole on every rank. ``core(q, k, v, num_heads, causal,
+    kv_mask)`` replaces the models' formula (``_attention_core``) on
+    the [B, T, h*hd] projections, for a model whose attention rounds
+    otherwise."""
+    core = _attention_core if core is None else core
     cast = (lambda a: a.to(dtype)) if dtype is not None else (lambda a: a)
     mesh = _active_mesh(mesh)
     if mesh is None:
@@ -165,7 +177,7 @@ def tp_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
         else:
             q, k, v = (x_q @ cast(w["wq"]), x_kv @ cast(w["wk"]),
                        x_kv @ cast(w["wv"]))
-        merged = _attention_core(q, k, v, num_heads, causal, kv_mask)
+        merged = core(q, k, v, num_heads, causal, kv_mask)
         return merged @ cast(w["wo"])
     group, index = _group(mesh)
     xq = _enter(x_q, mesh, sequence_parallel)
@@ -176,16 +188,14 @@ def tp_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
         q, k, v = xq @ cast(w["wq"]), xkv @ cast(w["wk"]), \
             xkv @ cast(w["wv"])
     if heads_shardable(num_heads, mesh):
-        merged = _attention_core(q, k, v, num_heads // mesh.shard, causal,
-                                 kv_mask)
+        merged = core(q, k, v, num_heads // mesh.shard, causal, kv_mask)
     else:
         # the replicated core: every rank gathers the heads' features,
         # runs every head and takes back its own input features of wo
         q, k, v = (collectives.gather_along(z, group, index, -1)
                    for z in (q, k, v))
         merged = collectives.split_along(
-            _attention_core(q, k, v, num_heads, causal, kv_mask), group,
-            index, -1)
+            core(q, k, v, num_heads, causal, kv_mask), group, index, -1)
     return _leave(merged @ cast(w["wo"]), mesh, sequence_parallel)
 
 
@@ -199,6 +209,56 @@ def tp_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
                             sequence_parallel=sequence_parallel))
     return row_parallel(h, cast(w2), mesh=mesh,
                         sequence_parallel=sequence_parallel)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Megatron's parallel cross-entropy over a rank's logit columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, index):
+        N, Vp = logits.shape
+        m = logits.detach().amax(dim=-1)
+        collectives.all_reduce_(m, group, torch.distributed.ReduceOp.MAX)
+        sumexp = torch.exp(logits - m[:, None]).sum(dim=-1)
+        collectives.all_reduce_(sumexp, group)
+        lse = m + torch.log(sumexp)
+        local = labels - index * Vp
+        mine = (local >= 0) & (local < Vp)
+        rows = torch.arange(N, device=logits.device)
+        target = torch.where(mine, logits[rows, local.clamp(0, Vp - 1)],
+                             torch.zeros((), dtype=logits.dtype,
+                                         device=logits.device))
+        collectives.all_reduce_(target, group)
+        ctx.save_for_backward(logits, lse, local, mine)
+        return lse - target
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, mine = ctx.saved_tensors
+        grad = torch.exp(logits - lse[:, None])
+        rows = torch.arange(grad.shape[0], device=grad.device)
+        grad[rows, local.clamp(0, grad.shape[1] - 1)] -= mine.to(grad.dtype)
+        return grad * g[:, None], None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, *,
+                       mesh=None) -> torch.Tensor:
+    """Per-row cross-entropy ``-log softmax(logits)[label]`` [N] where
+    each rank holds its V/p columns of the [N, V] logits (a column-
+    parallel product with a vocab-sharded output matrix, the vocab-
+    parallel head): the row max all-reduced with MAX, the sum of
+    exponentials all-reduced, the target logit taken from the rank that
+    owns its column and all-reduced; the backward is softmax less the
+    one-hot on the local columns. The whole [N, V] logits never exist on
+    one rank. Without a mesh, or on a shard axis of 1, the plain
+    cross-entropy of the whole logits."""
+    labels = labels.long()
+    mesh = _active_mesh(mesh)
+    if mesh is None:
+        return -torch.log_softmax(logits, dim=-1).gather(
+            1, labels[:, None])[:, 0]
+    group, index = _group(mesh)
+    return _VocabParallelNLL.apply(logits, labels, group, index)
 
 
 def seq_shard(x: torch.Tensor, *, mesh=None) -> torch.Tensor:
@@ -263,7 +323,8 @@ def count_collectives(fn, *args) -> Dict[str, int]:
     ``fn(*args)`` runs once, by kind, with the JAX function's keys: the
     hook that pins the Megatron pattern (two all-reduces a block
     forward; under sequence parallelism reduce-scatters and all-gathers
-    and no all-reduce). A backward inside ``fn`` counts too."""
+    and no all-reduce; a ring's rotations as ``collective_permute``). A
+    backward inside ``fn`` counts too."""
     with collectives.count_scope() as counts:
         fn(*args)
-    return {**counts, "all_to_all": 0, "collective_permute": 0}
+    return {"all_to_all": 0, **counts}

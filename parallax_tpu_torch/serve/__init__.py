@@ -1,7 +1,9 @@
 """Online serving: continuous decode over a paged KV pool."""
 
 from parallax_tpu_torch.common.config import ServeConfig
-from parallax_tpu_torch.serve.adapters import NMTDecodeProgram
+from parallax_tpu_torch.serve.adapters import (CausalLMDecodeProgram,
+                                               NMTDecodeProgram,
+                                               standalone_greedy)
 from parallax_tpu_torch.serve.batcher import (DeadlineExceeded,
                                               ReplicaUnavailable, Request,
                                               RequestQueue, ServeClosed,
@@ -16,6 +18,7 @@ from parallax_tpu_torch.serve.session import ServeSession
 __all__ = [
     "ServeSession", "ServeConfig", "Request", "RequestQueue",
     "ContinuousScheduler", "DecodeProgram", "NMTDecodeProgram",
+    "CausalLMDecodeProgram", "standalone_greedy",
     "PageAllocator", "PagePoolExhausted", "pages_for", "ServeError",
     "ServeOverloaded", "DeadlineExceeded", "ServeClosed",
     "ReplicaUnavailable", "TenantQuotaExceeded",

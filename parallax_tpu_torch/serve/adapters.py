@@ -5,7 +5,13 @@ adapter binds it to one model family's prefill/step math. The NMT
 adapter reuses models/nmt.py's encoder, cross-attention K/V precompute
 and the per-slot-position cached decoder step — the KV-cached math
 ``greedy_decode`` runs, restructured from "one loop per batch" into
-"one step per scheduler iteration".
+"one step per scheduler iteration". ``CausalLMDecodeProgram`` does the
+same for the decoder-only long-context LM (models/long_context.py), whose
+prompt K/V lands in the same cache the decode steps write: its insert
+scatters the prompt rows through the slot's page table
+(``insert_pages``). ``standalone_greedy`` decodes one request through a
+program's own device math outside any scheduler: the reference served
+tokens are held to.
 
 On the card the scheduler's warmup calls ``capture``: the one-request
 prefill and the decode step for its slot count become two CUDA graphs
@@ -23,7 +29,8 @@ import torch
 
 from parallax_tpu_torch.common.lib import resolve_device
 from parallax_tpu_torch.compile import bucketing, graphs as graphs_lib
-from parallax_tpu_torch.models import nmt
+from parallax_tpu_torch.models import long_context, nmt
+from parallax_tpu_torch.ops import paged_attention as pa_ops
 from parallax_tpu_torch.serve.continuous import DecodeProgram
 from parallax_tpu_torch.serve.paging import pages_for
 
@@ -314,4 +321,346 @@ class NMTDecodeProgram(DecodeProgram):
         return self._out.numpy().copy(), state
 
 
-__all__ = ["NMTDecodeProgram"]
+# -- decoder-only causal LMs --------------------------------------------------
+
+
+class _CausalKVDecodeProgram(DecodeProgram):
+    """Greedy KV-cached decode for decoder-only causal LMs
+    (``parallax_tpu/serve/adapters.py:490-781``).
+
+    ``max_src_len`` (= Ts) fixes the padded prompt buffer; ``max_len``
+    is the per-request new-token cap. The cache holds ``Tbuf = Ts +
+    max_len`` positions: the prompt's K/V at [0, t0), written by
+    ``insert``, and decode step ``t`` writing position ``base + t`` with
+    ``base = t0 - 1`` (step 0 consumes the last prompt token and emits
+    the first new one). ``Ts + max_len`` must not pass ``cfg.max_len``.
+
+    Paged layout (``page_size``): the ``[L, pool_pages + 1, page_size,
+    D]`` pool of ``NMTDecodeProgram`` (one spare page for sentinel
+    writes), ``page_size`` dividing ``Tbuf``, and the prompt inserted
+    through the slot's page row (``insert_pages``): position j < t0
+    lands in page ``row[j // page_size]``, the padded rows go to the
+    spare page, so a slot never writes outside its own pages. A request
+    needs the pages of its ``kv_prefix_positions`` plus its cap
+    (``pages_needed(cap)`` is the worst case, the longest prompt).
+
+    ``attn_impl`` ('kernel', 'einsum'; None and 'auto' = 'kernel')
+    picks the paged attention as in ``NMTDecodeProgram``; the prompt's
+    prefill runs the plain causal attention, as in JAX. Token ids: 0 is
+    PAD, BOS and EOS at once; prompts use ids in [1, vocab), and a
+    generated 0 retires the request. Chunked prefill and speculative
+    decoding are not ported: ``prefill_chunk_layers`` / ``spec_tokens``
+    are refused.
+
+    As in ``NMTDecodeProgram``, every weight but the fp32 ``out_w`` is
+    cast to the compute dtype once per params object, ``step`` takes
+    its inputs through one static int32 buffer of the state, and after
+    ``capture(params, state)`` on the card ``prefill`` and ``step``
+    replay CUDA graphs (a prefill's result lives in the prefill graph's
+    pool until the next prefill)."""
+
+    _mod = None          # the model module with the serve decode section
+
+    def __init__(self, cfg, max_src_len: int, max_len: int, *,
+                 page_size: Optional[int] = None,
+                 pool_pages: Optional[int] = None,
+                 prefill_chunk_layers: Optional[int] = None,
+                 spec_tokens: int = 0,
+                 attn_impl: Optional[str] = None,
+                 device="cuda"):
+        if prefill_chunk_layers is not None or spec_tokens:
+            raise ValueError(
+                "chunked prefill (prefill_chunk_layers) and speculative "
+                "decoding (spec_tokens) are not ported to "
+                "parallax_tpu_torch yet")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.Ts = int(max_src_len)
+        self.max_len = int(max_len)
+        if self.Ts < 1 or self.max_len < 1:
+            raise ValueError(
+                f"max_src_len={max_src_len} / max_len={max_len} must "
+                f"be >= 1")
+        self.Tbuf = self.Ts + self.max_len
+        if self.Tbuf > cfg.max_len:
+            raise ValueError(
+                f"max_src_len + max_len = {self.Tbuf} exceeds the "
+                f"model's positional table ({cfg.max_len}): every "
+                f"decode position base + t must have an embedding row")
+        self.bos_id = self.eos_id = self.pad_id = 0
+
+        self.paged = page_size is not None
+        if self.paged:
+            if pool_pages is None:
+                raise ValueError(
+                    "page_size given without pool_pages; the pool size "
+                    "is the memory bound and must be declared")
+            self.page_size = int(page_size)
+            self.pool_pages = int(pool_pages)
+            if self.page_size < 1 or self.pool_pages < 1:
+                raise ValueError(
+                    f"page_size={page_size} / pool_pages={pool_pages} "
+                    f"must be >= 1")
+            if self.Tbuf % self.page_size != 0:
+                raise ValueError(
+                    f"page_size={page_size} must divide max_src_len + "
+                    f"max_len = {self.Tbuf}")
+            self.pages_per_seq = self.Tbuf // self.page_size
+            if self.pool_pages < self.pages_per_seq:
+                raise ValueError(
+                    f"pool_pages={pool_pages} cannot hold even one "
+                    f"max-length sequence ({self.pages_per_seq} pages)")
+        elif pool_pages is not None:
+            raise ValueError("pool_pages given without page_size")
+        self.insert_pages = self.paged
+
+        if attn_impl not in (None, "auto", "kernel", "einsum"):
+            raise ValueError(
+                f"attn_impl={attn_impl!r}: expected 'auto', 'kernel' "
+                f"or 'einsum'")
+        if attn_impl == "kernel" and not self.paged:
+            raise ValueError(
+                "attn_impl='kernel' requires the paged KV layout "
+                "(page_size/pool_pages): the kernel's operand is the "
+                "page-table-addressed pool")
+        self.attn_impl = "kernel" if attn_impl in (None, "auto") \
+            else attn_impl
+        self._cast_of = None        # (params object, its cast copy)
+        self._graphs = None         # (params, state, prefill, step)
+        self._ids = None            # the prefill graph's static input
+        self._out = None            # pinned host buffer of next tokens
+
+    # -- feed contract -----------------------------------------------------
+
+    def example_feed(self) -> Dict[str, np.ndarray]:
+        return {"ids": np.ones((1,), np.int32)}
+
+    def prepare_feed(self, feed: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        ids = np.asarray(feed["ids"], np.int32)
+        if ids.ndim != 1:
+            raise ValueError(
+                f"decode feed 'ids' must be one request's [T] prompt "
+                f"row, got shape {ids.shape}")
+        if not 1 <= ids.shape[0] <= self.Ts:
+            raise ValueError(
+                f"prompt length {ids.shape[0]} outside [1, "
+                f"max_src_len={self.Ts}]")
+        if (ids < 1).any() or (ids >= self.cfg.vocab_size).any():
+            raise ValueError(
+                "prompt ids must lie in [1, vocab_size): 0 is the "
+                "PAD/BOS/EOS sentinel")
+        return {"ids": bucketing.pad_axis0(ids, self.Ts, self.pad_id)}
+
+    def pages_needed(self, cap: int) -> int:
+        """Worst-case pages of a request with new-token cap ``cap``: the
+        longest prompt occupies Ts - 1 positions before step 0, and step
+        cap - 1 writes position Ts - 2 + cap."""
+        return pages_for(self.Ts - 1 + int(cap), self.page_size)
+
+    def kv_prefix_positions(self, feed) -> int:
+        """Cache positions a prepared feed's prompt occupies before the
+        first decode step writes (base = t0 - 1; step 0 rewrites the last
+        prompt position): with the cap, the positions a request writes."""
+        t0 = int((np.asarray(feed["ids"]) != self.pad_id).sum())
+        return max(t0 - 1, 0)
+
+    # -- device programs ---------------------------------------------------
+
+    _ints = NMTDecodeProgram._ints
+    _stage = NMTDecodeProgram._stage
+
+    def _compute_params(self, params):
+        """``params`` with every leaf but ``out_w`` cast to the compute
+        dtype, made once per params object."""
+        if self._cast_of is None or self._cast_of[0] is not params:
+            dt = self.cfg.compute_dtype
+            cast = {k: v.to(dt) for k, v in params.items()
+                    if k not in ("out_w", "blocks")}
+            cast["out_w"] = params["out_w"]
+            cast["blocks"] = [
+                {k: ({n: t.to(dt) for n, t in v.items()}
+                     if isinstance(v, dict) else v.to(dt))
+                 for k, v in b.items()} for b in params["blocks"]]
+            self._cast_of = (params, cast)
+        return self._cast_of[1]
+
+    def init_state(self, params, slots: int) -> Dict[str, torch.Tensor]:
+        mod = self._mod
+        if self.paged:
+            kc, vc = mod._init_serve_paged_cache(
+                self.cfg, self.pool_pages, self.page_size, self.device)
+        else:
+            kc, vc = mod._init_serve_self_cache(self.cfg, slots, self.Tbuf,
+                                                self.device)
+        P = self.pages_per_seq if self.paged else 0
+        ints = dict(dtype=torch.int32, device=self.device)
+        # the step's inputs, one buffer: tok [S] | t [S] | pages [S, P]
+        return {"kc": kc, "vc": vc,
+                "base": torch.zeros((slots,), **ints),
+                "first": torch.zeros((slots,), **ints),
+                "inputs": torch.zeros((slots * (2 + P),), **ints)}
+
+    def _step_inputs(self, state):
+        buf = state["inputs"]
+        S = state["base"].shape[0]
+        pages = buf[2 * S:].view(S, -1) if self.paged else None
+        return buf[:S], buf[S:2 * S], pages
+
+    def _prefill_device(self, params, ids):
+        cp = self._compute_params(params)
+        mod = self._mod
+        carry = mod._prefill_embed(self.cfg, cp, ids)
+        carry = mod._prefill_layers(self.cfg, cp, carry, 0,
+                                    self.cfg.num_layers)
+        return mod._prefill_finish(carry, self.pad_id)
+
+    def _step_device(self, params, state):
+        cp = self._compute_params(params)
+        tok, t, pages = self._step_inputs(state)
+        logits, _, _ = self._mod._decode_step_cached(
+            self.cfg, cp, tok, t, state["base"], state["first"],
+            state["kc"], state["vc"], pages=pages,
+            page_size=self.page_size if self.paged else None,
+            attn_impl=self.attn_impl)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    _step_graph = NMTDecodeProgram._step_graph
+
+    def capture(self, params, state) -> None:
+        """Warm prefill, insert and step on ``state`` (the scheduler's)
+        and, on the card outside ``compile.disable_capture()``, capture
+        prefill and step as graphs over static buffers. The warm calls
+        write slot 0 and the spare page; the state is zeroed after."""
+        self._graphs = None
+        self._ids = torch.zeros((1, self.Ts), dtype=torch.int32,
+                                device=self.device)
+        self._stage(self._ids,
+                    self.prepare_feed(self.example_feed())["ids"][None])
+        tok, t, pages = self._step_inputs(state)
+        tok.fill_(self.bos_id)
+        t.zero_()
+        if pages is not None:
+            pages.fill_(self.pool_pages)
+        row = np.full((self.pages_per_seq,), self.pool_pages, np.int32) \
+            if self.paged else None
+        if graphs_lib.capture_enabled(self.device):
+            pre = graphs_lib.capture(
+                lambda: self._prefill_device(params, self._ids),
+                self.device)
+            self.insert(state, 0, pre.replay(), row)
+            stp = graphs_lib.capture(
+                lambda: self._step_device(params, state), self.device)
+            self._graphs = (params, state, pre, stp)
+        else:
+            self.insert(state, 0, self._prefill_device(params, self._ids),
+                        row)
+            self._step_device(params, state)
+        for v in state.values():
+            v.zero_()
+
+    def prefill(self, params, feed):
+        """The prompt's forward: every layer's K/V over the padded prompt,
+        ``base`` and ``first``."""
+        g = self._graphs
+        if g is not None and g[0] is params:
+            self._stage(self._ids, np.asarray(feed["ids"])[None])
+            return g[2].replay()
+        return self._prefill_device(params, self._ints(feed["ids"])[None])
+
+    def insert(self, state, slot, request_state, pages=None):
+        """Write one prefilled request into slot ``slot`` (in place): the
+        prompt's K/V through the slot's page row ``pages`` (paged; the
+        padded rows to the spare page) or into the slot's rows (dense),
+        then its ``base`` and ``first``."""
+        j = int(slot)
+        rs = request_state
+        if self.insert_pages:
+            row = self._ints(pages).reshape(1, -1)
+            t0 = rs["base"][0] + 1
+            jpos = torch.arange(self.Ts, dtype=torch.int32,
+                                device=self.device)
+            pos = torch.where(jpos < t0, jpos, self.Tbuf)[None]
+            pg, off = pa_ops.sentinel_write_coords(row, pos, self.page_size,
+                                                   self.pool_pages)
+            state["kc"][:, pg[0], off[0]] = rs["pk"][:, 0]
+            state["vc"][:, pg[0], off[0]] = rs["pv"][:, 0]
+        else:
+            # the padded tail lands in the slot's own rows past t0, which
+            # step t rewrites before any query sees them
+            state["kc"][:, j, :self.Ts] = rs["pk"][:, 0]
+            state["vc"][:, j, :self.Ts] = rs["pv"][:, 0]
+        state["base"][j] = rs["base"][0]
+        state["first"][j] = rs["first"][0]
+        return state
+
+    def copy_page(self, state, dst, src):
+        """Device-side copy of page ``src`` onto page ``dst`` in both
+        pools (the prefix cache's copy-on-write)."""
+        for name in ("kc", "vc"):
+            state[name][:, int(dst)] = state[name][:, int(src)]
+        return state
+
+    step = NMTDecodeProgram.step
+
+
+class CausalLMDecodeProgram(_CausalKVDecodeProgram):
+    """Greedy KV-cached decode for models/long_context.py (the data-path
+    pre-LN block math) over the paged B7 kernel with
+    ``attn_impl='kernel'``. Serving uses the per-layer ``blocks``
+    parameters: ``parallelism='pipeline'`` is refused, as in JAX."""
+
+    def __init__(self, cfg, max_src_len: int, max_len: int, **kw):
+        if cfg.parallelism == "pipeline":
+            raise ValueError(
+                "serving needs the per-layer 'blocks' param layout; "
+                "parallelism='pipeline' stores blocks_stacked")
+        self._mod = long_context
+        super().__init__(cfg, max_src_len, max_len, **kw)
+
+
+# -- the standalone greedy reference ------------------------------------------
+
+
+def standalone_greedy(program, params, feed, max_new_tokens: int):
+    """Greedy decode of one request through the program's own device math,
+    outside any session or scheduler (``parallax_tpu/serve/adapters.py:
+    886-940``): prefill, a fresh one-slot state, insert (through pages
+    0.. of a fresh page row when paged), then one step at a time.
+    Served tokens equal these (the exact-under-greedy contract in fp32).
+    Not while a session serves on the same program: its prefill graph's
+    result would be shared. Returns the emitted tokens (EOS included
+    when hit)."""
+    prepared = program.prepare_feed(feed)
+    rs = program.prefill(params, prepared)
+    state = program.init_state(params, 1)
+    cap = int(max_new_tokens)
+    paged = bool(getattr(program, "paged", False))
+    pages = row = None
+    if paged:
+        row = np.full((program.pages_per_seq,), program.pool_pages,
+                      np.int32)
+        need = min(program.pages_needed(cap), program.pages_per_seq)
+        row[:need] = np.arange(need, dtype=np.int32)
+        pages = row[None]
+    if getattr(program, "insert_pages", False):
+        state = program.insert(state, 0, rs, row)
+    else:
+        state = program.insert(state, 0, rs)
+    toks = []
+    tok = np.full((1,), program.bos_id, np.int32)
+    t = np.zeros((1,), np.int32)
+    for _ in range(cap):
+        if paged:
+            nxt, state = program.step(params, state, tok, t, pages)
+        else:
+            nxt, state = program.step(params, state, tok, t)
+        nt = int(np.asarray(nxt)[0])
+        toks.append(nt)
+        if nt == program.eos_id:
+            break
+        tok = np.array([nt], np.int32)
+        t = t + 1
+    return toks
+
+
+__all__ = ["NMTDecodeProgram", "CausalLMDecodeProgram", "standalone_greedy"]

@@ -12,9 +12,18 @@ one KV-cached decode step and treats membership as dynamic:
   flushes, occupancy stays high under load.
 
 With a paged program a :class:`~parallax_tpu_torch.serve.paging.
-PageAllocator` owns the pool: a refill allocates ``ceil(cap /
-page_size)`` pages and a retire frees them. Exhaustion DEFERS the refill
-(the request stays queued, ``serve.kv_refill_deferred`` counts it).
+PageAllocator` owns the pool: a refill allocates the pages of the
+positions its request writes and a retire frees them. Exhaustion DEFERS
+the refill (the request stays queued, ``serve.kv_refill_deferred``
+counts it). A decoder-only program's prompt K/V shares the decode cache
+(``kv_prefix_positions``, ``insert_pages``): its insert takes the slot's
+page row, sentinel-filled past the allocation, so the padded prompt rows
+drop into the spare page (``parallax_tpu/serve/continuous.py:305-315``),
+and a request owns ``ceil((kv_prefix_positions + cap) / page_size)``
+pages, its prompt's and its cap's. The JAX scheduler allocates the
+program's worst case, ``pages_needed(cap)`` (the longest prompt's), and
+reads ``kv_prefix_positions`` only for the prefix cache; the tokens are
+the same either way.
 
 Correctness rides on per-slot independence: every per-token op
 (projections, attention with per-slot position masks, layer norms,
@@ -22,9 +31,9 @@ argmax) is row-wise, so a slot's tokens equal decoding its request
 alone.
 
 Not ported yet (the JAX scheduler has them): chunked prefill,
-speculative decoding, the prefix cache and prompt-KV insertion through
-the page table. A program or a ``ServeConfig`` that asks for one of
-them is refused with ``ValueError`` at construction.
+speculative decoding and the prefix cache. A program or a
+``ServeConfig`` that asks for one of them is refused with ``ValueError``
+at construction.
 
 The JAX scheduler compiles every device callable ahead of time
 (``parallax_tpu/serve/continuous.py:318-371``). Here the warmup hands the
@@ -77,7 +86,15 @@ class DecodeProgram:
     * ``prefill(params, feed) -> request_state`` — the one-time
       per-request work (e.g. the encoder + cross-attention K/V).
     * ``insert(state, slot, request_state) -> state`` — write one
-      prefilled request into slot ``slot``.
+      prefilled request into slot ``slot``. A program with
+      ``insert_pages`` (True: decoder-only, its prompt K/V in the slot's
+      own paged decode buffer) takes the slot's ``[pages_per_seq]``
+      int32 page row too, sentinel-filled past the allocation, and must
+      send padded prompt rows to the sentinel.
+    * ``kv_prefix_positions(feed) -> int`` (optional) — the cache
+      positions a prepared feed's prompt occupies before the first
+      decoded token; a request then owns the pages of that many
+      positions plus its cap.
     * ``step(params, state, tok, t[, pages]) -> (next_tok, state)`` —
       one batched decode step: ``tok``/``t`` are ``[slots]`` int32
       arrays of each slot's current token and position; returns each
@@ -103,8 +120,6 @@ def _refuse_unported(program, serve_config) -> None:
         asks.append("chunked prefill (num_prefill_chunks > 1)")
     if int(getattr(program, "spec_tokens", 0) or 0):
         asks.append("speculative decoding (spec_tokens)")
-    if bool(getattr(program, "insert_pages", False)):
-        asks.append("prompt-KV insertion through pages (insert_pages)")
     if bool(getattr(serve_config, "prefix_cache", False)):
         asks.append("the prefix cache (ServeConfig.prefix_cache)")
     if asks:
@@ -154,6 +169,8 @@ class ContinuousScheduler:
             self._defer = metrics.counter("serve.kv_refill_deferred")
         else:
             self._pages = None
+        self._insert_pages = bool(getattr(program, "insert_pages", False))
+        self._kvpos = getattr(program, "kv_prefix_positions", None)
 
         self._slots: List[Optional[_Slot]] = [None] * self._S
         self._tok = np.full((self._S,), program.pad_id, np.int32)
@@ -193,7 +210,7 @@ class ContinuousScheduler:
                 state = prog.init_state(params, self._S)
                 rs = prog.prefill(params,
                                   prog.prepare_feed(prog.example_feed()))
-                state = prog.insert(state, 0, rs)
+                state = self._insert(state, 0, rs, [])
                 tok = np.full((self._S,), prog.bos_id, np.int32)
                 nxt, state = self._step(state, tok,
                                         np.zeros((self._S,), np.int32))
@@ -205,6 +222,15 @@ class ContinuousScheduler:
             "(%d slots%s)", "captured" if capture is not None else "ran",
             dt, self._S,
             f", {self._sentinel}-page pool" if self._paged else "")
+
+    def _insert(self, state, j: int, rs, pages: List[int]):
+        """The program's insert; an ``insert_pages`` program also takes
+        the slot's page row, sentinel-filled past ``pages``."""
+        if self._insert_pages:
+            row = np.full((self._P,), self._sentinel, np.int32)
+            row[:len(pages)] = pages
+            return self._program.insert(state, j, rs, row)
+        return self._program.insert(state, j, rs)
 
     # -- admission hooks (called by ServeSession) --------------------------
 
@@ -239,7 +265,12 @@ class ContinuousScheduler:
         retiring sequences will free pages; the request stays queued)."""
         if not self._paged:
             return []
-        n = self._program.pages_needed(req.max_new_tokens)
+        if self._kvpos is not None:
+            # the positions this request writes: its prompt's and its cap's
+            n = min(-(-(int(self._kvpos(req.feed)) + req.max_new_tokens)
+                      // int(self._program.page_size)), self._P)
+        else:
+            n = self._program.pages_needed(req.max_new_tokens)
         if not self._alloc.can_alloc(n):
             self._defer.inc()
             return None
@@ -265,7 +296,7 @@ class ContinuousScheduler:
         if req.rec is not None:
             req.rec.mark("decode")
             req.rec.kv_pages = len(pages)
-        self._state = self._program.insert(self._state, j, rs)
+        self._state = self._insert(self._state, j, rs, pages)
         self._slots[j] = _Slot(req, req.max_new_tokens, pages)
         self._tok[j] = self._program.bos_id
         self._t[j] = 0

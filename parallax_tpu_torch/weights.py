@@ -16,6 +16,12 @@ transposed and each tensor is the JAX leaf of the same path.
 (``word_emb``, ``pos_emb``, ``type_emb``, ``emb_ln``, ``mlm``, ``nsp``,
 the ``blocks`` list), unchanged in layout.
 
+``long_context_params_from_jax`` does the same for the JAX long-context
+LM's tree (``emb``, ``pos``, ``out_w``, the ``blocks`` list); given an
+engine it gives that rank's part, its shards of the tensor-parallel
+leaves included (a fused ``wqkv`` as the q, k and v columns of its
+heads; ``gather_params`` gives JAX's layout back).
+
 ``rank_shard`` cuts any of those whole trees down to what one rank of a
 mesh holds: its rows of each leaf the engine's plan row-shards, its
 shard of each tensor-parallel leaf.
@@ -31,6 +37,7 @@ from parallax_tpu_torch.core.classify import flatten
 from parallax_tpu_torch.models import _nn, cnn
 from parallax_tpu_torch.models.bert import BertConfig
 from parallax_tpu_torch.models.lm1b import LM1BConfig
+from parallax_tpu_torch.models.long_context import LongContextConfig
 from parallax_tpu_torch.models.nmt import NMTConfig
 
 
@@ -133,6 +140,37 @@ def bert_params_from_jax(np_params, cfg: BertConfig, device="cuda"):
     out["blocks"] = [carry(b, block, f"blocks/{i}")
                      for i, b in enumerate(np_params["blocks"])]
     return out
+
+
+def long_context_params_from_jax(np_params, cfg: LongContextConfig,
+                                 device="cuda", engine=None):
+    """The port's long-context LM parameters (fp32) from a JAX tree of
+    numpy arrays (the per-layer ``blocks`` layout), on ``device``; with
+    ``engine``, as that engine's rank holds them (``rank_shard``).
+    Checks every shape against ``cfg``."""
+    dev = resolve_device(device)
+    V, D, M = cfg.vocab_size, cfg.model_dim, cfg.mlp_dim
+    ln = {"s": (D,), "b": (D,)}
+    want = {"emb": (V, D), "pos": (cfg.max_len, D), "out_w": (D, V)}
+    block = {"wqkv": (D, 3 * D), "wo": (D, D), "w1": (D, M), "w2": (M, D),
+             "ln1": ln, "ln2": ln}
+    who = "long_context_params_from_jax"
+
+    def carry(tree, shapes, path):
+        if isinstance(shapes, dict):
+            return {k: carry(tree[k], v, f"{path}/{k}" if path else k)
+                    for k, v in shapes.items()}
+        return _leaf(tree, shapes, path, torch.float32, dev, who)
+
+    if "blocks" not in np_params or \
+            len(np_params["blocks"]) != cfg.num_layers:
+        raise ValueError(f"{who}: the tree needs the per-layer 'blocks' "
+                         f"list of {cfg.num_layers} (a pipeline tree's "
+                         f"blocks_stacked is not ported)")
+    out = carry(np_params, want, "")
+    out["blocks"] = [carry(b, block, f"blocks/{i}")
+                     for i, b in enumerate(np_params["blocks"])]
+    return out if engine is None else rank_shard(out, engine)
 
 
 def simple_params_from_jax(np_params, device="cuda"):

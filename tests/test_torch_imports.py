@@ -61,6 +61,10 @@ def test_package_imports_with_jax_blocked():
         "from parallax_tpu_torch.models import cnn, cnn_zoo, resnet, "
         "simple, bert, nmt\n"
         "from parallax_tpu_torch.ops import tensor_parallel\n"
+        "from parallax_tpu_torch.ops import ring_attention\n"
+        "from parallax_tpu_torch.models import long_context\n"
+        "from parallax_tpu_torch.serve.adapters import "
+        "CausalLMDecodeProgram, standalone_greedy\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"

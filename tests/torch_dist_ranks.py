@@ -397,3 +397,86 @@ def tp_models(rank, world, runs):
             "wire": sess.sparse_wire_bytes_per_step()}
         sess.close()
     return out
+
+
+# -- ring attention and the long-context LM (tests/test_torch_ring_attention
+# .py, tests/test_torch_long_context.py) ------------------------------------
+
+
+def ring_ops(rank, world, cases):
+    """Each case (name, placement, causal, block_impl, q, k, v, cot), the
+    arrays global [B, T, H, D] (already zig-zag permuted for
+    ``placement='zigzag'``): this rank's output block and its q, k, v
+    gradients of sum(out * cot), and the collectives of the forward."""
+    from parallax_tpu_torch.core import mesh as mesh_lib
+    from parallax_tpu_torch.ops import ring_attention as ra
+    from parallax_tpu_torch.ops import tensor_parallel as tp
+    mesh = mesh_lib.build_mesh("cpu", shape=(1, world))
+    s = mesh.coords[1]
+    out = {"coords": mesh.coords}
+    for name, placement, causal, impl, q, k, v, cot in cases:
+        n = q.shape[1] // world
+        blk = slice(s * n, (s + 1) * n)
+        xs = [torch.tensor(a[:, blk]).requires_grad_() for a in (q, k, v)]
+
+        def run():
+            return ra.ring_attention(*xs, mesh, "shard", causal=causal,
+                                     placement=placement, block_impl=impl)
+
+        counts = tp.count_collectives(lambda: run())
+        y = run()
+        (y * torch.tensor(cot[:, blk])).sum().backward()
+        out[name] = {"out": _np(y), "grads": [_np(x.grad) for x in xs],
+                     "counts": counts}
+    return out
+
+
+def lc_models(rank, world, runs):
+    """Each run: (name, config kwargs, mesh shape, feed layout, SGD
+    learning rate or None for the model's own optimizer, whole initial
+    params, batches): losses, tokens, the gathered parameters, the local
+    shapes, the plan and the batch layout."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch import weights
+    from parallax_tpu_torch.core import optim
+    from parallax_tpu_torch.core.classify import flatten
+    from parallax_tpu_torch.models import long_context as tlc
+
+    out = {}
+    for name, cfg_kw, shape, feed, sgd, init, batches in runs:
+        if shape[0] * shape[1] != world:
+            continue
+        cfg = tlc.tiny_config(compute_dtype=torch.float32, **cfg_kw)
+        model = tlc.build_model(cfg)
+        if sgd is not None:
+            model.optimizer = optim.sgd(sgd)
+        sess, *_ = pt.parallel_run(
+            model, parallax_config=pt.Config(run_option="HYBRID"),
+            device="cpu", num_partitions=shape[1])
+        mesh = sess.mesh
+
+        def share(b):
+            return _row_share(b, mesh) if feed == "repl" \
+                else _share(b, rank, world)
+
+        sess.prepare(share(batches[0]))
+        mine = dict(flatten(weights.long_context_params_from_jax(
+            init, cfg, "cpu", engine=sess.engine)))
+        with torch.no_grad():
+            for path, leaf in flatten(sess.state.params):
+                leaf.copy_(mine[path])
+        losses, tokens = [], []
+        for b in batches:
+            loss, tok = sess.run(["loss", "tokens"], feed_dict=share(b))
+            losses.append(float(loss))
+            tokens.append(float(tok))
+        out[name] = {
+            "mesh": (mesh.repl, mesh.shard, mesh.coords),
+            "losses": losses, "tokens": tokens,
+            "params": _flat_np(sess.gather_params()),
+            "local_shapes": {p: tuple(v.shape) for p, v in
+                             _flat_np(sess.state.params).items()},
+            "placements": dict(sess.engine.plan.placements),
+            "layout": sess.engine.batch_layout}
+        sess.close()
+    return out
