@@ -178,11 +178,44 @@ beside it. Phases:
     through B7 against ``standalone_greedy`` of the dense program (plain
     attention), request by request, with ``agreement``'s top-2-gap rule.
 
+12h. ``moe-train``: the switch-MoE LM at its published widths
+    (``MoeLMConfig(use_pallas_attention=True)``: vocab 32000, D 512, 8
+    heads of 64, 16 experts of 1024, top-1, 6 layers, bf16) through
+    ``parallel_run(..., Config(run_option="HYBRID"))`` on one card, where
+    the shard axis is 1 and the MoE runs every expert on every token (the
+    JAX package's dense fallback). Batches of 16 x 1024 (the model's
+    ``max_len``) from ``make_batch``; ``sess.warmup`` captures the step,
+    then 10 timed steps: tokens/s, step ms p50 and p95, peak memory, the
+    routed (top-1) and executed FLOPs as shares of 989 TF/s; B4, B5 and
+    B6 must launch 6 times a step each, every loss be finite and the last
+    below the first, ``moe_dropped`` 0. Then 3 steps under the profiler,
+    busy by ``MOE_GROUPS``.
+12i. ``moe-agree``: 3 eager steps at 4 x 1024 from one init, the flash
+    kernels against the plain causal core: losses within 2e-3 relative.
+12j. ``moe-serve`` and ``moe-serve-profile``: the MoE LM, random weights
+    from seed 0, behind ``MoeLMDecodeProgram`` with ``lc-serve``'s
+    program settings, slots and 256 prompts; B7 6 times a decode step,
+    no page left in use; then 64 requests under the profiler.
+12k. ``moe-serve-agree``: 32 of the requests in fp32 through B7 against
+    ``standalone_greedy`` of the dense plain program, under the top-2-gap
+    rule.
+12l. ``nmt-beam``: NMT ``beam_decode`` at ``examples/nmt_eval.py``'s
+    widths and defaults (vocab 32000, D 512, 8 heads, MLP 2048, 6 + 6
+    layers, max_len 128, beam 4, length penalty 1.0, batch 16 of 64
+    ids), the cached path in bf16 with the flash encoder (B4 6 times a
+    call): sentences/s and ms a decode step; the fp32 beams with the
+    kernel encoder against the plain encoder's (a differing row passes
+    only where the plain path scores both within 1e-3); ``corpus_bleu``
+    of the beams against the greedy decode.
+
 The kernel phase adds the ``lc_train`` cases (bf16 B4, and B5/B6 with an
 lse cotangent, at B 8, T 8192, 8 heads of 64, causal; held to the plain
 versions on 4 of the 8 rows, whose [T, T] scores fit, and timed on all
-8) and ``lc_serve`` (bf16 and fp32 B7 at S 64, 48 pages of 16, last
-positions drawn in [63, 766]).
+8), ``lc_serve`` (bf16 and fp32 B7 at S 64, 48 pages of 16, last
+positions drawn in [63, 766]; moe-serve's shape too), ``moe_train``
+(bf16 B4, and B5/B6, at B 16, T 1024, 8 heads of 64, causal) and
+``nmt_beam`` (B4 in fp32 and bf16 at nmt-beam's encoder: B 16, T 64, 8
+heads of 64, a mask with every key valid).
 
 13. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
     eagerly (``compile.disable_capture()``) and 5 as graph replays from
@@ -216,7 +249,9 @@ ranges (the split ones through the combine kernel), each held to the
 plain version and timed cold in turns.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches, error, times and bound. The whole
+lists each kernel with its launches, and its error, times and bound at
+the main-path case where it fares worst against its library call,
+beside every main-path case's (``main_path``). The whole
 record is also written to ``build/chip_smoke.json``.
 
 ``python3 chip_smoke.py --pair DIR`` is an A/B on one card instead: the
@@ -434,7 +469,8 @@ def flash_cases():
     # shape on the serving path (one padded 64-token source); "train_enc"
     # and "train_dec" are the NMT training step's (64 x 64 tokens: the
     # encoder and cross attentions with the source pad mask, the decoder
-    # causal self-attention)
+    # causal self-attention); "nmt_beam" is nmt-beam's encoder (16
+    # sources of 64 ids, none of them pad: the mask passed is all valid)
     return [("serve", 1, 64, 8, 64, False, "tail"),
             ("masked_row", 2, 64, 8, 64, False, "row"),
             ("t512", 8, 512, 8, 64, False, None),
@@ -444,7 +480,9 @@ def flash_cases():
             ("t2048", 2, 2048, 8, 64, False, None),
             ("t2048_causal", 2, 2048, 8, 64, True, None),
             ("bert", 32, 512, 16, 64, False, "bert"),
-            ("lc_train", 8, 8192, 8, 64, True, None)]
+            ("lc_train", 8, 8192, 8, 64, True, None),
+            ("moe_train", 16, 1024, 8, 64, True, None),
+            ("nmt_beam", 16, 64, 8, 64, False, "full")]
 
 
 # cases whose plain version runs on the first rows only: its fp32 [T, T]
@@ -457,8 +495,9 @@ PLAIN_ROWS = {"lc_train": 4}
 # BERT-large's attention as bert-train runs it (B 32, T 512, 16 heads of
 # 64, the WordPiece padding mask), and the long-context LM's as lc-train
 # runs it (B 8, T 8192, 8 heads of 64, causal; the backward with the lse
-# cotangent of the ring's merge)
-BF16_ONLY = ("t2048", "t2048_causal", "bert", "lc_train")
+# cotangent of the ring's merge), and the MoE LM's as moe-train runs it (B
+# 16, T 1024, 8 heads of 64, causal)
+BF16_ONLY = ("t2048", "t2048_causal", "bert", "lc_train", "moe_train")
 
 
 def flash_kernel_name(kernel, dtype_name):
@@ -478,9 +517,12 @@ def make_mask(torch, kind, B, Tk):
     """kv_mask [B, Tk] int32: "tail" pads batch 0 after 40 tokens, "row"
     also masks every key of batch 1; "pad" gives each row a length drawn
     in [16, Tk] (numpy seed 0), "bert" one in [384, Tk] as bert-train's
-    batches, "zero" also masks every key of batch 1."""
+    batches, "zero" also masks every key of batch 1, "full" masks
+    nothing."""
     if kind is None:
         return None
+    if kind == "full":
+        return torch.ones((B, Tk), dtype=torch.int32, device=DEVICE)
     if kind in ("tail", "row"):
         mask = torch.ones((B, Tk), dtype=torch.int32, device=DEVICE)
         mask[0, 40:] = 0              # a padded source of 40 tokens
@@ -790,7 +832,8 @@ def flash_bwd_cases():
             ("t2048", 2, 2048, 2048, 8, 64, False, None, False),
             ("t2048_causal", 2, 2048, 2048, 8, 64, True, None, False),
             ("bert", 32, 512, 512, 16, 64, False, "bert", False),
-            ("lc_train", 8, 8192, 8192, 8, 64, True, None, True)]
+            ("lc_train", 8, 8192, 8192, 8, 64, True, None, True),
+            ("moe_train", 16, 1024, 1024, 8, 64, True, None, False)]
 
 
 def grad_compare(torch, got, want, dtype):
@@ -2442,14 +2485,15 @@ def lc_prompts(n, rng, vocab):
         .astype(np.int32) for _ in range(n)]
 
 
-def lc_serve(torch, cfg, params, prompts, **prog_kw):
-    """``prompts`` through ServeSession(CausalLMDecodeProgram(...)), each
-    to the program's cap: (outputs, wall s, stats, program)."""
+def lc_serve(torch, cfg, params, prompts, program=None, **prog_kw):
+    """``prompts`` through ServeSession(program(...)), the program class
+    ``CausalLMDecodeProgram`` by default, each to the program's cap:
+    (outputs, wall s, stats, program)."""
     import parallax_tpu_torch as pt
     kw = dict(page_size=LC_SERVE["page_size"],
               pool_pages=LC_SERVE["pool_pages"], attn_impl="kernel")
     kw.update(prog_kw)
-    prog = pt.CausalLMDecodeProgram(
+    prog = (program or pt.CausalLMDecodeProgram)(
         cfg, max_src_len=LC_SERVE["max_src_len"],
         max_len=LC_SERVE["max_len"], device=DEVICE, **kw)
     sess = pt.ServeSession(
@@ -2475,17 +2519,19 @@ def lc_serve(torch, cfg, params, prompts, **prog_kw):
     return outs, wall, sess.stats(), prog
 
 
-def phase_lc_serve(torch, cfg, params, prompts):
-    """The long-context LM served: the scheduler's warmup captures the
-    prefill and the decode step; B7 must launch 6 times a decode step
-    (plus the warmup's eager call), B4 never (the prefill runs the plain
-    causal attention, as in JAX), and no page may stay in use after
-    close."""
+def phase_lc_serve(torch, cfg, params, prompts, label="lc-serve",
+                   program=None):
+    """The long-context LM (or, with ``program``, another causal LM)
+    served: the scheduler's warmup captures the prefill and the decode
+    step; B7 must launch 6 times a decode step (plus the warmup's eager
+    call), B4 never (the prefill runs the plain causal attention, as in
+    JAX), and no page may stay in use after close."""
     from parallax_tpu_torch.ops import flash_attention as fa
     from parallax_tpu_torch.ops import paged_attention as pa
     torch.cuda.synchronize()
     fa.launches = pa.launches = pa.launches_combine = 0
-    outs, wall, stats, prog = lc_serve(torch, cfg, params, prompts)
+    outs, wall, stats, prog = lc_serve(torch, cfg, params, prompts,
+                                       program=program)
     torch.cuda.synchronize()
     L = cfg.num_layers
     plan = pa.split_plan(LC_SERVE["max_batch"], cfg.num_heads,
@@ -2499,7 +2545,7 @@ def phase_lc_serve(torch, cfg, params, prompts):
             "flash_attention_fwd": 0}
     want_combine = want["paged_decode_attention"] * int(plan.nsplit > 1)
     if launches != want or pa.launches_combine != want_combine:
-        raise AssertionError(f"lc-serve launches {launches}, combine "
+        raise AssertionError(f"{label} launches {launches}, combine "
                              f"{pa.launches_combine} != {want}, "
                              f"{want_combine} ({plan})")
     if stats["serve.kv_pages_in_use"] != 0:
@@ -2509,7 +2555,7 @@ def phase_lc_serve(torch, cfg, params, prompts):
         raise AssertionError(f"{stats['serve.completed']} of "
                              f"{len(prompts)} requests completed")
     if prog._graphs is None:
-        raise AssertionError("the causal-LM program captured no graphs")
+        raise AssertionError(f"{label}: the program captured no graphs")
     tokens = int(sum(len(o) for o in outs))
     summary = {"requests": len(prompts), "tokens": tokens, "wall_s": wall,
                "prompt_tokens": int(sum(len(p) for p in prompts)),
@@ -2525,18 +2571,20 @@ def phase_lc_serve(torch, cfg, params, prompts):
                "paged_combine_launches": pa.launches_combine,
                "paged_plan": plan._asdict(),
                "capture_s": stats["serve.compile_seconds"]["max"]}
-    log(f"[lc-serve] {json.dumps(summary)}")
+    log(f"[{label}] {json.dumps(summary)}")
     return summary
 
 
-def phase_lc_serve_profile(torch, cfg, params, prompts):
+def phase_lc_serve_profile(torch, cfg, params, prompts,
+                           label="lc-serve-profile", program=None):
     """``profile_requests`` requests under the profiler's CUDA activity:
     busy and B7 ms a decode step, the idle share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, stats, _ = lc_serve(torch, cfg, params, prompts)
+        _, _, stats, _ = lc_serve(torch, cfg, params, prompts,
+                                  program=program)
         torch.cuda.synchronize()
     window = time.perf_counter() - t0
     rows = []
@@ -2560,15 +2608,15 @@ def phase_lc_serve_profile(torch, cfg, params, prompts):
                "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
                         "share_of_busy": us / 1e6 / busy_s}
                        for us, n, key in rows[:10]]}
-    log(f"[lc-serve-profile] {json.dumps(summary)}")
+    log(f"[{label}] {json.dumps(summary)}")
     return summary
 
 
 def lc_top2_gap(torch, prog, params, prompt, position):
     """The dense plain program's top-2 logit gap and the two tokens at
     decode ``position`` of one request (its own greedy prefix fed
-    back)."""
-    from parallax_tpu_torch.models import long_context as lc
+    back), through the program's model module."""
+    lc = prog._mod
     cp = prog._compute_params(params)
     rs = prog.prefill(params, prog.prepare_feed({"ids": prompt}))
     state = prog.init_state(params, 1)
@@ -2584,19 +2632,24 @@ def lc_top2_gap(torch, prog, params, prompt, position):
     return (top.values[0] - top.values[1]).item(), top.indices.tolist()
 
 
-def phase_lc_serve_agree(torch, params, prompts):
+def phase_lc_serve_agree(torch, params, prompts, label="lc-serve-agree",
+                         cfg=None, program=None):
     """``agree_requests`` requests served in fp32 (TF32 off) through the
     B7 kernel against ``standalone_greedy`` of the dense program (plain
     attention, no kernel), request by request; a difference passes only
     where the plain path's top-2 logit gap is at most 1e-3 (a near tie),
-    as in the NMT agreement phase."""
+    as in the NMT agreement phase. The long-context LM by default; a
+    ``cfg`` (fp32) and its ``program`` class for another causal LM."""
     import parallax_tpu_torch as pt
     from parallax_tpu_torch.models import long_context as lc
     from parallax_tpu_torch.serve import standalone_greedy
-    cfg = lc.LongContextConfig(compute_dtype=torch.float32)
-    outs, _, stats, _ = lc_serve(torch, cfg, params, prompts)
-    dense = pt.CausalLMDecodeProgram(cfg, LC_SERVE["max_src_len"],
-                                     LC_SERVE["max_len"], device=DEVICE)
+    if cfg is None:
+        cfg = lc.LongContextConfig(compute_dtype=torch.float32)
+    program = program or pt.CausalLMDecodeProgram
+    outs, _, stats, _ = lc_serve(torch, cfg, params, prompts,
+                                 program=program)
+    dense = program(cfg, LC_SERVE["max_src_len"], LC_SERVE["max_len"],
+                    device=DEVICE)
     mismatches = []
     for i, (p, out) in enumerate(zip(prompts, outs)):
         ref = np.asarray(standalone_greedy(dense, params, {"ids": p},
@@ -2609,7 +2662,7 @@ def phase_lc_serve_agree(torch, params, prompts):
         gap, top2 = lc_top2_gap(torch, dense, params, p, first)
         mismatches.append({"request": i, "position": first,
                            "top2_gap": gap, "top2_tokens": top2})
-        log(f"[lc-serve-agree] request {i}: first difference at position "
+        log(f"[{label}] request {i}: first difference at position "
             f"{first}, plain top-2 logit gap {gap:.3g} between {top2}")
         if not gap <= 1e-3:
             raise AssertionError(
@@ -2619,8 +2672,312 @@ def phase_lc_serve_agree(torch, params, prompts):
                len(prompts) - len(mismatches), "near_ties": mismatches,
                "kv_pages_in_use": stats["serve.kv_pages_in_use"]}
     if stats["serve.kv_pages_in_use"] != 0:
-        raise AssertionError("KV pages left in use in lc-serve-agree")
-    log(f"[lc-serve-agree] {json.dumps(summary)}")
+        raise AssertionError(f"KV pages left in use in {label}")
+    log(f"[{label}] {json.dumps(summary)}")
+    return summary
+
+
+# -- phases 12h-12l: the switch-MoE LM and NMT beam search --------------------
+
+# moe-train: MoeLMConfig() (vocab 32000, D 512, 8 heads of 64, expert_dim
+# 1024, 16 experts, top-1, 6 layers, bf16) with the flash kernels, batches
+# of 16 x 1024 (the model's max_len; no JAX example fixes a batch for this
+# model, its tests use 8 x 16)
+MOE_TRAIN = dict(batch=16, seq=1024, steps=10, profile_steps=3,
+                 agree_batch=4, agree_steps=3, agree_tol=2e-3)
+MOE_GROUPS = (
+    ("flash B4-B6", r"flash_\w*kernel"),
+    ("bf16-operand products on cuBLAS's sgemmEx (fp32 compute)",
+     r"sgemmEx_kernel<float, __nv_bfloat16"),
+    ("fp32 head and router products ([16384, 512] x [512, 32000])",
+     r"(?i)sgemm|nvjet_s|f32f32_f32f32|gemm_f32"),
+    ("bf16 GEMMs (the expert einsums, 94 % of their FLOPs; projections)",
+     r"(?i)gemm|nvjet|xmma|cutlass|cublas"),
+    ("Adam and the clip (multi-tensor)", r"(?i)multi_tensor|foreach"),
+    ("log-softmax", r"(?i)softmax"),
+    ("routing: sort, scatter, gather, index", r"(?i)sort|radix|scatter|"
+                                             r"gather|index"),
+    ("reductions (LayerNorm statistics, sums)", r"(?i)reduce"),
+    ("elementwise (LayerNorm, ReLU, gates, residuals, casts)",
+     r"(?i)elementwise|vectorized|unrolled"),
+    ("copies and fills", r"(?i)copy|memcpy|memset|fill|cat"),
+)
+# nmt-beam: examples/nmt_eval.py's widths and defaults (vocab 32000, D 512,
+# 8 heads, MLP 2048, 6 + 6 layers, max_len 128, beam 4, length penalty
+# 1.0, batch 16, sources of max_len // 2 ids from numpy seed 123)
+NMT_BEAM = dict(max_len=128, beam=4, alpha=1.0, batch=16, src_len=64,
+                calls=3, agree_tol=1e-3)
+
+
+def moe_session(torch, **cfg_kw):
+    """MoeLMConfig() through parallel_run HYBRID on the card, seed 0."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import moe_lm
+    cfg = moe_lm.MoeLMConfig(**cfg_kw)
+    sess, *_ = pt.parallel_run(
+        moe_lm.build_model(cfg),
+        parallax_config=pt.Config(run_option="HYBRID"), seed=SEED,
+        device=DEVICE)
+    return cfg, sess
+
+
+def moe_batches(cfg, batch, seq, n=4):
+    from parallax_tpu_torch.models import moe_lm
+    rng = np.random.default_rng(SEED)
+    return [moe_lm.make_batch(rng, batch, seq, cfg.vocab_size)
+            for _ in range(n)]
+
+
+def moe_model_flops(cfg, batch, seq):
+    """FLOPs of one training step (forward x 3) from the shapes: the bf16
+    products (q/k/v, output, the causal half of the attention's two
+    T x T products, the experts) counted once over the routed work (each
+    token through its top-k experts) and once as executed (the dense
+    fallback of one card runs every expert on every token, then the
+    gates' combine), and the fp32 head and router products."""
+    D, F, E, V, L = (cfg.model_dim, cfg.expert_dim, cfg.num_experts,
+                     cfg.vocab_size, cfg.num_layers)
+    tokens = batch * seq
+    attn = (2 * tokens * D * 3 * D + 2 * tokens * D * D
+            + 2 * 2 * batch * seq * seq * D // 2)
+    routed = 2 * 2 * tokens * D * F * cfg.top_k
+    executed = 2 * 2 * tokens * D * F * E + 2 * tokens * E * D
+    return {"bf16_routed_tflop": 3 * L * (attn + routed) / 1e12,
+            "bf16_executed_tflop": 3 * L * (attn + executed) / 1e12,
+            "fp32_tflop": 3 * (2 * tokens * D * V
+                               + L * 2 * tokens * D * E) / 1e12}
+
+
+def phase_moe_train(torch, card):
+    """The MoE LM through parallel_run HYBRID on one card, bf16, with the
+    flash kernels: ``sess.warmup`` captures the step, then ``steps`` timed
+    steps (tokens a second, step ms p50 and p95 from CUDA events, peak
+    memory, the routed and executed FLOPs' shares of 989 TF/s); B4, B5
+    and B6 must launch once a layer a step (6 each), every loss finite
+    and the last below the first, ``moe_dropped`` 0 (one card runs the
+    dense path); then ``profile_groups`` by ``MOE_GROUPS``."""
+    from parallax_tpu_torch.ops import flash_attention as fa
+    torch.cuda.empty_cache()
+    cfg, sess = moe_session(torch, use_pallas_attention=True)
+    B, T, steps = MOE_TRAIN["batch"], MOE_TRAIN["seq"], MOE_TRAIN["steps"]
+    batches = moe_batches(cfg, B, T)
+    t_build = time.perf_counter()
+    sess.prepare(batches[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    placements = set(sess.engine.plan.placements.values())
+    if placements != {"replicated"}:
+        raise AssertionError(f"moe-train on one card: placements "
+                             f"{placements}, want every variable whole")
+    capture = capture_train(torch, sess, B)
+    for name in FLASH_COUNTERS:
+        setattr(fa, name, 0)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    outs = []
+    feed = (batches[i % 4] for i in range(steps))
+    for out in sess.run_iter(feed, fetches=["loss", "lm_loss", "aux_loss",
+                                            "moe_dropped"]):
+        outs.append(out)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_dq": fa.launches_dq,
+                "flash_attention_dkv": fa.launches_dkv}
+    per_step = {k: v / steps for k, v in launches.items()}
+    if set(per_step.values()) != {float(cfg.num_layers)}:
+        raise AssertionError(f"moe-train flash launches a step {per_step}: "
+                             f"want {cfg.num_layers} of each")
+    losses, lm, aux, dropped = ([float(o[i]) for o in outs]
+                                for i in range(4))
+    if not all(math.isfinite(x) for x in losses + aux):
+        raise AssertionError(f"non-finite moe-train loss: {losses} {aux}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe-train loss did not fall: {losses}")
+    if any(d != 0.0 for d in dropped):
+        raise AssertionError(f"moe_dropped {dropped} on the dense path")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    p50 = statistics.median(step_ms)
+    flops = moe_model_flops(cfg, B, T)
+    routed = (flops["bf16_routed_tflop"] + flops["fp32_tflop"]) * 1e12
+    executed = (flops["bf16_executed_tflop"] + flops["fp32_tflop"]) * 1e12
+    summary = {
+        "card": card,
+        "config": {"vocab": cfg.vocab_size, "model_dim": cfg.model_dim,
+                   "heads": cfg.num_heads, "expert_dim": cfg.expert_dim,
+                   "experts": cfg.num_experts, "top_k": cfg.top_k,
+                   "layers": cfg.num_layers, "compute": "bfloat16",
+                   "run_option": "HYBRID", "batch": B, "seq": T},
+        "tokens_per_sec": steps * B * T / wall, "timed_steps": steps,
+        "wall_s": wall, "step_ms_p50": p50, "step_ms_p95": p95(step_ms),
+        "losses": losses, "lm_losses": lm, "aux_losses": aux,
+        "moe_dropped": dropped, "engine_build_s": build_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "model_flops": flops,
+        "routed_share_of_bf16_peak": steps / wall * routed
+        / PEAK_OPS_PER_S["bfloat16"],
+        "executed_share_of_bf16_peak": steps / wall * executed
+        / PEAK_OPS_PER_S["bfloat16"],
+        "launches": launches, "launches_per_step": per_step,
+        "capture": capture}
+    summary["profile"] = prof = profile_groups(
+        torch, sess, batches, MOE_TRAIN["profile_steps"], MOE_GROUPS)
+    summary["timed_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] \
+        / (wall * 1e3 / steps)
+    log(f"[moe-train] {json.dumps(summary)}")
+    sess.close()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_moe_agree(torch):
+    """``agree_steps`` eager steps of the same model at batch 4 x 1024 from
+    one init, the flash kernels (B4-B6, 6 launches a step each) against
+    the plain causal core; losses within 2e-3 relative (the tolerance of
+    ``lc-agree``)."""
+    from parallax_tpu_torch.ops import flash_attention as fa
+    losses, launches = {}, {}
+    for name, flash in (("flash", True), ("plain", False)):
+        cfg, sess = moe_session(torch, use_pallas_attention=flash)
+        batches = moe_batches(cfg, MOE_TRAIN["agree_batch"],
+                              MOE_TRAIN["seq"], MOE_TRAIN["agree_steps"])
+        before = fa.launches
+        with mode_ctx("eager"):
+            losses[name] = [float(sess.run("loss", feed_dict=b))
+                            for b in batches]
+        launches[name] = fa.launches - before
+        sess.close()
+        del sess
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["flash"],
+                                               losses["plain"])]
+    summary = {"losses": losses, "max_rel_diff": max(rel),
+               "tol": MOE_TRAIN["agree_tol"], "flash_launches": launches}
+    log(f"[moe-agree] {json.dumps(summary)}")
+    want = {"flash": MOE_TRAIN["agree_steps"] * 6, "plain": 0}
+    if launches != want:
+        raise AssertionError(f"moe-agree B4 launches {launches} != {want}")
+    if not (all(math.isfinite(x) for v in losses.values() for x in v)
+            and max(rel) <= MOE_TRAIN["agree_tol"]):
+        raise AssertionError(f"flash and plain MoE losses differ by "
+                             f"{max(rel)} relative > "
+                             f"{MOE_TRAIN['agree_tol']}: {losses}")
+    return summary
+
+
+def nmt_beam_inputs(cfg):
+    rng = np.random.default_rng(123)
+    return rng.integers(3, cfg.vocab_size, (NMT_BEAM["batch"],
+                                            NMT_BEAM["src_len"])) \
+        .astype(np.int32)
+
+
+def beam_score(torch, nmt, cfg, params, src, row, alpha):
+    """The plain path's score of one decoded row: its teacher-forced
+    log-probability through EOS, over the GNMT length penalty when it
+    ends in EOS (as ``beam_decode`` ranks finished beams), raw when it
+    does not."""
+    src = torch.as_tensor(src[None], device=DEVICE).long()
+    row = torch.as_tensor(row, device=DEVICE).long()
+    tgt_in = torch.cat([torch.full((1,), nmt.BOS_ID, device=DEVICE,
+                                   dtype=torch.long), row[:-1]])[None]
+    enc, valid = nmt._encode(cfg, params, src)
+    logp = torch.log_softmax(nmt._decode_logits(cfg, params, tgt_in, enc,
+                                                valid)[0], dim=-1)
+    toks = row.tolist()
+    n = toks.index(nmt.EOS_ID) + 1 if nmt.EOS_ID in toks else len(toks)
+    total = float(logp[torch.arange(n), row[:n]].sum())
+    if nmt.EOS_ID in toks:
+        return total / float(nmt._length_penalty(float(n), alpha))
+    return total
+
+
+def phase_nmt_beam(torch):
+    """NMT ``beam_decode`` at ``examples/nmt_eval.py``'s widths and
+    defaults, the cached path in bf16 with the flash encoder (B4, 6
+    launches a call): sentences a second and ms a decode step over
+    ``calls`` timed calls after a warm one. Then fp32 (TF32 off): the
+    beams with the kernel encoder against the plain encoder's, row by
+    row; a differing row passes only where the plain path scores both
+    hypotheses within 1e-3 (a near tie). ``corpus_bleu`` of the bf16
+    beams against the bf16 greedy decode is reported as a smoke check of
+    the BLEU (in [0, 100])."""
+    from parallax_tpu_torch.common.evaluation import corpus_bleu
+    from parallax_tpu_torch.models import nmt
+    from parallax_tpu_torch.ops import flash_attention as fa
+    kw = dict(vocab_size=32000, model_dim=512, num_heads=8, mlp_dim=2048,
+              num_layers=6, max_len=NMT_BEAM["max_len"], num_partitions=1)
+    cfg = nmt.NMTConfig(use_pallas_attention=True, **kw)
+    params = nmt.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    src = nmt_beam_inputs(cfg)
+    K, alpha, T = NMT_BEAM["beam"], NMT_BEAM["alpha"], NMT_BEAM["max_len"]
+
+    def decode(c, p):
+        return nmt.beam_decode(p, c, src, beam_width=K, alpha=alpha)
+
+    with torch.no_grad():
+        decode(cfg, params)
+        torch.cuda.synchronize()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(NMT_BEAM["calls"]):
+            beams = decode(cfg, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention_fwd": fa.launches}
+        if fa.launches != NMT_BEAM["calls"] * cfg.num_layers:
+            raise AssertionError(f"nmt-beam B4 launches {fa.launches}: want "
+                                 f"{cfg.num_layers} a call")
+        beams = beams.cpu().numpy()
+        greedy = nmt.greedy_decode(params, cfg, src).cpu().numpy()
+        hyps = [nmt.ids_to_tokens(r) for r in beams]
+        refs = [nmt.ids_to_tokens(r) for r in greedy]
+        bleu = corpus_bleu(refs, hyps)
+        if not 0.0 <= bleu <= 100.0:
+            raise AssertionError(f"corpus BLEU {bleu} outside [0, 100]")
+        del params
+        torch.cuda.empty_cache()
+        f32 = {}
+        for name, flash in (("kernel", True), ("plain", False)):
+            c32 = nmt.NMTConfig(use_pallas_attention=flash,
+                                compute_dtype=torch.float32, **kw)
+            p32 = nmt.init_params(
+                c32, torch.Generator(device=DEVICE).manual_seed(SEED),
+                DEVICE)
+            f32[name] = decode(c32, p32).cpu().numpy()
+        near = []
+        for i in np.flatnonzero((f32["kernel"] != f32["plain"]).any(1)):
+            a, b = (beam_score(torch, nmt, c32, p32, src[i], f32[k][i],
+                               alpha) for k in ("kernel", "plain"))
+            near.append({"row": int(i), "plain_scores": [a, b]})
+            log(f"[nmt-beam] row {i}: the kernel encoder's beam differs; "
+                f"plain scores {a:.6g} and {b:.6g}")
+            if not abs(a - b) <= NMT_BEAM["agree_tol"]:
+                raise AssertionError(
+                    f"nmt-beam row {i}: fp32 beams differ where the plain "
+                    f"path scores them {a} and {b}")
+        del p32
+    torch.cuda.empty_cache()
+    summary = {"config": {**kw, "beam": K, "alpha": alpha,
+                          "batch": NMT_BEAM["batch"],
+                          "src_len": NMT_BEAM["src_len"],
+                          "compute": "bfloat16"},
+               "calls": NMT_BEAM["calls"], "wall_s": wall,
+               "sentences_per_sec": NMT_BEAM["calls"] * NMT_BEAM["batch"]
+               / wall,
+               "ms_per_decode_step": wall * 1e3 / (NMT_BEAM["calls"] * T),
+               "launches": launches,
+               "eos_rows": int(sum(nmt.EOS_ID in r.tolist() for r in beams)),
+               "bleu_beam_vs_greedy": bleu,
+               "fp32_rows_identical": NMT_BEAM["batch"] - len(near),
+               "fp32_near_ties": near}
+    log(f"[nmt-beam] {json.dumps(summary)}")
     return summary
 
 
@@ -3126,47 +3483,70 @@ def phase_graph_agree(torch):
 # -- the run ----------------------------------------------------------------
 
 
+# the kernel-phase cases at the shapes the main paths launch each kernel
+# at ("lc_serve" is moe-serve's decode step too)
+MAIN_PATH_CASES = {
+    "flash_attention_fwd": ["serve", "train_enc", "train_dec", "bert",
+                            "lc_train", "moe_train", "nmt_beam"],
+    "flash_attention_dq": ["train_enc", "train_dec", "bert", "lc_train",
+                           "moe_train"],
+    "flash_attention_dkv": ["train_enc", "train_dec", "bert", "lc_train",
+                            "moe_train"],
+    "paged_decode_attention": ["serve", "lc_serve"],
+    "lstm_fwd": ["train"], "lstm_fwd_res": ["train"], "lstm_bwd": ["train"],
+}
+
+
+def worst_case(rows):
+    """The row of the main-path case where the kernel fares worst against
+    its library call (the largest ms over library ms), or the last row
+    where no case has a library call."""
+    timed = [r for r in rows if r["library_ms"]]
+    if not timed:
+        return rows[-1]
+    return max(timed, key=lambda r: r["ms"] / r["library_ms"])
+
+
 def kernel_line(results, launches):
-    """One entry per kernel, at the newest main path's shape in bf16 (the
-    shape and type that path launched it at): the long-context LM's
-    attention (B 8, T 8192, H 8, hd 64, causal; the backward with the lse
-    cotangent) for B4, B5 and B6, lc-serve's decode step for B7, the LM1B
-    training shape for B1-B3. B4's launches are the NMT serving, NMT,
-    BERT and long-context training paths', B5's and B6's the three
-    training paths', B7's both serving paths'. An LSTM entry names the
-    source of the route its case ran on."""
+    """One entry per kernel, its numbers at the main-path case (bf16, the
+    type the main paths launch it in) where it fares worst against its
+    library call: ``case`` names it, and ``main_path`` gives every
+    main-path case's numbers. B4's launches are the NMT serving, NMT,
+    BERT, long-context and MoE training paths' and NMT beam search's,
+    B5's and B6's the four training paths', B7's the three serving
+    paths'. An LSTM entry names the source of the route its case ran
+    on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:141",
-            "lc_train"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:141"),
         "flash_attention_dq": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:298",
-            "lc_train"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:298"),
         "flash_attention_dkv": (
-            sm90_src, "parallax_tpu/ops/pallas_attention.py:326",
-            "lc_train"),
+            sm90_src, "parallax_tpu/ops/pallas_attention.py:326"),
         "paged_decode_attention": (
             "parallax_tpu_torch/csrc/paged_attention.cu",
-            "parallax_tpu/ops/pallas_paged_attention.py:278", "lc_serve"),
-        "lstm_fwd": (None, "parallax_tpu/ops/pallas_lstm.py:290",
-                     "train"),
-        "lstm_fwd_res": (None, "parallax_tpu/ops/pallas_lstm.py:299",
-                         "train"),
-        "lstm_bwd": (None, "parallax_tpu/ops/pallas_lstm.py:477",
-                     "train"),
+            "parallax_tpu/ops/pallas_paged_attention.py:278"),
+        "lstm_fwd": (None, "parallax_tpu/ops/pallas_lstm.py:290"),
+        "lstm_fwd_res": (None, "parallax_tpu/ops/pallas_lstm.py:299"),
+        "lstm_bwd": (None, "parallax_tpu/ops/pallas_lstm.py:477"),
     }
     out = []
-    for name, (source, replaces, case) in meta.items():
-        r = next(r for r in results if r["kernel"] == name
-                 and r["case"] == case and r["dtype"] == "bfloat16")
+    for name, (source, replaces) in meta.items():
+        rows = [next(r for r in results if r["kernel"] == name
+                     and r["case"] == case and r["dtype"] == "bfloat16")
+                for case in MAIN_PATH_CASES[name]]
+        r = worst_case(rows)
         out.append({"name": name, "route": "cuda",
                     "source": source or r["source"],
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+                    "library_ms": r["library_ms"], "case": r["case"],
+                    "main_path": [{k: m[k] for k in (
+                        "case", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "library_ms")} for m in rows]})
     return {"kernels": out}
 
 
@@ -3220,10 +3600,10 @@ del flush
 cfg = nmt.NMTConfig(use_pallas_attention=True, num_partitions=1)
 requests = c.make_requests(256, np.random.default_rng(c.SEED),
                            cfg.vocab_size)
-params, serve = c.phase_serve(torch, cfg, requests)
+params, serve, _ = c.phase_serve(torch, cfg, requests)
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    _, _, stats = c.serve(torch, cfg, params, requests[:64])
+    _, _, stats, _ = c.serve(torch, cfg, params, requests[:64])
     torch.cuda.synchronize()
 busy = paged = 0.0
 names = {}
@@ -3373,6 +3753,28 @@ def main() -> int:
     lc_serve_agree = phase("lc-serve-agree", phase_lc_serve_agree, torch,
                            lc_params, prompts[:LC_SERVE["agree_requests"]])
     del lc_params
+    moe_train = phase("moe-train", phase_moe_train, torch, card)
+    moe_agree = phase("moe-agree", phase_moe_agree, torch)
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import moe_lm
+    moe_cfg = moe_lm.MoeLMConfig()
+    moe_params = moe_lm.init_params(
+        moe_cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    moe_serve = phase("moe-serve", phase_lc_serve, torch, moe_cfg,
+                      moe_params, prompts, "moe-serve",
+                      pt.MoeLMDecodeProgram)
+    moe_serve_profile = phase(
+        "moe-serve-profile", phase_lc_serve_profile, torch, moe_cfg,
+        moe_params, prompts[:LC_SERVE["profile_requests"]],
+        "moe-serve-profile", pt.MoeLMDecodeProgram)
+    moe_serve_agree = phase(
+        "moe-serve-agree", phase_lc_serve_agree, torch, moe_params,
+        prompts[:LC_SERVE["agree_requests"]], "moe-serve-agree",
+        moe_lm.MoeLMConfig(compute_dtype=torch.float32),
+        pt.MoeLMDecodeProgram)
+    del moe_params
+    torch.cuda.empty_cache()
+    nmt_beam = phase("nmt-beam", phase_nmt_beam, torch)
     graph_agree = phase("graph-agree", phase_graph_agree, torch)
     graph_pairs = {"serve": serve_pair, "lm1b": train["graph_pair"],
                    "nmt": nmt_train["graph_pair"],
@@ -3383,7 +3785,10 @@ def main() -> int:
             dist_train["launches"].items()) + list(
             bert_train["launches"].items()) + list(
             lc_train["launches"].items()) + list(
-            lc_serve_summary["launches"].items()):
+            lc_serve_summary["launches"].items()) + list(
+            moe_train["launches"].items()) + list(
+            moe_serve["launches"].items()) + list(
+            nmt_beam["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -3403,6 +3808,9 @@ def main() -> int:
               "lc_agreement": lc_agree, "lc_serve": lc_serve_summary,
               "lc_serve_profile": lc_serve_profile,
               "lc_serve_agreement": lc_serve_agree,
+              "moe_train": moe_train, "moe_agreement": moe_agree,
+              "moe_serve": moe_serve, "moe_serve_profile": moe_serve_profile,
+              "moe_serve_agreement": moe_serve_agree, "nmt_beam": nmt_beam,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

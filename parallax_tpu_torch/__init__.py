@@ -20,6 +20,14 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
   vocab-parallel head, or data parallelism; ``CausalLMDecodeProgram``
   serves it through the paged-decode kernel, the prompt's K/V inserted
   through the page table.
+* The switch-MoE LM: ``parallel_run(moe_lm.build_model(MoeLMConfig()))``
+  trains with its experts split over the mesh's 'shard' axis (expert
+  parallelism: an all-to-all dispatch and combine; on one card every
+  expert runs on every token), the causal flash kernels with
+  ``use_pallas_attention``; ``MoeLMDecodeProgram`` serves it through the
+  paged-decode kernel.
+* NMT beam search (``nmt.beam_decode``) and corpus BLEU
+  (``common.evaluation.corpus_bleu``).
 * Dense CNN training: ``parallel_run(cnn.build_model("resnet50_v1.5"),
   parallax_config=Config(run_option="AR"))`` and the rest of the CNN zoo,
   a stateful model (BatchNorm statistics) with momentum SGD; no TPU
@@ -43,10 +51,12 @@ from parallax_tpu_torch.common.config import (Config, ParallaxConfig,
                                               ServeConfig)
 from parallax_tpu_torch.common.lib import parallax_log as log
 from parallax_tpu_torch.core.engine import Model, TrainState
-from parallax_tpu_torch.models import cnn, lm1b, long_context, nmt, simple
+from parallax_tpu_torch.models import (cnn, lm1b, long_context, moe_lm,
+                                      nmt, simple)
 from parallax_tpu_torch.runner import parallel_run
 from parallax_tpu_torch.serve import (CausalLMDecodeProgram,
-                                      NMTDecodeProgram, ServeSession)
+                                      MoeLMDecodeProgram, NMTDecodeProgram,
+                                      ServeSession)
 from parallax_tpu_torch.session import Fetch, ParallaxSession, materialize
 
 __version__ = "0.1.0"
@@ -54,4 +64,5 @@ __version__ = "0.1.0"
 __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
            "Model", "TrainState", "ParallaxSession", "Fetch", "materialize",
            "ServeSession", "NMTDecodeProgram", "CausalLMDecodeProgram",
-           "cnn", "lm1b", "long_context", "nmt", "simple"]
+           "MoeLMDecodeProgram", "cnn", "lm1b", "long_context", "moe_lm",
+           "nmt", "simple"]

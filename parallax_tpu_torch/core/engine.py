@@ -23,7 +23,21 @@ card):
 * a tensor-parallel variable (``ops.tensor_parallel``'s specs, a
   ``mesh.TPSpec`` or a column spec ``P(None, 'shard')``) lives on each
   rank as its column or row shard and is used as it is, never gathered
-  (the Megatron products of ``ops.tensor_parallel`` take the parts).
+  (the Megatron products of ``ops.tensor_parallel`` take the parts);
+* an expert weight (``mesh.ExpertSpec``, as ``models/moe_lm.py``
+  declares its ``moe_w1``/``moe_w2``) lives on each rank as its E/n
+  experts and is used as it is, never gathered: ``ops.moe.switch_moe``
+  dispatches the tokens to them through an all-to-all over 'shard',
+  whose backward brings their gradient summed over the shard group; the
+  engine sums it over 'repl' and averages it over the world as every
+  other gradient.
+  The engine tells an expert weight from a sparse table by the spec's
+  type alone: the JAX package's plain ``P('shard', None, None)`` stays a
+  row-sharded variable here (a table looked up through
+  ``embedding_lookup``, or a dense variable gathered for use), and an
+  ``ExpertSpec`` on a variable the classifier finds sparse is refused.
+  An expert count that does not divide the shard axis warns and
+  replicates (``switch_moe`` then runs its dense path), as in JAX.
 
 Every gradient that crosses ranks is averaged over the ranks the batch
 is split over: the world, or the repl group where ``Model.batch_specs``
@@ -138,6 +152,10 @@ ROW_SHARDED = "row_sharded"
 TP_COLUMN = "tp_column"
 TP_ROW = "tp_row"
 TP_PLACEMENTS = (TP_COLUMN, TP_ROW)
+# expert-parallel: each rank keeps and uses its E/n experts (dim 0)
+EXPERT = "expert_sharded"
+# placements a rank computes with as it holds them (never gathered)
+LOCAL_PLACEMENTS = TP_PLACEMENTS + (EXPERT,)
 
 
 class Model:
@@ -165,7 +183,8 @@ class Model:
     * ``param_specs``: path pattern (fnmatch) -> ``core.mesh.P`` override
       of the plan: ``P()`` replicates, ``P('shard', None, ...)``
       row-shards (gathered for use), a ``TPSpec`` or ``P(None, ...,
-      'shard')`` is tensor-parallel (``ops.tensor_parallel``'s specs).
+      'shard')`` is tensor-parallel (``ops.tensor_parallel``'s specs),
+      an ``ExpertSpec`` expert-parallel (``ops.moe``'s expert weights).
     * ``batch_specs``: feed name -> spec of that feed; dim 0 on
       ``('repl', 'shard')`` (the default), on ``'repl'`` alone, or
       ``P('repl', 'shard')``: the batch on 'repl' and the sequence (dim
@@ -295,13 +314,25 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
 
 def _spec_placement(spec, shape, p: int, path: str) -> Optional[str]:
     """The placement a ``param_specs`` override asks for: REPLICATED for
-    ``P()``, ROW_SHARDED for the row spec (None when dim 0 does not
-    divide the shard axis), TP_ROW for a row ``TPSpec`` and TP_COLUMN
-    for a column spec; any other layout raises."""
+    ``P()``, ROW_SHARDED for the row spec, EXPERT for an ``ExpertSpec``
+    (None for either when dim 0 does not divide the shard axis), TP_ROW
+    for a row ``TPSpec`` and TP_COLUMN for a column spec; any other
+    layout raises."""
     entries = tuple(mesh_lib.resolve_spec(spec))
     tp = isinstance(spec, mesh_lib.TPSpec)
     if all(e is None for e in entries):
         return REPLICATED
+    if isinstance(spec, mesh_lib.ExpertSpec):
+        if entries[0] != mesh_lib.AXIS_SHARD or len(entries) > len(shape) \
+                or any(e is not None for e in entries[1:]):
+            raise ValueError(f"expert spec {spec!r} for {path}: only dim 0 "
+                             f"(the experts) splits over 'shard'")
+        if shape[0] % p:
+            parallax_log.warning(
+                "param_specs override for %s: dim 0 (%d) not divisible by "
+                "shard (%d); replicating", path, shape[0], p)
+            return None
+        return EXPERT if p > 1 else REPLICATED
     if len(entries) > len(shape):
         raise ValueError(f"param_specs override {spec!r} for {path}: "
                          f"{len(entries)} entries for a {len(shape)}-d "
@@ -379,6 +410,13 @@ def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
 
     placements = {path: with_override(path, vs, choose(path, vs))
                   for path, vs in var_specs.items()}
+    tables = [path for path, pl in placements.items()
+              if pl == EXPERT and var_specs[path].is_sparse]
+    if tables:
+        raise ValueError(
+            f"expert specs on {tables}, which the loss reads only through "
+            f"embedding_lookup (sparse tables): an expert weight is a "
+            f"dense operand of ops.moe.switch_moe")
     plan = ShardingPlan(mesh, var_specs, placements, tp_groups)
     for path, vs in var_specs.items():
         if vs.shape in plan.sharded_shapes and not vs.is_sparse:
@@ -584,6 +622,13 @@ class Engine:
                                meta_state)
         self.batch_layout = _batch_layout(model, example_batch)
         self._batch_on_repl = self.batch_layout == REPL
+        experts = [p for p, pl in self.plan.placements.items()
+                   if pl == EXPERT]
+        if experts and self.batch_layout != BATCH:
+            raise NotImplementedError(
+                f"expert-parallel param_specs ({experts}) with the "
+                f"{self.batch_layout!r} batch layout: the MoE dispatch "
+                f"takes each rank's own rows (the default layout)")
         if self.plan.tp_groups and not self._batch_on_repl:
             raise NotImplementedError(
                 f"tensor-parallel param_specs ({sorted(self.plan.tp_groups)}"
@@ -634,10 +679,10 @@ class Engine:
         a row-sharded table that the loss reads other than through
         ``embedding_lookup`` (a rank holds only its rows). Returns the
         tables whose lookups a declared ``dedup_capacity`` guards."""
-        # the loss reads a tensor-parallel weight as this rank's part; a
-        # row-sharded leaf stays whole (a table's lookup takes the whole
-        # shape; a dense one is gathered whole for use)
-        meta_params = self._local_tree(meta_params, TP_PLACEMENTS)
+        # the loss reads a tensor-parallel or expert weight as this rank's
+        # part; a row-sharded leaf stays whole (a table's lookup takes the
+        # whole shape; a dense one is gathered whole for use)
+        meta_params = self._local_tree(meta_params, LOCAL_PLACEMENTS)
         flat = dict(classify.flatten(meta_params))
         cap = embedding.SliceCapture(
             {id(flat[p]): p for p in self._slice_resolved})
@@ -728,8 +773,9 @@ class Engine:
     def local_part(self, path: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's part of variable ``path`` from the whole one, as its
         own tensor: its rows of a row-sharded or row-parallel leaf, its
-        columns of a column-parallel one (of each of its ``groups``
-        blocks, in block order), the whole of a replicated one."""
+        experts of an expert-parallel one, its columns of a
+        column-parallel one (of each of its ``groups`` blocks, in block
+        order), the whole of a replicated one."""
         placement = self.plan.placements[path]
         if placement == REPLICATED:
             return whole
@@ -924,15 +970,23 @@ class Engine:
         over, in place: replicated and tensor-parallel ones all-reduced
         in flat buckets over that group (the world, or the repl group when
         the batch rides 'repl' alone; a process group of one rank runs
-        the collective too); row-shard gradients, which their backward
-        already summed over the mesh, scaled alone."""
+        the collective too); expert shards, which the dispatch's backward
+        summed over 'shard', all-reduced over 'repl' and scaled alike;
+        row-shard gradients, which their backward already summed over
+        the mesh, scaled alone."""
         group = self._batch_group
         if group is None:
             return
         scale = 1.0 / group.size if group.size > 1 else None
         collectives.flat_all_reduce_(
             [g for p, g in dense.items()
-             if self.plan.placements[p] != ROW_SHARDED], group, scale)
+             if self.plan.placements[p] not in (ROW_SHARDED, EXPERT)],
+            group, scale)
+        experts = [g for p, g in dense.items()
+                   if self.plan.placements[p] == EXPERT]
+        if experts:
+            collectives.flat_all_reduce_(experts, self.mesh.repl_group,
+                                         scale)
         shards = [g for p, g in dense.items()
                   if self.plan.placements[p] == ROW_SHARDED]
         if shards and scale is not None:

@@ -9,9 +9,10 @@ Dense variables are replicated on every rank; sparse tables are
 row-sharded over ``'shard'`` and replicated over ``'repl'``.
 
 ``P`` specs follow the JAX package's ``PartitionSpec``; ``TPSpec``
-marks a tensor-parallel weight (``ops.tensor_parallel``), whose rank
-keeps and uses its part, and ``resolve_spec`` maps a spec onto this
-mesh's axes as JAX's does.
+marks a tensor-parallel weight (``ops.tensor_parallel``) and
+``ExpertSpec`` an expert weight (``ops.moe``), whose rank keeps and uses
+its part, and ``resolve_spec`` maps a spec onto this mesh's axes as
+JAX's does.
 
 Every rank builds one process group per repl row (the shard group, the
 ranks a table's rows are spread over) and one per shard column (the
@@ -70,11 +71,25 @@ class TPSpec(P):
         return f"TPSpec{tuple(self)!r}"[:-1] + g + ")"
 
 
+class ExpertSpec(P):
+    """An expert-parallel spec (``ops.moe``'s expert weights ``[E, ...]``):
+    dim 0, the experts, over 'shard'. Each rank holds E/n experts and
+    computes with them as they are, never gathered; the all-to-all of
+    the dispatch brings their gradient summed over the shard group. A
+    plain ``P('shard', None, ...)`` keeps its meaning of a row-sharded
+    variable (a table looked up through ``embedding_lookup``, or a dense
+    variable gathered for use)."""
+
+    def __repr__(self):
+        return f"ExpertSpec{tuple(self)!r}"
+
+
 def resolve_spec(spec: P, mesh: "Mesh" = None) -> P:
     """``spec`` on this mesh's axes (``parallax_tpu/core/mesh.py``'s
     ``resolve_spec``): a 'pipe' entry becomes 'shard', the
     stages-over-shard placement of a mesh without a pipe axis; other
-    entries pass through. A ``TPSpec`` keeps its kind and groups."""
+    entries pass through. A ``TPSpec`` keeps its kind and groups, an
+    ``ExpertSpec`` its kind."""
 
     def one(entry):
         if entry == AXIS_PIPE:
@@ -86,6 +101,8 @@ def resolve_spec(spec: P, mesh: "Mesh" = None) -> P:
     entries = tuple(one(e) for e in spec)
     if isinstance(spec, TPSpec):
         return TPSpec(*entries, groups=spec.groups)
+    if isinstance(spec, ExpertSpec):
+        return ExpertSpec(*entries)
     return P(*entries)
 
 

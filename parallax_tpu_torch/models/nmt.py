@@ -20,8 +20,17 @@ the rest.
 
 Serving: the encoder (prefill), the per-layer cross-attention K/V, the
 KV-cached decoder step over a dense or a paged self-KV cache, and the
-cached greedy decode used as the standalone reference. Beam search is
-not ported.
+cached greedy decode used as the standalone reference.
+
+Beam search (``beam_decode``, ``parallax_tpu/models/nmt.py:637-740``):
+the GNMT length penalty over ``beam_width`` beams, a joint top-k over
+(parent beam, token) whose ties go to the lowest flat index as
+``lax.top_k``'s do (``ops.topk.top_k_stable``), finished beams extended
+by PAD at no cost; the cached path reorders the per-layer K/V caches by
+the winning parent beams each step, the cacheless one reruns the
+decoder over the whole buffer. The loop reads nothing back to the host
+until it returns. ``ids_to_tokens`` turns a decoded row into the token
+list ``common.evaluation.corpus_bleu`` takes.
 
 Tensor parallelism (``tensor_parallel=True``, training): every attention
 (encoder self, decoder causal self, cross) and every MLP runs through
@@ -74,6 +83,7 @@ from parallax_tpu_torch.ops import embedding as emb_ops
 from parallax_tpu_torch.ops import flash_attention as fa_ops
 from parallax_tpu_torch.ops import paged_attention as pa_ops
 from parallax_tpu_torch.ops import tensor_parallel as tp_ops
+from parallax_tpu_torch.ops.topk import top_k_stable
 
 PAD_ID, BOS_ID, EOS_ID = 0, 1, 2
 
@@ -457,6 +467,118 @@ def greedy_decode(params, cfg: NMTConfig, src,
         tgt[:, t + 1] = nxt
         done = done | (nxt == EOS_ID)
     return tgt[:, 1:]
+
+
+def _decode_step_logits(cfg, params, tgt_in, enc_out, src_valid, t: int):
+    """Logits for position ``t`` only [B, V]: the cacheless decoder over
+    the whole buffer, the output projection for slot ``t`` alone."""
+    x = _decode_hidden(cfg, params, tgt_in, enc_out, src_valid)
+    logits = x[:, t].float() @ params["out_proj"]
+    return emb_ops.mask_padded_logits(logits, cfg.vocab_size)
+
+
+def _length_penalty(length, alpha):
+    # GNMT length penalty (reference inference: ((5+len)/6)^alpha)
+    return ((5.0 + length) / 6.0) ** alpha
+
+
+def beam_decode(params, cfg: NMTConfig, src, beam_width: int = 4,
+                alpha: float = 1.0, max_len: Optional[int] = None,
+                use_cache: bool = True) -> torch.Tensor:
+    """Beam search with the GNMT length penalty; returns the best
+    hypothesis per example, int32 [B, max_len]. ``use_cache`` decodes
+    against per-layer K/V caches, reordered by the winning parent beams
+    each step with the rest of the carried state. Runs on the device of
+    ``params``."""
+    T = int(max_len or cfg.max_len)
+    K = int(beam_width)
+    dev = params["emb"].device
+    src = torch.as_tensor(src, device=dev).long()
+    B = src.shape[0]
+    V = cfg.padded_vocab
+    NEG = -1e9
+
+    # encode once, tile over beams: [B*K, Ts, D]
+    enc_out, src_valid = _encode(cfg, params, src)
+    enc_k = enc_out.repeat_interleave(K, dim=0)
+    valid_k = src_valid.repeat_interleave(K, dim=0)
+    tgt = torch.full((B, K, T + 1), PAD_ID, dtype=torch.int32, device=dev)
+    tgt[:, :, 0] = BOS_ID
+    # only beam 0 is live at t = 0 (all beams identical otherwise)
+    logp = torch.full((B, K), NEG, dtype=torch.float32, device=dev)
+    logp[:, 0] = 0.0
+    done = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((B, K), dtype=torch.float32, device=dev)
+    # finished beams may only emit PAD, at no cost
+    pad_only = torch.full((V,), NEG, dtype=torch.float32, device=dev)
+    pad_only[PAD_ID] = 0.0
+    brow = torch.arange(B, device=dev)[:, None]
+
+    def beam_step(t, logits, tgt, logp, done, lengths):
+        """Finished-beam PAD scoring, the joint top-k over (parent beam,
+        token), the parents' state reordered, the token written, lengths
+        and done updated; also returns the winning parents."""
+        step_logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+        step_logp = torch.where(done[:, :, None], pad_only, step_logp)
+        cand = logp[:, :, None] + step_logp                  # [B, K, V]
+        top_logp, top_idx = top_k_stable(cand.reshape(B, K * V), K)
+        beam_idx = top_idx // V
+        tok = (top_idx % V).to(torch.int32)
+        tgt = tgt[brow, beam_idx]
+        done = done[brow, beam_idx]
+        lengths = lengths[brow, beam_idx]
+        tgt[:, :, t + 1] = tok
+        lengths = torch.where(done, lengths, lengths + 1.0)
+        done = done | (tok == EOS_ID)
+        return tgt, top_logp, done, lengths, beam_idx
+
+    if use_cache:
+        ck, cv = _cross_kv(cfg, params, enc_k)
+        kc, vc = _init_self_cache(cfg, B * K, T, dev)
+
+        def reorder(c, beam_idx):
+            L, _, Tc, D = c.shape
+            return c.reshape(L, B, K, Tc, D)[:, brow, beam_idx] \
+                .reshape(L, B * K, Tc, D)
+
+        for t in range(T):
+            tpos = torch.full((B * K,), t, dtype=torch.int32, device=dev)
+            logits, kc, vc = _decode_step_cached_multi(
+                cfg, params, tgt.reshape(B * K, T + 1)[:, t].long(), tpos,
+                kc, vc, ck, cv, valid_k)
+            tgt, logp, done, lengths, beam_idx = beam_step(
+                t, logits, tgt, logp, done, lengths)
+            kc = reorder(kc, beam_idx)
+            vc = reorder(vc, beam_idx)
+    else:
+        for t in range(T):
+            logits = _decode_step_logits(
+                cfg, params, tgt.reshape(B * K, T + 1)[:, :-1].long(),
+                enc_k, valid_k, t)
+            tgt, logp, done, lengths, _ = beam_step(
+                t, logits, tgt, logp, done, lengths)
+    # only finished hypotheses are length-normalised candidates;
+    # unfinished beams rank below every finished one in their own order,
+    # so the best raw beam still wins when nothing finished
+    score = torch.where(
+        done, logp / _length_penalty(torch.clamp(lengths, min=1.0), alpha),
+        logp + NEG)
+    best = torch.argmax(score, dim=1)
+    return tgt[torch.arange(B, device=dev), best, 1:]
+
+
+def ids_to_tokens(row, id_to_token=None):
+    """Strip BOS/EOS/PAD and map ids to tokens (str(ids) by default), the
+    input of ``common.evaluation.corpus_bleu`` (reference:
+    nmt/utils/evaluation_utils.py)."""
+    out = []
+    for i in np.asarray(row).tolist():
+        if i == EOS_ID:
+            break
+        if i in (PAD_ID, BOS_ID):
+            continue
+        out.append(id_to_token[i] if id_to_token else str(i))
+    return out
 
 
 def _label_smoothed_nll(cfg, logits, labels):

@@ -49,6 +49,14 @@ as its neighbours' (one node per rotation also chains the rotations,
 which fixes the order of their backwards). On a shard axis of 1 it is
 the identity and moves nothing.
 
+``all_to_all`` is the tiled exchange of the expert-parallel MoE
+(``jax.lax.all_to_all(x, 'shard', split_axis=0, concat_axis=0,
+tiled=True)``, ``parallax_tpu/ops/moe.py:120-122``): member ``i`` sends
+its ``j``-th dim-0 chunk to member ``j`` and receives member ``j``'s
+``i``-th chunk into its ``j``-th, through ``all_to_all_single``. The
+exchange is its own adjoint, so its backward is the same exchange of
+the gradients. On a group of one rank it is the identity.
+
 The sequence layout (``Model.batch_specs`` of ``P('repl', 'shard')``:
 the batch over 'repl', the sequence over 'shard') splits the batch's
 tokens over the world, as the default layout does, so ``global_sum``
@@ -110,10 +118,10 @@ def batch_group(mesh):
 def count_scope():
     """Count the collectives issued inside (groups of one rank issue
     none): yields ``{"all_reduce", "all_gather", "reduce_scatter",
-    "collective_permute"}`` -> count, filled as they run (one
-    ``collective_permute`` a tensor ``ring_shift`` moves)."""
+    "collective_permute", "all_to_all"}`` -> count, filled as they run
+    (one ``collective_permute`` a tensor ``ring_shift`` moves)."""
     counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-              "collective_permute": 0}
+              "collective_permute": 0, "all_to_all": 0}
     token = _COUNTS.set(counts)
     try:
         yield counts
@@ -168,6 +176,41 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
         _count("reduce_scatter")
         torch.distributed.reduce_scatter_tensor(out, x, group=pg)
     return out
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.device.type != "meta":
+        _count("all_to_all")
+        torch.distributed.all_to_all_single(out, x, group=group.pg)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """The tiled all-to-all over ``group`` on dim 0 (see the module doc):
+    ``x`` splits into ``group.size`` equal dim-0 chunks; chunk ``j`` of
+    the result is member ``j``'s chunk for this member. The gradient is
+    the same exchange of the gradient."""
+    if _pg(group) is None:
+        return x
+    if x.shape[0] % group.size:
+        raise ValueError(
+            f"all_to_all: dim 0 ({x.shape[0]}) does not split over the "
+            f"{group.size} members")
+    return _AllToAll.apply(x, group)
 
 
 def shard_index(mesh=None) -> int:

@@ -170,6 +170,15 @@ def sharded_lookup_scope(mesh, sharded_tables,
         _CTX.reset(token)
 
 
+def is_row_shard(table: torch.Tensor) -> bool:
+    """Is ``table`` a row shard that ``embedding_lookup`` looks up over
+    the mesh (registered with the active ``sharded_lookup_scope``, on a
+    shard axis wider than 1)?"""
+    ctx = _CTX.get()
+    return (ctx is not None and id(table) in ctx.sharded
+            and ctx.mesh.shard > 1)
+
+
 def embedding_lookup(table: torch.Tensor,
                      ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` [V, D] at integer ``ids``: a plain gather (the

@@ -14,6 +14,22 @@ the log-expected-count correction, the accidental-hit mask (-1e9),
 logsumexp and the loss stay fp32. The candidates come from an explicit
 ``torch.Generator`` and cannot reproduce JAX's threefry stream, so the
 parity tests hand the JAX-drawn ids in.
+
+On a mesh where the tables are row-sharded, every rank draws the same S
+candidates. The JAX lookup takes the global ``[labels | candidates]``
+vector split over every device, so each candidate crosses the wire once
+over the mesh. Here each rank looks up its labels with its own S/n of
+the candidates (n the mesh's rank count; rank i takes slice i), and
+the candidates' rows and biases then reach every rank through one
+all-gather over the world. Its backward reduce-scatters their
+gradients, so each candidate's summed gradient enters the lookup's
+backward once, on one rank, and reaches its row's owner from there.
+Where S does not split over the ranks, each takes ceil(S/n) and the
+last slices are padded with id -1, as GSPMD pads an uneven split: no
+shard owns it, so its row is zero, its rows are cut off after the
+gather, and no slice update touches it. The lookups then ship n
+ceil(S/n) candidate ids where JAX's record counts n floor((N + S)/n) - N
+(N the global labels): n more.
 """
 
 from __future__ import annotations
@@ -23,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from parallax_tpu_torch.ops import collectives
 from parallax_tpu_torch.ops import embedding as emb_ops
 
 
@@ -63,6 +80,36 @@ def _matmul_f32(a: torch.Tensor, bt: torch.Tensor,
     return torch.matmul(_operand(a, dtype), _operand(bt, dtype).t())
 
 
+def _lookup_split(softmax_w, softmax_b, labels, samples):
+    """(rows, biases) of ``[labels | samples]``: one lookup of each table,
+    the candidates split over the mesh where the tables are row shards
+    (see the module doc)."""
+    mesh = collectives.current_mesh()
+    S = samples.shape[0]
+    if (mesh is None or not emb_ops.is_row_shard(softmax_w)
+            or collectives.batch_on_repl()):
+        ids_all = torch.cat([labels, samples])
+        return (emb_ops.embedding_lookup(softmax_w, ids_all),
+                emb_ops.embedding_lookup(softmax_b, ids_all))
+    n, k = labels.shape[0], -(-S // mesh.size)
+    if S % mesh.size:
+        samples = torch.cat([samples, samples.new_full(
+            (k * mesh.size - S,), -1)])
+    ids_all = torch.cat([labels, samples[mesh.rank * k:
+                                         (mesh.rank + 1) * k]])
+    rows = emb_ops.embedding_lookup(softmax_w, ids_all)
+    bias = emb_ops.embedding_lookup(softmax_b, ids_all)
+    mine = torch.cat([rows[n:], bias[n:].to(rows.dtype)], dim=1)
+    if mine.device.type == "meta":
+        both = mine.new_empty((S, mine.shape[1]))
+    else:
+        both = collectives.gather_along(mine, mesh.world, mesh.rank, 0,
+                                        grad_sums=True)[:S]
+    D = rows.shape[1]
+    return (torch.cat([rows[:n], both[:, :D]]),
+            torch.cat([bias[:n], both[:, D:].to(bias.dtype)]))
+
+
 def sampled_softmax_loss(
     softmax_w: torch.Tensor,       # [V_padded, D]
     softmax_b: torch.Tensor,       # [V_padded, 1]
@@ -79,9 +126,8 @@ def sampled_softmax_loss(
     samples = log_uniform_candidates(gen, num_samples, vocab_size,
                                      device=labels.device)
     labels = labels.long()
-    ids_all = torch.cat([labels, samples])
-    rows = emb_ops.embedding_lookup(softmax_w, ids_all)
-    bias = emb_ops.embedding_lookup(softmax_b, ids_all)[:, 0].float()
+    rows, bias = _lookup_split(softmax_w, softmax_b, labels, samples)
+    bias = bias[:, 0].float()
     w_true, w_samp = rows[:n], rows[n:]
     b_true, b_samp = bias[:n], bias[n:]
 

@@ -2,6 +2,7 @@
 
 from parallax_tpu_torch.common.config import ServeConfig
 from parallax_tpu_torch.serve.adapters import (CausalLMDecodeProgram,
+                                               MoeLMDecodeProgram,
                                                NMTDecodeProgram,
                                                standalone_greedy)
 from parallax_tpu_torch.serve.batcher import (DeadlineExceeded,
@@ -18,7 +19,7 @@ from parallax_tpu_torch.serve.session import ServeSession
 __all__ = [
     "ServeSession", "ServeConfig", "Request", "RequestQueue",
     "ContinuousScheduler", "DecodeProgram", "NMTDecodeProgram",
-    "CausalLMDecodeProgram", "standalone_greedy",
+    "CausalLMDecodeProgram", "MoeLMDecodeProgram", "standalone_greedy",
     "PageAllocator", "PagePoolExhausted", "pages_for", "ServeError",
     "ServeOverloaded", "DeadlineExceeded", "ServeClosed",
     "ReplicaUnavailable", "TenantQuotaExceeded",

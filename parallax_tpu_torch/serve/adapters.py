@@ -9,9 +9,10 @@ and the per-slot-position cached decoder step — the KV-cached math
 same for the decoder-only long-context LM (models/long_context.py), whose
 prompt K/V lands in the same cache the decode steps write: its insert
 scatters the prompt rows through the slot's page table
-(``insert_pages``). ``standalone_greedy`` decodes one request through a
-program's own device math outside any scheduler: the reference served
-tokens are held to.
+(``insert_pages``). ``MoeLMDecodeProgram`` serves the switch-MoE LM
+(models/moe_lm.py) the same way. ``standalone_greedy`` decodes one
+request through a program's own device math outside any scheduler: the
+reference served tokens are held to.
 
 On the card the scheduler's warmup calls ``capture``: the one-request
 prefill and the decode step for its slot count become two CUDA graphs
@@ -29,7 +30,7 @@ import torch
 
 from parallax_tpu_torch.common.lib import resolve_device
 from parallax_tpu_torch.compile import bucketing, graphs as graphs_lib
-from parallax_tpu_torch.models import long_context, nmt
+from parallax_tpu_torch.models import long_context, moe_lm, nmt
 from parallax_tpu_torch.ops import paged_attention as pa_ops
 from parallax_tpu_torch.serve.continuous import DecodeProgram
 from parallax_tpu_torch.serve.paging import pages_for
@@ -352,14 +353,16 @@ class _CausalKVDecodeProgram(DecodeProgram):
     decoding are not ported: ``prefill_chunk_layers`` / ``spec_tokens``
     are refused.
 
-    As in ``NMTDecodeProgram``, every weight but the fp32 ``out_w`` is
-    cast to the compute dtype once per params object, ``step`` takes
-    its inputs through one static int32 buffer of the state, and after
-    ``capture(params, state)`` on the card ``prefill`` and ``step``
+    As in ``NMTDecodeProgram``, every weight but the fp32 ``out_w`` (and
+    the block leaves ``_fp32_leaves`` names, which the model reads in
+    fp32) is cast to the compute dtype once per params object, ``step``
+    takes its inputs through one static int32 buffer of the state, and
+    after ``capture(params, state)`` on the card ``prefill`` and ``step``
     replay CUDA graphs (a prefill's result lives in the prefill graph's
     pool until the next prefill)."""
 
     _mod = None          # the model module with the serve decode section
+    _fp32_leaves = ()    # block leaves kept in fp32 (the MoE router)
 
     def __init__(self, cfg, max_src_len: int, max_len: int, *,
                  page_size: Optional[int] = None,
@@ -479,7 +482,8 @@ class _CausalKVDecodeProgram(DecodeProgram):
             cast["out_w"] = params["out_w"]
             cast["blocks"] = [
                 {k: ({n: t.to(dt) for n, t in v.items()}
-                     if isinstance(v, dict) else v.to(dt))
+                     if isinstance(v, dict) else
+                     v if k in self._fp32_leaves else v.to(dt))
                  for k, v in b.items()} for b in params["blocks"]]
             self._cast_of = (params, cast)
         return self._cast_of[1]
@@ -618,6 +622,25 @@ class CausalLMDecodeProgram(_CausalKVDecodeProgram):
         super().__init__(cfg, max_src_len, max_len, **kw)
 
 
+class MoeLMDecodeProgram(_CausalKVDecodeProgram):
+    """Greedy KV-cached decode for models/moe_lm.py (post-LN switch-MoE
+    blocks; ``parallax_tpu/serve/adapters.py:784-797``): each decode step
+    routes its S tokens through ``ops.moe.switch_moe``, the router in
+    fp32 as in training, and its attention through B7 with
+    ``attn_impl='kernel'``. Without a mesh (one card) the dense
+    per-token expert path runs: row-wise, no capacity drops, so served
+    tokens equal each request decoded alone (exact under greedy). Under
+    a live mesh the capacity-bounded all-to-all dispatch applies, and
+    co-batched slots contend for expert capacity: one slot's token can
+    displace another's."""
+
+    _fp32_leaves = ("router",)
+
+    def __init__(self, cfg, max_src_len: int, max_len: int, **kw):
+        self._mod = moe_lm
+        super().__init__(cfg, max_src_len, max_len, **kw)
+
+
 # -- the standalone greedy reference ------------------------------------------
 
 
@@ -663,4 +686,5 @@ def standalone_greedy(program, params, feed, max_new_tokens: int):
     return toks
 
 
-__all__ = ["NMTDecodeProgram", "CausalLMDecodeProgram", "standalone_greedy"]
+__all__ = ["NMTDecodeProgram", "CausalLMDecodeProgram", "MoeLMDecodeProgram",
+           "standalone_greedy"]

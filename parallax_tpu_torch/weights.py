@@ -22,6 +22,11 @@ engine it gives that rank's part, its shards of the tensor-parallel
 leaves included (a fused ``wqkv`` as the q, k and v columns of its
 heads; ``gather_params`` gives JAX's layout back).
 
+``moe_lm_params_from_jax`` does the same for the JAX switch-MoE LM's
+tree (``emb``, ``pos``, ``out_w``, the ``blocks`` list with ``router``,
+``moe_w1`` ``[E, D, F]`` and ``moe_w2`` ``[E, F, D]``); given an engine
+it gives that rank's part, its E/n experts of each expert weight.
+
 ``rank_shard`` cuts any of those whole trees down to what one rank of a
 mesh holds: its rows of each leaf the engine's plan row-shards, its
 shard of each tensor-parallel leaf.
@@ -38,6 +43,7 @@ from parallax_tpu_torch.models import _nn, cnn
 from parallax_tpu_torch.models.bert import BertConfig
 from parallax_tpu_torch.models.lm1b import LM1BConfig
 from parallax_tpu_torch.models.long_context import LongContextConfig
+from parallax_tpu_torch.models.moe_lm import MoeLMConfig
 from parallax_tpu_torch.models.nmt import NMTConfig
 
 
@@ -173,6 +179,37 @@ def long_context_params_from_jax(np_params, cfg: LongContextConfig,
     return out if engine is None else rank_shard(out, engine)
 
 
+def moe_lm_params_from_jax(np_params, cfg: MoeLMConfig, device="cuda",
+                           engine=None):
+    """The port's switch-MoE LM parameters (fp32) from a JAX tree of numpy
+    arrays, on ``device``; with ``engine``, as that engine's rank holds
+    them (``rank_shard``: its experts of each expert weight, its rows of
+    a row-sharded table). Checks every shape against ``cfg``."""
+    dev = resolve_device(device)
+    V, D, E, F = (cfg.padded_vocab, cfg.model_dim, cfg.num_experts,
+                  cfg.expert_dim)
+    ln = {"s": (D,), "b": (D,)}
+    want = {"emb": (V, D), "pos": (cfg.max_len, D), "out_w": (D, V)}
+    block = {"wqkv": (D, 3 * D), "wo": (D, D), "router": (D, E),
+             "moe_w1": (E, D, F), "moe_w2": (E, F, D), "ln1": ln,
+             "ln2": ln}
+    who = "moe_lm_params_from_jax"
+
+    def carry(tree, shapes, path):
+        if isinstance(shapes, dict):
+            return {k: carry(tree[k], v, f"{path}/{k}" if path else k)
+                    for k, v in shapes.items()}
+        return _leaf(tree, shapes, path, torch.float32, dev, who)
+
+    if len(np_params["blocks"]) != cfg.num_layers:
+        raise ValueError(f"{who}: {len(np_params['blocks'])} blocks, the "
+                         f"config wants {cfg.num_layers}")
+    out = carry(np_params, want, "")
+    out["blocks"] = [carry(b, block, f"blocks/{i}")
+                     for i, b in enumerate(np_params["blocks"])]
+    return out if engine is None else rank_shard(out, engine)
+
+
 def simple_params_from_jax(np_params, device="cuda"):
     """The linear regression's ``{"w", "b"}``, each of shape (1,)."""
     dev = resolve_device(device)
@@ -231,6 +268,7 @@ def rank_shard(params, engine):
     one of the functions above) as ``engine``'s rank holds it
     (``Engine.local_part``): the rank's rows of every leaf the plan
     row-shards, its shard of every tensor-parallel leaf (of a fused
-    ``wqkv``, the q, k and v columns of its heads), every other leaf as
-    it is. Copy the result into ``sess.state.params`` leaf by leaf."""
+    ``wqkv``, the q, k and v columns of its heads), its experts of every
+    expert weight, every other leaf as it is. Copy the result into
+    ``sess.state.params`` leaf by leaf."""
     return engine._local_tree(params)

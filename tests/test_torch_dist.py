@@ -475,19 +475,46 @@ def test_lm1b_hybrid_slices_2x2_unequal_words(tmp_path):
         _close(r["words"], [float(b["w"].sum()) for b in batches],
                rtol=1e-6)
         _params_close(r["params"], final, rtol=1e-4)
-    # the candidate lookups: every rank ships its copy of the step's S
-    # candidates with its labels, where each JAX device ships a 1/n slice
-    # of the labels and candidates together; the input lookup is equal
-    n, S = 4, jcfg.num_samples
+    # every lookup ships what the JAX one does: each rank looks up its
+    # labels with its 1/n of the step's candidates, as each JAX device
+    # takes a 1/n slice of the labels and candidates together
     got = ranks[0]["wire"]["per_lookup"]
     want = wire["per_lookup"]
     assert [g["table_shape"] for g in got] == \
         [w["table_shape"] for w in want]
-    assert got[0] == want[0]
-    for g, w in zip(got[1:], want[1:]):
-        assert g["ids_on_wire"] == w["ids_on_wire"] + (n - 1) * S
+    assert got == want
+    assert ranks[0]["wire"]["sparse_path_bytes"] == \
+        wire["sparse_path_bytes"]
     assert ranks[0]["wire"]["dense_allreduce_bytes"] == \
         wire["dense_allreduce_bytes"]
+
+
+def test_lm1b_hybrid_slices_uneven_candidates(tmp_path):
+    """S = 63 candidates over 2 ranks: each looks up 32, the last slice
+    padded with an id no shard owns. The JAX lookup refuses ids that do
+    not split over the mesh, so the reference is the JAX engine on one
+    device, which no split touches: losses and parameters within 1e-4.
+    The candidate lookups ship the labels and n ceil(S / n) ids."""
+    cfg_kw = dict(num_partitions=8, keep_prob=1.0, sparse_grad_mode="slices",
+                  num_samples=63)
+    config_kw = dict(run_option="HYBRID", sparse_grad_mode="slices")
+    jcfg = jlm1b.tiny_config(compute_dtype=jnp.float32, **cfg_kw)
+    batches = _lm1b_batches(jcfg.vocab_size, 2)
+    init, outs, final, _ = _jax_engine_run(
+        jlm1b.build_model(jcfg), (1, 1), _jax_config(**config_kw), batches)
+    ranks = run_ranks(tmp_path, 2, "lm1b", cfg_kw=cfg_kw,
+                      config_kw=config_kw, shape=(1, 2), init=init,
+                      batches=batches, candidates=_jax_candidates(jcfg))
+    n, S, N = 2, 63, batches[0]["y"].size
+    for r in ranks:
+        assert r["placements"]["softmax_w"] == "row_sharded"
+        _close(r["losses"], [float(o["loss"]) for o in outs], rtol=1e-4)
+        _params_close(r["params"], final, rtol=1e-4)
+    per_lookup = ranks[0]["wire"]["per_lookup"]
+    assert per_lookup[0]["ids_on_wire"] == N
+    assert len(per_lookup) == 3
+    for g in per_lookup[1:]:
+        assert g["ids_on_wire"] == N + n * -(-S // n)
 
 
 def test_lm1b_dense_max_touched_rows_counts_overflow(tmp_path):

@@ -65,6 +65,14 @@ def test_package_imports_with_jax_blocked():
         "from parallax_tpu_torch.models import long_context\n"
         "from parallax_tpu_torch.serve.adapters import "
         "CausalLMDecodeProgram, standalone_greedy\n"
+        "from parallax_tpu_torch.ops import moe\n"
+        "from parallax_tpu_torch.models import moe_lm\n"
+        "from parallax_tpu_torch.common import evaluation\n"
+        "from parallax_tpu_torch.serve.adapters import "
+        "MoeLMDecodeProgram\n"
+        "assert parallax_tpu_torch.moe_lm is moe_lm\n"
+        "assert parallax_tpu_torch.MoeLMDecodeProgram is "
+        "MoeLMDecodeProgram\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"

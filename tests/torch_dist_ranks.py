@@ -480,3 +480,119 @@ def lc_models(rank, world, runs):
             "layout": sess.engine.batch_layout}
         sess.close()
     return out
+
+
+# -- the switch MoE and the MoE LM (tests/test_torch_moe.py,
+# tests/test_torch_moe_lm.py) -------------------------------------------------
+
+
+def moe_ops(rank, world, shapes, cases):
+    """For each mesh shape, each case (name, tokens [B, D], router, w1,
+    w2, capacity factor, k, cot, aux weight): this rank's rows of
+    ``switch_moe``'s output over its own experts (E/n of the whole
+    weights where the shard axis divides E, else all E), the aux loss
+    and dropped share, the collectives of the forward, the gradient of
+    its tokens and the world's sums of the router's and experts'
+    gradients of sum(out * cot) + c aux (the aux term divided by the
+    world, whose ``global_sum`` backward scales it back), each expert
+    gradient in its place in the whole weights."""
+    from parallax_tpu_torch.core import mesh as mesh_lib
+    from parallax_tpu_torch.ops import collectives, moe
+
+    out = {}
+    for shape in shapes:
+        mesh = mesh_lib.build_mesh("cpu", shape=tuple(shape))
+        res = {"coords": mesh.coords}
+        for name, x, router, w1, w2, cf, k, cot, c in cases:
+            n = x.shape[0] // world
+            rows = slice(rank * n, (rank + 1) * n)
+            e = w1.shape[0]
+            mine = slice(0, e)
+            if e % mesh.shard == 0:
+                e_per = e // mesh.shard
+                mine = slice(mesh.coords[1] * e_per,
+                             (mesh.coords[1] + 1) * e_per)
+            xs = [torch.tensor(a).requires_grad_() for a in
+                  (x[rows], router, w1[mine], w2[mine])]
+
+            def run():
+                return moe.switch_moe(*xs, mesh, capacity_factor=cf,
+                                      top_k=k)
+
+            with torch.no_grad(), collectives.count_scope() as counts:
+                run()
+            y, aux, dropped = run()
+            loss = (y * torch.tensor(cot[rows])).sum() + c * aux / world
+            loss.backward()
+            sums = [xs[1].grad.clone()]
+            for w, x_ in zip((w1, w2), xs[2:]):
+                whole = torch.zeros(w.shape)
+                whole[mine] = x_.grad
+                sums.append(whole)
+            for g in sums:
+                collectives.all_reduce_(g, mesh.world)
+            res[name] = {"out": _np(y), "aux": float(aux),
+                         "dropped": float(dropped), "counts": dict(counts),
+                         "x_grad": _np(xs[0].grad),
+                         "w_grads": [_np(g) for g in sums]}
+        try:
+            moe.switch_moe(torch.tensor(cases[0][1][:4]),
+                           torch.tensor(cases[0][2]),
+                           torch.tensor(cases[0][3]),
+                           torch.tensor(cases[0][4]), mesh, top_k=0)
+            res["top_k_error"] = None
+        except ValueError as e:
+            res["top_k_error"] = str(e)
+        out[tuple(shape)] = res
+    return out
+
+
+def moe_models(rank, world, runs):
+    """Each run: (name, config kwargs, mesh shape, SGD learning rate or
+    None for the model's own optimizer, whole initial params, batches):
+    losses and metrics, the gathered parameters, the local shapes, the
+    plan and the collectives of one step."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch import weights
+    from parallax_tpu_torch.core import optim
+    from parallax_tpu_torch.core.classify import flatten
+    from parallax_tpu_torch.models import moe_lm
+    from parallax_tpu_torch.ops import collectives
+
+    out = {}
+    for name, cfg_kw, shape, sgd, init, batches in runs:
+        if shape[0] * shape[1] != world:
+            continue
+        cfg = moe_lm.tiny_config(compute_dtype=torch.float32, **cfg_kw)
+        model = moe_lm.build_model(cfg)
+        if sgd is not None:
+            model.optimizer = optim.sgd(sgd)
+        sess, *_ = pt.parallel_run(
+            model, parallax_config=pt.Config(run_option="HYBRID"),
+            device="cpu", num_partitions=shape[1])
+        mesh = sess.mesh
+        sess.prepare(_share(batches[0], rank, world))
+        mine = dict(flatten(weights.moe_lm_params_from_jax(
+            init, cfg, "cpu", engine=sess.engine)))
+        with torch.no_grad():
+            for path, leaf in flatten(sess.state.params):
+                leaf.copy_(mine[path])
+        metrics = {k: [] for k in ("loss", "lm_loss", "aux_loss",
+                                   "moe_dropped")}
+        counts = None
+        for b in batches:
+            with collectives.count_scope() as c:
+                vals = sess.run(list(metrics),
+                                feed_dict=_share(b, rank, world))
+            counts = counts or dict(c)
+            for k, v in zip(metrics, vals):
+                metrics[k].append(float(v))
+        out[name] = {
+            "mesh": (mesh.repl, mesh.shard, mesh.coords),
+            **metrics, "counts": counts,
+            "params": _flat_np(sess.gather_params()),
+            "local_shapes": {p: tuple(v.shape) for p, v in
+                             _flat_np(sess.state.params).items()},
+            "placements": dict(sess.engine.plan.placements)}
+        sess.close()
+    return out
