@@ -217,7 +217,46 @@ positions drawn in [63, 766]; moe-serve's shape too), ``moe_train``
 ``nmt_beam`` (B4 in fp32 and bf16 at nmt-beam's encoder: B 16, T 64, 8
 heads of 64, a mask with every key valid).
 
-13. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
+The kernel phase also has ``serve_g3``: B7 at the serving shape with 3
+queries a slot (S 64, 8 heads of 64, 8 pages of 16 over a 512-page
+pool, positions drawn as in ``serve``), fp32 and bf16: serve-spec's
+verify.
+
+14. ``serve-spec``: the serve phase's 256 requests through
+    ``NMTDecodeProgram(..., prefill_chunk_layers=1, spec_tokens=2,
+    draft_cfg/draft_params=layer_skip_draft(cfg, params, 1))``: one
+    prefill chunk an iteration (7 graphs a prefill), the draft's catch-up
+    and 2 proposal steps and the target's verify of 3 queries a slot in
+    one graph. Tokens/s, iteration p50/p95, TTFT p50, the accept rate,
+    tokens an iteration, chunks; B7 6 times a verify and B4 7 times a
+    prefill beyond the warmup's (14 B4, 6 B7); then 64 requests under the
+    profiler (busy and idle share; the sm90 paged and flash kernels, no
+    first kernel).
+15. ``serve-spec-agree``: 32 requests through the same stack in fp32
+    (TF32 off) against the plain ``greedy_decode`` and the program's own
+    ``standalone_greedy``, under ``agreement``'s top-2-gap rule; then the
+    same requests with the whole target as its draft: accept rate above
+    0.9 and the same tokens.
+16. ``serve-prefix``: the serve program with ``ServeConfig(
+    prefix_cache=True)``, 256 requests by the JAX package's
+    shared_prefix_feed rule (half from 3 fixed 64-id sources), caps 64
+    and 128 alternating: a sharing-off round, then cold, warm and
+    extended (every cap 128) in one session. Every round's tokens equal
+    the sharing-off round's, warm TTFT p50 at most 0.8 x cold, no page in
+    use after close; hits, replayed tokens, evictions and copy-on-write
+    copies printed. A last round sends 16 new sources at cap 40 and
+    again at 128: copy-on-write copies, tokens equal to the sharing-off
+    session's.
+17. ``lc-serve-chunked`` (after ``lc-serve-agree``): ``lc-serve``'s program
+    with ``prefill_chunk_layers=1`` on 64 prompts, tokens identical to
+    the unchunked program's in this call; TTFT p50 and decode p50 of
+    both beside ``lc-serve``'s.
+18. ``lm1b-serve`` (after ``nmt-beam``): ``LM1BDecodeProgram(LM1BConfig(),
+    max_src_len=20, max_len=32)``, 64 slots, 128 prompts of 2-20 ids:
+    tokens/s and step p50 (plain cells, no kernel); 8 requests served in
+    fp32 against ``standalone_greedy`` under the top-2-gap rule.
+
+19. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
     eagerly (``compile.disable_capture()``) and 5 as graph replays from
     fresh sessions of one seed on the same batches: losses and the final
     state compared leaf by leaf (bitwise, else within 1e-6 of the leaf's
@@ -264,6 +303,7 @@ kernel cases, the serve phase and a profiled serve run.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -620,7 +660,10 @@ def paged_cases():
     # 3072-page pool, each slot's last position drawn in [63, 766] (the
     # longest prompt's last position to its last decode step's) with the
     # pages that reach it
+    # "serve_g3" is serve-spec's verify: the serving shape at 3 queries a
+    # slot (spec_tokens 2), positions drawn as for "serve"
     out = [("serve", 64, 1, 512, 8, 16, 8, 512, None),
+           ("serve_g3", 64, 3, 512, 8, 16, 8, 512, None),
            ("lc_serve", 64, 1, 512, 8, 16, 48, 3072, "lc")]
     for G in (1, 3):
         for occ in (1.0, 0.25):
@@ -1047,7 +1090,9 @@ def phase_serve(torch, cfg, requests):
     combine = pa.launches_combine
     check_outputs(requests, outs, cfg.vocab_size)
     L = cfg.num_layers
-    want = {"flash_attention_fwd": (stats["serve.prefills"] + 1) * L,
+    # the warmup runs the prefill twice (the capture's eager call and one
+    # replay, whose request state it inserts) and the step once
+    want = {"flash_attention_fwd": (stats["serve.prefills"] + 2) * L,
             "paged_decode_attention":
                 (stats["serve.decode_steps"] + 1) * L}
     # the decode step's shape: every slot, the whole page table
@@ -1082,8 +1127,8 @@ def phase_serve(torch, cfg, requests):
                "paged_plan": plan._asdict(),
                "capture_s": stats["serve.compile_seconds"]["max"],
                "graphs": prog._graphs is not None,
-               "pool_bytes": pool_bytes(torch, [prog._graphs[2].graph,
-                                                prog._graphs[3].graph])}
+               "pool_bytes": pool_bytes(torch, [prog._graphs.prefill.graph,
+                                                prog._graphs.step.graph])}
     if not summary["graphs"]:
         raise AssertionError("the serving program captured no graphs")
     log(f"[serve] {json.dumps(summary)}")
@@ -3293,6 +3338,554 @@ def phase_resnet_agree(torch):
     return summary
 
 
+# -- phases 14-18: chunked prefill, speculative decode, the prefix cache, ----
+# -- LM1B serving -------------------------------------------------------------
+
+# serve-spec: the serve phase's program with prefill_chunk_layers=1 and a
+# one-layer layer-skip draft proposing 2 tokens an iteration (B7 verifies
+# 3 queries a slot: the "serve_g3" kernel case)
+SPEC = dict(spec_tokens=2, draft_layers=1, prefill_chunk_layers=1,
+            profile_requests=64, agree_requests=32)
+# serve-prefix: sources drawn as in the JAX package's shared_prefix_feed
+# (tools/loadgen.py): with probability 0.5 one of 3 fixed 64-id sources,
+# else a unique one of 32-64 ids; caps alternate 64 and 128. The "cow"
+# round then sends 16 new 64-id sources at cap 40 (2.5 pages) and again
+# at 128, so each continuation maps 2 cached pages and copies the third
+PREFIX = dict(requests=256, share=0.5, pool=3, pool_seed=777, caps=(64, 128),
+              ttft_ratio=0.8, cow_requests=16, cow_cap=40)
+LC_CHUNKED = dict(requests=64)
+# lm1b-serve: LM1BConfig() (bf16 compute, fp32 tables) at prompts of 2-20
+# ids and 32 new tokens, 64 slots; 8 requests checked in fp32
+LM1B_SERVE = dict(max_src_len=20, max_len=32, max_batch=64, requests=128,
+                  min_prompt=2, check=8)
+KERNEL_COUNTERS = (("flash_attention_fwd", "flash_attention", "launches"),
+                   ("paged_decode_attention", "paged_attention", "launches"))
+
+
+def launch_counts():
+    import importlib
+    return {name: getattr(importlib.import_module(
+        f"parallax_tpu_torch.ops.{mod}"), attr)
+        for name, mod, attr in KERNEL_COUNTERS}
+
+
+def zero_launches():
+    from parallax_tpu_torch.ops import flash_attention as fa
+    from parallax_tpu_torch.ops import paged_attention as pa
+    fa.launches = pa.launches = pa.launches_combine = 0
+
+
+def serve_program(torch, cfg, params=None, spec=False, chunked=False,
+                  draft_layers=SPEC["draft_layers"]):
+    """The serve phase's NMTDecodeProgram, with chunked prefill and the
+    layer-skip draft when asked."""
+    import parallax_tpu_torch as pt
+    kw = {}
+    if chunked:
+        kw["prefill_chunk_layers"] = SPEC["prefill_chunk_layers"]
+    if spec:
+        dcfg, dparams = pt.serve.layer_skip_draft(cfg, params, draft_layers)
+        kw.update(spec_tokens=SPEC["spec_tokens"], draft_cfg=dcfg,
+                  draft_params=dparams)
+    return pt.NMTDecodeProgram(
+        cfg, max_src_len=SERVE["max_src_len"], max_len=SERVE["max_len"],
+        page_size=SERVE["page_size"], pool_pages=SERVE["pool_pages"],
+        attn_impl="kernel", device=DEVICE, **kw)
+
+
+def serve_session(torch, prog, params, **sc_kw):
+    import parallax_tpu_torch as pt
+    return pt.ServeSession(
+        program=prog, params=params, device=DEVICE,
+        config=pt.Config(serve_config=pt.ServeConfig(
+            max_batch=SERVE["max_batch"], max_queue=SERVE["max_queue"],
+            **sc_kw)))
+
+
+def serve_round(sess, feeds, caps):
+    """One round of requests through a live session: (outputs, wall s,
+    the stats before and after it). The garbage of earlier phases (a
+    profiler's events, closed sessions) is collected first, so that a
+    collection does not land inside the timed round."""
+    gc.collect()
+    before = sess.stats()
+    t0 = time.perf_counter()
+    reqs = [sess.submit(f, max_new_tokens=c) for f, c in zip(feeds, caps)]
+    outs = [r.result(timeout=900) for r in reqs]
+    return outs, time.perf_counter() - t0, before, sess.stats()
+
+
+def round_ttft_p50(sess, n):
+    """The TTFT p50 of the last ``n`` completed requests (their
+    lifecycle records)."""
+    recs = sess.request_records(n)
+    return statistics.median(r["ttft_ms"] for r in recs)
+
+
+def profile_serving(torch, run, label):
+    """``run()`` under the profiler's CUDA activity: the card's busy time,
+    the idle share of the window, the paged and flash kernels seen (the
+    sm90 ones, never a first kernel) and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    busy_s = sum(us for us, _, _ in rows) / 1e6
+    rows.sort(reverse=True)
+    return got, {"window_s": window, "device_busy_s": busy_s,
+                 "device_busy_share": busy_s / window,
+                 "device_idle_share": 1.0 - busy_s / window,
+                 "paged_kernels": paged_kernels_seen(rows),
+                 "flash_kernels": flash_kernels_seen(
+                     rows, ["flash_fwd_kernel_sm90"]),
+                 "top": [{"name": key[:90], "calls": n, "ms": us / 1e3,
+                          "share_of_busy": us / 1e6 / busy_s}
+                         for us, n, key in rows[:8]]}
+
+
+def phase_serve_spec(torch, cfg, params, requests):
+    """The serve phase's 256 requests through chunked prefill
+    (``prefill_chunk_layers=1``: 7 graphs a prefill, one chunk an
+    iteration) and speculative decoding (a one-layer layer-skip draft,
+    2 tokens proposed an iteration, the target's verify through B7 at 3
+    queries a slot). B7 must launch 6 times a verify iteration and B4
+    6 + 1 times a prefill (the target's encoder layers, the draft's
+    one), beyond the warmup's own launches, which are counted apart:
+    the chunk graphs' capture and replay (2 x 7 B4) and the speculative
+    graph's capture (6 B7). Then ``profile_requests`` under the
+    profiler: busy and idle share, ``paged_decode_kernel_sm90`` and
+    ``flash_fwd_kernel_sm90`` and no first kernel."""
+    from parallax_tpu_torch.ops import paged_attention as pa
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    zero_launches()
+    prog = serve_program(torch, cfg, params, spec=True, chunked=True)
+    sess = serve_session(torch, prog, params)
+    torch.cuda.synchronize()
+    warm = launch_counts()
+    try:
+        outs, wall, _, stats = serve_round(
+            sess, [{"src": s} for s, _ in requests],
+            [c for _, c in requests])
+    finally:
+        sess.close()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    stats = sess.stats()
+    check_outputs(requests, outs, cfg.vocab_size)
+    iters, prefills = stats["serve.decode_steps"], stats["serve.prefills"]
+    want_warm = {"flash_attention_fwd": 2 * (L + 1),
+                 "paged_decode_attention": L}
+    want = {"flash_attention_fwd": want_warm["flash_attention_fwd"]
+            + (L + 1) * prefills,
+            "paged_decode_attention": want_warm["paged_decode_attention"]
+            + L * iters}
+    if warm != want_warm or launches != want or pa.launches_combine:
+        raise AssertionError(
+            f"serve-spec launches {launches} (warmup {warm}, combine "
+            f"{pa.launches_combine}) != {want} (warmup {want_warm}) for "
+            f"{iters} iterations and {prefills} prefills")
+    if stats["serve.prefill_chunks"] != prefills * (L + 1) or \
+            prefills != len(requests):
+        raise AssertionError(f"serve-spec: {stats['serve.prefill_chunks']}"
+                             f" chunks for {prefills} prefills")
+    if stats["serve.kv_pages_in_use"] != 0 or \
+            stats["serve.completed"] != len(requests):
+        raise AssertionError(f"serve-spec: pages {stats['serve.kv_pages_in_use']}"
+                             f", completed {stats['serve.completed']}")
+    tokens = int(sum(len(o) for o in outs))
+    accepted, proposed = stats["serve.spec_accepted"], \
+        stats["serve.spec_proposed"]
+    n = SPEC["profile_requests"]
+
+    def run():
+        sess2 = serve_session(torch, serve_program(torch, cfg, params,
+                                                   spec=True, chunked=True),
+                              params)
+        try:
+            return serve_round(sess2, [{"src": s} for s, _ in requests[:n]],
+                               [c for _, c in requests[:n]])[3]
+        finally:
+            sess2.close()
+
+    pstats, prof = profile_serving(torch, run, "serve-spec")
+    summary = {"requests": len(requests), "tokens": tokens, "wall_s": wall,
+               "tokens_per_sec": tokens / wall,
+               "iteration_ms_p50": stats["serve.step_ms"]["p50"],
+               "iteration_ms_p95": stats["serve.step_ms"]["p95"],
+               "ttft_ms_p50": stats["serve.ttft_ms"]["p50"],
+               "iterations": iters, "tokens_per_iteration": tokens / iters,
+               "tokens_per_slot_iteration":
+                   tokens / (proposed / SPEC["spec_tokens"]),
+               "accept_rate": accepted / proposed,
+               "spec_proposed": proposed, "spec_accepted": accepted,
+               "prefills": prefills,
+               "prefill_chunks": stats["serve.prefill_chunks"],
+               "launches": launches, "warmup_launches": warm,
+               "graph_captures": stats["serve.graph_captures"],
+               "capture_s": stats["serve.compile_seconds"]["max"],
+               "profile": {"requests": n,
+                           "iterations": pstats["serve.decode_steps"],
+                           "busy_ms_per_iteration":
+                               prof["device_busy_s"] * 1e3
+                               / pstats["serve.decode_steps"], **prof}}
+    log(f"[serve-spec] {json.dumps(summary)}")
+    return summary
+
+
+def phase_serve_spec_agree(torch, params, cfg_bf16, requests):
+    """``agree_requests`` requests through the same stack (chunked
+    prefill, the draft, B7 at 3 queries a slot) in fp32 with TF32 off:
+    each request's tokens against the plain ``greedy_decode`` and against
+    the program's own ``standalone_greedy`` (one slot, plain steps); a
+    difference passes only where the plain path's top-2 logit gap is at
+    most 1e-3 at the first differing position, as in ``agreement``. Then
+    the same requests with the whole target as its own draft
+    (``layer_skip_draft(cfg, params, 6)``): its proposals must be
+    accepted (rate above 0.9: the draft's dense plain attention and the
+    target's B7 verify differ only in rounding), and its tokens must
+    equal the first run's."""
+    from parallax_tpu_torch.models import nmt
+    from parallax_tpu_torch.serve import standalone_greedy
+    cfg = dataclasses.replace(cfg_bf16, compute_dtype=torch.float32)
+    ref_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    prog = serve_program(torch, cfg, params, spec=True, chunked=True)
+    sess = serve_session(torch, prog, params)
+    try:
+        outs, _, _, stats = serve_round(
+            sess, [{"src": s} for s, _ in requests],
+            [c for _, c in requests])
+    finally:
+        sess.close()
+    stats = sess.stats()
+    check_outputs(requests, outs, cfg.vocab_size)
+    near = {"greedy": [], "standalone": []}
+    for i, ((src, cap), out) in enumerate(zip(requests, outs)):
+        greedy = nmt.greedy_decode(params, ref_cfg, src[None],
+                                   max_len=cap)[0].cpu().numpy()
+        eos = np.flatnonzero(greedy == nmt.EOS_ID)
+        if eos.size:
+            greedy = greedy[:eos[0] + 1]
+        alone = np.asarray(standalone_greedy(prog, params, {"src": src}, cap))
+        for what, ref in (("greedy", greedy), ("standalone", alone)):
+            if len(ref) == len(out) and np.array_equal(ref, out):
+                continue
+            n = min(len(ref), len(out))
+            first = int(np.flatnonzero(ref[:n] != out[:n])[0]) if \
+                not np.array_equal(ref[:n], out[:n]) else n
+            gap, top2 = top2_gap(torch, params, ref_cfg, src, first)
+            near[what].append({"request": i, "position": first,
+                               "top2_gap": gap, "top2_tokens": top2})
+            log(f"[serve-spec-agree] request {i} against {what}: first "
+                f"difference at {first}, plain top-2 gap {gap:.3g}")
+            if not gap <= 1e-3:
+                raise AssertionError(
+                    f"serve-spec request {i} differs from {what} at "
+                    f"{first} where the plain top-2 gap is {gap:.3g}")
+    perfect = serve_session(torch, serve_program(
+        torch, cfg, params, spec=True, chunked=True,
+        draft_layers=cfg.num_layers), params)
+    try:
+        p_outs, _, _, p_stats = serve_round(
+            perfect, [{"src": s} for s, _ in requests],
+            [c for _, c in requests])
+    finally:
+        perfect.close()
+    p_rate = p_stats["serve.spec_accepted"] / p_stats["serve.spec_proposed"]
+    p_differ = [i for i, (a, b) in enumerate(zip(p_outs, outs))
+                if not np.array_equal(a, b)]
+    summary = {"requests": len(requests),
+               "perfect_draft": {
+                   "accept_rate": p_rate,
+                   "tokens_per_slot_iteration": p_stats["serve.tokens"]
+                   / (p_stats["serve.spec_proposed"] / SPEC["spec_tokens"]),
+                   "differing_from_first_run": p_differ},
+               "identical_to_greedy": len(requests) - len(near["greedy"]),
+               "identical_to_standalone":
+                   len(requests) - len(near["standalone"]),
+               "near_ties": near,
+               "accept_rate": stats["serve.spec_accepted"]
+               / stats["serve.spec_proposed"],
+               "kv_pages_in_use": stats["serve.kv_pages_in_use"]}
+    log(f"[serve-spec-agree] {json.dumps(summary)}")
+    if stats["serve.kv_pages_in_use"] != 0:
+        raise AssertionError("KV pages left in use in serve-spec-agree")
+    if not p_rate > 0.9 or p_differ:
+        raise AssertionError(f"serve-spec-agree with the target as its own "
+                             f"draft: accept rate {p_rate}, tokens differ "
+                             f"in {p_differ}")
+    return summary
+
+
+def prefix_requests(vocab):
+    """``PREFIX['requests']`` sources by the shared_prefix_feed rule at
+    the serving geometry, with their caps (alternating), and how many
+    came from the shared pool."""
+    pr = np.random.default_rng(PREFIX["pool_seed"])
+    Ts = SERVE["max_src_len"]
+    pool = [pr.integers(3, vocab, (Ts,)).astype(np.int32)
+            for _ in range(PREFIX["pool"])]
+    out = []
+    shared = 0
+    for i in range(PREFIX["requests"]):
+        r = np.random.default_rng(3000 + i)
+        if r.random() < PREFIX["share"]:
+            src = pool[int(r.integers(0, len(pool)))]
+            shared += 1
+        else:
+            src = r.integers(3, vocab, (int(r.integers(Ts // 2, Ts + 1)),)
+                             ).astype(np.int32)
+        out.append((src, PREFIX["caps"][i % 2]))
+    return out, shared
+
+
+def phase_serve_prefix(torch, cfg, params):
+    """The serve phase's program behind ``ServeConfig(prefix_cache=True)``:
+    rounds of the same 256 requests with sharing off, then in one session
+    cold, warm and extended (every cap 128: replays continue past the
+    cached tokens, copying a boundary page when it is partial), then the
+    "cow" round (16 new sources at cap 40, then at 128: at least one
+    copy-on-write copy). Every round's tokens equal the sharing-off
+    session's (the extended round's start with them, and equal them where
+    they ended at EOS; the cow round's at 128 equal them); warm
+    TTFT p50 at most 0.8 x cold; no page in use after close."""
+    reqs, shared = prefix_requests(cfg.vocab_size)
+    feeds = [{"src": s} for s, _ in reqs]
+    caps = [c for _, c in reqs]
+    # the cow round's sources: unique, never sent before it
+    cow_feeds = [{"src": np.random.default_rng(3000 + PREFIX["requests"] + i)
+                  .integers(3, cfg.vocab_size, (SERVE["max_src_len"],))
+                  .astype(np.int32)} for i in range(PREFIX["cow_requests"])]
+    cap = max(PREFIX["caps"])
+    zero_launches()
+    off = serve_session(torch, serve_program(torch, cfg), params)
+    try:
+        base, wall_off, _, _ = serve_round(off, feeds, caps)
+        ttft_off = round_ttft_p50(off, len(reqs))
+        cow_base = serve_round(off, cow_feeds, [cap] * len(cow_feeds))[0]
+    finally:
+        off.close()
+    prog = serve_program(torch, cfg)
+    sess = serve_session(torch, prog, params, prefix_cache=True)
+    rounds = {}
+    try:
+        for name, rcaps in (("cold", caps), ("warm", caps),
+                            ("extended", [max(PREFIX["caps"])] * len(reqs))):
+            outs, wall, before, after = serve_round(sess, feeds, rcaps)
+            delta = {k: after[k] - before[k] for k in (
+                "serve.prefix.hits", "serve.prefix.misses",
+                "serve.prefix.full_hits", "serve.prefix.cow_copies",
+                "serve.prefix.replayed_tokens", "serve.prefills",
+                "serve.decode_steps", "serve.tokens")}
+            rounds[name] = {"outs": outs, "wall_s": wall,
+                            "ttft_ms_p50": round_ttft_p50(sess, len(reqs)),
+                            "decoded_tokens_per_sec":
+                                delta["serve.tokens"] / wall,
+                            **{k.split(".")[-1]: v for k, v in delta.items()},
+                            "evictions": after["serve.prefix.evictions"]}
+        # the copy-on-write round: new sources, cached at a cap that
+        # ends inside a page, then continued to the full cap
+        serve_round(sess, cow_feeds, [PREFIX["cow_cap"]] * len(cow_feeds))
+        cow_outs, _, before, after = serve_round(
+            sess, cow_feeds, [cap] * len(cow_feeds))
+        rounds["cow"] = {"requests": len(cow_feeds), **{
+            k.split(".")[-1]: after[k] - before[k] for k in (
+                "serve.prefix.hits", "serve.prefix.full_hits",
+                "serve.prefix.cow_copies", "serve.prefix.replayed_tokens")}}
+        live = sess.stats()
+        pstats = sess.prefix_stats()
+    finally:
+        sess.close()
+    stats = sess.stats()
+    launches = launch_counts()
+    differ = {"cow": [i for i, (a, b) in enumerate(zip(cow_outs, cow_base))
+                      if not np.array_equal(a, b)]}
+    for name, r in rounds.items():
+        if name == "cow":
+            continue
+        bad = []
+        for i, (a, b) in enumerate(zip(r["outs"], base)):
+            if name == "extended":
+                ok = np.array_equal(a[:len(b)], b) and (
+                    len(b) == caps[i] or np.array_equal(a, b))
+            else:
+                ok = np.array_equal(a, b)
+            if not ok:
+                bad.append(i)
+        differ[name] = bad
+    summary = {"requests": len(reqs),
+               "shared": shared,
+               "off": {"wall_s": wall_off, "ttft_ms_p50": ttft_off,
+                       "tokens_per_sec": sum(len(o) for o in base)
+                       / wall_off},
+               **{name: {k: v for k, v in r.items() if k != "outs"}
+                  for name, r in rounds.items()},
+               "differing": differ, "prefix_stats": pstats,
+               "kv_sharing_ratio_live": live["serve.kv_sharing_ratio"],
+               "kv_pages_in_use_after_close": stats["serve.kv_pages_in_use"],
+               "launches": launches}
+    log(f"[serve-prefix] {json.dumps(summary)}")
+    if any(differ.values()):
+        raise AssertionError(f"serve-prefix: tokens differ from the "
+                             f"sharing-off round in {differ}")
+    if not rounds["warm"]["ttft_ms_p50"] <= \
+            PREFIX["ttft_ratio"] * rounds["cold"]["ttft_ms_p50"]:
+        raise AssertionError(f"serve-prefix: warm TTFT p50 "
+                             f"{rounds['warm']['ttft_ms_p50']} ms > "
+                             f"{PREFIX['ttft_ratio']} x cold "
+                             f"{rounds['cold']['ttft_ms_p50']} ms")
+    if stats["serve.kv_pages_in_use"] != 0:
+        raise AssertionError("serve-prefix: pages in use after close")
+    if rounds["cow"]["cow_copies"] < 1:
+        raise AssertionError(f"serve-prefix: the cow round made no "
+                             f"copy-on-write copy: {rounds['cow']}")
+    return summary
+
+
+def phase_lc_serve_chunked(torch, cfg, params, prompts, lc_summary):
+    """``lc-serve``'s program with ``prefill_chunk_layers=1`` on 64 of its
+    prompts, beside the unchunked program on the same prompts in this
+    call: tokens identical (the same kernels in the same order), TTFT p50
+    and decode p50 of both, and B7 6 times a decode step."""
+    from parallax_tpu_torch.ops import paged_attention as pa
+    L = cfg.num_layers
+    outs = {}
+    runs = {}
+    launches = {}
+    for name, kw in (("unchunked", {}), ("chunked",
+                                         {"prefill_chunk_layers": 1})):
+        torch.cuda.synchronize()
+        zero_launches()
+        o, wall, stats, prog = lc_serve(torch, cfg, params, prompts, **kw)
+        torch.cuda.synchronize()
+        outs[name] = o
+        launches[name] = launch_counts()
+        want = {"flash_attention_fwd": 0, "paged_decode_attention":
+                (stats["serve.decode_steps"] + 1) * L}
+        if launches[name] != want or pa.launches_combine:
+            raise AssertionError(f"lc-serve-chunked {name} launches "
+                                 f"{launches[name]} != {want}")
+        if stats["serve.kv_pages_in_use"] != 0:
+            raise AssertionError(f"lc-serve-chunked {name}: pages in use")
+        runs[name] = {"tokens_per_sec": sum(len(x) for x in o) / wall,
+                      "ttft_ms_p50": stats["serve.ttft_ms"]["p50"],
+                      "step_ms_p50": stats["serve.step_ms"]["p50"],
+                      "decode_steps": stats["serve.decode_steps"],
+                      "prefill_chunks": stats.get("serve.prefill_chunks"),
+                      "graph_captures": stats["serve.graph_captures"]}
+    differ = [i for i, (a, b) in enumerate(zip(outs["chunked"],
+                                               outs["unchunked"]))
+              if not np.array_equal(a, b)]
+    summary = {"requests": len(prompts), **runs,
+               "lc_serve_ttft_ms_p50": lc_summary["ttft_ms_p50"],
+               "lc_serve_step_ms_p50": lc_summary["step_ms_p50"],
+               "identical_tokens": not differ, "differing": differ,
+               "launches": launches["chunked"]}
+    log(f"[lc-serve-chunked] {json.dumps(summary)}")
+    if differ:
+        raise AssertionError(f"lc-serve-chunked: chunked tokens differ in "
+                             f"requests {differ}")
+    if runs["chunked"]["prefill_chunks"] != len(prompts) * (L + 1):
+        raise AssertionError("lc-serve-chunked: chunk count")
+    return summary
+
+
+def lm1b_top2_gap(torch, prog, params, prompt, position):
+    """The program's own top-2 logit gap at decode ``position`` of one
+    request decoded alone (its greedy prefix fed back)."""
+    from parallax_tpu_torch.models import lm1b
+    cp = prog._compute_params(params)
+    ids = torch.as_tensor(prog.prepare_feed({"ids": prompt})["ids"][None],
+                          device=DEVICE)
+    c, h, _, first = lm1b._lstm_prefill(prog.cfg, cp, ids, prog.pad_id)
+    tok = first
+    for _ in range(position + 1):
+        logits, c, h = lm1b._lstm_decode_step(prog.cfg, cp, tok, c, h)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+    top = logits[0].topk(2)
+    return (top.values[0] - top.values[1]).item(), top.indices.tolist()
+
+
+def phase_lm1b_serve(torch):
+    """``LM1BDecodeProgram(LM1BConfig(), max_src_len=20, max_len=32)`` at
+    LM1B's published widths (bf16 cells, fp32 tables and the full
+    793,470-word softmax), 64 slots, 128 prompts of 2-20 ids: tokens/s
+    and step p50 (plain cells: no kernel on this path). Then 8 of them
+    served by the fp32 program (TF32 off) against its
+    ``standalone_greedy``, under the top-2-gap rule."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import lm1b
+    from parallax_tpu_torch.serve import standalone_greedy
+    cfg = lm1b.LM1BConfig()
+    params = lm1b.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, (int(rng.integers(
+        LM1B_SERVE["min_prompt"], LM1B_SERVE["max_src_len"] + 1)),))
+        .astype(np.int32) for _ in range(LM1B_SERVE["requests"])]
+    out = {}
+    for name, c in (("bf16", cfg),
+                    ("fp32", dataclasses.replace(
+                        cfg, compute_dtype=torch.float32))):
+        prog = pt.LM1BDecodeProgram(c, LM1B_SERVE["max_src_len"],
+                                    LM1B_SERVE["max_len"], device=DEVICE)
+        sess = pt.ServeSession(
+            program=prog, params=params, device=DEVICE,
+            config=pt.Config(serve_config=pt.ServeConfig(
+                max_batch=LM1B_SERVE["max_batch"], max_queue=512)))
+        use = prompts if name == "bf16" else prompts[:LM1B_SERVE["check"]]
+        try:
+            outs, wall, _, _ = serve_round(sess, [{"ids": p} for p in use],
+                                           [LM1B_SERVE["max_len"]] * len(use))
+        finally:
+            sess.close()
+        stats = sess.stats()
+        for o in outs:
+            if o.shape != (LM1B_SERVE["max_len"],) or o.min() < 0 or \
+                    o.max() >= cfg.vocab_size:
+                raise AssertionError(f"lm1b-serve: bad output {o.shape}")
+        out[name] = {"requests": len(use), "wall_s": wall,
+                     "tokens_per_sec": sum(len(o) for o in outs) / wall,
+                     "step_ms_p50": stats["serve.step_ms"]["p50"],
+                     "step_ms_p95": stats["serve.step_ms"]["p95"],
+                     "ttft_ms_p50": stats["serve.ttft_ms"]["p50"],
+                     "decode_steps": stats["serve.decode_steps"],
+                     "graphs": prog._graphs is not None}
+        if not out[name]["graphs"]:
+            raise AssertionError("lm1b-serve: the program captured no graph")
+        if name == "fp32":
+            near = []
+            for i, (p, o) in enumerate(zip(use, outs)):
+                ref = np.asarray(standalone_greedy(prog, params, {"ids": p},
+                                                   LM1B_SERVE["max_len"]))
+                if np.array_equal(ref, o):
+                    continue
+                first = int(np.flatnonzero(ref != o)[0])
+                gap, top2 = lm1b_top2_gap(torch, prog, params, p, first)
+                near.append({"request": i, "position": first,
+                             "top2_gap": gap, "top2_tokens": top2})
+                if not gap <= 1e-3:
+                    raise AssertionError(
+                        f"lm1b-serve request {i} differs from "
+                        f"standalone_greedy at {first}, top-2 gap {gap:.3g}")
+            out[name]["identical_to_standalone"] = len(use) - len(near)
+            out[name]["near_ties"] = near
+        del prog, sess
+    del params
+    torch.cuda.empty_cache()
+    log(f"[lm1b-serve] {json.dumps(out)}")
+    return out
+
+
 # -- graphs: capture, graph-agree and graph-pair ------------------------------
 
 # graph-pair: each path's steps eagerly (compile.disable_capture()) and as
@@ -3492,7 +4085,7 @@ MAIN_PATH_CASES = {
                            "moe_train"],
     "flash_attention_dkv": ["train_enc", "train_dec", "bert", "lc_train",
                             "moe_train"],
-    "paged_decode_attention": ["serve", "lc_serve"],
+    "paged_decode_attention": ["serve", "serve_g3", "lc_serve"],
     "lstm_fwd": ["train"], "lstm_fwd_res": ["train"], "lstm_bwd": ["train"],
 }
 
@@ -3511,10 +4104,12 @@ def kernel_line(results, launches):
     """One entry per kernel, its numbers at the main-path case (bf16, the
     type the main paths launch it in) where it fares worst against its
     library call: ``case`` names it, and ``main_path`` gives every
-    main-path case's numbers. B4's launches are the NMT serving, NMT,
-    BERT, long-context and MoE training paths' and NMT beam search's,
-    B5's and B6's the four training paths', B7's the three serving
-    paths'. An LSTM entry names the source of the route its case ran
+    main-path case's numbers. B4's launches are the NMT serving paths'
+    (plain, speculative with chunked prefill, with the prefix cache), the
+    NMT, BERT, long-context and MoE training paths' and NMT beam search's,
+    B5's and B6's the four training paths', B7's the serving paths' (NMT
+    plain, speculative and prefix, causal LM unchunked and chunked, MoE
+    LM). An LSTM entry names the source of the route its case ran
     on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
@@ -3707,6 +4302,13 @@ def main() -> int:
     del served
     agree = phase("agreement", phase_agreement, torch, params, cfg,
                   requests[:32])
+    serve_spec = phase("serve-spec", phase_serve_spec, torch, cfg, params,
+                       requests)
+    serve_spec_agree = phase("serve-spec-agree", phase_serve_spec_agree,
+                             torch, params, cfg,
+                             requests[:SPEC["agree_requests"]])
+    serve_prefix = phase("serve-prefix", phase_serve_prefix, torch, cfg,
+                         params)
     del params
     lstm_results = phase("lstm-kernels", phase_lstm_kernels, torch)
     failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in lstm_results
@@ -3752,6 +4354,9 @@ def main() -> int:
                              prompts[:LC_SERVE["profile_requests"]])
     lc_serve_agree = phase("lc-serve-agree", phase_lc_serve_agree, torch,
                            lc_params, prompts[:LC_SERVE["agree_requests"]])
+    lc_chunked = phase("lc-serve-chunked", phase_lc_serve_chunked, torch,
+                       lc_cfg, lc_params, prompts[:LC_CHUNKED["requests"]],
+                       lc_serve_summary)
     del lc_params
     moe_train = phase("moe-train", phase_moe_train, torch, card)
     moe_agree = phase("moe-agree", phase_moe_agree, torch)
@@ -3775,6 +4380,7 @@ def main() -> int:
     del moe_params
     torch.cuda.empty_cache()
     nmt_beam = phase("nmt-beam", phase_nmt_beam, torch)
+    lm1b_serve = phase("lm1b-serve", phase_lm1b_serve, torch)
     graph_agree = phase("graph-agree", phase_graph_agree, torch)
     graph_pairs = {"serve": serve_pair, "lm1b": train["graph_pair"],
                    "nmt": nmt_train["graph_pair"],
@@ -3788,7 +4394,10 @@ def main() -> int:
             lc_serve_summary["launches"].items()) + list(
             moe_train["launches"].items()) + list(
             moe_serve["launches"].items()) + list(
-            nmt_beam["launches"].items()):
+            nmt_beam["launches"].items()) + list(
+            serve_spec["launches"].items()) + list(
+            serve_prefix["launches"].items()) + list(
+            lc_chunked["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -3811,6 +4420,9 @@ def main() -> int:
               "moe_train": moe_train, "moe_agreement": moe_agree,
               "moe_serve": moe_serve, "moe_serve_profile": moe_serve_profile,
               "moe_serve_agreement": moe_serve_agree, "nmt_beam": nmt_beam,
+              "serve_spec": serve_spec, "serve_spec_agreement":
+              serve_spec_agree, "serve_prefix": serve_prefix,
+              "lc_serve_chunked": lc_chunked, "lm1b_serve": lm1b_serve,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

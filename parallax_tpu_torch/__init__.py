@@ -13,7 +13,11 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
 * NMT continuous-decode serving: ``ServeSession`` drives a
   ``ContinuousScheduler`` over an ``NMTDecodeProgram``, with a CUDA
   flash-attention forward (ops/flash_attention.py) and a CUDA
-  paged-decode kernel (ops/paged_attention.py).
+  paged-decode kernel (ops/paged_attention.py); chunked prefill,
+  speculative decoding (a layer-skip draft, the paged kernel verifying
+  k + 1 queries a slot) and the radix prefix cache, as in the JAX
+  scheduler. ``LM1BDecodeProgram`` serves the LM1B LSTM (plain cells),
+  and ``registered_adapters()`` lists the four serving adapters.
 * The long-context causal LM: ``parallel_run(long_context.build_model(
   LongContextConfig()))`` trains with ring attention over the mesh's
   'shard' axis (one flash tile on one card), tensor parallelism with a
@@ -54,9 +58,11 @@ from parallax_tpu_torch.core.engine import Model, TrainState
 from parallax_tpu_torch.models import (cnn, lm1b, long_context, moe_lm,
                                       nmt, simple)
 from parallax_tpu_torch.runner import parallel_run
-from parallax_tpu_torch.serve import (CausalLMDecodeProgram,
-                                      MoeLMDecodeProgram, NMTDecodeProgram,
-                                      ServeSession)
+from parallax_tpu_torch.serve import (AdapterSpec, CausalLMDecodeProgram,
+                                      LM1BDecodeProgram, MoeLMDecodeProgram,
+                                      NMTDecodeProgram, ServeSession,
+                                      register_adapter,
+                                      registered_adapters)
 from parallax_tpu_torch.session import Fetch, ParallaxSession, materialize
 
 __version__ = "0.1.0"
@@ -64,5 +70,6 @@ __version__ = "0.1.0"
 __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
            "Model", "TrainState", "ParallaxSession", "Fetch", "materialize",
            "ServeSession", "NMTDecodeProgram", "CausalLMDecodeProgram",
-           "MoeLMDecodeProgram", "cnn", "lm1b", "long_context", "moe_lm",
+           "MoeLMDecodeProgram", "LM1BDecodeProgram", "AdapterSpec",
+           "register_adapter", "registered_adapters", "cnn", "lm1b", "long_context", "moe_lm",
            "nmt", "simple"]

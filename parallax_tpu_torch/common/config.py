@@ -37,8 +37,9 @@ class ServeConfig:
       already-accepted queue to completion, up to this long; whatever
       is still queued after it is failed with ``ServeClosed``.
     * ``prefix_cache`` / ``prefix_cache_max_pages`` /
-      ``prefix_cache_max_entries``: prefix-aware KV reuse. Not ported
-      yet: the continuous scheduler refuses ``prefix_cache=True``.
+      ``prefix_cache_max_entries``: prefix-aware KV reuse
+      (serve/prefixcache.py): finished sequences' pages and prefill
+      state cached under their exact key, bounded by pages and entries.
     * ``tenant_quotas`` / ``default_tenant_quota``: per-tenant
       admission quotas — a tenant's admitted-but-unfinished requests
       are capped at its quota, shed with ``TenantQuotaExceeded``.

@@ -26,7 +26,10 @@ In dense mode ``max_touched_rows`` gives the tables ``emb`` and
 (reference lm1b.py:229-245). The LSTM weights are pinned replicated
 (``param_specs={"lstm/*": P()}``) in every plan, as in the JAX model.
 
-Not ported: training the full-softmax model, and the serving adapter.
+The serving section at the end (``_lstm_prefill``,
+``_lstm_decode_step``) is what ``serve.LM1BDecodeProgram`` runs: plain
+cells, as in JAX, with the full softmax projection. Not ported: training
+the full-softmax model.
 
 Batch contract (reference lm1b_distributed_driver.py:84-96): feeds "x"
 [B, T] int32, "y" [B, T] int32, "w" [B, T] float weights; the "words"
@@ -224,3 +227,64 @@ def make_batch(rng: np.random.Generator, batch_size: int, num_steps: int,
     y = np.roll(x, -1, axis=1)
     return {"x": x.astype(np.int32), "y": y.astype(np.int32),
             "w": np.ones((batch_size, num_steps), np.float32)}
+
+
+# ----- serving decode ------------------------------------------------------
+# Incremental decode for serve/adapters.LM1BDecodeProgram
+# (``parallax_tpu/models/lm1b.py:284-345``): the cache is the LSTM carry
+# itself ([S, H] cell + [S, P] projected hidden per slot), not a K/V
+# buffer. Plain cells, as the JAX package runs them (its ``lax.scan``,
+# not the LSTM kernels); greedy decode uses the FULL softmax projection
+# (the sampled softmax is a training-only loss).
+
+
+def _lstm_serve_weights(cfg: LM1BConfig, params):
+    cdt = cfg.compute_dtype
+    lstm = params["lstm"]
+    return (lstm["w"].to(cdt), lstm["b"].to(cdt), lstm["w_proj"].to(cdt))
+
+
+def _serve_cell(x, c, h, w, b, w_proj):
+    gates = torch.cat([x, h], dim=-1) @ w + b
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = (torch.sigmoid(o) * torch.tanh(c)) @ w_proj
+    return c, h
+
+
+def _lstm_prefill(cfg: LM1BConfig, params, ids, pad_id: int = 0):
+    """Run the recurrence over the prompt EXCEPT its last token — the
+    first decode step consumes that one. ``ids`` [1, Ts] padded with
+    ``pad_id``; a gated loop (valid = j < t0 - 1) leaves the carry
+    untouched on the padded rows. Nothing is read back to the host.
+    Returns (c [1, H], h [1, P], base [1], first [1])."""
+    cdt = cfg.compute_dtype
+    w, b, w_proj = _lstm_serve_weights(cfg, params)
+    B, Ts = ids.shape
+    dev = ids.device
+    emb = emb_ops.embedding_lookup(params["emb"], ids.long()).to(cdt)
+    t0 = (ids[0] != pad_id).sum().to(torch.int32)
+    c = torch.zeros((B, cfg.hidden_dim), dtype=cdt, device=dev)
+    h = torch.zeros((B, cfg.proj_dim), dtype=cdt, device=dev)
+    valid = torch.arange(Ts, device=dev) < (t0 - 1)
+    for j in range(Ts):
+        c2, h2 = _serve_cell(emb[:, j], c, h, w, b, w_proj)
+        c = torch.where(valid[j], c2, c)
+        h = torch.where(valid[j], h2, h)
+    base = (t0 - 1).to(torch.int32)
+    first = ids[0].index_select(
+        0, base.clamp(0, Ts - 1).long().reshape(1)).to(torch.int32)
+    return c, h, base.reshape(1), first
+
+
+def _lstm_decode_step(cfg: LM1BConfig, params, tok, c, h):
+    """One batched greedy-decode step: ``tok`` [S] is each slot's
+    current token; returns (logits [S, padded_vocab] fp32, c, h). Every
+    op is row-wise, so co-batched slots decode independently."""
+    cdt = cfg.compute_dtype
+    w, b, w_proj = _lstm_serve_weights(cfg, params)
+    x = emb_ops.embedding_lookup(params["emb"], tok.long()).to(cdt)
+    c, h = _serve_cell(x, c, h, w, b, w_proj)
+    logits = (h.float() @ params["softmax_w"].float().T
+              + params["softmax_b"].float()[:, 0][None, :])
+    return emb_ops.mask_padded_logits(logits, cfg.vocab_size), c, h

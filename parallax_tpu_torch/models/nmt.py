@@ -310,7 +310,8 @@ def _decode_tokens_cached(cfg, params, tok, t, kc, vc, ck, cv, src_valid,
     ``pages`` [S, P] int32 selects the paged layout: ``kc``/``vc`` are
     the [L, pool_pages + 1, page_size, D] pools and positions map
     through the page table (sentinel ``pool_pages``). ``pages=None``
-    keeps the dense [L, S, T, D] layout, which holds positions < T.
+    keeps the dense [L, S, T, D] layout, which holds positions < T (a
+    write past it is dropped, as JAX's ``mode="drop"``).
 
     ``attn_impl`` picks the paged self-attention executor: 'kernel'
     (default; ``ops.paged_attention``) or 'einsum' (the clip-then-mask
@@ -341,7 +342,11 @@ def _decode_tokens_cached(cfg, params, tok, t, kc, vc, ck, cv, src_valid,
         pg, off = pa_ops.sentinel_write_coords(pages, pos, ps, pool_pages)
     else:
         Tbuf = kc.shape[2]
-        rows = torch.arange(S, device=dev)[:, None]
+        rows = torch.arange(S, device=dev)
+        # a position past the buffer (a draft or verify window near its
+        # end) keeps the value already there: JAX's mode="drop"
+        in_buf = (pos < Tbuf)[..., None]
+        pos_w = pos.clamp(max=Tbuf - 1)
     cross_mask = src_valid[:, None, None, :]
     q_masks = None
     if not paged or impl == "einsum":
@@ -372,8 +377,12 @@ def _decode_tokens_cached(cfg, params, tok, t, kc, vc, ck, cv, src_valid,
                 v_all = pa_ops.paged_gather(vc[i], pages)
                 y = _unrolled_attn(q, k_all, v_all, q_masks)
         else:
-            kc[i, rows, pos] = k_t
-            vc[i, rows, pos] = v_t
+            # one query at a time: a clamped position may repeat in a
+            # slot, and the later write must see the earlier one
+            for g in range(G):
+                at = (i, rows, pos_w[:, g])
+                kc[at] = torch.where(in_buf[:, g], k_t[:, g], kc[at])
+                vc[at] = torch.where(in_buf[:, g], v_t[:, g], vc[at])
             y = _unrolled_attn(q, kc[i], vc[i], q_masks)
         x = _layer_norm(x + y @ a["wo"].to(dt),
                         p["ln1"]["s"].to(dt), p["ln1"]["b"].to(dt))

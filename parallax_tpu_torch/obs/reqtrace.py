@@ -15,9 +15,15 @@ BY the request.
 
   Phases: ``admission`` (submit-side validation/padding),
   ``queue_wait`` (enqueue -> popped by the scheduler), ``prefill``
-  (pop -> slot activation), ``slot_wait`` (page-pool-exhausted refill
-  deferrals), ``decode`` (activation -> retire). Alongside: KV pages
-  held, decode-step count and token count.
+  (pop -> slot activation; per-chunk durations in
+  ``prefill_chunks_ms``), ``prefix_replay`` (the prefix-cache hit's
+  substitute for prefill: cached tokens and pages mapped instead of
+  computed), ``slot_wait`` (page-pool-exhausted refill deferrals),
+  ``decode`` (activation -> retire). Alongside: KV pages held,
+  decode-step count, token count, and the prefix-reuse pair
+  ``prefix_hit_pages`` / ``prefill_tokens_skipped`` (cached KV pages
+  this request did not write / prompt tokens whose prefill it
+  skipped).
 
 * :class:`RequestTraceRing` — a bounded ring of completed records,
   exported at ~zero per-request cost (collection is a deque append;
@@ -51,8 +57,14 @@ from parallax_tpu_torch.obs.metrics import (MetricsRegistry, nearest_rank,
                                             summarize_window)
 
 # the attributed request phases, in lifecycle order (bare names; the
-# registry gauges and ttft_decomp keys carry the _ms suffix)
-PHASES = ("admission", "queue_wait", "prefill", "slot_wait", "decode")
+# registry gauges and ttft_decomp keys carry the _ms suffix).
+# ``prefix_replay`` is the prefix-cache hit's substitute for ``prefill``:
+# the window between pop and activation when cached tokens and pages
+# were mapped instead of computed — near zero by design, and its explicit
+# presence in the TTFT decomposition (next to the record's
+# ``prefill_tokens_skipped``) attributes the skipped prefill.
+PHASES = ("admission", "queue_wait", "prefill", "prefix_replay",
+          "slot_wait", "decode")
 
 DEFAULT_CAPACITY = 512
 
@@ -69,9 +81,10 @@ class RequestRecord:
     MAX_SEGMENTS = 64
 
     __slots__ = ("key", "t0", "deadline_ms", "phases", "segments",
-                 "kv_pages", "decode_steps", "tokens", "ttft_ms",
-                 "ttft_decomp", "total_ms", "outcome", "n_marks",
-                 "_phase", "_t", "_ring", "_lock", "_done")
+                 "prefill_chunks_ms", "kv_pages", "decode_steps",
+                 "tokens", "prefix_hit_pages", "prefill_tokens_skipped",
+                 "ttft_ms", "ttft_decomp", "total_ms", "outcome",
+                 "n_marks", "_phase", "_t", "_ring", "_lock", "_done")
 
     def __init__(self, key, t0: Optional[float] = None,
                  deadline: Optional[float] = None, ring=None):
@@ -81,9 +94,15 @@ class RequestRecord:
                             if deadline is not None else None)
         self.phases: Dict[str, float] = {}
         self.segments: List[tuple] = []     # (phase, t_start, t_end)
+        self.prefill_chunks_ms: List[float] = []
         self.kv_pages = 0
         self.decode_steps = 0
         self.tokens = 0
+        # prefix-cache reuse: pool pages of cached KV this request did
+        # not have to write, and prompt tokens whose prefill it skipped
+        # (0/0 on a miss or with the cache off)
+        self.prefix_hit_pages = 0
+        self.prefill_tokens_skipped = 0
         self.ttft_ms: Optional[float] = None
         self.ttft_decomp: Optional[Dict[str, float]] = None
         self.total_ms: Optional[float] = None
@@ -118,6 +137,13 @@ class RequestRecord:
             self._close_segment_locked(now)
             self._phase = phase
             self.n_marks += 1
+
+    def note_prefill_chunk(self, ms: float) -> None:
+        if not _state.enabled:
+            return
+        with self._lock:
+            if len(self.prefill_chunks_ms) < self.MAX_SEGMENTS:
+                self.prefill_chunks_ms.append(float(ms))
 
     def first_token(self, now: Optional[float] = None) -> None:
         """Snapshot the TTFT decomposition. The in-progress phase's
@@ -184,6 +210,8 @@ class RequestRecord:
                 "kv_pages": self.kv_pages,
                 "decode_steps": self.decode_steps,
                 "tokens": self.tokens,
+                "prefix_hit_pages": self.prefix_hit_pages,
+                "prefill_tokens_skipped": self.prefill_tokens_skipped,
                 "ttft_ms": (round(self.ttft_ms, 4)
                             if self.ttft_ms is not None else None),
                 "ttft_decomp": (dict(self.ttft_decomp)
@@ -194,6 +222,8 @@ class RequestRecord:
                                 if self.deadline_ms is not None
                                 else None),
                 "n_marks": self.n_marks,
+                "prefill_chunks_ms": [round(v, 4) for v in
+                                      self.prefill_chunks_ms],
             }
             if not self._done:
                 out["open_phase"] = self._phase
@@ -244,6 +274,12 @@ class RequestTraceRing:
             self._column_fn(lambda r: float(r.decode_steps) or None))
         g(f"{prefix}.kv_pages").set_fn(
             self._column_fn(lambda r: float(r.kv_pages) or None))
+        g(f"{prefix}.prefix_hit_pages").set_fn(
+            self._column_fn(
+                lambda r: float(r.prefix_hit_pages) or None))
+        g(f"{prefix}.prefill_tokens_skipped").set_fn(
+            self._column_fn(
+                lambda r: float(r.prefill_tokens_skipped) or None))
         g(f"{prefix}.requests").set_fn(lambda: self._total)
         g("serve.slo.deadline_miss_rate").set_fn(self.deadline_miss_rate)
         g("serve.slo.deadline_miss_budget_consumed").set_fn(

@@ -121,7 +121,14 @@ def paged_decode_attention_plain(q, k_pool, v_pool, pages, pos, *,
                                  num_heads: int, page_size: int,
                                  pool_pages: Optional[int] = None):
     """The kernel's function in plain PyTorch ops (it reads every page
-    of the table; the kernel reads only live, visible ones)."""
+    of the table; the kernel reads only live, visible ones). Each query
+    of a slot is computed as a one-query call, so a verify over G
+    queries gives the bits of G single steps."""
+    if q.shape[1] > 1:
+        return torch.cat([paged_decode_attention_plain(
+            q[:, g:g + 1], k_pool, v_pool, pages, pos[:, g:g + 1],
+            num_heads=num_heads, page_size=page_size,
+            pool_pages=pool_pages) for g in range(q.shape[1])], dim=1)
     S, G, D = q.shape
     P = pages.shape[1]
     hd = D // num_heads

@@ -18,9 +18,11 @@ tokens, pages of 4 (5 a slot).
     (the fp32 exact-under-greedy contract, ``parallax_tpu/serve/
     adapters.py:886-896``), dense and paged; ``serve.kv_pages_in_use`` is
     0 after close.
-(c) The refusals: ``prefill_chunk_layers`` and ``spec_tokens``
-    (``ValueError``, not ported), the kernel without pages, a pipeline
-    config, prompts outside [1, vocab), and JAX's shape errors.
+(c) The refusals: a ``prefill_chunk_layers`` outside [1, num_layers]
+    (``ValueError``) and ``spec_tokens`` (``TypeError``: speculative
+    decoding is NMT's), as JAX's program refuses them, the kernel without
+    pages, a pipeline config, prompts outside [1, vocab), and JAX's shape
+    errors.
 """
 
 import jax
@@ -158,9 +160,19 @@ def test_served_tokens_equal_both_standalone_greedies(paged):
 
 def test_refusals():
     jcfg, _, tcfg, _ = _models()
-    for kw in (dict(prefill_chunk_layers=1), dict(spec_tokens=2)):
-        with pytest.raises(ValueError, match="not ported"):
-            tpx.CausalLMDecodeProgram(tcfg, TS, CAP, device="cpu", **kw)
+    for c in (0, tcfg.num_layers + 1):
+        with pytest.raises(ValueError, match="outside"):
+            jadapters.CausalLMDecodeProgram(jcfg, TS, CAP,
+                                            prefill_chunk_layers=c)
+        with pytest.raises(ValueError, match="outside"):
+            tpx.CausalLMDecodeProgram(tcfg, TS, CAP, device="cpu",
+                                      prefill_chunk_layers=c)
+    # speculative decoding is NMT's alone: neither causal program takes it
+    with pytest.raises(TypeError, match="spec_tokens"):
+        jadapters.CausalLMDecodeProgram(jcfg, TS, CAP, spec_tokens=2)
+    with pytest.raises(TypeError, match="spec_tokens"):
+        tpx.CausalLMDecodeProgram(tcfg, TS, CAP, device="cpu",
+                                  spec_tokens=2)
     bad = [(dict(attn_impl="kernel"), "requires the paged"),
            (dict(page_size=3, pool_pages=POOL), "must divide"),
            (dict(page_size=PS), "without pool_pages"),

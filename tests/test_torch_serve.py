@@ -8,9 +8,13 @@ slots, from one JAX parameter tree carried across with
 port's admission contract: shedding past ``max_queue``, ``ServeClosed``
 after close, deadlines, bad ``max_new_tokens``, a fault on the
 scheduler thread failing requests instead of hanging them, the device
-default, and the refusal of the options that are not ported.
+default, and JAX's validations of chunked prefill, speculative decoding
+and the prefix cache (the features themselves are held to JAX in
+test_torch_adapters.py, test_torch_spec_decode.py and
+test_torch_prefix_cache.py).
 """
 
+import dataclasses
 import threading
 
 import jax
@@ -189,22 +193,48 @@ def test_cuda_is_the_default_device():
 @pytest.mark.parametrize("kw", [dict(spec_tokens=2),
                                 dict(prefill_chunk_layers=1)])
 def test_unported_program_options_raise(kw):
-    with pytest.raises(ValueError, match="not ported"):
-        tpx.NMTDecodeProgram(_tcfg(), **PROG, device="cpu", **kw)
+    """The options are ported now; what stays refused is what JAX's
+    program refuses: speculative decoding without a draft (or with a
+    draft of another vocabulary, or too short a positional table), and a
+    layer chunk outside [1, num_layers]."""
+    cfg = _tcfg()
+    L = cfg.num_layers
+    if "spec_tokens" in kw:
+        with pytest.raises(ValueError, match="without draft_cfg"):
+            tpx.NMTDecodeProgram(cfg, **PROG, device="cpu", **kw)
+        dcfg, dparams = tpx.serve.layer_skip_draft(cfg, _tparams(cfg))
+        for bad, match in ((dict(vocab_size=32), "vocab"),
+                           (dict(max_len=8), "positional table")):
+            with pytest.raises(ValueError, match=match):
+                tpx.NMTDecodeProgram(
+                    cfg, **PROG, device="cpu", **kw, draft_params=dparams,
+                    draft_cfg=dataclasses.replace(dcfg, **bad))
+        with pytest.raises(ValueError, match="outside"):
+            tpx.serve.layer_skip_draft(cfg, _tparams(cfg), L + 1)
+        prog = tpx.NMTDecodeProgram(cfg, **PROG, device="cpu", **kw,
+                                    draft_cfg=dcfg, draft_params=dparams)
+        assert prog.spec_tokens == 2 and dcfg.num_layers == 1
+    else:
+        for c in (0, L + 1):
+            with pytest.raises(ValueError, match="outside"):
+                tpx.NMTDecodeProgram(cfg, **PROG, device="cpu",
+                                     prefill_chunk_layers=c)
+        prog = tpx.NMTDecodeProgram(cfg, **PROG, device="cpu", **kw)
+        assert prog.num_prefill_chunks == L + 1
 
 
 def test_unported_scheduler_options_raise():
+    """The prefix cache is ported; it still needs a paged program with
+    the prefix hooks, as in JAX."""
     cfg = _tcfg()
-    with pytest.raises(ValueError, match="prefix cache"):
-        _session(cfg, _tparams(cfg), prefix_cache=True)
-
-    class Speculative(tpx.NMTDecodeProgram):
-        spec_tokens = 2
-        num_prefill_chunks = 3
-
-    prog = Speculative(cfg, **PROG, device="cpu")
-    with pytest.raises(ValueError, match="chunked prefill.*speculative"):
-        _session(cfg, _tparams(cfg), program=prog)
+    dense = tpx.NMTDecodeProgram(cfg, max_src_len=8, max_len=16,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="PAGED"):
+        _session(cfg, _tparams(cfg), program=dense, prefix_cache=True)
+    with _session(cfg, _tparams(cfg), prefix_cache=True) as sess:
+        out = sess.submit({"src": _requests()[0]},
+                          max_new_tokens=4).result(60)
+    assert len(out) <= 4 and sess.prefix_stats()["entries"] == 0
 
 
 def test_bucketing_matches_jax():
