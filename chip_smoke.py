@@ -174,7 +174,7 @@ beside it. Phases:
     (plus the warmup's call), B4 never; no page may stay in use after
     close. Then 64 requests under the profiler (``lc-serve-profile``):
     busy and B7 ms a decode step and the idle share.
-12g. ``lc-serve-agree``: 32 of the requests served in fp32 (TF32 off)
+12g. ``lc-serve-agree``: 16 of the requests served in fp32 (TF32 off)
     through B7 against ``standalone_greedy`` of the dense program (plain
     attention), request by request, with ``agreement``'s top-2-gap rule.
 
@@ -196,7 +196,7 @@ beside it. Phases:
     from seed 0, behind ``MoeLMDecodeProgram`` with ``lc-serve``'s
     program settings, slots and 256 prompts; B7 6 times a decode step,
     no page left in use; then 64 requests under the profiler.
-12k. ``moe-serve-agree``: 32 of the requests in fp32 through B7 against
+12k. ``moe-serve-agree``: 16 of the requests in fp32 through B7 against
     ``standalone_greedy`` of the dense plain program, under the top-2-gap
     rule.
 12l. ``nmt-beam``: NMT ``beam_decode`` at ``examples/nmt_eval.py``'s
@@ -215,7 +215,9 @@ versions on 4 of the 8 rows, whose [T, T] scores fit, and timed on all
 positions drawn in [63, 766]; moe-serve's shape too), ``moe_train``
 (bf16 B4, and B5/B6, at B 16, T 1024, 8 heads of 64, causal) and
 ``nmt_beam`` (B4 in fp32 and bf16 at nmt-beam's encoder: B 16, T 64, 8
-heads of 64, a mask with every key valid).
+heads of 64, a mask with every key valid) and ``oneshot`` (B4 in fp32 and
+bf16 at the one-shot translator's full batch: B 32, T 64, 8 heads of 64,
+each row padded after a length drawn in [16, 64]).
 
 The kernel phase also has ``serve_g3``: B7 at the serving shape with 3
 queries a slot (S 64, 8 heads of 64, 8 pages of 16 over a 512-page
@@ -247,6 +249,36 @@ verify.
     copies printed. A last round sends 16 new sources at cap 40 and
     again at 128: copy-on-write copies, tokens equal to the sharing-off
     session's.
+16b. ``oneshot``: the serve phase's model behind ``ServeSession(infer_fn,
+    params, example_feed={"src": ...}, ragged_feeds=("src",))`` with
+    ``ServeConfig(max_batch=32, length_buckets=[32, 64], max_wait_ms=2)``,
+    ``infer_fn`` the translator ``greedy_decode(params, cfg, src,
+    max_len=128)``: the warmup captures one graph a (batch, length)
+    signature (12); the 256 requests' sources, each decoded to 128
+    tokens: requests/s, latency p50/p95, batch occupancy,
+    ``serve.recompiles`` (must be 0); B4 6 times a batch beyond the
+    warmup's 6 a signature. Then 32 requests through the translator in
+    fp32 (batch bucket 32 alone) against ``greedy_decode`` of each alone
+    (plain encoder), under ``agreement``'s top-2-gap rule.
+16c. ``fleet``: two decode replicas on the card behind ``ServeFleet``,
+    each with its own ``NMTDecodeProgram`` at the serve phase's geometry;
+    the 256 requests with a ``FaultInjector`` crashing replica 0 at its
+    200th dispatch: tokens/s beside the serve phase's, failovers,
+    retries, ejections, requests lost (must be 0). Then a replica scaled
+    up, 3 NMT training steps at the serving config (HYBRID), and their
+    parameters pushed under traffic (``ParallaxSession.push_weights``):
+    2 hot swaps, no program captures anything after its warmup; B7 6 a
+    decode step and B4 6 a prefill, plus each replica's warmup (the
+    training steps' launches are taken out). Then a two-replica fp32
+    fleet given the pushed weights: 32 requests against
+    ``greedy_decode`` under them, top-2-gap rule.
+16d. ``disagg``: ``DisaggFleet`` (one prefill replica, one decode
+    replica, both ``ServeConfig(prefix_cache=True)``) against a
+    colocated one-replica ``ServeFleet`` on the 256 requests: tokens
+    equal, wire bytes a request, transfer ms p50, TTFT p50 beside
+    colocated, no page in use after close; B4 on the prefill replica (6
+    an exported prefill), B7 on the decode replica (6 a decode step),
+    each plus the warmups'.
 17. ``lc-serve-chunked`` (after ``lc-serve-agree``): ``lc-serve``'s program
     with ``prefill_chunk_layers=1`` on 64 prompts, tokens identical to
     the unchunked program's in this call; TTFT p50 and decode p50 of
@@ -510,7 +542,9 @@ def flash_cases():
     # and "train_dec" are the NMT training step's (64 x 64 tokens: the
     # encoder and cross attentions with the source pad mask, the decoder
     # causal self-attention); "nmt_beam" is nmt-beam's encoder (16
-    # sources of 64 ids, none of them pad: the mask passed is all valid)
+    # sources of 64 ids, none of them pad: the mask passed is all valid);
+    # "oneshot" the one-shot translator's full batch in the 64 bucket (32
+    # sources padded to 64)
     return [("serve", 1, 64, 8, 64, False, "tail"),
             ("masked_row", 2, 64, 8, 64, False, "row"),
             ("t512", 8, 512, 8, 64, False, None),
@@ -522,7 +556,8 @@ def flash_cases():
             ("bert", 32, 512, 16, 64, False, "bert"),
             ("lc_train", 8, 8192, 8, 64, True, None),
             ("moe_train", 16, 1024, 8, 64, True, None),
-            ("nmt_beam", 16, 64, 8, 64, False, "full")]
+            ("nmt_beam", 16, 64, 8, 64, False, "full"),
+            ("oneshot", 32, 64, 8, 64, False, "pad")]
 
 
 # cases whose plain version runs on the first rows only: its fp32 [T, T]
@@ -2371,10 +2406,12 @@ LC_GROUPS = (
 # lc-serve: LongContextConfig() behind CausalLMDecodeProgram with prompts
 # padded to 512, at most 256 new tokens, 48 pages of 16 a slot over a
 # 3072-page pool (64 slots x 48), 64 slots; 256 requests with prompt
-# lengths drawn in [64, 512] and ids in [1, 32000)
+# lengths drawn in [64, 512] and ids in [1, 32000); the fp32 agreement
+# phases (lc-serve-agree, moe-serve-agree) take 16 of them, each against an
+# eager dense reference of up to 256 steps
 LC_SERVE = dict(max_src_len=512, max_len=256, page_size=16, pool_pages=3072,
                 max_batch=64, max_queue=512, requests=256, min_prompt=64,
-                profile_requests=64, agree_requests=32)
+                profile_requests=64, agree_requests=16)
 
 
 def lc_session(torch, **cfg_kw):
@@ -3886,6 +3923,493 @@ def phase_lm1b_serve(torch):
     return out
 
 
+# -- one-shot serving, the fleet and disaggregation -----------------------------
+
+# oneshot: the translator behind the micro-batcher, 12 signatures (batch
+# buckets 1-32 x lengths 32 and 64), every request decoded to 128 tokens
+ONESHOT = dict(max_batch=32, length_buckets=(32, 64), max_wait_ms=2,
+               max_len=128, agree_requests=32)
+# fleet: two decode replicas on the card, replica 0 crashed after its
+# 200th dispatch (scheduler loop pass) once traffic starts; then a third
+# replica scaled up, 3 NMT training steps pushed under traffic
+FLEET = dict(replicas=2, crash_after=200, train_steps=3,
+             swap_requests=64, agree_requests=32)
+
+
+def agree_tokens(torch, params, ref_cfg, requests, outs, label):
+    """Each served token row against the plain path's ``greedy_decode``
+    of the request alone (cut after EOS), under the top-2-gap rule: a
+    row may differ only from a position where the plain path's top-2
+    logit gap is at most 1e-3. Returns the near ties."""
+    from parallax_tpu_torch.models import nmt
+    near = []
+    for i, ((src, cap), out) in enumerate(zip(requests, outs)):
+        out = np.asarray(out)
+        ref = nmt.greedy_decode(params, ref_cfg, src[None],
+                                max_len=cap)[0].cpu().numpy()
+        eos = np.flatnonzero(ref == nmt.EOS_ID)
+        if eos.size:
+            ref = ref[:eos[0] + 1]
+        eos = np.flatnonzero(out == nmt.EOS_ID)
+        if eos.size:
+            out = out[:eos[0] + 1]
+        if len(ref) == len(out) and np.array_equal(ref, out):
+            continue
+        n = min(len(ref), len(out))
+        first = int(np.flatnonzero(ref[:n] != out[:n])[0]) if \
+            not np.array_equal(ref[:n], out[:n]) else n
+        gap, top2 = top2_gap(torch, params, ref_cfg, src, first)
+        near.append({"request": i, "position": first, "top2_gap": gap,
+                     "top2_tokens": top2})
+        log(f"[{label}] request {i}: first difference at {first}, plain "
+            f"top-2 gap {gap:.3g} between tokens {top2}")
+        if not gap <= 1e-3:               # NaN fails too
+            raise AssertionError(
+                f"{label}: request {i} differs at position {first} where "
+                f"the plain path's top-2 gap is {gap:.3g} > 1e-3")
+    return near
+
+
+def oneshot_session(torch, cfg, params, **sc_kw):
+    """``ServeSession(infer_fn, params, example_feed=...)`` with the
+    translator as ``infer_fn``: ``greedy_decode`` of a micro-batch of
+    sources padded to a length bucket. Its warmup captures every (batch,
+    length) signature."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import nmt
+
+    def infer_fn(p, batch):
+        return {"tokens": nmt.greedy_decode(p, cfg, batch["src"],
+                                            max_len=ONESHOT["max_len"])}
+
+    return pt.ServeSession(
+        infer_fn, params, device=DEVICE,
+        example_feed={"src": np.full((max(ONESHOT["length_buckets"]),),
+                                     nmt.PAD_ID, np.int32)},
+        ragged_feeds=("src",), pad_value=nmt.PAD_ID,
+        config=pt.Config(serve_config=pt.ServeConfig(
+            max_batch=ONESHOT["max_batch"],
+            length_buckets=list(ONESHOT["length_buckets"]),
+            max_wait_ms=ONESHOT["max_wait_ms"],
+            max_queue=SERVE["max_queue"], **sc_kw)))
+
+
+def phase_oneshot(torch, cfg, params, requests):
+    """The 256 requests (their sources; every one decoded to 128 tokens)
+    through the one-shot translator: warmup seconds and graphs captured
+    (12), requests/s, latency p50/p95, batch occupancy,
+    ``serve.recompiles`` (0). B4 launches 6 times a batch beyond the
+    warmup's 6 a signature. Then 32 requests in fp32 (one batch bucket,
+    32: two captures) against ``greedy_decode`` of each alone, under the
+    top-2-gap rule."""
+    from parallax_tpu_torch.models import nmt
+    from parallax_tpu_torch.ops import flash_attention as fa
+    L = cfg.num_layers
+    zero_launches()
+    t0 = time.perf_counter()
+    sess = oneshot_session(torch, cfg, params)
+    warmup_s = time.perf_counter() - t0
+    warm_launches = launch_counts()
+    try:
+        gc.collect()
+        t0 = time.perf_counter()
+        reqs = [sess.submit({"src": src}) for src, _ in requests]
+        outs = [r.result(timeout=900)["tokens"] for r in reqs]
+        wall = time.perf_counter() - t0
+    finally:
+        sess.close()
+    stats = sess.stats()
+    launches = launch_counts()
+    vocab = cfg.vocab_size
+    for out in outs:
+        if out.shape != (ONESHOT["max_len"],) or out.min() < 0 \
+                or out.max() >= vocab:
+            raise AssertionError(f"oneshot: bad output {out.shape}, "
+                                 f"range [{out.min()}, {out.max()}]")
+    sigs = len(ONESHOT["length_buckets"]) * len(
+        pt_buckets(ONESHOT["max_batch"]))
+    want = {"flash_attention_fwd": (stats["serve.batches"] + sigs) * L,
+            "paged_decode_attention": 0}
+    lat = stats["serve.request_latency_ms"]
+    occ = stats["serve.batch_occupancy"]
+    summary = {"requests": len(requests), "wall_s": wall,
+               "requests_per_sec": len(requests) / wall,
+               "tokens_per_sec": len(requests) * ONESHOT["max_len"] / wall,
+               "latency_ms_p50": lat["p50"], "latency_ms_p95": lat["p95"],
+               "batches": stats["serve.batches"],
+               "batch_occupancy_mean": occ["mean"],
+               "batch_occupancy_p50": occ["p50"],
+               "step_ms_p50": stats["serve.step_ms"]["p50"],
+               "step_ms_p95": stats["serve.step_ms"]["p95"],
+               "warmup_s": warmup_s,
+               "capture_s_max": stats["serve.compile_seconds"]["max"],
+               "graphs": stats["serve.graph_captures"],
+               "recompiles": stats["serve.recompiles"],
+               "warmup_launches": warm_launches, "launches": launches}
+    log(f"[oneshot] {json.dumps(summary)}")
+    if stats["serve.graph_captures"] != sigs:
+        raise AssertionError(f"oneshot: {stats['serve.graph_captures']} "
+                             f"graphs captured, not {sigs}")
+    if stats["serve.recompiles"] != 0:
+        raise AssertionError(f"oneshot: {stats['serve.recompiles']} "
+                             f"captures at serve time")
+    if stats["serve.completed"] != len(requests):
+        raise AssertionError(f"oneshot: {stats['serve.completed']} of "
+                             f"{len(requests)} requests completed")
+    if launches != want:
+        raise AssertionError(f"oneshot: launch counts {launches} != "
+                             f"{want}")
+    # fp32 (TF32 off) against greedy_decode of each request alone
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    n = ONESHOT["agree_requests"]
+    sess = oneshot_session(torch, cfg32, params,
+                           batch_buckets=(ONESHOT["max_batch"],))
+    try:
+        reqs = [sess.submit({"src": src}) for src, _ in requests[:n]]
+        outs = [r.result(timeout=900)["tokens"] for r in reqs]
+    finally:
+        sess.close()
+    ref_cfg = dataclasses.replace(cfg32, use_pallas_attention=False)
+    near = agree_tokens(torch, params, ref_cfg,
+                        [(s, ONESHOT["max_len"]) for s, _ in requests[:n]],
+                        outs, "oneshot-agree")
+    summary["agreement"] = {"requests": n, "identical": n - len(near),
+                            "near_ties": near}
+    log(f"[oneshot-agree] {json.dumps(summary['agreement'])}")
+    return summary
+
+
+def pt_buckets(max_batch):
+    import parallax_tpu_torch as pt
+    return pt.ServeConfig(max_batch=max_batch).resolved_batch_buckets()
+
+
+def fleet_factory(torch, cfg, params, programs, **sc_kw):
+    """A decode-replica factory: each replica its own ``NMTDecodeProgram``
+    at the serve phase's geometry (a program serves one live session),
+    recorded in ``programs`` by replica id."""
+    import parallax_tpu_torch as pt
+    sc = pt.Config(serve_config=pt.ServeConfig(
+        max_batch=SERVE["max_batch"], max_queue=SERVE["max_queue"],
+        **sc_kw))
+
+    def make_replica(rid, **kw):
+        prog = serve_program(torch, cfg)
+        programs[rid] = prog
+        return pt.ServeSession(program=prog, params=params, config=sc,
+                               device=DEVICE, **kw)
+    return make_replica
+
+
+def crash_injector(rid, after):
+    """A ``FaultInjector`` that arms a crash on replica ``rid`` at its
+    ``after``-th dispatch counted from ``start()``."""
+    import parallax_tpu_torch as pt
+
+    class Injector(pt.FaultInjector):
+        def __init__(self):
+            super().__init__()
+            self.counting = False
+            self.dispatches = {}
+            self.active_at_crash = None
+
+        def start(self):
+            self.dispatches = {}
+            self.counting = True
+
+        def on_dispatch(self, replica_id):
+            if self.counting:
+                n = self.dispatches.get(replica_id, 0) + 1
+                self.dispatches[replica_id] = n
+                if replica_id == rid and n == after:
+                    self.active_at_crash = self.fleet_load()
+                    self.counting = False
+                    self.arm(rid, "crash")
+            return super().on_dispatch(replica_id)
+
+    return Injector()
+
+
+def detached(tree):
+    """A parameter tree's leaves detached from autograd (copies)."""
+    if isinstance(tree, dict):
+        return {k: detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(detached(v) for v in tree)
+    return tree.detach().clone()
+
+
+def fleet_step_counts(fleet_stats):
+    return {rid: (r["serve"].get("serve.decode_steps", 0),
+                  r["serve"].get("serve.prefills", 0))
+            for rid, r in fleet_stats["replicas"].items()}
+
+
+def train_nmt(torch, cfg, steps):
+    """A training session at the serving config (its parameter shapes)
+    after ``steps`` NMT training steps (HYBRID, seed 0, the warmup of
+    ``nmt-train``)."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import nmt
+    tcfg = dataclasses.replace(cfg, warmup_steps=10)
+    sess, *_ = pt.parallel_run(
+        nmt.build_model(tcfg),
+        parallax_config=pt.Config(run_option="HYBRID"), seed=SEED,
+        device=DEVICE)
+    batches = nmt_batches(tcfg)
+    losses = [float(sess.run("loss", feed_dict=batches[i % len(batches)]))
+              for i in range(steps)]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fleet: training losses {losses}")
+    return sess, losses
+
+
+def phase_fleet(torch, cfg, params, requests, serve_summary):
+    """Two NMT decode replicas on the card, each its own program: the 256
+    requests with replica 0 crashed at its 200th dispatch (tokens/s
+    beside the serve phase's, failovers, retries, ejections, requests
+    lost: 0). Then a replica scaled up, and 3 NMT training steps pushed
+    under traffic (``push_weights``: 2 hot swaps, no program captures
+    anything after its warmup). B7 launches 6 times a decode step (each
+    replica's warmup's once); B4 6 times a prefill (each warmup's twice).
+    Then the same in fp32: 32 requests served after the push equal
+    ``greedy_decode`` under the pushed weights, under the top-2-gap
+    rule."""
+    import parallax_tpu_torch as pt
+    L = cfg.num_layers
+    programs = {}
+    inj = crash_injector(0, FLEET["crash_after"])
+    zero_launches()
+    t0 = time.perf_counter()
+    fleet = pt.ServeFleet(fleet_factory(torch, cfg, params, programs),
+                          config=pt.FleetConfig(
+                              num_replicas=FLEET["replicas"],
+                              max_replicas=FLEET["replicas"] + 1),
+                          faults=inj)
+    inj.fleet_load = lambda: {h.rid: h.session.load()
+                              for h in fleet._router.handles()}
+    spinup_s = time.perf_counter() - t0
+    try:
+        gc.collect()
+        inj.start()
+        t0 = time.perf_counter()
+        reqs = [fleet.submit({"src": src}, max_new_tokens=cap)
+                for src, cap in requests]
+        outs, lost = [], 0
+        for r in reqs:
+            try:
+                outs.append(r.result(timeout=900))
+            except Exception as e:
+                lost += 1
+                log(f"[fleet] request {r.id} lost: {e!r}")
+        wall = time.perf_counter() - t0
+        crash_stats = fleet.stats()
+        captures_warm = {rid: p.captures for rid, p in programs.items()}
+        # restore two live replicas, then push trained weights under
+        # traffic
+        t0 = time.perf_counter()
+        new_rid = fleet.scale_up(reason="replace the crashed replica")
+        scale_up_s = time.perf_counter() - t0
+        captures_warm[new_rid] = programs[new_rid].captures
+        # the training steps launch B4-B6 too: their launches are taken
+        # out of the serving counts (no request is in flight meanwhile)
+        before = launch_counts()
+        train, losses = train_nmt(torch, cfg, FLEET["train_steps"])
+        torch.cuda.synchronize()
+        train_launches = {k: v - before[k]
+                          for k, v in launch_counts().items()}
+        try:
+            swap_reqs = [fleet.submit({"src": src}, max_new_tokens=cap)
+                         for src, cap in requests[:FLEET["swap_requests"]]]
+            t0 = time.perf_counter()
+            outcome = train.push_weights(fleet)
+            push_s = time.perf_counter() - t0
+            pushed = detached(train.gather_params())
+        finally:
+            train.close()
+        swap_lost = 0
+        for r in swap_reqs:
+            try:
+                r.result(timeout=900)
+            except Exception as e:
+                swap_lost += 1
+                log(f"[fleet] request {r.id} lost across the swap: {e!r}")
+        end_stats = fleet.stats()
+        recompiles = fleet.recompiles()
+    finally:
+        fleet.close()
+    launches = {k: v - train_launches[k]
+                for k, v in launch_counts().items()}
+    captures_end = {rid: p.captures for rid, p in programs.items()}
+    if not outs or lost:
+        raise AssertionError(f"fleet: {lost} request(s) lost across the "
+                             f"crash")
+    check_outputs(requests, outs, cfg.vocab_size)
+    steps = fleet_step_counts(end_stats)
+    decode_steps = sum(s for s, _ in steps.values())
+    prefills = sum(p for _, p in steps.values())
+    n_rep = len(programs)
+    want = {"flash_attention_fwd": (prefills + 2 * n_rep) * L,
+            "paged_decode_attention": (decode_steps + n_rep) * L}
+    tokens = int(sum(len(o) for o in outs))
+    summary = {"requests": len(requests), "tokens": tokens,
+               "wall_s": wall, "tokens_per_sec": tokens / wall,
+               "serve_tokens_per_sec": serve_summary["tokens_per_sec"],
+               "fleet_over_serve": tokens / wall
+               / serve_summary["tokens_per_sec"],
+               "spinup_s": spinup_s, "scale_up_s": scale_up_s,
+               "push_s": push_s, "lost": lost, "swap_lost": swap_lost,
+               "train_losses": losses, "train_launches": train_launches,
+               "crash_dispatches": inj.dispatches,
+               "crash_fired": inj.fired("crash"),
+               "load_at_crash": inj.active_at_crash,
+               **{k: crash_stats[k] for k in (
+                   "fleet.failovers", "fleet.retries", "fleet.ejections",
+                   "fleet.failed", "fleet.completed")},
+               "hops": {str(n): sum(1 for r in reqs
+                                    if len(r.replicas) == n)
+                        for n in (1, 2, 3)},
+               "latency_ms_p50": crash_stats[
+                   "fleet.request_latency_ms"]["p50"],
+               "latency_ms_p95": crash_stats[
+                   "fleet.request_latency_ms"]["p95"],
+               "hotswaps": end_stats["fleet.hotswaps"],
+               "push_outcome": {str(k): v for k, v in outcome.items()},
+               "drain_s": end_stats["fleet.drain_seconds"],
+               "captures_after_warmup": captures_warm,
+               "captures_end": captures_end, "recompiles": recompiles,
+               "steps_by_replica": steps, "launches": launches}
+    log(f"[fleet] {json.dumps(summary)}")
+    if inj.fired("crash") != 1:
+        raise AssertionError("fleet: the injected crash did not fire")
+    if swap_lost or end_stats["fleet.hotswaps"] != 2:
+        raise AssertionError(f"fleet: hotswaps "
+                             f"{end_stats['fleet.hotswaps']} (want 2), "
+                             f"{swap_lost} lost across the swap")
+    if captures_end != captures_warm or recompiles:
+        raise AssertionError(f"fleet: captures {captures_warm} -> "
+                             f"{captures_end}, recompiles {recompiles}")
+    if launches != want:
+        raise AssertionError(f"fleet: launch counts {launches} != {want}")
+    for rid, r in end_stats["replicas"].items():
+        if r["serve"].get("serve.kv_pages_in_use") not in (0, None) \
+                and not r["dead"]:
+            raise AssertionError(f"fleet: replica {rid} pages in use")
+    # fp32: tokens after the push against greedy_decode under the pushed
+    # weights
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    n = FLEET["agree_requests"]
+    fleet = pt.ServeFleet(fleet_factory(torch, cfg32, params, {}),
+                          config=pt.FleetConfig(
+                              num_replicas=FLEET["replicas"]))
+    try:
+        fleet.push_weights(pushed)
+        outs32 = [r.result(timeout=900) for r in [
+            fleet.submit({"src": src}, max_new_tokens=cap)
+            for src, cap in requests[:n]]]
+        swaps32 = fleet.stats()["fleet.hotswaps"]
+    finally:
+        fleet.close()
+    ref_cfg = dataclasses.replace(cfg32, use_pallas_attention=False)
+    near = agree_tokens(torch, pushed, ref_cfg, requests[:n], outs32,
+                        "fleet-agree")
+    summary["agreement"] = {"requests": n, "identical": n - len(near),
+                            "near_ties": near, "hotswaps": swaps32}
+    log(f"[fleet-agree] {json.dumps(summary['agreement'])}")
+    return summary
+
+
+def phase_disagg(torch, cfg, params, requests):
+    """``DisaggFleet`` with one prefill replica and one decode replica,
+    both ``ServeConfig(prefix_cache=True)``, against a colocated one-
+    replica ``ServeFleet`` on the 256 requests: tokens equal, wire bytes
+    a request, transfer ms p50, TTFT p50 beside colocated, no page in use
+    after close. B4 runs on the prefill replica (6 a prefill, eagerly,
+    plus each warmup's 12) and never on the decode replica beyond its
+    warmup; B7 on the decode replica (6 a decode step, plus each
+    warmup's 6)."""
+    import parallax_tpu_torch as pt
+    L = cfg.num_layers
+    feeds = [{"src": src} for src, _ in requests]
+    caps = [cap for _, cap in requests]
+
+    def run(front):
+        gc.collect()
+        t0 = time.perf_counter()
+        reqs = [front.submit(f, max_new_tokens=c)
+                for f, c in zip(feeds, caps)]
+        outs = [r.result(timeout=900) for r in reqs]
+        ttft = statistics.median(
+            (r.t_first_token - r.t_enqueue) * 1e3 for r in reqs)
+        return outs, time.perf_counter() - t0, ttft
+
+    colo = pt.ServeFleet(fleet_factory(torch, cfg, params, {},
+                                       prefix_cache=True),
+                         config=pt.FleetConfig(num_replicas=1))
+    try:
+        colo_outs, colo_wall, colo_ttft = run(colo)
+    finally:
+        colo.close()
+    programs_p, programs_d = {}, {}
+    zero_launches()
+    d = pt.DisaggFleet(
+        fleet_factory(torch, cfg, params, programs_p, prefix_cache=True),
+        fleet_factory(torch, cfg, params, programs_d, prefix_cache=True),
+        prefill_config=pt.FleetConfig(num_replicas=1),
+        decode_config=pt.FleetConfig(num_replicas=1))
+    warm = launch_counts()
+    try:
+        outs, wall, ttft = run(d)
+        dstats = d.stats()
+        recompiles = d.recompiles()
+    finally:
+        d.close()
+    launches = launch_counts()
+    snap = d.metrics.snapshot()
+    dec = d.decode_fleet.stats()["replicas"]["0"]["serve"]
+    pre = d.prefill_fleet.stats()["replicas"]["0"]["serve"]
+    differ = [i for i, (a, b) in enumerate(zip(outs, colo_outs))
+              if not np.array_equal(a, b)]
+    transfers = snap["serve.disagg.transfers"]
+    want = {"flash_attention_fwd": (transfers + dec["serve.prefills"]
+                                    + pre["serve.prefills"] + 4) * L,
+            "paged_decode_attention": (dec["serve.decode_steps"]
+                                       + pre["serve.decode_steps"] + 2) * L}
+    summary = {"requests": len(requests),
+               "tokens_per_sec": sum(len(o) for o in outs) / wall,
+               "colocated_tokens_per_sec": sum(len(o) for o in colo_outs)
+               / colo_wall,
+               "ttft_ms_p50": ttft, "colocated_ttft_ms_p50": colo_ttft,
+               "transfers": transfers,
+               "wire_bytes_per_request": snap[
+                   "serve.disagg.transfer_bytes"] / max(transfers, 1),
+               "transfer_ms_p50": snap["serve.disagg.transfer_ms"]["p50"],
+               "transfer_ms_p95": snap["serve.disagg.transfer_ms"]["p95"],
+               "prefill_ms_p50": snap["serve.disagg.prefill_ms"]["p50"],
+               "fallbacks": snap["serve.disagg.prefill_fallbacks"],
+               "decode_replica": {k: dec[k] for k in (
+                   "serve.prefix.hits", "serve.prefills",
+                   "serve.decode_steps", "serve.kv_pages_in_use")},
+               "prefill_replica_decode_steps": pre["serve.decode_steps"],
+               "recompiles": recompiles, "differing": differ,
+               "warmup_launches": warm, "launches": launches}
+    log(f"[disagg] {json.dumps(summary)}")
+    if differ:
+        raise AssertionError(f"disagg: tokens differ from colocated in "
+                             f"requests {differ}")
+    if transfers != len(requests) or dec["serve.prefills"] != 0:
+        raise AssertionError(f"disagg: {transfers} transfers, "
+                             f"{dec['serve.prefills']} local prefills on "
+                             f"the decode replica")
+    if dec["serve.kv_pages_in_use"] != 0 or recompiles:
+        raise AssertionError(f"disagg: pages in use "
+                             f"{dec['serve.kv_pages_in_use']}, recompiles "
+                             f"{recompiles}")
+    if launches != want:
+        raise AssertionError(f"disagg: launch counts {launches} != {want}")
+    return summary
+
+
 # -- graphs: capture, graph-agree and graph-pair ------------------------------
 
 # graph-pair: each path's steps eagerly (compile.disable_capture()) and as
@@ -4080,7 +4604,7 @@ def phase_graph_agree(torch):
 # at ("lc_serve" is moe-serve's decode step too)
 MAIN_PATH_CASES = {
     "flash_attention_fwd": ["serve", "train_enc", "train_dec", "bert",
-                            "lc_train", "moe_train", "nmt_beam"],
+                            "lc_train", "moe_train", "nmt_beam", "oneshot"],
     "flash_attention_dq": ["train_enc", "train_dec", "bert", "lc_train",
                            "moe_train"],
     "flash_attention_dkv": ["train_enc", "train_dec", "bert", "lc_train",
@@ -4105,12 +4629,13 @@ def kernel_line(results, launches):
     type the main paths launch it in) where it fares worst against its
     library call: ``case`` names it, and ``main_path`` gives every
     main-path case's numbers. B4's launches are the NMT serving paths'
-    (plain, speculative with chunked prefill, with the prefix cache), the
+    (plain, speculative with chunked prefill, with the prefix cache,
+    one-shot, the fleet, disaggregated), the
     NMT, BERT, long-context and MoE training paths' and NMT beam search's,
     B5's and B6's the four training paths', B7's the serving paths' (NMT
-    plain, speculative and prefix, causal LM unchunked and chunked, MoE
-    LM). An LSTM entry names the source of the route its case ran
-    on."""
+    plain, speculative, prefix, fleet and disaggregated, causal LM
+    unchunked and chunked, MoE LM). An LSTM entry names the source of the
+    route its case ran on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
@@ -4309,6 +4834,10 @@ def main() -> int:
                              requests[:SPEC["agree_requests"]])
     serve_prefix = phase("serve-prefix", phase_serve_prefix, torch, cfg,
                          params)
+    oneshot = phase("oneshot", phase_oneshot, torch, cfg, params, requests)
+    fleet = phase("fleet", phase_fleet, torch, cfg, params, requests,
+                  serve_summary)
+    disagg = phase("disagg", phase_disagg, torch, cfg, params, requests)
     del params
     lstm_results = phase("lstm-kernels", phase_lstm_kernels, torch)
     failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in lstm_results
@@ -4397,7 +4926,10 @@ def main() -> int:
             nmt_beam["launches"].items()) + list(
             serve_spec["launches"].items()) + list(
             serve_prefix["launches"].items()) + list(
-            lc_chunked["launches"].items()):
+            lc_chunked["launches"].items()) + list(
+            oneshot["launches"].items()) + list(
+            fleet["launches"].items()) + list(
+            disagg["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -4423,6 +4955,7 @@ def main() -> int:
               "serve_spec": serve_spec, "serve_spec_agreement":
               serve_spec_agree, "serve_prefix": serve_prefix,
               "lc_serve_chunked": lc_chunked, "lm1b_serve": lm1b_serve,
+              "oneshot": oneshot, "fleet": fleet, "disagg": disagg,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

@@ -10,6 +10,9 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
   forward with residuals and time-reversed backward (ops/lstm.py).
 * NMT training through ``parallel_run(nmt.build_model(cfg))``, with the
   CUDA flash-attention forward and backward kernels.
+* One-shot serving: ``ServeSession(infer_fn, params, example_feed=...)``
+  micro-batches requests onto a declared (batch, length) signature set,
+  each signature a CUDA graph captured ahead of traffic.
 * NMT continuous-decode serving: ``ServeSession`` drives a
   ``ContinuousScheduler`` over an ``NMTDecodeProgram``, with a CUDA
   flash-attention forward (ops/flash_attention.py) and a CUDA
@@ -30,6 +33,11 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
   expert runs on every token), the causal flash kernels with
   ``use_pallas_attention``; ``MoeLMDecodeProgram`` serves it through the
   paged-decode kernel.
+* The serving fleet: ``ServeFleet`` (replicas behind a health-aware
+  ``Router``, failover within the deadline, ``push_weights`` hot-swap —
+  also from training through ``ParallaxSession.push_weights`` —, an
+  autoscaler, ``FaultInjector`` for chaos) and ``DisaggFleet`` (a
+  prefill pool and a decode pool joined by the npz wire format).
 * NMT beam search (``nmt.beam_decode``) and corpus BLEU
   (``common.evaluation.corpus_bleu``).
 * Dense CNN training: ``parallel_run(cnn.build_model("resnet50_v1.5"),
@@ -59,9 +67,11 @@ from parallax_tpu_torch.models import (cnn, lm1b, long_context, moe_lm,
                                       nmt, simple)
 from parallax_tpu_torch.runner import parallel_run
 from parallax_tpu_torch.serve import (AdapterSpec, CausalLMDecodeProgram,
+                                      DisaggFleet, FaultInjector,
+                                      FleetConfig, HealthPolicy,
                                       LM1BDecodeProgram, MoeLMDecodeProgram,
-                                      NMTDecodeProgram, ServeSession,
-                                      register_adapter,
+                                      NMTDecodeProgram, Router, ServeFleet,
+                                      ServeSession, register_adapter,
                                       registered_adapters)
 from parallax_tpu_torch.session import Fetch, ParallaxSession, materialize
 
@@ -71,5 +81,7 @@ __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
            "Model", "TrainState", "ParallaxSession", "Fetch", "materialize",
            "ServeSession", "NMTDecodeProgram", "CausalLMDecodeProgram",
            "MoeLMDecodeProgram", "LM1BDecodeProgram", "AdapterSpec",
-           "register_adapter", "registered_adapters", "cnn", "lm1b", "long_context", "moe_lm",
-           "nmt", "simple"]
+           "register_adapter", "registered_adapters", "ServeFleet",
+           "FleetConfig", "DisaggFleet", "FaultInjector", "Router",
+           "HealthPolicy", "cnn", "lm1b", "long_context", "moe_lm", "nmt",
+           "simple"]

@@ -20,10 +20,12 @@ from parallax_tpu_torch.common import consts
 class ServeConfig:
     """Online-serving knobs.
 
-    * ``max_batch``: the slot count of the continuous-decode scheduler.
+    * ``max_batch``: the largest one-shot device batch, and the slot
+      count of the continuous-decode scheduler.
     * ``max_wait_ms``: batch-formation deadline of the one-shot
-      micro-batcher (kept for config compatibility; the continuous
-      scheduler does not read it).
+      micro-batcher — a partial batch dispatches once its oldest
+      request has waited this long (the continuous scheduler does not
+      read it).
     * ``max_queue``: admission bound. A submit beyond this many waiting
       requests is SHED (``ServeOverloaded`` raised to the caller,
       ``serve.shed`` counted).
@@ -32,7 +34,10 @@ class ServeConfig:
       it completes is dropped (``DeadlineExceeded`` on its future,
       ``serve.timeouts`` counted). None = no deadline.
     * ``batch_buckets`` / ``length_buckets``: the one-shot mode's
-      signature set (validated, not read by continuous decode).
+      signature set — formed batches pad onto a batch bucket (default
+      powers of two up to ``max_batch``), ragged feeds onto a length
+      bucket; each (batch, length) pair is captured ahead of serving
+      (not read by continuous decode).
     * ``drain_timeout_s``: ``close()`` stops admission and serves the
       already-accepted queue to completion, up to this long; whatever
       is still queued after it is failed with ``ServeClosed``.
@@ -136,6 +141,18 @@ class ServeConfig:
         ddl = cls.get("deadline_ms")
         return int(cls["priority"]), (float(ddl) if ddl is not None
                                       else None)
+
+    def resolved_batch_buckets(self) -> tuple:
+        """Declared buckets, or doubling sizes 1,2,4,... up to (and
+        including) ``max_batch``."""
+        if self.batch_buckets is not None:
+            return tuple(self.batch_buckets)
+        out, b = [], 1
+        while b < int(self.max_batch):
+            out.append(b)
+            b *= 2
+        out.append(int(self.max_batch))
+        return tuple(out)
 
 
 @dataclasses.dataclass

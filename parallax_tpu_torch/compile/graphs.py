@@ -7,8 +7,12 @@ step launches, with its arguments, into a graph whose buffers come from
 a memory pool the graph owns; a replay launches the whole recording with
 one host call. ``capture`` runs the callable once eagerly on a side
 stream first (lazy initialisation, the kernels' first-use builds, the
-allocator's warm state), then records a second call. A capture that
-fails raises; nothing falls back to running the step eagerly.
+allocator's warm state, the libraries' per-stream state such as cuBLAS's
+workspace), then records a second call on that same stream, so nothing
+is set up inside the capture. (Recorded on a stream of its own, a capture
+made while another thread served sometimes failed inside cuBLAS, the
+capture invalidated, or gave wrong tokens.) A capture that fails raises;
+nothing falls back to running the step eagerly.
 
 A replay reads and writes the very tensors the capture saw, so what a
 graph computes from must sit in buffers that outlive it and are updated
@@ -19,9 +23,14 @@ the graph; every per-step scalar therefore lives on the device
 the graph, reseeded before each replay.
 
 The kernel wrappers count their launches in module-level integers
-(``ops/lstm.py``, ``ops/flash_attention.py``, ``ops/paged_attention.py``).
-A capture launches nothing, so the counts it adds are taken back and
-kept with the graph; each replay adds them again.
+(``ops/lstm.py``, ``ops/flash_attention.py``, ``ops/paged_attention.py``)
+through ``count_launch``, under one lock: serving replicas launch from
+several threads at once. A capture launches nothing, so the launches
+recorded into it (those made while the launching thread's current stream
+is capturing: the capturing thread's, and the autograd worker's in a
+captured backward) are taken back and kept with the graph, while other
+threads' launches meanwhile stay counted; each replay adds them again.
+Captures take one lock, so two threads never capture at once.
 
 ``disable_capture()`` is the counterpart of ``jax.disable_jit()``:
 inside it (in the calling thread) the engine and the serving program
@@ -33,6 +42,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import importlib
+import sys
+import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -50,6 +61,12 @@ COUNTERS = {
 
 _DISABLED: contextvars.ContextVar = contextvars.ContextVar(
     "parallax_capture_disabled", default=False)
+
+_COUNT_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+# the launches recorded into the capture under way: {(module, counter):
+# n}, None when no capture is
+_tally: Optional[Dict[Tuple[str, str], int]] = None
 
 
 @contextlib.contextmanager
@@ -82,14 +99,22 @@ def read_counters() -> Dict[Tuple[str, str], int]:
 
 
 def add_counters(delta: Dict[Tuple[str, str], int]) -> None:
-    for (mod, name), n in delta.items():
-        m = importlib.import_module(mod)
-        setattr(m, name, getattr(m, name) + n)
+    with _COUNT_LOCK:
+        for (mod, name), n in delta.items():
+            m = importlib.import_module(mod)
+            setattr(m, name, getattr(m, name) + n)
 
 
-def _set_counters(values: Dict[Tuple[str, str], int]) -> None:
-    for (mod, name), n in values.items():
-        setattr(importlib.import_module(mod), name, n)
+def count_launch(module: str, name: str) -> None:
+    """A kernel wrapper's one launch: its counter ``module.name`` goes up
+    by one. A launch recorded into a capture (the current stream is
+    capturing) is also tallied for the graph, and ``capture`` takes it
+    back out."""
+    m = sys.modules[module]
+    with _COUNT_LOCK:
+        setattr(m, name, getattr(m, name) + 1)
+        if _tally is not None and torch.cuda.is_current_stream_capturing():
+            _tally[(module, name)] = _tally.get((module, name), 0) + 1
 
 
 class Graph:
@@ -118,7 +143,12 @@ def capture(fn: Callable[[], object], device,
     that call's launches are real and stay counted. The CUDA
     ``generator`` that ``fn`` draws from is registered with the graph, so
     a replay draws from its seed and offset at the time of the replay."""
-    device = torch.device(device)
+    with _CAPTURE_LOCK:
+        return _capture(fn, torch.device(device), generator)
+
+
+def _capture(fn, device, generator) -> Graph:
+    global _tally
     t0 = time.perf_counter()
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -130,14 +160,15 @@ def capture(fn: Callable[[], object], device,
     g = torch.cuda.CUDAGraph()
     if generator is not None:
         g.register_generator_state(generator)
-    before = read_counters()
+    with _COUNT_LOCK:
+        _tally = {}
     try:
-        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        with torch.cuda.graph(g, stream=side,
+                              capture_error_mode="thread_local"):
             outputs = fn()
-        after = read_counters()
     finally:
-        _set_counters(before)
+        with _COUNT_LOCK:
+            launches, _tally = _tally, None
+        add_counters({k: -n for k, n in launches.items()})
     torch.cuda.synchronize(device)
-    launches = {k: after[k] - before[k] for k in after
-                if after[k] != before[k]}
     return Graph(g, outputs, launches, time.perf_counter() - t0)

@@ -1,9 +1,9 @@
 """Request-scoped tracing: one serving request's wall time, decomposed.
 
 Continuous batching makes request latency attribution structurally
-hard — queue wait, prefill, page-pool slot waits and batched decode
-steps all interleave on shared threads — so the attribution is carried
-BY the request.
+hard — queue wait, prefill, page-pool slot waits, batched decode steps
+and fleet failover hops all interleave on shared threads — so the
+attribution is carried BY the request.
 
 * :class:`RequestRecord` — one request's lifecycle as a phase state
   machine. The record opens in ``admission`` and every ``mark(phase)``
@@ -11,16 +11,24 @@ BY the request.
   bounded segment list for the chrome lanes). Because phases partition
   the record's wall clock by construction, the TTFT decomposition
   snapshotted at :meth:`first_token` sums EXACTLY to the client-side
-  TTFT.
+  TTFT. The record travels with the request across fleet failover hops
+  (one record, many replica sub-requests), so a retried request's
+  decomposition covers its whole client-visible window: the aborted
+  hop's work plus the ``failover`` gap plus the winning hop.
 
   Phases: ``admission`` (submit-side validation/padding),
   ``queue_wait`` (enqueue -> popped by the scheduler), ``prefill``
   (pop -> slot activation; per-chunk durations in
-  ``prefill_chunks_ms``), ``prefix_replay`` (the prefix-cache hit's
-  substitute for prefill: cached tokens and pages mapped instead of
-  computed), ``slot_wait`` (page-pool-exhausted refill deferrals),
-  ``decode`` (activation -> retire). Alongside: KV pages held,
-  decode-step count, token count, and the prefix-reuse pair
+  ``prefill_chunks_ms``), ``kv_transfer`` (disaggregated serving's
+  inter-pool hop: prefill state exported, moved as wire bytes and
+  imported into the decode replicas), ``prefix_replay`` (the
+  prefix-cache hit's substitute for prefill: cached tokens and pages
+  mapped instead of computed), ``slot_wait`` (page-pool-exhausted
+  refill deferrals), ``decode`` (activation -> retire), ``service``
+  (the one-shot batcher's dispatch, device step and split),
+  ``failover`` (replica death -> re-placement). Alongside: the replica
+  hop trail, retries consumed, KV pages held, decode-step count, token
+  count, and the prefix-reuse pair
   ``prefix_hit_pages`` / ``prefill_tokens_skipped`` (cached KV pages
   this request did not write / prompt tokens whose prefill it
   skipped).
@@ -30,7 +38,7 @@ BY the request.
   ALL summarization is lazy):
 
   - ``serve.timeline.*`` registry gauges (per-phase window summaries,
-    TTFT/total, decode steps, KV pages) sampled only at
+    TTFT/total, decode steps, KV pages, hops) sampled only at
     ``registry.snapshot()`` time;
   - ``serve.slo.*`` gauges computed from the records (deadline-miss
     rate and budget consumed, worst p99-vs-deadline margin, shed rate);
@@ -63,8 +71,13 @@ from parallax_tpu_torch.obs.metrics import (MetricsRegistry, nearest_rank,
 # were mapped instead of computed — near zero by design, and its explicit
 # presence in the TTFT decomposition (next to the record's
 # ``prefill_tokens_skipped``) attributes the skipped prefill.
-PHASES = ("admission", "queue_wait", "prefill", "prefix_replay",
-          "slot_wait", "decode")
+# ``kv_transfer`` is the disaggregated hop between pools: prefill
+# finished on a prefill replica -> request state exported, moved as wire
+# bytes and imported into the decode replicas' prefix caches. It sits
+# between ``prefill`` and the decode pool's ``queue_wait``, so a
+# disaggregated request's phases still partition its wall clock.
+PHASES = ("admission", "queue_wait", "prefill", "kv_transfer",
+          "prefix_replay", "slot_wait", "decode", "service", "failover")
 
 DEFAULT_CAPACITY = 512
 
@@ -73,28 +86,34 @@ _MISS_OUTCOMES = ("deadline_exceeded",)
 
 
 class RequestRecord:
-    """One request's lifecycle: accumulated per-phase milliseconds.
-    Thread-safe (marks come from the client and scheduler threads,
-    though never concurrently by construction); every mutator is a
-    no-op while the obs layer is disabled."""
+    """One request's lifecycle: accumulated per-phase milliseconds plus
+    the failover trail. Thread-safe (marks come from the client,
+    scheduler, batcher and fleet-callback threads, though never
+    concurrently by construction); every mutator is a no-op while the
+    obs layer is disabled."""
 
     MAX_SEGMENTS = 64
 
-    __slots__ = ("key", "t0", "deadline_ms", "phases", "segments",
-                 "prefill_chunks_ms", "kv_pages", "decode_steps",
-                 "tokens", "prefix_hit_pages", "prefill_tokens_skipped",
+    __slots__ = ("key", "t0", "deadline_ms", "fleet_owned",
+                 "phases", "segments", "prefill_chunks_ms", "hops",
+                 "retries", "kv_pages", "decode_steps", "tokens",
+                 "prefix_hit_pages", "prefill_tokens_skipped",
                  "ttft_ms", "ttft_decomp", "total_ms", "outcome",
                  "n_marks", "_phase", "_t", "_ring", "_lock", "_done")
 
     def __init__(self, key, t0: Optional[float] = None,
-                 deadline: Optional[float] = None, ring=None):
+                 deadline: Optional[float] = None, ring=None,
+                 fleet_owned: bool = False):
         self.key = key
         self.t0 = time.perf_counter() if t0 is None else float(t0)
         self.deadline_ms = ((deadline - self.t0) * 1e3
                             if deadline is not None else None)
+        self.fleet_owned = bool(fleet_owned)
         self.phases: Dict[str, float] = {}
         self.segments: List[tuple] = []     # (phase, t_start, t_end)
         self.prefill_chunks_ms: List[float] = []
+        self.hops: List[Any] = []           # replica ids, in order
+        self.retries = 0
         self.kv_pages = 0
         self.decode_steps = 0
         self.tokens = 0
@@ -127,7 +146,8 @@ class RequestRecord:
     def mark(self, phase: str, now: Optional[float] = None) -> None:
         """Close the current phase into its accumulated total and open
         ``phase``. Accumulative: a phase re-entered later (a deferred
-        refill going back to the queue head) adds to the same bucket."""
+        refill going back to the queue head, a later failover hop) adds
+        to the same bucket."""
         if not _state.enabled:
             return
         now = time.perf_counter() if now is None else now
@@ -148,7 +168,9 @@ class RequestRecord:
     def first_token(self, now: Optional[float] = None) -> None:
         """Snapshot the TTFT decomposition. The in-progress phase's
         elapsed share is included WITHOUT closing it, so the snapshot
-        partitions [t0, now] exactly: sum(ttft_decomp) == ttft_ms."""
+        partitions [t0, now] exactly: sum(ttft_decomp) == ttft_ms.
+        Overwrites on a later call — after a failover only the
+        delivering hop's first token is client-visible."""
         if not _state.enabled:
             return
         now = time.perf_counter() if now is None else now
@@ -166,6 +188,28 @@ class RequestRecord:
 
     # -- completion --------------------------------------------------------
 
+    def note_hop(self, replica) -> None:
+        if not _state.enabled:
+            return
+        with self._lock:
+            self.hops.append(replica)
+
+    def drop_hop(self) -> None:
+        """Retract the most recent hop: the placement it announced was
+        refused at admission (queue shed or closed), so the replica
+        never held this request and must not appear in its trail."""
+        if not _state.enabled:
+            return
+        with self._lock:
+            if self.hops:
+                self.hops.pop()
+
+    def note_retry(self) -> None:
+        if not _state.enabled:
+            return
+        with self._lock:
+            self.retries += 1
+
     @property
     def done(self) -> bool:
         return self._done
@@ -173,7 +217,8 @@ class RequestRecord:
     def complete(self, now: Optional[float] = None,
                  outcome: str = "completed") -> None:
         """Finalize: close the open phase, stamp the total, publish to
-        the owning ring. Idempotent — the first completion wins."""
+        the owning ring. Idempotent — the first completion wins (fleet
+        and replica layers may both report a terminal outcome)."""
         if not _state.enabled:
             return
         now = time.perf_counter() if now is None else now
@@ -188,6 +233,15 @@ class RequestRecord:
         if ring is not None:
             ring.add(self)
 
+    def attempt_failed(self, outcome: str,
+                       now: Optional[float] = None) -> None:
+        """One replica attempt failed. Standalone requests finalize
+        (the attempt WAS the request); fleet-owned records stay open —
+        the fleet decides between a ``failover`` mark and a final
+        :meth:`complete`."""
+        if not self.fleet_owned:
+            self.complete(now, outcome=outcome)
+
     # -- introspection -----------------------------------------------------
 
     def missed_deadline(self) -> Optional[bool]:
@@ -199,14 +253,17 @@ class RequestRecord:
                 and self.total_ms > self.deadline_ms)
 
     def snapshot(self) -> Dict[str, Any]:
-        """JSON-ready view; works mid-flight (an open record reports
-        its current phase and elapsed time)."""
+        """JSON-ready view; works mid-flight (the in-flight request
+        table of a fleet; an open record reports its current phase and
+        elapsed time)."""
         with self._lock:
             out: Dict[str, Any] = {
                 "id": self.key,
                 "outcome": self.outcome,
                 "phases_ms": {k + "_ms": round(v, 4)
                               for k, v in self.phases.items()},
+                "hops": list(self.hops),
+                "retries": self.retries,
                 "kv_pages": self.kv_pages,
                 "decode_steps": self.decode_steps,
                 "tokens": self.tokens,
@@ -237,7 +294,8 @@ class RequestTraceRing:
     registry gauges + chrome lane export.
 
     The registry gets ``<prefix>.<phase>_ms`` / ``.ttft_ms`` /
-    ``.total_ms`` / ``.decode_steps`` / ``.kv_pages`` / ``.requests``
+    ``.total_ms`` / ``.decode_steps`` / ``.kv_pages`` / ``.hops`` /
+    ``.requests``
     gauges (window summaries sampled at snapshot time) and the SLO
     family under ``serve.slo.*``: ``deadline_miss_rate``,
     ``deadline_miss_budget_consumed`` (that rate over ``slo_budget``),
@@ -274,6 +332,8 @@ class RequestTraceRing:
             self._column_fn(lambda r: float(r.decode_steps) or None))
         g(f"{prefix}.kv_pages").set_fn(
             self._column_fn(lambda r: float(r.kv_pages) or None))
+        g(f"{prefix}.hops").set_fn(
+            self._column_fn(lambda r: float(len(r.hops)) or None))
         g(f"{prefix}.prefix_hit_pages").set_fn(
             self._column_fn(
                 lambda r: float(r.prefix_hit_pages) or None))

@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from parallax_tpu_torch.compile import graphs as graphs_lib
 from parallax_tpu_torch.ops import _cuda
 
 _NEG_INF = -1e30
@@ -241,7 +242,6 @@ def _mask_ptr(kv_mask):
 
 
 def _kernel(q, k, v, causal, scale, kv_mask):
-    global launches
     _check_kernel_inputs(q, k, v, kv_mask)
     B, Tq, H, hd = q.shape
     Tk = k.shape[1]
@@ -257,12 +257,11 @@ def _kernel(q, k, v, causal, scale, kv_mask):
               float(scale), int(bool(causal)),
               torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(source, code, "flash_attention")
-    launches += 1
+    graphs_lib.count_launch(__name__, "launches")
     return out, lse
 
 
 def _dq_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
-    global launches_dq
     _check_backward_inputs(q, k, v, kv_mask, dout, lse, delta)
     B, Tq, H, hd = q.shape
     Tk = k.shape[1]
@@ -278,12 +277,11 @@ def _dq_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
               int(bool(causal)),
               torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(source, code, "flash_attention dq")
-    launches_dq += 1
+    graphs_lib.count_launch(__name__, "launches_dq")
     return dq
 
 
 def _dkv_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
-    global launches_dkv
     _check_backward_inputs(q, k, v, kv_mask, dout, lse, delta)
     B, Tq, H, hd = q.shape
     Tk = k.shape[1]
@@ -299,7 +297,7 @@ def _dkv_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
               int(bool(causal)),
               torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(source, code, "flash_attention dk/dv")
-    launches_dkv += 1
+    graphs_lib.count_launch(__name__, "launches_dkv")
     return dk, dv
 
 

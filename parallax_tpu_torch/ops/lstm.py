@@ -62,6 +62,7 @@ from typing import NamedTuple
 
 import torch
 
+from parallax_tpu_torch.compile import graphs as graphs_lib
 from parallax_tpu_torch.ops import _cuda
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -327,7 +328,6 @@ def _check(name, xw_like, tensors):
 
 
 def _kernel_fwd(xw, w_h, w_proj, residuals):
-    global launches_fwd, launches_fwd_res
     name = "lstm_fwd_res" if residuals else "lstm_fwd"
     dt = xw.dtype
     if dt not in KERNEL_DTYPES:
@@ -355,9 +355,9 @@ def _kernel_fwd(xw, w_h, w_proj, residuals):
     else:
         _first_fwd(name, xw, w_h, w_proj, hs, gates, cseq)
     if residuals:
-        launches_fwd_res += 1
+        graphs_lib.count_launch(__name__, "launches_fwd_res")
         return hs, gates, cseq
-    launches_fwd += 1
+    graphs_lib.count_launch(__name__, "launches_fwd")
     return hs
 
 
@@ -404,7 +404,6 @@ def _first_fwd(name, xw, w_h, w_proj, hs, gates, cseq):
 
 
 def _kernel_bwd(g, gates, cseq, w_h, w_proj):
-    global launches_bwd
     dt = gates.dtype
     if dt not in KERNEL_DTYPES or g.dtype != torch.float32:
         raise ValueError(f"lstm_bwd kernel takes fp32 g and residuals in "
@@ -434,7 +433,7 @@ def _kernel_bwd(g, gates, cseq, w_h, w_proj):
         _sm90_bwd(route, g, gates, cseq, w_h, w_proj, dxw, dhtot)
     else:
         _first_bwd(g, gates, cseq, w_h, w_proj, dxw, dhtot)
-    launches_bwd += 1
+    graphs_lib.count_launch(__name__, "launches_bwd")
     return dxw, dhtot
 
 

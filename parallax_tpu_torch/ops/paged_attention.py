@@ -47,6 +47,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from parallax_tpu_torch.compile import graphs as graphs_lib
 from parallax_tpu_torch.ops import _cuda
 
 _NEG_INF = -1e30
@@ -254,7 +255,6 @@ def _kernel(q, k_pool, v_pool, pages, pos, num_heads, page_size,
 def _launch(q, k_pool, v_pool, pages, pos, num_heads, page_size,
             pool_pages, plan: SplitPlan):
     """The kernel call under ``plan`` (checked inputs)."""
-    global launches, launches_combine
     S, G, D = q.shape
     out = torch.empty_like(q)
     if S == 0:
@@ -273,9 +273,9 @@ def _launch(q, k_pool, v_pool, pages, pos, num_heads, page_size,
               int(q.dtype == torch.bfloat16),
               torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check("paged_attention", code, "paged_decode_attention")
-    launches += 1
+    graphs_lib.count_launch(__name__, "launches")
     if plan.nsplit > 1:
-        launches_combine += 1
+        graphs_lib.count_launch(__name__, "launches_combine")
     return out
 
 

@@ -159,6 +159,15 @@ class _ServeProgram(DecodeProgram):
                     if dst is not src:
                         dst.copy_(src)
 
+    def _on_device(self, rs):
+        """A request state's leaves as tensors on the program's device.
+        An imported prefill (serve/disagg.py) arrives as host arrays,
+        bf16 leaves widened to fp32 on the wire; the inserting writes
+        cast them to the cache dtype."""
+        return {k: v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v)).to(self.device)
+                for k, v in rs.items()}
+
     def _hold(self, rs: Dict[str, torch.Tensor]):
         """An eager prefill's result, copied into the buffer the program
         reuses for every eager prefill: the same lifetime a graph's
@@ -678,7 +687,7 @@ class NMTDecodeProgram(_ServeProgram):
     def insert(self, state, slot, request_state):
         """Write one prefilled request into slot ``slot`` (in place)."""
         j = int(slot)
-        rs = request_state
+        rs = self._on_device(request_state)
         state["ck"][:, j] = rs["ck"][:, 0]
         state["cv"][:, j] = rs["cv"][:, 0]
         state["src_valid"][j] = rs["src_valid"][0]
@@ -979,7 +988,7 @@ class _CausalKVDecodeProgram(_ServeProgram):
         padded rows to the spare page) or into the slot's rows (dense),
         then its ``base`` and ``first``."""
         j = int(slot)
-        rs = request_state
+        rs = self._on_device(request_state)
         if self.insert_pages:
             row = self._ints(pages).reshape(1, -1)
             t0 = rs["base"][0] + 1

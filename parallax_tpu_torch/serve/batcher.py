@@ -1,8 +1,12 @@
-"""Request futures, the serve error taxonomy and the admission queue.
+"""Request futures, the serve error taxonomy, the admission queue and
+the one-shot micro-batcher.
 
-Clients submit single-request feeds; the continuous-decode scheduler
-pops them one at a time into decode slots. Admission control keeps the
-system stable under overload:
+Clients submit single-request feeds. The continuous-decode scheduler
+pops them one at a time into decode slots; the one-shot micro-batcher
+fuses them into device batches under two bounds — ``max_batch`` (a
+full batch dispatches at once) and ``max_wait_ms`` (a partial batch
+dispatches once its OLDEST request has waited that long). Admission
+control keeps the system stable under overload:
 
 * a bounded queue (``max_queue``) — a submit beyond it is SHED with
   :class:`ServeOverloaded` raised synchronously to the caller, so
@@ -12,8 +16,14 @@ system stable under overload:
   future) rather than computed for a caller who already gave up;
 * per-tenant quotas and SLO-class priorities (``ServeConfig``).
 
+Batches are formed per *group key* (the padded example signature the
+session computes at submit time): requests in one device batch share a
+shape signature, and the group of the oldest waiting request forms
+first, so no signature starves.
+
 ``close()`` stops admission; the already-accepted queue stays
-servable until the session's drain window ends.
+servable until the session's drain window ends (partial batches
+dispatch at once while draining).
 """
 
 from __future__ import annotations
@@ -22,6 +32,9 @@ import itertools
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+from parallax_tpu_torch.common.lib import parallax_log
+from parallax_tpu_torch.obs import trace
 
 
 class ServeError(RuntimeError):
@@ -34,8 +47,9 @@ class ServeError(RuntimeError):
     * ``retryable`` — another attempt (later, or on another replica,
       within the original deadline) may succeed.
     * ``fatal`` — the replica that raised it is DEAD: the serving loop
-      that observes it stops and fails everything it holds with
-      :class:`ReplicaUnavailable`.
+      that observes it stops, fails everything it holds with
+      :class:`ReplicaUnavailable`, and reports ``on_fatal`` so a fleet
+      can eject the replica and fail work over.
     """
 
     retryable = False
@@ -78,7 +92,8 @@ class DeadlineExceeded(ServeError):
 class ServeClosed(ServeError):
     """The session closed before this request could be served.
 
-    Permanent for the session the caller submitted to."""
+    Permanent for the session the caller submitted to (the fleet maps
+    a replica-side close into :class:`ReplicaUnavailable` instead)."""
 
     retryable = False
 
@@ -87,9 +102,9 @@ class ReplicaUnavailable(ServeError):
     """The replica holding this request died or was ejected before
     completing it (crash, non-finite output, forced ejection).
 
-    Transient: the request was accepted but never served — nothing was
-    delivered, so a retry on a healthy replica cannot double-serve
-    it."""
+    Transient at the fleet tier: the request was accepted but never
+    served — nothing was delivered, so a retry on a healthy replica
+    cannot double-serve it."""
 
     retryable = True
 
@@ -100,7 +115,7 @@ _req_ids = itertools.count()
 class Request:
     """One submitted request: the feed plus a future for its result.
 
-    ``result()`` blocks until the scheduler completes or fails the
+    ``result()`` blocks until the serving loop completes or fails the
     request (re-raising the failure); ``done()`` never blocks. Times
     are ``time.perf_counter()`` seconds: ``t_enqueue`` at submit,
     ``deadline`` absolute (None = no deadline), ``t_done`` when the
@@ -110,24 +125,26 @@ class Request:
     (:class:`~parallax_tpu_torch.obs.reqtrace.RequestRecord`, attached by the
     owning session; None with the obs layer disabled). Terminal
     transitions finalize it here — the single completion point —
-    so every path (delivery, deadline expiry in queue or mid-decode,
-    scheduler death, close) lands in the request
+    so every path (delivery, batch failure, deadline expiry in queue, at
+    dispatch or mid-decode, replica death, close) lands in the request
     timeline without each call site having to remember to.
     """
 
-    __slots__ = ("id", "feed", "deadline", "max_new_tokens",
+    __slots__ = ("id", "feed", "deadline", "group_key", "max_new_tokens",
                  "tenant", "slo_rank", "t_enqueue", "t_done",
                  "t_first_token", "rec", "_event", "_result", "_error",
                  "_callbacks")
 
     def __init__(self, feed: Dict[str, Any],
                  deadline: Optional[float] = None,
+                 group_key: Any = None,
                  max_new_tokens: Optional[int] = None,
                  tenant: Any = None,
                  slo_rank: int = 0):
         self.id = next(_req_ids)
         self.feed = feed
         self.deadline = deadline
+        self.group_key = group_key
         self.max_new_tokens = max_new_tokens
         # multi-tenant admission: the tenant this request
         # bills against (None = the anonymous default tenant) and its
@@ -166,7 +183,9 @@ class Request:
     def add_done_callback(self, fn: Callable[["Request"], None]) -> None:
         """``fn(request)`` runs exactly once when the request completes
         or fails — immediately (on the calling thread) if it already
-        did, else on whichever thread delivers the outcome. Callback
+        did, else on whichever thread delivers the outcome. The fleet
+        chains sub-request outcomes to its own futures through this
+        instead of a watcher thread per request. Callback
         exceptions are swallowed (a broken observer must not fail the
         serving loop)."""
         self._callbacks.append(fn)
@@ -189,7 +208,7 @@ class Request:
     def _complete(self, result) -> None:
         self.t_done = time.perf_counter()
         if self.rec is not None:
-            # finalized BEFORE the event fires: a done-callback
+            # finalized BEFORE the event fires: a fleet done-callback
             # reading the record sees the completed decomposition
             self.rec.complete(self.t_done)
         self._result = result
@@ -199,20 +218,26 @@ class Request:
     def _fail(self, exc: BaseException) -> None:
         self.t_done = time.perf_counter()
         if self.rec is not None:
-            outcome = ("deadline_exceeded"
-                       if isinstance(exc, DeadlineExceeded)
-                       else type(exc).__name__)
-            self.rec.complete(self.t_done, outcome=outcome)
+            if isinstance(exc, DeadlineExceeded):
+                # a spent budget is final at every tier — no retry can
+                # unmiss a deadline, so the record closes here
+                self.rec.complete(self.t_done,
+                                  outcome="deadline_exceeded")
+            else:
+                # a fleet-owned record stays open for failover; a
+                # standalone one finalizes with the failure class
+                self.rec.attempt_failed(type(exc).__name__, self.t_done)
         self._error = exc
         self._event.set()
         self._drain_callbacks()
 
 
 class RequestQueue:
-    """Bounded FIFO with deadline shedding, tenant quotas and SLO-class
-    priority; the continuous-decode scheduler pops from it."""
+    """Bounded FIFO with deadline shedding, tenant quotas, SLO-class
+    priority and group-aware batch formation; shared by the one-shot
+    micro-batcher and the continuous-decode scheduler."""
 
-    def __init__(self, max_queue: int, metrics=None,
+    def __init__(self, max_queue: int, metrics=None, on_timeout=None,
                  tenant_quotas: Optional[Dict[Any, int]] = None,
                  default_tenant_quota: Optional[int] = None):
         self.max_queue = int(max_queue)
@@ -240,6 +265,12 @@ class RequestQueue:
         # rank-free sessions (the overwhelming default) keep pop() at
         # the old O(1) head-pop instead of paying a priority scan
         self._ranked_ever = False
+        # ``on_timeout(n)``: the SLO-breach hook (the serve session points
+        # it at its flight recorder). Expiries are detected under the
+        # queue lock but reported OUTSIDE it (_report_expired): the hook
+        # may do file I/O and must not stall producers or consumers.
+        self._on_timeout = on_timeout
+        self._expired_unreported = 0
 
     def __len__(self) -> int:
         with self._cond:
@@ -255,6 +286,10 @@ class RequestQueue:
 
     def _quota_of(self, tenant) -> Optional[int]:
         return self._tenant_quotas.get(tenant, self._default_quota)
+
+    def tenant_outstanding(self, tenant) -> int:
+        with self._cond:
+            return self._tenant_outstanding.get(tenant, 0)
 
     def _release_tenant(self, req: Request) -> None:
         with self._cond:
@@ -318,6 +353,7 @@ class RequestQueue:
             if r.deadline is not None and now > r.deadline:
                 if self._timeouts is not None:
                     self._timeouts.inc()
+                self._expired_unreported += 1
                 r._fail(DeadlineExceeded(
                     f"request {r.id} deadline expired after "
                     f"{now - r.t_enqueue:.3f}s in queue"))
@@ -325,6 +361,20 @@ class RequestQueue:
                 kept.append(r)
         self._items = kept
         self._set_depth_locked()
+
+    def _report_expired(self) -> None:
+        """Fire ``on_timeout`` for expiries detected since the last
+        report; called with the lock RELEASED."""
+        if self._on_timeout is None:
+            return
+        with self._cond:
+            n, self._expired_unreported = self._expired_unreported, 0
+        if n:
+            try:
+                self._on_timeout(n)
+            except Exception:
+                # forensics must never take the serving loop down
+                pass
 
     def pop(self, timeout: float = 0.05) -> Optional[Request]:
         """Best non-expired request, or None after ``timeout`` (also
@@ -336,25 +386,67 @@ class RequestQueue:
         via :meth:`requeue_front` keeps the head position of its own
         rank)."""
         end = time.perf_counter() + timeout
-        with self._cond:
-            while True:
+        try:
+            with self._cond:
+                while True:
+                    now = time.perf_counter()
+                    self._shed_expired_locked(now)
+                    if self._items:
+                        if self._ranked_ever:
+                            best = min(range(len(self._items)),
+                                       key=lambda i:
+                                       (self._items[i].slo_rank, i))
+                        else:
+                            # no ranked request ever admitted: the scan
+                            # provably returns 0 — skip it
+                            best = 0
+                        req = self._items.pop(best)
+                        self._set_depth_locked()
+                        return req
+                    if self._closed or now >= end:
+                        return None
+                    self._cond.wait(min(0.02, max(0.0, end - now)))
+        finally:
+            self._report_expired()
+
+    def form_group(self, max_n: int, max_wait_s: float,
+                   stop: threading.Event,
+                   poll_s: float = 0.05) -> List[Request]:
+        """Form one batch: up to ``max_n`` requests sharing the OLDEST
+        waiting request's ``group_key``, dispatched as soon as the
+        group is full, the oldest member has waited ``max_wait_s``, or
+        the queue is draining (closed). Returns [] when there is
+        nothing to serve yet (the caller loops)."""
+        try:
+            with self._cond:
                 now = time.perf_counter()
                 self._shed_expired_locked(now)
-                if self._items:
-                    if self._ranked_ever:
-                        best = min(range(len(self._items)),
-                                   key=lambda i:
-                                   (self._items[i].slo_rank, i))
-                    else:
-                        # no ranked request ever admitted: the scan
-                        # provably returns 0 — skip it
-                        best = 0
-                    req = self._items.pop(best)
-                    self._set_depth_locked()
-                    return req
-                if self._closed or now >= end:
-                    return None
-                self._cond.wait(min(0.02, max(0.0, end - now)))
+                if not self._items:
+                    if not (self._closed or stop.is_set()):
+                        self._cond.wait(poll_s)
+                        self._shed_expired_locked(time.perf_counter())
+                    if not self._items:
+                        return []
+                key = self._items[0].group_key
+                dispatch_at = self._items[0].t_enqueue + max_wait_s
+            while True:
+                with self._cond:
+                    now = time.perf_counter()
+                    self._shed_expired_locked(now)
+                    matching = [r for r in self._items
+                                if r.group_key == key]
+                    full = len(matching) >= max_n
+                    due = now >= dispatch_at
+                    if full or due or self._closed or stop.is_set():
+                        take = matching[:max_n]
+                        for r in take:
+                            self._items.remove(r)
+                        self._set_depth_locked()
+                        return take
+                    self._cond.wait(
+                        min(poll_s, max(0.001, dispatch_at - now)))
+        finally:
+            self._report_expired()
 
     def close(self) -> None:
         """Stop admission; queued requests stay servable (drain)."""
@@ -371,3 +463,122 @@ class RequestQueue:
         for r in items:
             r._fail(exc)
         return len(items)
+
+
+class MicroBatcher:
+    """The one-shot dispatch loop: forms batches off a
+    :class:`RequestQueue` and hands them to ``run_batch(requests)``
+    (the session's pad-copy-replay-split callback) on a dedicated
+    daemon thread. A ``run_batch`` failure fails exactly that batch's
+    requests — the loop (and every other request) survives — UNLESS
+    the exception declares ``fatal = True`` (an injected replica crash,
+    or any condition after which the replica cannot be trusted): then
+    the loop fails the batch AND everything still queued with
+    :class:`ReplicaUnavailable`, closes admission, reports ``on_fatal``
+    and exits — a dead replica fails fast instead of serving garbage
+    or hanging its clients.
+
+    ``heartbeat`` is refreshed every loop pass (idle polls included);
+    a fleet router treats a stale heartbeat as a stalled replica.
+    ``on_error(exc, n)`` reports every failed batch (the router's
+    error-rate signal); ``alive`` flips False on the fatal path.
+    """
+
+    def __init__(self, queue: RequestQueue, run_batch: Callable,
+                 max_batch: int, max_wait_ms: float,
+                 name: str = "parallax-serve-batcher",
+                 on_error: Optional[Callable] = None,
+                 on_fatal: Optional[Callable] = None):
+        self._queue = queue
+        self._run_batch = run_batch
+        self._max_batch = int(max_batch)
+        self._max_wait_s = float(max_wait_ms) / 1e3
+        self._stop = threading.Event()
+        self._on_error = on_error
+        self._on_fatal = on_fatal
+        self.alive = True
+        self.busy = False
+        self.heartbeat = time.perf_counter()
+        self._thread = threading.Thread(target=self._loop, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def _die(self, batch, cause: BaseException) -> None:
+        """Fatal path: this replica is done serving. The in-flight
+        batch and the whole queue fail with ReplicaUnavailable (the
+        RETRYABLE wrapper — nothing was delivered, so a fleet retry
+        cannot double-serve), admission closes, on_fatal fires."""
+        self.alive = False
+        err = ReplicaUnavailable(
+            f"serving replica died: {type(cause).__name__}: {cause}")
+        err.__cause__ = cause
+        for r in batch:
+            if not r.done():
+                r._fail(err)
+        self._queue.close()
+        n = self._queue.fail_all(err)
+        parallax_log.error(
+            "serve batcher died (%s); failed %d queued request(s)",
+            cause, n)
+        if self._on_fatal is not None:
+            try:
+                self._on_fatal(cause)
+            except Exception:
+                pass
+
+    def _loop(self) -> None:
+        while True:
+            self.heartbeat = time.perf_counter()
+            if self._stop.is_set():
+                return
+            batch = self._queue.form_group(self._max_batch,
+                                           self._max_wait_s, self._stop)
+            if batch:
+                if self._stop.is_set():
+                    # fast close (no drain): stop arrived while the
+                    # group formed — these requests are FAILED, not
+                    # served, as the close contract says
+                    for r in batch:
+                        r._fail(ServeClosed(
+                            "session closed without drain"))
+                    continue
+                try:
+                    self.busy = True
+                    with trace.span("serve.batch", n=len(batch)):
+                        self._run_batch(batch)
+                except BaseException as e:
+                    if self._on_error is not None:
+                        try:
+                            self._on_error(e, len(batch))
+                        except Exception:
+                            pass
+                    if getattr(e, "fatal", False):
+                        self._die(batch, e)
+                        return
+                    # fail the batch, not the loop
+                    parallax_log.warning(
+                        "serve batch of %d request(s) failed: %s",
+                        len(batch), e)
+                    for r in batch:
+                        if not r.done():
+                            r._fail(e if isinstance(e, Exception)
+                                    else ServeError(str(e)))
+                finally:
+                    self.busy = False
+                continue
+            if self._queue.closed and len(self._queue) == 0:
+                return
+
+    def drain(self, timeout_s: float) -> None:
+        """Wait for the loop to serve the closed queue to completion
+        (call after ``queue.close()``); hard-stops at the timeout —
+        with ``timeout_s=0`` (close without drain) the loop fails
+        still-queued requests instead of serving them."""
+        if timeout_s > 0:
+            self._thread.join(timeout=timeout_s)
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        if self._thread.is_alive():
+            parallax_log.warning(
+                "serve batcher thread did not stop within the drain "
+                "window; undrained requests will be failed by close()")

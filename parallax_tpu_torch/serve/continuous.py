@@ -50,6 +50,17 @@ replays them, with one device-to-host copy of the tokens an iteration.
 A program without ``capture`` is warmed by running each callable once on
 a throwaway state. Either way the CUDA kernels are built before the
 first request.
+
+A program serves ONE live scheduler: its captured graphs are keyed on
+that scheduler's params and state, and the host-to-device staging
+buffers, the reused prefill result and the pinned output buffer are the
+program's own. A second scheduler built on a program another live
+scheduler holds is refused (``ValueError``); the binding is released
+when the holder drains (``ServeSession.close``) or dies. A fleet builds
+one program per replica. (Under ``jax.jit`` one program instance is
+safely shared; here sharing would either re-capture under the first
+scheduler, which then replays nothing, or let two threads stage into
+one buffer.)
 """
 
 from __future__ import annotations
@@ -177,11 +188,24 @@ class ContinuousScheduler:
     TOKENS_PER_SEC_WINDOW = 50
 
     def __init__(self, program, params, serve_config, metrics,
-                 queue: RequestQueue):
+                 queue: RequestQueue,
+                 name: str = "parallax-serve-decode",
+                 on_deadline_breach=None, replica_id=None,
+                 faults=None, on_fatal=None, on_error=None):
         self._program = program
+        # fleet wiring: deterministic fault hooks consulted once per
+        # loop pass, and death/error reporting for the router
+        self._replica_id = replica_id
+        self._bind()
         self._params = params
         self._queue = queue
         self.metrics = metrics
+        self._faults = faults
+        self._on_fatal = on_fatal
+        self._on_error = on_error
+        # the SLO-breach hook for MID-DECODE expiries (queued expiries go
+        # through the queue's own on_timeout)
+        self._on_deadline_breach = on_deadline_breach
         self.alive = True
         self.heartbeat = time.perf_counter()
         self._S = int(serve_config.max_batch)
@@ -282,11 +306,39 @@ class ContinuousScheduler:
         self._stop = threading.Event()
         self._kick = threading.Event()
         self._state = None
-        self._warm()
-        self._thread = threading.Thread(target=self._loop,
-                                        name="parallax-serve-decode",
+        try:
+            self._warm()
+        except BaseException:
+            self._release()
+            raise
+        self._thread = threading.Thread(target=self._loop, name=name,
                                         daemon=True)
         self._thread.start()
+
+    # -- the program binding -------------------------------------------------
+
+    _bind_lock = threading.Lock()
+
+    def _bind(self) -> None:
+        """Take the program for this scheduler; refused while another
+        live scheduler holds it (module docstring)."""
+        program = self._program
+        with self._bind_lock:
+            owner = getattr(program, "_serve_owner", None)
+            if owner is not None and owner is not self:
+                raise ValueError(
+                    f"this {type(program).__name__} already serves a live "
+                    f"session (replica {owner._replica_id!r}): its "
+                    f"captured graphs and staging buffers belong to that "
+                    f"session's scheduler. Build one program per replica "
+                    f"(a fleet's make_replica builds its own), or close "
+                    f"the other session first")
+            program._serve_owner = self
+
+    def _release(self) -> None:
+        with self._bind_lock:
+            if getattr(self._program, "_serve_owner", None) is self:
+                self._program._serve_owner = None
 
     # -- warmup ------------------------------------------------------------
 
@@ -562,8 +614,11 @@ class ContinuousScheduler:
             req._complete(out)
             self._completed.inc()
             self._latency.record((now - req.t_enqueue) * 1e3)
-            trace.record_span("serve.request", req.t_enqueue, now,
-                              id=req.id, tokens=n_replay)
+            trace.record_span(
+                "serve.request", req.t_enqueue, now, id=req.id,
+                tokens=n_replay, replica=self._replica_id,
+                rid=(rec.key if rec is not None else req.id),
+                hops=(len(rec.hops) if rec is not None else 1))
             return "completed", None
         with trace.span("serve.prefix_map", slot=j, id=req.id,
                         replay=n_replay):
@@ -735,8 +790,15 @@ class ContinuousScheduler:
         req._complete(np.asarray(slot.tokens, np.int32))
         self._completed.inc()
         self._latency.record((now - req.t_enqueue) * 1e3)
-        trace.record_span("serve.request", req.t_enqueue, now, id=req.id,
-                          tokens=len(slot.tokens))
+        # ONE span per logical request, emitted by the delivering replica
+        # only (a crashed hop never retires), with the final replica id
+        # and the hop count
+        rec = req.rec
+        trace.record_span(
+            "serve.request", req.t_enqueue, now, id=req.id,
+            tokens=len(slot.tokens), replica=self._replica_id,
+            rid=(rec.key if rec is not None else req.id),
+            hops=(len(rec.hops) if rec is not None else 1))
 
     def _drop_slot(self, j: int, exc: BaseException) -> None:
         slot = self._slots[j]
@@ -746,11 +808,13 @@ class ContinuousScheduler:
         slot.req._fail(exc)
 
     def _expire_slots(self, now: float) -> None:
+        n_expired = 0
         for j, slot in enumerate(self._slots):
             if slot is None or slot.req.deadline is None:
                 continue
             if now > slot.req.deadline:
                 self._timeouts.inc()
+                n_expired += 1
                 self._drop_slot(j, DeadlineExceeded(
                     f"request {slot.req.id} deadline expired mid-"
                     f"decode after {len(slot.tokens)} token(s)"))
@@ -759,9 +823,16 @@ class ContinuousScheduler:
                 self._pending.remove(pp)
                 self._release_pages(pp.pages)
                 self._timeouts.inc()
+                n_expired += 1
                 pp.req._fail(DeadlineExceeded(
                     f"request {pp.req.id} deadline expired mid-"
                     f"prefill after {pp.k} chunk(s)"))
+        if n_expired and self._on_deadline_breach is not None:
+            try:
+                self._on_deadline_breach(n_expired, where="decode")
+            except Exception:
+                # forensics must never take the decode loop down
+                pass
 
     def _fail_active(self, exc: BaseException) -> None:
         """Fail every in-flight slot and pending prefill — called ONLY
@@ -870,6 +941,10 @@ class ContinuousScheduler:
                 self._fail_active(ServeClosed(
                     "session closed mid-decode"))
                 return
+            if self._faults is not None:
+                # chaos hook: may raise ReplicaCrash (the fatal path) or
+                # sleep through an injected stall
+                self._faults.on_dispatch(self._replica_id)
             self._expire_slots(time.perf_counter())
             if self._chunks > 1:
                 self._advance_prefill()
@@ -891,8 +966,10 @@ class ContinuousScheduler:
 
     def _fatal(self, cause: BaseException) -> None:
         """The decode loop died: fail in-flight slots, pending prefills
-        and the whole queue with ReplicaUnavailable and close
-        admission."""
+        and the whole queue with ReplicaUnavailable (retryable — no
+        request ever delivered a result, so failover cannot
+        double-serve), close admission, release the program and report
+        ``on_error`` and ``on_fatal``."""
         self.alive = False
         err = ReplicaUnavailable(
             f"decode scheduler died: {type(cause).__name__}: {cause}")
@@ -907,6 +984,17 @@ class ContinuousScheduler:
         parallax_log.error(
             "serve decode loop died (%s: %s); failed %d queued "
             "request(s)", type(cause).__name__, cause, n)
+        self._release()
+        if self._on_error is not None:
+            try:
+                self._on_error(cause, n)
+            except Exception:
+                pass
+        if self._on_fatal is not None:
+            try:
+                self._on_fatal(cause)
+            except Exception:
+                pass
 
     # -- quiescence and the params swap ------------------------------------
 
@@ -964,6 +1052,8 @@ class ContinuousScheduler:
                          "serve.prefix.shared_pages"):
                 self.metrics.gauge(name).set_fn(None)
         self._state = None
+        if not self._thread.is_alive():
+            self._release()
 
 
 __all__ = ["DecodeProgram", "ContinuousScheduler"]

@@ -39,9 +39,10 @@ reads.
 Ported: ``run``, ``run_iter``, ``Fetch``, ``state`` (with its ``model_state``
 for a stateful model), ``engine``, ``evaluate``, ``warmup``,
 ``compile_stats``, ``gather_params``, ``sparse_wire_bytes_per_step``,
-``close`` and ``metrics_snapshot``. The rest of the
-JAX session (checkpoints, profiling hooks, recovery, health and anomaly
-monitors, the partition search, serving handoff) is not.
+``close``, ``metrics_snapshot`` and the serving handoff (``serve``,
+``push_weights``). The rest of the JAX session (checkpoints, profiling
+hooks, recovery, health and anomaly monitors, the partition search) is
+not.
 """
 
 from __future__ import annotations
@@ -443,6 +444,43 @@ class ParallaxSession:
             raise RuntimeError("sparse_wire_bytes_per_step() called before "
                                "any step was traced; run a step first")
         return self._engine.sparse_wire_bytes_per_step()
+
+    # -- online serving (serve/) ------------------------------------------
+
+    def serve(self, infer_fn=None, program=None, **kw):
+        """Put the trained parameters behind a request queue: a
+        :class:`~parallax_tpu_torch.serve.session.ServeSession` on this
+        session's device, sharing its metrics registry (``serve.*``
+        next to ``session.*``), serving ``gather_params()`` (copied on
+        the device into the serve session's own leaves). Pass
+        ``infer_fn(params, batch)`` for one-shot inference (plus
+        ``example_feed=``) or ``program=`` for continuous decode;
+        remaining kwargs forward to ``ServeSession``. Serving knobs come
+        from this session's ``Config.serve_config``. Requires a built
+        engine (``prepare(example_feed)`` or any step first)."""
+        from parallax_tpu_torch.serve import ServeSession
+        if self._engine is None:
+            raise ValueError(
+                "serve() needs a built engine: call "
+                "prepare(example_feed) (or run a step) first")
+        kw.setdefault("device", self._device)
+        return ServeSession(infer_fn, self.gather_params(),
+                            program=program, config=self._config,
+                            metrics=self.metrics, **kw)
+
+    def push_weights(self, fleet) -> dict:
+        """Train -> serve continuous deployment: hot-swap this session's
+        trained parameters into every replica of a
+        :class:`~parallax_tpu_torch.serve.fleet.ServeFleet`. The fleet
+        rotates replicas out one at a time (drain -> swap -> re-admit),
+        so traffic keeps flowing, and each swap copies into the replica's
+        own leaves in place, so nothing is captured again. Returns the
+        per-replica outcome map."""
+        if self._engine is None:
+            raise ValueError(
+                "push_weights() needs a built engine: call "
+                "prepare(example_feed) (or run a step) first")
+        return fleet.push_weights(self.gather_params())
 
     @property
     def state(self) -> Optional[engine_lib.TrainState]:

@@ -193,13 +193,15 @@ def test_import_prefix_then_decode_bit_identity(name):
     another session's prefix cache (a page-less entry), then the same
     feed submitted there: the hit admits with nothing replayed, the
     insert re-scatters the prompt K/V into fresh pages, and the stream
-    equals the standalone one."""
+    equals the standalone one. Each session has its own program: a
+    program serves one live session."""
     spec = TADAPTERS[name]
     _, _, prog, params = _pair(name, True, False)
+    pre_prog, _ = spec.build(paged=True, chunked=False, device="cpu")
     feed = _feeds(name, 1, seed=17)[0]
     want = tadapters.standalone_greedy(prog, params, feed, CAP)
     cfg = _config(tpx, spec, 2)
-    pre = tpx.ServeSession(program=prog, params=params, device="cpu",
+    pre = tpx.ServeSession(program=pre_prog, params=params, device="cpu",
                            config=cfg)
     dec = tpx.ServeSession(program=prog, params=params, device="cpu",
                            config=cfg)
