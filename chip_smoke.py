@@ -287,6 +287,37 @@ verify.
     max_src_len=20, max_len=32)``, 64 slots, 128 prompts of 2-20 ids:
     tokens/s and step p50 (plain cells, no kernel); 8 requests served in
     fp32 against ``standalone_greedy`` under the top-2-gap rule.
+18b. ``ckpt-resume`` (after ``lm1b-serve``): LM1BConfig() (slices, B2/B3)
+    fed by the native ``TokenDataset`` over a Zipf token file written from
+    SEED under a fresh temporary directory (its free space printed first;
+    under 3 x the state's bytes the phase fails). Run A: 10 steps with
+    async saves every 5, its step-10 save skipped (nothing reads it; the
+    step-5 commit is joined at ``close()``); run B, a new session on the
+    directory, must restore step 5 and data cursor 5, then
+    ``run_iter(TokenDataset(...), skip="auto")`` runs steps 5-9 (a sync
+    save at 10): losses bitwise equal to A's. Prints the checkpoint's
+    bytes, each save's seconds on the dispatch thread, the commit's join,
+    the restore's seconds, step ms p50 with and without a commit in
+    flight, and B2/B3's launches. The directory is removed.
+18c. ``nan-rollback``: NMTConfig(use_pallas_attention=True) (B4-B6) with
+    ``RecoveryConfig(enabled=True, snapshot_every_steps=2)``, captured; a
+    batch whose ``w`` holds a NaN at step 4: one rollback, the hook once,
+    the losses after it bitwise equal to a run of the clean batches alone;
+    then ``max_retries`` + 1 NaN batches raise ``RecoverySurrender``.
+18d. ``data-feed``: ResNet-50 (B 256, 224 px, batches made afresh each
+    step from a seeded generator: uint8 pixels scaled to float32), the
+    sequential loop against ``run_iter`` at prefetch depth 2, then the
+    same pair over 4 batches made ahead; LM1B fed by ``TokenDataset``, the
+    sequential loop against ``prefetch_to_device(..., place_batch)`` into
+    ``run_iter(placed=True)``: losses bitwise equal, images/s and words/s,
+    step ms p50 and data-wait ms p50 of each.
+18e. ``nmt-data``: NMTConfig() fed by ``NMTBatchIterator`` (batch 64,
+    buckets 16-64) over a corpus written from SEED (lengths 4-64),
+    ``shape_buckets=[64]`` and ``warmup()``; one untimed step a length
+    bucket captures its graph (each bucket after the first counted in
+    ``engine.recompiles``, as the JAX package counts it); then the epoch,
+    timed: one graph a bucket, no capture and no recompile inside the
+    timed loop, B4-B6 launched in each bucket, losses finite.
 
 19. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
     eagerly (``compile.disable_capture()``) and 5 as graph replays from
@@ -1689,9 +1720,10 @@ def phase_train(torch):
     torch.cuda.synchronize()
     for name in LSTM_COUNTERS:
         setattr(lstm, name, 0)
-    losses = []
-    for i in range(TRAIN["warmup"]):
-        losses.append(sess.run("loss", feed_dict=batches[i % 4]))
+    # the warmup through run_iter too: the staging ring's slots are
+    # allocated before the clock starts
+    losses = list(sess.run_iter(
+        (batches[i % 4] for i in range(TRAIN["warmup"])), fetches="loss"))
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True)]
     events[0].record()
@@ -2050,9 +2082,12 @@ def phase_nmt_train(torch):
     for name in FLASH_COUNTERS:
         setattr(fa, name, 0)
     pa.launches = 0
-    losses, words = [], []
-    for i in range(NMT_TRAIN["warmup"]):
-        losses.append(sess.run("loss", feed_dict=batches[i % 4]))
+    words = []
+    # the warmup through run_iter too: the staging ring's slots are
+    # allocated before the clock starts
+    losses = list(sess.run_iter(
+        (batches[i % 4] for i in range(NMT_TRAIN["warmup"])),
+        fetches="loss"))
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True)]
     events[0].record()
@@ -3171,8 +3206,11 @@ def phase_resnet_train(torch):
         raise AssertionError(f"model_state after the first step: "
                              f"{len(unchanged)} of {len(state0)} leaves "
                              f"unchanged (want 0 of 106)")
-    for i in range(1, RESNET["warmup"]):
-        losses.append(sess.run("loss", feed_dict=batches[i % 4]))
+    # the rest of the warmup through run_iter: the staging ring's slots
+    # are allocated before the clock starts
+    losses += sess.run_iter(
+        (batches[i % 4] for i in range(1, RESNET["warmup"])),
+        fetches="loss")
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True)]
     events[0].record()
@@ -4597,6 +4635,681 @@ def phase_graph_agree(torch):
     return summary
 
 
+# -- the input pipeline and checkpoints (data/, ckpt/) -----------------------
+
+# ckpt-resume: LM1B at its published widths fed by the native loader over a
+# Zipf token file written from SEED; run A 10 steps with async saves every
+# 5, its step-10 save skipped, run B resumes at 5 with sync saves
+CKPT = dict(batch=128, num_steps=20, steps=10, every=5, tokens=1 << 20,
+            space_factor=3)
+# nan-rollback: NMT at its published widths, a NaN in w at step 4
+NAN = dict(steps=8, nan_at=4, snapshot_every=2, max_retries=3)
+# data-feed: batches made afresh each step, or made ahead (4, cycled), fed
+# sequentially against prefetched; the first 4 of each run untimed
+FEED = dict(warm=4, resnet_steps=8, ahead_steps=16, lm1b_steps=12, depth=2)
+# nmt-data: a corpus written from SEED, sentence lengths 4-64, 4 buckets
+NMT_DATA = dict(pairs=2048, min_len=4, max_len=64, bucket_width=16,
+                batch=64)
+
+
+def lstm_counts():
+    from parallax_tpu_torch.ops import lstm
+    return {"lstm_fwd": lstm.launches_fwd,
+            "lstm_fwd_res": lstm.launches_fwd_res,
+            "lstm_bwd": lstm.launches_bwd}
+
+
+def zero_lstm_counts():
+    from parallax_tpu_torch.ops import lstm
+    for name in LSTM_COUNTERS:
+        setattr(lstm, name, 0)
+
+
+def flash_counts():
+    from parallax_tpu_torch.ops import flash_attention as fa
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_dq": fa.launches_dq,
+            "flash_attention_dkv": fa.launches_dkv}
+
+
+def zero_flash_counts():
+    from parallax_tpu_torch.ops import flash_attention as fa
+    for name in FLASH_COUNTERS:
+        setattr(fa, name, 0)
+
+
+def add_counts(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def zipf_token_file(path, vocab, n):
+    """``n`` tokens of ``lm1b.make_batch``'s Zipf law (the synthetic
+    stream of examples/lm1b_driver.py) from SEED, in the native loader's
+    format."""
+    from parallax_tpu_torch.data import write_token_file
+    rng = np.random.default_rng(SEED)
+    write_token_file(path, (rng.zipf(1.3, n) - 1) % vocab)
+
+
+def lm1b_ckpt_session(torch, **config_kw):
+    """LM1BConfig() (slices, B2/B3 on the sm90 route) through
+    parallel_run with ``Config(**config_kw)``."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import lm1b
+    cfg = lm1b.LM1BConfig(num_partitions=TRAIN["num_partitions"],
+                          sparse_grad_mode="slices", lstm_impl="kernel")
+    sess, *_ = pt.parallel_run(
+        lm1b.build_model(cfg), parallax_config=pt.Config(
+            run_option="HYBRID", sparse_grad_mode="slices", **config_kw),
+        seed=SEED, device=DEVICE)
+    return cfg, sess
+
+
+def time_saves(sess, skip=()):
+    """Clock the session's checkpoint save on the dispatch thread (a sync
+    save whole; an async save's join of the previous commit and the issue
+    of its copies to the host): a list of (step, seconds). The saves of
+    the steps in ``skip`` are not made."""
+    hook = sess._ckpt
+    save = hook._save
+    out = []
+
+    def timed(step, leaves, extras):
+        if step in skip:
+            return
+        t0 = time.perf_counter()
+        save(step, leaves, extras)
+        out.append((step, time.perf_counter() - t0))
+
+    hook._save = timed
+    return out
+
+
+def manifest_bytes(manifest):
+    """The state's bytes reckoned from a manifest: every leaf's elements
+    times its dtype's size."""
+    import torch
+    from parallax_tpu_torch.ckpt import snapshot
+    return sum(math.prod(e["shape"]) * torch.empty(
+        (), dtype=snapshot.torch_dtype(e["dtype"])).element_size()
+        for e in manifest["leaves"].values())
+
+
+def phase_ckpt_resume(torch):
+    """LM1B at its published widths fed by a native ``TokenDataset``:
+    run A takes 10 steps with async saves every 5 steps, the step-5 save
+    committed by the writer thread while steps 5-9 run and joined at
+    ``close()``, the step-10 save skipped (nothing reads it); run B, a
+    new session on the
+    same directory, restores step 5 and data cursor 5, skips 5 batches of a
+    new dataset (``run_iter(skip="auto")``) and runs steps 5-9 with a sync
+    save at 10. B's losses must equal A's bit for bit. Prints the
+    checkpoint's bytes, the seconds the dispatch thread spent in each save,
+    the commit's join at ``close()``, the restore, step ms p50 with and
+    without a commit in flight, and B2/B3's launches."""
+    import itertools
+    import shutil
+    import tempfile
+    from parallax_tpu_torch.ckpt import CheckpointStore, snapshot
+    from parallax_tpu_torch.data import TokenDataset
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="parallax-ckpt-resume-"))
+    try:
+        ck = str(root / "ck")
+        tokens = str(root / "tokens.bin")
+        cfg, a = lm1b_ckpt_session(torch, ckpt_config=_ckpt_config(
+            ck, async_save=True, max_to_keep=2))
+        zipf_token_file(tokens, cfg.vocab_size, CKPT["tokens"])
+        ds = TokenDataset(tokens, CKPT["batch"], CKPT["num_steps"],
+                          seed=SEED)
+        if ds.backend != "native":
+            raise AssertionError(f"TokenDataset backend {ds.backend!r}: "
+                                 f"the native loader did not build")
+        batches = [ds.next_batch() for _ in range(CKPT["steps"])]
+        ds.close()
+        a.prepare(batches[0])
+        state_bytes = sum(math.prod(leaf.shape) * torch.empty(
+            (), dtype=snapshot.torch_dtype(leaf.dtype)).element_size()
+            for leaf in a._state_leaves())
+        free = shutil.disk_usage(root).free
+        log(f"[ckpt-resume] state {state_bytes} bytes, free {free} bytes "
+            f"under {root}")
+        if free < CKPT["space_factor"] * state_bytes:
+            raise AssertionError(
+                f"ckpt-resume needs {CKPT['space_factor']} x {state_bytes} "
+                f"bytes free under {root}; {free} bytes are free")
+        capture_a = capture_train(torch, a, CKPT["batch"])
+        saves_a = time_saves(a, skip=(CKPT["steps"],))
+        zero_lstm_counts()
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        la, in_flight = [], []
+        for b in batches:
+            la.append(a.run("loss", feed_dict=b))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            w = a._ckpt._writer
+            in_flight.append(w is not None and w.is_alive())
+        torch.cuda.synchronize()
+        la = [float(x) for x in la]
+        step_ms = [x.elapsed_time(y) for x, y in zip(events, events[1:])]
+        launches = lstm_counts()
+        t0 = time.perf_counter()
+        a.close()                                  # joins the commit
+        close_s = time.perf_counter() - t0
+        del a
+        torch.cuda.empty_cache()
+        store = CheckpointStore(ck)
+        if store.complete_steps() != [CKPT["every"]]:
+            raise AssertionError(f"checkpoints {store.complete_steps()} "
+                                 f"after run A, want [{CKPT['every']}]")
+        manifest = store.read_manifest(5)
+        if manifest["extras"]["data_cursor"] != 5:
+            raise AssertionError(f"extras {manifest['extras']}")
+        ckpt_bytes = sum(p.stat().st_size
+                         for p in (Path(ck) / "5").iterdir())
+        reckoned = manifest_bytes(manifest)
+        _, b = lm1b_ckpt_session(torch, ckpt_config=_ckpt_config(
+            ck, async_save=False, max_to_keep=1))
+        t0 = time.perf_counter()
+        start = b.prepare(batches[0])
+        prepare_s = time.perf_counter() - t0
+        if start != 5 or b.data_cursor != 5:
+            raise AssertionError(f"run B restored step {start}, cursor "
+                                 f"{b.data_cursor}; want 5 and 5")
+        restore_s = b._ckpt.last_restore_seconds
+        capture_b = capture_train(torch, b, CKPT["batch"])
+        saves_b = time_saves(b)
+        zero_lstm_counts()
+        ds = TokenDataset(tokens, CKPT["batch"], CKPT["num_steps"],
+                          seed=SEED)
+        lb = [float(x) for x in b.run_iter(
+            itertools.islice(iter(ds), CKPT["steps"]), fetches="loss",
+            skip="auto")]
+        ds.close()
+        add_counts(launches, lstm_counts())
+        steps_b = b.state.step
+        b.close()
+        del b
+        torch.cuda.empty_cache()
+        if lb != la[CKPT["every"]:]:
+            raise AssertionError(f"resumed losses {lb} != run A's steps "
+                                 f"5-9 {la[CKPT['every']:]}")
+        if steps_b != CKPT["steps"]:
+            raise AssertionError(f"run B ended at step {steps_b}")
+        steps_run = CKPT["steps"] + CKPT["steps"] - CKPT["every"]
+        want = {"lstm_fwd": 0, "lstm_fwd_res": steps_run,
+                "lstm_bwd": steps_run}
+        if launches != want:
+            raise AssertionError(f"ckpt-resume LSTM launches {launches} != "
+                                 f"{want}")
+        # a step "with a commit in flight" starts while the writer runs;
+        # the save step itself (4) is reported apart
+        save_at = CKPT["every"] - 1
+        without = [step_ms[i] for i in range(save_at)]
+        with_ = [step_ms[i] for i in range(save_at + 1, CKPT["steps"])
+                 if in_flight[i - 1]]
+        summary = {
+            "config": {"batch": CKPT["batch"],
+                       "num_steps": CKPT["num_steps"],
+                       "vocab": cfg.vocab_size,
+                       "padded_vocab": cfg.padded_vocab,
+                       "tokens": CKPT["tokens"], "backend": "native"},
+            "state_bytes": state_bytes, "manifest_bytes": reckoned,
+            "checkpoint_bytes": ckpt_bytes, "free_bytes": free,
+            "leaves": len(manifest["leaves"]),
+            "async_save_block_s": {str(s): v for s, v in saves_a},
+            "close_join_s": close_s,
+            "sync_save_s": {str(s): v for s, v in saves_b},
+            "restore_s": restore_s, "prepare_with_restore_s": prepare_s,
+            "step_ms": step_ms, "commit_in_flight": in_flight,
+            "step_ms_p50_no_commit": (statistics.median(without)
+                                      if without else None),
+            "step_ms_p50_commit_in_flight": (statistics.median(with_)
+                                             if with_ else None),
+            "step_ms_save_step": step_ms[save_at],
+            "capture_s": [capture_a["capture_s"], capture_b["capture_s"]],
+            "losses_a": la, "losses_b": lb, "resumed_bitwise_equal": True,
+            "launches": launches}
+        log(f"[ckpt-resume] {json.dumps({k: v for k, v in summary.items() if not k.startswith('losses')})}")
+        return summary
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _ckpt_config(ck, **kw):
+    import parallax_tpu_torch as pt
+    return pt.CheckPointConfig(ckpt_dir=ck, save_ckpt_steps=CKPT["every"],
+                               **kw)
+
+
+def nmt_rollback_session(torch):
+    """NMTConfig() as nmt-train runs it, with NaN recovery (a snapshot
+    every 2 steps, 3 retries)."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import nmt
+    cfg = nmt.NMTConfig(use_pallas_attention=True, num_partitions=1,
+                        max_len=NMT_TRAIN["src_len"], warmup_steps=10)
+    sess, *_ = pt.parallel_run(
+        nmt.build_model(cfg), parallax_config=pt.Config(
+            run_option="HYBRID", recovery_config=pt.RecoveryConfig(
+                enabled=True, snapshot_every_steps=NAN["snapshot_every"],
+                max_retries=NAN["max_retries"])),
+        seed=SEED, device=DEVICE)
+    return cfg, sess
+
+
+def phase_nan_rollback(torch):
+    """NMT at its published widths (B4-B6) with recovery, captured: 8
+    clean batches with one more, whose ``w`` holds a NaN, fed at step 4.
+    One rollback (to the snapshot of step 4), the hook called once, and
+    the losses after it equal, bit for bit, a run fed the 8 clean batches
+    alone. Then ``max_retries`` + 1 NaN batches in a row must raise
+    ``RecoverySurrender`` after ``max_retries`` rollbacks."""
+    from parallax_tpu_torch.ckpt import RecoverySurrender
+    from parallax_tpu_torch.models import nmt
+    torch.cuda.empty_cache()
+    k = NAN["nan_at"]
+    cfg, s = nmt_rollback_session(torch)
+    rng = np.random.default_rng(SEED)
+    clean = []
+    for _ in range(NAN["steps"] + 1):
+        b = nmt.make_batch(rng, NMT_TRAIN["batch"], NMT_TRAIN["src_len"],
+                           NMT_TRAIN["tgt_len"], cfg.vocab_size)
+        lengths = rng.integers(16, NMT_TRAIN["src_len"] + 1,
+                               NMT_TRAIN["batch"])
+        for i, n in enumerate(lengths):
+            b["src"][i, n:] = nmt.PAD_ID
+        # the model's default weights, explicit: the NaN batch's w keeps
+        # the signature of the clean ones
+        b["w"] = (b["tgt_out"] != nmt.PAD_ID).astype(np.float32)
+        clean.append(b)
+    extra = clean.pop()
+    bad = dict(extra, w=extra["w"].copy())
+    bad["w"][0, 0] = np.nan
+    feed = clean[:k] + [bad] + clean[k:]
+    s.prepare(clean[0])
+    capture = capture_train(torch, s, NMT_TRAIN["batch"])
+    calls = []
+    s.set_rollback_hook(calls.append)
+    zero_flash_counts()
+    host_ms = []
+    got = []
+    for b in feed:
+        t0 = time.perf_counter()
+        got.append(float(s.run("loss", feed_dict=b)))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    if calls != [1] or s._recovery.total_rollbacks != 1:
+        raise AssertionError(f"rollbacks {s._recovery.total_rollbacks}, "
+                             f"hook calls {calls}; want one")
+    if s.state.step != NAN["steps"] or s.data_cursor != NAN["steps"] + 1:
+        raise AssertionError(f"step {s.state.step}, cursor "
+                             f"{s.data_cursor} after the rollback")
+    surrendered = False
+    try:
+        for _ in range(NAN["max_retries"] + 1):
+            s.run("loss", feed_dict=bad)
+    except RecoverySurrender:
+        surrendered = True
+    if not surrendered or s._recovery.total_rollbacks != \
+            1 + NAN["max_retries"]:
+        raise AssertionError(f"no RecoverySurrender after "
+                             f"{s._recovery.total_rollbacks} rollbacks")
+    snapshot_s = s.metrics.histogram("recovery.snapshot_seconds").snapshot()
+    snapshot_bytes = s._recovery.stats()["snapshot_nbytes"]
+    launches = flash_counts()
+    s.close()
+    del s
+    torch.cuda.empty_cache()
+    _, r = nmt_rollback_session(torch)
+    r.prepare(clean[0])
+    capture_train(torch, r, NMT_TRAIN["batch"])
+    zero_flash_counts()
+    want = [float(r.run("loss", feed_dict=b)) for b in clean]
+    add_counts(launches, flash_counts())
+    r.close()
+    del r
+    torch.cuda.empty_cache()
+    if got[:k] + got[k + 1:] != want:
+        raise AssertionError(f"losses after the rollback {got} differ from "
+                             f"the run without the batch {want}")
+    if math.isfinite(got[k]) or not all(map(math.isfinite, want)):
+        raise AssertionError(f"losses {got} / {want}")
+    steps_run = 2 * NAN["steps"] + 1 + NAN["max_retries"] + 1
+    per_step = 3 * cfg.num_layers
+    expect = dict.fromkeys(flash_counts(), per_step * steps_run)
+    if launches != expect:
+        raise AssertionError(f"nan-rollback flash launches {launches} != "
+                             f"{expect}")
+    summary = {"nan_at": k, "rollbacks": 1, "surrender_after":
+               NAN["max_retries"], "losses": got, "reference": want,
+               "rollback_step_host_ms": host_ms[k],
+               "step_host_ms_p50": statistics.median(host_ms),
+               "snapshot_seconds": snapshot_s,
+               "snapshot_bytes": snapshot_bytes,
+               "capture_s": capture["capture_s"], "launches": launches}
+    log(f"[nan-rollback] {json.dumps({k_: v for k_, v in summary.items() if k_ not in ('losses', 'reference')})}")
+    return summary
+
+
+def resnet_stream(n):
+    """``n`` ResNet batches made afresh, one at a time, from SEED, as an
+    image pipeline hands them over: uint8 pixels scaled to [-1, 1] in
+    float32, NHWC, and int32 labels."""
+    rng = np.random.default_rng(SEED)
+    shape = (RESNET["batch"], RESNET["image_size"], RESNET["image_size"], 3)
+    for _ in range(n):
+        pixels = rng.integers(0, 256, shape, dtype=np.uint8)
+        labels = rng.integers(0, RESNET["classes"], (RESNET["batch"],),
+                              dtype=np.int32)
+        images = pixels.astype(np.float32)
+        images *= 1.0 / 127.5
+        images -= 1.0
+        yield {"images": images, "labels": labels}
+
+
+def feed_session(torch, kind, depth):
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import cnn
+    if kind == "lm1b":
+        return lm1b_ckpt_session(torch, prefetch_depth=depth)[1]
+    model = cnn.build_model(RESNET["name"], num_classes=RESNET["classes"],
+                            image_size=RESNET["image_size"])
+    sess, *_ = pt.parallel_run(
+        model, parallax_config=pt.Config(run_option="AR",
+                                         prefetch_depth=depth),
+        seed=SEED, device=DEVICE)
+    return sess
+
+
+def feed_run(torch, kind, mode, stream, example, units_of):
+    """One session fed ``stream``: ``mode`` "sequential" (``run`` a batch
+    at a time, its making timed as its data wait), "prefetch"
+    (``run_iter`` at depth 2) or "placed" (``prefetch_to_device`` of
+    ``place_batch`` into ``run_iter(placed=True)``). The first
+    ``FEED["warm"]`` items go through the same loop untimed, so the
+    staging ring's slots (and the sequential loop's pinned blocks) are
+    allocated before the clock starts. Units/s over the wall time of the
+    rest, step ms p50 (CUDA events), data-wait ms p50, and the losses of
+    every step."""
+    import itertools
+    from parallax_tpu_torch.data import prefetch_to_device
+    torch.cuda.empty_cache()
+    sess = feed_session(torch, kind, FEED["depth"])
+    sess.prepare(example)
+    batch = int(next(iter(example.values())).shape[0])
+    capture_train(torch, sess, batch)
+    zero_lstm_counts()
+    zero_flash_counts()
+    losses, units, waits, events = [], 0.0, [], []
+
+    def counted(it):
+        nonlocal units
+        for b in it:
+            units += units_of(b)
+            yield b
+
+    def drive(items):
+        """Every item of ``items`` through ``mode``'s loop; an event
+        recorded after each step."""
+        if mode == "sequential":
+            it = counted(items)
+            while True:
+                tw = time.perf_counter()
+                b = next(it, None)
+                if b is None:
+                    return
+                waits.append((time.perf_counter() - tw) * 1e3)
+                losses.append(sess.run("loss", feed_dict=b))
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+        feed = None
+        if mode == "placed":
+            feed = prefetch_to_device(counted(items), sess.place_batch,
+                                      depth=FEED["depth"])
+            results = sess.run_iter(feed, fetches="loss", placed=True)
+        else:
+            results = sess.run_iter(counted(items), fetches="loss")
+        for loss in results:
+            losses.append(loss)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        if feed is not None:
+            feed.close()
+
+    stream = iter(stream)
+    drive(itertools.islice(stream, FEED["warm"]))
+    torch.cuda.synchronize()
+    warm_steps = len(losses)
+    sess.metrics.histogram("session.data_wait_ms")._window.clear()
+    del waits[:], events[:]
+    units = 0.0
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[0].record()
+    t0 = time.perf_counter()
+    drive(stream)
+    losses = [float(x) for x in losses]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = len(losses) - warm_steps
+    if mode != "sequential":
+        waits = list(sess.metrics.histogram("session.data_wait_ms")._window)
+    step_ms = [x.elapsed_time(y) for x, y in zip(events, events[1:])]
+    launches = lstm_counts()
+    ring = len(sess.engine._stage_slots)
+    sess.close()
+    del sess
+    torch.cuda.empty_cache()
+    return {"mode": mode, "units_per_sec": units / wall, "wall_s": wall,
+            "warm_steps": warm_steps, "steps": timed,
+            "step_ms_p50": statistics.median(step_ms),
+            "wall_ms_per_step": wall * 1e3 / timed,
+            "data_wait_ms_p50": statistics.median(waits),
+            "ring_slots": ring, "losses": losses, "launches": launches}
+
+
+def phase_data_feed(torch):
+    """ResNet-50 (B 256, 224 px) fed batches made afresh each step: the
+    sequential loop against ``run_iter`` at prefetch depth 2 (the staging
+    ring); the same pair fed 4 batches made ahead, cycled (the feed costs
+    only its conversion, pinning and copy to the card: the sequential
+    loop pins each 154 MB batch anew and copies it on the step's stream);
+    then LM1B fed by a native ``TokenDataset``: the sequential loop
+    against ``prefetch_to_device(..., sess.place_batch)`` into
+    ``run_iter(placed=True)``. Losses bitwise equal in each pair; images/s
+    and words/s, step ms p50 and data-wait ms p50 for each run."""
+    import shutil
+    import tempfile
+    from parallax_tpu_torch.data import TokenDataset
+    out = {}
+    example = next(resnet_stream(1))
+    for mode in ("sequential", "prefetch"):
+        out[f"resnet_{mode}"] = feed_run(
+            torch, "resnet", mode,
+            resnet_stream(FEED["warm"] + FEED["resnet_steps"]),
+            example, lambda b: float(len(b["labels"])))
+    made = list(resnet_stream(4))
+    for mode in ("sequential", "prefetch"):
+        out[f"resnet_ahead_{mode}"] = feed_run(
+            torch, "resnet", mode,
+            (made[i % 4]
+             for i in range(FEED["warm"] + FEED["ahead_steps"])), example,
+            lambda b: float(len(b["labels"])))
+    del made
+    root = Path(tempfile.mkdtemp(prefix="parallax-data-feed-"))
+    try:
+        from parallax_tpu_torch.models import lm1b
+        tokens = str(root / "tokens.bin")
+        zipf_token_file(tokens, lm1b.LM1BConfig().vocab_size, 1 << 20)
+        launches = {}
+        for mode in ("sequential", "placed"):
+            ds = TokenDataset(tokens, CKPT["batch"], CKPT["num_steps"],
+                              seed=SEED)
+            if ds.backend != "native":
+                raise AssertionError(f"TokenDataset backend {ds.backend!r}")
+            example = ds.next_batch()
+            stream = (ds.next_batch()
+                      for _ in range(FEED["warm"] + FEED["lm1b_steps"]))
+            r = feed_run(torch, "lm1b", mode, stream, example,
+                         lambda b: float(b["w"].sum()))
+            ds.close()
+            add_counts(launches, r["launches"])
+            out[f"lm1b_{mode}"] = r
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for kind, other in (("resnet", "prefetch"), ("resnet_ahead", "prefetch"),
+                        ("lm1b", "placed")):
+        a, b = out[f"{kind}_sequential"], out[f"{kind}_{other}"]
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"{kind}: {other} losses {b['losses']} != "
+                                 f"sequential {a['losses']}")
+        if not all(map(math.isfinite, a["losses"])):
+            raise AssertionError(f"{kind}: non-finite loss {a['losses']}")
+    steps = 2 * (FEED["warm"] + FEED["lm1b_steps"])
+    want = {"lstm_fwd": 0, "lstm_fwd_res": steps, "lstm_bwd": steps}
+    if launches != want:
+        raise AssertionError(f"data-feed LSTM launches {launches} != {want}")
+    summary = {k: {k2: v2 for k2, v2 in v.items() if k2 != "losses"}
+               for k, v in out.items()}
+    summary["launches"] = launches
+    for kind in ("resnet", "resnet_ahead"):
+        summary[f"{kind}_prefetch_over_sequential"] = (
+            out[f"{kind}_prefetch"]["units_per_sec"]
+            / out[f"{kind}_sequential"]["units_per_sec"])
+    summary["lm1b_placed_over_sequential"] = (
+        out["lm1b_placed"]["units_per_sec"]
+        / out["lm1b_sequential"]["units_per_sec"])
+    log(f"[data-feed] {json.dumps(summary)}")
+    return summary
+
+
+def nmt_corpus(root, vocab_size):
+    """``NMT_DATA["pairs"]`` sentence pairs of random words, each side's
+    length drawn in [4, 64], and a vocab of ``vocab_size`` entries (the 4
+    specials first), from SEED."""
+    rng = np.random.default_rng(SEED)
+    words = [f"w{i}" for i in range(vocab_size - 4)]
+    (root / "vocab.txt").write_text(
+        "\n".join(["<pad>", "<s>", "</s>", "<unk>"] + words) + "\n")
+    lines = {"src": [], "tgt": []}
+    for _ in range(NMT_DATA["pairs"]):
+        for side in lines:
+            n = int(rng.integers(NMT_DATA["min_len"],
+                                 NMT_DATA["max_len"] + 1))
+            lines[side].append(" ".join(
+                words[i] for i in rng.integers(0, len(words), n)))
+    for side, text in lines.items():
+        (root / f"train.{side}").write_text("\n".join(text) + "\n")
+
+
+def phase_nmt_data(torch):
+    """NMT at its published widths fed by ``NMTBatchIterator`` (batch 64,
+    buckets of 16 up to 64, ragged tails padded with zero-weight rows)
+    over a corpus written from SEED, with ``shape_buckets=[64]`` declared
+    and ``warmup()``. The declared buckets size the batch dimension only,
+    so each length bucket is a signature of its own: one untimed step a
+    bucket captures its graph, counted in ``engine.recompiles`` after the
+    first, as the JAX package counts it. Then the epoch, timed: no
+    capture and no recompile inside it, one graph a bucket, B4-B6
+    launched in each bucket, losses finite."""
+    import shutil
+    import tempfile
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.data import nmt_data
+    from parallax_tpu_torch.models import nmt
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="parallax-nmt-data-"))
+    try:
+        cfg = nmt.NMTConfig(use_pallas_attention=True, num_partitions=1,
+                            max_len=NMT_DATA["max_len"], warmup_steps=10)
+        nmt_corpus(root, cfg.vocab_size)
+        vocab = nmt_data.Vocab.load(str(root / "vocab.txt"))
+        pairs = nmt_data.load_parallel_corpus(
+            str(root / "train.src"), str(root / "train.tgt"), vocab,
+            cfg.max_len)
+        it = nmt_data.NMTBatchIterator(
+            pairs, batch_size=NMT_DATA["batch"], max_len=cfg.max_len,
+            bucket_width=NMT_DATA["bucket_width"], seed=SEED,
+            drop_remainder=False)
+        batches = list(it.epoch(0))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first = {}
+    for b in batches:
+        first.setdefault(b["src"].shape[1], b)
+    sess, *_ = pt.parallel_run(
+        nmt.build_model(cfg), parallax_config=pt.Config(
+            run_option="HYBRID", shape_buckets=[NMT_DATA["batch"]]),
+        seed=SEED, device=DEVICE)
+    sess.prepare(batches[0])
+    t0 = time.perf_counter()
+    sess.warmup()
+    for n in sorted(first):
+        float(sess.run("loss", feed_dict=first[n]))
+    warmup_s = time.perf_counter() - t0
+    recompiles_warm = sess.metrics.counter("engine.recompiles").value
+    captures = sess.metrics.histogram("engine.capture_seconds")
+    captures_warm = captures.count
+    zero_flash_counts()
+    per_bucket = {n: dict.fromkeys(flash_counts(), 0) for n in first}
+    losses, words = [], 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        before = flash_counts()
+        losses.append(sess.run("loss", feed_dict=b))
+        words += float(b["w"].sum())
+        after = flash_counts()
+        for name in after:
+            per_bucket[b["src"].shape[1]][name] += after[name] - before[name]
+    losses = [float(x) for x in losses]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recompiles = sess.metrics.counter("engine.recompiles").value
+    captures_loop = captures.count - captures_warm
+    launches = flash_counts()
+    graphs_ = sum(g is not None for g in sess.engine._executables.values())
+    sess.close()
+    del sess
+    torch.cuda.empty_cache()
+    if recompiles_warm != len(first) - 1 or recompiles != recompiles_warm:
+        raise AssertionError(f"engine.recompiles {recompiles_warm} after "
+                             f"one step a bucket, {recompiles} after the "
+                             f"epoch; want {len(first) - 1} both")
+    if graphs_ != len(first) or captures_loop != 0:
+        raise AssertionError(f"{graphs_} graphs for {len(first)} buckets, "
+                             f"{captures_loop} captures in the timed loop")
+    if sorted(first) != list(range(NMT_DATA["bucket_width"],
+                                   NMT_DATA["max_len"] + 1,
+                                   NMT_DATA["bucket_width"])):
+        raise AssertionError(f"length buckets {sorted(first)}")
+    idle = [n for n, c in per_bucket.items() if min(c.values()) <= 0]
+    if idle:
+        raise AssertionError(f"B4-B6 not launched in buckets {idle}: "
+                             f"{per_bucket}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite NMT loss {losses}")
+    summary = {"pairs": len(pairs), "batches": len(batches),
+               "buckets": {str(n): sum(b["src"].shape[1] == n
+                                       for b in batches) for n in first},
+               "graphs": graphs_, "warmup_s": warmup_s,
+               "captures_in_loop": captures_loop,
+               "recompiles": recompiles,
+               "target_words_per_sec": words / wall, "wall_s": wall,
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "per_bucket_launches": {str(n): c
+                                       for n, c in per_bucket.items()},
+               "launches": launches}
+    log(f"[nmt-data] {json.dumps(summary)}")
+    return summary
+
+
 # -- the run ----------------------------------------------------------------
 
 
@@ -4631,11 +5344,13 @@ def kernel_line(results, launches):
     main-path case's numbers. B4's launches are the NMT serving paths'
     (plain, speculative with chunked prefill, with the prefix cache,
     one-shot, the fleet, disaggregated), the
-    NMT, BERT, long-context and MoE training paths' and NMT beam search's,
-    B5's and B6's the four training paths', B7's the serving paths' (NMT
-    plain, speculative, prefix, fleet and disaggregated, causal LM
-    unchunked and chunked, MoE LM). An LSTM entry names the source of the
-    route its case ran on."""
+    NMT, BERT, long-context and MoE training paths', NMT beam search's and
+    the NaN rollback's and NMT batching's, B5's and B6's the training
+    paths' (those six), B2's and B3's LM1B training's (``train``,
+    ``dist-train``, ``ckpt-resume``, ``data-feed``), B7's the serving
+    paths' (NMT plain, speculative, prefix, fleet and disaggregated, causal
+    LM unchunked and chunked, MoE LM). An LSTM entry names the source of
+    the route its case ran on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
@@ -4910,6 +5625,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     nmt_beam = phase("nmt-beam", phase_nmt_beam, torch)
     lm1b_serve = phase("lm1b-serve", phase_lm1b_serve, torch)
+    ckpt_resume = phase("ckpt-resume", phase_ckpt_resume, torch)
+    nan_rollback = phase("nan-rollback", phase_nan_rollback, torch)
+    data_feed = phase("data-feed", phase_data_feed, torch)
+    nmt_data = phase("nmt-data", phase_nmt_data, torch)
     graph_agree = phase("graph-agree", phase_graph_agree, torch)
     graph_pairs = {"serve": serve_pair, "lm1b": train["graph_pair"],
                    "nmt": nmt_train["graph_pair"],
@@ -4929,7 +5648,11 @@ def main() -> int:
             lc_chunked["launches"].items()) + list(
             oneshot["launches"].items()) + list(
             fleet["launches"].items()) + list(
-            disagg["launches"].items()):
+            disagg["launches"].items()) + list(
+            ckpt_resume["launches"].items()) + list(
+            nan_rollback["launches"].items()) + list(
+            data_feed["launches"].items()) + list(
+            nmt_data["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -4956,6 +5679,8 @@ def main() -> int:
               serve_spec_agree, "serve_prefix": serve_prefix,
               "lc_serve_chunked": lc_chunked, "lm1b_serve": lm1b_serve,
               "oneshot": oneshot, "fleet": fleet, "disagg": disagg,
+              "ckpt_resume": ckpt_resume, "nan_rollback": nan_rollback,
+              "data_feed": data_feed, "nmt_data": nmt_data,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

@@ -40,6 +40,13 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
   prefill pool and a decode pool joined by the npz wire format).
 * NMT beam search (``nmt.beam_decode``) and corpus BLEU
   (``common.evaluation.corpus_bleu``).
+* The training loop's input pipeline and persistence: ``data/`` (the
+  native token loader ``TokenDataset``, ``Prefetcher`` and
+  ``prefetch_to_device``, NMT vocab and bucketed batching) and ``ckpt/``
+  (the JAX package's checkpoint format, async saves, exact and
+  resharded resume, NaN rollback, the SIGTERM save), driven through
+  ``ParallaxSession.run_iter``, ``place_batch`` and
+  ``Config(ckpt_config=..., recovery_config=...)``.
 * Dense CNN training: ``parallel_run(cnn.build_model("resnet50_v1.5"),
   parallax_config=Config(run_option="AR"))`` and the rest of the CNN zoo,
   a stateful model (BatchNorm statistics) with momentum SGD; no TPU
@@ -59,7 +66,8 @@ The kernels are built from ``csrc/`` at first use. The JAX package
 JAX.
 """
 
-from parallax_tpu_torch.common.config import (Config, ParallaxConfig,
+from parallax_tpu_torch.common.config import (CheckPointConfig, Config,
+                                              ParallaxConfig, RecoveryConfig,
                                               ServeConfig)
 from parallax_tpu_torch.common.lib import parallax_log as log
 from parallax_tpu_torch.core.engine import Model, TrainState
@@ -73,12 +81,14 @@ from parallax_tpu_torch.serve import (AdapterSpec, CausalLMDecodeProgram,
                                       NMTDecodeProgram, Router, ServeFleet,
                                       ServeSession, register_adapter,
                                       registered_adapters)
-from parallax_tpu_torch.session import Fetch, ParallaxSession, materialize
+from parallax_tpu_torch.session import (Fetch, ParallaxSession, StepHandle,
+                                        materialize)
 
 __version__ = "0.1.0"
 
 __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
-           "Model", "TrainState", "ParallaxSession", "Fetch", "materialize",
+           "CheckPointConfig", "RecoveryConfig", "Model", "TrainState",
+           "ParallaxSession", "Fetch", "StepHandle", "materialize",
            "ServeSession", "NMTDecodeProgram", "CausalLMDecodeProgram",
            "MoeLMDecodeProgram", "LM1BDecodeProgram", "AdapterSpec",
            "register_adapter", "registered_adapters", "ServeFleet",

@@ -1,10 +1,11 @@
-"""Configuration: ``ServeConfig``, ``PSConfig``, ``CommunicationConfig``
-and the top-level ``Config``.
+"""Configuration: ``ServeConfig``, ``PSConfig``, ``CommunicationConfig``,
+``CheckPointConfig``, ``RecoveryConfig`` and the top-level ``Config``.
 
-Copies of ``parallax_tpu.common.config``'s ``ServeConfig`` (same
-fields, same validation), and of ``PSConfig``, ``CommunicationConfig``
-and ``ParallaxConfig`` reduced to the fields serving and training read,
-so code that builds a JAX-package config builds this one with the same
+Copies of ``parallax_tpu.common.config``'s ``ServeConfig``,
+``CheckPointConfig`` and ``RecoveryConfig`` (same fields, same
+validation), and of ``PSConfig``, ``CommunicationConfig`` and
+``ParallaxConfig`` reduced to the fields serving and training read, so
+code that builds a JAX-package config builds this one with the same
 keywords.
 """
 
@@ -193,6 +194,79 @@ class CommunicationConfig:
 
 
 @dataclasses.dataclass
+class CheckPointConfig:
+    """Checkpointing (reference config.py:84-99): save every
+    ``save_ckpt_steps`` steps and/or every ``save_ckpt_secs`` seconds
+    into ``ckpt_dir``, in the JAX package's on-disk format (ckpt/store.py:
+    per-rank shard files with per-shard checksums, the manifest committed
+    last).
+
+    * ``async_save``: the save copies the state to the host (the only
+      cost on the dispatch thread) and a writer thread serializes and
+      commits it; at most one save is in flight (the next save and
+      ``close()`` join it first, the wait measured as
+      ``ckpt.async_wait_seconds``). False: fully synchronous saves.
+    * ``max_to_keep``: keep the newest N complete checkpoints (and drop
+      torn directories older than the newest complete one); None keeps
+      everything.
+    """
+
+    ckpt_dir: Optional[str] = None
+    save_ckpt_steps: Optional[int] = None
+    save_ckpt_secs: Optional[float] = None
+    async_save: bool = False
+    max_to_keep: Optional[int] = 5
+
+    def __post_init__(self):
+        if self.save_ckpt_steps is not None \
+                and int(self.save_ckpt_steps) < 1:
+            raise ValueError(
+                f"save_ckpt_steps must be >= 1, got "
+                f"{self.save_ckpt_steps}")
+        if self.save_ckpt_secs is not None \
+                and float(self.save_ckpt_secs) <= 0:
+            raise ValueError(
+                f"save_ckpt_secs must be > 0, got "
+                f"{self.save_ckpt_secs}")
+        if self.max_to_keep is not None and int(self.max_to_keep) < 1:
+            raise ValueError(
+                f"max_to_keep must be >= 1 (or None to keep "
+                f"everything), got {self.max_to_keep}")
+        if not isinstance(self.async_save, bool):
+            raise ValueError(
+                f"async_save must be a bool, got "
+                f"{self.async_save!r} — a truthy string here usually "
+                f"means a config plumbing bug")
+
+
+@dataclasses.dataclass
+class RecoveryConfig:
+    """NaN/divergence auto-recovery (ckpt/recovery.py).
+
+    * ``enabled``: turn the policy on; ``Config.monitor_health`` is
+      turned on with it (the policy reads the step's ``loss_finite`` and
+      ``grad_norm``), and the dispatch thread reads them each step.
+    * ``snapshot_every_steps``: cadence of the in-memory last-good
+      snapshot (a host copy of the state).
+    * ``max_retries``: consecutive non-finite steps tolerated (each one
+      rolls back and skips its batch) before ``RecoverySurrender``.
+    """
+
+    enabled: bool = False
+    snapshot_every_steps: int = 25
+    max_retries: int = 3
+
+    def __post_init__(self):
+        if int(self.snapshot_every_steps) < 1:
+            raise ValueError(
+                f"snapshot_every_steps must be >= 1, got "
+                f"{self.snapshot_every_steps}")
+        if int(self.max_retries) < 1:
+            raise ValueError(
+                f"max_retries must be >= 1, got {self.max_retries}")
+
+
+@dataclasses.dataclass
 class ParallaxConfig:
     """Top-level config, reduced to what serving and training read.
 
@@ -226,6 +300,19 @@ class ParallaxConfig:
       kept (compile/cache.py ``enable_persistent_cache``): a relaunch
       with the same sources loads them instead of running nvcc.
       Process-wide. None leaves the default build directory.
+    * ``prefetch_depth``: how many converted and placed batches
+      ``run_iter`` and ``data.prefetch_to_device`` may hold ahead of the
+      step that consumes them (>= 1).
+    * ``eager_fetch``: ``run()`` returns host values instead of lazy
+      ``Fetch`` handles.
+    * ``ckpt_config`` (``CheckPointConfig``), ``recovery_config``
+      (``RecoveryConfig``; enabling it turns ``monitor_health`` on).
+    * ``monitor_health``: the step also outputs ``grad_norm`` (the
+      global norm of the dense gradients and the slice tables' row
+      gradients) and ``loss_finite``.
+    * ``handle_preemption``: on SIGTERM, save one checkpoint of the
+      current state before the process ends (installed from the main
+      thread, and only with a ``ckpt_dir``).
     """
 
     run_option: str = consts.RUN_HYBRID
@@ -243,9 +330,24 @@ class ParallaxConfig:
     shape_buckets: Union[None, str, Sequence[int]] = None
     bucket_mask_feed: str = "w"
     compilation_cache_dir: Optional[str] = None
+    # -- the feed pipeline and the run's persistence (data/, ckpt/) ------
+    prefetch_depth: int = 2
+    eager_fetch: bool = False
+    ckpt_config: CheckPointConfig = dataclasses.field(
+        default_factory=CheckPointConfig)
+    recovery_config: RecoveryConfig = dataclasses.field(
+        default_factory=RecoveryConfig)
+    handle_preemption: bool = True
+    monitor_health: bool = False
 
     def __post_init__(self):
         self.run_option = normalize_run_option(self.run_option)
+        if self.recovery_config.enabled and not self.monitor_health:
+            # the policy reads the in-graph loss_finite/grad_norm outputs
+            self.monitor_health = True
+        if int(self.prefetch_depth) < 1:
+            raise ValueError(
+                f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
         if self.sparse_grad_mode not in ("dense", "slices"):
             raise ValueError(
                 f"sparse_grad_mode must be 'dense' or 'slices', got "

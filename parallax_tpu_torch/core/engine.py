@@ -109,6 +109,17 @@ declared ``Config.shape_buckets`` bucket, whose signatures are
 registered as expected at build. On the CPU, and inside
 ``compile.disable_capture()``, the step runs eagerly.
 
+Batches a prefetch thread places ahead (``stage``, the session's
+``place_batch``) go through a ring of staging slots, pinned host and
+device buffers reused slot by slot (the ring grows to the number of
+staged batches held at once: ``Config.prefetch_depth`` + 2 under
+``run_iter``), copied to the card on a side stream;
+each step waits on its slot's event and copies it into the static input
+buffers on its own stream, so a batch staged ahead never overwrites the
+inputs of a step not yet dispatched. Under ``Config.monitor_health`` the
+step also outputs ``grad_norm`` and ``loss_finite``
+(``parallax_tpu/core/engine.py:724-739``), computed inside the graph.
+
 On the card the collectives are NCCL's and are captured inside the
 step's graph (the capture's eager call runs them first, which sets up
 the communicators; every rank captures in the same order). A declared
@@ -128,6 +139,7 @@ import contextlib
 import dataclasses
 import fnmatch
 import inspect
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -543,6 +555,63 @@ def _host_tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
 
 
+class _StageSlot:
+    """One slot of the staging ring: pinned host buffers and device
+    buffers per batch signature, the event of its last copy to the card
+    and of the last step that read it, and whether that step was
+    dispatched or the batch dropped unread (``free``)."""
+
+    def __init__(self):
+        self.bufs: Dict[Tuple, Tuple[Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor]]] = {}
+        self.copied = None
+        self.consumed = None
+        self.free = threading.Event()
+        self.free.set()
+
+    def buffers(self, sig, device):
+        got = self.bufs.get(sig)
+        if got is None:
+            dtypes = {name: getattr(torch, dt[6:]) for name, _, dt in sig}
+            got = ({name: torch.empty(shape, dtype=dtypes[name],
+                                      pin_memory=True)
+                    for name, shape, _ in sig},
+                   {name: torch.empty(shape, dtype=dtypes[name],
+                                      device=device)
+                    for name, shape, _ in sig})
+            self.bufs[sig] = got
+        return got
+
+    def release(self, stream) -> None:
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        self.consumed = ev
+        self.free.set()
+
+
+class StagedBatch(dict):
+    """A batch on the card in a slot of the engine's staging ring
+    (``Engine.stage``). Its copy from the host ran on a side stream: the
+    step makes its own stream wait on ``ready`` before reading it and
+    releases the slot after. A staged batch dropped unread (a closed
+    prefetcher's queue) frees its slot when it is collected."""
+
+    def __init__(self, tensors, ready, slot: _StageSlot):
+        super().__init__(tensors)
+        self.ready = ready
+        self._slot = slot
+
+    def release(self, stream) -> None:
+        """The step that read the batch was dispatched on ``stream``."""
+        slot, self._slot = self._slot, None
+        if slot is not None:
+            slot.release(stream)
+
+    def __del__(self):
+        if self._slot is not None:
+            self._slot.free.set()
+
+
 class Engine:
     """Owns the plan, the optimizer grouping and the train step of one
     rank of the mesh."""
@@ -596,6 +665,11 @@ class Engine:
         # the step's generator, reseeded before each step (and each
         # replay: the graphs register it)
         self._gen = torch.Generator(device=self.device)
+        # the staging ring of prefetched batches (``stage``)
+        self._stage_slots: List[_StageSlot] = []
+        self._stage_next = 0
+        self._stage_stream = None
+        self._stage_lock = threading.Lock()
         self._buckets = None
         if config.shape_buckets is not None:
             if not isinstance(example_batch, dict):
@@ -870,6 +944,76 @@ class Engine:
                     bufs[k].copy_(t, non_blocking=True)
         return bufs
 
+    def _take_slot(self) -> _StageSlot:
+        """The next free slot of the staging ring, round robin from the
+        last one taken, marked busy; a new slot when every slot holds a
+        staged batch not yet stepped. The ring so grows to the most
+        batches held staged at once (``prefetch_depth`` + 2 under
+        ``run_iter``: the queue, the one the thread holds, the one being
+        stepped) and never blocks a caller that holds more."""
+        with self._stage_lock:
+            n = len(self._stage_slots)
+            for i in range(n):
+                slot = self._stage_slots[(self._stage_next + i) % n]
+                if slot.free.is_set():
+                    self._stage_next = (self._stage_next + i + 1) % n
+                    break
+            else:
+                slot = _StageSlot()
+                self._stage_slots.insert(self._stage_next, slot)
+                self._stage_next = (self._stage_next + 1) % (n + 1)
+            slot.free.clear()
+            return slot
+
+    def stage(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A host batch, bucketed, staged for a later ``step``: the
+        placement a prefetch thread runs ahead of the step loop. On the
+        card the batch goes into a free slot of the staging ring
+        (``_take_slot``): into the slot's pinned host buffers (pinned
+        once per slot and signature, not once per batch), then to its
+        device buffers on a side stream, with an event the step waits on.
+        Each step copies its slot into the signature's static input
+        buffers (a device-to-device copy) on its own stream, so a batch
+        staged ahead never overwrites the inputs of a step not yet
+        dispatched. A slot is reused only after the step that read it was
+        dispatched, or the batch was dropped unread, and after its last
+        copy finished. On the CPU the batch's tensors are returned as
+        they are."""
+        host = {k: _host_tensor(v) for k, v in self.bucket(batch).items()}
+        if self.device.type != "cuda":
+            return host
+        with torch.cuda.device(self.device):
+            with self._stage_lock:
+                if self._stage_stream is None:
+                    self._stage_stream = torch.cuda.Stream(self.device)
+            slot = self._take_slot()
+            try:
+                if slot.copied is not None:
+                    slot.copied.synchronize()   # the pinned buffers are free
+                stream = self._stage_stream
+                with torch.cuda.stream(stream):
+                    # allocated on the stream that writes them: a block the
+                    # step's stream freed may still be written by a kernel
+                    # pending there, and the allocator hands such blocks
+                    # only to allocations on that same stream
+                    pinned, dev = slot.buffers(
+                        bucketing.batch_signature(host), self.device)
+                for k, t in host.items():
+                    pinned[k].copy_(t)
+                if slot.consumed is not None:
+                    # the last step that read the device buffers is done
+                    stream.wait_event(slot.consumed)
+                with torch.cuda.stream(stream):
+                    for k in host:
+                        dev[k].copy_(pinned[k], non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+            except BaseException:
+                slot.free.set()
+                raise
+            slot.copied = ready
+            return StagedBatch(dev, ready, slot)
+
     def _bucket_shapes(self, b: int) -> Dict[str, bucketing._Aval]:
         """The example batch's shapes with every batch-leading dim
         re-sized to bucket ``b``."""
@@ -882,10 +1026,13 @@ class Engine:
 
     def step(self, state: TrainState, batch) -> tuple:
         """One training step on a batch of tensors on the card (``place``
-        gives them). Returns (state, outputs); the state is updated in
-        place. On the card the signature's graph is replayed, captured
-        first if it has none; on the CPU and inside
+        or ``stage`` gives them). Returns (state, outputs); the state is
+        updated in place. On the card the signature's graph is replayed,
+        captured first if it has none; on the CPU and inside
         ``compile.disable_capture()`` the step runs eagerly."""
+        staged = batch if isinstance(batch, StagedBatch) else None
+        if staged is not None:
+            torch.cuda.current_stream(self.device).wait_event(staged.ready)
         sig = bucketing.batch_signature(batch)
         self._note_batch_signature(sig)
         with trace.span("engine.step"):
@@ -894,6 +1041,8 @@ class Engine:
             else:
                 self._reseed(state)
                 outputs = self._compute(state, batch)
+        if staged is not None:
+            staged.release(torch.cuda.current_stream(self.device))
         state.step += 1
         self.metrics.counter("engine.steps").inc()
         outputs = {"loss": outputs.pop("loss"), "global_step": state.step,
@@ -931,6 +1080,14 @@ class Engine:
             loss, metrics, new_model_state = self.model.call_loss(
                 self._loss_view(state, flat), batch, self._gen,
                 state.model_state)
+        if self.config.monitor_health:
+            taken = {"grad_norm", "loss_finite"} & set(metrics)
+            if taken:
+                raise ValueError(
+                    f"monitor_health=True reserves the output names "
+                    f"'grad_norm'/'loss_finite' but the model's metrics "
+                    f"already define {sorted(taken)}; rename the model "
+                    f"metric(s)")
         leaves = [flat[p] for p in self._dense_paths]
         rows = [r for _, _, r in cap.captured] if cap is not None else []
         grads = torch.autograd.grad(loss, leaves + rows, allow_unused=True)
@@ -938,6 +1095,8 @@ class Engine:
             dense = {p: (g if g is not None else torch.zeros_like(flat[p]))
                      for p, g in zip(self._dense_paths, grads)}
             self._combine(dense)
+            health = self._health(loss, dense, grads[len(leaves):]) \
+                if self.config.monitor_health else {}
             apply = dense
             if not self.config.sync:
                 apply = self._delayed(state, dense)
@@ -963,7 +1122,29 @@ class Engine:
         outputs = {"loss": loss.detach()}
         outputs.update({k: (v.detach() if isinstance(v, torch.Tensor)
                             else v) for k, v in metrics.items()})
+        outputs.update(health)
         return outputs
+
+    def _health(self, loss, dense, row_grads) -> Dict[str, torch.Tensor]:
+        """The in-graph health outputs (``Config.monitor_health``, JAX's
+        engine.py:724-739): ``grad_norm``, the global norm of this step's
+        gradients (the dense ones after their combine across ranks, and
+        the slice tables' row gradients, scaled and summed over the world
+        as ``_apply_slices`` gathers them), and ``loss_finite``."""
+        with optim.sharded_scope(self.plan.split, self.mesh):
+            sq = optim.global_norm(dense).square() if dense else \
+                torch.zeros((), device=self.device)
+        rows = [g for g in row_grads if g is not None]
+        if rows:
+            rsq = torch.stack([g.float().square().sum() for g in rows]).sum()
+            world = self.mesh.world
+            if world is not None and world.size > 1:
+                rsq = (rsq / world.size ** 2).reshape(1)
+                collectives.all_reduce_(rsq, world)
+                rsq = rsq[0]
+            sq = sq + rsq
+        return {"grad_norm": torch.sqrt(sq),
+                "loss_finite": torch.isfinite(loss.detach())}
 
     def _combine(self, dense: Dict[str, torch.Tensor]) -> None:
         """Average the dense gradients over the ranks the batch is split

@@ -73,9 +73,41 @@ def shard_mesh(key):
         and mesh.shard > 1 else None
 
 
+def tree_leaves(tree, prefix: str = ""):
+    """``[(path, tensor)]`` of a state tree, named as JAX's ``keystr``
+    names a pytree: a NamedTuple's fields by name, a tuple's items by
+    index, a dict's entries by key (the port's flat parameter paths
+    ``a/b`` read as the nested dicts they stand for), in flattening
+    order (dict keys sorted)."""
+    def join(key):
+        return f"{prefix}/{key}" if prefix else str(key)
+
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [leaf for f in tree._fields
+                for leaf in tree_leaves(getattr(tree, f), join(f))]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree)
+                for leaf in tree_leaves(v, join(i))]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree, key=str)
+                for leaf in tree_leaves(tree[k], join(k))]
+    return []
+
+
+def _field_leaves(field: str) -> Callable:
+    """Leaves of a ``{path: tensor}`` state that optax keeps as the one
+    field ``field`` of its state NamedTuple."""
+    return lambda state: tree_leaves(state, field)
+
+
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    # state -> [(path, tensor)]: the state's tensors under the paths
+    # optax's own state gives them (the checkpoint's opt_state/... names)
+    leaves: Callable = tree_leaves
 
 
 def _empty_init(params):
@@ -150,7 +182,8 @@ def scale_by_rss(initial_accumulator_value: float = 0.1,
         inv = [torch.where(a > 0, r, 0.0) for a, r in zip(acc, inv)]
         return dict(zip(keys, torch._foreach_mul(inv, g))), state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update,
+                                  _field_leaves("sum_of_squares"))
 
 
 def scale(factor: float) -> GradientTransformation:
@@ -208,7 +241,7 @@ def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
             if nesterov else t
         return dict(zip(keys, out)), state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, _field_leaves("trace"))
 
 
 def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
@@ -385,7 +418,12 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
             new_state.append(s)
         return updates, tuple(new_state)
 
-    return GradientTransformation(init, update)
+    def leaves(state):
+        return [(f"{i}/{path}" if path else str(i), t)
+                for i, (tx, s) in enumerate(zip(txs, state))
+                for path, t in tx.leaves(s)]
+
+    return GradientTransformation(init, update, leaves)
 
 
 def multi_transform(transforms: Dict[str, GradientTransformation],
@@ -417,7 +455,15 @@ def multi_transform(transforms: Dict[str, GradientTransformation],
             out.update(new)
         return {k: out[k] for k in updates}, state
 
-    return GradientTransformation(init, update)
+    def leaves(state):
+        # optax: MultiTransformState(inner_states={label:
+        # MaskedState(inner_state=...)})
+        return [(f"inner_states/{name}/inner_state"
+                 + (f"/{path}" if path else ""), t)
+                for name in sorted(transforms)
+                for path, t in transforms[name].leaves(state[name])]
+
+    return GradientTransformation(init, update, leaves)
 
 
 @torch.no_grad()

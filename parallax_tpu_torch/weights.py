@@ -30,6 +30,14 @@ it gives that rank's part, its E/n experts of each expert weight.
 ``rank_shard`` cuts any of those whole trees down to what one rank of a
 mesh holds: its rows of each leaf the engine's plan row-shards, its
 shard of each tensor-parallel leaf.
+
+``state_to_jax_names`` and ``state_from_jax_checkpoint`` carry a whole
+``TrainState`` (parameters, optimizer, model, slice and pending state,
+step and seed) across, under the names the JAX package's checkpoint
+gives its leaves (``ckpt/snapshot.py``): the port's state as ``{name:
+array}`` in the JAX layout, and such a dict (a JAX run's
+``ckpt.snapshot.flatten_with_names(state)``) copied into a port state in
+place.
 """
 
 from __future__ import annotations
@@ -272,3 +280,62 @@ def rank_shard(params, engine):
     expert weight, every other leaf as it is. Copy the result into
     ``sess.state.params`` leaf by leaf."""
     return engine._local_tree(params)
+
+
+def _host_array(a) -> torch.Tensor:
+    """A CPU tensor of ``a`` (numpy, also ml_dtypes' bfloat16, or torch)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def state_to_jax_names(state, engine=None, optimizer=None):
+    """``{JAX checkpoint name: CPU tensor}`` of a one-rank port
+    ``TrainState``: every leaf whole, in the JAX layout (convolution
+    kernels HWIO; ``step`` int32, ``rng`` JAX's key of the seed).
+    ``engine`` (the session's) names the optimizer grouping; without it
+    ``optimizer`` names the optimizer state."""
+    from parallax_tpu_torch.ckpt import snapshot
+    out = {}
+    for leaf in snapshot.state_leaves(state, engine, optimizer):
+        full = torch.empty(leaf.shape, dtype=snapshot.torch_dtype(leaf.dtype))
+        covered = 0
+        for extent, index in leaf.pieces:
+            piece = _host_array(leaf.value)[index]
+            if leaf.perm is not None:
+                piece = piece.permute(leaf.perm)
+            full[tuple(slice(a, b) for a, b in extent)] = piece
+            covered += piece.numel()
+        if covered != full.numel():
+            raise ValueError(f"state_to_jax_names: {leaf.name} is split "
+                             f"over ranks; gather it on one rank")
+        out[leaf.name] = full
+    return out
+
+
+def state_from_jax_checkpoint(named, state, engine=None, optimizer=None):
+    """Copy ``{JAX checkpoint name: array}`` (whole arrays in the JAX
+    layout) into the port ``TrainState`` ``state`` in place, this rank's
+    pieces of each; ``step`` and the seed come from the ``step`` and
+    ``rng`` leaves. The names must match both ways, and each shape and
+    dtype."""
+    from parallax_tpu_torch.ckpt import snapshot
+    leaves = snapshot.state_leaves(state, engine, optimizer)
+    want = {leaf.name for leaf in leaves}
+    if want != set(named):
+        raise ValueError(
+            f"state_from_jax_checkpoint: missing {sorted(want - set(named))}"
+            f", unexpected {sorted(set(named) - want)}")
+    for leaf in leaves:
+        full = _host_array(named[leaf.name])
+        if tuple(full.shape) != tuple(leaf.shape) or \
+                snapshot.dtype_name(full.dtype) != leaf.dtype:
+            raise ValueError(
+                f"state_from_jax_checkpoint: {leaf.name} is "
+                f"{tuple(full.shape)} {snapshot.dtype_name(full.dtype)}, "
+                f"the port wants {leaf.shape} {leaf.dtype}")
+        leaf.assign(full)
+    return state

@@ -596,3 +596,60 @@ def moe_models(rank, world, runs):
             "placements": dict(sess.engine.plan.placements)}
         sess.close()
     return out
+
+
+# -- checkpoints across layouts (test_torch_ckpt.py) --------------------------
+
+
+def ckpt_toy(rank, world, jobs, init, batches):
+    """Each job: (checkpoint dir, save cadence, stop): the toy model under
+    HYBRID with its checkpoints in that dir, on this mesh (one shard
+    column per rank), from the newest checkpoint (from ``init`` when
+    there is none) through ``batches[:stop]``. Returns per job the
+    restored step, the losses and the whole parameters after."""
+    import parallax_tpu_torch as pt
+
+    out = []
+    for ckpt_dir, every, stop in jobs:
+        cfg = pt.Config(run_option="HYBRID", ckpt_config=pt.CheckPointConfig(
+            ckpt_dir=ckpt_dir, save_ckpt_steps=every))
+        sess, *_ = pt.parallel_run(toy_model(), parallax_config=cfg,
+                                   device="cpu", num_partitions=world)
+        start = sess.prepare(_share(batches[0], rank, world))
+        if start == 0:
+            _load(sess, init, _share(batches[0], rank, world))
+        losses = [float(sess.run("loss", feed_dict=_share(b, rank, world)))
+                  for b in batches[start:stop]]
+        out.append({"step": start, "losses": losses,
+                    "params": _flat_np(sess.gather_params()),
+                    "placements": dict(sess.engine.plan.placements)})
+        sess.close()
+    return out
+
+
+def ckpt_bert_tp(rank, world, jobs, batches):
+    """``ckpt_toy`` for BERT tiny with tensor parallelism (the fused
+    ``wqkv`` column-parallel in 3 blocks, the MLP row-parallel; the batch
+    on 'repl'), fp32, its own AdamW: per job the restored step, the
+    losses and the gathered parameters."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import bert
+
+    cfg = bert.tiny_config(num_heads=4, tensor_parallel=True,
+                           compute_dtype=torch.float32)
+    out = []
+    for ckpt_dir, every, stop in jobs:
+        sess, *_ = pt.parallel_run(
+            bert.build_model(cfg), parallax_config=pt.Config(
+                run_option="HYBRID", ckpt_config=pt.CheckPointConfig(
+                    ckpt_dir=ckpt_dir, save_ckpt_steps=every)),
+            device="cpu", num_partitions=world, seed=3)
+        start = sess.prepare(_row_share(batches[0], sess.mesh))
+        losses = [float(sess.run("loss",
+                                 feed_dict=_row_share(b, sess.mesh)))
+                  for b in batches[start:stop]]
+        out.append({"step": start, "losses": losses,
+                    "params": _flat_np(sess.gather_params()),
+                    "placements": dict(sess.engine.plan.placements)})
+        sess.close()
+    return out
