@@ -217,7 +217,9 @@ positions drawn in [63, 766]; moe-serve's shape too), ``moe_train``
 ``nmt_beam`` (B4 in fp32 and bf16 at nmt-beam's encoder: B 16, T 64, 8
 heads of 64, a mask with every key valid) and ``oneshot`` (B4 in fp32 and
 bf16 at the one-shot translator's full batch: B 32, T 64, 8 heads of 64,
-each row padded after a length drawn in [16, 64]).
+each row padded after a length drawn in [16, 64]) and ``lc_pipe`` (bf16
+B4, and B5/B6 without an lse cotangent, at lc-pipe's microbatch: B 2,
+T 8192, 8 heads of 64, causal).
 
 The kernel phase also has ``serve_g3``: B7 at the serving shape with 3
 queries a slot (S 64, 8 heads of 64, 8 pages of 16 over a 512-page
@@ -318,6 +320,33 @@ verify.
     ``engine.recompiles``, as the JAX package counts it); then the epoch,
     timed: one graph a bucket, no capture and no recompile inside the
     timed loop, B4-B6 launched in each bucket, losses finite.
+
+18f. ``skip-thoughts-train`` (after ``train-agree``):
+    ``SkipThoughtsConfig()`` at its published widths (vocab 20000, E 620,
+    GRU hidden 2400, bf16; Kiros et al. 2015, uni-skip) through
+    ``parallel_run(..., Config(run_option="HYBRID"))``, batch 64 of
+    30-token sentences: 3 eager steps of one session bitwise equal to 3
+    replays of another's captured step (losses and state), then 10 timed
+    steps: sentences/s, p50 and p95 from CUDA events, peak memory, the
+    model FLOPs' share of 989 TF/s, busy by group; ``emb`` alone sparse.
+18g. ``lm1b-full``: ``build_full_softmax_model(LM1BConfig(lstm_impl=
+    "kernel"))`` (V 793470, E 512, H 2048, P 512, batch 128 x 20; the fp32
+    logits 8.1 GB): captured, 2 + 5 timed steps, words/s, p50, peak
+    memory, B2/B3 once a step, the full-softmax head's share of busy,
+    and ``train``'s words/s over this phase's (the JAX bench's
+    ``vs_baseline``).
+18h. ``lc-pipe`` (after ``lc-agree``): (a) ``LongContextConfig(
+    parallelism="pipeline", use_pallas_attention=True)``, GPipe and
+    1F1B, at lc-train's shape on one card (a ring of one stage runs the
+    rows in layer order, as JAX on one device): captured, 3 steps each,
+    B4-B6 6 a step each, losses within 2e-3 of lc-train's first 3;
+    (b) ``ops.pipeline.pipeline_apply`` and ``pipeline_value_and_grad``
+    on a one-rank mesh (S 1, M 4) over the LC stage at B 8 x T 8192, one
+    captured step each against the sequential application (loss 2e-3,
+    gradients 2e-2 of their peak), their peak memory and B4-B6 launches
+    (GPipe 24 each; 1F1B B4 48, B5 and B6 24). Cross-rank BatchNorm and
+    rings of more than one stage are held on gloo ranks only
+    (tests/test_torch_pipeline.py); one card shows neither.
 
 19. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
     eagerly (``compile.disable_capture()``) and 5 as graph replays from
@@ -587,6 +616,7 @@ def flash_cases():
             ("bert", 32, 512, 16, 64, False, "bert"),
             ("lc_train", 8, 8192, 8, 64, True, None),
             ("moe_train", 16, 1024, 8, 64, True, None),
+            ("lc_pipe", 2, 8192, 8, 64, True, None),
             ("nmt_beam", 16, 64, 8, 64, False, "full"),
             ("oneshot", 32, 64, 8, 64, False, "pad")]
 
@@ -602,8 +632,11 @@ PLAIN_ROWS = {"lc_train": 4}
 # 64, the WordPiece padding mask), and the long-context LM's as lc-train
 # runs it (B 8, T 8192, 8 heads of 64, causal; the backward with the lse
 # cotangent of the ring's merge), and the MoE LM's as moe-train runs it (B
-# 16, T 1024, 8 heads of 64, causal)
-BF16_ONLY = ("t2048", "t2048_causal", "bert", "lc_train", "moe_train")
+# 16, T 1024, 8 heads of 64, causal), and lc-pipe's microbatch of the
+# long-context LM's stage (B 2, T 8192, 8 heads of 64, causal; no lse
+# cotangent: the stage calls the flash attention as it is)
+BF16_ONLY = ("t2048", "t2048_causal", "bert", "lc_train", "moe_train",
+             "lc_pipe")
 
 
 def flash_kernel_name(kernel, dtype_name):
@@ -942,7 +975,8 @@ def flash_bwd_cases():
             ("t2048_causal", 2, 2048, 2048, 8, 64, True, None, False),
             ("bert", 32, 512, 512, 16, 64, False, "bert", False),
             ("lc_train", 8, 8192, 8192, 8, 64, True, None, True),
-            ("moe_train", 16, 1024, 1024, 8, 64, True, None, False)]
+            ("moe_train", 16, 1024, 1024, 8, 64, True, None, False),
+            ("lc_pipe", 2, 8192, 8192, 8, 64, True, None, False)]
 
 
 def grad_compare(torch, got, want, dtype):
@@ -2257,11 +2291,17 @@ def profile_bert(torch, sess, batches):
                           BERT_GROUPS)
 
 
-def profile_groups(torch, sess, batches, steps, groups_of):
+SM90_FLASH = ("flash_fwd_kernel_sm90", "flash_dq_kernel_sm90",
+              "flash_dkv_kernel_sm90")
+
+
+def profile_groups(torch, sess, batches, steps, groups_of, flash=SM90_FLASH,
+                   lstm=()):
     """``steps`` steps under the profiler's CUDA activity: busy ms a step,
     the idle share, busy by ``groups_of`` ((name, kernel-name pattern),
-    first match wins) and the top kernels; the steps must launch the
-    three sm90 flash kernels and no first one."""
+    first match wins) and the top kernels; the steps must launch every
+    kernel of ``flash`` (the three sm90 flash kernels by default) and
+    ``lstm`` and no first flash or LSTM kernel."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2287,9 +2327,8 @@ def profile_groups(torch, sess, batches, steps, groups_of):
         groups[name] += us
     rows.sort(reverse=True)
     return {"steps": steps, "window_s": window,
-            "flash_kernels": flash_kernels_seen(
-                rows, ["flash_fwd_kernel_sm90", "flash_dq_kernel_sm90",
-                       "flash_dkv_kernel_sm90"]),
+            "flash_kernels": flash_kernels_seen(rows, list(flash)),
+            "lstm_kernels": lstm_kernels_seen(rows, list(lstm)),
             "device_busy_ms_per_step": busy_us / 1e3 / steps,
             "device_idle_share": 1.0 - busy_us / 1e6 / window,
             "device_launches_per_step": sum(n for _, n, _ in rows) / steps,
@@ -5310,6 +5349,404 @@ def phase_nmt_data(torch):
     return summary
 
 
+# -- skip-thoughts, the LM1B full-softmax baseline, the pipeline ------------
+
+# SkipThoughtsConfig() at its published widths (Kiros et al. 2015,
+# uni-skip: vocab 20000, E 620, GRU hidden 2400, bf16) through parallel_run
+# HYBRID, batch 64 of 30-token sentences (examples/skip_thoughts_driver.py's
+# defaults): 3 eager steps of one session held bitwise to 3 captured steps
+# of another, then 10 timed steps
+SKIP_TRAIN = dict(batch=64, seq=30, steps=10, agree_steps=3, profile_steps=3)
+SKIP_GROUPS = (
+    ("fp32 output head products ([1920, 2400] x [2400, 20000], two "
+     "decoders)", r"(?i)sgemm|nvjet_s|f32f32_f32f32|gemm_f32"),
+    ("bf16 GEMMs (GRU gates and recurrences)",
+     r"(?i)gemm|nvjet|xmma|cutlass|cublas"),
+    ("Adam and the clip (multi-tensor)", r"(?i)multi_tensor|foreach"),
+    ("log-softmax", r"(?i)softmax"),
+    ("reductions", r"(?i)reduce"),
+    ("elementwise (GRU gates)", r"(?i)elementwise|vectorized|unrolled"),
+    ("copies, fills, gathers and scatters",
+     r"(?i)copy|memcpy|memset|fill|cat|gather|index|scatter"),
+)
+# build_full_softmax_model(LM1BConfig(lstm_impl="kernel")) at LM1B's
+# published widths (V 793470, E 512, H 2048, P 512), batch 128 x 20 as
+# `train`: the fp32 logits are 2560 x 793470 x 4 B = 8.1 GB
+LM1B_FULL = dict(warmup=2, steps=5, profile_steps=2)
+LM1B_FULL_GROUPS = (
+    ("full-softmax logits products (fp32 of bf16 operands, [2560, 512] x "
+     "[512, 793470])", r"(?i)sgemm|nvjet_s|f32f32_f32f32|gemm_f32"),
+    ("LSTM B2/B3", r"lstm_"),
+    ("bf16 GEMMs", r"(?i)gemm|nvjet|xmma|cutlass|cublas"),
+    ("logsumexp and softmax", r"(?i)softmax|logsumexp"),
+    ("Adagrad and the clip (multi-tensor)", r"(?i)multi_tensor|foreach"),
+    ("reductions", r"(?i)reduce"),
+    ("elementwise", r"(?i)elementwise|vectorized|unrolled"),
+    ("copies, fills and gathers", r"(?i)copy|memcpy|memset|fill|cat|gather|"
+                                  r"index"),
+)
+# lc-pipe: (a) LongContextConfig(parallelism='pipeline',
+# use_pallas_attention=True), GPipe and 1F1B, at lc-train's shape on one
+# card (a ring of one stage: the rows in layer order), 3 captured steps each
+# against lc-train's first 3 losses; (b) the pipeline functions themselves
+# on a one-rank mesh (S 1, M 4) over the LC stage (the 6 blocks) at
+# B 8 x T 8192, each schedule one captured step against the sequential
+# application of the stage to the whole batch
+LC_PIPE = dict(steps=3, micro=4, loss_tol=2e-3, grad_tol=2e-2)
+
+
+def skip_model_flops(cfg, batch, seq):
+    """Model FLOPs of one skip-thoughts step (forward x 3): the three GRUs'
+    x- and h-side gate products and the decoders' h0 projections in bf16,
+    the two decoders' output heads in fp32."""
+    E, H, V = cfg.emb_dim, cfg.hidden_dim, cfg.padded_vocab
+    tokens = batch * seq
+    gru = 2 * tokens * E * 3 * H + 2 * tokens * H * 3 * H
+    bf16 = 3 * (3 * gru + 2 * 2 * batch * H * H)
+    return {"bf16_tflop": bf16 / 1e12,
+            "fp32_tflop": 3 * 2 * 2 * tokens * H * V / 1e12}
+
+
+def phase_skip_thoughts_train(torch, card):
+    """Skip-thoughts through parallel_run HYBRID on one card, bf16:
+    ``agree_steps`` eager steps of a fresh session against the same
+    steps as replays of another session's captured step (losses and
+    every state tensor bitwise equal); then ``steps`` timed steps
+    (sentences a second, step ms p50 and p95 from CUDA events, peak
+    memory, the model FLOPs' share of 989 TF/s), every loss finite and
+    ``words`` 2 B T; ``emb`` alone classified sparse; then
+    ``profile_groups`` by ``SKIP_GROUPS``."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.compile import graphs as graphs_lib
+    from parallax_tpu_torch.core.engine import state_tensors
+    from parallax_tpu_torch.models import skip_thoughts as st
+    torch.cuda.empty_cache()
+    cfg = st.SkipThoughtsConfig()
+    B, T = SKIP_TRAIN["batch"], SKIP_TRAIN["seq"]
+    steps, agree = SKIP_TRAIN["steps"], SKIP_TRAIN["agree_steps"]
+    rng = np.random.default_rng(SEED)
+    batches = [st.make_batch(rng, B, T, cfg.vocab_size) for _ in range(4)]
+
+    def session():
+        sess, *_ = pt.parallel_run(
+            st.build_model(cfg), seed=SEED, device=DEVICE,
+            parallax_config=pt.Config(run_option="HYBRID"))
+        sess.prepare(batches[0])
+        return sess
+
+    eager = session()
+    with graphs_lib.disable_capture():
+        eager_losses = [float(eager.run("loss", feed_dict=batches[i]))
+                        for i in range(agree)]
+    eager_state = [t.detach().clone() for t in state_tensors(eager.state)]
+    eager.close()
+    del eager
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sess = session()
+    sparse = sorted(p for p, v in sess.engine.plan.var_specs.items()
+                    if v.is_sparse)
+    if sparse != ["emb"]:
+        raise AssertionError(f"skip-thoughts sparse variables {sparse}, "
+                             f"want ['emb'] as in JAX")
+    capture = capture_train(torch, sess, B)
+    graph_losses = [float(sess.run("loss", feed_dict=batches[i]))
+                    for i in range(agree)]
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(eager_state, state_tensors(sess.state)))
+    del eager_state
+    if graph_losses != eager_losses or not same_state:
+        raise AssertionError(f"captured skip-thoughts steps {graph_losses} "
+                             f"!= eager {eager_losses} (state bitwise "
+                             f"equal: {same_state})")
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    t0 = time.perf_counter()
+    outs = []
+    feed = (batches[i % 4] for i in range(steps))
+    for out in sess.run_iter(feed, fetches=["loss", "words"]):
+        outs.append(out)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(o[0]) for o in outs]
+    words = [float(o[1]) for o in outs]
+    if not all(math.isfinite(x) for x in losses + graph_losses):
+        raise AssertionError(f"non-finite skip-thoughts loss: {losses}")
+    if words != [2.0 * B * T] * steps:
+        raise AssertionError(f"skip-thoughts words {words} != {2 * B * T}")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    p50 = statistics.median(step_ms)
+    flops = skip_model_flops(cfg, B, T)
+    step_flop = (flops["bf16_tflop"] + flops["fp32_tflop"]) * 1e12
+    summary = {
+        "card": card,
+        "config": {"vocab": cfg.vocab_size, "emb": cfg.emb_dim,
+                   "hidden": cfg.hidden_dim, "compute": "bfloat16",
+                   "run_option": "HYBRID", "batch": B, "seq": T},
+        "sentences_per_sec": steps * B / wall, "timed_steps": steps,
+        "wall_s": wall, "step_ms_p50": p50, "step_ms_p95": p95(step_ms),
+        "losses": graph_losses + losses, "eager_losses": eager_losses,
+        "captured_equals_eager": True,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "model_flops": flops,
+        "share_of_bf16_peak": steps / wall * step_flop
+        / PEAK_OPS_PER_S["bfloat16"],
+        "share_of_bf16_peak_at_p50": step_flop / (p50 * 1e-3)
+        / PEAK_OPS_PER_S["bfloat16"],
+        "capture": capture}
+    summary["profile"] = prof = profile_groups(
+        torch, sess, batches, SKIP_TRAIN["profile_steps"], SKIP_GROUPS,
+        flash=())
+    summary["timed_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] \
+        / (wall * 1e3 / steps)
+    log(f"[skip-thoughts-train] {json.dumps(summary)}")
+    sess.close()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_lm1b_full(torch, card, train):
+    """The LM1B full-softmax baseline through parallel_run HYBRID on one
+    card (dense Adagrad after the clip, the LSTM on the sm90 kernels):
+    ``sess.warmup`` captures the step, then ``warmup`` and ``steps``
+    timed steps (words a second, step ms p50 and p95, peak memory); B2
+    and B3 once a step, B1 none; every loss finite; ``emb`` sparse and
+    the softmax tables dense; then ``profile_groups`` by
+    ``LM1B_FULL_GROUPS`` (the head's share of busy), and the ratio of
+    ``train``'s sampled-softmax words a second to this phase's at the
+    same batch (the JAX bench's ``vs_baseline``)."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import lm1b
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = lm1b.LM1BConfig(lstm_impl="kernel")
+    sess, *_ = pt.parallel_run(
+        lm1b.build_full_softmax_model(cfg), seed=SEED, device=DEVICE,
+        parallax_config=pt.Config(run_option="HYBRID"))
+    batches = lm1b_batches(cfg)
+    sess.prepare(batches[0])
+    sparse = sorted(p for p, v in sess.engine.plan.var_specs.items()
+                    if v.is_sparse)
+    if sparse != ["emb"]:
+        raise AssertionError(f"full-softmax sparse variables {sparse}, "
+                             f"want ['emb'] (the softmax used densely)")
+    capture = capture_train(torch, sess, TRAIN["batch"])
+    zero_lstm_counts()
+    losses = [float(x) for x in sess.run_iter(
+        (batches[i % 4] for i in range(LM1B_FULL["warmup"])),
+        fetches="loss")]
+    stats = timed_steps(torch, sess, batches, LM1B_FULL["steps"],
+                        lambda b: float(b["w"].sum()))
+    losses.append(float(sess.run("loss", feed_dict=batches[0])))
+    torch.cuda.synchronize()
+    launches = lstm_counts()
+    n = LM1B_FULL["warmup"] + LM1B_FULL["steps"] + 1
+    want = {"lstm_fwd": 0, "lstm_fwd_res": n, "lstm_bwd": n}
+    if launches != want:
+        raise AssertionError(f"lm1b-full LSTM launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite lm1b-full loss: {losses}")
+    summary = {
+        "card": card,
+        "config": {"vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
+                   "emb": cfg.emb_dim, "hidden": cfg.hidden_dim,
+                   "proj": cfg.proj_dim, "keep_prob": cfg.keep_prob,
+                   "compute": "bfloat16", "run_option": "HYBRID",
+                   "batch": TRAIN["batch"], "num_steps": TRAIN["num_steps"]},
+        "words_per_sec": stats["per_sec"],
+        "step_ms_p50": stats["step_ms_p50"],
+        "step_ms_p95": stats["step_ms_p95"], "timed_steps":
+            LM1B_FULL["steps"], "losses": losses,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "launches_per_step": {
+            k: v / n for k, v in launches.items()},
+        "capture": capture,
+        "sampled_over_full_words_per_sec":
+            train["lm1b_words_per_sec_per_chip"] / stats["per_sec"]}
+    summary["profile"] = prof = profile_groups(
+        torch, sess, batches, LM1B_FULL["profile_steps"], LM1B_FULL_GROUPS,
+        flash=(), lstm=("lstm_fwd_kernel_sm90", "lstm_bwd_kernel_sm90"))
+    summary["head_share_of_busy"] = prof["busy_share_by_group"][
+        LM1B_FULL_GROUPS[0][0]]
+    log(f"[lm1b-full] {json.dumps(summary)}")
+    sess.close()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_lc_pipe(torch, card, lc_train):
+    """(a) The long-context LM in pipeline mode, GPipe and 1F1B, through
+    parallel_run on one card at lc-train's shape: ``sess.warmup``
+    captures the step, then ``steps`` steps (tokens a second, p50, peak
+    memory); B4, B5 and B6 6 times a step each; the losses within
+    ``loss_tol`` relative of lc-train's on the same batches from the same
+    weights. (b) ``ops.pipeline.pipeline_apply`` (with autograd) and
+    ``pipeline_value_and_grad`` on a one-rank mesh, M 4, over the LC
+    stage at B 8 x T 8192, each captured as one graph and replayed once:
+    the loss within ``loss_tol`` and every gradient (the stage rows, the
+    input, the head) within ``grad_tol`` of its peak of the sequential
+    application's; the peak memory of the capture's eager call; B4, B5
+    and B6 launches as the schedule implies (GPipe 4 x 6 each; 1F1B
+    recomputes each forward in its backward tick: B4 8 x 6)."""
+    from parallax_tpu_torch.compile import graphs as graphs_lib
+    from parallax_tpu_torch.core import mesh as mesh_lib
+    from parallax_tpu_torch.models import long_context as lc
+    from parallax_tpu_torch.ops import pipeline as pp
+    B, T, steps = LC_TRAIN["batch"], LC_TRAIN["seq"], LC_PIPE["steps"]
+    summary = {"card": card, "sessions": {}, "ops": {}}
+    launches_total = {}
+    for sched in ("gpipe", "1f1b"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, sess = lc_session(torch, parallelism="pipeline",
+                               pipeline_schedule=sched,
+                               use_pallas_attention=True)
+        batches = lc_batches(cfg, B, T)
+        sess.prepare(batches[0])
+        if sess.engine.batch_layout != "repl":
+            raise AssertionError(f"lc-pipe batch layout "
+                                 f"{sess.engine.batch_layout}")
+        capture = capture_train(torch, sess, B)
+        zero_flash_counts()
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        t0 = time.perf_counter()
+        losses = []
+        for loss in sess.run_iter(iter(batches[:steps]), fetches="loss"):
+            losses.append(loss)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_counts()
+        add_counts(launches_total, launches)
+        if set(launches.values()) != {steps * cfg.num_layers}:
+            raise AssertionError(f"lc-pipe {sched} flash launches "
+                                 f"{launches}: want {cfg.num_layers} of "
+                                 f"each a step")
+        losses = [float(x) for x in losses]
+        want = [float(x) for x in lc_train["losses"][:steps]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        if not (all(math.isfinite(x) for x in losses)
+                and max(rel) <= LC_PIPE["loss_tol"]):
+            raise AssertionError(f"lc-pipe {sched} losses {losses} vs "
+                                 f"lc-train's {want}: {max(rel)} > "
+                                 f"{LC_PIPE['loss_tol']}")
+        step_ms = sorted(a.elapsed_time(b)
+                         for a, b in zip(events, events[1:]))
+        summary["sessions"][sched] = {
+            "losses": losses, "lc_train_losses": want,
+            "max_rel_diff": max(rel), "tol": LC_PIPE["loss_tol"],
+            "tokens_per_sec": steps * B * T / wall,
+            "step_ms_p50": statistics.median(step_ms),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "capture": capture}
+        sess.close()
+        del sess
+    # (b) the schedules themselves
+    torch.cuda.empty_cache()
+    M = LC_PIPE["micro"]
+    cfg = lc.LongContextConfig(parallelism="pipeline",
+                               use_pallas_attention=True)
+    L = cfg.num_layers
+    params = lc.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    stages = lc._tree_map(lambda t: t[None].detach().requires_grad_(True),
+                          params["blocks_stacked"])
+    leaves = pp._leaves(stages)
+    head_w = params["out_w"].detach().requires_grad_(True)
+    head = {"out_w": head_w}
+    ids = torch.as_tensor(lc_batches(cfg, B, T, 1)[0]["ids"],
+                          device=DEVICE).long()
+    with torch.no_grad():
+        x0 = params["emb"][ids].to(cfg.compute_dtype) \
+            + params["pos"][:T].to(cfg.compute_dtype)[None]
+    x = x0.detach().requires_grad_(True)
+    y = {"labels": torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], 1),
+         "w": torch.ones((B, T), device=DEVICE)}
+    y["w"][:, -1] = 0.0
+    stage_fn = lc.make_stage_fn(cfg, L)
+    mesh = mesh_lib.Mesh(torch.device(DEVICE))
+
+    def mb_loss(h, out, yy):
+        logits = out.float() @ h["out_w"]
+        nll = -torch.log_softmax(logits.reshape(-1, logits.shape[-1]),
+                                 dim=-1).gather(
+            1, yy["labels"].reshape(-1, 1))[:, 0]
+        wf = yy["w"].reshape(-1)
+        return (nll * wf).sum() / wf.sum()
+
+    wrt = leaves + [x, head_w]
+    with torch.enable_grad():
+        ref_loss = mb_loss(head, stage_fn(lc._tree_map(lambda t: t[0],
+                                                       stages), x), y)
+        ref = [g.detach() for g in torch.autograd.grad(ref_loss, wrt)]
+    ref_loss = float(ref_loss.detach())
+
+    def gpipe():
+        with torch.enable_grad():
+            out = pp.pipeline_apply(stage_fn, stages, x, mesh, M)
+            loss = mb_loss(head, out, y)
+            grads = torch.autograd.grad(loss, wrt)
+        return {"loss": loss.detach(), "grads": list(grads)}
+
+    def one_f_one_b():
+        loss, (gs, gh, gx) = pp.pipeline_value_and_grad(
+            stage_fn, mb_loss, stages, x, y, mesh, M, head_params=head)
+        return {"loss": loss, "grads": pp._leaves(gs) + [gx, gh["out_w"]]}
+
+    for name, body, fwd in (("gpipe", gpipe, M * L),
+                            ("1f1b", one_f_one_b, 2 * M * L)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        graph = graphs_lib.capture(body, DEVICE)
+        capture_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        zero_flash_counts()
+        outs = graph.replay()
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        add_counts(launches_total, launches)
+        want = {"flash_attention_fwd": fwd, "flash_attention_dq": M * L,
+                "flash_attention_dkv": M * L}
+        if launches != want:
+            raise AssertionError(f"lc-pipe {name} launches {launches} != "
+                                 f"{want}")
+        loss = float(outs["loss"])
+        errs = []
+        for g, r in zip(outs["grads"], ref):
+            errs.append((g.float() - r.float()).abs().max().item()
+                        / max(r.float().abs().max().item(), 1e-30))
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        summary["ops"][name] = {
+            "loss": loss, "sequential_loss": ref_loss, "loss_rel_diff": rel,
+            "max_grad_err_of_peak": max(errs),
+            "grad_err_of_peak": {"stage_rows": max(errs[:-2]),
+                                 "x": errs[-2], "head": errs[-1]},
+            "peak_memory_gb": peak / 1e9, "capture_s": capture_s,
+            "pool_bytes": pool_bytes(torch, [graph.graph]),
+            "launches": launches}
+        del graph, outs
+        if not (rel <= LC_PIPE["loss_tol"]
+                and max(errs) <= LC_PIPE["grad_tol"]):
+            raise AssertionError(f"lc-pipe {name} against the sequential "
+                                 f"stage: {summary['ops'][name]}")
+    summary["launches"] = launches_total
+    log(f"[lc-pipe] {json.dumps(summary)}")
+    del params, stages, leaves, ref, x, x0
+    torch.cuda.empty_cache()
+    return summary
+
+
 # -- the run ----------------------------------------------------------------
 
 
@@ -5317,11 +5754,12 @@ def phase_nmt_data(torch):
 # at ("lc_serve" is moe-serve's decode step too)
 MAIN_PATH_CASES = {
     "flash_attention_fwd": ["serve", "train_enc", "train_dec", "bert",
-                            "lc_train", "moe_train", "nmt_beam", "oneshot"],
+                            "lc_train", "moe_train", "nmt_beam", "oneshot",
+                            "lc_pipe"],
     "flash_attention_dq": ["train_enc", "train_dec", "bert", "lc_train",
-                           "moe_train"],
+                           "moe_train", "lc_pipe"],
     "flash_attention_dkv": ["train_enc", "train_dec", "bert", "lc_train",
-                            "moe_train"],
+                            "moe_train", "lc_pipe"],
     "paged_decode_attention": ["serve", "serve_g3", "lc_serve"],
     "lstm_fwd": ["train"], "lstm_fwd_res": ["train"], "lstm_bwd": ["train"],
 }
@@ -5576,6 +6014,9 @@ def main() -> int:
     dist_train = phase("dist-train", phase_dist_train, torch,
                        train["losses"], card)
     train_agree = phase("train-agree", phase_train_agreement, torch)
+    skip_thoughts = phase("skip-thoughts-train", phase_skip_thoughts_train,
+                          torch, card)
+    lm1b_full = phase("lm1b-full", phase_lm1b_full, torch, card, train)
     nmt_train, nmt_profile = phase("nmt-train", phase_nmt_train, torch)
     nmt_agree = phase("nmt-train-agree", phase_nmt_train_agreement, torch)
     resnet_train, resnet_profile = phase("resnet-train", phase_resnet_train,
@@ -5585,6 +6026,7 @@ def main() -> int:
     bert_agree = phase("bert-agree", phase_bert_agree, torch)
     lc_train = phase("lc-train", phase_lc_train, torch, card)
     lc_agree = phase("lc-agree", phase_lc_agree, torch)
+    lc_pipe = phase("lc-pipe", phase_lc_pipe, torch, card, lc_train)
     from parallax_tpu_torch.models import long_context
     lc_cfg = long_context.LongContextConfig()
     lc_params = long_context.init_params(
@@ -5652,7 +6094,9 @@ def main() -> int:
             ckpt_resume["launches"].items()) + list(
             nan_rollback["launches"].items()) + list(
             data_feed["launches"].items()) + list(
-            nmt_data["launches"].items()):
+            nmt_data["launches"].items()) + list(
+            lm1b_full["launches"].items()) + list(
+            lc_pipe["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -5681,6 +6125,8 @@ def main() -> int:
               "oneshot": oneshot, "fleet": fleet, "disagg": disagg,
               "ckpt_resume": ckpt_resume, "nan_rollback": nan_rollback,
               "data_feed": data_feed, "nmt_data": nmt_data,
+              "skip_thoughts_train": skip_thoughts, "lm1b_full": lm1b_full,
+              "lc_pipe": lc_pipe,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

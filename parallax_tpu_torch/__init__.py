@@ -51,12 +51,18 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
   parallax_config=Config(run_option="AR"))`` and the rest of the CNN zoo,
   a stateful model (BatchNorm statistics) with momentum SGD; no TPU
   kernel lies on this path. ``simple`` is the linear-regression smoke.
+* Skip-thoughts (``skip_thoughts.build_model(SkipThoughtsConfig())``: a
+  GRU encoder and two GRU decoders) and the LM1B full-softmax baseline
+  (``lm1b.build_full_softmax_model``).
 
-The stateless training paths run over N ranks too (one process a card,
-the JAX package's ``('repl', 'shard')`` mesh over ``torch.distributed``:
-dense gradients all-reduced, sparse tables row-sharded and looked up
-through all-gather and reduce-scatter; ``parallel_run(resource_info=
-"localhost:0,1,...")`` starts the ranks).
+The training paths run over N ranks too (one process a card, the JAX
+package's ``('repl', 'shard')`` mesh over ``torch.distributed``: dense
+gradients all-reduced, sparse tables row-sharded and looked up through
+all-gather and reduce-scatter, BatchNorm statistics over the global
+batch; ``parallel_run(resource_info="localhost:0,1,...")`` starts the
+ranks). Pipeline parallelism (``ops/pipeline.py``: GPipe, 1F1B,
+interleaved) runs the long-context LM's stages over the mesh's pipeline
+axis (``core.mesh.build_mesh(shape=(dp, tp, pp))``, or 'shard').
 
 On the card every train step and every serving decode step is a replay
 of a CUDA graph captured ahead of step 0 (``compile/``: bucketing,
@@ -72,7 +78,7 @@ from parallax_tpu_torch.common.config import (CheckPointConfig, Config,
 from parallax_tpu_torch.common.lib import parallax_log as log
 from parallax_tpu_torch.core.engine import Model, TrainState
 from parallax_tpu_torch.models import (cnn, lm1b, long_context, moe_lm,
-                                      nmt, simple)
+                                      nmt, simple, skip_thoughts)
 from parallax_tpu_torch.runner import parallel_run
 from parallax_tpu_torch.serve import (AdapterSpec, CausalLMDecodeProgram,
                                       DisaggFleet, FaultInjector,
@@ -94,4 +100,4 @@ __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
            "register_adapter", "registered_adapters", "ServeFleet",
            "FleetConfig", "DisaggFleet", "FaultInjector", "Router",
            "HealthPolicy", "cnn", "lm1b", "long_context", "moe_lm", "nmt",
-           "simple"]
+           "simple", "skip_thoughts"]

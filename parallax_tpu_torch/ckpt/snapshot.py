@@ -11,11 +11,13 @@ either package, on any layout, restores into the other, on any layout.
 
 ``Leaf`` is one such leaf: the live tensor (or a host value), its global
 shape and dtype, and its pieces, each a global extent with the local
-index that holds it. A row shard is one piece (its rows of dim 0); a
-column-parallel shard of ``g`` fused blocks is ``g`` pieces (its columns
-of each block); a replicated leaf is one piece covering everything. Only
-the first replica of an extent writes it (repl row 0; rank 0 for a
-replicated leaf).
+index that holds it. A row shard is one piece (its rows of dim 0; so
+are an expert shard and a rank's rows of a pipeline's stage stack,
+whose global array is the stack in storage order); a column-parallel
+shard of ``g`` fused blocks is ``g`` pieces (its columns of each
+block); a replicated leaf is one piece covering everything. Only the
+first replica of an extent writes it (``Engine.writes_split``: index 0
+on every axis but the split one; rank 0 for a replicated leaf).
 
 Two leaves have no tensor in the port's state. ``step`` is the host
 counter, written as JAX's int32 scalar. ``rng`` is JAX's
@@ -192,11 +194,10 @@ def _split_leaf(name: str, value: torch.Tensor, param: str, engine,
     placement = plan.placements.get(param, engine_lib.REPLICATED)
     shape = tuple(value.shape)
     lead = len(shape) - len(local)
-    r, s = mesh.coords
     if placement == engine_lib.REPLICATED or lead not in (0, 1) \
             or shape[lead:] != local:
         return replicated(name, value, writes=mesh.rank == 0)
-    p = mesh.shard
+    p, s = engine.split_size(param), engine.split_group(param)[1]
     whole = slice(None)
     if placement == engine_lib.TP_COLUMN:
         g = plan.tp_groups[param]
@@ -215,7 +216,7 @@ def _split_leaf(name: str, value: torch.Tensor, param: str, engine,
         extent[lead] = (s * n, (s + 1) * n)
         pieces = [(tuple(extent), (whole,) * len(shape))]
     return Leaf(name, value, gshape, dtype_name(value.dtype), pieces,
-                writes=r == 0)
+                writes=engine.writes_split(param))
 
 
 def state_leaves(state, engine=None, optimizer=None) -> List[Leaf]:

@@ -38,6 +38,15 @@ card):
   ``ExpertSpec`` on a variable the classifier finds sparse is refused.
   An expert count that does not divide the shard axis warns and
   replicates (``switch_moe`` then runs its dense path), as in JAX.
+* a stage-sharded variable (``P('pipe')`` on dim 0, as the pipeline LM
+  declares its ``blocks_stacked``) lives on each rank as its rows of
+  the stage stack over the mesh's pipeline axis (``mesh.
+  pipeline_group``: 'pipe' on a three-axis mesh, else 'shard') and is
+  used as it is, never gathered: ``ops/pipeline.py`` runs each rank's
+  stages. Expert and stage placements are one kind, a dim-0 split kept
+  local over an axis (``ROW_LOCAL``): the gradient of such rows is
+  this rank's own and is summed over 'repl' alone, never over the split
+  axis, and averaged over the batch group as every other gradient.
 
 Every gradient that crosses ranks is averaged over the ranks the batch
 is split over: the world, or the repl group where ``Model.batch_specs``
@@ -81,9 +90,20 @@ seed and the step counter before the step, the counterpart of
 A stateful model (``Model(stateful=True)``, e.g. BatchNorm statistics)
 carries ``TrainState.model_state`` beside the parameters: the loss
 returns the new state, which is copied over the old after the step; only
-``params`` get gradients (engine.py:636, :719). On more than one rank it
-is refused: the JAX package takes BatchNorm statistics over the global
-batch, and cross-rank BatchNorm is not ported.
+``params`` get gradients (engine.py:636, :719). On more than one rank
+``models/_nn.py``'s BatchNorm takes its statistics over the global batch
+(the batch group of the step's mesh scope), as the JAX package's one
+program does, so the new state is the same on every rank.
+
+``Model.value_and_grad_fn`` (engine.py:642-656) replaces autograd: the
+model returns ``(loss, metrics, grads)`` (the 1F1B pipeline computes its
+gradients itself, ``ops.pipeline.pipeline_value_and_grad``), inside the
+step's lookup and mesh scope. Its gradients are this rank's, as autograd
+would give them, and go through the same combine across ranks.
+``pipeline_info`` is kept on the Model for the tuner. The JAX engine's
+``_guard_persistent_cache_for_pipeline`` (engine.py:302-340) works round
+a crash of XLA:CPU reloading cached pipeline executables and has no
+counterpart here.
 
 ``sync=False`` is bounded-staleness delayed-gradient training
 (engine.py:575-677): each step applies the gradients computed
@@ -127,9 +147,8 @@ the communicators; every rank captures in the same order). A declared
 mesh-uniform overflow flag each step, so such an engine runs its steps
 eagerly (``compile_stats()["step_capture"]`` says so).
 
-Not ported: pipeline parallelism (``value_and_grad_fn``,
-``pipeline_info``), ``batch_specs`` other than the default, 'repl'
-alone on dim 0 and ``P('repl', 'shard')``, tensor parallelism with
+Not ported: ``batch_specs`` other than the default, 'repl' alone on dim
+0 and ``P('repl', 'shard')``, tensor parallelism with
 ``sparse_grad_mode="slices"``, and the numerics observatory.
 """
 
@@ -166,8 +185,12 @@ TP_ROW = "tp_row"
 TP_PLACEMENTS = (TP_COLUMN, TP_ROW)
 # expert-parallel: each rank keeps and uses its E/n experts (dim 0)
 EXPERT = "expert_sharded"
+# pipeline stages: each rank keeps and uses its rows of the stage stack
+STAGE = "stage_sharded"
+# dim-0 splits kept local over one axis: their gradient is the rank's own
+ROW_LOCAL = (EXPERT, STAGE)
 # placements a rank computes with as it holds them (never gathered)
-LOCAL_PLACEMENTS = TP_PLACEMENTS + (EXPERT,)
+LOCAL_PLACEMENTS = TP_PLACEMENTS + ROW_LOCAL
 
 
 class Model:
@@ -196,14 +219,18 @@ class Model:
       of the plan: ``P()`` replicates, ``P('shard', None, ...)``
       row-shards (gathered for use), a ``TPSpec`` or ``P(None, ...,
       'shard')`` is tensor-parallel (``ops.tensor_parallel``'s specs),
-      an ``ExpertSpec`` expert-parallel (``ops.moe``'s expert weights).
+      an ``ExpertSpec`` expert-parallel (``ops.moe``'s expert weights),
+      ``P('pipe')`` stage-sharded (``ops.pipeline``'s stage stacks).
     * ``batch_specs``: feed name -> spec of that feed; dim 0 on
       ``('repl', 'shard')`` (the default), on ``'repl'`` alone, or
       ``P('repl', 'shard')``: the batch on 'repl' and the sequence (dim
       1) on 'shard' (the sequence layout of the long-context LM).
-    * ``value_and_grad_fn``, ``pipeline_info``: kept for the JAX
-      package's signature; not ported (the engine refuses a model that
-      sets one).
+    * ``value_and_grad_fn(params, batch, gen) -> (loss, metrics,
+      grads)``: replaces autograd in the step (the 1F1B pipeline); the
+      grads are a tree like ``params``, this rank's (see the module
+      doc). Stateless models without ``slice_updaters`` only.
+    * ``pipeline_info``: the schedule's description, kept for the tuner
+      (``tune/costmodel.pipeline_bubble`` prices it).
     * A row-sharded table must be read through ``embedding_lookup``: a
       rank holds only its rows.
     """
@@ -324,12 +351,29 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
+def _stage_placement(spec, shape, mesh: mesh_lib.Mesh,
+                     path: str) -> Optional[str]:
+    """The placement of a ``P('pipe')`` override: STAGE over the mesh's
+    pipeline stages (REPLICATED on one stage; None when dim 0 does not
+    divide them); 'pipe' past dim 0 raises."""
+    if any(e is not None for e in tuple(spec)[1:]):
+        raise ValueError(f"stage spec {spec!r} for {path}: only dim 0 "
+                         f"(the stages) splits over 'pipe'")
+    n = mesh_lib.pipeline_stage_count(mesh)
+    if shape[0] % n:
+        parallax_log.warning(
+            "param_specs override for %s: dim 0 (%d) not divisible by the "
+            "%d pipeline stages; replicating", path, shape[0], n)
+        return None
+    return STAGE if n > 1 else REPLICATED
+
+
 def _spec_placement(spec, shape, p: int, path: str) -> Optional[str]:
     """The placement a ``param_specs`` override asks for: REPLICATED for
     ``P()``, ROW_SHARDED for the row spec, EXPERT for an ``ExpertSpec``
     (None for either when dim 0 does not divide the shard axis), TP_ROW
     for a row ``TPSpec`` and TP_COLUMN for a column spec; any other
-    layout raises."""
+    layout raises. ``P('pipe')`` is ``_stage_placement``'s."""
     entries = tuple(mesh_lib.resolve_spec(spec))
     tp = isinstance(spec, mesh_lib.TPSpec)
     if all(e is None for e in entries):
@@ -414,7 +458,9 @@ def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
     def with_override(path, vs, placement):
         for pattern, spec in model.param_specs.items():
             if fnmatch.fnmatch(path, pattern):
-                chosen = _spec_placement(spec, vs.shape, p, path)
+                chosen = _stage_placement(spec, vs.shape, mesh, path) \
+                    if len(spec) and spec[0] == mesh_lib.AXIS_PIPE \
+                    else _spec_placement(spec, vs.shape, p, path)
                 if chosen in TP_PLACEMENTS:
                     tp_groups[path] = getattr(spec, "groups", 1)
                 return chosen or placement
@@ -619,18 +665,12 @@ class Engine:
     def __init__(self, model: Model, mesh: mesh_lib.Mesh,
                  config: ParallaxConfig, example_batch,
                  metrics: Optional[obs_metrics.MetricsRegistry] = None):
-        missing = [name for name, v in (
-            ("value_and_grad_fn", model.value_and_grad_fn),
-            ("pipeline_info", model.pipeline_info)) if v]
-        if missing:
-            raise NotImplementedError(
-                f"Model.{', '.join(missing)}: pipeline parallelism is not "
-                f"ported")
-        if model.stateful and mesh.size > 1:
-            raise NotImplementedError(
-                f"a stateful model on {mesh.size} ranks: cross-rank "
-                f"BatchNorm (statistics over the global batch) is not "
-                f"ported; run it on one rank")
+        if model.value_and_grad_fn is not None and (
+                model.stateful or model.slice_updaters):
+            raise ValueError(
+                "Model.value_and_grad_fn returns the gradients of the "
+                "parameters alone: it takes no model state and no "
+                "slice_updaters")
         if config.sync and int(config.staleness) > 1:
             raise ValueError(
                 f"staleness={config.staleness} has no effect with "
@@ -703,6 +743,14 @@ class Engine:
                 f"expert-parallel param_specs ({experts}) with the "
                 f"{self.batch_layout!r} batch layout: the MoE dispatch "
                 f"takes each rank's own rows (the default layout)")
+        stages = [p for p, pl in self.plan.placements.items()
+                  if pl == STAGE]
+        if stages and not self._batch_on_repl:
+            raise ValueError(
+                f"stage-sharded param_specs ({stages}) with the "
+                f"{self.batch_layout!r} batch layout: every rank of a stage "
+                f"ring must hold the same rows; declare batch_specs that "
+                f"put every feed on 'repl' alone")
         if self.plan.tp_groups and not self._batch_on_repl:
             raise NotImplementedError(
                 f"tensor-parallel param_specs ({sorted(self.plan.tp_groups)}"
@@ -844,16 +892,42 @@ class Engine:
                           seed=seed, model_state=model_state,
                           slice_state=slice_state, pending_grads=pending)
 
+    def split_group(self, path: str):
+        """(group, this rank's index in it) of the axis variable ``path``
+        is split over: the pipeline group for a stage-sharded one, the
+        shard group for the other splits."""
+        if self.plan.placements[path] == STAGE:
+            return (mesh_lib.pipeline_group(self.mesh),
+                    mesh_lib.pipeline_index(self.mesh))
+        return self.mesh.shard_group, self.mesh.coords[1]
+
+    def split_size(self, path: str) -> int:
+        """How many parts variable ``path`` is split into."""
+        if self.plan.placements[path] == STAGE:
+            return mesh_lib.pipeline_stage_count(self.mesh)
+        return self.mesh.shard
+
+    def writes_split(self, path: str) -> bool:
+        """Whether this rank writes its part of split variable ``path`` to
+        a checkpoint: the first of the ranks that hold the same part
+        (index 0 on every axis but the split one)."""
+        mesh = self.mesh
+        r, s = mesh.coords
+        if self.plan.placements[path] == STAGE:
+            return r == 0 and (s == 0 or mesh.pipe == 1)
+        return r == 0 and mesh.pipe_index == 0
+
     def local_part(self, path: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's part of variable ``path`` from the whole one, as its
         own tensor: its rows of a row-sharded or row-parallel leaf, its
-        experts of an expert-parallel one, its columns of a
-        column-parallel one (of each of its ``groups`` blocks, in block
-        order), the whole of a replicated one."""
+        experts of an expert-parallel one, its stage rows of a
+        stage-sharded one, its columns of a column-parallel one (of each
+        of its ``groups`` blocks, in block order), the whole of a
+        replicated one."""
         placement = self.plan.placements[path]
         if placement == REPLICATED:
             return whole
-        p, s = self.mesh.shard, self.mesh.coords[1]
+        p, s = self.split_size(path), self.split_group(path)[1]
         if placement == TP_COLUMN:
             g = self.plan.tp_groups[path]
             blocks = whole.reshape(whole.shape[:-1] + (g, -1))
@@ -876,9 +950,9 @@ class Engine:
                                      for p in split})
 
     def _whole(self, path: str, part: torch.Tensor) -> torch.Tensor:
-        """Variable ``path`` gathered whole from the shard group's parts
-        (``local_part``'s inverse; a collective)."""
-        group = self.mesh.shard_group
+        """Variable ``path`` gathered whole from the parts over its split
+        axis (``local_part``'s inverse; a collective)."""
+        group = self.split_group(path)[0]
         if self.plan.placements[path] != TP_COLUMN:
             return collectives.all_gather(part, group)
         g, p = self.plan.tp_groups[path], self.mesh.shard
@@ -1076,10 +1150,16 @@ class Engine:
                 {id(flat[p]): p for p in self._slice_resolved})
             scope = embedding.slice_capture_scope(cap)
         self._lookup_records = records = []
+        vag = self.model.value_and_grad_fn
         with scope, self._lookup_scope(flat, records):
-            loss, metrics, new_model_state = self.model.call_loss(
-                self._loss_view(state, flat), batch, self._gen,
-                state.model_state)
+            if vag is not None:
+                loss, metrics, grad_tree = vag(state.params, batch,
+                                               self._gen)
+                metrics, new_model_state = dict(metrics), None
+            else:
+                loss, metrics, new_model_state = self.model.call_loss(
+                    self._loss_view(state, flat), batch, self._gen,
+                    state.model_state)
         if self.config.monitor_health:
             taken = {"grad_norm", "loss_finite"} & set(metrics)
             if taken:
@@ -1090,7 +1170,12 @@ class Engine:
                     f"metric(s)")
         leaves = [flat[p] for p in self._dense_paths]
         rows = [r for _, _, r in cap.captured] if cap is not None else []
-        grads = torch.autograd.grad(loss, leaves + rows, allow_unused=True)
+        if vag is not None:
+            got = dict(classify.flatten(grad_tree))
+            grads = tuple(got.get(p) for p in self._dense_paths)
+        else:
+            grads = torch.autograd.grad(loss, leaves + rows,
+                                        allow_unused=True)
         with torch.no_grad():
             dense = {p: (g if g is not None else torch.zeros_like(flat[p]))
                      for p, g in zip(self._dense_paths, grads)}
@@ -1100,7 +1185,7 @@ class Engine:
             apply = dense
             if not self.config.sync:
                 apply = self._delayed(state, dense)
-            with optim.sharded_scope(self.plan.split, self.mesh):
+            with optim.sharded_scope(self._split_groups(), self.mesh):
                 updates, _ = self.model.optimizer.update(
                     apply, state.opt_state,
                     {p: flat[p] for p in self._dense_paths})
@@ -1131,7 +1216,7 @@ class Engine:
         gradients (the dense ones after their combine across ranks, and
         the slice tables' row gradients, scaled and summed over the world
         as ``_apply_slices`` gathers them), and ``loss_finite``."""
-        with optim.sharded_scope(self.plan.split, self.mesh):
+        with optim.sharded_scope(self._split_groups(), self.mesh):
             sq = optim.global_norm(dense).square() if dense else \
                 torch.zeros((), device=self.device)
         rows = [g for g in row_grads if g is not None]
@@ -1146,13 +1231,19 @@ class Engine:
         return {"grad_norm": torch.sqrt(sq),
                 "loss_finite": torch.isfinite(loss.detach())}
 
+    def _split_groups(self) -> Dict[str, Any]:
+        """{split variable: the group it is split over}, for the global
+        norm (``optim.sharded_scope``)."""
+        return {p: self.split_group(p)[0] for p in self.plan.split}
+
     def _combine(self, dense: Dict[str, torch.Tensor]) -> None:
         """Average the dense gradients over the ranks the batch is split
         over, in place: replicated and tensor-parallel ones all-reduced
         in flat buckets over that group (the world, or the repl group when
         the batch rides 'repl' alone; a process group of one rank runs
-        the collective too); expert shards, which the dispatch's backward
-        summed over 'shard', all-reduced over 'repl' and scaled alike;
+        the collective too); expert and stage rows (``ROW_LOCAL``), whose
+        gradient is this rank's own (the dispatch's backward summed the
+        experts' over 'shard'), all-reduced over 'repl' and scaled alike;
         row-shard gradients, which their backward already summed over
         the mesh, scaled alone."""
         group = self._batch_group
@@ -1161,12 +1252,12 @@ class Engine:
         scale = 1.0 / group.size if group.size > 1 else None
         collectives.flat_all_reduce_(
             [g for p, g in dense.items()
-             if self.plan.placements[p] not in (ROW_SHARDED, EXPERT)],
+             if self.plan.placements[p] not in (ROW_SHARDED,) + ROW_LOCAL],
             group, scale)
-        experts = [g for p, g in dense.items()
-                   if self.plan.placements[p] == EXPERT]
-        if experts:
-            collectives.flat_all_reduce_(experts, self.mesh.repl_group,
+        local = [g for p, g in dense.items()
+                 if self.plan.placements[p] in ROW_LOCAL]
+        if local:
+            collectives.flat_all_reduce_(local, self.mesh.repl_group,
                                          scale)
         shards = [g for p, g in dense.items()
                   if self.plan.placements[p] == ROW_SHARDED]

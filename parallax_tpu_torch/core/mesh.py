@@ -1,5 +1,5 @@
-"""The ``('repl', 'shard')`` mesh over ``torch.distributed`` ranks
-(``parallax_tpu/core/mesh.py`` without the ``'pipe'`` axis).
+"""The ``('repl', 'shard')`` mesh over ``torch.distributed`` ranks, and
+its third axis ``'pipe'`` (``parallax_tpu/core/mesh.py``).
 
 Each rank is one process on one card (on the CPU, one process). Ranks
 form ``repl`` rows of ``shard`` columns with ``'shard'`` innermost, so
@@ -14,10 +14,20 @@ marks a tensor-parallel weight (``ops.tensor_parallel``) and
 its part, and ``resolve_spec`` maps a spec onto this mesh's axes as
 JAX's does.
 
+``build_mesh(shape=(dp, tp, pp))`` grows the pipeline axis: ``pp``
+stages nested inside each shard column, axes ``('repl', 'shard',
+'pipe')``, the stage ring innermost, so rank ``(r * shard + s) * pipe +
+q`` holds the JAX mesh's device ``(r, s, q)``. ``pp = 1`` builds the
+two-axis mesh exactly. The pipeline schedules (``ops/pipeline.py``) run
+their ring over ``pipeline_group``: the pipe group on a three-axis mesh,
+else the shard group (stages over 'shard', as the JAX package places
+them on a mesh without a pipe axis).
+
 Every rank builds one process group per repl row (the shard group, the
-ranks a table's rows are spread over) and one per shard column (the
-repl group), in one order, beside the world group. A group of one rank
-is not built: collectives over it are the identity and are skipped.
+ranks a table's rows are spread over), one per shard column (the repl
+group) and, on a three-axis mesh, one per (repl, shard) pair (the pipe
+group), in one order, beside the world group. A group of one rank is
+not built: collectives over it are the identity and are skipped.
 Without a process group (one process, ``torch.distributed`` not
 initialised) the mesh is one rank with no groups at all.
 """
@@ -33,8 +43,8 @@ from parallax_tpu_torch.common.lib import parallax_log
 
 AXIS_REPL = "repl"
 AXIS_SHARD = "shard"
-# the JAX mesh's pipeline axis: this mesh has none, and resolve_spec
-# maps it onto 'shard' as the JAX package does on a mesh without one
+# the pipeline axis of a three-axis mesh; resolve_spec maps it onto
+# 'shard' on a mesh without one, as the JAX package does
 AXIS_PIPE = "pipe"
 BATCH_AXES = (AXIS_REPL, AXIS_SHARD)
 
@@ -153,9 +163,10 @@ class Group:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``repl`` x ``shard`` ranks; this process is ``rank``. ``world``,
-    ``shard_group`` and ``repl_group`` are None without a process group
-    (one rank, nothing to communicate)."""
+    """``repl`` x ``shard`` (x ``pipe``) ranks; this process is ``rank``.
+    ``world``, ``shard_group``, ``repl_group`` and ``pipe_group`` are None
+    without a process group (one rank, nothing to communicate);
+    ``pipe_group`` is None on a two-axis mesh too."""
 
     device: torch.device
     repl: int = 1
@@ -164,19 +175,35 @@ class Mesh:
     world: Optional[Group] = None
     shard_group: Optional[Group] = None
     repl_group: Optional[Group] = None
+    pipe: int = 1
+    pipe_group: Optional[Group] = None
+
+    @property
+    def axis_names(self) -> tuple:
+        return (AXIS_REPL, AXIS_SHARD) + ((AXIS_PIPE,) if self.pipe > 1
+                                          else ())
 
     @property
     def shape(self):
-        return {AXIS_REPL: self.repl, AXIS_SHARD: self.shard}
+        out = {AXIS_REPL: self.repl, AXIS_SHARD: self.shard}
+        if self.pipe > 1:
+            out[AXIS_PIPE] = self.pipe
+        return out
 
     @property
     def size(self) -> int:
-        return self.repl * self.shard
+        return self.repl * self.shard * self.pipe
 
     @property
     def coords(self):
         """This rank's (repl row, shard column)."""
-        return divmod(self.rank, self.shard)
+        r, rest = divmod(self.rank, self.shard * self.pipe)
+        return r, rest // self.pipe
+
+    @property
+    def pipe_index(self) -> int:
+        """This rank's place on the pipe axis (0 on a two-axis mesh)."""
+        return self.rank % self.pipe
 
     @property
     def distributed(self) -> bool:
@@ -187,7 +214,9 @@ def build_mesh(device, num_partitions: Optional[int] = None,
                shape: Optional[Sequence[int]] = None) -> Mesh:
     """The mesh of every rank of the initialised process group (one rank
     without one). ``shape=(dp, tp)`` pins both axes and must tile the
-    rank count; ``num_partitions`` (exclusive with ``shape``) is the
+    rank count; ``shape=(dp, tp, pp)`` adds ``pp`` pipeline stages
+    inside each shard column (``pp = 1`` is the two-axis mesh);
+    ``num_partitions`` (exclusive with ``shape``) is the
     shard-axis width, snapped to a divisor of the rank count with a
     warning; neither gives one shard column per rank. Every rank must
     call this with the same arguments: it creates the row and column
@@ -200,18 +229,15 @@ def build_mesh(device, num_partitions: Optional[int] = None,
         if num_partitions is not None:
             raise ValueError("build_mesh: pass shape=(dp, tp) OR "
                              "num_partitions, not both")
-        if len(shape) == 3:
-            raise NotImplementedError(
-                f"build_mesh shape {tuple(shape)}: the 'pipe' axis "
-                f"(pipeline parallelism) is not ported; pass (dp, tp)")
-        if len(shape) != 2:
+        if len(shape) not in (2, 3):
             raise ValueError(f"build_mesh shape {tuple(shape)} must be "
-                             f"(dp, tp)")
+                             f"(dp, tp) or (dp, tp, pp)")
         r, p = int(shape[0]), int(shape[1])
-        if r < 1 or p < 1 or r * p != n:
+        q = int(shape[2]) if len(shape) == 3 else 1
+        if r < 1 or p < 1 or q < 1 or r * p * q != n:
             raise ValueError(
                 f"build_mesh shape {tuple(shape)} does not tile the {n} "
-                f"rank(s); dp*tp must equal the rank count")
+                f"rank(s); dp*tp*pp must equal the rank count")
     else:
         want = num_partitions if num_partitions else n
         p = snap_to_divisor(want, n)
@@ -219,9 +245,9 @@ def build_mesh(device, num_partitions: Optional[int] = None,
             parallax_log.warning(
                 "num_partitions=%d does not divide device count %d; "
                 "snapping to %d", want, n, p)
-        r = n // p
+        r, q = n // p, 1
     if not on:
-        return Mesh(torch.device(device), r, p, rank)
+        return Mesh(torch.device(device), r, p, rank, pipe=q)
     world = Group(tuple(range(n)), dist.group.WORLD)
 
     def group(ranks):
@@ -232,10 +258,17 @@ def build_mesh(device, num_partitions: Optional[int] = None,
             return world
         return Group(tuple(ranks), dist.new_group(list(ranks)))
 
-    rows = [group(range(i * p, (i + 1) * p)) for i in range(r)]
-    cols = [group(range(j, n, p)) for j in range(p)]
-    i, j = divmod(rank, p)
-    return Mesh(torch.device(device), r, p, rank, world, rows[i], cols[j])
+    # rank (i * p + j) * q + k is device (i, j, k)
+    rows = {(i, k): group([(i * p + j) * q + k for j in range(p)])
+            for i in range(r) for k in range(q)}
+    cols = {(j, k): group([(i * p + j) * q + k for i in range(r)])
+            for j in range(p) for k in range(q)}
+    pipes = {(i, j): group([(i * p + j) * q + k for k in range(q)])
+             for i in range(r) for j in range(p)} if q > 1 else {}
+    i, rest = divmod(rank, p * q)
+    j, k = divmod(rest, q)
+    return Mesh(torch.device(device), r, p, rank, world, rows[(i, k)],
+                cols[(j, k)], q, pipes.get((i, j)))
 
 
 def num_shards(mesh: Mesh) -> int:
@@ -244,3 +277,23 @@ def num_shards(mesh: Mesh) -> int:
 
 def num_devices(mesh: Mesh) -> int:
     return mesh.size
+
+
+def pipeline_axis(mesh: Mesh) -> str:
+    """The axis the pipeline stages ride: 'pipe' on a three-axis mesh,
+    else 'shard'."""
+    return AXIS_PIPE if mesh.pipe > 1 else AXIS_SHARD
+
+
+def pipeline_stage_count(mesh: Mesh) -> int:
+    return mesh.pipe if mesh.pipe > 1 else mesh.shard
+
+
+def pipeline_group(mesh: Mesh) -> Optional[Group]:
+    """The ranks of this rank's stage ring (``pipeline_axis``)."""
+    return mesh.pipe_group if mesh.pipe > 1 else mesh.shard_group
+
+
+def pipeline_index(mesh: Mesh) -> int:
+    """This rank's stage on the ring."""
+    return mesh.pipe_index if mesh.pipe > 1 else mesh.coords[1]

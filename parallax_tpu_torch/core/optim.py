@@ -33,12 +33,13 @@ rounded as optax rounds it; ``global_norm`` alone sums per-leaf norms
 rather than per-leaf sums of squares.
 
 On a mesh the engine runs the update inside ``sharded_scope``, which
-names the leaves that are a rank's shard of a larger variable (row
-shards, and the tensor-parallel column and row shards):
-``global_norm`` then adds their squared norms over the 'shard' group,
-so the clip sees the norm of the whole gradient, as the JAX package's
-global arrays do, and ``row_sparse_adagrad`` (ops/sparse_optim.py)
-picks its rows from the whole table.
+names the leaves that are a rank's part of a larger variable (row
+shards, tensor-parallel column and row shards, expert and stage rows)
+with the group each is split over: ``global_norm`` then adds their
+squared norms over that group, so the clip sees the norm of the whole
+gradient, as the JAX package's global arrays do, and
+``row_sparse_adagrad`` (ops/sparse_optim.py) picks its rows from the
+whole table.
 """
 
 from __future__ import annotations
@@ -50,27 +51,41 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-# (names of the row-shard leaves, their mesh) of the running update
+# ({name of a split leaf: the group it is split over}, their mesh) of
+# the running update
 _SHARDED: contextvars.ContextVar = contextvars.ContextVar(
-    "parallax_optim_sharded", default=(frozenset(), None))
+    "parallax_optim_sharded", default=({}, None))
 
 
 @contextlib.contextmanager
 def sharded_scope(keys, mesh):
-    """Inside, the leaves named by ``keys`` are row shards over
-    ``mesh``'s 'shard' axis (the engine's row-sharded variables)."""
-    token = _SHARDED.set((frozenset(keys), mesh))
+    """Inside, the leaves named by ``keys`` are parts of larger variables
+    over ``mesh``: a sequence of names (each split over the 'shard'
+    group) or ``{name: group}``."""
+    if not isinstance(keys, dict):
+        keys = {k: mesh.shard_group if mesh is not None else None
+                for k in keys}
+    token = _SHARDED.set((dict(keys), mesh))
     try:
         yield
     finally:
         _SHARDED.reset(token)
 
 
-def shard_mesh(key):
-    """The mesh leaf ``key`` is a row shard over, or None."""
+def _split_group(key):
+    """The group leaf ``key`` is split over (of more than one rank), or
+    None."""
     keys, mesh = _SHARDED.get()
-    return mesh if key in keys and mesh is not None \
-        and mesh.shard > 1 else None
+    group = keys.get(key) if mesh is not None else None
+    return group if group is not None and group.size > 1 else None
+
+
+def shard_mesh(key):
+    """The mesh leaf ``key`` is a row shard over 'shard' in, or None."""
+    keys, mesh = _SHARDED.get()
+    group = _split_group(key)
+    return mesh if group is not None and group is mesh.shard_group \
+        else None
 
 
 def tree_leaves(tree, prefix: str = ""):
@@ -128,15 +143,22 @@ def global_norm(updates: Dict[str, torch.Tensor]) -> torch.Tensor:
     if not vals:
         return torch.zeros(())
     norms = [n.float() for n in torch._foreach_norm(vals)]
-    sharded = [n for k, n in zip(updates, norms) if shard_mesh(k)]
-    if not sharded:
+    groups = {}
+    rest = []
+    for k, n in zip(updates, norms):
+        group = _split_group(k)
+        if group is None:
+            rest.append(n)
+        else:
+            groups.setdefault(group.ranks, (group, []))[1].append(n)
+    if not groups:
         return torch.linalg.vector_norm(torch.stack(norms))
     from parallax_tpu_torch.ops import collectives
-    mesh = shard_mesh(next(k for k in updates if shard_mesh(k)))
-    sq = torch.stack(sharded).square().sum().reshape(1)
-    collectives.all_reduce_(sq, mesh.shard_group)
-    rest = [n for k, n in zip(updates, norms) if not shard_mesh(k)]
-    total = sq[0] + (torch.stack(rest).square().sum() if rest else 0.0)
+    total = torch.stack(rest).square().sum() if rest else 0.0
+    for group, split in groups.values():
+        sq = torch.stack(split).square().sum().reshape(1)
+        collectives.all_reduce_(sq, group)
+        total = sq[0] + total
     return torch.sqrt(total)
 
 

@@ -1,2 +1,2 @@
 """Models of the port: LM1B, NMT, BERT, the long-context causal LM, the
-CNNs and the linear regression."""
+switch-MoE LM, skip-thoughts, the CNNs and the linear regression."""

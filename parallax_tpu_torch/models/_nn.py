@@ -12,7 +12,13 @@ functions here compute what those compute:
 * ``avg_pool`` counts the padded zeros (flax's ``count_include_pad``);
 * ``batch_norm`` normalises in fp32 with the *biased* batch variance
   and returns the new running statistics as flax updates them,
-  ``ra = momentum * ra + (1 - momentum) * stat``.
+  ``ra = momentum * ra + (1 - momentum) * stat``. Inside a step whose
+  batch is split over more than one rank (the engine's mesh scope) the
+  statistics are the global batch's, as the JAX package's one program
+  takes them: the per-channel sums and sums of squares are all-reduced
+  over the batch group (flax's ``E[x²] - E[x]²``, clamped at 0), and
+  the backward all-reduces the sums of dy and dy·x̂ (``_SyncBatchNorm``),
+  so every rank ends with the same statistics.
 
 Activations are NCHW-shaped tensors in ``channels_last`` memory (NHWC
 bytes, as the images arrive); conv weights are OIHW, also stored
@@ -34,6 +40,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from parallax_tpu_torch.ops import collectives
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -145,6 +153,13 @@ def batch_norm(x, scale, bias, mean, var, train: bool, momentum: float,
     if not train:
         return (F.batch_norm(x, mean, var, scale, bias, False, 0.0, eps),
                 mean, var)
+    group = _stats_group(x)
+    if group is not None:
+        y, bmean, bvar = _SyncBatchNorm.apply(x, scale, bias, eps, group)
+        with torch.no_grad():
+            new_mean = torch.add(mean * momentum, bmean, alpha=1 - momentum)
+            new_var = torch.add(var * momentum, bvar, alpha=1 - momentum)
+        return y, new_mean, new_var
     n = x.numel() // x.shape[1]
     if n == 1:    # F.batch_norm refuses one value per channel
         return _batch_norm_one(x, scale, bias, mean, var, momentum, eps)
@@ -156,6 +171,65 @@ def batch_norm(x, scale, bias, mean, var, train: bool, momentum: float,
         new_var = torch.add(var * momentum, batch[1],
                             alpha=(1 - momentum) * (n - 1) / n)
     return y, new_mean, new_var
+
+
+def _stats_group(x):
+    """The group the step's batch is split over, when it has more than one
+    rank and ``x`` holds data (not the meta tensors of a shapes pass)."""
+    mesh = collectives.current_mesh()
+    if mesh is None or x.device.type == "meta":
+        return None
+    group = collectives.batch_group(mesh)
+    return group if group is not None and group.size > 1 else None
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """BatchNorm over the global batch: returns (y, mean, biased var), the
+    statistics without gradient. Forward: one all-reduce of [sum x, sum
+    x², count] per channel. Backward: one all-reduce of [sum dy, sum dy
+    x̂]; dx = scale / std (dy - mean dy - x̂ mean(dy x̂)) over the global
+    batch; the scale's and bias's gradients are this rank's sums (the
+    engine sums them over the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group):
+        dt = torch.promote_types(x.dtype, torch.float32)
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.to(dt)
+        count = torch.full((1,), x.numel() // C, dtype=dt, device=x.device)
+        stats = torch.cat([xf.sum(dims), xf.square().sum(dims), count])
+        collectives.all_reduce_(stats, group)
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C:2 * C] / n - mean.square(), min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        y = xhat * scale.to(dt).view(shape) + bias.to(dt).view(shape)
+        ctx.save_for_backward(x, mean, invstd, scale, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        x, mean, invstd, scale, n = ctx.saved_tensors
+        dt = mean.dtype
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        xhat = (x.to(dt) - mean.view(shape)) * invstd.view(shape)
+        gf = g.to(dt)
+        sums = torch.cat([gf.sum(dims), (gf * xhat).sum(dims)])
+        d_bias, d_scale = sums[:C].clone(), sums[C:].clone()
+        collectives.all_reduce_(sums, ctx.group)
+        dx = (gf - (sums[:C] / n).view(shape)
+              - xhat * (sums[C:] / n).view(shape)) \
+            * (scale.to(dt) * invstd).view(shape)
+        return (dx.to(x.dtype), d_scale.to(scale.dtype),
+                d_bias.to(scale.dtype),
+                None, None)
 
 
 def _batch_norm_one(x, scale, bias, mean, var, momentum, eps):

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from parallax_tpu_torch.core import optim
 from parallax_tpu_torch.core.engine import Model
 from parallax_tpu_torch.models import _nn, cnn_zoo, resnet
+from parallax_tpu_torch.ops import collectives
 
 # name -> (module factory, default image size)
 # (reference model_config.py model name -> model class mapping)
@@ -75,10 +76,18 @@ def build_model(name: str, num_classes: int = 1000,
 def loss_and_accuracy(logits, labels):
     """Mean softmax cross-entropy of fp32 logits against integer labels
     (optax.softmax_cross_entropy_with_integer_labels) and the top-1
-    accuracy."""
+    accuracy. Where the step's batch is split over more than one rank
+    (equal shares) both are the global batch's, as the JAX loss over the
+    global array (``collectives.global_sum``: the gradient stays the
+    rank's own mean's)."""
     labels = labels.long()
     ce = F.cross_entropy(logits.to(_nn.head_dtype(logits.dtype)), labels)
     acc = (logits.argmax(-1) == labels).float().mean()
+    mesh = collectives.current_mesh()
+    group = collectives.batch_group(mesh) if mesh is not None else None
+    if group is not None and group.size > 1:
+        ce = collectives.global_sum(ce) / group.size
+        acc = collectives.global_sum(acc) / group.size
     return ce, acc
 
 

@@ -28,8 +28,15 @@ In dense mode ``max_touched_rows`` gives the tables ``emb`` and
 
 The serving section at the end (``_lstm_prefill``,
 ``_lstm_decode_step``) is what ``serve.LM1BDecodeProgram`` runs: plain
-cells, as in JAX, with the full softmax projection. Not ported: training
-the full-softmax model.
+cells, as in JAX, with the full softmax projection.
+
+``build_model(cfg, full_softmax=True)`` (``build_full_softmax_model``)
+is the dense baseline the reference benches against: the loss over the
+whole vocabulary (``ops.sampled_softmax.full_softmax_loss``, its logits
+product with bf16 operands at the bf16 compute dtype and fp32
+accumulation, exact fp32 at fp32), so ``softmax_w`` and ``softmax_b``
+are used densely and classified dense; dense Adagrad after a clip over
+every variable, never slices mode or ``max_touched_rows``, as in JAX.
 
 Batch contract (reference lm1b_distributed_driver.py:84-96): feeds "x"
 [B, T] int32, "y" [B, T] int32, "w" [B, T] float weights; the "words"
@@ -156,10 +163,8 @@ def _dropout(x, keep_prob, gen):
 
 
 def build_model(cfg: LM1BConfig, full_softmax: bool = False) -> Model:
-    if full_softmax:
-        raise NotImplementedError(
-            "training the full-softmax LM1B baseline is not ported; "
-            "ops.sampled_softmax.full_softmax_loss is")
+    """The LM1B Model: the sampled softmax, or with ``full_softmax`` the
+    dense full-vocabulary baseline (see the module doc)."""
     cdt = cfg.compute_dtype
     P = cfg.proj_dim
 
@@ -187,9 +192,15 @@ def build_model(cfg: LM1BConfig, full_softmax: bool = False) -> Model:
             # LSTM-output dropout, independent per (t, b) position
             hs = _dropout(hs, cfg.keep_prob, gen)
         hidden = hs.transpose(0, 1).reshape(B * T, P).float()
-        losses = ss_ops.sampled_softmax_loss(
-            params["softmax_w"], params["softmax_b"], hidden,
-            y.reshape(B * T), gen, cfg.num_samples, cfg.vocab_size)
+        if full_softmax:
+            losses = ss_ops.full_softmax_loss(
+                params["softmax_w"], params["softmax_b"], hidden,
+                y.reshape(B * T), cfg.vocab_size,
+                matmul_dtype=None if cdt == torch.float32 else cdt)
+        else:
+            losses = ss_ops.sampled_softmax_loss(
+                params["softmax_w"], params["softmax_b"], hidden,
+                y.reshape(B * T), gen, cfg.num_samples, cfg.vocab_size)
         wf = w.reshape(B * T).float()
         words = collectives.global_sum(wf.sum())
         total_w = torch.clamp(words, min=1e-8)
@@ -198,14 +209,14 @@ def build_model(cfg: LM1BConfig, full_softmax: bool = False) -> Model:
 
     pinned = {"lstm/*": replicated_spec()}
     adagrad = optim.adagrad(cfg.learning_rate, initial_accumulator_value=1.0)
-    if cfg.sparse_grad_mode == "slices":
+    if cfg.sparse_grad_mode == "slices" and not full_softmax:
         tx = optim.chain(optim.clip_by_global_norm(cfg.max_grad_norm),
                          adagrad)
         sl = SliceAdagrad(cfg.learning_rate, initial_accumulator_value=1.0)
         return Model(init_fn, loss_fn, optimizer=tx, param_specs=pinned,
                      slice_updaters={"emb": sl, "softmax_w": sl,
                                      "softmax_b": sl})
-    if cfg.max_touched_rows:
+    if cfg.max_touched_rows and not full_softmax:
         # the clip sees the whole gradients, then the tables take the
         # touched-rows path: dense Adagrad's trajectory
         tables = {"emb": "table", "softmax_w": "table"}
@@ -218,6 +229,10 @@ def build_model(cfg: LM1BConfig, full_softmax: bool = False) -> Model:
                                          for k in params})
     tx = optim.chain(optim.clip_by_global_norm(cfg.max_grad_norm), adagrad)
     return Model(init_fn, loss_fn, optimizer=tx, param_specs=pinned)
+
+
+def build_full_softmax_model(cfg: LM1BConfig) -> Model:
+    return build_model(cfg, full_softmax=True)
 
 
 def make_batch(rng: np.random.Generator, batch_size: int, num_steps: int,

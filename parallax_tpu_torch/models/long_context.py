@@ -27,10 +27,18 @@ Three trainable parallelisms over the engine's mesh
   ``tp_sequence_parallel`` splits the activations between blocks over
   the sequence.
 * ``'data'``: data parallelism, attention unsharded.
-
-``'pipeline'`` raises ``NotImplementedError`` (the pipeline schedules,
-``ops/pipeline.py`` and the stacked ``blocks_stacked`` layout, are ROADMAP
-Queue A item 5.3) after every ``ValueError`` JAX raises first.
+* ``'pipeline'``: pipeline parallelism. The blocks are one stacked tree
+  ``blocks_stacked`` (leaves ``[L, ...]``, rows in storage order: the
+  layer order, or device-major when ``virtual_stages > 1``,
+  ``_layer_storage_order``) declared ``P('pipe')``, so each rank of the
+  stage ring holds its ``L / S`` rows (the engine's stage placement);
+  the batch rides 'repl' alone. ``pipeline_schedule='gpipe'`` runs the
+  loss through ``ops.pipeline.pipeline_apply``; ``'1f1b'`` gives the
+  Model a ``value_and_grad_fn`` over ``pipeline_value_and_grad`` (the
+  embedding's gradient chained from the pipeline's input cotangent).
+  On a ring of one stage both run the rows sequentially in layer order,
+  as JAX does on one device. ``use_pallas_attention`` runs each stage's
+  attention through the flash kernels (B4, B5/B6), else the plain core.
 
 Labels across block boundaries: the engine feeds each rank of a shard
 group its repl row's whole natural-order id rows (4 bytes a token), and
@@ -71,12 +79,14 @@ import torch.utils.checkpoint
 from parallax_tpu_torch.common.lib import resolve_device
 from parallax_tpu_torch.core import mesh as mesh_lib, optim
 from parallax_tpu_torch.core.engine import Model
-from parallax_tpu_torch.core.mesh import AXIS_REPL, AXIS_SHARD, P, TPSpec
+from parallax_tpu_torch.core.mesh import (AXIS_PIPE, AXIS_REPL, AXIS_SHARD,
+                                          P, TPSpec)
 from parallax_tpu_torch.models.nmt import _attention as _serve_attention
 from parallax_tpu_torch.ops import collectives
 from parallax_tpu_torch.ops import embedding as emb_ops
 from parallax_tpu_torch.ops import flash_attention as fa_ops
 from parallax_tpu_torch.ops import paged_attention as pa_ops
+from parallax_tpu_torch.ops import pipeline as pp_ops
 from parallax_tpu_torch.ops import tensor_parallel as tp_ops
 from parallax_tpu_torch.ops.ring_attention import (
     full_attention_reference, inverse_zigzag_permutation, ring_attention,
@@ -94,7 +104,7 @@ class LongContextConfig:
     num_layers: int = 6
     max_len: int = 32768
     learning_rate: float = 3e-4
-    # 'ring' | 'tensor' | 'pipeline' (not ported) | 'data'
+    # 'ring' | 'tensor' | 'pipeline' | 'data'
     parallelism: str = "ring"
     num_microbatches: int = 4
     pipeline_schedule: str = "gpipe"
@@ -125,13 +135,41 @@ def tiny_config(**kw) -> LongContextConfig:
     return LongContextConfig(**defaults)
 
 
+def _layer_storage_order(cfg: LongContextConfig):
+    """The layer held at each row of ``blocks_stacked``: the layer order
+    at ``virtual_stages = 1``; else the device-major stage order
+    (``ops.pipeline.stage_order_permutation``), each stage's layers
+    contiguous."""
+    L, Vp = cfg.num_layers, int(cfg.virtual_stages)
+    if Vp == 1:
+        return list(range(L))
+    S = cfg.pipeline_stages
+    pc = L // (S * Vp)
+    return [g * pc + j for g in pp_ops.stage_order_permutation(S, Vp)
+            for j in range(pc)]
+
+
+def stack_blocks(cfg: LongContextConfig, blocks):
+    """The per-layer ``blocks`` list as ``blocks_stacked``: each leaf
+    stacked ``[L, ...]`` in storage order."""
+    order = _layer_storage_order(cfg)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(list(trees))
+
+    return stack([blocks[i] for i in order])
+
+
 def init_params(cfg: LongContextConfig, generator: torch.Generator,
                 device="cuda"):
     """Random fp32 parameters in the JAX package's tree layout (the
-    per-layer ``blocks`` list): N(0, 1/fan_in) dense weights, N(0, 0.02²)
-    tables, unit/zero LayerNorms, drawn from ``generator`` (on its
-    device) and placed on ``device``. The numbers differ from JAX's for
-    the same seed; carry a JAX tree across with
+    per-layer ``blocks`` list; ``blocks_stacked`` under
+    ``parallelism='pipeline'``): N(0, 1/fan_in) dense weights, N(0,
+    0.02²) tables, unit/zero LayerNorms, drawn from ``generator`` (on
+    its device) and placed on ``device``. The numbers differ from JAX's
+    for the same seed; carry a JAX tree across with
     ``weights.long_context_params_from_jax``. ``device="meta"`` gives
     the shapes alone."""
     dev = resolve_device(device)
@@ -150,7 +188,7 @@ def init_params(cfg: LongContextConfig, generator: torch.Generator,
         return {"s": torch.ones((D,), device=dev),
                 "b": torch.zeros((D,), device=dev)}
 
-    return {
+    params = {
         "emb": normal((V, D), 0.02),
         "pos": normal((cfg.max_len, D), 0.02),
         "out_w": dense((D, V)),
@@ -159,6 +197,9 @@ def init_params(cfg: LongContextConfig, generator: torch.Generator,
                     "ln1": ln(), "ln2": ln()}
                    for _ in range(cfg.num_layers)],
     }
+    if cfg.parallelism == "pipeline":
+        params["blocks_stacked"] = stack_blocks(cfg, params.pop("blocks"))
+    return params
 
 
 def _layer_norm(x, p):
@@ -215,11 +256,6 @@ def _check(cfg: LongContextConfig) -> None:
         raise ValueError(
             f"unknown pipeline_schedule {cfg.pipeline_schedule!r}; "
             f"expected 'gpipe' or '1f1b'")
-    if cfg.parallelism == "pipeline":
-        raise NotImplementedError(
-            "parallelism='pipeline' is not ported to parallax_tpu_torch: "
-            "the pipeline schedules (ops/pipeline.py) and the "
-            "blocks_stacked layout are ROADMAP Queue A item 5.3")
 
 
 def _zigzag_active(cfg: LongContextConfig, mesh, T: int) -> bool:
@@ -276,18 +312,14 @@ class _Layout:
         return cls._cache[key]
 
 
-def build_model(cfg: LongContextConfig) -> Model:
-    """The JAX ``build_model``: init, the next-token loss with a
-    ``{"tokens": sum(w)}`` metric, the optimizer, and each parallelism's
-    specs."""
-    _check(cfg)
-    V, D, Hn = cfg.vocab_size, cfg.model_dim, cfg.num_heads
+def make_block_apply(cfg: LongContextConfig):
+    """``block_apply(p, x, mesh=None, zig=False)``: one pre-LN block of the
+    config's parallelism (the JAX ``_block_apply``; recomputed in the
+    backward under ``remat``)."""
+    D, Hn = cfg.model_dim, cfg.num_heads
     dt = cfg.compute_dtype
     tp_mode = cfg.parallelism == "tensor"
     tp_sp = tp_mode and cfg.tp_sequence_parallel
-
-    def init_fn(gen, device):
-        return init_params(cfg, gen, device)
 
     def attention(x, p, mesh, zig):
         B, T, _ = x.shape
@@ -311,7 +343,7 @@ def build_model(cfg: LongContextConfig) -> Model:
             out = full_attention_reference(q, k, v, causal=True)
         return out.reshape(B, T, D) @ p["wo"].to(dt)
 
-    def block_apply(p, x, mesh, zig):
+    def _block_apply(p, x, mesh, zig):
         ln1, ln2 = p["ln1"], p["ln2"]
         if tp_sp:
             ln1 = tp_ops.sequence_parallel_params(ln1)
@@ -322,6 +354,80 @@ def build_model(cfg: LongContextConfig) -> Model:
             return x + tp_ops.tp_mlp(h, p["w1"], p["w2"], dtype=dt,
                                      sequence_parallel=tp_sp)
         return x + torch.relu(h @ p["w1"].to(dt)) @ p["w2"].to(dt)
+
+    def block_apply(p, x, mesh=None, zig=False):
+        if cfg.remat:
+            return torch.utils.checkpoint.checkpoint(
+                _block_apply, p, x, mesh, zig, use_reentrant=False)
+        return _block_apply(p, x, mesh, zig)
+
+    return block_apply
+
+
+def make_stage_fn(cfg: LongContextConfig, per_stage: int):
+    """One pipeline stage: ``stage_fn(stage_params, x)`` applies the
+    ``per_stage`` blocks of ``stage_params`` (leaves ``[per_stage,
+    ...]``) in order (JAX's ``_stage_pipeline`` stage)."""
+    block_apply = make_block_apply(cfg)
+
+    def stage_fn(stage_params, x):
+        for j in range(per_stage):
+            x = block_apply(_tree_map(lambda t: t[j], stage_params), x)
+        return x
+
+    return stage_fn
+
+
+def build_model(cfg: LongContextConfig) -> Model:
+    """The JAX ``build_model``: init, the next-token loss with a
+    ``{"tokens": sum(w)}`` metric, the optimizer, and each parallelism's
+    specs."""
+    _check(cfg)
+    V, D = cfg.vocab_size, cfg.model_dim
+    dt = cfg.compute_dtype
+    tp_mode = cfg.parallelism == "tensor"
+    tp_sp = tp_mode and cfg.tp_sequence_parallel
+
+    def init_fn(gen, device):
+        return init_params(cfg, gen, device)
+
+    block_apply = make_block_apply(cfg)
+
+    Vp = int(cfg.virtual_stages)
+
+    def _stage_pipeline(stacked, n_stages):
+        """(staged, stage_fn): this rank's rows of ``blocks_stacked`` as
+        ``[V, per_stage, ...]`` and one stage's apply (JAX's
+        ``_stage_pipeline``, shared by both schedules)."""
+        if Vp > 1 and n_stages != cfg.pipeline_stages:
+            raise ValueError(
+                f"model was built for pipeline_stages="
+                f"{cfg.pipeline_stages} but the mesh pipeline axis is "
+                f"{n_stages}")
+        if cfg.num_layers % (n_stages * Vp):
+            raise ValueError(
+                f"pipeline parallelism needs num_layers "
+                f"({cfg.num_layers}) divisible by the "
+                f"{n_stages}-stage pipeline axis (x{Vp} virtual)")
+        per_stage = cfg.num_layers // (n_stages * Vp)
+        return _tree_map(lambda t: t.reshape(
+            (Vp, per_stage) + tuple(t.shape[1:])), stacked), \
+            make_stage_fn(cfg, per_stage)
+
+    def pipeline_blocks(stacked, x, mesh, zig):
+        n_stages = mesh_lib.pipeline_stage_count(mesh) \
+            if mesh is not None else 1
+        if n_stages == 1:
+            # one stage: the rows in layer order (the storage may be
+            # device-major)
+            row_of = {l: r for r, l in enumerate(_layer_storage_order(cfg))}
+            for l in range(cfg.num_layers):
+                x = block_apply(_tree_map(lambda t: t[row_of[l]], stacked),
+                                x, mesh, zig)
+            return x
+        staged, stage_fn = _stage_pipeline(stacked, n_stages)
+        return pp_ops.pipeline_apply(stage_fn, staged, x, mesh,
+                                     cfg.num_microbatches, virtual_stages=Vp)
 
     def loss_fn(params, batch):
         ids = batch["ids"]
@@ -348,11 +454,10 @@ def build_model(cfg: LongContextConfig) -> Model:
         x = x + params["pos"][lay.pos_rows].to(dt)[None]
         if tp_sp:
             x = tp_ops.seq_shard(x)
-        for p in params["blocks"]:
-            if cfg.remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    block_apply, p, x, mesh, zig, use_reentrant=False)
-            else:
+        if "blocks_stacked" in params:
+            x = pipeline_blocks(params["blocks_stacked"], x, mesh, zig)
+        else:
+            for p in params["blocks"]:
                 x = block_apply(p, x, mesh, zig)
         if tp_sp:
             x = tp_ops.seq_gather(x)
@@ -372,9 +477,73 @@ def build_model(cfg: LongContextConfig) -> Model:
         loss = collectives.global_sum((nll * w).sum()) / tokens
         return loss, {"tokens": tokens}
 
+    def pipeline_1f1b_vag(params, batch, gen=None):
+        """The fused 1F1B step (``Model.value_and_grad_fn``): the
+        embedding differentiated outside the pipeline, the stages and the
+        output head inside it (``ops.pipeline.pipeline_value_and_grad``);
+        on a ring of one stage, autograd of ``loss_fn``."""
+        mesh = collectives.current_mesh()
+        n_stages = mesh_lib.pipeline_stage_count(mesh) \
+            if mesh is not None else 1
+        if n_stages == 1:
+            with torch.enable_grad():
+                loss, metrics = loss_fn(params, batch)
+            return loss, metrics, _grads_of(loss, params)
+        staged, stage_fn = _stage_pipeline(params["blocks_stacked"],
+                                           n_stages)
+        ids = batch["ids"].long()
+        B, T = ids.shape
+        labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], 1)
+        w = torch.ones((B, T), dtype=torch.float32, device=ids.device)
+        w[:, -1] = 0.0
+        emb, pos = params["emb"], params["pos"]
+        with torch.enable_grad():
+            x = emb_ops.embedding_lookup(emb, ids).to(dt) \
+                + pos[:T].to(dt)[None]
+
+        def mb_loss(head, out, y_mb):
+            logits = out.float() @ head["out_w"]
+            nll = -torch.log_softmax(logits.reshape(-1, V), dim=-1).gather(
+                1, y_mb["labels"].reshape(-1, 1))[:, 0]
+            wf = y_mb["w"].reshape(-1)
+            # every row carries T - 1 real tokens, so each microbatch's
+            # weighted mean is its share of the row's
+            return (nll * wf).sum() / torch.clamp(wf.sum(), min=1e-8)
+
+        loss, (g_stage, g_head, g_x) = pp_ops.pipeline_value_and_grad(
+            stage_fn, mb_loss, staged, x.detach(),
+            {"labels": labels, "w": w}, mesh, cfg.num_microbatches,
+            head_params={"out_w": params["out_w"]}, virtual_stages=Vp)
+        g_emb, g_pos = torch.autograd.grad(x, [emb, pos], g_x)
+        grads = {"emb": g_emb, "pos": g_pos, "out_w": g_head["out_w"],
+                 "blocks_stacked": _tree_map(lambda g: g.reshape(
+                     (-1,) + tuple(g.shape[2:])), g_stage)}
+        return loss, {"tokens": collectives.global_sum(w.sum())}, grads
+
     tx = optim.chain(optim.clip_by_global_norm(1.0),
                      optim.adam(cfg.learning_rate))
     dense = ("emb", "pos")
+    if cfg.parallelism == "pipeline":
+        # the stages over the mesh's pipeline axis ('pipe' on a three-axis
+        # mesh, else 'shard'), the batch on 'repl'; pipeline_info is the
+        # tuner's record of the schedule
+        return Model(
+            init_fn, loss_fn, optimizer=tx, dense_params=dense,
+            batch_specs={"ids": P(AXIS_REPL, None)},
+            param_specs={"blocks_stacked/*": P(AXIS_PIPE)},
+            value_and_grad_fn=(pipeline_1f1b_vag
+                               if cfg.pipeline_schedule == "1f1b"
+                               else None),
+            pipeline_info={
+                "schedule": cfg.pipeline_schedule,
+                "microbatches": int(cfg.num_microbatches),
+                "virtual_stages": Vp,
+                "pinned_stages": (int(cfg.pipeline_stages)
+                                  if cfg.pipeline_stages else None),
+                "num_layers": int(cfg.num_layers),
+                "model_dim": int(D),
+                "act_itemsize": torch.empty((), dtype=dt).element_size(),
+            })
     if tp_mode:
         return Model(init_fn, loss_fn, optimizer=tx, dense_params=dense,
                      batch_specs={"ids": P(AXIS_REPL, None)},
@@ -387,6 +556,33 @@ def build_model(cfg: LongContextConfig) -> Model:
         return Model(init_fn, loss_fn, optimizer=tx, dense_params=dense,
                      batch_specs={"ids": P(AXIS_REPL, AXIS_SHARD)})
     return Model(init_fn, loss_fn, optimizer=tx, dense_params=dense)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _grads_of(loss, params):
+    """The gradient tree of ``loss`` over the leaves of ``params`` that
+    require grad (zeros where it does not reach)."""
+    from parallax_tpu_torch.core.classify import flatten
+    leaves = [(p, t) for p, t in flatten(params) if t.requires_grad]
+    got = torch.autograd.grad(loss, [t for _, t in leaves],
+                              allow_unused=True)
+    by_path = {p: (g if g is not None else torch.zeros_like(t))
+               for (p, t), g in zip(leaves, got)}
+
+    def go(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: go(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [go(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
+        return by_path.get(prefix)
+
+    return go(params, "")
 
 
 def make_batch(rng: np.random.Generator, batch_size: int, seq_len: int,

@@ -49,6 +49,9 @@ as its neighbours' (one node per rotation also chains the rotations,
 which fixes the order of their backwards). On a shard axis of 1 it is
 the identity and moves nothing.
 
+``ring_pass`` is the same exchange with no gradient and a direction a
+tensor (the pipeline schedules' hops, ``ops/pipeline.py``).
+
 ``all_to_all`` is the tiled exchange of the expert-parallel MoE
 (``jax.lax.all_to_all(x, 'shard', split_axis=0, concat_axis=0,
 tiled=True)``, ``parallax_tpu/ops/moe.py:120-122``): member ``i`` sends
@@ -220,21 +223,24 @@ def shard_index(mesh=None) -> int:
     return 0 if mesh is None else mesh.coords[1]
 
 
-def _shift(tensors, group, index: int, step: int):
+def _shift(tensors, group, index: int, step):
     """Each of ``tensors`` sent to member ``index + step`` of ``group``
     and the same-shaped tensors of member ``index - step`` received, one
-    rotation; every send and receive posted before any is waited on."""
+    rotation (``step`` an int, or one a tensor); every send and receive
+    posted before any is waited on."""
     n = group.size
+    steps = list(step) if isinstance(step, (list, tuple)) \
+        else [step] * len(tensors)
     outs = [torch.empty_like(t, memory_format=torch.contiguous_format)
             for t in tensors]
     if tensors[0].device.type == "meta":
         return outs
-    dst = group.ranks[(index + step) % n]
-    src = group.ranks[(index - step) % n]
     dist = torch.distributed
-    ops = [dist.P2POp(dist.isend, t.contiguous(), dst, group.pg)
-           for t in tensors]
-    ops += [dist.P2POp(dist.irecv, o, src, group.pg) for o in outs]
+    ops = [dist.P2POp(dist.isend, t.contiguous(),
+                      group.ranks[(index + k) % n], group.pg)
+           for t, k in zip(tensors, steps)]
+    ops += [dist.P2POp(dist.irecv, o, group.ranks[(index - k) % n],
+                       group.pg) for o, k in zip(outs, steps)]
     for _ in tensors:
         _count("collective_permute")
     for req in dist.batch_isend_irecv(ops):
@@ -264,6 +270,19 @@ def ring_shift(tensors, group, index: int):
     if _pg(group) is None:
         return tensors
     return _RingShift.apply(group, index, *tensors)
+
+
+def ring_pass(tensors, group, index: int, steps):
+    """Each of ``tensors`` moved ``steps[i]`` places round ``group`` (member
+    ``index`` gets member ``index - steps[i]``'s), all in one exchange,
+    with no gradient: the pipeline schedules' hops (``ops/pipeline.py``:
+    activations forward, cotangents back). The identity on a group of one
+    rank, where every step lands on the sender itself."""
+    tensors = list(tensors)
+    if _pg(group) is None:
+        return tensors
+    with torch.no_grad():
+        return _shift(tensors, group, index, list(steps))
 
 
 class _Anchor(torch.autograd.Function):

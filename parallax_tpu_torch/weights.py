@@ -17,10 +17,17 @@ transposed and each tensor is the JAX leaf of the same path.
 the ``blocks`` list), unchanged in layout.
 
 ``long_context_params_from_jax`` does the same for the JAX long-context
-LM's tree (``emb``, ``pos``, ``out_w``, the ``blocks`` list); given an
-engine it gives that rank's part, its shards of the tensor-parallel
-leaves included (a fused ``wqkv`` as the q, k and v columns of its
-heads; ``gather_params`` gives JAX's layout back).
+LM's tree (``emb``, ``pos``, ``out_w``, the ``blocks`` list, or the
+pipeline's ``blocks_stacked``); given an engine it gives that rank's
+part, its shards of the tensor-parallel leaves included (a fused
+``wqkv`` as the q, k and v columns of its heads; ``gather_params`` gives
+JAX's layout back) and its rows of the stage stack. For a pipeline
+config a per-layer ``blocks`` tree (a data-parallel run's) is stacked
+in the config's storage order (device-major when interleaving).
+
+``skip_thoughts_params_from_jax`` does the same for the skip-thoughts
+tree (``emb``, ``encoder``, ``dec_prev``, ``dec_next``, ``out_w``,
+``out_b``).
 
 ``moe_lm_params_from_jax`` does the same for the JAX switch-MoE LM's
 tree (``emb``, ``pos``, ``out_w``, the ``blocks`` list with ``router``,
@@ -50,9 +57,11 @@ from parallax_tpu_torch.core.classify import flatten
 from parallax_tpu_torch.models import _nn, cnn
 from parallax_tpu_torch.models.bert import BertConfig
 from parallax_tpu_torch.models.lm1b import LM1BConfig
-from parallax_tpu_torch.models.long_context import LongContextConfig
+from parallax_tpu_torch.models.long_context import (LongContextConfig,
+                                                    stack_blocks)
 from parallax_tpu_torch.models.moe_lm import MoeLMConfig
 from parallax_tpu_torch.models.nmt import NMTConfig
+from parallax_tpu_torch.models.skip_thoughts import SkipThoughtsConfig
 
 
 def _leaf(x, shape, path, dtype, dev, who):
@@ -176,15 +185,58 @@ def long_context_params_from_jax(np_params, cfg: LongContextConfig,
                     for k, v in shapes.items()}
         return _leaf(tree, shapes, path, torch.float32, dev, who)
 
-    if "blocks" not in np_params or \
-            len(np_params["blocks"]) != cfg.num_layers:
-        raise ValueError(f"{who}: the tree needs the per-layer 'blocks' "
-                         f"list of {cfg.num_layers} (a pipeline tree's "
-                         f"blocks_stacked is not ported)")
+    L = cfg.num_layers
+    pipeline = cfg.parallelism == "pipeline"
     out = carry(np_params, want, "")
-    out["blocks"] = [carry(b, block, f"blocks/{i}")
-                     for i, b in enumerate(np_params["blocks"])]
+    if "blocks_stacked" in np_params:
+        if not pipeline:
+            raise ValueError(f"{who}: a pipeline tree (blocks_stacked) for "
+                             f"parallelism={cfg.parallelism!r}")
+
+        def stacked(shapes):
+            if isinstance(shapes, dict):
+                return {k: stacked(v) for k, v in shapes.items()}
+            return (L,) + shapes
+
+        out["blocks_stacked"] = carry(np_params["blocks_stacked"],
+                                      stacked(block), "blocks_stacked")
+    else:
+        if "blocks" not in np_params or len(np_params["blocks"]) != L:
+            raise ValueError(f"{who}: the tree needs the per-layer 'blocks' "
+                             f"list of {L} (or a pipeline tree's "
+                             f"blocks_stacked)")
+        blocks = [carry(b, block, f"blocks/{i}")
+                  for i, b in enumerate(np_params["blocks"])]
+        if pipeline:
+            out["blocks_stacked"] = stack_blocks(cfg, blocks)
+        else:
+            out["blocks"] = blocks
     return out if engine is None else rank_shard(out, engine)
+
+
+def skip_thoughts_params_from_jax(np_params, cfg: SkipThoughtsConfig,
+                                  device="cuda"):
+    """The port's skip-thoughts parameters (fp32) from a JAX tree of numpy
+    arrays, on ``device``. Checks every shape against ``cfg``."""
+    dev = resolve_device(device)
+    V, E, H = cfg.padded_vocab, cfg.emb_dim, cfg.hidden_dim
+    who = "skip_thoughts_params_from_jax"
+    gru = {"w": (E + H, 3 * H), "b": (3 * H,)}
+    dec = dict(gru, h0_proj=(H, H))
+    want = {"emb": (V, E), "encoder": gru, "dec_prev": dec, "dec_next": dec,
+            "out_w": (H, V), "out_b": (V,)}
+
+    def carry(tree, shapes, path):
+        if isinstance(shapes, dict):
+            if set(tree) != set(shapes):
+                raise ValueError(f"{who}: {path or 'the tree'} has "
+                                 f"{sorted(tree)}, the model "
+                                 f"{sorted(shapes)}")
+            return {k: carry(tree[k], v, f"{path}/{k}" if path else k)
+                    for k, v in shapes.items()}
+        return _leaf(tree, shapes, path, torch.float32, dev, who)
+
+    return carry(np_params, want, "")
 
 
 def moe_lm_params_from_jax(np_params, cfg: MoeLMConfig, device="cuda",

@@ -587,8 +587,11 @@ def test_snap_and_resource_grammar():
         tlib.rank_layout(tlib.parse_resource_info("localhost:0;b:0"))
     with pytest.raises(ValueError, match="duplicate host"):
         tlib.parse_resource_info("a:0;a:1")
-    with pytest.raises(NotImplementedError, match="pipe"):
-        tmesh.build_mesh("cpu", shape=(1, 1, 1))
+    # the pipe axis builds; pp = 1 is the two-axis mesh
+    assert tmesh.build_mesh("cpu", shape=(1, 1, 1)).axis_names == \
+        ("repl", "shard")
+    with pytest.raises(ValueError, match="tile"):
+        tmesh.build_mesh("cpu", shape=(1, 1, 2))
     with pytest.raises(ValueError, match="tile"):
         tmesh.build_mesh("cpu", shape=(2, 1))
     one = tmesh.build_mesh("cpu", num_partitions=4)

@@ -308,5 +308,12 @@ def test_config_validation():
                                   "lstm/w": torch.zeros(3)})
     assert sorted(state[1]) == ["rest", "table"]
     assert sorted(state[1]["table"].sum_of_squares) == ["emb", "softmax_w"]
-    with pytest.raises(NotImplementedError, match="full-softmax"):
-        tlm1b.build_model(tlm1b.tiny_config(), full_softmax=True)
+    # the full-softmax baseline builds (tests/test_torch_lm1b_full.py):
+    # dense Adagrad, no slice updaters
+    full = tlm1b.build_model(tlm1b.tiny_config(sparse_grad_mode="slices",
+                                               max_touched_rows=128),
+                             full_softmax=True)
+    assert not full.slice_updaters
+    state = full.optimizer.init({"emb": torch.zeros(4, 2),
+                                 "softmax_w": torch.zeros(4, 2)})
+    assert sorted(state[1][0]) == ["emb", "softmax_w"]

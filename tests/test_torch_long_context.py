@@ -28,7 +28,7 @@ layers, max_len 64), weights carried from the JAX initial tree.
     the sequence layout.
 (c) ``remat=True`` equals ``remat=False`` within 1e-6 over three steps.
 (d) The refusals: every JAX ``ValueError`` of ``build_model`` and of the
-    loss, ``'pipeline'`` (``NotImplementedError``), and the engine's
+    loss (the pipeline's stage checks included), and the engine's
     reading of ``P('repl', 'shard')``: the sequence layout, never "the
     batch on 'repl' alone"; any other spec with 'shard' past dim 0
     raises ``NotImplementedError``.
@@ -269,9 +269,31 @@ def test_build_model_raises_what_jax_raises(kw, match):
 
 
 def test_pipeline_and_loss_refusals():
+    # 'pipeline' builds in both packages (tests/test_torch_pipeline.py
+    # holds it to JAX), with the stacked layout and JAX's stage errors
     jlc.build_model(jlc.tiny_config(parallelism="pipeline"))
-    with pytest.raises(NotImplementedError, match="Queue A item 5.3"):
-        tlc.build_model(tlc.tiny_config(parallelism="pipeline"))
+    piped = tlc.build_model(tlc.tiny_config(parallelism="pipeline"))
+    assert "blocks_stacked/*" in piped.param_specs
+    v2 = tlc.build_model(tlc.tiny_config(
+        parallelism="pipeline", num_layers=4, virtual_stages=2,
+        pipeline_stages=2, compute_dtype=torch.float32))
+    stacked = tlc.init_params(tlc.tiny_config(
+        parallelism="pipeline", num_layers=4, virtual_stages=2,
+        pipeline_stages=2, compute_dtype=torch.float32),
+        torch.Generator(), "cpu")
+    ids = {"ids": torch.ones((4, 8), dtype=torch.int32)}
+    four = tmesh.Mesh(torch.device("cpu"), repl=1, shard=4)
+    with collectives.mesh_scope(four, batch_on_repl=True), \
+            pytest.raises(ValueError, match="pipeline_stages=2"):
+        v2.loss_fn(stacked, ids)
+    three = tlc.build_model(tlc.tiny_config(
+        parallelism="pipeline", num_layers=4, compute_dtype=torch.float32))
+    params3 = tlc.init_params(tlc.tiny_config(
+        parallelism="pipeline", num_layers=4), torch.Generator(), "cpu")
+    with collectives.mesh_scope(tmesh.Mesh(torch.device("cpu"), repl=1,
+                                           shard=3), batch_on_repl=True), \
+            pytest.raises(ValueError, match="divisible by the 3-stage"):
+        three.loss_fn(params3, ids)
     assert tlc.tiny_config(use_ring_attention=False).parallelism == "data"
     assert tlc.tiny_config(use_ring_attention=True).use_ring_attention
     cfg = tlc.LongContextConfig()

@@ -208,23 +208,52 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported():
         assert math.isfinite(float(sess.run("loss", feed_dict=batch)))
         assert sess.mesh.shape == {"repl": 1, "shard": 1}
         sess.close()
-    # a stateful model on more than one rank; pipeline parallelism; and
-    # tensor-parallel specs on a shard axis of 2 whose batch is not on
-    # 'repl' alone (on one rank a tensor-parallel spec replicates)
+    # a stateful model on more than one rank builds (cross-rank
+    # BatchNorm, tests/test_torch_pipeline.py); pipeline_info is kept and
+    # value_and_grad_fn replaces autograd, but takes no slice_updaters;
+    # and tensor-parallel specs on a shard axis of 2 whose batch is not on
+    # 'repl' alone are refused (on one rank a tensor-parallel spec
+    # replicates)
     from parallax_tpu_torch.core import engine as tengine, mesh as tmesh
     two = tmesh.Mesh(torch.device("cpu"), repl=2, shard=1)
-    with pytest.raises(NotImplementedError, match="cross-rank BatchNorm"):
-        tengine.Engine(tparallax.cnn.build_model("resnet50_v1.5",
-                                                 image_size=32), two,
-                       tparallax.Config(run_option="AR"),
-                       tparallax.cnn.make_batch(
-                           np.random.default_rng(0), 2, 32, 1000))
-    for field in ("value_and_grad_fn", "pipeline_info"):
-        piped = tlm1b.build_model(tlm1b.tiny_config())
-        setattr(piped, field, {"stages": 2} if field == "pipeline_info"
-                else (lambda *a: None))
-        with pytest.raises(NotImplementedError, match=field):
-            tparallax.parallel_run(piped, device="cpu")[0].prepare(batch)
+    eng = tengine.Engine(tparallax.cnn.build_model("resnet50_v1.5",
+                                                   image_size=32), two,
+                         tparallax.Config(run_option="AR"),
+                         tparallax.cnn.make_batch(
+                             np.random.default_rng(0), 2, 32, 1000))
+    assert eng.model.stateful and eng.mesh.size == 2
+    piped = tlm1b.build_model(tlm1b.tiny_config())
+    piped.pipeline_info = {"stages": 2}
+    sess = tparallax.parallel_run(piped, device="cpu")[0]
+    sess.prepare(batch)
+    assert sess.engine.model.pipeline_info == {"stages": 2}
+    sess.close()
+    calls = []
+
+    def vag(params, feed, gen):
+        calls.append(sorted(feed))
+        leaf = params["lstm"]["w"]
+        return leaf.sum() * 0.0, {}, {"lstm": {"w": torch.ones_like(leaf)}}
+
+    fused = tlm1b.build_model(tlm1b.tiny_config(learning_rate=0.5))
+    fused.value_and_grad_fn = vag
+    sess = tparallax.parallel_run(fused, device="cpu")[0]
+    sess.prepare(batch)
+    w0 = sess.state.params["lstm"]["w"].detach().clone()
+    emb0 = sess.state.params["emb"].detach().clone()
+    assert float(sess.run("loss", feed_dict=batch)) == 0.0
+    assert calls == [["w", "x", "y"]]
+    # the given gradient is applied, every other one is zero: the clip
+    # scales the ones to a norm of 10, then Adagrad's first step is
+    # lr g / sqrt(1 + g^2) per entry
+    g = 10.0 / np.sqrt(w0.numel())
+    assert torch.allclose(sess.state.params["lstm"]["w"],
+                          w0 - 0.5 * g / np.sqrt(1.0 + g * g))
+    assert torch.equal(sess.state.params["emb"], emb0)
+    sess.close()
+    fused.slice_updaters = {"emb": object()}
+    with pytest.raises(ValueError, match="value_and_grad_fn"):
+        tparallax.parallel_run(fused, device="cpu")[0].prepare(batch)
     tp = tlm1b.build_model(tlm1b.tiny_config())
     tp.param_specs["emb"] = tmesh.P(None, "shard")
     sess = tparallax.parallel_run(tp, device="cpu")[0]

@@ -653,3 +653,191 @@ def ckpt_bert_tp(rank, world, jobs, batches):
                     "placements": dict(sess.engine.plan.placements)})
         sess.close()
     return out
+
+
+# -- pipeline parallelism and cross-rank BatchNorm (tests/test_torch_pipeline
+# .py) ------------------------------------------------------------------------
+
+
+def _pipe_stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _pipe_loss(head, out, y_mb):
+    return ((out @ head["wout"] - y_mb) ** 2).mean()
+
+
+def pipe_ops(rank, world, cases):
+    """Each case (name, mesh shape, V, M, w [S*V, D, D] and b [S*V, D]
+    device-major, x [B, D], y, wout, cot): this rank's GPipe output and
+    the gradients of sum(out * cot) (its stage rows and its repl row's
+    x), and its 1F1B loss and gradients; the mesh it built and the
+    collectives of one GPipe forward."""
+    from parallax_tpu_torch.core import mesh as mesh_lib
+    from parallax_tpu_torch.ops import collectives, pipeline as pp
+
+    out = {}
+    for name, shape, V, M, w, b, x, y, wout, cot in cases:
+        if int(np.prod(shape)) != world:
+            continue
+        mesh = mesh_lib.build_mesh("cpu", shape=shape)
+        r = mesh.coords[0]
+        n = x.shape[0] // mesh.repl
+        rows = slice(r * n, (r + 1) * n)
+        loc = pp.stage_rows({"w": torch.tensor(w), "b": torch.tensor(b)},
+                            mesh, V)
+        loc = {k: v.clone().requires_grad_(True) for k, v in loc.items()}
+        xr = torch.tensor(x[rows]).requires_grad_(True)
+        with collectives.count_scope() as counts:
+            y_out = pp.pipeline_apply(_pipe_stage, loc, xr, mesh, M, V)
+        (y_out * torch.tensor(cot[rows])).sum().backward()
+        loss, (gs, gh, gx) = pp.pipeline_value_and_grad(
+            _pipe_stage, _pipe_loss, {k: v.detach() for k, v in loc.items()},
+            xr.detach(), torch.tensor(y[rows]), mesh, M,
+            head_params={"wout": torch.tensor(wout)}, virtual_stages=V)
+        out[name] = {
+            "coords": (r, mesh.coords[1], mesh.pipe_index),
+            "axes": mesh.axis_names, "shape": mesh.shape,
+            "stage": (mesh_lib.pipeline_stage_count(mesh),
+                      mesh_lib.pipeline_index(mesh)),
+            "out": _np(y_out), "gw": _np(loc["w"].grad),
+            "gb": _np(loc["b"].grad), "gx": _np(xr.grad),
+            "counts": dict(counts), "loss": float(loss),
+            "g1w": _np(gs["w"]), "g1b": _np(gs["b"]),
+            "g1head": _np(gh["wout"]), "g1x": _np(gx)}
+    return out
+
+
+def pipe_models(rank, world, runs):
+    """Each run: (name, config kwargs, mesh shape, SGD learning rate or
+    None, whole initial params (a JAX tree), batches): the long-context
+    LM in pipeline mode under HYBRID on this mesh, each rank fed its repl
+    row's rows: losses, tokens, the gathered parameters, the local shapes
+    and the plan."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch import weights
+    from parallax_tpu_torch.core import optim
+    from parallax_tpu_torch.core.classify import flatten
+    from parallax_tpu_torch.models import long_context as tlc
+
+    out = {}
+    for name, cfg_kw, shape, sgd, init, batches in runs:
+        if shape[0] * shape[1] != world:
+            continue
+        cfg = tlc.tiny_config(compute_dtype=torch.float32,
+                              parallelism="pipeline", **cfg_kw)
+        model = tlc.build_model(cfg)
+        if sgd is not None:
+            model.optimizer = optim.sgd(sgd)
+        sess, *_ = pt.parallel_run(
+            model, parallax_config=pt.Config(run_option="HYBRID"),
+            device="cpu", num_partitions=shape[1])
+        mesh = sess.mesh
+        sess.prepare(_row_share(batches[0], mesh))
+        mine = dict(flatten(weights.long_context_params_from_jax(
+            init, cfg, "cpu", engine=sess.engine)))
+        with torch.no_grad():
+            for path, leaf in flatten(sess.state.params):
+                leaf.copy_(mine[path])
+        losses, tokens = [], []
+        for b in batches:
+            loss, tok = sess.run(["loss", "tokens"],
+                                 feed_dict=_row_share(b, mesh))
+            losses.append(float(loss))
+            tokens.append(float(tok))
+        out[name] = {
+            "mesh": (mesh.repl, mesh.shard, mesh.coords),
+            "losses": losses, "tokens": tokens,
+            "params": _flat_np(sess.gather_params()),
+            "local_shapes": {p: tuple(v.shape) for p, v in
+                             _flat_np(sess.state.params).items()},
+            "placements": dict(sess.engine.plan.placements),
+            "layout": sess.engine.batch_layout}
+        sess.close()
+    return out
+
+
+def cnn_bn(rank, world, init, batches):
+    """A small ResNet (stage sizes 1, 1, 1, 1; 8 filters; 10 classes; fp32)
+    under AR, each rank fed its share of every batch, from the whole
+    initial ``{"params", "batch_stats"}`` (a JAX tree): losses, accuracy,
+    the smallest |pre-activation| of every ReLU, and the parameters,
+    statistics and momentum after."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.core.classify import flatten
+    from parallax_tpu_torch.models import cnn, resnet
+    from parallax_tpu_torch.weights import cnn_params_from_jax
+
+    module = resnet.ResNet(stage_sizes=[1, 1, 1, 1], num_filters=8,
+                           dtype=torch.float32, num_classes=10)
+    sess, *_ = pt.parallel_run(cnn.module_model(module, 32),
+                               parallax_config=pt.Config(run_option="AR"),
+                               device="cpu", num_partitions=1)
+    sess.prepare(_share(batches[0], rank, world))
+    params, state = cnn_params_from_jax(init, module, 10, 32, "cpu")
+    with torch.no_grad():
+        for tree, new in ((sess.state.params, params),
+                          (sess.state.model_state, state)):
+            new = dict(flatten(new))
+            for path, leaf in flatten(tree):
+                leaf.copy_(new[path])
+    margins = []
+    relu_ = torch.Tensor.relu_
+
+    def recording(t):
+        if t.device.type != "meta":
+            margins.append(float(t.detach().abs().min()))
+        return relu_(t)
+
+    torch.Tensor.relu_ = recording
+    try:
+        outs = [[float(v) for v in sess.run(
+            ["loss", "accuracy"], feed_dict=_share(b, rank, world))]
+            for b in batches]
+    finally:
+        torch.Tensor.relu_ = relu_
+    res = {"outs": outs, "margin": min(margins),
+           "params": {p: _np(t.permute(2, 3, 1, 0) if t.dim() == 4 else t)
+                      for p, t in flatten(sess.state.params)},
+           "stats": _flat_np(sess.state.model_state),
+           "trace": {p: _np(t.permute(2, 3, 1, 0) if t.dim() == 4 else t)
+                     for p, t in flatten(sess.state.opt_state[1][0])}}
+    sess.close()
+    return res
+
+
+def ckpt_pipe(rank, world, jobs, cfg_kw, batches):
+    """``ckpt_toy`` for the long-context LM in pipeline mode (fp32, its own
+    clip + Adam, seed 3; the batch on 'repl'): per job the restored step,
+    the losses, the gathered parameters and the plan."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import long_context as tlc
+
+    cfg = tlc.tiny_config(compute_dtype=torch.float32,
+                          parallelism="pipeline", **cfg_kw)
+    out = []
+    for ckpt_dir, every, stop in jobs:
+        sess, *_ = pt.parallel_run(
+            tlc.build_model(cfg), parallax_config=pt.Config(
+                run_option="HYBRID", ckpt_config=pt.CheckPointConfig(
+                    ckpt_dir=ckpt_dir, save_ckpt_steps=every)),
+            device="cpu", num_partitions=world, seed=3)
+        start = sess.prepare(_row_share(batches[0], sess.mesh))
+        losses = [float(sess.run("loss",
+                                 feed_dict=_row_share(b, sess.mesh)))
+                  for b in batches[start:stop]]
+        out.append({"step": start, "losses": losses,
+                    "params": _flat_np(sess.gather_params()),
+                    "placements": dict(sess.engine.plan.placements)})
+        sess.close()
+    return out
+
+
+def pipe_all(rank, world, ops_cases, model_runs, bn=None):
+    """``pipe_ops``, ``pipe_models`` and (given ``(init, batches)``)
+    ``cnn_bn`` in one group of ranks."""
+    out = {"ops": pipe_ops(rank, world, ops_cases),
+           "models": pipe_models(rank, world, model_runs)}
+    if bn is not None:
+        out["bn"] = cnn_bn(rank, world, *bn)
+    return out
