@@ -1908,6 +1908,317 @@ def phase_train_agreement(torch):
     return summary
 
 
+# -- obs-train and obs-overhead: the observability layer around LM1B ----------
+
+# obs-train: 16 clean LM1B batches with a NaN one fed at step 7, a
+# snapshot every 7 steps (the rollback lands on the step before the NaN
+# one), the numerics sample every 5 steps and the drift sweep every 10;
+# obs-overhead: rounds of 40 steps of each arm, interleaved
+OBS = dict(steps=16, nan_at=7, snapshot_every=7, numerics_interval=5,
+           drift_interval=10, perturb=0.05, flops_tol=1e-2,
+           wall_tol=0.02, rounds=7, round_steps=40, budget=0.02)
+
+
+def obs_config(tmp, arm, snapshot_every=None):
+    """The session knobs of one observability arm: "full" every knob on
+    (the Chrome trace, the metrics sink, health, numerics and the drift
+    sweep, the flight recorder and journal into ``tmp``, recovery),
+    "default" (and "off", built and run under ``obs.disable()``) none."""
+    import parallax_tpu_torch as pt
+    kw = dict(run_option="HYBRID", sparse_grad_mode="slices")
+    if arm == "full":
+        kw.update(
+            trace_path=str(Path(tmp) / "trace.json"),
+            metrics_path=str(Path(tmp) / "metrics.jsonl"),
+            metrics_interval_s=10.0, monitor_health=True,
+            numerics_interval=OBS["numerics_interval"],
+            numerics_drift_interval=OBS["drift_interval"],
+            flight_dir=str(Path(tmp) / "flight"),
+            journal_path=str(Path(tmp) / "journal.jsonl"),
+            recovery_config=pt.RecoveryConfig(
+                enabled=True, snapshot_every_steps=snapshot_every
+                or OBS["snapshot_every"], max_retries=2))
+    return pt.Config(**kw)
+
+
+def obs_session(torch, tmp, arm, snapshot_every=None):
+    """``lm1b_session``'s LM1B (bf16, B2/B3) with ``obs_config``'s
+    knobs, prepared and its step captured for the training batch."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import lm1b
+    cfg = lm1b.LM1BConfig(num_partitions=TRAIN["num_partitions"],
+                          sparse_grad_mode="slices", lstm_impl="kernel")
+    sess, *_ = pt.parallel_run(
+        lm1b.build_model(cfg),
+        parallax_config=obs_config(tmp, arm, snapshot_every),
+        seed=SEED, device=DEVICE)
+    batches = lm1b_batches(cfg)
+    sess.prepare(batches[0])
+    capture = capture_train(torch, sess, TRAIN["batch"])
+    return cfg, sess, batches, capture
+
+
+def paged_count():
+    from parallax_tpu_torch.ops import paged_attention as pa
+    return pa.launches
+
+
+def obs_sentinels(torch, sess):
+    """``run_drift_sentinels()`` with the launch counters zeroed around
+    it, then the same pairs with an injected drift: the results, the
+    launches of each (fp32 B2, B3 and B7) and the LSTM pair's route."""
+    from parallax_tpu_torch.obs import numwatch
+    from parallax_tpu_torch.ops import lstm
+    zero_lstm_counts()
+    zero_launches()
+    clean = sess.run_drift_sentinels()
+    perturbed = [s.check() for s in numwatch.default_sentinels(
+        perturb=OBS["perturb"], device=DEVICE)]
+    torch.cuda.synchronize()
+    launches = {**lstm_counts(), "paged_decode_attention": paged_count()}
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    T, B, H, P = 6, 8, 32, 16
+    route = {"fwd": lstm.fwd_route(torch.float32, T, B, H, P, sm).source,
+             "bwd": lstm.bwd_route(torch.float32, T, B, H, P, sm).source}
+    return clean, perturbed, launches, route
+
+
+def phase_obs_train(torch):
+    """LM1B as ``train`` runs it (bf16 B2/B3, captured) with every
+    observability knob on: the rollback artifact of a NaN batch names
+    the poisoned feed and carries the numerics, journal, goodput and
+    memory sections; the drift sentinels launch fp32 B2/B3 and B7 and
+    agree with the plain versions, a perturbed pair is flagged; the
+    timeline rows sum to the loop's wall; ``step_flops`` holds to the
+    LM1B shape formula; no alert fires on the clean steps; the clean
+    steps' losses equal, bitwise, a session's with every knob off."""
+    import glob
+    import shutil
+    import tempfile
+    from parallax_tpu_torch import obs
+    from parallax_tpu_torch.common import flops as flops_lib
+    from parallax_tpu_torch.obs import memwatch, numwatch
+    tmp = tempfile.mkdtemp(prefix="parallax-obs-")
+    k = OBS["nan_at"]
+    try:
+        torch.cuda.empty_cache()
+        cfg, sess, batches, capture = obs_session(torch, tmp, "full")
+        eng = sess.engine
+        stats = sess.compile_stats()
+        num_graphs = eng.captured_graphs(numerics=True)
+        if len(num_graphs) != 1 or len(eng.captured_graphs()) != 1:
+            raise AssertionError(f"obs-train: graphs {stats}")
+        num_capture_s = list(eng.numerics_capture_seconds.values())[0]
+        num_pool = memwatch.graph_pool_bytes([g.graph for g in num_graphs])
+        clean = [batches[i % 4] for i in range(OBS["steps"])]
+        bad = dict(clean[k], w=clean[k]["w"].copy())
+        bad["w"][0, 0] = np.nan
+        feed = clean[:k] + [bad] + clean[k:]
+        zero_lstm_counts()
+        zero_launches()
+        losses, clean_alerts = [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, b in enumerate(feed):
+            if i == k:
+                clean_alerts = (sess.alerts.evaluate(),
+                                sess.alerts.summary()["firings_total"])
+            losses.append(float(sess.run("loss", feed_dict=b)))
+        torch.cuda.synchronize()
+        loop_wall = time.perf_counter() - t0
+        loop_launches = {**lstm_counts(),
+                         "paged_decode_attention": paged_count()}
+        sess.health.poll(block=True)
+        sess.numerics.poll(block=True)
+        snap = sess.metrics_snapshot()
+        sweeps = int(snap.get("numerics.drift.lstm_bwd.checks", 0))
+        rows = sess.timeline.rows()
+        flops = sess.step_flops()
+        want_flops = flops_lib.lm1b_matmul_flops_per_word(cfg) \
+            * TRAIN["batch"] * TRAIN["num_steps"]
+        clean_s, perturbed, sentinel_launches, route = \
+            obs_sentinels(torch, sess)
+        arts = glob.glob(str(Path(tmp) / "flight" /
+                             "flight_nonfinite_rollback_*.json"))
+        doc = json.loads(Path(arts[0]).read_text()) if len(arts) == 1 \
+            else None
+        account = sess.ops_account()
+        samples = sess.numerics.total_samples
+        sess.close()
+        del sess, eng, num_graphs
+        torch.cuda.empty_cache()
+        trace_doc = json.loads((Path(tmp) / "trace.json").read_text())
+        sink = (Path(tmp) / "metrics.jsonl").read_text().splitlines()
+        journal = [json.loads(x) for x in
+                   (Path(tmp) / "journal.jsonl").read_text().splitlines()]
+        # every knob off (built and run under the killswitch): the clean
+        # batches alone
+        obs.disable()
+        try:
+            _, ref, _, _ = obs_session(torch, tmp, "off")
+            want = [float(ref.run("loss", feed_dict=b)) for b in clean]
+            ref.close()
+            del ref
+        finally:
+            obs.enable()
+        torch.cuda.empty_cache()
+    finally:
+        obs.enable()
+        shutil.rmtree(tmp, ignore_errors=True)
+    dispatches = len(feed)
+    want_launches = {"lstm_fwd": 0,
+                     "lstm_fwd_res": dispatches + 2 * sweeps,
+                     "lstm_bwd": dispatches + sweeps,
+                     "paged_decode_attention": sweeps}
+    # the walls telescope (dispatch end to dispatch end) to the loop's
+    # wall; a row's parts are its measured phases plus the residual (a
+    # lazy read attributed back, like the wait behind a snapshot's
+    # copy, can exceed its row: the residual is then 0)
+    walls = sum(r["wall_ms"] for r in rows) / 1e3
+    parts_ok = all(min(r[c] for c in (
+        "data_wait_ms", "convert_ms", "h2d_ms", "dispatch_ms",
+        "fetch_block_ms", "device_est_ms")) >= 0 for r in rows)
+    summary = {
+        "steps": dispatches, "nan_at": k, "losses": losses,
+        "reference": want, "capture_s": capture["capture_s"],
+        "numerics_capture_s": num_capture_s,
+        "numerics_pool_bytes": num_pool, "pool_bytes": capture["pool_bytes"],
+        "compile_stats": stats, "numerics_samples": samples,
+        "drift_sweeps_in_loop": sweeps, "loop_launches": loop_launches,
+        "sentinel_launches": sentinel_launches, "sentinel_route": route,
+        "sentinels": clean_s, "perturbed": perturbed,
+        "loop_wall_s": loop_wall, "timeline_wall_s": walls,
+        "timeline_rows": len(rows), "step_flops": flops,
+        "formula_flops": want_flops,
+        "clean_alert_firings": clean_alerts[1] if clean_alerts else None,
+        "account": account, "trace_events": len(trace_doc["traceEvents"]),
+        "sink_lines": len(sink), "journal_events": len(journal),
+        "provenance": doc["detail"].get("provenance") if doc else None,
+        "trip_stats_basis": doc["detail"].get("trip_stats_basis")
+        if doc else None,
+        "flight_sections": sorted(doc) if doc else None,
+        "launches": add_counts(dict(loop_launches), sentinel_launches)}
+    log(f"[obs-train] {json.dumps({k_: v for k_, v in summary.items() if k_ not in ('losses', 'reference', 'compile_stats')})}")
+    if doc is None:
+        raise AssertionError(f"obs-train: {len(arts)} rollback artifacts")
+    prov = doc["detail"].get("provenance") or {}
+    if prov.get("culprit") != "feed/w" or not prov.get(
+            "trip_stats_sampled"):
+        raise AssertionError(f"obs-train: provenance {prov}; "
+                             f"{doc['detail'].get('provenance_error')}")
+    for section in ("numerics", "journal_tail", "goodput", "ops",
+                    "memwatch"):
+        v = doc.get(section)
+        if not v or (isinstance(v, dict) and "_error" in v):
+            raise AssertionError(f"obs-train: artifact section {section} "
+                                 f"is {v!r}")
+    if not doc["memwatch"]["samples"] or not doc["numerics"]["trail"]:
+        raise AssertionError("obs-train: no memory or numerics samples in "
+                             "the artifact")
+    if not doc["detail"].get("stats_trail"):
+        raise AssertionError("obs-train: no stats trail in the artifact")
+    if route != {"fwd": "lstm", "bwd": "lstm"}:
+        raise AssertionError(f"obs-train: sentinel LSTM route {route}")
+    if sentinel_launches != {"lstm_fwd": 0, "lstm_fwd_res": 4,
+                             "lstm_bwd": 2, "paged_decode_attention": 2}:
+        raise AssertionError(f"obs-train: sentinel launches "
+                             f"{sentinel_launches}")
+    for r in clean_s:
+        if r["flagged"] or not r["rel_err"] <= r["rel_err_tol"]:
+            raise AssertionError(f"obs-train: sentinel {r}")
+    if not all(r["flagged"] for r in perturbed):
+        raise AssertionError(f"obs-train: a perturbed pair passed "
+                             f"{perturbed}")
+    if sweeps != 1 or loop_launches != want_launches:
+        raise AssertionError(f"obs-train: loop launches {loop_launches} "
+                             f"!= {want_launches} ({sweeps} sweeps)")
+    if not parts_ok or abs(walls - loop_wall) > OBS["wall_tol"] * loop_wall:
+        raise AssertionError(f"obs-train: timeline rows sum to {walls} s "
+                             f"against the loop's {loop_wall} s")
+    if not flops or abs(flops / want_flops - 1) > OBS["flops_tol"]:
+        raise AssertionError(f"obs-train: step_flops {flops} against the "
+                             f"formula's {want_flops}")
+    if clean_alerts is None or clean_alerts[0] or clean_alerts[1]:
+        raise AssertionError(f"obs-train: alerts on the clean steps "
+                             f"{clean_alerts}")
+    if losses[:k] + losses[k + 1:] != want or math.isfinite(losses[k]):
+        raise AssertionError(f"obs-train: losses {losses} against every "
+                             f"knob off {want}")
+    if samples < 1 or not sink or not journal or not summary[
+            "trace_events"]:
+        raise AssertionError(f"obs-train: samples {samples}, sink "
+                             f"{len(sink)}, journal {len(journal)}")
+    return summary
+
+
+def phase_obs_overhead(torch):
+    """LM1B ``train`` words/s under three observability arms, in
+    interleaved rounds (each round every arm in a rotated order): the
+    default session (the always-on set), the same under
+    ``obs.disable()`` (built and run there) and every knob on. The
+    default arm's median must stay within 2 % of the disabled arm's
+    (the JAX package's budget); the full arm is printed."""
+    import shutil
+    import tempfile
+    from parallax_tpu_torch import obs
+    tmp = tempfile.mkdtemp(prefix="parallax-obs-")
+    arms = ("default", "off", "full")
+    sessions = {}
+    try:
+        torch.cuda.empty_cache()
+        for arm in arms:
+            if arm == "off":
+                obs.disable()
+            try:
+                # the full arm snapshots for recovery at the default
+                # cadence (a 6.58 GB copy to the host every 25 steps)
+                sessions[arm] = obs_session(torch, tmp, arm,
+                                            snapshot_every=25)
+            finally:
+                obs.enable()
+        words = lambda b: float(b["w"].sum())
+        runs = {arm: [] for arm in arms}
+        for r in range(OBS["rounds"] + 1):
+            order = arms[r % 3:] + arms[:r % 3]
+            for arm in order:
+                _, sess, batches, _ = sessions[arm]
+                if arm == "off":
+                    obs.disable()
+                try:
+                    t = timed_steps(torch, sess, batches,
+                                    OBS["round_steps"], words)
+                finally:
+                    obs.enable()
+                if r:                      # round 0 warms every arm
+                    runs[arm].append(t)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        obs.enable()
+        for _, sess, _, _ in sessions.values():
+            sess.close()
+        sessions.clear()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    med = {arm: statistics.median(t["per_sec"] for t in runs[arm])
+           for arm in arms}
+    ms = {arm: statistics.median(t["step_ms_p50"] for t in runs[arm])
+          for arm in arms}
+    summary = {"rounds": OBS["rounds"], "round_steps": OBS["round_steps"],
+               "words_per_sec": med, "step_ms_p50": ms,
+               "default_over_off": med["default"] / med["off"],
+               "full_over_off": med["full"] / med["off"],
+               "budget": OBS["budget"], "peak_memory_gb": peak_gb,
+               "runs": {arm: [t["per_sec"] for t in runs[arm]]
+                        for arm in arms}}
+    log(f"[obs-overhead] {json.dumps(summary)}")
+    if med["default"] < (1.0 - OBS["budget"]) * med["off"]:
+        raise AssertionError(f"obs-overhead: the default arm's "
+                             f"{med['default']:.0f} words/s is more than "
+                             f"{OBS['budget']:.0%} under the disabled "
+                             f"arm's {med['off']:.0f}")
+    return summary
+
+
 # -- phase 8: NMT Transformer training -----------------------------------------
 
 # the defaults of examples/nmt_driver.py:24-26: 64 rows of 64 source and
@@ -2267,15 +2578,17 @@ def bert_batches(cfg, batch, n=4):
     return out
 
 
-def bert_model_flops(cfg, batch):
+def bert_model_flops(cfg, batch, seq=None, masked=None):
     """Model FLOPs of one training step (forward x 3), counted dense from
     the shapes: the blocks' bf16 products (q/k/v, output, MLP, and the
     attention's two T x T products over every position, padding
     included), and the fp32 heads (MLM at the masked positions: dense and
-    the [D, V] output; NSP)."""
+    the [D, V] output; NSP). ``seq`` and ``masked`` default to the
+    bert-train phase's."""
     D, M, V, L = cfg.hidden_dim, cfg.mlp_dim, cfg.padded_vocab, \
         cfg.num_layers
-    T, masked = BERT_TRAIN["seq"], BERT_TRAIN["masked"]
+    T = BERT_TRAIN["seq"] if seq is None else seq
+    masked = BERT_TRAIN["masked"] if masked is None else masked
     tokens = batch * T
     block = (2 * tokens * D * 3 * D + 2 * tokens * D * D
              + 2 * 2 * tokens * D * M + 2 * 2 * batch * T * T * D)
@@ -2420,9 +2733,18 @@ def phase_bert_train(torch, card):
     # profiler's own start
     summary["timed_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] \
         / (wall * 1e3 / steps)
+    # the session's step FLOPs (counted on meta tensors, the kernels'
+    # plain versions) against the shape formula: the flash dq and dk/dv
+    # passes each recompute the scores, about 3.8 % more at T 512
+    summary["step_flops"] = sess.step_flops()
+    summary["step_flops_over_formula"] = summary["step_flops"] / step_flop
     log(f"[bert-train] {json.dumps(summary)}")
     sess.close()
     torch.cuda.empty_cache()
+    if not 1.0 <= summary["step_flops_over_formula"] <= 1.05:
+        raise AssertionError(f"bert-train: step_flops "
+                             f"{summary['step_flops']} against the "
+                             f"formula's {step_flop}")
     return summary
 
 
@@ -4251,18 +4573,31 @@ def phase_fleet(torch, cfg, params, requests, serve_summary):
     replica's warmup's once); B4 6 times a prefill (each warmup's twice).
     Then the same in fp32: 32 requests served after the push equal
     ``greedy_decode`` under the pushed weights, under the top-2-gap
-    rule."""
+    rule. The fleet serves its telemetry (``start_exporter``), scraped
+    over 127.0.0.1 after the crash, and its flight recorder leaves one
+    ``fleet_crash`` artifact with the fleet, router and in-flight
+    sections."""
+    import glob
+    import shutil
+    import tempfile
+    import urllib.request
     import parallax_tpu_torch as pt
+    from parallax_tpu_torch import obs
     L = cfg.num_layers
     programs = {}
     inj = crash_injector(0, FLEET["crash_after"])
+    flight_dir = tempfile.mkdtemp(prefix="parallax-fleet-")
+    anomaly, journal = obs.AnomalyMonitor(), obs.EventJournal()
     zero_launches()
     t0 = time.perf_counter()
     fleet = pt.ServeFleet(fleet_factory(torch, cfg, params, programs),
                           config=pt.FleetConfig(
                               num_replicas=FLEET["replicas"],
                               max_replicas=FLEET["replicas"] + 1),
-                          faults=inj)
+                          faults=inj,
+                          flight=obs.FlightRecorder(flight_dir=flight_dir),
+                          anomaly=anomaly, journal=journal)
+    exporter = fleet.start_exporter()
     inj.fleet_load = lambda: {h.rid: h.session.load()
                               for h in fleet._router.handles()}
     spinup_s = time.perf_counter() - t0
@@ -4281,6 +4616,10 @@ def phase_fleet(torch, cfg, params, requests, serve_summary):
                 log(f"[fleet] request {r.id} lost: {e!r}")
         wall = time.perf_counter() - t0
         crash_stats = fleet.stats()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(exporter.url, timeout=30) as r:
+            scrape = r.read().decode()
+        scrape_ms = (time.perf_counter() - t0) * 1e3
         captures_warm = {rid: p.captures for rid, p in programs.items()}
         # restore two live replicas, then push trained weights under
         # traffic
@@ -4313,10 +4652,34 @@ def phase_fleet(torch, cfg, params, requests, serve_summary):
                 log(f"[fleet] request {r.id} lost across the swap: {e!r}")
         end_stats = fleet.stats()
         recompiles = fleet.recompiles()
+        rebaselines = anomaly.registry.counter(
+            "anomaly.deliberate_changes").value
+        churn = sorted({e["kind"] for e in journal.events()
+                        if e["subsystem"] == "fleet"})
     finally:
         fleet.close()
+        dumps = glob.glob(str(Path(flight_dir) / "flight_fleet_crash*"))
+        incident = json.loads(Path(dumps[0]).read_text()) \
+            if len(dumps) == 1 else None
+        shutil.rmtree(flight_dir, ignore_errors=True)
     launches = {k: v - train_launches[k]
                 for k, v in launch_counts().items()}
+    scrape_ok = ('parallax_fleet_failovers{source="fleet"}' in scrape
+                 and 'source="replica1"' in scrape)
+    if not scrape_ok or exporter._server is not None:
+        raise AssertionError(f"fleet: the exporter's scrape "
+                             f"({len(scrape)} bytes) lacks the fleet's "
+                             f"failovers or replica 1, or it outlived the "
+                             f"fleet")
+    if rebaselines < 2 or not churn:
+        raise AssertionError(f"fleet: {rebaselines} deliberate changes "
+                             f"reported to the anomaly monitor, journal "
+                             f"churn {churn}")
+    if incident is None or incident["detail"].get("replica") != 0 or any(
+            incident.get(k) is None for k in (
+                "fleet", "router", "requests_in_flight")):
+        raise AssertionError(f"fleet: {len(dumps)} fleet_crash artifacts; "
+                             f"sections {sorted(incident or {})}")
     captures_end = {rid: p.captures for rid, p in programs.items()}
     if not outs or lost:
         raise AssertionError(f"fleet: {lost} request(s) lost across the "
@@ -4355,7 +4718,12 @@ def phase_fleet(torch, cfg, params, requests, serve_summary):
                "drain_s": end_stats["fleet.drain_seconds"],
                "captures_after_warmup": captures_warm,
                "captures_end": captures_end, "recompiles": recompiles,
-               "steps_by_replica": steps, "launches": launches}
+               "steps_by_replica": steps, "launches": launches,
+               "scrape_ms": scrape_ms, "scrape_bytes": len(scrape),
+               "rebaselines": rebaselines, "journal_churn": churn,
+               "incident_sections": sorted(incident),
+               "incident_affected": len(
+                   incident["detail"].get("affected_requests") or [])}
     log(f"[fleet] {json.dumps(summary)}")
     if inj.fired("crash") != 1:
         raise AssertionError("fleet: the injected crash did not fire")
@@ -6014,6 +6382,8 @@ def main() -> int:
     dist_train = phase("dist-train", phase_dist_train, torch,
                        train["losses"], card)
     train_agree = phase("train-agree", phase_train_agreement, torch)
+    obs_train = phase("obs-train", phase_obs_train, torch)
+    obs_overhead = phase("obs-overhead", phase_obs_overhead, torch)
     skip_thoughts = phase("skip-thoughts-train", phase_skip_thoughts_train,
                           torch, card)
     lm1b_full = phase("lm1b-full", phase_lm1b_full, torch, card, train)
@@ -6096,7 +6466,8 @@ def main() -> int:
             data_feed["launches"].items()) + list(
             nmt_data["launches"].items()) + list(
             lm1b_full["launches"].items()) + list(
-            lc_pipe["launches"].items()):
+            lc_pipe["launches"].items()) + list(
+            obs_train["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -6126,7 +6497,8 @@ def main() -> int:
               "ckpt_resume": ckpt_resume, "nan_rollback": nan_rollback,
               "data_feed": data_feed, "nmt_data": nmt_data,
               "skip_thoughts_train": skip_thoughts, "lm1b_full": lm1b_full,
-              "lc_pipe": lc_pipe,
+              "lc_pipe": lc_pipe, "obs_train": obs_train,
+              "obs_overhead": obs_overhead,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

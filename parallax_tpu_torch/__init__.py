@@ -47,6 +47,13 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
   resharded resume, NaN rollback, the SIGTERM save), driven through
   ``ParallaxSession.run_iter``, ``place_batch`` and
   ``Config(ckpt_config=..., recovery_config=...)``.
+* Observability around training and serving (``obs/``): the step
+  timeline and MFU, anomaly detection, the flight recorder, the event
+  journal, the goodput ledger, alerting, the Prometheus exporter
+  (``ServeFleet.start_exporter``), the health and memory watches and the
+  numerics observatory, whose drift sentinels run the LSTM (B2/B3) and
+  paged-decode (B7) kernels against their plain versions
+  (``ParallaxSession.run_drift_sentinels``).
 * Dense CNN training: ``parallel_run(cnn.build_model("resnet50_v1.5"),
   parallax_config=Config(run_option="AR"))`` and the rest of the CNN zoo,
   a stateful model (BatchNorm statistics) with momentum SGD; no TPU
@@ -72,7 +79,8 @@ The kernels are built from ``csrc/`` at first use. The JAX package
 JAX.
 """
 
-from parallax_tpu_torch.common.config import (CheckPointConfig, Config,
+from parallax_tpu_torch.common.config import (AnomalyConfig,
+                                              CheckPointConfig, Config,
                                               ParallaxConfig, RecoveryConfig,
                                               ServeConfig)
 from parallax_tpu_torch.common.lib import parallax_log as log
@@ -93,7 +101,7 @@ from parallax_tpu_torch.session import (Fetch, ParallaxSession, StepHandle,
 __version__ = "0.1.0"
 
 __all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
-           "CheckPointConfig", "RecoveryConfig", "Model", "TrainState",
+           "CheckPointConfig", "RecoveryConfig", "AnomalyConfig", "Model", "TrainState",
            "ParallaxSession", "Fetch", "StepHandle", "materialize",
            "ServeSession", "NMTDecodeProgram", "CausalLMDecodeProgram",
            "MoeLMDecodeProgram", "LM1BDecodeProgram", "AdapterSpec",

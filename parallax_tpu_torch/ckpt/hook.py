@@ -21,6 +21,8 @@ hook.py``).
 * **final saves**: ``save_now`` is the preemption path, one synchronous
   save of the current state whatever the cadence, deduplicated on the
   step already saved.
+* **journal**: with an ``obs.journal.EventJournal`` every save (its mode
+  and seconds) and final save lands in the run's event journal.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ class CheckpointHook:
     SECS_BROADCAST_EVERY = 10
 
     def __init__(self, config: Optional[CheckPointConfig], worker_id: int,
-                 registry=None):
+                 registry=None, journal=None):
         self._config = config or CheckPointConfig()
         self._worker_id = worker_id
         self._store: Optional[CheckpointStore] = None
@@ -60,6 +62,9 @@ class CheckpointHook:
             from parallax_tpu_torch.obs.metrics import MetricsRegistry
             registry = MetricsRegistry()
         self._registry = registry
+        # run-event journal (obs/journal.py): saves and final saves land
+        # in the run's causal record
+        self._journal = journal
         self._async_waits = registry.counter("ckpt.async_waits")
         self._async_wait_s = registry.histogram("ckpt.async_wait_seconds")
         self._restore_s = registry.histogram("ckpt.restore_seconds")
@@ -145,6 +150,9 @@ class CheckpointHook:
             self._last_save_time = time.time()
             parallax_log.warning("checkpoint save_now(%s) committed step "
                                  "%d", reason, int(step))
+            if self._journal is not None:
+                self._journal.emit("ckpt", "save_now", severity="warning",
+                                   step=int(step), reason=reason)
             return d
         except BaseException as e:
             parallax_log.error("checkpoint save_now(%s) failed: %s",
@@ -164,10 +172,15 @@ class CheckpointHook:
             use_async = False
         if not use_async:
             self._join_writer(count=False)
+            t0 = time.perf_counter()
             self._store.save(step, leaves, extras=extras)
             self.last_saved_step = int(step)
             self._last_save_time = time.time()
             parallax_log.info("saved checkpoint at step %d", step)
+            if self._journal is not None:
+                self._journal.emit(
+                    "ckpt", "save", step=int(step), mode="sync",
+                    save_s=round(time.perf_counter() - t0, 4))
             return
         # at most one save in flight: join (and surface) the last commit
         self._join_writer(count=True)
@@ -187,6 +200,9 @@ class CheckpointHook:
         self._last_save_time = time.time()
         parallax_log.info("dispatched checkpoint save at step %d (async "
                           "commit)", step)
+        if self._journal is not None:
+            self._journal.emit("ckpt", "save", step=int(step),
+                               mode="async_dispatch")
 
     def _join_writer(self, count: bool) -> None:
         w = self._writer

@@ -65,6 +65,12 @@ class RecoveryPolicy:
     def snapshot_step(self) -> Optional[int]:
         return self._snap.step if self._snap is not None else None
 
+    @property
+    def snapshot(self) -> Optional[HostSnapshot]:
+        """The last-good snapshot (its host copies by leaf name), or
+        None before the first."""
+        return self._snap
+
     def maybe_snapshot(self, step: int, leaves: List[Leaf],
                        force: bool = False) -> bool:
         """Refresh the last-good snapshot when the cadence is due or

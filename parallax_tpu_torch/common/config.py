@@ -267,6 +267,71 @@ class RecoveryConfig:
 
 
 @dataclasses.dataclass
+class AnomalyConfig:
+    """Knobs of the online anomaly detectors (``obs/anomaly.py``; the
+    JAX package's ``AnomalyConfig``, field for field).
+
+    A *spike* is one observation far above the rolling baseline
+    (robust median/MAD test); a *shift* is a sustained level change —
+    the change-point case a single-outlier test misses (a step-time
+    regression, not a blip). Both count into ``anomaly.*`` and trigger
+    a flight-recorder dump when ``flight_dir`` is configured.
+
+    * ``enabled``: master switch (the obs kill switch also disables).
+    * ``window``: rolling baseline sample count per signal.
+    * ``min_samples``: observations before detection arms — compiles
+      and warmup steps land in the baseline, never fire it.
+    * ``spike_mads``: a spike must exceed the median by this many
+      (scaled) MADs…
+    * ``spike_min_ratio``: …AND by this multiplicative ratio (keeps a
+      near-constant signal, MAD ~ 0, from firing on microscopic
+      jitter).
+    * ``shift_window`` / ``shift_ratio``: a shift fires when the mean
+      of the last ``shift_window`` observations exceeds ``shift_ratio``
+      × the older window's median; the detector then rebaselines.
+    * ``cooldown``: observations before the same signal may fire again.
+    """
+
+    enabled: bool = True
+    window: int = 64
+    min_samples: int = 16
+    spike_mads: float = 8.0
+    spike_min_ratio: float = 2.0
+    shift_window: int = 8
+    shift_ratio: float = 1.5
+    cooldown: int = 32
+
+    def __post_init__(self):
+        if int(self.window) < 2:
+            raise ValueError(
+                f"anomaly window must be >= 2, got {self.window}")
+        if int(self.min_samples) < 2:
+            raise ValueError(
+                f"anomaly min_samples must be >= 2, got "
+                f"{self.min_samples}")
+        # arming requires min_samples observations IN the window, and
+        # the shift test needs shift_window more on top — a config
+        # violating either would be a silent no-op detector
+        if int(self.window) < int(self.min_samples):
+            raise ValueError(
+                f"anomaly window ({self.window}) must be >= "
+                f"min_samples ({self.min_samples}); detection would "
+                f"never arm")
+        if int(self.window) < int(self.min_samples) \
+                + max(2, int(self.shift_window)):
+            raise ValueError(
+                f"anomaly window ({self.window}) must be >= "
+                f"min_samples + shift_window "
+                f"({self.min_samples} + {self.shift_window}); the "
+                f"shift (change-point) detector would never arm")
+        for name in ("spike_mads", "spike_min_ratio", "shift_ratio"):
+            if float(getattr(self, name)) <= 0:
+                raise ValueError(
+                    f"anomaly {name} must be > 0, got "
+                    f"{getattr(self, name)}")
+
+
+@dataclasses.dataclass
 class ParallaxConfig:
     """Top-level config, reduced to what serving and training read.
 
@@ -313,6 +378,37 @@ class ParallaxConfig:
     * ``handle_preemption``: on SIGTERM, save one checkpoint of the
       current state before the process ends (installed from the main
       thread, and only with a ``ckpt_dir``).
+
+    Observability (``obs/``; the JAX package's fields, same names and
+    defaults):
+
+    * ``trace_path``: Chrome trace-event JSON of the host spans, written
+      at session close; ``trace_buffer_events``: the span ring's
+      capacity (grow-only: the collector is process-wide).
+    * ``metrics_path``: a JSONL file a background thread appends one
+      ``metrics_snapshot()`` to every ``metrics_interval_s`` seconds
+      (and once at close), rotated at ``metrics_max_bytes``.
+    * ``log_level`` / ``log_json``: the PARALLAX logger's level and a
+      one-JSON-object-per-line format (``common.lib.configure_logging``).
+    * ``numerics_interval``: every N steps the step also computes the
+      per-layer stats tree (``obs/numwatch.py``) and outputs it as
+      ``numerics``; on the card a second CUDA graph of the step per
+      signature does so, chosen by the host. 0 (default): off, no second
+      graph, no extra output. > 0 turns ``monitor_health`` on.
+    * ``numerics_drift_interval``: every N steps the session runs the
+      kernel drift sentinels (B2/B3 and B7 against their plain
+      versions); 0 (default): only on ``run_drift_sentinels()``.
+    * ``flight_dir`` / ``flight_steps``: where the flight recorder dumps
+      its incident artifacts (None: no automatic dumps) and how many
+      steps of timeline rows it keeps.
+    * ``anomaly_config`` (``AnomalyConfig``): the spike and shift
+      detectors over step time, loss and gradient norm.
+    * ``journal_path`` / ``journal_capacity`` / ``journal_max_bytes``:
+      the event journal's JSONL file (None: the in-memory ring only),
+      its ring and its rotation bound.
+    * ``alert_interval_s`` / ``alert_rules`` / ``goodput_floor``: the
+      alert engine's evaluation cadence, rules armed next to the
+      built-in ones, and the goodput-floor rule's threshold.
     """
 
     run_option: str = consts.RUN_HYBRID
@@ -339,12 +435,76 @@ class ParallaxConfig:
         default_factory=RecoveryConfig)
     handle_preemption: bool = True
     monitor_health: bool = False
+    # -- observability (obs/) ---------------------------------------------
+    trace_path: Optional[str] = None
+    trace_buffer_events: int = 65536
+    metrics_path: Optional[str] = None
+    metrics_interval_s: float = 10.0
+    metrics_max_bytes: Optional[int] = None
+    log_level: Optional[str] = None
+    log_json: bool = False
+    numerics_interval: int = 0
+    numerics_drift_interval: int = 0
+    flight_dir: Optional[str] = None
+    flight_steps: int = 256
+    anomaly_config: AnomalyConfig = dataclasses.field(
+        default_factory=AnomalyConfig)
+    journal_path: Optional[str] = None
+    journal_capacity: int = 512
+    journal_max_bytes: Optional[int] = None
+    alert_interval_s: float = 30.0
+    alert_rules: Sequence[Any] = ()
+    goodput_floor: float = 0.5
 
     def __post_init__(self):
         self.run_option = normalize_run_option(self.run_option)
         if self.recovery_config.enabled and not self.monitor_health:
             # the policy reads the in-graph loss_finite/grad_norm outputs
             self.monitor_health = True
+        if int(self.numerics_interval) < 0:
+            raise ValueError(
+                f"numerics_interval must be >= 0, got "
+                f"{self.numerics_interval}")
+        if int(self.numerics_drift_interval) < 0:
+            raise ValueError(
+                f"numerics_drift_interval must be >= 0, got "
+                f"{self.numerics_drift_interval}")
+        if self.numerics_interval > 0 and not self.monitor_health:
+            # provenance keys off the loss_finite trip
+            self.monitor_health = True
+        if float(self.metrics_interval_s) <= 0:
+            raise ValueError(
+                f"metrics_interval_s must be > 0, got "
+                f"{self.metrics_interval_s}")
+        if self.metrics_max_bytes is not None \
+                and int(self.metrics_max_bytes) <= 0:
+            raise ValueError(
+                f"metrics_max_bytes must be > 0 or None, got "
+                f"{self.metrics_max_bytes}")
+        if int(self.trace_buffer_events) < 1:
+            raise ValueError(
+                f"trace_buffer_events must be >= 1, got "
+                f"{self.trace_buffer_events}")
+        if int(self.flight_steps) < 1:
+            raise ValueError(
+                f"flight_steps must be >= 1, got {self.flight_steps}")
+        if int(self.journal_capacity) < 1:
+            raise ValueError(
+                f"journal_capacity must be >= 1, got "
+                f"{self.journal_capacity}")
+        if self.journal_max_bytes is not None \
+                and int(self.journal_max_bytes) <= 0:
+            raise ValueError(
+                f"journal_max_bytes must be > 0 or None, got "
+                f"{self.journal_max_bytes}")
+        if float(self.alert_interval_s) <= 0:
+            raise ValueError(
+                f"alert_interval_s must be > 0, got "
+                f"{self.alert_interval_s}")
+        if not (0.0 <= float(self.goodput_floor) <= 1.0):
+            raise ValueError(
+                f"goodput_floor must be in [0, 1], got "
+                f"{self.goodput_floor}")
         if int(self.prefetch_depth) < 1:
             raise ValueError(
                 f"prefetch_depth must be >= 1, got {self.prefetch_depth}")

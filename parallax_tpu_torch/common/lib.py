@@ -3,7 +3,8 @@ grammar.
 
 ``parallax_log`` is the counterpart of ``parallax_tpu.common.lib``'s
 (same logger name, same format, same level variable), so one log
-configuration covers both packages. ``HostInfo``,
+configuration covers both packages; ``configure_logging`` and
+``JsonLogFormatter`` are copies of the JAX package's. ``HostInfo``,
 ``parse_resource_info`` and ``serialize_resource_info`` /
 ``deserialize_resource_info`` are copies of the JAX package's
 (reference lib.py:121-176). ``rank_layout`` is the port's own: one rank
@@ -33,6 +34,44 @@ if not parallax_log.handlers:
             "%(asctime)s %(name)s %(levelname)s: %(message)s"))
     parallax_log.addHandler(_handler)
 parallax_log.setLevel(os.environ.get(consts.PARALLAX_LOG_LEVEL, "INFO"))
+
+
+class JsonLogFormatter(logging.Formatter):
+    """One JSON object per log line (machine-scraped runs): ts / level /
+    logger / msg, plus the traceback under "exc" when present."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        out = {
+            "ts": self.formatTime(record, "%Y-%m-%dT%H:%M:%S"),
+            "level": record.levelname,
+            "logger": record.name,
+            "msg": record.getMessage(),
+        }
+        if record.exc_info:
+            out["exc"] = self.formatException(record.exc_info)
+        return json.dumps(out)
+
+
+def configure_logging(level=None, json_format: bool = False) -> None:
+    """Re-configure the PARALLAX logger at runtime.
+
+    The import-time level comes from env PARALLAX_LOG_LEVEL — useless to
+    a program that builds its ``ParallaxConfig`` after import.
+    ``Config(log_level=..., log_json=...)`` routes here at session
+    construction. No-args is a no-op (the env-var behavior stands); both
+    knobs only touch the PARALLAX logger, never the root logger. The
+    logger is process-global, so the change outlives the configuring
+    session — deliberate: logging is a per-process concern (concurrent
+    sessions share the stream), and a close-time restore would flap the
+    format mid-run for whichever session remains.
+    """
+    if level is not None:
+        parallax_log.setLevel(
+            level if isinstance(level, int) else str(level).upper())
+    if json_format:
+        fmt = JsonLogFormatter()
+        for handler in parallax_log.handlers:
+            handler.setFormatter(fmt)
 
 
 def resolve_device(device) -> torch.device:

@@ -140,6 +140,17 @@ inputs of a step not yet dispatched. Under ``Config.monitor_health`` the
 step also outputs ``grad_norm`` and ``loss_finite``
 (``parallax_tpu/core/engine.py:724-739``), computed inside the graph.
 
+Under ``Config.numerics_interval`` (``parallax_tpu/core/engine.py:
+740-762``; obs/numwatch.py) every signature has a second graph that
+also computes the per-layer stats (a ``[layers, 6]`` tensor, read as a
+``numwatch.StatsTree``): the host replays it every ``numerics_interval``
+steps and the plain graph otherwise, whose ``numerics`` output is the
+host zeros tree. ``trip_numerics`` computes a non-finite step's stats
+after it from the gradients the step's graph left in its buffers; the
+JAX engine forces the sample inside the step. With the interval 0 or
+the obs layer off there is no second graph and no output. ``count_step_
+flops`` counts a step's matmuls on meta tensors (``step_flops``).
+
 On the card the collectives are NCCL's and are captured inside the
 step's graph (the capture's eager call runs them first, which sets up
 the communicators; every rank captures in the same order). A declared
@@ -149,7 +160,8 @@ eagerly (``compile_stats()["step_capture"]`` says so).
 
 Not ported: ``batch_specs`` other than the default, 'repl' alone on dim
 0 and ``P('repl', 'shard')``, tensor parallelism with
-``sparse_grad_mode="slices"``, and the numerics observatory.
+``sparse_grad_mode="slices"``, and the numerics observatory over
+parameters split across ranks.
 """
 
 from __future__ import annotations
@@ -174,6 +186,7 @@ from parallax_tpu_torch.core import classify, mesh as mesh_lib, \
     optim, specs as specs_lib
 from parallax_tpu_torch.obs import _state as obs_state
 from parallax_tpu_torch.obs import metrics as obs_metrics, trace
+from parallax_tpu_torch.obs import numwatch
 from parallax_tpu_torch.ops import collectives, embedding
 from parallax_tpu_torch.tune import costmodel
 
@@ -778,6 +791,38 @@ class Engine:
                 "alone is not ported (the slices gather over the world)")
         self._dense_paths = [p for p in self.plan.var_specs
                              if p not in self._slice_resolved]
+        # -- the numerics observatory (obs/numwatch.py) -----------------
+        # gated at build time, as the JAX engine gates its output: with
+        # numerics_interval 0 or the obs layer off there is no second
+        # graph and no extra output
+        self._numerics = int(config.numerics_interval) > 0 \
+            and obs_state.enabled
+        # the numerics graphs by signature, their capture seconds, the
+        # gradient buffers each graph (or the last eager step) leaves
+        # behind, and the last step's inputs (NaN provenance)
+        self._num_executables: Dict[Tuple, Optional[graphs_lib.Graph]] = {}
+        self.numerics_capture_seconds: Dict[Tuple, float] = {}
+        self._graph_grads: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+        self._step_grads: Optional[Dict[str, torch.Tensor]] = None
+        self._last_grads: Optional[Dict[str, torch.Tensor]] = None
+        self.last_inputs: Optional[Dict[str, Any]] = None
+        # count_step_flops' counts by signature, and the last step's
+        self._step_flops: Dict[Tuple, Optional[float]] = {}
+        self._last_sig: Optional[Tuple] = None
+        if self._numerics:
+            if self.plan.split and mesh.world is not None \
+                    and mesh.world.size > 1:
+                raise NotImplementedError(
+                    f"numerics_interval > 0 with parameters split over "
+                    f"{mesh.world.size} ranks ({self.plan.split}): the "
+                    f"per-layer stats are computed on one rank's whole "
+                    f"parameters")
+            # the float leaves the stats cover, and their layers
+            self._num_paths = [p for p, t in classify.flatten(meta_params)
+                               if t.is_floating_point()]
+            self._num_prefixes = sorted({numwatch.prefix_of(p)
+                                         for p in self._num_paths})
+            self._numerics_zeros = numwatch.zeros_tree(self._num_prefixes)
         self.metrics.counter("engine.builds").inc()
 
     def _lookup_scope(self, flat, records):
@@ -992,16 +1037,18 @@ class Engine:
         which are returned: the next ``step`` replays on them, and the
         next ``place`` of that signature overwrites them, in stream
         order, after the step."""
-        host = {k: _host_tensor(v) for k, v in self.bucket(batch).items()}
-        cuda = self.device.type == "cuda"
-        if cuda:
-            host = {k: (t.pin_memory() if t.device.type == "cpu" else t)
+        with trace.span("engine.h2d_place"):
+            host = {k: _host_tensor(v)
+                    for k, v in self.bucket(batch).items()}
+            cuda = self.device.type == "cuda"
+            if cuda:
+                host = {k: (t.pin_memory() if t.device.type == "cpu"
+                            else t) for k, t in host.items()}
+            if static and self._captures():
+                return self._static_inputs(
+                    bucketing.batch_signature(host), host)
+            return {k: t.to(self.device, non_blocking=cuda)
                     for k, t in host.items()}
-        if static and self._captures():
-            return self._static_inputs(
-                bucketing.batch_signature(host), host)
-        return {k: t.to(self.device, non_blocking=cuda)
-                for k, t in host.items()}
 
     def _static_inputs(self, sig, batch=None) -> Dict[str, torch.Tensor]:
         """The static input buffers of signature ``sig`` (made on first
@@ -1053,6 +1100,10 @@ class Engine:
         dispatched, or the batch was dropped unread, and after its last
         copy finished. On the CPU the batch's tensors are returned as
         they are."""
+        with trace.span("engine.h2d_place"):
+            return self._stage(batch)
+
+    def _stage(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         host = {k: _host_tensor(v) for k, v in self.bucket(batch).items()}
         if self.device.type != "cuda":
             return host
@@ -1109,16 +1160,26 @@ class Engine:
             torch.cuda.current_stream(self.device).wait_event(staged.ready)
         sig = bucketing.batch_signature(batch)
         self._note_batch_signature(sig)
+        self._last_sig = sig
+        sampled = self._numerics and \
+            state.step % int(self.config.numerics_interval) == 0
         with trace.span("engine.step"):
             if self._captures():
-                outputs = self._replay(state, sig, batch)
+                outputs = self._replay(state, sig, batch, sampled)
             else:
                 self._reseed(state)
-                outputs = self._compute(state, batch)
+                outputs = self._compute(state, batch, sampled)
+                self._last_grads = self._step_grads
+                self.last_inputs = batch
         if staged is not None:
             staged.release(torch.cuda.current_stream(self.device))
         state.step += 1
         self.metrics.counter("engine.steps").inc()
+        if self._numerics:
+            mat = outputs.pop("_numerics", None)
+            outputs["numerics"] = (
+                numwatch.StatsTree(self._num_prefixes, mat)
+                if mat is not None else self._numerics_zeros)
         outputs = {"loss": outputs.pop("loss"), "global_step": state.step,
                    **outputs}
         return state, outputs
@@ -1137,11 +1198,13 @@ class Engine:
             p: collectives.gather_rows(flat[p], self.mesh)
             for p in gathered})
 
-    def _compute(self, state: TrainState, batch) -> Dict[str, Any]:
+    def _compute(self, state: TrainState, batch,
+                 numerics: bool = False) -> Dict[str, Any]:
         """The step's device work, every state tensor written in place:
         forward, gradients, their combine across ranks, the optimizer,
         the slice updates and the new model state. Returns the loss and
-        metrics (tensors on the device)."""
+        metrics (tensors on the device); with ``numerics`` also the
+        per-layer stats as ``_numerics`` (``[layers, 6]``)."""
         flat = dict(classify.flatten(state.params))
         cap = None
         scope = contextlib.nullcontext()
@@ -1168,6 +1231,11 @@ class Engine:
                     f"'grad_norm'/'loss_finite' but the model's metrics "
                     f"already define {sorted(taken)}; rename the model "
                     f"metric(s)")
+        if self._numerics and "numerics" in metrics:
+            raise ValueError(
+                "numerics_interval > 0 reserves the output name "
+                "'numerics' but the model's metrics already define it; "
+                "rename the model metric")
         leaves = [flat[p] for p in self._dense_paths]
         rows = [r for _, _, r in cap.captured] if cap is not None else []
         if vag is not None:
@@ -1182,6 +1250,10 @@ class Engine:
             self._combine(dense)
             health = self._health(loss, dense, grads[len(leaves):]) \
                 if self.config.monitor_health else {}
+            if self._numerics:
+                # kept for the trip step's forced stats (trip_numerics)
+                self._step_grads = dense
+            pre = self._numerics_before(flat, cap) if numerics else None
             apply = dense
             if not self.config.sync:
                 apply = self._delayed(state, dense)
@@ -1204,11 +1276,146 @@ class Engine:
                         f"leaves for one of {len(old)}")
                 if old:
                     torch._foreach_copy_(old, new)
+            if pre is not None:
+                num = self._numerics_after(flat, pre, dense)
         outputs = {"loss": loss.detach()}
         outputs.update({k: (v.detach() if isinstance(v, torch.Tensor)
                             else v) for k, v in metrics.items()})
         outputs.update(health)
+        if pre is not None:
+            outputs["_numerics"] = num
         return outputs
+
+    # -- the numerics observatory (obs/numwatch.py) ------------------------
+
+    def _numerics_before(self, flat, cap) -> Dict[str, Any]:
+        """What the stats need from the parameters before the update:
+        each dense leaf's copy, and for each sliced table its squared
+        norm and the rows the step's ids touch (sorted, the first
+        occurrence of each id marked), gathered before the update."""
+        pre: Dict[str, Any] = {}
+        for p in self._dense_paths:
+            if flat[p].is_floating_point():
+                pre[p] = flat[p].detach().clone()
+        if cap is not None:
+            ids_of: Dict[str, list] = {}
+            for path, ids, _ in cap.captured:
+                ids_of.setdefault(path, []).append(ids.reshape(-1).long())
+            for path, parts in ids_of.items():
+                table = flat[path]
+                ids, _ = torch.sort(torch.cat(parts))
+                first = torch.ones_like(ids, dtype=torch.bool)
+                first[1:] = ids[1:] != ids[:-1]
+                # the squared norm in one reduction: no table-sized
+                # temporary in the graph's pool
+                w_sq = torch.linalg.vector_norm(
+                    table.detach(), dtype=torch.float32).square()
+                pre[path] = (w_sq, ids, first, table[ids].detach().float())
+        return pre
+
+    def _numerics_after(self, flat, pre, dense) -> torch.Tensor:
+        """The ``[layers, 6]`` stats (``numwatch.stats_matrix``) after the
+        update: a dense leaf's update against its copy, a sliced table's
+        over the distinct rows it touched (the rest did not move), its
+        dense gradient zero (as the JAX engine's per-prefix stats see
+        it)."""
+        groups: Dict[str, list] = {}
+        for p in self._num_paths:
+            w1 = flat[p]
+            if p in self._slice_resolved:
+                if p in pre:
+                    w_sq, ids, first, rows0 = pre[p]
+                    d = (w1[ids].float() - rows0) * first[:, None]
+                    terms = (w_sq, d.square().sum(), None)
+                else:   # a table the step did not look up
+                    w_sq = torch.linalg.vector_norm(
+                        w1.detach(), dtype=torch.float32).square()
+                    terms = (w_sq, torch.zeros_like(w_sq), None)
+            else:
+                w0 = pre[p].float()
+                terms = (w0.square().sum(),
+                         (w1.detach().float() - w0).square().sum(),
+                         dense[p])
+            groups.setdefault(numwatch.prefix_of(p), []).append(terms)
+        return numwatch.stats_matrix([groups[p] for p in self._num_prefixes])
+
+    def trip_numerics(self, state: TrainState,
+                      params_before: Dict[str, Any]) -> numwatch.StatsTree:
+        """The stats tree of the step just run, computed after it: the
+        gradients it left in its buffers (the graph's, or the eager
+        step's), the live (post-step) parameters and ``params_before``
+        ({path: array}, the recovery snapshot's) as the pre-step ones.
+        The session's recovery path calls it on a non-finite step that
+        was not sampled, before the rollback (the JAX engine forces the
+        sample inside the step)."""
+        if self._last_grads is None:
+            raise RuntimeError("trip_numerics: no step has run yet")
+        flat = dict(classify.flatten(state.params))
+        groups: Dict[str, list] = {}
+        with torch.no_grad():
+            for p, w1 in flat.items():
+                if not w1.is_floating_point():
+                    continue
+                g = self._last_grads.get(p) \
+                    if p not in self._slice_resolved else None
+                groups.setdefault(numwatch.prefix_of(p), []).append(
+                    numwatch.leaf_terms(params_before[p], w1, g))
+            mat = numwatch.stats_matrix(
+                [groups[p] for p in self._num_prefixes])
+        return numwatch.StatsTree(self._num_prefixes, mat)
+
+    def count_step_flops(self, sig=None) -> Optional[float]:
+        """This rank's FLOPs of one step of signature ``sig`` (default:
+        the last step's, else the example batch's), counted once and
+        kept: the forward and the gradient run on meta tensors under
+        ``torch.utils.flop_counter.FlopCounterMode``, where every kernel
+        wrapper takes its plain version (a meta tensor is not a CUDA
+        one), so the count is the plain versions' matmuls — the same
+        matmuls the kernels compute. The optimizer's elementwise update
+        counts nothing. None when a model's step cannot run on meta
+        tensors."""
+        from torch.utils.flop_counter import FlopCounterMode
+        if sig is None:
+            sig = self._last_sig if self._last_sig is not None else \
+                bucketing.batch_signature(self._batch_shapes)
+        if sig in self._step_flops:
+            return self._step_flops[sig]
+        flops = None
+        try:
+            meta_params, meta_state = self.model.call_init(
+                torch.Generator(), "meta")
+            meta_params = self._local_tree(meta_params, LOCAL_PLACEMENTS)
+            batch = {name: torch.empty(shape, dtype=getattr(torch, dt[6:]),
+                                       device="meta")
+                     for name, shape, dt in sig}
+            flat = dict(classify.flatten(meta_params))
+            leaves = [flat[p].requires_grad_() for p in self._dense_paths
+                      if flat[p].is_floating_point()]
+            cap = embedding.SliceCapture(
+                {id(flat[p]): p for p in self._slice_resolved})
+            vag = self.model.value_and_grad_fn
+            with FlopCounterMode(display=False) as counter, \
+                    embedding.slice_capture_scope(cap), \
+                    self._lookup_scope(flat, None):
+                if vag is not None:
+                    vag(meta_params, batch, torch.Generator())
+                else:
+                    loss, _, _ = self.model.call_loss(
+                        meta_params, batch, torch.Generator(), meta_state)
+                    rows = [r for _, _, r in cap.captured]
+                    torch.autograd.grad(loss, leaves + rows,
+                                        allow_unused=True)
+            flops = float(counter.get_total_flops())
+        except Exception as e:
+            parallax_log.warning("step FLOPs not counted: %s", e)
+        self._step_flops[sig] = flops
+        return flops
+
+    def captured_graphs(self, numerics: bool = False
+                        ) -> List[graphs_lib.Graph]:
+        """The step graphs held now (``numerics``: the numerics graphs)."""
+        table = self._num_executables if numerics else self._executables
+        return [g for g in table.values() if g is not None]
 
     def _health(self, loss, dense, row_grads) -> Dict[str, torch.Tensor]:
         """The in-graph health outputs (``Config.monitor_health``, JAX's
@@ -1281,19 +1488,24 @@ class Engine:
             else:
                 b.copy_(torch.cat([b[1:], grads[p][None]]))
 
-    def _replay(self, state: TrainState, sig, batch) -> Dict[str, Any]:
+    def _replay(self, state: TrainState, sig, batch,
+                numerics: bool = False) -> Dict[str, Any]:
         inputs = self._static_inputs(sig, batch)
-        graph = self._executables.get(sig)
+        table = self._num_executables if numerics else self._executables
+        graph = table.get(sig)
         if graph is not None and state is self._captured_state:
-            self._exec_hits.inc()
+            if not numerics:
+                self._exec_hits.inc()
         else:
-            if self._executables and graph is None:
+            if self._executables and graph is None and not numerics:
                 self._exec_misses.inc()
             if state is not self._captured_state:
                 # the graphs read another state's buffers
                 self._drop_graphs()
-            graph = self._capture(state, sig, inputs)
+            graph = self._capture(state, sig, inputs, numerics)
         self._reseed(state)
+        self.last_inputs = inputs
+        self._last_grads = self._graph_grads.get((sig, numerics))
         out = graph.replay()
         # copied out of the pool: the next replay overwrites it, and a
         # lazy fetch may be read after that
@@ -1302,28 +1514,40 @@ class Engine:
 
     def _drop_graphs(self) -> None:
         self._executables = {s: None for s in self._executables}
+        self._num_executables = {s: None for s in self._num_executables}
+        self._graph_grads = {}
         self._captured_state = None
 
     @torch.no_grad()
-    def _capture(self, state: TrainState, sig, inputs) -> graphs_lib.Graph:
-        """Capture the step on ``inputs`` against ``state``'s buffers. The
-        eager call that precedes the capture runs a real step; every
-        state tensor is copied aside first and back after, so the state
-        leaves the capture bitwise as it came (as compiling a JAX step
-        never runs it)."""
+    def _capture(self, state: TrainState, sig, inputs,
+                 numerics: bool = False) -> graphs_lib.Graph:
+        """Capture the step on ``inputs`` against ``state``'s buffers
+        (``numerics``: the graph that also computes the per-layer
+        stats). The eager call that precedes the capture runs a real
+        step; every state tensor is copied aside first and back after,
+        so the state leaves the capture bitwise as it came (as compiling
+        a JAX step never runs it)."""
         leaves = state_tensors(state)
         snapshot = [t.detach().clone() for t in leaves]
 
         def body():
             with torch.enable_grad():
-                return self._compute(state, inputs)
+                return self._compute(state, inputs, numerics)
 
         try:
             graph = graphs_lib.capture(body, self.device, self._gen)
         finally:
             torch._foreach_copy_(leaves, snapshot)
             del snapshot
-        self._executables[sig] = graph
+        if numerics:
+            self._num_executables[sig] = graph
+            self.numerics_capture_seconds[sig] = graph.seconds
+        else:
+            self._executables[sig] = graph
+        if self._numerics:
+            # the captured call's gradients: pool tensors every replay
+            # of this graph rewrites
+            self._graph_grads[(sig, numerics)] = self._step_grads
         self._captured_state = state
         self.metrics.histogram("engine.capture_seconds").record(
             graph.seconds)
@@ -1357,6 +1581,9 @@ class Engine:
             if state is not self._captured_state:
                 self._drop_graphs()
             self._capture(state, sig, self._static_inputs(sig))
+            if self._numerics:
+                self._capture(state, sig, self._static_inputs(sig),
+                              numerics=True)
         else:
             self._executables.setdefault(sig, None)
 

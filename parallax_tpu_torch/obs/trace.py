@@ -61,6 +61,22 @@ class TraceCollector:
     def capacity(self) -> int:
         return self._events.maxlen
 
+    def set_capacity(self, capacity: int) -> None:
+        """Resize the ring, keeping the most recent events.
+
+        The swap is not synchronized with the lock-free ``record()``
+        hot path: a span retiring on another thread during the swap can
+        land in the discarded deque and vanish. Deliberate trade-off —
+        resizes happen once per session construction, and taking the
+        lock on every record() would spend the overhead budget on an
+        event-loss window of microseconds per process lifetime."""
+        capacity = int(capacity)
+        with self._lock:
+            if capacity == self._events.maxlen:
+                return
+            self._events = collections.deque(self._events,
+                                             maxlen=capacity)
+
     def record(self, event: TraceEvent) -> None:
         # lock-free hot path: deque.append with maxlen is atomic under
         # the GIL (eviction included); the lock only guards the

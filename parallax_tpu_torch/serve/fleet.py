@@ -255,6 +255,8 @@ class ServeFleet:
         self.reqtrace = reqtrace.RequestTraceRing(self.metrics)
         self._inflight: Dict[Any, FleetRequest] = {}
         self._inflight_lock = threading.Lock()
+        # the telemetry exporter (start_exporter), stopped at close
+        self._exporter = None
         self._closed = False
         self._swap_lock = threading.Lock()
         self._scale_lock = threading.Lock()
@@ -1048,6 +1050,30 @@ class ServeFleet:
 
     # -- introspection / teardown ------------------------------------------
 
+    def start_exporter(self, port: int = 0, alerts_fn=None):
+        """Serve the fleet's live telemetry (the fleet's aggregates AND
+        every replica's ``serve.*`` registry, ``source``-labelled) as
+        Prometheus text on ``127.0.0.1`` (port 0: the OS picks one).
+        ``alerts_fn`` (an ``AlertEngine.prometheus_alerts``) adds the
+        ``parallax_alerts`` section. Returns the running
+        :class:`~parallax_tpu_torch.obs.export.TelemetryExporter`
+        (``.url``); stopped at :meth:`close`."""
+        from parallax_tpu_torch.obs.export import TelemetryExporter
+
+        if self._exporter is not None:
+            # never leak a bound port and its thread on a second call
+            self._exporter.stop()
+
+        def snapshot():
+            out = {"fleet": self.metrics.snapshot()}
+            for rid, reg in list(self._registries.items()):
+                out[f"replica{rid}"] = reg.snapshot()
+            return out
+
+        self._exporter = TelemetryExporter(snapshot, port=port,
+                                           alerts_fn=alerts_fn)
+        return self._exporter.start()
+
     def recompiles(self) -> int:
         """Total serve-time captures (dispatches that missed the
         captured signature set) across every live replica — the
@@ -1079,6 +1105,9 @@ class ServeFleet:
         self._closed = True
         self._stop.set()
         self._thread.join(timeout=10.0)
+        if self._exporter is not None:
+            self._exporter.stop()
+            self._exporter = None
         for h in self._router.handles():
             try:
                 h.session.close(drain=drain)

@@ -43,8 +43,26 @@ async); a non-finite loss or gradient norm rolls the state back to the
 last in-memory snapshot and skips the batch (``set_rollback_hook``); a
 SIGTERM saves once more before the process ends (``on_preemption``).
 The checkpoint is the JAX package's format and names, so either package
-resumes the other's run. The extras carry the JAX key set; ``anomaly``,
-``health`` and ``ops`` are None (the port has no such monitors).
+resumes the other's run. The extras carry the JAX key set and format:
+the data cursor, the anomaly detectors' baselines, the health
+accounting and the goodput account (``ops``); a restore feeds them back,
+across packages too.
+
+Observability (``obs/``, the JAX session's monitors): always on, the
+step timeline (``timeline``: wall time per step split into data wait,
+conversion, H2D, dispatch, fetch block and the device residual, MFU
+against ``step_flops()``), the anomaly detectors (``anomaly``), the
+flight recorder (``flight``, ``dump_flight``; automatic dumps with
+``Config.flight_dir``) and the memory watch (``memwatch``); with the obs
+layer on, the event journal (``journal``), the goodput ledger
+(``ledger``, ``ops_account``) and the alert engine (``alerts``). Opt in:
+``Config.monitor_health`` (``health``: non-finite loss and gradient
+norm, read from pinned copies behind CUDA events, never blocking the
+dispatch thread), ``numerics_interval`` (``numerics``: the per-layer
+stats of a second graph per signature, NaN provenance in the rollback
+artifact; ``run_drift_sentinels``), ``metrics_path`` (a JSONL sink
+thread) and ``trace_path`` (the Chrome trace, written at close).
+``aggregate_host_steps`` names a straggler across ranks.
 
 Compile-ahead (``parallax_tpu/session.py:1713-1797``): ``warmup()``
 captures the step's CUDA graph for every declared
@@ -60,10 +78,12 @@ Ported: ``run``, ``run_async``, ``run_iter``, ``place_batch``,
 ``model_state`` for a stateful model), ``engine``, ``evaluate``,
 ``warmup``, ``compile_stats``, ``gather_params``,
 ``sparse_wire_bytes_per_step``, ``data_cursor``, ``set_rollback_hook``,
-``on_preemption``, ``close``, ``metrics_snapshot`` and the serving
-handoff (``serve``, ``push_weights``). The rest of the JAX session
-(profiling hooks, the flight recorder, journal, health and anomaly
-monitors, the goodput ledger, the partition search) is not.
+``on_preemption``, ``close``, ``metrics_snapshot``, ``steps_per_sec``,
+``step_flops``, ``dump_flight``, ``aggregate_host_steps``,
+``ops_account``, ``run_drift_sentinels`` and the serving handoff
+(``serve``, ``push_weights``). The rest of the JAX session (the
+profiling hooks and the profile attribution, the partition search and
+the tuner) is not.
 """
 
 from __future__ import annotations
@@ -79,17 +99,34 @@ import torch
 
 from parallax_tpu_torch.ckpt import snapshot as snap_lib
 from parallax_tpu_torch.ckpt.hook import CheckpointHook
-from parallax_tpu_torch.ckpt.recovery import RecoveryPolicy
+from parallax_tpu_torch.ckpt.recovery import (RecoveryPolicy,
+                                              RecoverySurrender)
 from parallax_tpu_torch.common.config import ParallaxConfig
-from parallax_tpu_torch.common.lib import parallax_log, resolve_device
+from parallax_tpu_torch.common.lib import (configure_logging, parallax_log,
+                                           resolve_device)
 from parallax_tpu_torch.compile import bucketing, cache as compile_cache
 from parallax_tpu_torch.core import engine as engine_lib, mesh as mesh_lib
 from parallax_tpu_torch.data.prefetch import Prefetcher, skip_items
+from parallax_tpu_torch.obs import _state as obs_state
+from parallax_tpu_torch.obs import aggregate as aggregate_lib
+from parallax_tpu_torch.obs import memwatch as memwatch_lib
+from parallax_tpu_torch.obs import numwatch as numwatch_lib
 from parallax_tpu_torch.obs import trace
-from parallax_tpu_torch.obs.metrics import MetricsRegistry
+from parallax_tpu_torch.obs.alerts import AlertEngine, builtin_rules
+from parallax_tpu_torch.obs.anomaly import AnomalyMonitor
+from parallax_tpu_torch.obs.flightrec import FlightRecorder
+from parallax_tpu_torch.obs.goodput import GoodputLedger
+from parallax_tpu_torch.obs.health import (HealthMonitor,
+                                           device_memory_stats, host_fields)
+from parallax_tpu_torch.obs.journal import EventJournal
+from parallax_tpu_torch.obs.metrics import (JsonlSink, MetricsRegistry,
+                                            PipelineStats)
+from parallax_tpu_torch.obs.timeline import StepTimeline
 
 
 def _to_host(v):
+    if isinstance(v, numwatch_lib.StatsTree):
+        return v.host()
     if isinstance(v, torch.Tensor):
         arr = v.detach().cpu().numpy()
     else:
@@ -105,23 +142,30 @@ class Fetch:
     never block. On first read it equals what an eager fetch returns
     (a Python scalar for 0-d outputs, an ndarray otherwise)."""
 
-    __slots__ = ("_raw", "_host", "_done", "_ready", "_shape")
+    __slots__ = ("_raw", "_host", "_done", "_ready", "_shape", "_on_block")
 
-    def __init__(self, value, ready=None):
+    def __init__(self, value, ready=None, on_block=None):
         self._raw = value
         self._host = None
         self._done = False
         self._ready = ready
+        # fn(seconds): the first read's wait, attributed back to the
+        # step that produced the value (obs/timeline.py)
+        self._on_block = on_block
         self._shape = tuple(np.shape(value)) if not isinstance(
             value, torch.Tensor) else tuple(value.shape)
 
     def result(self):
         """The host value (blocks until the card has it), cached."""
         if not self._done:
+            t0 = time.perf_counter()
             self._host = _to_host(self._raw)
             self._done = True
             self._raw = None
             self._ready = None
+            if self._on_block is not None:
+                self._on_block(time.perf_counter() - t0)
+                self._on_block = None
         return self._host
 
     def done(self) -> bool:
@@ -198,6 +242,13 @@ class Fetch:
         return abs(self.result())
 
 
+def _feed_nbytes(batch) -> int:
+    """A feed's host bytes: the volume the step copies to the card."""
+    return sum(int(v.numel() * v.element_size()) if isinstance(
+        v, torch.Tensor) else int(getattr(v, "nbytes", 0))
+        for v in batch.values())
+
+
 def materialize(value):
     """Resolve every ``Fetch`` inside a run() result to its host value."""
     if isinstance(value, Fetch):
@@ -253,9 +304,14 @@ class ParallaxSession:
         self._device = resolve_device(device)
         self.mesh = mesh_lib.build_mesh(self._device,
                                         num_partitions=num_partitions)
+        # -- observability (obs/): one registry for the whole runtime ----
+        configure_logging(config.log_level, config.log_json)
+        # grow-only: the collector is process-wide
+        if config.trace_buffer_events > trace.get_collector().capacity:
+            trace.get_collector().set_capacity(config.trace_buffer_events)
         self.metrics = MetricsRegistry()
+        self.pipeline_stats = PipelineStats(self.metrics)
         self._steps = self.metrics.counter("session.steps")
-        self._step_ms = self.metrics.histogram("session.dispatch_ms")
         self._wait_ms = self.metrics.histogram("session.data_wait_ms")
         self._engine: Optional[engine_lib.Engine] = None
         self._state: Optional[engine_lib.TrainState] = None
@@ -271,14 +327,110 @@ class ParallaxSession:
         if config.compilation_cache_dir:
             compile_cache.enable_persistent_cache(
                 config.compilation_cache_dir)
+        # -- training forensics (obs/timeline, anomaly, flightrec) -------
+        # per-step wall-time attribution ring (also the flight
+        # recorder's step log)
+        self.timeline = StepTimeline(self.metrics,
+                                     capacity=config.flight_steps)
+        # thread-local pre-dispatch phase scratch (data wait, feed
+        # conversion, placement) measured on the dispatching thread
+        self._phase = threading.local()
+        self.anomaly = AnomalyMonitor(self.metrics, config.anomaly_config,
+                                      on_event=self._on_anomaly)
+        self._last_host_report: Optional[Dict] = None
+        self._flops_resolved = False
+        self._last_dispatch_end: Optional[float] = None
+        # -- ops observatory (obs/journal, goodput, alerts) ---------------
+        # structural killswitch: with PARALLAX_OBS=0 none of the three
+        # exists
+        import os as _os
+        run_epoch = _os.environ.get("PARALLAX_RUN_EPOCH")
+        self.journal = (EventJournal(
+            capacity=config.journal_capacity, path=config.journal_path,
+            max_bytes=config.journal_max_bytes, registry=self.metrics)
+            if obs_state.enabled else None)
+        self.ledger = (GoodputLedger(
+            self.metrics, journal=self.journal,
+            run_epoch=float(run_epoch) if run_epoch else None)
+            if obs_state.enabled else None)
         # -- checkpoints and recovery (ckpt/) ------------------------------
         self._ckpt = CheckpointHook(config.ckpt_config, worker_id,
-                                    registry=self.metrics)
+                                    registry=self.metrics,
+                                    journal=self.journal)
         self._rollback_hooks: List[Any] = []
         self._recovery = (RecoveryPolicy(
             config.recovery_config, registry=self.metrics,
             on_rollback=self._fire_rollback_hooks)
             if config.recovery_config.enabled else None)
+        self.flight = FlightRecorder(
+            flight_dir=config.flight_dir, registry=self.metrics,
+            journal=self.journal,
+            providers={
+                "progress": lambda: {"host_step": self._host_step()},
+                "steps": self.timeline.rows,
+                "goodput": self._goodput_for_dump,
+                "anomalies": lambda: self.anomaly.events(),
+                "health": self._health_for_dump,
+                "host_report": lambda: self._last_host_report,
+                "metrics": self.metrics_snapshot,
+                "device_memory": device_memory_stats,
+                "config": self._config_summary,
+                "ckpt": self._ckpt.stats,
+                "recovery": (self._recovery.stats
+                             if self._recovery is not None
+                             else lambda: None),
+                # the JAX session's tuner and profile sections: neither
+                # is ported, the keys stay so both packages' dumps
+                # carry the same sections
+                "tune": lambda: None,
+                "profile": lambda: None,
+            })
+        # -- the memory watch (obs/memwatch): a live ring sampled after
+        # each dispatch, per-card gauges, the oom_risk incident
+        self.memwatch = memwatch_lib.MemWatch(
+            self.metrics, flight=self.flight, capacity=config.flight_steps)
+        self.flight.add_provider("memwatch", self.memwatch.stats)
+        if self.journal is not None:
+            # every incident artifact embeds its own causal history
+            self.flight.add_provider(
+                "journal_tail", lambda: self.journal.tail(64))
+        if self.ledger is not None:
+            self.flight.add_provider(
+                "ops", lambda: self.ledger.account(self.timeline))
+        self.alerts = (AlertEngine(
+            self.metrics,
+            rules=(builtin_rules(config.goodput_floor)
+                   + tuple(config.alert_rules)),
+            journal=self.journal, flight=self.flight,
+            interval_s=config.alert_interval_s)
+            if obs_state.enabled else None)
+        if self.alerts is not None:
+            self.flight.add_provider("alerts", self.alerts.summary)
+        self.health = (HealthMonitor(
+            self.metrics, on_nonfinite=self._on_nonfinite,
+            on_reading=self._on_health_reading)
+            if config.monitor_health else None)
+        # -- numerics observatory (obs/numwatch): constructed only when
+        # enabled AND obs is on, matching the engine's build-time gate
+        self.numerics = (numwatch_lib.NumericsMonitor(
+            self.metrics, config.numerics_interval, anomaly=self.anomaly)
+            if config.numerics_interval > 0 and obs_state.enabled
+            else None)
+        # the last dispatched step's inputs, kept one step for NaN
+        # provenance
+        self._numerics_last_batch: Optional[tuple] = None
+        # where a forced trip tree took its pre-step parameters from
+        self._forced_basis: Optional[Dict] = None
+        self._drift_sentinels: Optional[List] = None
+        self._drift_results: Optional[List[Dict]] = None
+        if self.numerics is not None:
+            self.flight.add_provider("numerics", self._numerics_for_dump)
+        self._metrics_sink = (
+            JsonlSink(self.metrics, config.metrics_path,
+                      config.metrics_interval_s,
+                      snapshot_fn=self.metrics_snapshot,
+                      max_bytes=config.metrics_max_bytes)
+            if config.metrics_path else None)
         self._sigterm_installed = False
         self._prev_sigterm = None
         self._install_preemption_handler()
@@ -314,10 +466,19 @@ class ParallaxSession:
     def _convert_feed(self, feed_dict: Dict[str, Any],
                       static: bool = True):
         """The feed bucketed and on the card (in the step's static input
-        buffers when ``static`` and steps replay graphs)."""
+        buffers when ``static`` and steps replay graphs). The conversion
+        and the placement are this thread's pre-dispatch phases of the
+        next step (obs/timeline.py)."""
+        t0 = time.perf_counter()
         host = self._host_feed(feed_dict)
         self._ensure_engine(host)
-        return self._engine.place(host, static=static)
+        t1 = time.perf_counter()
+        placed = self._engine.place(host, static=static)
+        if static:
+            self.pipeline_stats.record_h2d(_feed_nbytes(host))
+            self._phase.convert_s = t1 - t0
+            self._phase.h2d_s = time.perf_counter() - t1
+        return placed
 
     def _ensure_engine(self, batch) -> None:
         if self._closed:
@@ -345,15 +506,39 @@ class ParallaxSession:
         return snap_lib.state_leaves(self._state, self._engine)
 
     def _apply_restored_extras(self) -> None:
-        """The exact-resume closure beyond the state: the data cursor
-        (the state's step and seed came with its leaves)."""
+        """The exact-resume closure beyond the state (its step and seed
+        came with its leaves): the data cursor, the detectors'
+        baselines, the health accounting and the goodput account."""
         extras = self._ckpt.restored_extras
         self._data_cursor = int(extras.get("data_cursor", self._state.step))
         info = self._ckpt.last_restore_info or {}
+        self.anomaly.restore_snapshot(extras.get("anomaly"))
+        if self.health is not None:
+            self.health.restore_snapshot(extras.get("health"))
+        if self.ledger is not None:
+            # the previous attempt's account; the restore's wall books
+            # as restore_replay and the gap since its save as
+            # eviction_downtime
+            self.ledger.restore_snapshot(
+                extras.get("ops"),
+                restore_s=self._ckpt.last_restore_seconds or 0.0)
         parallax_log.info("restored checkpoint at step %d (data cursor %d)",
                           self._state.step, self._data_cursor)
         if info.get("fallbacks") or info.get("torn_steps"):
             parallax_log.warning("checkpoint restore fell back: %s", info)
+            if self.journal is not None:
+                self.journal.emit("ckpt", "torn_fallback",
+                                  severity="warning", **dict(info))
+            self.flight.trigger("ckpt_torn", dict(info))
+        if self.journal is not None:
+            self.journal.emit(
+                "ckpt", "restored", severity="info",
+                step=self._state.step, data_cursor=self._data_cursor,
+                restore_s=round(self._ckpt.last_restore_seconds or 0.0, 4))
+        self.flight.trigger(
+            "resume", {"step": self._state.step,
+                       "data_cursor": self._data_cursor,
+                       "restore": dict(info)})
 
     def _build_engine(self, example_batch) -> None:
         """Get or build the engine of this plan and example signature
@@ -397,14 +582,19 @@ class ParallaxSession:
         event.record()
         return event.query
 
-    def _convert_fetch(self, fetches, outputs, lazy: bool = True):
+    def _convert_fetch(self, fetches, outputs, lazy: bool = True,
+                       step: Optional[int] = None):
         ready = self._ready_fn()
+        on_block = None
+        if lazy and step is not None:
+            def on_block(seconds, _step=step):
+                self.timeline.add_fetch_block(_step, seconds)
 
         def one(name):
             if name not in outputs:
                 raise KeyError(f"fetch {name!r} unknown; available: "
                                f"{sorted(outputs)}")
-            f = Fetch(outputs[name], ready)
+            f = Fetch(outputs[name], ready, on_block)
             return f if lazy else f.result()
 
         if fetches is None:
@@ -417,20 +607,100 @@ class ParallaxSession:
 
     def _run_step(self, fetches, batch, force_lazy: bool = False):
         """Dispatch one step on a placed batch; shared by run, run_async
-        and run_iter."""
+        and run_iter. Around the engine's step: the timeline row, the
+        ledger, the detectors, the memory sample, the numerics sample,
+        recovery, the health readings, the checkpoint and the alert
+        poll (the JAX session's per-step block)."""
         step = self._state.step
+        # this thread's pre-dispatch phases (run_iter's wait, the feed
+        # conversion and placement run()/run_async() paid)
+        ph = self._phase
+        data_wait_s = getattr(ph, "data_wait_s", 0.0)
+        convert_s = getattr(ph, "convert_s", 0.0)
+        h2d_pre_s = getattr(ph, "h2d_s", 0.0)
+        ph.data_wait_s = ph.convert_s = ph.h2d_s = 0.0
         t0 = time.perf_counter()
-        with trace.span("session.dispatch", step=step):
-            self._state, outputs = self._engine.step(self._state, batch)
-        self._step_ms.record((time.perf_counter() - t0) * 1e3)
-        self._steps.inc()
-        self._data_cursor += 1
-        if self._recovery is not None:
-            self._maybe_recover(step, outputs)
-        self._ckpt.maybe_save(self._state.step, self._state_leaves,
-                              extras_fn=self._ckpt_extras)
+        gap = (None if self._last_dispatch_end is None
+               else t0 - self._last_dispatch_end)
+        blocked_s = 0.0
         lazy = force_lazy or not self._config.eager_fetch
-        return self._convert_fetch(fetches, outputs, lazy=lazy)
+        try:
+            with trace.span("session.dispatch", step=step):
+                self._state, outputs = self._engine.step(self._state, batch)
+                if not lazy:
+                    tb = time.perf_counter()
+                    outputs = {k: (v if k == "numerics" else _to_host(v))
+                               for k, v in outputs.items()}
+                    blocked_s = time.perf_counter() - tb
+                    self.pipeline_stats.record_blocked(blocked_s)
+        except Exception as e:
+            # post-mortem without rerunning; the exception propagates
+            self.flight.trigger(
+                f"exception:{type(e).__name__}",
+                {"step": step, "error": f"{type(e).__name__}: {e}"})
+            raise
+        now = time.perf_counter()
+        dt = now - t0
+        self._last_dispatch_end = now
+        self._steps.inc()
+        self.pipeline_stats.record_dispatch(gap, dt)
+        # wall = dispatch end to dispatch end; the first step has no
+        # previous dispatch, so its wall is its own measured pre-phases
+        # plus its dispatch
+        wall_s = (gap if gap is not None
+                  else data_wait_s + convert_s + h2d_pre_s) + dt
+        row = self.timeline.record_step(
+            step, t0, wall_s, data_wait_s=data_wait_s,
+            convert_s=convert_s, h2d_s=0.0, dispatch_s=dt,
+            fetch_block_s=blocked_s, h2d_pre_s=h2d_pre_s)
+        if self.ledger is not None:
+            self.ledger.on_step(row)
+        self.anomaly.observe("step_time_ms", step, wall_s * 1e3)
+        # the allocator's counters after the dispatch (never inside a
+        # capture: the step has returned)
+        self.memwatch.sample(step)
+        self._data_cursor += 1
+        # recovery reads this step's health scalars (blocking, the
+        # documented recovery trade)
+        kind = self._trip_kind(outputs) if self._recovery is not None \
+            else None
+        if self.numerics is not None:
+            self._numerics_last_batch = (step, self._engine.last_inputs)
+            nm = outputs.get("numerics")
+            if kind is not None and nm is not None and float(
+                    nm.get(numwatch_lib.SAMPLED_KEY, 0.0)) < 0.5:
+                # the JAX step forces the sample on a trip; here the
+                # trip step's stats are computed after it. Guarded:
+                # forensics must never break the recovery they decorate
+                try:
+                    outputs["numerics"] = self._forced_numerics()
+                except Exception as e:
+                    parallax_log.warning(
+                        "numerics: the trip step's stats failed: %s", e)
+            self.numerics.observe(step, outputs.get("numerics"))
+            di = self._config.numerics_drift_interval
+            if di and step and step % di == 0:
+                self._run_drift_sentinels_guarded(step)
+        if self._recovery is not None:
+            self._maybe_recover(step, outputs, kind)
+        if self.health is not None:
+            # lazy: pinned copies behind an event; only completed ones
+            # are read, so the dispatch thread never blocks on them
+            self.health.observe(step, *host_fields(
+                outputs.get("loss_finite"), outputs.get("grad_norm"),
+                outputs.get("loss")))
+        t_ck = time.perf_counter()
+        if self._ckpt.maybe_save(self._state.step, self._state_leaves,
+                                 extras_fn=self._ckpt_extras):
+            if self.ledger is not None:
+                # the save's wall lands inside the next step's dispatch
+                # gap too: carved out of productive, not counted twice
+                self.ledger.note_badput(
+                    "ckpt_stall", time.perf_counter() - t_ck,
+                    carve_from_productive=True)
+        if self.alerts is not None:
+            self.alerts.poll()
+        return self._convert_fetch(fetches, outputs, lazy=lazy, step=step)
 
     def prepare(self, feed_dict: Dict[str, Any]) -> int:
         """Build the engine and the state from an example batch (and
@@ -469,6 +739,7 @@ class ParallaxSession:
         ring grows to the most placed batches held unstepped at once."""
         host = self._host_feed(feed_dict)
         self._ensure_engine(host)
+        self.pipeline_stats.record_h2d(_feed_nbytes(host))
         return self._engine.stage(host)
 
     def run_iter(self, batches: Iterable[Dict[str, Any]],
@@ -510,7 +781,9 @@ class ParallaxSession:
         t0 = time.perf_counter()
         with trace.span("session.data_wait"):
             item = next(it)
-        self._wait_ms.record((time.perf_counter() - t0) * 1e3)
+        wait = time.perf_counter() - t0
+        self._wait_ms.record(wait * 1e3)
+        self._phase.data_wait_s = wait
         return item
 
     def _run_iter_gen(self, it, fetches, placed):
@@ -579,8 +852,18 @@ class ParallaxSession:
             raise ValueError(
                 "warmup needs an engine: pass feed_dict (or call "
                 "prepare(example_feed)) first")
+        t0 = time.perf_counter()
         with trace.span("session.warmup"):
-            return self._engine.warmup(self._state, batch_sizes)
+            stats = self._engine.warmup(self._state, batch_sizes)
+        if self.ledger is not None:
+            # captures ahead of step 0 are the compile/warmup badput
+            self.ledger.note_badput("compile_warmup",
+                                    time.perf_counter() - t0)
+        # the step's FLOPs (MFU in the timeline) and the graphs' pool
+        # bytes are known from here on
+        self._ensure_flops()
+        self.memwatch.capture_compiled(self._engine)
+        return stats
 
     def compile_stats(self) -> Dict[str, Any]:
         """JSON-ready compile/caching report, with the JAX session's keys:
@@ -612,6 +895,15 @@ class ParallaxSession:
                     "session.engine_cache.misses").value,
             },
         }
+        if eng is not None and eng._numerics:
+            # the numerics observatory's second graph a signature
+            stats["numerics_graphs"] = {
+                "captures": len(eng.captured_graphs(numerics=True)),
+                # by batch size, as warmup_compile_seconds
+                "capture_seconds": {
+                    str(sig[0][1][0]): round(v, 3)
+                    for sig, v in eng.numerics_capture_seconds.items()},
+            }
         if eng is not None and eng._guarded:
             stats["eager_steps"] = (
                 f"dedup_capacity guards the lookups of {eng._guarded}: "
@@ -654,6 +946,7 @@ class ParallaxSession:
                 "serve() needs a built engine: call "
                 "prepare(example_feed) (or run a step) first")
         kw.setdefault("device", self._device)
+        kw.setdefault("flight", self.flight)
         return ServeSession(infer_fn, self.gather_params(),
                             program=program, config=self._config,
                             metrics=self.metrics, **kw)
@@ -688,11 +981,15 @@ class ParallaxSession:
         return {
             "data_cursor": self._data_cursor,
             "host_step": self._state.step,
-            "anomaly": None,
-            "health": None,
+            "anomaly": self.anomaly.snapshot(),
+            "health": (self.health.snapshot()
+                       if self.health is not None else None),
             "recovery": (self._recovery.stats()
                          if self._recovery is not None else None),
-            "ops": None,
+            # cumulative goodput/badput totals: a resumed run reports
+            # the account across attempts (obs/goodput.py)
+            "ops": (self.ledger.snapshot()
+                    if self.ledger is not None else None),
         }
 
     def set_rollback_hook(self, fn) -> None:
@@ -707,24 +1004,91 @@ class ParallaxSession:
             except Exception as e:
                 parallax_log.warning("rollback hook failed: %s", e)
 
-    def _maybe_recover(self, step: int, outputs) -> bool:
-        """Read this step's health outputs; on a non-finite loss or
-        gradient norm copy the last-good snapshot back into the state (the
-        batch is skipped: the data cursor keeps advancing). Raises
-        ``RecoverySurrender`` after ``max_retries`` consecutive failures.
-        Returns True when it rolled back."""
+    @staticmethod
+    def _trip_kind(outputs) -> Optional[str]:
+        """'loss' or 'grad' when this step's health outputs are
+        non-finite, else None (reads them: blocks on the step)."""
         lf, gn = outputs.get("loss_finite"), outputs.get("grad_norm")
-        kind = None
         if lf is not None and not bool(lf):
-            kind = "loss"
-        elif gn is not None and not math.isfinite(float(gn)):
-            kind = "grad"
+            return "loss"
+        if gn is not None and not math.isfinite(float(gn)):
+            return "grad"
+        return None
+
+    def _forced_numerics(self):
+        """The trip step's stats tree when its step was not sampled:
+        its gradients, the poisoned post-step parameters and the
+        recovery snapshot as the pre-step ones (``Engine.
+        trip_numerics``). Computed before the rollback."""
+        snap = self._recovery.snapshot
+        snap.wait()
+        before = {name[len("params/"):]: v for name, v in snap.host.items()
+                  if name.startswith("params/")}
+        tree = self._engine.trip_numerics(self._state, before)
+        self._forced_basis = {"params_before": "recovery snapshot",
+                              "snapshot_step": snap.step}
+        return tree
+
+    def _maybe_recover(self, step: int, outputs, kind: Optional[str]
+                       ) -> bool:
+        """Act on this step's health (``kind`` from ``_trip_kind``): on a
+        non-finite loss or gradient norm leave the ``nonfinite_rollback``
+        artifact (with the NaN provenance when the numerics observatory
+        is on), then copy the last-good snapshot back into the state
+        (the batch is skipped: the data cursor keeps advancing). Raises
+        ``RecoverySurrender`` after ``max_retries`` consecutive
+        failures. Returns True when it rolled back."""
         if kind is None:
             self._recovery.note_good_step()
             self._recovery.maybe_snapshot(self._state.step,
                                           self._state_leaves())
             return False
-        self._recovery.rollback(step, kind)
+        detail = {"step": step, "kind": kind,
+                  "snapshot_step": self._recovery.snapshot_step,
+                  "data_cursor": self._data_cursor}
+        if self.numerics is not None:
+            # before the rollback: the state is still the poisoned
+            # post-step tree and the engine's inputs are the offending
+            # batch. Guarded: forensics must never break the recovery
+            try:
+                detail["provenance"] = self._numerics_provenance(
+                    step, kind, outputs)
+                basis = self._forced_basis
+                if basis is not None:
+                    detail["trip_stats_basis"] = basis
+                    self._forced_basis = None
+                self.numerics.poll(block=True)
+                detail["stats_trail"] = self.numerics.trail_tail(16)
+            except Exception as e:
+                detail["provenance_error"] = f"{type(e).__name__}: {e}"
+        if self.journal is not None:
+            self.journal.emit(
+                "recovery", "nonfinite_rollback", severity="error",
+                step=step, kind=kind,
+                snapshot_step=self._recovery.snapshot_step,
+                data_cursor=self._data_cursor)
+        self.flight.trigger("nonfinite_rollback", detail)
+        try:
+            snap_step = self._recovery.rollback(step, kind)
+        except RecoverySurrender as e:
+            if self.journal is not None:
+                self.journal.emit(
+                    "recovery", "surrender", severity="error",
+                    step=step, kind=kind,
+                    rollbacks=self._recovery.total_rollbacks)
+            self.flight.trigger(
+                "recovery_surrender",
+                {"step": step, "kind": kind, "error": str(e),
+                 "rollbacks": self._recovery.total_rollbacks})
+            raise
+        if self.ledger is not None:
+            # the rewound steps trained nothing: their measured step
+            # time moves into the rollback_discarded badput class
+            discarded_s = self.ledger.on_rollback(snap_step)
+            if self.journal is not None:
+                self.journal.emit(
+                    "ops", "rollback_discarded", severity="warning",
+                    to_step=snap_step, discarded_s=round(discarded_s, 4))
         return True
 
     def on_preemption(self, signum: Optional[int] = None) -> None:
@@ -734,6 +1098,18 @@ class ParallaxSession:
             # a closed session's handler may survive in a newer session's
             # chain: it passes the signal on without saving stale state
             return
+        try:
+            step = self._host_step()
+            if self.journal is not None:
+                self.journal.emit(
+                    "preempt", "sigterm", severity="warning",
+                    signal=signum, step=step,
+                    data_cursor=self._data_cursor)
+            self.flight.trigger(
+                "preemption", {"signal": signum, "step": step,
+                               "data_cursor": self._data_cursor})
+        except Exception:
+            pass
         if self._ckpt.enabled and self._state is not None:
             self._ckpt.save_now(self._state.step, self._state_leaves(),
                                 extras=self._ckpt_extras(),
@@ -744,7 +1120,8 @@ class ParallaxSession:
         installed only when something would be saved (``ckpt_dir``) and
         only from the main thread (the signal module's restriction)."""
         import signal
-        if not self._config.handle_preemption or not self._ckpt.enabled:
+        if not self._config.handle_preemption or not (
+                self._config.flight_dir or self._ckpt.enabled):
             return
         if threading.current_thread() is not threading.main_thread():
             return
@@ -806,10 +1183,36 @@ class ParallaxSession:
     def engine(self) -> Optional[engine_lib.Engine]:
         return self._engine
 
+    def _host_step(self) -> int:
+        return int(self._state.step) if self._state is not None else 0
+
+    @property
+    def steps_per_sec(self) -> Optional[float]:
+        """Rolling dispatch throughput over the last <=20 steps; in the
+        registry as the ``pipeline.steps_per_sec`` gauge."""
+        return self.pipeline_stats.steps_per_sec()
+
     def metrics_snapshot(self) -> Dict:
-        """One JSON-ready dict of the session's counters (steps, engine
-        builds and steps, host dispatch ms) and, on the card, its memory
-        in use and peak."""
+        """One JSON-ready dict of every runtime metric (steps, dispatch
+        and pipeline stats, engine builds and recompiles, the timeline,
+        anomaly, health, numerics, ops and alert gauges) with the polled
+        values refreshed first: on the card its memory in use and peak
+        (``memory.bytes_in_use``, ``memory.peak_bytes_in_use`` and
+        per card ``memory.cuda:<i>.*``). Safe from a monitoring thread
+        while training runs."""
+        for dev, stats in device_memory_stats().items():
+            for key in ("bytes_in_use", "peak_bytes_in_use"):
+                self.metrics.gauge(f"memory.{dev}.{key}").set(stats[key])
+        if self.health is not None:
+            try:
+                self.health.poll()
+            except Exception:
+                pass
+        if self.numerics is not None:
+            try:
+                self.numerics.poll()
+            except Exception:
+                pass
         snap = self.metrics.snapshot()
         if self._device.type == "cuda":
             snap["memory.bytes_in_use"] = torch.cuda.memory_allocated(
@@ -818,19 +1221,264 @@ class ParallaxSession:
                 torch.cuda.max_memory_allocated(self._device)
         return snap
 
+    # -- training forensics (obs/) ----------------------------------------
+
+    def step_flops(self, cheap_only: bool = True) -> Optional[float]:
+        """This rank's FLOPs of one step (``Engine.count_step_flops``:
+        the step's matmuls counted once per signature on meta tensors),
+        or None before the engine exists or for a model whose step does
+        not run on meta tensors. The count is cheap either way;
+        ``cheap_only`` is the JAX session's signature."""
+        if self._engine is None:
+            return None
+        return self._engine.count_step_flops()
+
+    def _ensure_flops(self) -> None:
+        """Attach the step's FLOPs and the card's peak to the timeline
+        once, so per-step MFU appears in rows, goodput and dumps. Null
+        stays null (the CPU, a card without a known peak)."""
+        if self._flops_resolved or self._engine is None:
+            return
+        flops = self.step_flops()
+        if flops is None:
+            return
+        from parallax_tpu_torch.common import flops as flops_lib
+        kind = torch.cuda.get_device_name(self._device) \
+            if self._device.type == "cuda" else ""
+        peak = flops_lib.device_peak_flops(self._device.type, kind)
+        self.timeline.set_flops(flops, peak)
+        self._flops_resolved = True
+
+    def _goodput_for_dump(self) -> Dict:
+        self._ensure_flops()
+        return self.timeline.goodput()
+
+    def _health_for_dump(self) -> Optional[Dict]:
+        """Non-blocking health section: a flight dump must never hang
+        on a wedged device draining pending readings."""
+        if self.health is None:
+            return None
+        h = self.health
+        return {
+            "healthy": h.healthy,
+            "first_nonfinite_step": h.first_nonfinite_step,
+            "readings": h.recent_readings(),
+        }
+
+    def _config_summary(self) -> Dict:
+        import dataclasses as _dc
+        cfg = self._config
+        return {
+            "run_option": cfg.run_option,
+            "sparse_grad_mode": cfg.sparse_grad_mode,
+            "sync": cfg.sync,
+            "shape_buckets": (list(cfg.shape_buckets)
+                              if isinstance(cfg.shape_buckets,
+                                            (list, tuple))
+                              else cfg.shape_buckets),
+            "prefetch_depth": cfg.prefetch_depth,
+            "eager_fetch": cfg.eager_fetch,
+            "monitor_health": cfg.monitor_health,
+            "numerics_interval": cfg.numerics_interval,
+            "numerics_drift_interval": cfg.numerics_drift_interval,
+            "flight_dir": cfg.flight_dir,
+            "flight_steps": cfg.flight_steps,
+            "anomaly": _dc.asdict(cfg.anomaly_config),
+            "num_workers": self.num_workers,
+            "worker_id": self.worker_id,
+        }
+
+    def dump_flight(self, path: Optional[str] = None,
+                    reason: str = "manual") -> str:
+        """Write a flight-recorder post-mortem artifact NOW and return
+        its path; works without ``Config.flight_dir`` (``path``
+        defaults into it when set, else the working directory)."""
+        return self.flight.dump(reason, path=path)
+
+    def aggregate_host_steps(self, factor: float = 1.25) -> Dict:
+        """COLLECTIVE (every rank of the default process group calls
+        it): gather every rank's recent step-time stats
+        (``torch.distributed.all_gather_object``; a process without a
+        group reports only itself) and return the per-rank table with
+        any straggler NAMED (``obs/aggregate.py``). The report lands in
+        later flight dumps; a named straggler also counts into
+        ``anomaly.stragglers`` and triggers a dump."""
+        report = aggregate_lib.aggregate_host_step_times(
+            self.timeline.local_stats(), factor=factor)
+        self._last_host_report = report
+        line = aggregate_lib.straggler_summary(report)
+        if line is not None:
+            self.metrics.counter("anomaly.stragglers").inc(
+                len(report["stragglers"]))
+            parallax_log.warning("%s", line)
+            self.flight.trigger("straggler",
+                                {"summary": line, "report": report})
+        return report
+
+    def ops_account(self) -> Optional[Dict[str, Any]]:
+        """The run-lifetime goodput/badput account (obs/goodput.py):
+        productive step time against named badput classes, summing to
+        wall clock, cumulative across restarts. None when the obs layer
+        is off (no ledger)."""
+        if self.ledger is None:
+            return None
+        return self.ledger.account(self.timeline)
+
+    def _on_anomaly(self, event) -> None:
+        """AnomalyMonitor callback: log, journal and flight-dump."""
+        parallax_log.warning(
+            "anomaly: %s %s at step %d — value %.4g vs baseline %.4g "
+            "(%.2fx)", event.signal, event.kind, event.step, event.value,
+            event.baseline, event.ratio)
+        if self.health is not None:
+            # numerics trends and loss/grad spikes weigh more than a
+            # step-time blip in the instability score
+            self.health.record_instability_event(
+                0.5 if event.signal.startswith(("numerics.", "loss",
+                                                "grad_norm")) else 0.25)
+        if self.journal is not None:
+            # before the flight trigger, so the dump's journal_tail
+            # already shows this event
+            self.journal.emit(
+                "anomaly", event.kind, severity="warning",
+                signal=event.signal, step=event.step,
+                value=event.value, baseline=event.baseline,
+                ratio=event.ratio)
+        self.flight.trigger(
+            f"anomaly_{event.signal}_{event.kind}",
+            {"signal": event.signal, "kind": event.kind,
+             "step": event.step, "value": event.value,
+             "baseline": event.baseline, "ratio": event.ratio})
+
+    def _on_nonfinite(self, step: int, kind: str) -> None:
+        """HealthMonitor callback: a NaN/Inf loss or grad norm is a
+        flight-dump incident the moment it is consumed."""
+        self.flight.trigger(f"nonfinite_{kind}", {"step": step})
+
+    def _on_health_reading(self, step: int, loss, grad_norm) -> None:
+        """Finite per-step health values feed the spike detectors."""
+        if loss is not None and np.isfinite(loss):
+            self.anomaly.observe("loss", step, float(loss))
+        if grad_norm is not None and np.isfinite(grad_norm):
+            self.anomaly.observe("grad_norm", step, float(grad_norm))
+
+    # -- numerics observatory (obs/numwatch) -------------------------------
+
+    def _numerics_provenance(self, step: int, kind: str, outputs) -> Dict:
+        """Blast-radius sweep for the nonfinite_rollback artifact: the
+        offending step's inputs, the (pre-rollback) param tree, the trip
+        step's stats tree and the loss, in dataflow order."""
+        batch = None
+        if (self._numerics_last_batch is not None
+                and self._numerics_last_batch[0] == step):
+            batch = self._numerics_last_batch[1]
+        return numwatch_lib.provenance_report(
+            feeds=batch,
+            params=(self._state.params
+                    if self._state is not None else None),
+            trip_stats=outputs.get("numerics"),
+            loss=outputs.get("loss"), step=step, kind=kind)
+
+    def run_drift_sentinels(self) -> Optional[List[Dict]]:
+        """Shadow-run each hand-written kernel against its plain
+        executor NOW (B2/B3 against the plain LSTM backward, B7 against
+        the plain paged gather, on this session's device) and return the
+        check results; gauges land as ``numerics.drift.<name>.*``. None
+        when the numerics observatory is off. A kernel that fails to
+        build or launch raises."""
+        if self.numerics is None:
+            return None
+        if self._drift_sentinels is None:
+            self._drift_sentinels = numwatch_lib.default_sentinels(
+                self.metrics, device=self._device)
+        results = [s.check() for s in self._drift_sentinels]
+        self._drift_results = results
+        for r in results:
+            if r["flagged"]:
+                parallax_log.warning(
+                    "numerics: drift sentinel %r flagged — rel_err "
+                    "%.3e (tol %.1e), argmax flips %s", r["name"],
+                    r["rel_err"], r["rel_err_tol"],
+                    r["argmax_flip_frac"])
+                if self.journal is not None:
+                    self.journal.emit(
+                        "numerics", "kernel_drift", severity="warning",
+                        name=r["name"], rel_err=r["rel_err"],
+                        argmax_flip_frac=r["argmax_flip_frac"])
+                self.flight.trigger(f"kernel_drift_{r['name']}", dict(r))
+        return results
+
+    def _run_drift_sentinels_guarded(self, step: int) -> None:
+        try:
+            with trace.span("numerics.drift_sweep", step=step):
+                self.run_drift_sentinels()
+        except Exception as e:
+            # the in-loop cadence must never fail the training step;
+            # run_drift_sentinels() itself raises
+            parallax_log.warning("drift sentinel sweep failed: %s", e)
+
+    def _numerics_for_dump(self) -> Optional[Dict]:
+        """Non-blocking numerics flight section (trail + drift)."""
+        if self.numerics is None:
+            return None
+        out = self.numerics.snapshot_for_dump()
+        out["drift"] = self._drift_results
+        return out
+
     def close(self) -> None:
-        """Stop the prefetch thread, join a pending checkpoint commit,
-        remove the SIGTERM handler and drop the engine and the state
-        (their tensors are freed when no caller holds them)."""
+        """Stop every thread the session started (prefetch, the metrics
+        sink, the alert engine's), run one last alert pass, join a
+        pending checkpoint commit, drain the health and numerics
+        readings, write the Chrome trace (``Config.trace_path``), remove
+        the SIGTERM handler and drop the engine and the state. Each step
+        is isolated: one failing does not skip the rest."""
         self._closed = True
         self._uninstall_preemption_handler()
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None
+        if self.alerts is not None:
+            try:
+                self.alerts.evaluate()
+                self.alerts.stop()
+            except Exception as e:
+                parallax_log.warning("alert engine stop failed: %s", e)
+        if self.journal is not None:
+            try:
+                self.journal.emit(
+                    "session", "close", step=self._host_step(),
+                    goodput=(self.ledger.goodput_fraction()
+                             if self.ledger is not None else None))
+            except Exception as e:
+                parallax_log.warning("journal close event failed: %s", e)
         try:
             self._ckpt.close()
         except Exception as e:  # a failed async commit
             parallax_log.warning("checkpoint close failed: %s", e)
+        if self.health is not None:
+            try:
+                report = self.health.report()
+                if not self.health.healthy:
+                    parallax_log.warning("health at close: %s", report)
+            except Exception as e:
+                parallax_log.warning("health drain failed: %s", e)
+        if self.numerics is not None:
+            try:
+                self.numerics.poll(block=True)
+            except Exception as e:
+                parallax_log.warning("numerics drain failed: %s", e)
+        if self._metrics_sink is not None:
+            try:
+                self._metrics_sink.stop()  # writes the final line
+            except Exception as e:
+                parallax_log.warning("metrics sink stop failed: %s", e)
+            self._metrics_sink = None
+        if self._config.trace_path:
+            try:
+                path = trace.export_chrome_trace(self._config.trace_path)
+                parallax_log.info("wrote chrome trace to %s", path)
+            except Exception as e:
+                parallax_log.warning("chrome trace export failed: %s", e)
         self._engine = None
         self._state = None
         self._engine_cache.prune(keep=None)

@@ -841,3 +841,32 @@ def pipe_all(rank, world, ops_cases, model_runs, bn=None):
     if bn is not None:
         out["bn"] = cnn_bn(rank, world, *bn)
     return out
+
+
+# -- observability (obs/aggregate.py) -----------------------------------------
+
+
+def obs_aggregate(rank, world, means):
+    """The straggler report on ``world`` ranks: a timeline whose step
+    walls are ``means[rank]`` (ms) gathered by
+    ``aggregate_host_step_times``, then a toy session's own
+    ``aggregate_host_steps`` after three steps."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.obs import aggregate
+    from parallax_tpu_torch.obs.metrics import MetricsRegistry
+    from parallax_tpu_torch.obs.timeline import StepTimeline
+
+    tl = StepTimeline(MetricsRegistry())
+    for s, m in enumerate(means[rank]):
+        tl.record_step(s, 0.0, m * 1e-3, dispatch_s=m * 1e-3)
+    report = aggregate.aggregate_host_step_times(tl.local_stats())
+    sess, *_ = pt.parallel_run(toy_model(), device="cpu")
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        batch = {"ids": rng.integers(0, 32, (4 * world, 3)),
+                 "y": rng.standard_normal((4 * world, 3, 4)).astype(
+                     np.float32)}
+        sess.run("loss", feed_dict=_share(batch, rank, world))
+    session_report = sess.aggregate_host_steps()
+    sess.close()
+    return {"timeline": report, "session": session_report}
