@@ -347,6 +347,26 @@ verify.
     (GPipe 24 each; 1F1B B4 48, B5 and B6 24). Cross-rank BatchNorm and
     rings of more than one stage are held on gloo ranks only
     (tests/test_torch_pipeline.py); one card shows neither.
+18i. ``tune-train`` (after ``obs-overhead``): ``train``'s LM1B with
+    ``Config(tune_config=TuneConfig())``. On one card the plan space is
+    one plan, AR's tp 1: the base HYBRID engine's meta-tensor counts
+    price it, the OOM preflight captures the candidate on a fresh state
+    (left bitwise as ``init_state`` makes it) against the card's memory,
+    and its 12-step trial (B2/B3 once a step) settles the search:
+    ``tune_summary()`` with each trial's predicted and measured ms and
+    the cost basis. A separate line ranks ``emittable_plans(8)`` by
+    ``predict`` from the same one-card inputs: predictions alone, no
+    trial behind them. ``profile-train``: ``profile_steps(10)`` over the
+    tuned session's replayed steps (a warm-up step, then 10 traced), then
+    ``profile_summary()``: the trace must hold 10 launches each of B2's
+    and B3's kernels
+    (``lstm_fwd_kernel_sm90``, ``lstm_bwd_kernel_sm90``), coverage and
+    the sparse path's self time above 0; prints coverage (the JAX
+    package's guard asks 0.90), the category shares and the top kernels;
+    ``write_calibration`` writes a file ``tune.calibrate.load`` reads
+    back. ``tune-calibrated``: a second tuned session loads that file
+    (``Config.calibration_path``): its scored terms carry the ratios and
+    equal the first session's nominal terms divided by them.
 
 19. ``graph-agree``: LM1B (dropout on) and NMT training, 5 steps
     eagerly (``compile.disable_capture()``) and 5 as graph replays from
@@ -1712,7 +1732,7 @@ TRAIN = dict(batch=128, num_steps=20, warmup=5, steps=30, profile_steps=5,
 LSTM_COUNTERS = ("launches_fwd", "launches_fwd_res", "launches_bwd")
 
 
-def lm1b_session(torch, lstm_impl="kernel", **cfg_kw):
+def lm1b_session(torch, lstm_impl="kernel", config_kw=None, **cfg_kw):
     import parallax_tpu_torch as pt
     from parallax_tpu_torch.models import lm1b
     cfg = lm1b.LM1BConfig(num_partitions=TRAIN["num_partitions"],
@@ -1721,7 +1741,8 @@ def lm1b_session(torch, lstm_impl="kernel", **cfg_kw):
     sess, *_ = pt.parallel_run(
         lm1b.build_model(cfg),
         parallax_config=pt.Config(run_option="HYBRID",
-                                  sparse_grad_mode="slices"),
+                                  sparse_grad_mode="slices",
+                                  **(config_kw or {})),
         seed=SEED, device=DEVICE)
     return cfg, sess
 
@@ -2216,6 +2237,276 @@ def phase_obs_overhead(torch):
                              f"{med['default']:.0f} words/s is more than "
                              f"{OBS['budget']:.0%} under the disabled "
                              f"arm's {med['off']:.0f}")
+    return summary
+
+
+# -- tune-train, profile-train, tune-calibrated: the planner around LM1B --------
+
+# the trial of TuneConfig()'s defaults: 12 steps, the median of the last 8;
+# then a profiled window of 10 replayed steps
+TUNE = dict(profile_steps=10, rel=1e-9)
+
+
+def lstm_counts():
+    from parallax_tpu_torch.ops import lstm
+    return {"lstm_fwd": lstm.launches_fwd,
+            "lstm_fwd_res": lstm.launches_fwd_res,
+            "lstm_bwd": lstm.launches_bwd}
+
+
+def zero_lstm_counts():
+    from parallax_tpu_torch.ops import lstm
+    for name in LSTM_COUNTERS:
+        setattr(lstm, name, 0)
+
+
+def tuned_lm1b(torch, calibration_path=None):
+    """``train``'s LM1B planned by the mesh auto-tuner, prepared (the
+    probe, the preflight and the switch to the first candidate)."""
+    import parallax_tpu_torch as pt
+    cfg, sess = lm1b_session(torch, config_kw=dict(
+        tune_config=pt.TuneConfig(), calibration_path=calibration_path))
+    batches = lm1b_batches(cfg)
+    sess.prepare(batches[0])
+    torch.cuda.synchronize()
+    return cfg, sess, batches
+
+
+def phase_tune_train(torch):
+    """The mesh search on one card: the plan its probe and preflight
+    chose, the state the preflight's capture left (bitwise a fresh
+    init), the trial's steps to the settled decision, and the
+    predictions-only ranking of the eight-card plan space from the same
+    inputs. Returns the live session for ``profile-train``."""
+    import dataclasses as dc
+    from parallax_tpu_torch.core import engine as engine_lib
+    from parallax_tpu_torch.tune import costmodel, search
+    torch.cuda.empty_cache()
+    zero_lstm_counts()
+    t0 = time.perf_counter()
+    cfg, sess, batches = tuned_lm1b(torch)
+    prepare_s = time.perf_counter() - t0
+    inputs = sess._search._inputs
+    # the scored plans' unrounded terms, which tune-calibrated divides
+    nominal = {pc.plan.describe(): dict(pc.terms)
+               for pc in sess._search._scored}
+    plan = sess.plan.describe()
+    graphs_ = sess.engine.captured_graphs()
+    if plan != "dp1xtp1/AR" or len(graphs_) != 1:
+        raise AssertionError(f"tune-train: plan {plan}, {len(graphs_)} "
+                             f"graph(s) after the preflight")
+    fresh = sess.engine.init_state(SEED)
+    same = all(torch.equal(a, b) for a, b in zip(
+        engine_lib.state_tensors(sess.state),
+        engine_lib.state_tensors(fresh)))
+    del fresh
+    if not same:
+        raise AssertionError("tune-train: the preflight's capture changed "
+                             "the state")
+    losses = []
+    steps = 0
+    while sess.tune_summary() is None:
+        losses.append(float(sess.run("loss", feed_dict=batches[steps % 4])))
+        steps += 1
+        if steps > 64:
+            raise AssertionError("tune-train: the search did not settle")
+    torch.cuda.synchronize()
+    launches = lstm_counts()
+    s = sess.tune_summary()
+    if s["winner"]["plan"] != plan or s["trials_measured"] != 1 or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"tune-train: decision {s['winner']}, "
+                             f"losses {losses}")
+    # the warm call of the preflight's capture, then one a step
+    want = {"lstm_fwd": 0, "lstm_fwd_res": steps + 1,
+            "lstm_bwd": steps + 1}
+    if launches != want:
+        raise AssertionError(f"tune-train: LSTM launches {launches} != "
+                             f"{want}")
+    eight = dc.replace(inputs, num_devices=8)
+    ranking = sorted((costmodel.predict(p, eight) for p in
+                      search.emittable_plans(8)), key=lambda c: c.total_s)
+    summary = {
+        "plan": plan, "prepare_s": prepare_s, "trial_steps": steps,
+        "decision": {k: s[k] for k in (
+            "candidates_enumerated", "pruned_equivalent",
+            "pruned_by_cost_model", "pruned_oom", "hbm_budget_bytes",
+            "hbm_headroom", "preflight_checked", "trials", "winner",
+            "search_seconds", "cost_basis")},
+        "inputs": {k: v for k, v in dc.asdict(inputs).items()
+                   if k != "pipeline"},
+        "losses": losses, "launches": launches}
+    log(f"[tune-train] {json.dumps(summary)}")
+    log("[tune-train-8-card-predictions] predictions only, no trial: "
+        "the one-card inputs priced over 8 cards " + json.dumps(
+            [{"plan": c.plan.describe(),
+              "predicted_ms": round(c.total_s * 1e3, 6),
+              "terms_ms": {k: round(v * 1e3, 6)
+                           for k, v in c.terms.items()}}
+             for c in ranking]))
+    summary["eight_card_predictions"] = [
+        (c.plan.describe(), c.total_s * 1e3) for c in ranking]
+    return summary, sess, batches, nominal
+
+
+def residual_gaps(doc, steps, top=6):
+    """Where a window's residual lies: the device-idle gaps inside the
+    step envelopes (``xprof.attribute``'s wall less its busy union),
+    summed by the device events either side, the largest first (names
+    cut to 60 characters)."""
+    from parallax_tpu_torch.obs import xprof
+    ops, _ = xprof.device_op_events(doc)
+    merged = xprof.merge_intervals([(e["ts"], e["ts"] + e["dur"])
+                                    for e in ops])
+    gaps = sorted(((merged[i + 1][0] - merged[i][1], i)
+                   for i in range(len(merged) - 1)), reverse=True)
+    inter = {i for _, i in gaps[:steps - 1]}
+    ends = {e["ts"] + e["dur"]: e["name"][:60] for e in ops}
+    starts = {e["ts"]: e["name"][:60] for e in ops}
+    out = {}
+    for g, i in gaps:
+        if i in inter or g <= 0:
+            continue
+        key = (ends.get(merged[i][1], "?"), starts.get(merged[i + 1][0],
+                                                       "?"))
+        us, n = out.get(key, (0.0, 0))
+        out[key] = (us + g, n + 1)
+    return [{"after": a, "before": b, "ms": round(us / 1e3, 4), "gaps": n}
+            for (a, b), (us, n) in sorted(out.items(),
+                                          key=lambda kv: -kv[1][0])[:top]]
+
+
+def launch_to_kernel_us(doc):
+    """Each replayed kernel's start less its graph launch's (the
+    ``cudaGraphLaunch`` host event of the same correlation id), in us:
+    min and median, and the kernels each launch shows, in launch order. A
+    negative one is a kernel stamped before the call that launched it."""
+    launches = {e["args"]["correlation"]: e["ts"]
+                for e in doc["traceEvents"] if e.get("ph") == "X"
+                and e.get("name") == "cudaGraphLaunch"
+                and "correlation" in (e.get("args") or {})}
+    per = dict.fromkeys(sorted(launches, key=launches.get), 0)
+    deltas = []
+    for e in doc["traceEvents"]:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("ph") == "X" and e.get("cat") == "kernel" \
+                and corr in launches:
+            deltas.append(e["ts"] - launches[corr])
+            per[corr] += 1
+    if not deltas:
+        return None
+    deltas.sort()
+    return {"min": deltas[0], "median": deltas[len(deltas) // 2],
+            "kernels": len(deltas), "per_launch": list(per.values())}
+
+
+def phase_profile_train(torch, sess, batches):
+    """``profile_steps`` over the tuned session's replayed steps: the
+    trace's B2/B3 launches, the attribution (coverage, category shares,
+    the sparse path's time, the top kernels) and a calibration file
+    written and read back. Closes the session; returns the summary and
+    the file's path."""
+    import tempfile
+    from parallax_tpu_torch.obs import xprof
+    from parallax_tpu_torch.tune import calibrate
+    n = TUNE["profile_steps"]
+    zero_lstm_counts()
+    outdir = sess.profile_steps(n)
+    # the window's warm-up step (profiler.py), then the n traced ones
+    for i in range(n + 1):
+        sess.run("loss", feed_dict=batches[i % 4])
+    torch.cuda.synchronize()
+    in_window = lstm_counts()
+    t0 = time.perf_counter()
+    a = sess.profile_summary()
+    parse_s = time.perf_counter() - t0
+    launches = lstm_counts()
+    doc, path = xprof.load_trace(outdir)
+    kernels = xprof.kernel_counts(doc)
+    seen = {name: sum(c for k, c in kernels.items() if name in k)
+            for name in ("lstm_fwd_kernel_sm90", "lstm_bwd_kernel_sm90")}
+    cal_path = str(Path(tempfile.mkdtemp(prefix="parallax-cal-"))
+                   / "calibration.json")
+    sess.write_calibration(cal_path)
+    record = calibrate.load(cal_path)
+    sess.close()
+    summary = {
+        "steps": a["steps"], "track_basis": a["track_basis"],
+        "coverage": a["coverage"], "jax_guard_coverage": 0.90,
+        "wall_ms": a["wall_ms"], "step_wall_ms": a["step_wall_ms"],
+        "attributed_ms": a["attributed_ms"],
+        "residual_ms": a["residual_ms"],
+        "by_category": a["by_category"], "collectives": a["collectives"],
+        "dense_sparse": a["dense_sparse"], "layers": a["layers"],
+        "top_ops": [{k: r[k] for k in ("op", "category", "self_ms",
+                                       "count", "layer", "split")}
+                    for r in a["top_ops"][:12]],
+        "residual_gaps": residual_gaps(doc, n),
+        "launch_to_kernel_us": launch_to_kernel_us(doc),
+        "lstm_kernels_in_trace": seen, "parse_s": parse_s,
+        "launches_in_window": in_window, "launches": launches,
+        "calibration": record, "trace": path}
+    log(f"[profile-train] {json.dumps(summary)}")
+    if seen != {"lstm_fwd_kernel_sm90": n, "lstm_bwd_kernel_sm90": n}:
+        raise AssertionError(f"profile-train: B2/B3 kernels in the trace "
+                             f"{seen}, want {n} each")
+    if in_window != {"lstm_fwd": 0, "lstm_fwd_res": n + 1,
+                     "lstm_bwd": n + 1}:
+        raise AssertionError(f"profile-train: launches in the window "
+                             f"{in_window}")
+    if a["track_basis"] != "device" or not a["coverage"] or \
+            a["coverage"] <= 0:
+        raise AssertionError(f"profile-train: coverage {a['coverage']} "
+                             f"on {a['track_basis']}")
+    if not a["dense_sparse"]["sparse_self_ms"] > 0:
+        raise AssertionError(f"profile-train: the sparse path's self time "
+                             f"{a['dense_sparse']}")
+    if record is None or not calibrate.ratios(record):
+        raise AssertionError(f"profile-train: calibration {record}")
+    return summary, cal_path
+
+
+def phase_tune_calibrated(torch, cal_path, nominal):
+    """A second tuned session loading ``cal_path``: its scored terms
+    carry the file's ratios and equal ``nominal``'s (the first session's
+    scored terms, {plan: terms}) divided by them; its trial settles."""
+    from parallax_tpu_torch.tune import calibrate
+    ratios = calibrate.ratios(calibrate.load(cal_path))
+    torch.cuda.empty_cache()
+    zero_lstm_counts()
+    cfg, sess, batches = tuned_lm1b(torch, calibration_path=cal_path)
+    scored = [(pc.plan.describe(), pc.calibration, dict(pc.terms))
+              for pc in sess._search._scored]
+    steps = 0
+    while sess.tune_summary() is None:
+        sess.run("loss", feed_dict=batches[steps % 4])
+        steps += 1
+    torch.cuda.synchronize()
+    s = sess.tune_summary()
+    launches = lstm_counts()
+    sess.close()
+    torch.cuda.empty_cache()
+    terms = {}
+    for plan, applied, got in scored:
+        if applied != ratios:
+            raise AssertionError(f"tune-calibrated: applied {applied} != "
+                                 f"{ratios}")
+        for k, v in got.items():
+            r = ratios.get("wire" if k.startswith("wire_")
+                           and k != "wire_hidden_s" else "on_chip", 1.0)
+            want = nominal[plan][k] / r
+            if k != "wire_hidden_s" and not math.isclose(
+                    v, want, rel_tol=TUNE["rel"], abs_tol=0.0):
+                raise AssertionError(f"tune-calibrated: {plan} {k} {v} != "
+                                     f"{nominal[plan][k]} / {r}")
+        terms[plan] = got
+    summary = {"ratios": ratios, "scored_terms_s": terms,
+               "nominal_terms_s": {p: nominal[p] for p in terms},
+               "cost_basis": s["cost_basis"], "winner": s["winner"],
+               "trial_steps": steps, "launches": launches}
+    log(f"[tune-calibrated] {json.dumps(summary)}")
+    if not s["cost_basis"].startswith("calibrated("):
+        raise AssertionError(f"tune-calibrated: basis {s['cost_basis']}")
     return summary
 
 
@@ -6153,7 +6444,8 @@ def kernel_line(results, launches):
     NMT, BERT, long-context and MoE training paths', NMT beam search's and
     the NaN rollback's and NMT batching's, B5's and B6's the training
     paths' (those six), B2's and B3's LM1B training's (``train``,
-    ``dist-train``, ``ckpt-resume``, ``data-feed``), B7's the serving
+    ``dist-train``, ``obs-train``, ``tune-train``, ``profile-train``,
+    ``tune-calibrated``, ``ckpt-resume``, ``data-feed``), B7's the serving
     paths' (NMT plain, speculative, prefix, fleet and disaggregated, causal
     LM unchunked and chunked, MoE LM). An LSTM entry names the source of
     the route its case ran on."""
@@ -6384,6 +6676,13 @@ def main() -> int:
     train_agree = phase("train-agree", phase_train_agreement, torch)
     obs_train = phase("obs-train", phase_obs_train, torch)
     obs_overhead = phase("obs-overhead", phase_obs_overhead, torch)
+    tune_train, tuned_sess, tuned_batches, nominal_terms = phase(
+        "tune-train", phase_tune_train, torch)
+    profile_train, cal_path = phase("profile-train", phase_profile_train,
+                                    torch, tuned_sess, tuned_batches)
+    del tuned_sess, tuned_batches
+    tune_calibrated = phase("tune-calibrated", phase_tune_calibrated,
+                            torch, cal_path, nominal_terms)
     skip_thoughts = phase("skip-thoughts-train", phase_skip_thoughts_train,
                           torch, card)
     lm1b_full = phase("lm1b-full", phase_lm1b_full, torch, card, train)
@@ -6467,7 +6766,10 @@ def main() -> int:
             nmt_data["launches"].items()) + list(
             lm1b_full["launches"].items()) + list(
             lc_pipe["launches"].items()) + list(
-            obs_train["launches"].items()):
+            obs_train["launches"].items()) + list(
+            tune_train["launches"].items()) + list(
+            profile_train["launches"].items()) + list(
+            tune_calibrated["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     line = kernel_line(results + lstm_results, launches)
     record = {"card": card, "kernels": line["kernels"],
@@ -6498,7 +6800,9 @@ def main() -> int:
               "data_feed": data_feed, "nmt_data": nmt_data,
               "skip_thoughts_train": skip_thoughts, "lm1b_full": lm1b_full,
               "lc_pipe": lc_pipe, "obs_train": obs_train,
-              "obs_overhead": obs_overhead,
+              "obs_overhead": obs_overhead, "tune_train": tune_train,
+              "profile_train": profile_train,
+              "tune_calibrated": tune_calibrated,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

@@ -61,6 +61,13 @@ It runs on NVIDIA H100s (Hopper, sm_90a). Ported slices:
 * Skip-thoughts (``skip_thoughts.build_model(SkipThoughtsConfig())``: a
   GRU encoder and two GRU decoders) and the LM1B full-softmax baseline
   (``lm1b.build_full_softmax_model``).
+* Planning and profiling: ``Config(tune_config=TuneConfig())`` searches
+  mesh shapes and run options with the cost model and measured trials
+  (``tune/``; ``ParallaxSession.plan``, ``tune_summary``), the
+  reference's partition search and ``get_partitioner`` (``parallel/``),
+  and ``torch.profiler`` windows (``profile_steps``, ``ProfileConfig``)
+  parsed into per-op attribution (``obs/xprof.py``: ``profile_summary``,
+  ``write_calibration``).
 
 The training paths run over N ranks too (one process a card, the JAX
 package's ``('repl', 'shard')`` mesh over ``torch.distributed``: dense
@@ -81,12 +88,14 @@ JAX.
 
 from parallax_tpu_torch.common.config import (AnomalyConfig,
                                               CheckPointConfig, Config,
-                                              ParallaxConfig, RecoveryConfig,
-                                              ServeConfig)
+                                              ParallaxConfig, ProfileConfig,
+                                              RecoveryConfig, ServeConfig,
+                                              TuneConfig)
 from parallax_tpu_torch.common.lib import parallax_log as log
 from parallax_tpu_torch.core.engine import Model, TrainState
 from parallax_tpu_torch.models import (cnn, lm1b, long_context, moe_lm,
                                       nmt, simple, skip_thoughts)
+from parallax_tpu_torch.parallel.partitions import get_partitioner
 from parallax_tpu_torch.runner import parallel_run
 from parallax_tpu_torch.serve import (AdapterSpec, CausalLMDecodeProgram,
                                       DisaggFleet, FaultInjector,
@@ -97,15 +106,18 @@ from parallax_tpu_torch.serve import (AdapterSpec, CausalLMDecodeProgram,
                                       registered_adapters)
 from parallax_tpu_torch.session import (Fetch, ParallaxSession, StepHandle,
                                         materialize)
+from parallax_tpu_torch import tune
 
 __version__ = "0.1.0"
 
-__all__ = ["parallel_run", "log", "Config", "ParallaxConfig", "ServeConfig",
-           "CheckPointConfig", "RecoveryConfig", "AnomalyConfig", "Model", "TrainState",
+__all__ = ["get_partitioner", "parallel_run", "log", "Config",
+           "ParallaxConfig", "ServeConfig", "CheckPointConfig",
+           "RecoveryConfig", "AnomalyConfig", "ProfileConfig", "TuneConfig",
+           "Model", "TrainState",
            "ParallaxSession", "Fetch", "StepHandle", "materialize",
            "ServeSession", "NMTDecodeProgram", "CausalLMDecodeProgram",
            "MoeLMDecodeProgram", "LM1BDecodeProgram", "AdapterSpec",
            "register_adapter", "registered_adapters", "ServeFleet",
            "FleetConfig", "DisaggFleet", "FaultInjector", "Router",
            "HealthPolicy", "cnn", "lm1b", "long_context", "moe_lm", "nmt",
-           "simple", "skip_thoughts"]
+           "simple", "skip_thoughts", "tune"]

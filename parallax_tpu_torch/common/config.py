@@ -1,12 +1,13 @@
 """Configuration: ``ServeConfig``, ``PSConfig``, ``CommunicationConfig``,
-``CheckPointConfig``, ``RecoveryConfig`` and the top-level ``Config``.
+``CheckPointConfig``, ``RecoveryConfig``, ``ProfileConfig``,
+``TuneConfig`` and the top-level ``Config``.
 
 Copies of ``parallax_tpu.common.config``'s ``ServeConfig``,
-``CheckPointConfig`` and ``RecoveryConfig`` (same fields, same
-validation), and of ``PSConfig``, ``CommunicationConfig`` and
-``ParallaxConfig`` reduced to the fields serving and training read, so
-code that builds a JAX-package config builds this one with the same
-keywords.
+``CheckPointConfig``, ``RecoveryConfig``, ``ProfileConfig`` and
+``TuneConfig`` (same fields, same validation), and of ``PSConfig``,
+``CommunicationConfig`` and ``ParallaxConfig`` reduced to the fields
+serving and training read, so code that builds a JAX-package config
+builds this one with the same keywords.
 """
 
 from __future__ import annotations
@@ -267,6 +268,110 @@ class RecoveryConfig:
 
 
 @dataclasses.dataclass
+class ProfileConfig:
+    """Step-bracketed profiling (reference config.py:101-117): a
+    ``torch.profiler`` trace of the configured steps (``profile_steps``,
+    or the ``profile_range`` (begin, end)) written under ``profile_dir``
+    (profiler.py). ``profile_worker`` selects the one rank that captures,
+    so N ranks do not write N traces."""
+
+    profile_dir: Optional[str] = None
+    profile_steps: Optional[Sequence[int]] = None
+    profile_range: Optional[Sequence[int]] = None  # (begin, end) step range
+    profile_worker: Optional[int] = None
+
+
+@dataclasses.dataclass
+class TuneConfig:
+    """The mesh auto-tuner's knobs (``parallax_tpu_torch.tune``): the
+    cost-model search over ``(dp x tp)`` mesh shapes crossed with run
+    options. ``Config(tune_config=TuneConfig())`` routes the session's
+    planning through ``tune.search.MeshSearch``; ``tune_config=None``
+    (default) keeps the 1-D ``PartitionSearch``.
+
+    * ``enabled``: master switch.
+    * ``top_k``: how many cost-model-shortlisted plans pay a measured
+      trial; the rest are priced only.
+    * ``run_options``: the run-option axis (default AR, SHARD and
+      HYBRID; legacy MPI/PS aliases accepted).
+    * ``min_tp`` / ``max_tp``: bounds on the shard-axis width.
+    * ``max_pp``: cap on the pipeline-stage axis; 1 keeps the search
+      two-dimensional, and above 1 it opens only for a model that
+      declares ``Model.pipeline_info``.
+    * ``trial_steps`` / ``trial_warmup``: steps a trial runs; its time
+      is the median over steps ``[trial_warmup, trial_steps)``.
+    * ``peak_flops`` / ``hbm_gbps`` / ``ici_gbps``: the cost model's
+      per-card constants (FLOP/s, GB/s). Unset, they are the H100 SXM's
+      published rates: 989.4 TF/s bf16 dense, 3.35 TB/s of HBM3 and
+      900 GB/s of NVLink 4. ``ici_gbps`` keeps the JAX package's name;
+      here it is the NVLink rate between the cards.
+    * ``hbm_budget_gb`` / ``hbm_headroom``: the OOM preflight
+      (``obs/memwatch.py``): a shortlisted plan whose captured step needs
+      more than budget x headroom is refused before its trial, and the
+      refusal recorded. Unset, the budget is the card's memory
+      (``torch.cuda.mem_get_info``); on the CPU there is none and the
+      preflight is skipped.
+    """
+
+    enabled: bool = True
+    top_k: int = 3
+    run_options: Optional[Sequence[str]] = None
+    min_tp: int = 1
+    max_tp: Optional[int] = None
+    max_pp: int = 1
+    trial_steps: int = 12
+    trial_warmup: int = 4
+    peak_flops: Optional[float] = None
+    hbm_gbps: Optional[float] = None
+    ici_gbps: Optional[float] = None
+    hbm_budget_gb: Optional[float] = None
+    hbm_headroom: float = 0.9
+
+    def __post_init__(self):
+        if int(self.top_k) < 1:
+            raise ValueError(
+                f"tune top_k must be >= 1, got {self.top_k}")
+        if self.run_options is not None:
+            opts = tuple(normalize_run_option(o)
+                         for o in self.run_options)
+            if not opts:
+                raise ValueError(
+                    "tune run_options must name at least one of "
+                    "AR/SHARD/HYBRID (or be None for all three)")
+            # deduped, order kept (the order breaks score ties)
+            self.run_options = tuple(dict.fromkeys(opts))
+        if int(self.min_tp) < 1:
+            raise ValueError(
+                f"tune min_tp must be >= 1, got {self.min_tp}")
+        if self.max_tp is not None and int(self.max_tp) < int(self.min_tp):
+            raise ValueError(
+                f"tune max_tp ({self.max_tp}) must be >= min_tp "
+                f"({self.min_tp})")
+        if int(self.max_pp) < 1:
+            raise ValueError(
+                f"tune max_pp must be >= 1, got {self.max_pp}")
+        if int(self.trial_warmup) < 0:
+            raise ValueError(
+                f"tune trial_warmup must be >= 0, got "
+                f"{self.trial_warmup}")
+        if int(self.trial_steps) <= int(self.trial_warmup):
+            raise ValueError(
+                f"tune trial_steps ({self.trial_steps}) must exceed "
+                f"trial_warmup ({self.trial_warmup}); the measured "
+                f"window would be empty")
+        for name in ("peak_flops", "hbm_gbps", "ici_gbps",
+                     "hbm_budget_gb"):
+            v = getattr(self, name)
+            if v is not None and float(v) <= 0:
+                raise ValueError(
+                    f"tune {name} must be > 0 when set, got {v}")
+        if not (0.0 < float(self.hbm_headroom) <= 1.0):
+            raise ValueError(
+                f"tune hbm_headroom must be in (0, 1], got "
+                f"{self.hbm_headroom}")
+
+
+@dataclasses.dataclass
 class AnomalyConfig:
     """Knobs of the online anomaly detectors (``obs/anomaly.py``; the
     JAX package's ``AnomalyConfig``, field for field).
@@ -378,6 +483,16 @@ class ParallaxConfig:
     * ``handle_preemption``: on SIGTERM, save one checkpoint of the
       current state before the process ends (installed from the main
       thread, and only with a ``ckpt_dir``).
+    * ``search_partitions``: with ``PARALLAX_MIN_PARTITIONS`` set (and
+      no ``num_partitions``), search the shard-axis width
+      (parallel/partitions.py).
+    * ``profile_config`` (``ProfileConfig``): step-bracketed traces
+      (profiler.py); ``profile_steps(n)`` arms one on demand.
+    * ``tune_config`` (``TuneConfig``): plan through the mesh auto-tuner
+      (tune/); None keeps the 1-D partition search.
+    * ``calibration_path``: a calibration file (tune/calibrate.py) the
+      cost model loads in place of its nominal exchange rates;
+      ``write_calibration()`` writes it from a profiled window.
 
     Observability (``obs/``; the JAX package's fields, same names and
     defaults):
@@ -435,6 +550,12 @@ class ParallaxConfig:
         default_factory=RecoveryConfig)
     handle_preemption: bool = True
     monitor_health: bool = False
+    # -- planning and profiling (parallel/, tune/, profiler.py) ----------
+    search_partitions: bool = True
+    profile_config: ProfileConfig = dataclasses.field(
+        default_factory=ProfileConfig)
+    tune_config: Optional[TuneConfig] = None
+    calibration_path: Optional[str] = None
     # -- observability (obs/) ---------------------------------------------
     trace_path: Optional[str] = None
     trace_buffer_events: int = 65536
@@ -525,6 +646,12 @@ class ParallaxConfig:
         if int(self.staleness) < 1:
             raise ValueError(
                 f"staleness must be >= 1, got {self.staleness}")
+        if self.tune_config is not None \
+                and not isinstance(self.tune_config, TuneConfig):
+            raise ValueError(
+                f"tune_config must be a TuneConfig (or None), got "
+                f"{type(self.tune_config).__name__} — a plain dict "
+                f"here would silently skip the knob validation")
 
     # Reference-style setters (kept so ported driver code works unchanged).
     def set_sync(self, sync: bool) -> None:

@@ -22,3 +22,13 @@ PARALLAX_RENDEZVOUS = "PARALLAX_RENDEZVOUS"
 # seconds a rank waits for its peers (init and every collective)
 PARALLAX_DIST_TIMEOUT = "PARALLAX_DIST_TIMEOUT"
 DIST_TIMEOUT_DEFAULT_S = 600
+
+# --- partition auto-search (reference consts.py + partitions.py:29-31) -----
+# The search lives in the session (an in-place replan), so the reference's
+# PARALLAX_SEARCH socket channel has no counterpart.
+PARALLAX_PARTITIONS = "PARALLAX_PARTITIONS"
+PARALLAX_MIN_PARTITIONS = "PARALLAX_MIN_PARTITIONS"
+
+# --- timing windows (reference consts.py:37-38) -----------------------------
+NUM_ITERATIONS_FOR_WARMUP = 50
+NUM_ITERATIONS_FOR_TEST = 100  # steps [WARMUP, TEST) are timed

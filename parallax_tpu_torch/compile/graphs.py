@@ -137,24 +137,37 @@ class Graph:
 
 
 def capture(fn: Callable[[], object], device,
-            generator: Optional[torch.Generator] = None) -> Graph:
+            generator: Optional[torch.Generator] = None,
+            warm_trace: Optional[str] = None) -> Graph:
     """Capture ``fn()`` (no arguments: it reads static buffers) as a
     graph on ``device``. ``fn`` runs once eagerly on a side stream first;
     that call's launches are real and stay counted. The CUDA
     ``generator`` that ``fn`` draws from is registered with the graph, so
-    a replay draws from its seed and offset at the time of the replay."""
+    a replay draws from its seed and offset at the time of the replay.
+    ``warm_trace``: the eager call runs under ``torch.profiler`` (CPU and
+    CUDA activity), stopped after a synchronize and before the capture
+    begins (a profiler running through a capture loses its kernels or
+    breaks it), and its Chrome trace is written to that path."""
     with _CAPTURE_LOCK:
-        return _capture(fn, torch.device(device), generator)
+        return _capture(fn, torch.device(device), generator, warm_trace)
 
 
-def _capture(fn, device, generator) -> Graph:
+def _capture(fn, device, generator, warm_trace=None) -> Graph:
     global _tally
     t0 = time.perf_counter()
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
-        fn()
+        if warm_trace is None:
+            fn()
+        else:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize(device)
+            prof.export_chrome_trace(warm_trace)
     cur.wait_stream(side)
     torch.cuda.synchronize(device)
     g = torch.cuda.CUDAGraph()

@@ -158,6 +158,20 @@ the communicators; every rank captures in the same order). A declared
 mesh-uniform overflow flag each step, so such an engine runs its steps
 eagerly (``compile_stats()["step_capture"]`` says so).
 
+The tuner's and the profiler's hooks: ``step_cost_analysis`` (the
+counterpart of the JAX engine's XLA ``cost_analysis``, which
+``tune.costmodel.inputs_from_engine`` reads) counts one step on meta
+tensors, its matmuls (``count_step_flops``) and the input and output
+bytes of its ops, unfused (``count_step_bytes``); that pass also fills
+the lookup records before any step has run. The step's parts run under
+``torch.profiler.record_function`` scopes named after their source files
+(the model's file around the loss, ``engine.py`` around the combine,
+``optim.py`` around the update, ``sparse_optim.py`` around the slice
+updates; the lookups, the sampled softmax and the LSTM scan open their
+own), and ``scope_index`` maps each kernel name to its scope from a
+profiled warm call of a capture. ``step_captures`` tells the profile hook
+which step would capture.
+
 Not ported: ``batch_specs`` other than the default, 'repl' alone on dim
 0 and ``P('repl', 'shard')``, tensor parallelism with
 ``sparse_grad_mode="slices"``, and the numerics observatory over
@@ -170,12 +184,15 @@ import contextlib
 import dataclasses
 import fnmatch
 import inspect
+import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from parallax_tpu_torch.common import consts
 from parallax_tpu_torch.common.config import ParallaxConfig
@@ -187,7 +204,7 @@ from parallax_tpu_torch.core import classify, mesh as mesh_lib, \
 from parallax_tpu_torch.obs import _state as obs_state
 from parallax_tpu_torch.obs import metrics as obs_metrics, trace
 from parallax_tpu_torch.obs import numwatch
-from parallax_tpu_torch.ops import collectives, embedding
+from parallax_tpu_torch.ops import _cuda, collectives, embedding
 from parallax_tpu_torch.tune import costmodel
 
 REPLICATED = "replicated"
@@ -278,6 +295,13 @@ class Model:
         except (TypeError, ValueError):
             n_pos = 4 if stateful else 2
         self._loss_takes_gen = n_pos >= (4 if stateful else 3)
+        # the profiler scope the loss runs under: its source file's name
+        # (obs/xprof.py joins kernels to scopes)
+        try:
+            src = inspect.getsourcefile(loss_fn)
+        except TypeError:
+            src = None
+        self.scope = os.path.basename(src) if src else "model"
 
     def call_init(self, gen, device):
         """Returns (params, model_state); model_state is None for
@@ -608,6 +632,42 @@ class _ShardReads(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+class _ByteCount(TorchDispatchMode):
+    """The bytes a step's ops move, unfused: each op's input tensors read
+    once and its outputs written once (an in-place op's tensor both).
+    View ops and allocations move nothing; the ops a plain version runs
+    in a kernel's place (``_cuda.stand_in``) are skipped, since the
+    kernels' own byte models price their traffic."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not _cuda.standing_in() and not _moves_nothing(func):
+            self.total += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        return out
+
+
+_ALLOCATIONS = {"empty", "empty_like", "empty_strided", "new_empty",
+                "new_empty_strided"}
+
+
+def _moves_nothing(func) -> bool:
+    if func.overloadpacket.__name__ in _ALLOCATIONS:
+        return True
+    rets = func._schema.returns
+    return bool(rets) and all(r.alias_info is not None
+                              and not r.alias_info.is_write for r in rets)
+
+
 def _host_tensor(v) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v
@@ -806,8 +866,12 @@ class Engine:
         self._step_grads: Optional[Dict[str, torch.Tensor]] = None
         self._last_grads: Optional[Dict[str, torch.Tensor]] = None
         self.last_inputs: Optional[Dict[str, Any]] = None
-        # count_step_flops' counts by signature, and the last step's
+        # count_step_flops' and count_step_bytes' counts by signature,
+        # and the last step's signature
         self._step_flops: Dict[Tuple, Optional[float]] = {}
+        self._step_bytes: Dict[Tuple, Optional[float]] = {}
+        # scope_index's kernel-name -> source-scope maps by signature
+        self._scope_index: Dict[Tuple, Dict[str, Dict[str, Any]]] = {}
         self._last_sig: Optional[Tuple] = None
         if self._numerics:
             if self.plan.split and mesh.world is not None \
@@ -856,7 +920,8 @@ class Engine:
         reads = _ShardReads({id(flat[p]): p
                              for p in self.plan.sharded_tables})
         with torch.no_grad(), embedding.slice_capture_scope(cap), \
-                self._lookup_scope(flat, None) as lctx, reads:
+                self._lookup_scope(flat, None) as lctx, reads, \
+                _cuda.meta_for(self.device):
             self.model.call_loss(meta_params, meta_batch, torch.Generator())
         missing = set(self._slice_resolved) - {p for p, _, _ in cap.captured}
         if missing:
@@ -1214,7 +1279,10 @@ class Engine:
             scope = embedding.slice_capture_scope(cap)
         self._lookup_records = records = []
         vag = self.model.value_and_grad_fn
-        with scope, self._lookup_scope(flat, records):
+        # profiler scopes named after the source files their work comes
+        # from: obs/xprof.py joins each kernel to the one it ran under
+        with scope, self._lookup_scope(flat, records), \
+                torch.profiler.record_function(self.model.scope):
             if vag is not None:
                 loss, metrics, grad_tree = vag(state.params, batch,
                                                self._gen)
@@ -1247,7 +1315,8 @@ class Engine:
         with torch.no_grad():
             dense = {p: (g if g is not None else torch.zeros_like(flat[p]))
                      for p, g in zip(self._dense_paths, grads)}
-            self._combine(dense)
+            with torch.profiler.record_function("engine.py"):
+                self._combine(dense)
             health = self._health(loss, dense, grads[len(leaves):]) \
                 if self.config.monitor_health else {}
             if self._numerics:
@@ -1257,16 +1326,18 @@ class Engine:
             apply = dense
             if not self.config.sync:
                 apply = self._delayed(state, dense)
-            with optim.sharded_scope(self._split_groups(), self.mesh):
+            with optim.sharded_scope(self._split_groups(), self.mesh), \
+                    torch.profiler.record_function("optim.py"):
                 updates, _ = self.model.optimizer.update(
                     apply, state.opt_state,
                     {p: flat[p] for p in self._dense_paths})
-            optim.apply_updates(flat, updates)
+                optim.apply_updates(flat, updates)
             if not self.config.sync:
                 self._push_pending(state, dense)
             if cap is not None:
-                self._apply_slices(flat, state, cap.captured,
-                                   grads[len(leaves):])
+                with torch.profiler.record_function("sparse_optim.py"):
+                    self._apply_slices(flat, state, cap.captured,
+                                       grads[len(leaves):])
             if self.model.stateful:
                 old = [t for _, t in classify.flatten(state.model_state)]
                 new = [t for _, t in classify.flatten(new_model_state)]
@@ -1364,52 +1435,138 @@ class Engine:
                 [groups[p] for p in self._num_prefixes])
         return numwatch.StatsTree(self._num_prefixes, mat)
 
+    def _meta_step(self, sig, mode, records: Optional[list] = None
+                   ) -> None:
+        """One step of signature ``sig`` on meta tensors under the
+        dispatch ``mode``: the forward and the gradient, every kernel
+        wrapper on its plain version (a meta tensor is not a CUDA one),
+        routed as this engine's device would route it
+        (``_cuda.meta_for``); the lookups append their records to
+        ``records``."""
+        meta_params, meta_state = self.model.call_init(
+            torch.Generator(), "meta")
+        meta_params = self._local_tree(meta_params, LOCAL_PLACEMENTS)
+        batch = {name: torch.empty(shape, dtype=getattr(torch, dt[6:]),
+                                   device="meta")
+                 for name, shape, dt in sig}
+        flat = dict(classify.flatten(meta_params))
+        leaves = [flat[p].requires_grad_() for p in self._dense_paths
+                  if flat[p].is_floating_point()]
+        cap = embedding.SliceCapture(
+            {id(flat[p]): p for p in self._slice_resolved})
+        vag = self.model.value_and_grad_fn
+        with mode, embedding.slice_capture_scope(cap), \
+                self._lookup_scope(flat, records), \
+                _cuda.meta_for(self.device):
+            if vag is not None:
+                vag(meta_params, batch, torch.Generator())
+            else:
+                loss, _, _ = self.model.call_loss(
+                    meta_params, batch, torch.Generator(), meta_state)
+                rows = [r for _, _, r in cap.captured]
+                torch.autograd.grad(loss, leaves + rows,
+                                    allow_unused=True)
+
+    def _default_sig(self, sig):
+        if sig is not None:
+            return sig
+        return self._last_sig if self._last_sig is not None else \
+            bucketing.batch_signature(self._batch_shapes)
+
     def count_step_flops(self, sig=None) -> Optional[float]:
         """This rank's FLOPs of one step of signature ``sig`` (default:
         the last step's, else the example batch's), counted once and
-        kept: the forward and the gradient run on meta tensors under
-        ``torch.utils.flop_counter.FlopCounterMode``, where every kernel
-        wrapper takes its plain version (a meta tensor is not a CUDA
-        one), so the count is the plain versions' matmuls — the same
-        matmuls the kernels compute. The optimizer's elementwise update
-        counts nothing. None when a model's step cannot run on meta
-        tensors."""
+        kept: the step runs on meta tensors (``_meta_step``) under
+        ``torch.utils.flop_counter.FlopCounterMode``, so the count is the
+        plain versions' matmuls — the same matmuls the kernels compute.
+        The optimizer's elementwise update counts nothing. None when a
+        model's step cannot run on meta tensors."""
         from torch.utils.flop_counter import FlopCounterMode
-        if sig is None:
-            sig = self._last_sig if self._last_sig is not None else \
-                bucketing.batch_signature(self._batch_shapes)
+        sig = self._default_sig(sig)
         if sig in self._step_flops:
             return self._step_flops[sig]
         flops = None
         try:
-            meta_params, meta_state = self.model.call_init(
-                torch.Generator(), "meta")
-            meta_params = self._local_tree(meta_params, LOCAL_PLACEMENTS)
-            batch = {name: torch.empty(shape, dtype=getattr(torch, dt[6:]),
-                                       device="meta")
-                     for name, shape, dt in sig}
-            flat = dict(classify.flatten(meta_params))
-            leaves = [flat[p].requires_grad_() for p in self._dense_paths
-                      if flat[p].is_floating_point()]
-            cap = embedding.SliceCapture(
-                {id(flat[p]): p for p in self._slice_resolved})
-            vag = self.model.value_and_grad_fn
-            with FlopCounterMode(display=False) as counter, \
-                    embedding.slice_capture_scope(cap), \
-                    self._lookup_scope(flat, None):
-                if vag is not None:
-                    vag(meta_params, batch, torch.Generator())
-                else:
-                    loss, _, _ = self.model.call_loss(
-                        meta_params, batch, torch.Generator(), meta_state)
-                    rows = [r for _, _, r in cap.captured]
-                    torch.autograd.grad(loss, leaves + rows,
-                                        allow_unused=True)
+            counter = FlopCounterMode(display=False)
+            self._meta_step(sig, counter)
             flops = float(counter.get_total_flops())
         except Exception as e:
             parallax_log.warning("step FLOPs not counted: %s", e)
         self._step_flops[sig] = flops
         return flops
+
+    def count_step_bytes(self, sig=None) -> Optional[float]:
+        """This rank's device-memory bytes of one step of signature
+        ``sig``, counted once on meta tensors (``_ByteCount``): every
+        op's inputs and outputs, unfused, with the hand kernels' plain
+        stand-ins left out (their byte models price them, through the
+        kernels' trace records). The step's lookup records land in
+        ``_lookup_records`` when no step has run yet. None when a model's
+        step cannot run on meta tensors."""
+        sig = self._default_sig(sig)
+        if sig in self._step_bytes:
+            return self._step_bytes[sig]
+        nbytes = None
+        records: list = []
+        try:
+            counter = _ByteCount()
+            self._meta_step(sig, counter, records)
+            nbytes = float(counter.total)
+            if not self._lookup_records:
+                self._lookup_records = records
+        except Exception as e:
+            parallax_log.warning("step bytes not counted: %s", e)
+        self._step_bytes[sig] = nbytes
+        return nbytes
+
+    def step_cost_analysis(self, cheap_only: bool = True
+                           ) -> Dict[str, float]:
+        """The counterpart of the JAX engine's XLA ``cost_analysis`` of
+        one step (``parallax_tpu/core/engine.py:960``): ``flops``
+        (``count_step_flops``) and ``bytes accessed``
+        (``count_step_bytes``, an unfused count: larger than XLA's,
+        which fuses), each left out when it cannot be counted. The
+        counts are cheap either way; ``cheap_only`` is the JAX engine's
+        signature."""
+        out: Dict[str, float] = {}
+        flops = self.count_step_flops()
+        if flops is not None:
+            out["flops"] = flops
+        nbytes = self.count_step_bytes()
+        if nbytes is not None:
+            out["bytes accessed"] = nbytes
+        return out
+
+    def step_captures(self, state: TrainState, batch) -> bool:
+        """Whether ``step(state, batch)`` captures a graph first (its
+        signature, or its sampled variant, has none for this state): the
+        profiler must not trace such a step (profiler.py)."""
+        if not self._captures():
+            return False
+        sig = bucketing.batch_signature(batch)
+        sampled = self._numerics and \
+            state.step % int(self.config.numerics_interval) == 0
+        table = self._num_executables if sampled else self._executables
+        return table.get(sig) is None or state is not self._captured_state
+
+    def scope_index(self) -> Optional[Dict[str, Dict[str, Any]]]:
+        """{kernel name: {"source_file": scope}} of the last step's
+        signature, for ``obs.xprof.attribute``: a replayed graph's trace
+        names its kernels but no scope, so the step is captured once
+        more with its warm eager call under the profiler
+        (``graphs.capture(warm_trace=)``, stopped before the capture
+        begins, the state left as it was), and each kernel name that ran
+        under one scope alone maps to it (``xprof.build_scope_index``).
+        Kept per signature. None where steps do not replay graphs (their
+        profiled window carries the scopes itself)."""
+        sig = self._last_sig
+        if sig is None or not self._captures() \
+                or self._captured_state is None:
+            return None
+        if sig not in self._scope_index:
+            self._capture(self._captured_state, sig,
+                          self._static_inputs(sig), index_scopes=True)
+        return self._scope_index.get(sig)
 
     def captured_graphs(self, numerics: bool = False
                         ) -> List[graphs_lib.Graph]:
@@ -1520,13 +1677,16 @@ class Engine:
 
     @torch.no_grad()
     def _capture(self, state: TrainState, sig, inputs,
-                 numerics: bool = False) -> graphs_lib.Graph:
+                 numerics: bool = False,
+                 index_scopes: bool = False) -> graphs_lib.Graph:
         """Capture the step on ``inputs`` against ``state``'s buffers
         (``numerics``: the graph that also computes the per-layer
         stats). The eager call that precedes the capture runs a real
         step; every state tensor is copied aside first and back after,
         so the state leaves the capture bitwise as it came (as compiling
-        a JAX step never runs it)."""
+        a JAX step never runs it). ``index_scopes``: that eager call runs
+        under the profiler, and its trace gives ``scope_index``."""
+        import tempfile
         leaves = state_tensors(state)
         snapshot = [t.detach().clone() for t in leaves]
 
@@ -1534,11 +1694,22 @@ class Engine:
             with torch.enable_grad():
                 return self._compute(state, inputs, numerics)
 
+        tmp = tempfile.TemporaryDirectory(prefix="parallax-scopes-") \
+            if index_scopes else None
         try:
-            graph = graphs_lib.capture(body, self.device, self._gen)
+            graph = graphs_lib.capture(
+                body, self.device, self._gen,
+                warm_trace=(os.path.join(tmp.name, "warm.trace.json")
+                            if tmp is not None else None))
+            if tmp is not None:
+                from parallax_tpu_torch.obs import xprof
+                doc, _ = xprof.load_trace(tmp.name)
+                self._scope_index[sig] = xprof.build_scope_index(doc)
         finally:
             torch._foreach_copy_(leaves, snapshot)
             del snapshot
+            if tmp is not None:
+                tmp.cleanup()
         if numerics:
             self._num_executables[sig] = graph
             self.numerics_capture_seconds[sig] = graph.seconds

@@ -2,14 +2,15 @@
 sink, host spans, request-scoped records, and the training and serving
 sessions' monitors — health, the step timeline, anomaly detection, the
 flight recorder, cross-rank aggregation, the goodput ledger, the event
-journal, alerting, the Prometheus exporter, the memory watch and the
-numerics observatory (the JAX package's ``obs/`` but its profile
-parser, ``xprof``)."""
+journal, alerting, the Prometheus exporter, the memory watch, the
+numerics observatory and the profile parser (``xprof``: per-op and
+per-collective attribution of ``torch.profiler`` traces) — the JAX
+package's ``obs/``."""
 
 from parallax_tpu_torch.obs import (_state, aggregate, alerts, anomaly,
                                     export, flightrec, goodput, health,
                                     journal, memwatch, metrics, numwatch,
-                                    reqtrace, timeline, trace)
+                                    reqtrace, timeline, trace, xprof)
 from parallax_tpu_torch.obs._state import disable, enable, is_enabled
 from parallax_tpu_torch.obs.alerts import (AlertEngine, AlertRule,
                                            builtin_rules)
@@ -30,7 +31,8 @@ from parallax_tpu_torch.obs.trace import export_chrome_trace, span
 __all__ = ["metrics", "trace", "reqtrace", "enable", "disable",
            "is_enabled", "_state", "aggregate", "alerts", "anomaly",
            "export", "flightrec", "goodput", "health", "journal",
-           "memwatch", "numwatch", "timeline", "AlertEngine", "AlertRule",
+           "memwatch", "numwatch", "timeline", "xprof", "AlertEngine",
+           "AlertRule",
            "builtin_rules", "AnomalyEvent", "AnomalyMonitor",
            "TelemetryExporter", "render_prometheus", "FlightRecorder",
            "GoodputLedger", "HealthMonitor", "device_memory_stats",

@@ -27,9 +27,17 @@ CPU honesty: the CPU reports no device memory, so on a CPU run the live
 ring stays empty and the gauges are absent — never fabricated.
 Killswitch: with the obs layer disabled (``PARALLAX_OBS=0`` /
 ``obs.disable()``) ``sample()`` is a structural no-op — no stats call,
-no ring append, no gauges. The OOM preflight over a budget
-(``hbm_budget_bytes`` in the JAX package) belongs with the tuner and
-is not here.
+no ring append, no gauges.
+
+The tuner's OOM preflight (tune/search.py) judges a candidate plan's
+captured-step peak against ``hbm_budget_bytes``: ``TuneConfig.
+hbm_budget_gb`` when set, else the card's memory
+(``torch.cuda.mem_get_info``), else (the CPU) None, and the preflight is
+skipped. The JAX package compiles a candidate to read its peak and runs
+nothing; the port's counterpart of that peak is the pool bytes of the
+candidate's captured step, so the session's probe
+(``ParallaxSession._preflight_peak``) captures it, which its trial would
+pay anyway, on a state the capture leaves bitwise as it was.
 """
 
 from __future__ import annotations
@@ -81,6 +89,33 @@ def compiled_step_memory(engine) -> Optional[Dict[str, Any]]:
     return {"peak_bytes": total, "basis": "graph_pools",
             "graphs": len(graphs), "numerics_graphs": len(numerics),
             "numerics_pool_bytes": graph_pool_bytes(numerics)}
+
+
+def card_memory_bytes() -> Optional[int]:
+    """Total bytes of the current card (``torch.cuda.mem_get_info``), or
+    None without one. A CUDA call: never from inside a capture."""
+    import torch
+    if not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.mem_get_info()[1])
+
+
+def hbm_budget_bytes(tune_config=None,
+                     total_fn: Callable[[], Optional[int]] =
+                     card_memory_bytes) -> Optional[int]:
+    """The per-card memory budget the preflight judges captured-step
+    peaks against (its limit is this times ``hbm_headroom``): an explicit
+    ``TuneConfig.hbm_budget_gb`` wins; otherwise the card's memory. None
+    when neither exists (the CPU without an override): the preflight then
+    records itself as skipped rather than guessing."""
+    if tune_config is not None \
+            and getattr(tune_config, "hbm_budget_gb", None):
+        return int(float(tune_config.hbm_budget_gb) * 1e9)
+    try:
+        total = total_fn()
+    except Exception:
+        return None
+    return int(total) if total else None
 
 
 class MemWatch:
@@ -247,4 +282,5 @@ class MemWatch:
 
 
 __all__ = ["MemWatch", "DEFAULT_OOM_RISK_FRAC", "graph_pool_bytes",
-           "compiled_step_memory"]
+           "compiled_step_memory", "card_memory_bytes",
+           "hbm_budget_bytes"]

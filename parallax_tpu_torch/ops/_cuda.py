@@ -9,10 +9,20 @@ unchanged one loads from the cache), and loaded with ``ctypes``. A
 failed build raises with nvcc's stderr. The ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside each
 library as ``<name>-<hash>.log``.
+
+Two scopes serve the step's byte count on meta tensors
+(``Engine.count_step_bytes``, the tuner's cost inputs): ``meta_for``
+names the device a meta pass stands for, so a wrapper routes a meta
+tensor as it would route that device's (``routed_device``); and a
+wrapper runs its plain version inside ``stand_in()``, so the count
+skips the plain ops that stand in for a kernel, whose traffic its own
+byte model prices.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -22,6 +32,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -34,6 +46,50 @@ KERNEL_SOURCES = ("flash_attention", "flash_attention_sm90",
 
 _libs: Dict[str, object] = {}   # loaded libraries and typed launchers
 _lock = threading.Lock()
+
+_META_FOR: contextvars.ContextVar = contextvars.ContextVar(
+    "parallax_meta_for", default=None)
+_STAND_IN: contextvars.ContextVar = contextvars.ContextVar(
+    "parallax_stand_in", default=False)
+
+
+@contextlib.contextmanager
+def meta_for(device):
+    """Inside: a meta tensor is routed as a tensor on ``device`` is."""
+    token = _META_FOR.set(torch.device(device))
+    try:
+        yield
+    finally:
+        _META_FOR.reset(token)
+
+
+def routed_device(device) -> torch.device:
+    """``device``, or for the meta device inside ``meta_for`` the device
+    the meta pass stands for."""
+    device = torch.device(device)
+    if device.type == "meta" and _META_FOR.get() is not None:
+        return _META_FOR.get()
+    return device
+
+
+def kernel_route(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` takes its kernel's route: a CUDA
+    tensor, or a meta one inside ``meta_for`` a CUDA device."""
+    return routed_device(t.device).type == "cuda"
+
+
+@contextlib.contextmanager
+def stand_in():
+    """Wraps a plain version run in place of its kernel."""
+    token = _STAND_IN.set(True)
+    try:
+        yield
+    finally:
+        _STAND_IN.reset(token)
+
+
+def standing_in() -> bool:
+    return _STAND_IN.get()
 
 
 def _nvcc() -> str:

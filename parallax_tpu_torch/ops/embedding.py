@@ -187,6 +187,12 @@ def embedding_lookup(table: torch.Tensor,
     ``sharded_lookup_scope``. A table registered with the active
     ``SliceCapture`` gets its rows as a leaf whose gradient is the
     step's slice for that lookup."""
+    # the sparse path's profiler scope (obs/xprof.py joins kernels to it)
+    with torch.profiler.record_function("embedding.py"):
+        return _lookup(table, ids)
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     capture = _CAPTURE.get()
     path = capture.path_of(table) if capture is not None else None
     ctx = _CTX.get()

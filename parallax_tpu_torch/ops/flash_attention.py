@@ -306,7 +306,8 @@ def flash_forward(q, k, v, causal: bool, scale: float, kv_mask):
     version for CPU tensors."""
     if q.is_cuda:
         return _kernel(q, k, v, causal, scale, kv_mask)
-    return flash_attention_plain(q, k, v, causal, scale, kv_mask)
+    with _cuda.stand_in():
+        return flash_attention_plain(q, k, v, causal, scale, kv_mask)
 
 
 def flash_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False,
@@ -317,7 +318,9 @@ def flash_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
         return _dq_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale)
-    return flash_dq_plain(q, k, v, kv_mask, dout, lse, delta, causal, scale)
+    with _cuda.stand_in():
+        return flash_dq_plain(q, k, v, kv_mask, dout, lse, delta, causal,
+                              scale)
 
 
 def flash_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool = False,
@@ -329,7 +332,9 @@ def flash_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool = False,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
         return _dkv_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale)
-    return flash_dkv_plain(q, k, v, kv_mask, dout, lse, delta, causal, scale)
+    with _cuda.stand_in():
+        return flash_dkv_plain(q, k, v, kv_mask, dout, lse, delta, causal,
+                               scale)
 
 
 def flash_delta(out, dout, dlse=None) -> torch.Tensor:

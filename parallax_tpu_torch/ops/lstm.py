@@ -51,19 +51,30 @@ raises; for CPU tensors it runs the plain version, which is also what
 counts its launches in a module-level integer (``launches_fwd`` for B1,
 ``launches_fwd_res`` for B2, ``launches_bwd`` for B3); reset by
 assignment.
+
+Cost-model records (``parallax_tpu/ops/pallas_lstm.py:616-664``): every
+``lstm_scan(impl="kernel")`` call records its static signature
+(``trace_records``, by mesh; ``reset_trace_records`` clears them), the
+batch over the ranks it is split over, so ``tune.costmodel.
+inputs_from_engine`` prices the kernels' traffic with
+``kernel_hbm_bytes``; the plain route records nothing, as the JAX
+package's ``impl="xla"`` does not. A record is kept once per (mesh,
+signature): two LSTM layers of one shape on one mesh are one record.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
+import weakref
 from typing import NamedTuple
 
 import torch
 
 from parallax_tpu_torch.compile import graphs as graphs_lib
-from parallax_tpu_torch.ops import _cuda
+from parallax_tpu_torch.ops import _cuda, collectives
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 BWD_IMPLS = ("auto", "kernel", "scan", "recompute")
@@ -477,7 +488,8 @@ def lstm_recurrence(xw, w_h, w_proj, residuals: bool = False):
     the kernel for CUDA tensors, the plain version for CPU tensors."""
     if xw.is_cuda:
         return _kernel_fwd(xw, w_h, w_proj, residuals)
-    return lstm_recurrence_plain(xw, w_h, w_proj, residuals)
+    with _cuda.stand_in():
+        return lstm_recurrence_plain(xw, w_h, w_proj, residuals)
 
 
 def lstm_bwd_recurrence(g, gates, cseq, w_h, w_proj):
@@ -485,7 +497,8 @@ def lstm_bwd_recurrence(g, gates, cseq, w_h, w_proj):
     tensors. ``g`` is the fp32 cotangent of hs."""
     if g.is_cuda:
         return _kernel_bwd(g, gates, cseq, w_h, w_proj)
-    return lstm_bwd_recurrence_plain(g, gates, cseq, w_h, w_proj)
+    with _cuda.stand_in():
+        return lstm_bwd_recurrence_plain(g, gates, cseq, w_h, w_proj)
 
 
 # -- the gradient ---------------------------------------------------------------
@@ -566,13 +579,15 @@ class _LSTMScanKernel(torch.autograd.Function):
 
 def resolve_bwd_impl(bwd_impl: str, device: torch.device) -> str:
     """``PARALLAX_LSTM_BWD`` over the argument; ``auto`` is ``kernel`` on
-    the card and ``scan`` on the CPU."""
+    the card and ``scan`` on the CPU (a meta tensor as the device its
+    pass stands for, ``_cuda.meta_for``)."""
     bwd_impl = os.environ.get("PARALLAX_LSTM_BWD") or bwd_impl
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"unknown lstm bwd_impl {bwd_impl!r}; expected "
                          f"one of {BWD_IMPLS}")
     if bwd_impl == "auto":
-        return "kernel" if device.type == "cuda" else "scan"
+        cuda = _cuda.routed_device(device).type == "cuda"
+        return "kernel" if cuda else "scan"
     return bwd_impl
 
 
@@ -591,10 +606,57 @@ def lstm_scan(x_seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     bwd_impl = resolve_bwd_impl(bwd_impl, x_seq.device)
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x_seq, w, b, w_proj))
-    if not wants_grad:
-        w_x, w_h = _split_w(w, w_proj)
-        return lstm_recurrence(_hoisted_xw(x_seq, w_x, b), w_h, w_proj)
-    return _LSTMScanKernel.apply(x_seq, w, b, w_proj, bwd_impl)
+    _record_call(x_seq, w, w_proj, bwd_impl)
+    with torch.profiler.record_function("lstm.py"):
+        if not wants_grad:
+            w_x, w_h = _split_w(w, w_proj)
+            return lstm_recurrence(_hoisted_xw(x_seq, w_x, b), w_h,
+                                   w_proj)
+        return _LSTMScanKernel.apply(x_seq, w, b, w_proj, bwd_impl)
+
+
+# -- trace records for the cost model -------------------------------------------
+# (mesh id, signature) -> (weak reference to the mesh or None, record)
+_TRACE_RECORDS: "collections.OrderedDict" = collections.OrderedDict()
+_TRACE_RECORDS_MAX = 64
+
+
+def _record_call(x_seq, w, w_proj, bwd_impl) -> None:
+    """Record one kernel-route call's signature under the current mesh
+    (``collectives.current_mesh``; None outside a step), with the batch
+    over the ranks it is split over."""
+    T, B, E = x_seq.shape
+    H, P = w_proj.shape
+    mesh = collectives.current_mesh()
+    group = collectives.batch_group(mesh) if mesh is not None else None
+    n_shards = group.size if group is not None else 1
+    info = {"T": int(T), "B": int(B) * n_shards, "E": int(E), "H": int(H),
+            "P": int(P), "x_itemsize": int(x_seq.element_size()),
+            "w_itemsize": int(w.element_size()),
+            "n_shards": int(n_shards), "bwd": str(bwd_impl)}
+    key = (id(mesh) if mesh is not None else None,
+           tuple(sorted(info.items())))
+    _TRACE_RECORDS[key] = (weakref.ref(mesh) if mesh is not None else None,
+                           info)
+    while len(_TRACE_RECORDS) > _TRACE_RECORDS_MAX:
+        _TRACE_RECORDS.popitem(last=False)
+
+
+def trace_records(mesh=None):
+    """The recorded kernel-route call signatures for ``mesh`` (None: the
+    calls made outside a step's mesh). Each is a dict of T/B/E/H/P, the
+    x and w itemsizes, n_shards and ``bwd``, the backward that serves
+    the call ('kernel' | 'scan' | 'recompute')."""
+    out = []
+    for ref, info in _TRACE_RECORDS.values():
+        m = ref() if ref is not None else None
+        if (mesh is None and ref is None) or (m is mesh and m is not None):
+            out.append(dict(info))
+    return out
+
+
+def reset_trace_records() -> None:
+    _TRACE_RECORDS.clear()
 
 
 def kernel_hbm_bytes(T, B, E, H, P, x_itemsize, w_itemsize, *,
@@ -630,4 +692,5 @@ def pass_flops(T, B, H, P) -> int:
 __all__ = ["lstm_scan", "lstm_scan_reference", "lstm_recurrence",
            "fwd_route", "bwd_route", "FwdRoute",
            "lstm_recurrence_plain", "lstm_bwd_recurrence",
-           "lstm_bwd_recurrence_plain", "kernel_hbm_bytes", "pass_flops"]
+           "lstm_bwd_recurrence_plain", "kernel_hbm_bytes", "pass_flops",
+           "trace_records", "reset_trace_records"]

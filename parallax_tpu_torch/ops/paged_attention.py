@@ -36,19 +36,28 @@ sentinel. ``pool_pages`` is passed explicitly; it defaults to
 Executor: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version, which is also what ``chip_smoke.py`` holds the
 kernel against on the card.
+
+Cost-model records (``parallax_tpu/ops/pallas_paged_attention.py:
+425-469``): every call records its static signature and its route
+(``impl``: 'kernel', or 'einsum' for the plain version, the JAX
+package's name for its gather executor) under the current mesh
+(``trace_records``; ``reset_trace_records`` clears them). The tuner
+prices the kernel-route records with ``kernel_hbm_bytes``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
 
 from parallax_tpu_torch.compile import graphs as graphs_lib
-from parallax_tpu_torch.ops import _cuda
+from parallax_tpu_torch.ops import _cuda, collectives
 
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
@@ -308,13 +317,55 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         pool_pages = pool
     if not 0 < pool_pages <= pool:
         raise ValueError(f"pool_pages={pool_pages} outside (0, {pool}]")
+    _record_call(S, G, D, num_heads, page_size, pages.shape[1], pool_pages,
+                 q.element_size(),
+                 "kernel" if _cuda.kernel_route(q) else "einsum")
     if q.is_cuda:
         return _kernel(q, k_pool, v_pool, pages, pos, num_heads,
                        page_size, pool_pages)
-    return paged_decode_attention_plain(q, k_pool, v_pool, pages, pos,
-                                        num_heads=num_heads,
-                                        page_size=page_size,
-                                        pool_pages=pool_pages)
+    with _cuda.stand_in():
+        return paged_decode_attention_plain(q, k_pool, v_pool, pages, pos,
+                                            num_heads=num_heads,
+                                            page_size=page_size,
+                                            pool_pages=pool_pages)
+
+
+# -- trace records for the cost model -------------------------------------------
+# (mesh id, signature) -> (weak reference to the mesh or None, record)
+_TRACE_RECORDS: "collections.OrderedDict" = collections.OrderedDict()
+_TRACE_RECORDS_MAX = 64
+
+
+def _record_call(S, G, D, num_heads, page_size, P, pool_pages, itemsize,
+                 impl) -> None:
+    mesh = collectives.current_mesh()
+    info = {"S": int(S), "G": int(G), "D": int(D),
+            "num_heads": int(num_heads), "page_size": int(page_size),
+            "P": int(P), "pool_pages": int(pool_pages),
+            "itemsize": int(itemsize), "impl": str(impl)}
+    key = (id(mesh) if mesh is not None else None,
+           tuple(sorted(info.items())))
+    _TRACE_RECORDS[key] = (weakref.ref(mesh) if mesh is not None else None,
+                           info)
+    while len(_TRACE_RECORDS) > _TRACE_RECORDS_MAX:
+        _TRACE_RECORDS.popitem(last=False)
+
+
+def trace_records(mesh=None):
+    """The recorded call signatures for ``mesh`` (None: calls outside a
+    step's mesh, as serving makes them). Each dict carries S/G/D/
+    num_heads/page_size/P/pool_pages/itemsize and ``impl``, the route
+    that served the call ('kernel' | 'einsum')."""
+    out = []
+    for ref, info in _TRACE_RECORDS.values():
+        m = ref() if ref is not None else None
+        if (mesh is None and ref is None) or (m is mesh and m is not None):
+            out.append(dict(info))
+    return out
+
+
+def reset_trace_records() -> None:
+    _TRACE_RECORDS.clear()
 
 
 # -- analytic HBM accounting -------------------------------------------------
@@ -335,4 +386,5 @@ def kernel_hbm_bytes(S, G, D, page_size, live_pages, itemsize,
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_gather", "sentinel_write_coords", "kernel_hbm_bytes",
-           "split_plan", "SplitPlan", "FLAGSHIP_DECODE"]
+           "split_plan", "SplitPlan", "FLAGSHIP_DECODE", "trace_records",
+           "reset_trace_records"]

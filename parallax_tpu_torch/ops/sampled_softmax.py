@@ -122,6 +122,16 @@ def sampled_softmax_loss(
     matmul_dtype: Optional[torch.dtype] = torch.bfloat16,
 ) -> torch.Tensor:
     """Per-example sampled-softmax cross-entropy, [N]."""
+    # the sparse path's profiler scope (obs/xprof.py joins kernels to it)
+    with torch.profiler.record_function("sampled_softmax.py"):
+        return _sampled_softmax_loss(softmax_w, softmax_b, hidden, labels,
+                                     gen, num_samples, vocab_size,
+                                     remove_accidental_hits, matmul_dtype)
+
+
+def _sampled_softmax_loss(softmax_w, softmax_b, hidden, labels, gen,
+                          num_samples, vocab_size, remove_accidental_hits,
+                          matmul_dtype):
     n = hidden.shape[0]
     samples = log_uniform_candidates(gen, num_samples, vocab_size,
                                      device=labels.device)

@@ -17,9 +17,18 @@ their return code, as the reference master does. A worker joins the
 process group (NCCL on its card, gloo with ``device="cpu"``) and returns
 ``(sess, world size, rank, 1)``; each rank feeds its own share of the
 global batch. With no spec, or one chip, the master runs alone.
-``num_partitions`` is the shard-axis width, snapped to a divisor of the
-rank count. Hosts other than this one raise ``NotImplementedError``
-(the ssh launcher and elastic restart are not ported).
+Hosts other than this one raise ``NotImplementedError`` (the ssh
+launcher and elastic restart are not ported).
+
+The shard-axis width (the reference's embedding partition count) comes
+from, in order: the PARALLAX_PARTITIONS environment variable
+(``parallel.get_partitioner``); the ``num_partitions`` argument, snapped
+to a divisor of the rank count; a ``Config.tune_config``, under which the
+session plans through ``tune.MeshSearch`` over mesh shapes and run
+options (``num_partitions`` then only seeds the base plan); and, with
+``Config.search_partitions`` and PARALLAX_MIN_PARTITIONS set, the
+reference's 1-D search (``parallel.PartitionSearch``) from that count.
+Unset, every rank is one shard column.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from parallax_tpu_torch.common.lib import (deserialize_resource_info,
                                            parse_resource_info,
                                            rank_layout, resolve_device)
 from parallax_tpu_torch.core.engine import Model
+from parallax_tpu_torch.parallel.partitions import (PartitionSearch,
+                                                    get_partitioner)
 from parallax_tpu_torch.session import ParallaxSession
 
 
@@ -74,10 +85,27 @@ def parallel_run(model: Model,
             else (0, 1)
     resolve_device(device)
     shard_lib._install(world, rank)
+    search = None
+    min_p = os.environ.get(consts.PARALLAX_MIN_PARTITIONS)
+    tune_on = config.tune_config is not None and config.tune_config.enabled
+    if os.environ.get(consts.PARALLAX_PARTITIONS):
+        num_partitions = get_partitioner()
+    elif num_partitions is not None:
+        pass  # an explicit argument wins over the 1-D search
+    elif tune_on:
+        parallax_log.info(
+            "mesh auto-tuner enabled (tune_config): searching "
+            "(dp x tp) x run_option, top_k=%d", config.tune_config.top_k)
+    elif config.search_partitions and min_p:
+        search = PartitionSearch(int(min_p), world)
+        num_partitions = search.first_candidate()
+        parallax_log.info("partition auto-search enabled, starting at "
+                          "p=%d", num_partitions)
     sess = ParallaxSession(model, config, num_workers=world,
                            worker_id=rank, num_replicas_per_worker=1,
                            seed=seed, device=device,
-                           num_partitions=num_partitions)
+                           num_partitions=num_partitions,
+                           partition_search=search)
     parallax_log.info("parallel_run ready: rank %d of %d on %s, "
                       "run_option=%s", rank, world, device,
                       config.run_option)

@@ -64,6 +64,39 @@ artifact; ``run_drift_sentinels``), ``metrics_path`` (a JSONL sink
 thread) and ``trace_path`` (the Chrome trace, written at close).
 ``aggregate_host_steps`` names a straggler across ranks.
 
+Planning (``parallax_tpu/session.py:522-685, 1837-1960``): every engine
+is built for a ``tune.costmodel.Plan`` (mesh shape and run options) on
+its own mesh (``build_mesh(shape=plan.mesh_shape())``, built once per
+shape on every rank in one order) and kept in the engine cache under the
+whole plan and the bucketed batch signature. ``Config(tune_config=
+TuneConfig(...))`` plans through ``tune.MeshSearch``: the base engine's
+counts price the plan space, the OOM preflight screens the shortlist
+(its captured step's pool bytes against the card's memory), and the
+``top_k`` plans each run ``trial_steps`` blocking steps; between them the
+state is resharded in place onto the next plan's layout (every leaf
+assembled whole over the old mesh, then cut for the new one), each
+trial's median time is averaged over the ranks before the decision, so
+every rank takes the same one, and the losing engines are pruned.
+``plan``, ``tune_summary()`` and the flight recorder's ``tune`` section
+hold the decision. Without a tuner, ``PARALLAX_MIN_PARTITIONS`` and
+``Config.search_partitions`` run the reference's 1-D partition search
+(``parallel.PartitionSearch``, the mean of steps ``[50, 100)`` a
+candidate).
+
+Profiling (``profiler.ProfileHook``, ``obs/xprof.py``):
+``profile_steps(n)`` arms a ``torch.profiler`` window of the next n
+steps (deferred past a step that captures a graph; on the card after
+one warm-up step; the steps run as the loop runs them, where the JAX
+session blocks each, and the hook synchronizes before it stops, so the
+trace holds every kernel they launched), and ``profile_summary()``
+parses it into
+the per-op / per-collective attribution, with each kernel joined to the
+source scope it ran under (``Engine.scope_index``); a window on the card
+whose trace holds no device kernel raises. ``write_calibration()``
+compares the settled search's predicted terms with that attribution and
+writes the calibration file a later search loads
+(``Config.calibration_path``).
+
 Compile-ahead (``parallax_tpu/session.py:1713-1797``): ``warmup()``
 captures the step's CUDA graph for every declared
 ``Config.shape_buckets`` bucket before step 0, and ``compile_stats()``
@@ -80,10 +113,9 @@ Ported: ``run``, ``run_async``, ``run_iter``, ``place_batch``,
 ``sparse_wire_bytes_per_step``, ``data_cursor``, ``set_rollback_hook``,
 ``on_preemption``, ``close``, ``metrics_snapshot``, ``steps_per_sec``,
 ``step_flops``, ``dump_flight``, ``aggregate_host_steps``,
-``ops_account``, ``run_drift_sentinels`` and the serving handoff
-(``serve``, ``push_weights``). The rest of the JAX session (the
-profiling hooks and the profile attribution, the partition search and
-the tuner) is not.
+``ops_account``, ``run_drift_sentinels``, ``plan``, ``tune_summary``,
+``profile_steps``, ``profile_summary``, ``write_calibration`` and the
+serving handoff (``serve``, ``push_weights``).
 """
 
 from __future__ import annotations
@@ -101,6 +133,7 @@ from parallax_tpu_torch.ckpt import snapshot as snap_lib
 from parallax_tpu_torch.ckpt.hook import CheckpointHook
 from parallax_tpu_torch.ckpt.recovery import (RecoveryPolicy,
                                               RecoverySurrender)
+from parallax_tpu_torch.common import consts
 from parallax_tpu_torch.common.config import ParallaxConfig
 from parallax_tpu_torch.common.lib import (configure_logging, parallax_log,
                                            resolve_device)
@@ -111,7 +144,7 @@ from parallax_tpu_torch.obs import _state as obs_state
 from parallax_tpu_torch.obs import aggregate as aggregate_lib
 from parallax_tpu_torch.obs import memwatch as memwatch_lib
 from parallax_tpu_torch.obs import numwatch as numwatch_lib
-from parallax_tpu_torch.obs import trace
+from parallax_tpu_torch.obs import trace, xprof
 from parallax_tpu_torch.obs.alerts import AlertEngine, builtin_rules
 from parallax_tpu_torch.obs.anomaly import AnomalyMonitor
 from parallax_tpu_torch.obs.flightrec import FlightRecorder
@@ -122,6 +155,13 @@ from parallax_tpu_torch.obs.journal import EventJournal
 from parallax_tpu_torch.obs.metrics import (JsonlSink, MetricsRegistry,
                                             PipelineStats)
 from parallax_tpu_torch.obs.timeline import StepTimeline
+from parallax_tpu_torch.ops import collectives
+from parallax_tpu_torch.parallel.partitions import PartitionSearch
+from parallax_tpu_torch.profiler import ProfileHook
+from parallax_tpu_torch.tune import calibrate as calibrate_lib, \
+    costmodel as tune_costmodel
+from parallax_tpu_torch.tune.costmodel import Plan
+from parallax_tpu_torch.tune.search import MeshSearch
 
 
 def _to_host(v):
@@ -249,6 +289,29 @@ def _feed_nbytes(batch) -> int:
         for v in batch.values())
 
 
+def _whole_leaf(leaf: snap_lib.Leaf, world) -> torch.Tensor:
+    """A state leaf as its whole global array (``_reshard_state``): a
+    replicated one as it is held, a split one summed over ``world`` from
+    zeros its extents' first holders wrote their parts into."""
+    value = leaf.value
+    if not isinstance(value, torch.Tensor):
+        return torch.from_numpy(np.array(value))
+    if leaf.perm is not None:
+        value = value.permute(leaf.perm)
+    full = [(tuple((0, int(d)) for d in leaf.shape),
+             (slice(None),) * len(leaf.shape))]
+    if [(e, tuple(i)) for e, i in leaf.pieces] == full \
+            and tuple(value.shape) == tuple(leaf.shape):
+        return value
+    whole = torch.zeros(leaf.shape, dtype=value.dtype, device=value.device)
+    if leaf.writes:
+        for extent, index in leaf.pieces:
+            whole[tuple(slice(a, b) for a, b in extent)] = value[index]
+    if world is not None and world.size > 1:
+        collectives.all_reduce_(whole, world)
+    return whole
+
+
 def materialize(value):
     """Resolve every ``Fetch`` inside a run() result to its host value."""
     if isinstance(value, Fetch):
@@ -288,13 +351,15 @@ class StepHandle:
 
 class ParallaxSession:
     """One rank's share of training a model. Built by ``parallel_run``;
-    the mesh is built with the session (every rank together), the
-    engine (plan, optimizer grouping, step) from the first batch."""
+    the base plan's mesh is built with the session (every rank
+    together), the engine (plan, optimizer grouping, step) from the first
+    batch."""
 
     def __init__(self, model: engine_lib.Model, config: ParallaxConfig,
                  num_workers: int = 1, worker_id: int = 0,
                  num_replicas_per_worker: int = 1, seed: int = 0,
-                 device="cuda", num_partitions: Optional[int] = None):
+                 device="cuda", num_partitions: Optional[int] = None,
+                 partition_search: Optional[PartitionSearch] = None):
         self._model = model
         self._config = config
         self.num_workers = num_workers
@@ -302,8 +367,36 @@ class ParallaxSession:
         self.num_replicas_per_worker = num_replicas_per_worker
         self._seed = int(seed)
         self._device = resolve_device(device)
-        self.mesh = mesh_lib.build_mesh(self._device,
-                                        num_partitions=num_partitions)
+        self._num_partitions = num_partitions
+        # meshes by shape, each built once on every rank in one order
+        # (their process groups are created collectively)
+        base = mesh_lib.build_mesh(self._device,
+                                   num_partitions=num_partitions)
+        self._base_mesh = base
+        self._meshes = {(base.repl, base.shard): base}
+        self._world = base.size
+        # -- planning (parallel/, tune/) ---------------------------------
+        # the whole configuration the live engine was built for; every
+        # engine-cache key derives from it
+        self._plan: Optional[Plan] = None
+        self._tune_result: Optional[Dict[str, Any]] = None
+        self._search = partition_search
+        tc = config.tune_config
+        if partition_search is None and tc is not None and tc.enabled:
+            # the cost model prices the (dp x tp) x run_option space off
+            # the base engine and only top_k plans pay measured trials;
+            # PartitionSearch stays the tune_config=None path
+            self._search = MeshSearch(self._world, tc,
+                                      self._default_plan())
+        self._step_times: List[float] = []
+        self._last_example_batch = None
+        # -- profiling (profiler.py, obs/xprof.py): each stopped window is
+        # a pending trace, parsed at the first profile_summary() read
+        self._profile = ProfileHook(config.profile_config, worker_id,
+                                    self._device)
+        self._profile.set_on_stop(self._on_profile_stop)
+        self._profile_pending: Optional[tuple] = None
+        self._profile_attrib: Optional[Dict[str, Any]] = None
         # -- observability (obs/): one registry for the whole runtime ----
         configure_logging(config.log_level, config.log_json)
         # grow-only: the collector is process-wide
@@ -379,11 +472,8 @@ class ParallaxSession:
                 "recovery": (self._recovery.stats
                              if self._recovery is not None
                              else lambda: None),
-                # the JAX session's tuner and profile sections: neither
-                # is ported, the keys stay so both packages' dumps
-                # carry the same sections
-                "tune": lambda: None,
-                "profile": lambda: None,
+                "tune": lambda: self._tune_result,
+                "profile": self._profile_for_dump,
             })
         # -- the memory watch (obs/memwatch): a live ring sampled after
         # each dispatch, per-card gauges, the oom_risk incident
@@ -406,6 +496,7 @@ class ParallaxSession:
             if obs_state.enabled else None)
         if self.alerts is not None:
             self.flight.add_provider("alerts", self.alerts.summary)
+        self._register_profile_gauges()
         self.health = (HealthMonitor(
             self.metrics, on_nonfinite=self._on_nonfinite,
             on_reading=self._on_health_reading)
@@ -461,6 +552,8 @@ class ParallaxSession:
                 if value.dtype == np.float64:
                     value = value.astype(np.float32)
             batch[name] = value
+        # a replan builds the next engine from the last feed
+        self._last_example_batch = batch
         return batch
 
     def _convert_feed(self, feed_dict: Dict[str, Any],
@@ -488,7 +581,7 @@ class ParallaxSession:
         with self._build_lock:
             if self._engine is not None:
                 return
-            self._build_engine(batch)
+            self._build_engine(batch, self._num_partitions)
             # restore inside the lock: a thread that lost the race must
             # not run on the state before the restore
             if self._ckpt.restore(self._state_leaves()) is not None:
@@ -540,23 +633,161 @@ class ParallaxSession:
                        "data_cursor": self._data_cursor,
                        "restore": dict(info)})
 
-    def _build_engine(self, example_batch) -> None:
-        """Get or build the engine of this plan and example signature
-        (``compile.cache.EngineCache``); the state is made once."""
-        example = self._bucketed_example(example_batch)
+    @property
+    def mesh(self) -> mesh_lib.Mesh:
+        """The live engine's mesh (the base plan's before the first
+        build)."""
+        return self._engine.mesh if self._engine is not None \
+            else self._base_mesh
+
+    def _mesh_for(self, shape) -> mesh_lib.Mesh:
+        """The mesh of ``shape``, built once: every rank reaches each
+        build in the same order (the base plan, then the search's
+        candidates in its order), as its process groups need."""
+        key = tuple(int(d) for d in shape)
+        mesh = self._meshes.get(key)
+        if mesh is None:
+            mesh = mesh_lib.build_mesh(self._device, shape=key)
+            self._meshes[key] = mesh
+        return mesh
+
+    def _default_plan(self, num_partitions: Optional[int] = None) -> Plan:
+        """The config's own configuration as a Plan: ``num_partitions``
+        (snapped to a divisor of the rank count, as ``build_mesh`` snaps
+        it) is the shard-axis width."""
+        n = self._world
+        tp = mesh_lib.snap_to_divisor(
+            num_partitions if num_partitions else n, n)
+        ps = self._config.communication_config.ps_config
+        return Plan(dp=n // tp, tp=tp, run_option=self._config.run_option,
+                    sync=self._config.sync,
+                    local_aggregation=ps.local_aggregation)
+
+    def _engine_config(self, plan: Plan) -> ParallaxConfig:
+        """The config a ``plan``'s engine builds with: the session config
+        with the plan's run options (the same object when they match)."""
+        import dataclasses as _dc
         cfg = self._config
-        key = (cfg.run_option, cfg.sync, cfg.sparse_grad_mode,
-               cfg.average_sparse, self.mesh.repl, self.mesh.shard,
-               bucketing.batch_signature(engine_lib._to_meta(example)))
+        ps = cfg.communication_config.ps_config
+        if (plan.run_option == cfg.run_option and plan.sync == cfg.sync
+                and plan.local_aggregation == ps.local_aggregation):
+            return cfg
+        comm = _dc.replace(
+            cfg.communication_config,
+            ps_config=_dc.replace(ps,
+                                  local_aggregation=plan.local_aggregation))
+        return _dc.replace(cfg, run_option=plan.run_option,
+                           sync=plan.sync, communication_config=comm)
+
+    def _build_engine(self, example_batch, plan_or_partitions=None) -> None:
+        """Build (or take from the cache) the engine of a plan, or of
+        the default plan at ``plan_or_partitions`` shard columns, and move
+        the state onto it. Under a mesh search the first build prices the
+        plan space off this engine and switches to the shortlist's first
+        candidate (the base engine stays cached)."""
+        example = self._bucketed_example(example_batch)
+        if isinstance(plan_or_partitions, Plan):
+            plan = plan_or_partitions.validate_for(self._world)
+        else:
+            plan = self._default_plan(plan_or_partitions)
+        old = self._engine
+        engine = self._engine_for_plan(plan, example)
+        self._engine = engine
+        self._plan = plan
+        if isinstance(self._search, MeshSearch) \
+                and not self._search.started:
+            # the whole plan space priced off this engine's meta-tensor
+            # counts; a calibration file replaces the nominal exchange
+            # rates, and the OOM preflight screens the shortlist before
+            # any candidate pays a trial
+            cal = calibrate_lib.ratios(calibrate_lib.load(
+                self._config.calibration_path))
+            self._search.set_preflight(
+                lambda p: self._preflight_peak(p, example))
+            first = self._search.begin(tune_costmodel.inputs_from_engine(
+                engine, self._config.tune_config, calibration=cal))
+            if first.cache_key() != plan.cache_key():
+                parallax_log.info(
+                    "mesh search: first trial %s (base plan %s kept "
+                    "cached)", first.describe(), plan.describe())
+                self._build_engine(example_batch, first)
+                return
+        if self._state is None:
+            # a preflight captured this engine on a fresh state, left
+            # bitwise as init_state made it: keep it and its graphs
+            self._state = engine._captured_state \
+                if engine._captured_state is not None \
+                else engine.init_state(self._seed)
+        elif engine is not old:
+            # the reference relaunches the cluster (partitions.py:74-138);
+            # here the live state moves onto the new plan's layout
+            self._state = self._reshard_state(
+                self._state, old, engine, into=engine._captured_state)
+            if self._recovery is not None:
+                # the last-good snapshot holds the old layout's tensors
+                self._recovery.maybe_snapshot(self._state.step,
+                                              self._state_leaves(),
+                                              force=True)
+
+    def _engine_for_plan(self, plan: Plan, example) -> engine_lib.Engine:
+        """Get or build the engine of one plan: the cache key is the
+        whole plan plus the bucketed example's signature, so a replan
+        back onto a measured candidate is a lookup (its captured graphs
+        kept). Shared by the build path and the OOM preflight."""
+        key = plan.cache_key() + (
+            bucketing.batch_signature(engine_lib._to_meta(example)),)
         engine = self._engine_cache.get(key)
         if engine is None:
             engine = engine_lib.Engine(
-                self._model, self.mesh, cfg, example_batch,
-                metrics=self.metrics)
+                self._model, self._mesh_for(plan.mesh_shape()),
+                self._engine_config(plan), example, metrics=self.metrics)
             self._engine_cache.put(key, engine)
-        self._engine = engine
-        if self._state is None:
-            self._state = engine.init_state(self._seed)
+        return engine
+
+    def _preflight_peak(self, plan: Plan, example) -> Optional[int]:
+        """The OOM preflight's probe: the captured step's pool bytes of
+        ``plan`` (``memwatch.compiled_step_memory``). Builds the
+        candidate's engine through the cache and captures its step on a
+        fresh state (the capture leaves it bitwise as ``init_state``
+        made it), which its trial then reuses. None where steps are not
+        captured (the CPU): the plan passes, refusal needs evidence."""
+        engine = self._engine_for_plan(plan, example)
+        if not engine._captures():
+            return None
+        state = engine._captured_state
+        if state is None:
+            state = engine.init_state(self._seed)
+        engine._compile(state, bucketing.batch_signature(
+            engine_lib._to_meta(engine.bucket(example))))
+        m = memwatch_lib.compiled_step_memory(engine)
+        return int(m["peak_bytes"]) if m else None
+
+    def _reshard_state(self, state, old, new, into=None):
+        """``state`` (laid out for engine ``old``) on engine ``new``'s
+        layout: every leaf of the state (parameters, optimizer slots,
+        slice and pending state, model state, the step and the seed, by
+        the checkpoint's names) assembled whole over the old mesh — a
+        split leaf by each extent's first holder writing its part into
+        zeros and a sum over the ranks — then each rank's part of it
+        copied into ``into`` (a state of ``new``'s layout, in place, so
+        graphs captured on it stay valid) or into a fresh one.
+        Collective: every rank calls it."""
+        target = into if into is not None else new.init_state(self._seed)
+        want = {leaf.name: leaf
+                for leaf in snap_lib.state_leaves(target, new)}
+        world = old.mesh.world
+        with torch.no_grad():
+            for leaf in snap_lib.state_leaves(state, old):
+                dst = want.pop(leaf.name, None)
+                if dst is None:
+                    raise ValueError(
+                        f"replan: state leaf {leaf.name!r} has no place "
+                        f"on plan {self._plan.describe()}")
+                dst.assign(_whole_leaf(leaf, world))
+        if want:
+            raise ValueError(f"replan: state leaves {sorted(want)} of plan "
+                             f"{self._plan.describe()} have no source")
+        return target
 
     def _bucketed_example(self, example_batch):
         """The example batch as the engine will see it: bucketed when
@@ -619,11 +850,20 @@ class ParallaxSession:
         convert_s = getattr(ph, "convert_s", 0.0)
         h2d_pre_s = getattr(ph, "h2d_s", 0.0)
         ph.data_wait_s = ph.convert_s = ph.h2d_s = 0.0
+        # a window never opens on a step that captures a graph: it is
+        # deferred to the next step (profiler.py)
+        self._profile.before_step(step, self._engine.step_captures(
+            self._state, batch))
         t0 = time.perf_counter()
         gap = (None if self._last_dispatch_end is None
                else t0 - self._last_dispatch_end)
         blocked_s = 0.0
-        lazy = force_lazy or not self._config.eager_fetch
+        # a search trial's time must cover the device's work: it blocks
+        # on its outputs (a profiled step need not: the profile hook
+        # synchronizes before it stops)
+        blocking = (self._search is not None
+                    or (self._config.eager_fetch and not force_lazy))
+        lazy = not blocking
         try:
             with trace.span("session.dispatch", step=step):
                 self._state, outputs = self._engine.step(self._state, batch)
@@ -659,6 +899,7 @@ class ParallaxSession:
         # the allocator's counters after the dispatch (never inside a
         # capture: the step has returned)
         self.memwatch.sample(step)
+        self._profile.after_step(step)
         self._data_cursor += 1
         # recovery reads this step's health scalars (blocking, the
         # documented recovery trade)
@@ -700,6 +941,8 @@ class ParallaxSession:
                     carve_from_productive=True)
         if self.alerts is not None:
             self.alerts.poll()
+        if self._search is not None:
+            self._record_search_time(dt)
         return self._convert_fetch(fetches, outputs, lazy=lazy, step=step)
 
     def prepare(self, feed_dict: Dict[str, Any]) -> int:
@@ -769,6 +1012,14 @@ class ParallaxSession:
                     "checkpoint restore — call prepare(example_feed) "
                     "first (or pass an explicit skip count)")
             skip = self._data_cursor
+        if placed and self._search is not None:
+            # a replan would move the state to engines the placed
+            # batches were not staged for
+            raise ValueError(
+                "run_iter(placed=True) cannot run while an auto-search "
+                "(partition or mesh) is live: a replan would invalidate "
+                "already-placed batches. Finish the search first (or "
+                "disable search_partitions / tune_config).")
         it = iter(batches)
         if int(skip):
             # synchronous: a bad cursor raises at the call site
@@ -800,6 +1051,14 @@ class ParallaxSession:
                         "(which builds it) or call prepare(example_feed) "
                         "first")
                 yield self._run_step(fetches, batch)
+        # sequential while a search may replan (staged batches belong to
+        # the engine that staged them)
+        while self._search is not None:
+            try:
+                feed = next(it)
+            except StopIteration:
+                return
+            yield self._run_step(fetches, self._convert_feed(feed))
         prefetcher = Prefetcher(it, self.place_batch,
                                 depth=int(self._config.prefetch_depth),
                                 name="parallax-feed-prefetch")
@@ -964,6 +1223,303 @@ class ParallaxSession:
                 "push_weights() needs a built engine: call "
                 "prepare(example_feed) (or run a step) first")
         return fleet.push_weights(self.gather_params())
+
+    # -- planning (parallel/, tune/) --------------------------------------
+
+    @property
+    def plan(self) -> Optional[Plan]:
+        """The whole configuration the live engine was built for (mesh
+        shape and run options), or None before the engine exists."""
+        return self._plan
+
+    def tune_summary(self) -> Optional[Dict[str, Any]]:
+        """The mesh auto-tuner's decision record once the search has
+        settled (candidates enumerated and pruned, each trial's
+        predicted and measured ms, the winner's ratio, the cost basis:
+        ``tune.MeshSearch.summary``), else None. Also the flight
+        recorder's ``tune`` section."""
+        return self._tune_result
+
+    def _record_search_time(self, dt: float) -> None:
+        """One step of the live trial: at the end of its window, its
+        time (the median of the trial window under ``MeshSearch``, the
+        mean of steps ``[50, 100)`` under ``PartitionSearch``, averaged
+        over the ranks so every rank decides alike) goes to the search,
+        and the session replans onto the next candidate or the
+        winner."""
+        self._step_times.append(dt)
+        mesh_search = isinstance(self._search, MeshSearch)
+        if mesh_search:
+            warm, test = (self._search.trial_warmup,
+                          self._search.trial_steps)
+        else:
+            warm = consts.NUM_ITERATIONS_FOR_WARMUP
+            test = consts.NUM_ITERATIONS_FOR_TEST
+        if len(self._step_times) < test:
+            return
+        if mesh_search:
+            # the median: a trial window is short, and one host stall in
+            # it would misrank near-tied plans
+            mean_t = float(np.median(self._step_times[warm:test]))
+        else:
+            mean_t = float(np.mean(self._step_times[warm:test]))
+        self._step_times = []
+        world = self.mesh.world
+        if world is not None and world.size > 1:
+            # every rank must take the same replan (the reference's
+            # get_average_execution_time, lib.py:211-256)
+            t = torch.tensor([mean_t], dtype=torch.float64,
+                             device=self._device)
+            collectives.all_reduce_(t, world)
+            mean_t = float(t[0]) / world.size
+        if mesh_search:
+            nxt = self._search.report(self._plan, mean_t)
+        else:
+            nxt = self._search.report(self._engine.mesh.shard, mean_t)
+        if nxt is not None:
+            parallax_log.info(
+                "auto-search: trying %s",
+                nxt.describe() if isinstance(nxt, Plan) else f"p={nxt}")
+            self._build_engine_from_live(nxt)
+            return
+        if mesh_search:
+            best = self._search.best_plan()
+            self._tune_result = self._search.summary()
+            parallax_log.info("mesh search done: winner %s (%s)",
+                              best.describe(),
+                              self._tune_result.get("winner"))
+            if self.journal is not None:
+                r = self._tune_result
+                self.journal.emit(
+                    "tune", "decision", winner=r.get("winner"),
+                    trials_measured=r.get("trials_measured"),
+                    pruned_oom=r.get("pruned_oom"),
+                    cost_basis=r.get("cost_basis"))
+                for refusal in (r.get("oom_refusals") or ()):
+                    self.journal.emit(
+                        "tune", "oom_refusal", severity="warning",
+                        **{k: refusal[k] for k in list(refusal)[:6]})
+            self.flight.trigger("tune_decision", self._tune_result)
+            settled = best.cache_key() == self._plan.cache_key()
+        else:
+            best = self._search.best_partitions()
+            parallax_log.info(
+                "partition search done: best num_partitions=%d", best)
+            settled = best == self._engine.mesh.shard
+        self._search = None
+        if not settled:
+            # the winner was built, captured and measured as a candidate:
+            # a cache hit
+            self._build_engine_from_live(best)
+        # the losing candidates' engines (and their graphs) are
+        # unreachable by any replan now
+        dropped = self._engine_cache.prune(keep=self._engine)
+        if dropped:
+            parallax_log.info("auto-search: dropped %d losing candidate "
+                              "engine(s) from the cache", dropped)
+
+    def _build_engine_from_live(self, plan_or_partitions) -> None:
+        p = plan_or_partitions
+        label = p.describe() if isinstance(p, Plan) else p
+        with trace.span("partition.replan", plan=label):
+            self._build_engine(self._last_example_batch, p)
+
+    # -- profiling (profiler.py, obs/xprof.py) ----------------------------
+
+    def profile_steps(self, n: int,
+                      outdir: Optional[str] = None) -> Optional[str]:
+        """Arm a ``torch.profiler`` window over the next ``n`` steps;
+        returns the capture directory (None on a rank the
+        ``ProfileConfig.profile_worker`` gating excludes). A step that
+        captures a graph defers the window by one step; on the card the
+        window's first step warms the tracing up and the n after it are
+        traced (profiler.py). The window's steps run as the loop runs
+        them (the JAX session blocks each); the hook synchronizes before
+        it stops, so the trace holds all they launched. Once the window
+        closes, ``profile_summary()`` parses it. ``outdir``
+        defaults under ``profile_dir`` when configured, else a fresh
+        temporary directory."""
+        import os as _os
+        import tempfile
+        # gated and validated before a directory is made: an excluded
+        # rank (or a second call mid-capture) must not leak one
+        if not self._profile.worker_enabled:
+            return None
+        if self._profile.capture_busy:
+            raise RuntimeError(
+                "a profile capture is already armed/in flight; wait "
+                "for it to finish before requesting another window")
+        if int(n) < 1:
+            raise ValueError(
+                f"profile window must cover >= 1 step, got {n}")
+        step = self._host_step()
+        if outdir is None:
+            base = self._config.profile_config.profile_dir
+            if base:
+                outdir = _os.path.join(base, f"window_step{step}")
+            else:
+                outdir = tempfile.mkdtemp(prefix="parallax-xprof-")
+        ok = self._profile.request_window(step, n, outdir)
+        return outdir if ok else None
+
+    def _on_profile_stop(self, trace_dir: str, steps: int) -> None:
+        """ProfileHook callback (dispatch thread): note the pending
+        capture; the parse happens at the first profile_summary()."""
+        self._profile_pending = (trace_dir, int(steps))
+        parallax_log.info(
+            "profile window complete: %d step(s) captured in %s "
+            "(profile_summary() parses it)", steps, trace_dir)
+
+    def profile_summary(self) -> Optional[Dict[str, Any]]:
+        """The latest window's measured attribution (``obs.xprof.
+        Attribution.as_dict()``: category shares, collectives, top ops
+        with their scope and dense-sparse split, the residual and the
+        coverage), parsing a pending trace first. Each kernel is joined
+        to its source scope through ``Engine.scope_index`` (an eager
+        window carries its scopes itself). None before any window
+        completed; a trace that cannot be read gives ``{"error": ...}``.
+        On the card a trace with no device kernel raises: an empty
+        attribution is no result."""
+        pending, self._profile_pending = self._profile_pending, None
+        if pending is None:
+            return self._profile_attrib
+        path, steps = pending
+        try:
+            doc, tpath = xprof.load_trace(path)
+        except (OSError, ValueError) as e:
+            parallax_log.warning("profile trace unreadable: %s", e)
+            self._profile_attrib = {
+                "error": f"{type(e).__name__}: {e}", "source": path}
+            return self._profile_attrib
+        if self._device.type == "cuda" and not xprof.kernel_counts(doc):
+            raise RuntimeError(
+                f"the profile trace {tpath} holds no device kernel: the "
+                f"profiler did not see the card (its {steps} step(s) "
+                f"are unattributed)")
+        idx = self._engine.scope_index() if self._engine is not None \
+            else None
+        if idx is None:
+            idx = xprof.build_scope_index(doc)
+        attrib = xprof.attribute(doc, steps=steps, scope_index=idx,
+                                 source=tpath)
+        self._profile_attrib = attrib.as_dict()
+        self._emit_profile_lanes(attrib)
+        parallax_log.info(
+            "profile attribution: %.1f%% of %.2fms device wall "
+            "attributed (residual %.2fms) over %d op event(s)",
+            100.0 * (attrib.coverage or 0.0), attrib.wall_ms,
+            attrib.residual_ms, attrib.events)
+        return self._profile_attrib
+
+    def _emit_profile_lanes(self, attrib) -> None:
+        """Chrome-lane summary of the parsed window: one span per
+        category (its self time) plus the residual lane."""
+        t0 = time.perf_counter()
+        for cat, row in attrib.by_category.items():
+            trace.record_span("profile." + cat, t0,
+                              t0 + row["self_ms"] / 1e3,
+                              share=row["share"], events=row["events"])
+        trace.record_span("profile.residual", t0,
+                          t0 + attrib.residual_ms / 1e3,
+                          coverage=attrib.coverage)
+
+    def _register_profile_gauges(self) -> None:
+        """Lazy ``profile.*`` gauges over the latest parsed attribution:
+        read at snapshot time, never a parse themselves."""
+        def top(key):
+            a = self._profile_attrib
+            return a.get(key) if isinstance(a, dict) else None
+
+        def share(cat):
+            a = self._profile_attrib
+            if not isinstance(a, dict):
+                return None
+            row = (a.get("by_category") or {}).get(cat)
+            return row.get("share") if row else None
+
+        g = self.metrics.gauge
+        g("profile.attribution_coverage").set_fn(lambda: top("coverage"))
+        g("profile.residual_ms").set_fn(lambda: top("residual_ms"))
+        g("profile.step_wall_ms").set_fn(lambda: top("step_wall_ms"))
+        g("profile.steps").set_fn(lambda: top("steps"))
+        for cat in xprof.CATEGORIES:
+            g(f"profile.share.{cat}").set_fn(lambda c=cat: share(c))
+
+    def _profile_for_dump(self) -> Optional[Dict[str, Any]]:
+        """Flight section: the parsed attribution, or a pointer to the
+        pending trace (a dump does not parse one mid-incident)."""
+        if self._profile_attrib is not None:
+            return self._profile_attrib
+        if self._profile_pending is not None:
+            return {"pending_trace": self._profile_pending[0],
+                    "steps": self._profile_pending[1],
+                    "note": "unparsed; profile_summary() parses it"}
+        return None
+
+    def write_calibration(self, path: Optional[str] = None) -> str:
+        """Compare the settled mesh search's per-term predictions for the
+        winner with the measured per-op aggregates of the latest profile
+        window, and write the per-term ``predicted_over_measured`` ratios
+        (tune/calibrate.py) to ``path`` (default
+        ``Config.calibration_path``), naming the device they were
+        measured on. The next search loads them in place of the nominal
+        constants. Needs both a settled search and a parsed window;
+        refuses otherwise."""
+        path = path or self._config.calibration_path
+        if not path:
+            raise ValueError(
+                "write_calibration needs a path: pass one or set "
+                "Config.calibration_path")
+        attrib = self.profile_summary()
+        if not attrib or attrib.get("error") \
+                or not attrib.get("by_category"):
+            raise ValueError(
+                "write_calibration needs a parsed profile window: "
+                "arm session.profile_steps(n), run those steps, then "
+                "retry (last attribution: %r)"
+                % (attrib.get("error") if attrib else None))
+        tune = self._tune_result
+        if not tune or not tune.get("winner"):
+            raise ValueError(
+                "write_calibration needs a settled mesh search "
+                "(Config.tune_config): the calibration compares the "
+                "winner's predicted terms against the measured ones")
+        entry = next((e for e in tune.get("scored", [])
+                      if e.get("plan") == tune["winner"]["plan"]), None)
+        if entry is None or not entry.get("terms_ms"):
+            raise ValueError(
+                "tune decision record carries no per-term breakdown "
+                "for the winner; cannot calibrate")
+        terms_s = {k: float(v) / 1e3 for k, v in entry["terms_ms"].items()}
+        predicted = calibrate_lib.predicted_terms_from_cost(terms_s)
+        # a search that loaded a calibration scored calibrated terms:
+        # the stored ratios come back out, so the new record compares the
+        # nominal prediction with the measured world (else generations
+        # would swing between nominal and calibrated)
+        applied = entry.get("calibration") or {}
+        for term in calibrate_lib.TERMS:
+            r = applied.get(term)
+            if r:
+                predicted[term] *= float(r)
+        measured = calibrate_lib.measured_terms_from_attribution(
+            attrib, self._world)
+        if measured is None:
+            raise ValueError(
+                "profile window carried no usable device ops; "
+                "cannot calibrate")
+        kind = torch.cuda.get_device_name(self._device) \
+            if self._device.type == "cuda" else "cpu"
+        record = calibrate_lib.build_record(
+            predicted, measured,
+            basis=f"{tune.get('cost_basis', 'nominal')} on {kind}",
+            meta={"plan": tune["winner"]["plan"],
+                  "platform": "gpu" if self._device.type == "cuda"
+                  else "cpu",
+                  "device": kind,
+                  "num_devices": self._world,
+                  "steps_profiled": attrib.get("steps"),
+                  "coverage": attrib.get("coverage")})
+        return calibrate_lib.save(path, record)
 
     # -- checkpoints and recovery (ckpt/) ---------------------------------
 
@@ -1434,6 +1990,7 @@ class ParallaxSession:
         is isolated: one failing does not skip the rest."""
         self._closed = True
         self._uninstall_preemption_handler()
+        self._profile.close()
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None

@@ -870,3 +870,46 @@ def obs_aggregate(rank, world, means):
     session_report = sess.aggregate_host_steps()
     sess.close()
     return {"timeline": report, "session": session_report}
+
+
+# -- the mesh auto-tuner (tune/) -------------------------------------------------
+
+
+def tune_lm1b(rank, world, cfg_kw, tune_kw, init, batches, candidates,
+              script):
+    """Tiny LM1B (HYBRID, slices) planned by the mesh search, its trials
+    timed by ``script[rank]`` (one time a search step) in place of the
+    clock: the plan each step ran on, the losses, the decision record,
+    the probe's cost inputs and the parameters after the steps."""
+    import dataclasses
+
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.models import lm1b as tlm1b
+
+    _fake_candidates(candidates)
+    cfg = tlm1b.tiny_config(compute_dtype=torch.float32, lstm_impl="kernel",
+                            **cfg_kw)
+    sess, *_ = pt.parallel_run(
+        tlm1b.build_model(cfg), parallax_config=pt.Config(
+            run_option="HYBRID", sparse_grad_mode="slices",
+            tune_config=pt.TuneConfig(**tune_kw)),
+        device="cpu", num_partitions=4)
+    times = iter(script[rank])
+    record = sess._record_search_time
+    sess._record_search_time = lambda dt: record(next(times))
+    _load(sess, init, _share(batches[0], rank, world))
+    inputs = dataclasses.asdict(sess._search._inputs)
+    plans, losses = [], []
+    for b in batches:
+        plans.append(sess.plan.describe())
+        losses.append(float(sess.run("loss", feed_dict=_share(b, rank,
+                                                               world))))
+    summary = dict(sess.tune_summary())
+    summary.pop("search_seconds")
+    out = {"plans": plans, "losses": losses, "summary": summary,
+           "inputs": inputs, "final_plan": sess.plan.describe(),
+           "mesh": (sess.mesh.repl, sess.mesh.shard),
+           "params": _flat_np(sess.gather_params()),
+           "engines": len(sess._engine_cache._engines)}
+    sess.close()
+    return out
