@@ -32,7 +32,10 @@ beside it. Phases:
    The paged kernel (split-KV, ``paged_decode_kernel_sm90`` and, where
    its ``split_plan`` splits the positions, ``paged_combine_kernel``)
    runs at the serving shape and ``FLAGSHIP_DECODE`` (G 1 and 3,
-   occupancy 100 and 25 %); each case prints its plan.
+   occupancy 100 and 25 %); each case prints its plan. After
+   ``moe-serve``, B7 again (``moe-serve-b7``) at that phase's own
+   positions: 64 of its requests, each slot's last position inside its
+   served tokens.
 3. Serve: NMT at its published widths (``NMTConfig()``: vocab 32000,
    model 512, 8 heads, MLP 2048, 6+6 layers, bf16, flash encoder
    attention) with random weights from a fixed seed, behind
@@ -259,10 +262,13 @@ verify.
     session's.
 16b. ``oneshot``: the serve phase's model behind ``ServeSession(infer_fn,
     params, example_feed={"src": ...}, ragged_feeds=("src",))`` with
-    ``ServeConfig(max_batch=32, length_buckets=[32, 64], max_wait_ms=2)``,
-    ``infer_fn`` the translator ``greedy_decode(params, cfg, src,
-    max_len=128)``: the warmup captures one graph a (batch, length)
-    signature (12); the 256 requests' sources, each decoded to 128
+    ``ServeConfig(max_batch=32, batch_buckets=(32,), length_buckets=[32,
+    64], max_wait_ms=2)``, ``infer_fn`` the translator
+    ``greedy_decode(params, cfg, src, max_len=128)``: the warmup captures
+    one graph a (batch, length) signature (2; every batch padded to 32
+    rows, so a request's output does not depend on its batch, which
+    ``serve-mesh`` holds bitwise); the 256 requests' sources, each decoded
+    to 128
     tokens: requests/s, latency p50/p95, batch occupancy,
     ``serve.recompiles`` (must be 0); B4 6 times a batch beyond the
     warmup's 6 a signature. Then 32 requests through the translator in
@@ -287,6 +293,14 @@ verify.
     colocated, no page in use after close; B4 on the prefill replica (6
     an exported prefill), B7 on the decode replica (6 a decode step),
     each plus the warmups'.
+16e. ``serve-mesh`` (after ``disagg``): the serve phase's NMT decode (64
+    slots, page 16) and the oneshot phase's translator, each through
+    ``ServeSession(..., model=nmt.build_model(cfg), mesh=...)`` over the
+    mesh of a one-rank NCCL process group (rank 0 leads; at one rank no
+    header is broadcast), the parameters placed by the engine's plan:
+    every request's tokens bitwise the serve phase's and every output
+    bitwise the oneshot phase's; B4 and B7 as those phases count them;
+    ``serve.recompiles`` 0; tokens/s and requests/s beside theirs.
 17. ``lc-serve-chunked`` (after ``lc-serve-agree``): ``lc-serve``'s program
     with ``prefill_chunk_layers=1`` on 64 prompts, tokens identical to
     the unchunked program's in this call; TTFT p50 and decode p50 of
@@ -346,6 +360,23 @@ verify.
     directory (under 2 x the state's bytes free the phase fails) is
     removed.
 
+18k. ``warmup-bg`` (after ``train-agree``): ``train``'s LM1B with
+    ``shape_buckets=(64, 128)``, 12 steps of batches of 128 and 64 rows
+    dispatched right after ``warmup(background=True)`` returns, against
+    a foreground-warmed session on the same batches: losses bitwise
+    equal, each bucket captured once in each session (two captures, both
+    graphs live), the thread's ``error`` None, B2/B3 once a step plus
+    once a capture, no recompile; prints the steps dispatched before the
+    thread finished.
+18l. ``drivers`` (after ``ckpt-resume``): ``parallax_tpu_torch.examples``
+    called in-process through ``main(argv)`` at the drivers' default
+    widths: ``lm1b_driver --lstm_impl pallas`` (10 steps; B2/B3 once a
+    step plus the capture's warm call), ``lm1b_eval`` on ``ckpt-resume``'s
+    checkpoint of LM1BConfig() (B1 once a batch, fp32), ``nmt_driver
+    --pallas_attention`` (6 steps, saving a checkpoint; B4-B6 18 a step
+    plus the warm call's) and ``nmt_eval --beam_width 4
+    --pallas_attention`` on it (B4 6 a batch): finite losses, perplexity
+    and BLEU.
 18f. ``skip-thoughts-train`` (after ``train-agree``):
     ``SkipThoughtsConfig()`` at its published widths (vocab 20000, E 620,
     GRU hidden 2400, bf16; Kiros et al. 2015, uni-skip) through
@@ -833,6 +864,12 @@ def _paged_tables(case, rng):
                                     LC_SERVE["max_src_len"]
                                     + LC_SERVE["max_len"] - 1))
             n = last // ps + 1
+        elif isinstance(occ, tuple):
+            # ("served", [(prompt length, tokens served)] a slot): the
+            # slot somewhere inside that request's decode
+            plen, served = occ[1][s]
+            last = plen - 1 + int(rng.integers(0, served))
+            n = last // ps + 1
         elif occ is None:
             cap = int(rng.integers(32, P * ps + 1))
             n = -(-cap // ps)
@@ -911,7 +948,8 @@ def run_paged_case(torch, case, dtype, flush):
             "dtype": str(dtype).split(".")[-1],
             "shape": {"S": S, "G": G, "D": D, "heads": H, "page_size": ps,
                       "P": P, "pool_pages": pool_pages,
-                      "occupancy": occ, "live_pages": visible_pages},
+                      "occupancy": occ[0] if isinstance(occ, tuple)
+                      else occ, "live_pages": visible_pages},
             "plan": plan._asdict(), "bytes": nbytes,
             "ok": ok and kernel_device_ms is not None,
             "max_abs_err": err, "tol": tol, "ms": kernel_ms,
@@ -3527,7 +3565,33 @@ def phase_lc_serve(torch, cfg, params, prompts, label="lc-serve",
                "paged_plan": plan._asdict(),
                "capture_s": stats["serve.compile_seconds"]["max"]}
     log(f"[{label}] {json.dumps(summary)}")
+    summary["served"] = [[len(p), len(o)] for p, o in zip(prompts, outs)]
     return summary
+
+
+def moe_serve_b7(torch, served):
+    """B7 at ``moe-serve``'s own positions (its S 64 G 1 D 512 page 16
+    P 48 decode step over a 3072-page pool): slot ``s`` holds request
+    ``s``, its last position drawn inside that request's served tokens.
+    Checked against the plain version and timed as the kernel phase's
+    cases are."""
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEVICE)
+    case = ("moe_serve", LC_SERVE["max_batch"], 1, 512, 8,
+            LC_SERVE["page_size"],
+            -(-(LC_SERVE["max_src_len"] + LC_SERVE["max_len"])
+              // LC_SERVE["page_size"]), LC_SERVE["pool_pages"],
+            ("served", served[:LC_SERVE["max_batch"]]))
+    r = run_paged_case(torch, case, torch.bfloat16, flush)
+    del flush
+    log(f"[moe-serve-b7] {'ok' if r['ok'] else 'FAILED'} err "
+        f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}) kernel {r['ms']:.4f} "
+        f"ms cold, {r['warm_ms']:.4f} ms warm (device {r['device_ms']} ms)"
+        f" plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    if not r["ok"]:
+        raise AssertionError("moe-serve-b7: B7 disagrees with its plain "
+                             "version at moe-serve's positions")
+    return r
 
 
 def phase_lc_serve_profile(torch, cfg, params, prompts,
@@ -4803,8 +4867,10 @@ def phase_lm1b_serve(torch):
 
 # oneshot: the translator behind the micro-batcher, 12 signatures (batch
 # buckets 1-32 x lengths 32 and 64), every request decoded to 128 tokens
-ONESHOT = dict(max_batch=32, length_buckets=(32, 64), max_wait_ms=2,
-               max_len=128, agree_requests=32)
+# one batch bucket (every batch padded to 32 rows): 2 captures, not 12,
+# and a request's output independent of the batch it lands in
+ONESHOT = dict(max_batch=32, batch_buckets=(32,), length_buckets=(32, 64),
+               max_wait_ms=2, max_len=128, agree_requests=32)
 # fleet: two decode replicas on the card, replica 0 crashed after its
 # 200th dispatch (scheduler loop pass) once traffic starts; then a third
 # replica scaled up, 3 NMT training steps pushed under traffic
@@ -4846,11 +4912,13 @@ def agree_tokens(torch, params, ref_cfg, requests, outs, label):
     return near
 
 
-def oneshot_session(torch, cfg, params, **sc_kw):
+def oneshot_session(torch, cfg, params, session_kw=None, **sc_kw):
     """``ServeSession(infer_fn, params, example_feed=...)`` with the
     translator as ``infer_fn``: ``greedy_decode`` of a micro-batch of
     sources padded to a length bucket. Its warmup captures every (batch,
-    length) signature."""
+    length) signature. ``session_kw``: more ``ServeSession`` arguments
+    (the mesh and the model of ``serve-mesh``)."""
+    sc_kw.setdefault("batch_buckets", ONESHOT["batch_buckets"])
     import parallax_tpu_torch as pt
     from parallax_tpu_torch.models import nmt
 
@@ -4859,7 +4927,7 @@ def oneshot_session(torch, cfg, params, **sc_kw):
                                             max_len=ONESHOT["max_len"])}
 
     return pt.ServeSession(
-        infer_fn, params, device=DEVICE,
+        infer_fn, params, device=DEVICE, **(session_kw or {}),
         example_feed={"src": np.full((max(ONESHOT["length_buckets"]),),
                                      nmt.PAD_ID, np.int32)},
         ragged_feeds=("src",), pad_value=nmt.PAD_ID,
@@ -4873,7 +4941,7 @@ def oneshot_session(torch, cfg, params, **sc_kw):
 def phase_oneshot(torch, cfg, params, requests):
     """The 256 requests (their sources; every one decoded to 128 tokens)
     through the one-shot translator: warmup seconds and graphs captured
-    (12), requests/s, latency p50/p95, batch occupancy,
+    (2), requests/s, latency p50/p95, batch occupancy,
     ``serve.recompiles`` (0). B4 launches 6 times a batch beyond the
     warmup's 6 a signature. Then 32 requests in fp32 (one batch bucket,
     32: two captures) against ``greedy_decode`` of each alone, under the
@@ -4894,6 +4962,7 @@ def phase_oneshot(torch, cfg, params, requests):
         wall = time.perf_counter() - t0
     finally:
         sess.close()
+    served = outs
     stats = sess.stats()
     launches = launch_counts()
     vocab = cfg.vocab_size
@@ -4902,8 +4971,7 @@ def phase_oneshot(torch, cfg, params, requests):
                 or out.max() >= vocab:
             raise AssertionError(f"oneshot: bad output {out.shape}, "
                                  f"range [{out.min()}, {out.max()}]")
-    sigs = len(ONESHOT["length_buckets"]) * len(
-        pt_buckets(ONESHOT["max_batch"]))
+    sigs = len(ONESHOT["length_buckets"]) * len(ONESHOT["batch_buckets"])
     want = {"flash_attention_fwd": (stats["serve.batches"] + sigs) * L,
             "paged_decode_attention": 0}
     lat = stats["serve.request_latency_ms"]
@@ -4938,8 +5006,7 @@ def phase_oneshot(torch, cfg, params, requests):
     # fp32 (TF32 off) against greedy_decode of each request alone
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     n = ONESHOT["agree_requests"]
-    sess = oneshot_session(torch, cfg32, params,
-                           batch_buckets=(ONESHOT["max_batch"],))
+    sess = oneshot_session(torch, cfg32, params)
     try:
         reqs = [sess.submit({"src": src}) for src, _ in requests[:n]]
         outs = [r.result(timeout=900)["tokens"] for r in reqs]
@@ -4952,12 +5019,7 @@ def phase_oneshot(torch, cfg, params, requests):
     summary["agreement"] = {"requests": n, "identical": n - len(near),
                             "near_ties": near}
     log(f"[oneshot-agree] {json.dumps(summary['agreement'])}")
-    return summary
-
-
-def pt_buckets(max_batch):
-    import parallax_tpu_torch as pt
-    return pt.ServeConfig(max_batch=max_batch).resolved_batch_buckets()
+    return summary, served
 
 
 def fleet_factory(torch, cfg, params, programs, **sc_kw):
@@ -5621,7 +5683,7 @@ def manifest_bytes(manifest):
         for e in manifest["leaves"].values())
 
 
-def phase_ckpt_resume(torch):
+def phase_ckpt_resume(torch, keep=None):
     """LM1B at its published widths fed by a native ``TokenDataset``:
     run A takes 10 steps with async saves every 5 steps, the step-5 save
     committed by the writer thread while steps 5-9 run and joined at
@@ -5632,7 +5694,11 @@ def phase_ckpt_resume(torch):
     save at 10. B's losses must equal A's bit for bit. Prints the
     checkpoint's bytes, the seconds the dispatch thread spent in each save,
     the commit's join at ``close()``, the restore, step ms p50 with and
-    without a commit in flight, and B2/B3's launches."""
+    without a commit in flight, and B2/B3's launches. ``keep``: a list
+    the temporary directory is appended to instead of being removed (run
+    B's checkpoint under ``ck`` is then the caller's: the drivers phase's
+    ``lm1b_eval`` reads it).
+    """
     import itertools
     import shutil
     import tempfile
@@ -5762,7 +5828,10 @@ def phase_ckpt_resume(torch):
         log(f"[ckpt-resume] {json.dumps({k: v for k, v in summary.items() if not k.startswith('losses')})}")
         return summary
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(root, ignore_errors=True)
+        else:
+            keep.append(root)
 
 
 def _ckpt_config(ck, **kw):
@@ -6597,6 +6666,320 @@ def phase_lc_pipe(torch, card, lc_train):
 
 # the kernel-phase cases at the shapes the main paths launch each kernel
 # at ("lc_serve" is moe-serve's decode step too)
+# -- serve-mesh, warmup-bg, drivers: the last entry points ------------------
+
+WARMUP_BG = dict(buckets=(64, 128), steps=12)
+DRIVERS = dict(lm1b_steps=10, lm1b_log=5, lm1b_eval_batches=4, nmt_steps=6,
+               nmt_log=3, nmt_eval_batches=2)
+
+
+def one_rank_nccl(torch):
+    """Rank 0 of a one-rank NCCL process group on chip 0 (its rendezvous
+    a file under a new directory, returned)."""
+    import tempfile
+    rdv = Path(tempfile.mkdtemp(prefix="parallax_rdv_"))
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{rdv / 'store'}", rank=0, world_size=1)
+    return rdv
+
+
+def phase_serve_mesh(torch, cfg, params, requests, served, serve_summary,
+                     oneshot_outs, oneshot):
+    """``ServeSession`` over the mesh of a one-rank NCCL process group,
+    the parameters placed by the engine's plan (``model=``): the serve
+    phase's NMT decode program on its 256 requests, then the oneshot
+    phase's translator on the same sources. Tokens and outputs bitwise
+    those phases'; B4 and B7 as they count them; ``serve.recompiles``
+    0."""
+    import shutil
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.core import mesh as mesh_lib
+    from parallax_tpu_torch.models import nmt
+    from parallax_tpu_torch.ops import paged_attention as pa
+    dist = torch.distributed
+    rdv = one_rank_nccl(torch)
+    try:
+        mesh = mesh_lib.build_mesh(DEVICE)
+        if not (dist.get_backend() == "nccl" and mesh.distributed
+                and mesh.size == 1):
+            raise AssertionError("serve-mesh: no one-rank NCCL mesh")
+        model = nmt.build_model(cfg)
+        L = cfg.num_layers
+        torch.cuda.synchronize()
+        zero_launches()
+        prog = pt.NMTDecodeProgram(
+            cfg, max_src_len=SERVE["max_src_len"], max_len=SERVE["max_len"],
+            page_size=SERVE["page_size"], pool_pages=SERVE["pool_pages"],
+            attn_impl="kernel", device=DEVICE)
+        sess = pt.ServeSession(
+            program=prog, params=params, model=model, mesh=mesh,
+            config=pt.Config(serve_config=pt.ServeConfig(
+                max_batch=SERVE["max_batch"], max_queue=SERVE["max_queue"])))
+        placement = sess._plan.placements["emb"]
+        t0 = time.perf_counter()
+        try:
+            reqs = [sess.submit({"src": src}, max_new_tokens=cap)
+                    for src, cap in requests]
+            outs = [r.result(timeout=900) for r in reqs]
+            wall = time.perf_counter() - t0
+        finally:
+            sess.close()
+        torch.cuda.synchronize()
+        stats = sess.stats()
+        launches = launch_counts()
+        check_outputs(requests, outs, cfg.vocab_size)
+        differ = [i for i, (a, b) in enumerate(zip(outs, served))
+                  if not np.array_equal(a, b)]
+        if differ:
+            raise AssertionError(f"serve-mesh: tokens of requests "
+                                 f"{differ[:8]} differ from the serve "
+                                 f"phase's")
+        want = {"flash_attention_fwd": (stats["serve.prefills"] + 2) * L,
+                "paged_decode_attention":
+                    (stats["serve.decode_steps"] + 1) * L}
+        want_combine = want["paged_decode_attention"] * int(
+            serve_summary["paged_plan"]["nsplit"] > 1)
+        if launches != want or pa.launches_combine != want_combine:
+            raise AssertionError(f"serve-mesh decode launches {launches}, "
+                                 f"combine {pa.launches_combine} != {want}, "
+                                 f"{want_combine}")
+        if stats["serve.recompiles"] != 0 \
+                or stats["serve.kv_pages_in_use"] != 0:
+            raise AssertionError(f"serve-mesh decode: recompiles "
+                                 f"{stats['serve.recompiles']}, pages in "
+                                 f"use {stats['serve.kv_pages_in_use']}")
+        tokens = int(sum(len(o) for o in outs))
+        decode = {"requests": len(requests), "tokens": tokens,
+                  "wall_s": wall, "tokens_per_sec": tokens / wall,
+                  "serve_tokens_per_sec": serve_summary["tokens_per_sec"],
+                  "step_ms_p50": stats["serve.step_ms"]["p50"],
+                  "emb_placement": placement, "launches": launches,
+                  "tokens_bitwise_serve": True}
+        log(f"[serve-mesh] decode {json.dumps(decode)}")
+        # the one-shot translator, its plan classified on a training batch
+        zero_launches()
+        feed = nmt.make_batch(np.random.default_rng(SEED),
+                              ONESHOT["max_batch"],
+                              max(ONESHOT["length_buckets"]),
+                              max(ONESHOT["length_buckets"]), cfg.vocab_size)
+        sess = oneshot_session(torch, cfg, params, session_kw=dict(
+            model=model, mesh=mesh, plan_feed=feed))
+        warm = launch_counts()
+        try:
+            t0 = time.perf_counter()
+            reqs = [sess.submit({"src": src}) for src, _ in requests]
+            outs = [r.result(timeout=900)["tokens"] for r in reqs]
+            wall = time.perf_counter() - t0
+        finally:
+            sess.close()
+        torch.cuda.synchronize()
+        stats = sess.stats()
+        launches = launch_counts()
+        differ = [i for i, (a, b) in enumerate(zip(outs, oneshot_outs))
+                  if not np.array_equal(a, b)]
+        if differ:
+            raise AssertionError(f"serve-mesh: one-shot outputs of "
+                                 f"requests {differ[:8]} differ from the "
+                                 f"oneshot phase's")
+        sigs = len(ONESHOT["length_buckets"]) * len(ONESHOT["batch_buckets"])
+        want = {"flash_attention_fwd": (stats["serve.batches"] + sigs) * L,
+                "paged_decode_attention": 0}
+        if launches != want or stats["serve.recompiles"] != 0 \
+                or stats["serve.graph_captures"] != sigs:
+            raise AssertionError(
+                f"serve-mesh one-shot: launches {launches} != {want}, "
+                f"recompiles {stats['serve.recompiles']}, graphs "
+                f"{stats['serve.graph_captures']} (want {sigs})")
+        one = {"requests": len(requests), "wall_s": wall,
+               "requests_per_sec": len(requests) / wall,
+               "oneshot_requests_per_sec": oneshot["requests_per_sec"],
+               "batches": stats["serve.batches"],
+               "warmup_launches": warm, "launches": launches,
+               "outputs_bitwise_oneshot": True}
+        log(f"[serve-mesh] oneshot {json.dumps(one)}")
+        total = {k: decode["launches"][k] + launches[k] for k in launches}
+        return {"world": mesh.size, "backend": dist.get_backend(),
+                "decode": decode, "oneshot": one, "launches": total}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def warmup_bg_batches(cfg):
+    """``WARMUP_BG["steps"]`` batches of the train phase's, every third
+    cut to 64 rows (the smaller bucket)."""
+    base = lm1b_batches(cfg)
+    out = []
+    for i in range(WARMUP_BG["steps"]):
+        b = base[i % 4]
+        out.append({k: v[:64] for k, v in b.items()} if i % 3 == 1 else b)
+    return out
+
+
+def phase_warmup_bg(torch):
+    """``train``'s LM1B with ``shape_buckets=(64, 128)``: a session warmed
+    in the foreground, then one whose steps are dispatched right after
+    ``warmup(background=True)`` returns, on the same batches. Losses
+    bitwise equal; each bucket captured once a session; the thread
+    raised nothing; B2/B3 once a step plus once a capture."""
+    from parallax_tpu_torch.ops import lstm
+    runs = {}
+    for background in (False, True):
+        cfg, sess = lm1b_session(torch, config_kw={
+            "shape_buckets": list(WARMUP_BG["buckets"])})
+        batches = warmup_bg_batches(cfg)
+        sess.prepare(batches[0])
+        torch.cuda.synchronize()
+        zero_lstm_counts()
+        t0 = time.perf_counter()
+        thread = sess.warmup(background=background)
+        losses, overlapped = [], 0
+        for b in batches:
+            losses.append(sess.run("loss", feed_dict=b))
+            if background and thread.is_alive():
+                overlapped += 1
+        if background:
+            thread.join()
+            if thread.error is not None:
+                raise AssertionError(f"warmup-bg: the background warmup "
+                                     f"raised {thread.error!r}")
+        losses = [float(x) for x in losses]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng = sess.engine
+        captures = sess.metrics_snapshot()["engine.capture_seconds"]["count"]
+        graphs = [g for g in eng._executables.values() if g is not None]
+        launches = lstm_counts()
+        n = WARMUP_BG["steps"]
+        want = {"lstm_fwd": 0, "lstm_fwd_res": n + 2, "lstm_bwd": n + 2}
+        run = {"losses": losses, "captures": captures,
+               "graphs": len(graphs), "warmup_seconds":
+                   {str(k): v for k, v in eng.warmup_seconds.items()},
+               "recompiles": sess.metrics.counter(
+                   "engine.recompiles").value,
+               "steps_before_warmup_done": overlapped, "wall_s": wall,
+               "launches": launches}
+        log(f"[warmup-bg] {'background' if background else 'foreground'} "
+            f"{json.dumps({k: v for k, v in run.items() if k != 'losses'})}")
+        if captures != 2 or len(graphs) != 2 or run["recompiles"] != 0:
+            raise AssertionError(f"warmup-bg: {captures} captures, "
+                                 f"{len(graphs)} graphs, {run['recompiles']} "
+                                 f"recompiles (want 2, 2, 0)")
+        if launches != want:
+            raise AssertionError(f"warmup-bg LSTM launches {launches} != "
+                                 f"{want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"warmup-bg: non-finite loss {losses}")
+        runs["background" if background else "foreground"] = run
+        sess.close()
+        del sess
+        torch.cuda.empty_cache()
+    fg, bg = runs["foreground"]["losses"], runs["background"]["losses"]
+    if fg != bg:
+        bad = [i for i, (a, b) in enumerate(zip(fg, bg)) if a != b]
+        raise AssertionError(f"warmup-bg: losses differ from the "
+                             f"foreground-warmed session's at steps "
+                             f"{bad[:5]}")
+    runs["losses_bitwise_equal"] = True
+    runs["launches"] = {k: runs["foreground"]["launches"][k]
+                        + runs["background"]["launches"][k]
+                        for k in runs["foreground"]["launches"]}
+    return runs
+
+
+def phase_drivers(torch, lm1b_ckpt):
+    """The port's drivers in-process through ``main(argv)`` at their
+    default widths: ``lm1b_driver`` (B2/B3) and ``lm1b_eval`` on
+    ``lm1b_ckpt`` (ckpt-resume's checkpoint of LM1BConfig(); B1), then
+    ``nmt_driver`` (B4-B6, saving a checkpoint) and ``nmt_eval`` with
+    beam 4 on it (B4)."""
+    import shutil
+    import tempfile
+    from parallax_tpu_torch.examples import (lm1b_driver, lm1b_eval,
+                                             nmt_driver, nmt_eval)
+    from parallax_tpu_torch.models import nmt
+    out = {}
+    n = DRIVERS["lm1b_steps"]
+    zero_lstm_counts()
+    t0 = time.perf_counter()
+    losses = lm1b_driver.main(
+        ["--max_steps", str(n), "--log_frequency", str(DRIVERS["lm1b_log"]),
+         "--lstm_impl", "pallas", "--partitions",
+         str(TRAIN["num_partitions"])])
+    torch.cuda.synchronize()
+    out["lm1b_driver"] = {"losses": losses, "launches": lstm_counts(),
+                          "wall_s": time.perf_counter() - t0}
+    want = {"lstm_fwd": 0, "lstm_fwd_res": n + 1, "lstm_bwd": n + 1}
+    if out["lm1b_driver"]["launches"] != want \
+            or len(losses) != n // DRIVERS["lm1b_log"] \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"drivers: lm1b_driver {out['lm1b_driver']} "
+                             f"(launches want {want})")
+    zero_lstm_counts()
+    t0 = time.perf_counter()
+    ppl = lm1b_eval.main(
+        ["--ckpt_dir", str(lm1b_ckpt), "--partitions",
+         str(TRAIN["num_partitions"]), "--eval_batches",
+         str(DRIVERS["lm1b_eval_batches"])])
+    torch.cuda.synchronize()
+    out["lm1b_eval"] = {"perplexity": ppl, "launches": lstm_counts(),
+                        "wall_s": time.perf_counter() - t0}
+    want = {"lstm_fwd": DRIVERS["lm1b_eval_batches"], "lstm_fwd_res": 0,
+            "lstm_bwd": 0}
+    if out["lm1b_eval"]["launches"] != want or not math.isfinite(ppl):
+        raise AssertionError(f"drivers: lm1b_eval {out['lm1b_eval']} "
+                             f"(launches want {want})")
+    root = Path(tempfile.mkdtemp(prefix="parallax-drivers-"))
+    try:
+        n = DRIVERS["nmt_steps"]
+        L = nmt.NMTConfig().num_layers
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        losses = nmt_driver.main(
+            ["--pallas_attention", "--max_steps", str(n), "--log_frequency",
+             str(DRIVERS["nmt_log"]), "--ckpt_dir", str(root),
+             "--save_ckpt_steps", str(n)])
+        torch.cuda.synchronize()
+        out["nmt_driver"] = {"losses": losses, "launches": flash_counts(),
+                             "wall_s": time.perf_counter() - t0}
+        per = 3 * L * (n + 1)      # enc self, dec self, cross; + warm call
+        want = dict.fromkeys(("flash_attention_fwd", "flash_attention_dq",
+                              "flash_attention_dkv"), per)
+        if out["nmt_driver"]["launches"] != want \
+                or len(losses) != n // DRIVERS["nmt_log"] \
+                or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"drivers: nmt_driver {out['nmt_driver']}"
+                                 f" (launches want {want})")
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        bleu = nmt_eval.main(
+            # the driver's positional table: max(src_len, tgt_len) = 64
+            ["--ckpt_dir", str(root), "--max_len", "64",
+             "--beam_width", "4", "--eval_batches",
+             str(DRIVERS["nmt_eval_batches"]), "--pallas_attention"])
+        torch.cuda.synchronize()
+        out["nmt_eval"] = {"bleu": bleu, "launches": flash_counts(),
+                           "wall_s": time.perf_counter() - t0}
+        want = {"flash_attention_fwd": L * DRIVERS["nmt_eval_batches"],
+                "flash_attention_dq": 0, "flash_attention_dkv": 0}
+        if out["nmt_eval"]["launches"] != want or not math.isfinite(bleu):
+            raise AssertionError(f"drivers: nmt_eval {out['nmt_eval']} "
+                                 f"(launches want {want})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[drivers] {json.dumps(out)}")
+    out["launches"] = {
+        "lstm_fwd": out["lm1b_eval"]["launches"]["lstm_fwd"],
+        "lstm_fwd_res": out["lm1b_driver"]["launches"]["lstm_fwd_res"],
+        "lstm_bwd": out["lm1b_driver"]["launches"]["lstm_bwd"],
+        **{k: out["nmt_driver"]["launches"][k]
+           + out["nmt_eval"]["launches"][k]
+           for k in out["nmt_driver"]["launches"]}}
+    return out
+
+
 MAIN_PATH_CASES = {
     "flash_attention_fwd": ["serve", "train_enc", "train_dec", "bert",
                             "lc_train", "moe_train", "nmt_beam", "oneshot",
@@ -6605,7 +6988,8 @@ MAIN_PATH_CASES = {
                            "moe_train", "lc_pipe"],
     "flash_attention_dkv": ["train_enc", "train_dec", "bert", "lc_train",
                             "moe_train", "lc_pipe"],
-    "paged_decode_attention": ["serve", "serve_g3", "lc_serve"],
+    "paged_decode_attention": ["serve", "serve_g3", "moe_serve",
+                               "lc_serve"],
     "lstm_fwd": ["train"], "lstm_fwd_res": ["train"], "lstm_bwd": ["train"],
 }
 
@@ -6626,15 +7010,17 @@ def kernel_line(results, launches):
     library call: ``case`` names it, and ``main_path`` gives every
     main-path case's numbers. B4's launches are the NMT serving paths'
     (plain, speculative with chunked prefill, with the prefix cache,
-    one-shot, the fleet, disaggregated), the
+    one-shot, the fleet, disaggregated, over the mesh), the
     NMT, BERT, long-context and MoE training paths', NMT beam search's and
-    the NaN rollback's and NMT batching's, B5's and B6's the training
-    paths' (those six), B2's and B3's LM1B training's (``train``,
-    ``dist-train``, ``obs-train``, ``tune-train``, ``profile-train``,
-    ``tune-calibrated``, ``ckpt-resume``, ``data-feed``), B7's the serving
-    paths' (NMT plain, speculative, prefix, fleet and disaggregated, causal
-    LM unchunked and chunked, MoE LM). An LSTM entry names the source of
-    the route its case ran on."""
+    the NaN rollback's and NMT batching's, the NMT drivers' (training and
+    beam eval), B5's and B6's the training paths' (those six, the NMT
+    driver), B2's and B3's LM1B training's (``train``, ``dist-train``,
+    ``obs-train``, ``tune-train``, ``profile-train``, ``tune-calibrated``,
+    ``ckpt-resume``, ``data-feed``, ``warmup-bg``, the LM1B driver), B1's
+    the train phase's held-out loss and ``lm1b_eval``'s, B7's the serving
+    paths' (NMT plain, speculative, prefix, fleet, disaggregated and over
+    the mesh, causal LM unchunked and chunked, MoE LM). An LSTM entry
+    names the source of the route its case ran on."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
@@ -6823,7 +7209,6 @@ def main() -> int:
                             requests[:64])
     serve_pair = phase("serve-graph-pair", phase_serve_pair, torch, cfg,
                        params, requests, served, serve_summary)
-    del served
     agree = phase("agreement", phase_agreement, torch, params, cfg,
                   requests[:32])
     serve_spec = phase("serve-spec", phase_serve_spec, torch, cfg, params,
@@ -6833,11 +7218,15 @@ def main() -> int:
                              requests[:SPEC["agree_requests"]])
     serve_prefix = phase("serve-prefix", phase_serve_prefix, torch, cfg,
                          params)
-    oneshot = phase("oneshot", phase_oneshot, torch, cfg, params, requests)
+    oneshot, oneshot_outs = phase("oneshot", phase_oneshot, torch, cfg,
+                                  params, requests)
     fleet = phase("fleet", phase_fleet, torch, cfg, params, requests,
                   serve_summary)
     disagg = phase("disagg", phase_disagg, torch, cfg, params, requests)
-    del params
+    serve_mesh = phase("serve-mesh", phase_serve_mesh, torch, cfg, params,
+                       requests, served, serve_summary, oneshot_outs,
+                       oneshot)
+    del params, served, oneshot_outs
     lstm_results = phase("lstm-kernels", phase_lstm_kernels, torch)
     failed = [f"{r['kernel']}/{r['case']}/{r['dtype']}" for r in lstm_results
               if not r["ok"]]
@@ -6862,6 +7251,7 @@ def main() -> int:
     layouts_train = phase("layouts-train", phase_layouts_train, torch,
                           train["losses"])
     train_agree = phase("train-agree", phase_train_agreement, torch)
+    warmup_bg = phase("warmup-bg", phase_warmup_bg, torch)
     obs_train = phase("obs-train", phase_obs_train, torch)
     obs_overhead = phase("obs-overhead", phase_obs_overhead, torch)
     tune_train, tuned_sess, tuned_batches, nominal_terms = phase(
@@ -6911,6 +7301,7 @@ def main() -> int:
     moe_serve = phase("moe-serve", phase_lc_serve, torch, moe_cfg,
                       moe_params, prompts, "moe-serve",
                       pt.MoeLMDecodeProgram)
+    moe_b7 = phase("moe-serve-b7", moe_serve_b7, torch, moe_serve["served"])
     moe_serve_profile = phase(
         "moe-serve-profile", phase_lc_serve_profile, torch, moe_cfg,
         moe_params, prompts[:LC_SERVE["profile_requests"]],
@@ -6924,7 +7315,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     nmt_beam = phase("nmt-beam", phase_nmt_beam, torch)
     lm1b_serve = phase("lm1b-serve", phase_lm1b_serve, torch)
-    ckpt_resume = phase("ckpt-resume", phase_ckpt_resume, torch)
+    kept = []
+    try:
+        ckpt_resume = phase("ckpt-resume", phase_ckpt_resume, torch, kept)
+        drivers = phase("drivers", phase_drivers, torch, kept[0] / "ck")
+    finally:
+        import shutil
+        for d in kept:
+            shutil.rmtree(d, ignore_errors=True)
     nan_rollback = phase("nan-rollback", phase_nan_rollback, torch)
     data_feed = phase("data-feed", phase_data_feed, torch)
     nmt_data = phase("nmt-data", phase_nmt_data, torch)
@@ -6961,11 +7359,15 @@ def main() -> int:
             profile_train["launches"].items()) + list(
             tune_calibrated["launches"].items()) + list(
             layouts_train["launches"].items()) + list(
-            elastic_train["launches"].items()):
+            elastic_train["launches"].items()) + list(
+            serve_mesh["launches"].items()) + list(
+            warmup_bg["launches"].items()) + list(
+            drivers["launches"].items()):
         launches[name] = launches.get(name, 0) + n
-    line = kernel_line(results + lstm_results, launches)
+    cases = results + lstm_results + [moe_b7]
+    line = kernel_line(cases, launches)
     record = {"card": card, "kernels": line["kernels"],
-              "cases": results + lstm_results, "paged_splits": paged_splits,
+              "cases": cases, "paged_splits": paged_splits,
               "lstm_repeat": lstm_repeat,
               "lstm_sweep": lstm_sweep, "lstm_bwd_sweep": lstm_bwd_sweep,
               "lstm_bwd_groups": lstm_groups,
@@ -6996,7 +7398,8 @@ def main() -> int:
               "profile_train": profile_train,
               "tune_calibrated": tune_calibrated,
               "layouts_train": layouts_train,
-              "elastic_train": elastic_train,
+              "elastic_train": elastic_train, "serve_mesh": serve_mesh,
+              "warmup_bg": warmup_bg, "drivers": drivers,
               "graph_agree": graph_agree,
               "graph_pair": graph_pairs, "phase_seconds": seconds,
               "wall_s": time.perf_counter() - t_start}

@@ -80,10 +80,17 @@ under ``PARALLAX_MAX_RESTARTS``, resuming from the newest checkpoint;
 engine places). Pipeline parallelism (``ops/pipeline.py``: GPipe, 1F1B,
 interleaved) runs the long-context LM's stages over the mesh's pipeline
 axis (``core.mesh.build_mesh(shape=(dp, tp, pp))``, or 'shard').
+``ServeSession(..., model=, mesh=)`` serves over the same mesh, each
+rank its rows of the plan's row-sharded tables (rank 0 leads, the others
+replay its dispatches: ``serve/mesh.py``), and
+``ParallaxSession.serve`` hands the live parameters over as they lie.
+``parallax_tpu_torch.examples`` holds the JAX package's nine drivers
+(``python -m parallax_tpu_torch.examples.lm1b_driver ...``).
 
 On the card every train step and every serving decode step is a replay
 of a CUDA graph captured ahead of step 0 (``compile/``: bucketing,
-warmup, caches; ``ParallaxSession.warmup``, ``compile.disable_capture``).
+warmup, caches; ``ParallaxSession.warmup``, in the background too,
+``compile.disable_capture``).
 The kernels are built from ``csrc/`` at first use. The JAX package
 ``parallax_tpu`` is the reference; this package imports neither it nor
 JAX.

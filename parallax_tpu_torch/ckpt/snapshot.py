@@ -18,7 +18,7 @@ shard of ``g`` fused blocks is ``g`` pieces (its columns of each
 block); a gathered variable's part (any split of its spec) is one piece,
 its block on every split dim; a replicated leaf is one piece covering
 everything. Only the
-first replica of an extent writes it (``Engine.writes_split``: index 0
+first replica of an extent writes it (``ShardingPlan.writes_split``: index 0
 on every axis but the split one; rank 0 for a replicated leaf).
 
 Two leaves have no tensor in the port's state. ``step`` is the host
@@ -212,8 +212,8 @@ def _split_leaf(name: str, value: torch.Tensor, param: str, engine,
             extent[d] = (c * n, (c + 1) * n)
         return Leaf(name, value, tuple(gshape), dtype_name(value.dtype),
                     [(tuple(extent), (whole,) * len(shape))],
-                    writes=engine.writes_split(param))
-    p, s = engine.split_size(param), engine.split_group(param)[1]
+                    writes=engine.plan.writes_split(param))
+    p, s = engine.plan.split_size(param), engine.plan.split_group(param)[1]
     if placement == engine_lib.TP_COLUMN:
         g = plan.tp_groups[param]
         n = shape[-1] // g
@@ -231,7 +231,7 @@ def _split_leaf(name: str, value: torch.Tensor, param: str, engine,
         extent[lead] = (s * n, (s + 1) * n)
         pieces = [(tuple(extent), (whole,) * len(shape))]
     return Leaf(name, value, gshape, dtype_name(value.dtype), pieces,
-                writes=engine.writes_split(param))
+                writes=engine.plan.writes_split(param))
 
 
 def state_leaves(state, engine=None, optimizer=None) -> List[Leaf]:

@@ -16,12 +16,24 @@ re-sized (``compile.bucketing.bucket_shape``), zero-filled until a real
 batch is copied in. The eager call before each capture runs a real step,
 whose effect on the state the engine undoes bitwise. On the CPU nothing
 is captured: the signatures are registered and the steps run eagerly.
+
+Each signature's check and capture hold the engine's ``step_lock``, so
+``aot_warmup`` may run on a thread of its own while the loop steps
+(``ParallaxSession.warmup(background=True)``): a capture never overlaps
+a step (the capture's snapshot and restore of the state would roll the
+step back), it runs ordered after the last step's work on the step's
+stream, and a signature a step captured meanwhile is skipped, so none is
+captured twice. ``state`` may be a callable giving the live state, read
+under the lock, so a capture never targets a state the loop replaced.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional, Sequence
+
+import torch
 
 from parallax_tpu_torch.common.lib import parallax_log
 from parallax_tpu_torch.compile import bucketing
@@ -47,14 +59,19 @@ def aot_warmup(engine, state, batch_sizes: Optional[Sequence[int]] = None
     for b in sizes:
         b = int(b)
         sig = bucketing.batch_signature(engine._bucket_shapes(b))
-        if engine._executables.get(sig) is not None or (
-                sig in engine._executables and not engine._captures()):
-            continue
-        t0 = time.perf_counter()
-        with trace.span("engine.warmup_compile", batch=b):
-            engine._compile(state, sig)
-        dt = time.perf_counter() - t0
-        engine._traced_signatures.add(sig)
+        with engine.step_lock:
+            if engine._executables.get(sig) is not None or (
+                    sig in engine._executables and not engine._captures()):
+                continue
+            live = state() if callable(state) else state
+            stream = engine.step_stream
+            t0 = time.perf_counter()
+            with trace.span("engine.warmup_compile", batch=b), (
+                    torch.cuda.stream(stream) if stream is not None
+                    else contextlib.nullcontext()):
+                engine._compile(live, sig)
+            dt = time.perf_counter() - t0
+            engine._traced_signatures.add(sig)
         engine.metrics.histogram("engine.compile_seconds").record(dt)
         stats[b] = dt
         parallax_log.info("warmup: captured step for batch bucket %d "

@@ -416,6 +416,120 @@ class ShardingPlan:
         parallel shards)."""
         return [p for p, pl in self.placements.items() if pl != REPLICATED]
 
+    def split_group(self, path: str):
+        """(group, this rank's index in it) of the axis variable ``path``
+        is split over: the pipeline group for a stage-sharded one, the
+        shard group for the other splits."""
+        if self.placements[path] == STAGE:
+            return (mesh_lib.pipeline_group(self.mesh),
+                    mesh_lib.pipeline_index(self.mesh))
+        if self.placements[path] == GATHERED:
+            axes = self.split_axes(path)
+            return (collectives.axis_group(self.mesh, axes),
+                    collectives.axes_index(self.mesh, axes))
+        return self.mesh.shard_group, self.mesh.coords[1]
+
+    def split_size(self, path: str) -> int:
+        """How many parts variable ``path`` is split into."""
+        if self.placements[path] == STAGE:
+            return mesh_lib.pipeline_stage_count(self.mesh)
+        if self.placements[path] == GATHERED:
+            return collectives.axes_size(self.mesh, self.split_axes(path))
+        return self.mesh.shard
+
+    def split_axes(self, path: str) -> tuple:
+        """The mesh axes a gathered variable's parts differ along (every
+        axis its spec names, in the mesh's order)."""
+        named = {a for _, axes in self.gather_splits[path]
+                 for a in axes}
+        return tuple(a for a in mesh_lib.BATCH_AXES if a in named)
+
+    def writes_split(self, path: str) -> bool:
+        """Whether this rank writes its part of split variable ``path`` to
+        a checkpoint: the first of the ranks that hold the same part
+        (index 0 on every axis but the split one)."""
+        mesh = self.mesh
+        r, s = mesh.coords
+        if self.placements[path] == STAGE:
+            return r == 0 and (s == 0 or mesh.pipe == 1)
+        if self.placements[path] == GATHERED:
+            axes = self.split_axes(path)
+            return (r == 0 or mesh_lib.AXIS_REPL in axes) and \
+                (s == 0 or mesh_lib.AXIS_SHARD in axes)
+        return r == 0 and mesh.pipe_index == 0
+
+    def local_part(self, path: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of variable ``path`` from the whole one, as its
+        own tensor: its rows of a row-sharded or row-parallel leaf, its
+        experts of an expert-parallel one, its stage rows of a
+        stage-sharded one, its columns of a column-parallel one (of each
+        of its ``groups`` blocks, in block order), the whole of a
+        replicated one."""
+        placement = self.placements[path]
+        if placement == REPLICATED:
+            return whole
+        if placement == GATHERED:
+            for dim, axes in self.gather_splits[path]:
+                whole = collectives.chunk_axes(whole, self.mesh, axes, dim)
+            return whole.detach().clone()
+        p, s = self.split_size(path), self.split_group(path)[1]
+        if placement == TP_COLUMN:
+            g = self.tp_groups[path]
+            blocks = whole.reshape(whole.shape[:-1] + (g, -1))
+            n = blocks.shape[-1] // p
+            part = blocks[..., s * n:(s + 1) * n]
+            return part.reshape(whole.shape[:-1] + (g * n,)).detach() \
+                .clone()
+        n = whole.shape[0] // p
+        return whole[s * n:(s + 1) * n].detach().clone()
+
+    def local_tree(self, params, placements=None):
+        """``params`` (whole leaves) as this rank holds them (only the
+        leaves of ``placements``, when given)."""
+        split = [p for p in self.split if placements is None
+                 or self.placements[p] in placements]
+        if not split:
+            return params
+        flat = dict(classify.flatten(params))
+        return _with_leaves(params, {p: self.local_part(p, flat[p])
+                                     for p in split})
+
+    def whole(self, path: str, part: torch.Tensor) -> torch.Tensor:
+        """Variable ``path`` gathered whole from the parts over its split
+        axis (``local_part``'s inverse; a collective)."""
+        if self.placements[path] == GATHERED:
+            for dim, axes in self.gather_splits[path]:
+                part = collectives.gather_axes(part, self.mesh, axes, dim)
+            return part
+        group = self.split_group(path)[0]
+        if self.placements[path] != TP_COLUMN:
+            return collectives.all_gather(part, group)
+        g, p = self.tp_groups[path], self.mesh.shard
+        cols = collectives.all_gather(part.movedim(-1, 0), group)
+        # [p * g * n, ...] in (rank, block, column) order -> (block, rank,
+        # column)
+        cols = cols.reshape((p, g, -1) + tuple(cols.shape[1:]))
+        return cols.transpose(0, 1).reshape((-1,) + tuple(cols.shape[3:])) \
+            .movedim(0, -1).contiguous()
+
+    def loss_view(self, params, flat=None):
+        """The parameters the loss reads: row-sharded dense leaves and
+        gathered ones whole (their gradient summed back onto the parts),
+        the rest (row-sharded tables too) as this rank holds them.
+        ``flat``: ``params`` flattened (``classify.flatten``), when the
+        caller has it."""
+        gathered = self.gathered
+        if not gathered:
+            return params
+        splits = self.gather_splits
+        if flat is None:
+            flat = dict(classify.flatten(params))
+        return _with_leaves(params, {
+            p: (collectives.gather_param(flat[p], self.mesh, splits[p])
+                if p in splits else
+                collectives.gather_rows(flat[p], self.mesh))
+            for p in gathered})
+
 
 def step_seed(seed: int, step: int) -> int:
     """The seed of one step, from the run's seed and the step counter
@@ -606,6 +720,31 @@ def build_plan(model: Model, mesh: mesh_lib.Mesh, config: ParallaxConfig,
                              if pl == ROW_SHARDED), sorted(tp_groups),
                       sorted(gather_splits))
     return plan
+
+
+def plan_for_params(model: Model, mesh: mesh_lib.Mesh,
+                    config: ParallaxConfig, params,
+                    example_batch) -> ShardingPlan:
+    """``build_plan`` outside training: the placement the engine would
+    give ``params`` (whole leaves, any device) on ``mesh`` for a batch
+    like ``example_batch`` (host arrays or tensors), with no engine
+    built. ``plan.local_tree(params)`` then cuts each rank's part: the
+    rows ``[s * V/p, (s + 1) * V/p)`` of a row-sharded table go to shard
+    column ``s``, replicated leaves stay whole (the serving session's
+    placement, ``parallax_tpu/serve/session.py:201-234``)."""
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(meta(v) for v in tree)
+        return torch.empty(tuple(np.shape(tree)), dtype=_torch_dtype(tree),
+                           device="meta")
+
+    meta_params = meta(params)
+    meta_state = model.call_init(torch.Generator(), "meta")[1] \
+        if model.stateful else None
+    return build_plan(model, mesh, config, meta_params,
+                      _to_meta(example_batch), meta_state)
 
 
 BATCH = "batch"          # the default: dim 0 over ('repl', 'shard')
@@ -927,6 +1066,13 @@ class Engine:
         self._executables: Dict[Tuple, Optional[graphs_lib.Graph]] = {}
         self._inputs: Dict[Tuple, Dict[str, torch.Tensor]] = {}
         self._captured_state: Optional[TrainState] = None
+        # one step dispatch, or one signature's capture (its snapshot,
+        # warm call, capture and restore of the state), at a time: a
+        # background warmup's capture interleaved with a step would roll
+        # the live state back. ``step_stream`` is the stream the last
+        # step ran on, which a capture from another thread orders after
+        self.step_lock = threading.RLock()
+        self.step_stream = None
         self._exec_hits = self.metrics.counter(
             "engine.executable_cache.hits")
         self._exec_misses = self.metrics.counter(
@@ -1088,7 +1234,7 @@ class Engine:
         # the loss reads a tensor-parallel or expert weight as this rank's
         # part; a row-sharded leaf stays whole (a table's lookup takes the
         # whole shape; a dense one is gathered whole for use)
-        meta_params = self._local_tree(meta_params, LOCAL_PLACEMENTS)
+        meta_params = self.plan.local_tree(meta_params, LOCAL_PLACEMENTS)
         flat = dict(classify.flatten(meta_params))
         cap = embedding.SliceCapture(
             {id(flat[p]): p for p in self._slice_resolved})
@@ -1156,7 +1302,7 @@ class Engine:
         optimizer, slice and pending state of what it keeps."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params, model_state = self.model.call_init(gen, self.device)
-        params = self._local_tree(params)
+        params = self.plan.local_tree(params)
         flat = dict(classify.flatten(params))
         for path in self._dense_paths:
             flat[path].requires_grad_(True)
@@ -1178,102 +1324,6 @@ class Engine:
                           seed=seed, model_state=model_state,
                           slice_state=slice_state, pending_grads=pending)
 
-    def split_group(self, path: str):
-        """(group, this rank's index in it) of the axis variable ``path``
-        is split over: the pipeline group for a stage-sharded one, the
-        shard group for the other splits."""
-        if self.plan.placements[path] == STAGE:
-            return (mesh_lib.pipeline_group(self.mesh),
-                    mesh_lib.pipeline_index(self.mesh))
-        if self.plan.placements[path] == GATHERED:
-            axes = self.split_axes(path)
-            return (collectives.axis_group(self.mesh, axes),
-                    collectives.axes_index(self.mesh, axes))
-        return self.mesh.shard_group, self.mesh.coords[1]
-
-    def split_size(self, path: str) -> int:
-        """How many parts variable ``path`` is split into."""
-        if self.plan.placements[path] == STAGE:
-            return mesh_lib.pipeline_stage_count(self.mesh)
-        if self.plan.placements[path] == GATHERED:
-            return collectives.axes_size(self.mesh, self.split_axes(path))
-        return self.mesh.shard
-
-    def split_axes(self, path: str) -> tuple:
-        """The mesh axes a gathered variable's parts differ along (every
-        axis its spec names, in the mesh's order)."""
-        named = {a for _, axes in self.plan.gather_splits[path]
-                 for a in axes}
-        return tuple(a for a in mesh_lib.BATCH_AXES if a in named)
-
-    def writes_split(self, path: str) -> bool:
-        """Whether this rank writes its part of split variable ``path`` to
-        a checkpoint: the first of the ranks that hold the same part
-        (index 0 on every axis but the split one)."""
-        mesh = self.mesh
-        r, s = mesh.coords
-        if self.plan.placements[path] == STAGE:
-            return r == 0 and (s == 0 or mesh.pipe == 1)
-        if self.plan.placements[path] == GATHERED:
-            axes = self.split_axes(path)
-            return (r == 0 or mesh_lib.AXIS_REPL in axes) and \
-                (s == 0 or mesh_lib.AXIS_SHARD in axes)
-        return r == 0 and mesh.pipe_index == 0
-
-    def local_part(self, path: str, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's part of variable ``path`` from the whole one, as its
-        own tensor: its rows of a row-sharded or row-parallel leaf, its
-        experts of an expert-parallel one, its stage rows of a
-        stage-sharded one, its columns of a column-parallel one (of each
-        of its ``groups`` blocks, in block order), the whole of a
-        replicated one."""
-        placement = self.plan.placements[path]
-        if placement == REPLICATED:
-            return whole
-        if placement == GATHERED:
-            for dim, axes in self.plan.gather_splits[path]:
-                whole = collectives.chunk_axes(whole, self.mesh, axes, dim)
-            return whole.detach().clone()
-        p, s = self.split_size(path), self.split_group(path)[1]
-        if placement == TP_COLUMN:
-            g = self.plan.tp_groups[path]
-            blocks = whole.reshape(whole.shape[:-1] + (g, -1))
-            n = blocks.shape[-1] // p
-            part = blocks[..., s * n:(s + 1) * n]
-            return part.reshape(whole.shape[:-1] + (g * n,)).detach() \
-                .clone()
-        n = whole.shape[0] // p
-        return whole[s * n:(s + 1) * n].detach().clone()
-
-    def _local_tree(self, params, placements=None):
-        """``params`` (whole leaves) as this rank holds them (only the
-        leaves of ``placements``, when given)."""
-        split = [p for p in self.plan.split if placements is None
-                 or self.plan.placements[p] in placements]
-        if not split:
-            return params
-        flat = dict(classify.flatten(params))
-        return _with_leaves(params, {p: self.local_part(p, flat[p])
-                                     for p in split})
-
-    def _whole(self, path: str, part: torch.Tensor) -> torch.Tensor:
-        """Variable ``path`` gathered whole from the parts over its split
-        axis (``local_part``'s inverse; a collective)."""
-        if self.plan.placements[path] == GATHERED:
-            for dim, axes in self.plan.gather_splits[path]:
-                part = collectives.gather_axes(part, self.mesh, axes, dim)
-            return part
-        group = self.split_group(path)[0]
-        if self.plan.placements[path] != TP_COLUMN:
-            return collectives.all_gather(part, group)
-        g, p = self.plan.tp_groups[path], self.mesh.shard
-        cols = collectives.all_gather(part.movedim(-1, 0), group)
-        # [p * g * n, ...] in (rank, block, column) order -> (block, rank,
-        # column)
-        cols = cols.reshape((p, g, -1) + tuple(cols.shape[1:]))
-        return cols.transpose(0, 1).reshape((-1,) + tuple(cols.shape[3:])) \
-            .movedim(0, -1).contiguous()
-
     def gather_params(self, state: TrainState):
         """The parameter tree with every split leaf (row-sharded, tensor-
         parallel) gathered whole in the JAX package's global layout (a
@@ -1281,7 +1331,7 @@ class Engine:
         flat = dict(classify.flatten(state.params))
         with torch.no_grad():
             return _with_leaves(state.params, {
-                p: self._whole(p, flat[p]) for p in self.plan.split})
+                p: self.plan.whole(p, flat[p]) for p in self.plan.split})
 
     # -- feeds --------------------------------------------------------------
 
@@ -1421,9 +1471,15 @@ class Engine:
         updated in place. On the card the signature's graph is replayed,
         captured first if it has none; on the CPU and inside
         ``compile.disable_capture()`` the step runs eagerly."""
+        with self.step_lock:
+            return self._step(state, batch)
+
+    def _step(self, state: TrainState, batch) -> tuple:
         staged = batch if isinstance(batch, StagedBatch) else None
+        if self.device.type == "cuda":
+            self.step_stream = torch.cuda.current_stream(self.device)
         if staged is not None:
-            torch.cuda.current_stream(self.device).wait_event(staged.ready)
+            self.step_stream.wait_event(staged.ready)
         sig = bucketing.batch_signature(batch)
         self._note_batch_signature(sig)
         self._last_sig = sig
@@ -1453,20 +1509,6 @@ class Engine:
     def _reseed(self, state: TrainState) -> None:
         self._gen.manual_seed(step_seed(state.seed, state.step))
 
-    def _loss_view(self, state: TrainState, flat):
-        """The parameters the loss reads: row-sharded dense leaves and
-        gathered ones whole (their gradient summed back onto the parts),
-        the rest (row-sharded tables too) as this rank holds them."""
-        gathered = self.plan.gathered
-        if not gathered:
-            return state.params
-        splits = self.plan.gather_splits
-        return _with_leaves(state.params, {
-            p: (collectives.gather_param(flat[p], self.mesh, splits[p])
-                if p in splits else
-                collectives.gather_rows(flat[p], self.mesh))
-            for p in gathered})
-
     def _compute(self, state: TrainState, batch,
                  numerics: bool = False) -> Dict[str, Any]:
         """The step's device work, every state tensor written in place:
@@ -1494,7 +1536,7 @@ class Engine:
                 metrics, new_model_state = dict(metrics), None
             else:
                 loss, metrics, new_model_state = self.model.call_loss(
-                    self._loss_view(state, flat), batch, self._gen,
+                    self.plan.loss_view(state.params, flat), batch, self._gen,
                     state.model_state)
         if self.config.monitor_health:
             taken = {"grad_norm", "loss_finite"} & set(metrics)
@@ -1674,7 +1716,7 @@ class Engine:
         ``records``."""
         meta_params, meta_state = self.model.call_init(
             torch.Generator(), "meta")
-        meta_params = self._local_tree(meta_params, LOCAL_PLACEMENTS)
+        meta_params = self.plan.local_tree(meta_params, LOCAL_PLACEMENTS)
         batch = {name: torch.empty(shape, dtype=getattr(torch, dt[6:]),
                                    device="meta")
                  for name, shape, dt in sig}
@@ -1828,7 +1870,7 @@ class Engine:
     def _split_groups(self) -> Dict[str, Any]:
         """{split variable: the group it is split over}, for the global
         norm (``optim.sharded_scope``)."""
-        return {p: self.split_group(p)[0] for p in self.plan.split}
+        return {p: self.plan.split_group(p)[0] for p in self.plan.split}
 
     def _combine(self, dense: Dict[str, torch.Tensor]) -> None:
         """Average the dense gradients over the ranks the batch is split
@@ -2077,6 +2119,6 @@ class Engine:
         flat = dict(classify.flatten(state.params))
         with torch.no_grad(), self._lookup_scope(flat, None):
             loss, metrics, _ = self.model.call_loss(
-                self._loss_view(state, flat), self._relay(batch), gen,
+                self.plan.loss_view(state.params, flat), self._relay(batch), gen,
                 state.model_state)
         return loss, metrics

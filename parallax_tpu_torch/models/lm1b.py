@@ -295,11 +295,16 @@ def _lstm_prefill(cfg: LM1BConfig, params, ids, pad_id: int = 0):
 def _lstm_decode_step(cfg: LM1BConfig, params, tok, c, h):
     """One batched greedy-decode step: ``tok`` [S] is each slot's
     current token; returns (logits [S, padded_vocab] fp32, c, h). Every
-    op is row-wise, so co-batched slots decode independently."""
+    op is row-wise, so co-batched slots decode independently. Where
+    ``softmax_w`` is a row shard of a serving mesh, the logits are its
+    rows' alone (``ops.embedding.argmax_over_rows`` takes the global
+    argmax)."""
     cdt = cfg.compute_dtype
     w, b, w_proj = _lstm_serve_weights(cfg, params)
     x = emb_ops.embedding_lookup(params["emb"], tok.long()).to(cdt)
     c, h = _serve_cell(x, c, h, w, b, w_proj)
     logits = (h.float() @ params["softmax_w"].float().T
               + params["softmax_b"].float()[:, 0][None, :])
-    return emb_ops.mask_padded_logits(logits, cfg.vocab_size), c, h
+    return emb_ops.mask_padded_logits(
+        logits, cfg.vocab_size,
+        emb_ops.row_shard_offset(params["softmax_w"])), c, h

@@ -76,17 +76,18 @@ def padded_vocab_for(vocab_size: int, num_partitions: int = 1) -> int:
     return pad_vocab(vocab_size, max(num_partitions or 1, 1))
 
 
-def mask_padded_logits(logits: torch.Tensor,
-                       vocab_size: int) -> torch.Tensor:
+def mask_padded_logits(logits: torch.Tensor, vocab_size: int,
+                       first: int = 0) -> torch.Tensor:
     """Push the phantom classes introduced by vocab padding to -1e9 so
     they never win an argmax or receive probability mass (last-dim
-    layout [..., padded_vocab])."""
+    layout [..., padded_vocab]). ``first``: the class of column 0, for
+    the logits of a row shard's classes (``row_shard_offset``)."""
     padded = logits.shape[-1]
-    if padded == vocab_size:
+    if first + padded <= vocab_size:
         return logits
     mask = torch.zeros((padded,), dtype=logits.dtype,
                        device=logits.device)
-    mask[vocab_size:] = -1e9
+    mask[max(vocab_size - first, 0):] = -1e9
     return logits + mask
 
 
@@ -183,6 +184,52 @@ def is_row_shard(table: torch.Tensor) -> bool:
             and ctx.mesh.shard > 1)
 
 
+def alias_row_shards(pairs) -> None:
+    """Register with the active ``sharded_lookup_scope`` each copy of a
+    registered row shard: ``pairs`` of (leaf, its copy), e.g. a serving
+    program's compute-dtype cast of its params, whose lookups then run
+    the collective lookup too. Nothing outside a scope."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return
+    for leaf, copy in pairs:
+        entry = ctx.sharded.get(id(leaf))
+        if entry is not None and copy is not leaf:
+            ctx.sharded[id(copy)] = entry
+
+
+def row_shard_offset(table: torch.Tensor) -> int:
+    """The global row of ``table``'s row 0: its shard column's first row
+    for a row shard (``is_row_shard``), else 0."""
+    if not is_row_shard(table):
+        return 0
+    return _CTX.get().mesh.coords[1] * table.shape[0]
+
+
+def argmax_over_rows(logits: torch.Tensor,
+                     table: torch.Tensor) -> torch.Tensor:
+    """``argmax(logits, -1)`` where the last dim of ``logits`` [S, n]
+    runs over the rows of ``table``: a plain argmax for a whole table;
+    for a row shard, each rank's local (max, global id) pair all-gathered
+    over 'shard' and the global argmax taken, ties to the lowest id as
+    an argmax over the whole row gives them (the shard columns hold
+    ascending rows). int64 ids."""
+    local = torch.argmax(logits, dim=-1)
+    if not is_row_shard(table):
+        return local
+    best = logits.gather(-1, local[..., None])[..., 0]
+    ids = local + row_shard_offset(table)
+    # one all-gather of the (max, id) pairs; float64 holds both exactly
+    pairs = collectives.all_gather(
+        torch.stack([best.double(), ids.double()]).reshape(1, 2, -1),
+        _CTX.get().mesh.shard_group)                      # [p, 2, S]
+    vals, gids = pairs[:, 0], pairs[:, 1]
+    top = vals.max(dim=0).values
+    # the first shard column holding the maximum has the lowest id
+    first = torch.argmax((vals == top).to(torch.int32), dim=0)
+    return gids.gather(0, first[None])[0].long().reshape(local.shape)
+
+
 def embedding_lookup(table: torch.Tensor,
                      ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` [V, D] at integer ``ids``: a plain gather (the
@@ -228,6 +275,11 @@ def _sharded(ctx: _MeshCtx, table, ids, entry, slice_path):
     # the ranks along ``alike`` hold the same ids: each takes its chunk
     group = collectives.axis_group(mesh, alike)
     index = collectives.axes_index(mesh, alike)
+    if ids.shape[0] % n_alike and not torch.is_grad_enabled():
+        # a forward alone (serving a batch that does not split over the
+        # alike ranks): every rank looks up all its ids; the exchange
+        # gives each rank its own rows, whatever the others hold
+        return _sharded_ids(ctx, table, ids, entry, slice_path)
     if ids.shape[0] % n_alike:
         raise ValueError(
             f"embedding_lookup: ids of batch {ids.shape[0]} are alike on "

@@ -57,6 +57,7 @@ import torch
 from parallax_tpu_torch.common.lib import resolve_device
 from parallax_tpu_torch.compile import bucketing, graphs as graphs_lib
 from parallax_tpu_torch.models import lm1b, long_context, moe_lm, nmt
+from parallax_tpu_torch.ops import embedding as emb_ops
 from parallax_tpu_torch.ops import paged_attention as pa_ops
 from parallax_tpu_torch.serve.continuous import DecodeProgram
 from parallax_tpu_torch.serve.paging import pages_for
@@ -116,6 +117,14 @@ class _ServeProgram(DecodeProgram):
         self._out = None            # pinned host buffer of step outputs
         self.captures = 0           # graphs captured by this program
 
+    def plan_feed(self, batch: int) -> Dict[str, np.ndarray]:
+        """``batch`` rows of the model's TRAINING feed at the program's
+        prompt length: what ``build_plan`` classifies the parameters on
+        when a ``ServeSession`` places them by ``model=`` (the JAX
+        session classifies on the serving feed, which the models' losses
+        cannot read)."""
+        return self._train_batch(np.random.default_rng(0), int(batch))
+
     def _ints(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
@@ -137,9 +146,13 @@ class _ServeProgram(DecodeProgram):
     def _compute_params(self, params):
         g = self._graphs
         if g is not None and g.params is params:
+            emb_ops.alias_row_shards(_tree_pairs(params, g.cast))
             return g.cast
         if self._cast_of is None or self._cast_of[0] is not params:
             self._cast_of = (params, self._cast(params))
+        # a cast of a row shard is a row shard too (the serving mesh's
+        # lookup scope knows the served leaves only)
+        emb_ops.alias_row_shards(_tree_pairs(params, self._cast_of[1]))
         return self._cast_of[1]
 
     def refresh_params(self, params) -> None:
@@ -456,6 +469,10 @@ class NMTDecodeProgram(_ServeProgram):
 
     def example_feed(self) -> Dict[str, np.ndarray]:
         return {"src": np.full((self.Ts,), self.pad_id, np.int32)}
+
+    def _train_batch(self, rng, batch: int):
+        return nmt.make_batch(rng, batch, self.Ts, self.Ts,
+                              self.cfg.vocab_size)
 
     def prepare_feed(self, feed: Dict[str, Any]) -> Dict[str, np.ndarray]:
         src = np.asarray(feed["src"], np.int32)
@@ -842,6 +859,10 @@ class _CausalKVDecodeProgram(_ServeProgram):
     def example_feed(self) -> Dict[str, np.ndarray]:
         return {"ids": np.ones((1,), np.int32)}
 
+    def _train_batch(self, rng, batch: int):
+        return self._mod.make_batch(rng, batch, self.Ts,
+                                    self.cfg.vocab_size)
+
     def prepare_feed(self, feed: Dict[str, Any]) -> Dict[str, np.ndarray]:
         ids = np.asarray(feed["ids"], np.int32)
         if ids.ndim != 1:
@@ -1088,6 +1109,9 @@ class LM1BDecodeProgram(_ServeProgram):
 
     example_feed = _CausalKVDecodeProgram.example_feed
 
+    def _train_batch(self, rng, batch: int):
+        return lm1b.make_batch(rng, batch, self.Ts, self.cfg.vocab_size)
+
     def prepare_feed(self, feed: Dict[str, Any]) -> Dict[str, np.ndarray]:
         ids = np.asarray(feed["ids"], np.int32)
         if ids.ndim != 1:
@@ -1135,7 +1159,11 @@ class LM1BDecodeProgram(_ServeProgram):
             state["h"])
         state["c"].copy_(c)
         state["h"].copy_(h)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        # over a serving mesh the softmax table is row-sharded: each rank
+        # scores its rows and one all-gather of (max, id) pairs over
+        # 'shard' gives the global argmax, ties to the lowest id
+        return emb_ops.argmax_over_rows(
+            logits, params["softmax_w"]).to(torch.int32)
 
     def capture(self, params, state) -> None:
         """Warm prefill, insert and step on ``state`` and, on the card

@@ -191,7 +191,8 @@ class ContinuousScheduler:
                  queue: RequestQueue,
                  name: str = "parallax-serve-decode",
                  on_deadline_breach=None, replica_id=None,
-                 faults=None, on_fatal=None, on_error=None):
+                 faults=None, on_fatal=None, on_error=None,
+                 follower: bool = False):
         self._program = program
         # fleet wiring: deterministic fault hooks consulted once per
         # loop pass, and death/error reporting for the router
@@ -311,6 +312,12 @@ class ContinuousScheduler:
         except BaseException:
             self._release()
             raise
+        self._thread = None
+        if follower:
+            # a follower rank of a serving mesh (serve/mesh.py): warmed
+            # and captured like the leader, its calls replayed from the
+            # leader's headers instead of a queue
+            return
         self._thread = threading.Thread(target=self._loop, name=name,
                                         daemon=True)
         self._thread.start()

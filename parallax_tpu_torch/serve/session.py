@@ -3,9 +3,22 @@
 
 One object owns the serving stack of one replica:
 
-* **placement** — the parameter tree is copied to the session's device
-  (the session's own leaves: a ``swap_params`` overwrites them in
-  place; the JAX package places the tree on a mesh);
+* **placement** — over the ``('repl', 'shard')`` mesh the training
+  engine uses (``mesh=``, else ``core.mesh.build_mesh(device,
+  num_partitions)``): with ``model=`` each rank holds its part by the
+  engine's own plan (``core.engine.plan_for_params``: each rank its rows
+  of every row-sharded table, dense leaves whole), without it every
+  leaf whole on every rank. Either way the leaves are the session's own
+  copies (a ``swap_params`` overwrites them in place). ``plan=`` (the
+  training session's ``serve()``) takes a tree already placed by that
+  plan as it lies, with no copy. Lookups of a row shard run the
+  collective lookup (``ops.embedding.sharded_lookup_scope``);
+* **a mesh of ranks** (serve/mesh.py) — every rank constructs the
+  session; rank 0 leads (queue, batcher or scheduler, metrics) and
+  broadcasts each dispatch's header and host inputs, the followers
+  replay it. A one-shot bucket that divides the ranks gives each rank
+  its rows of dim 0 and the outputs are gathered back along dim 0; any
+  other bucket goes whole to every rank. At one rank nothing is sent;
 * **a bounded signature set** (one-shot mode) — requests are padded
   onto declared length buckets (``ServeConfig.length_buckets``,
   per-request ragged feeds) and formed batches onto batch buckets
@@ -47,12 +60,16 @@ import torch
 from parallax_tpu_torch.common.config import ParallaxConfig
 from parallax_tpu_torch.common.lib import parallax_log, resolve_device
 from parallax_tpu_torch.compile import bucketing, graphs as graphs_lib
+from parallax_tpu_torch.core import classify, engine as engine_lib
+from parallax_tpu_torch.core import mesh as mesh_lib
+from parallax_tpu_torch.ops import collectives
 from parallax_tpu_torch.obs import _state as obs_state
 from parallax_tpu_torch.obs import metrics as obs_metrics, reqtrace, trace
 from parallax_tpu_torch.serve.batcher import (DeadlineExceeded, MicroBatcher,
                                               ReplicaUnavailable, Request,
                                               RequestQueue, ServeClosed,
                                               ServeError, ServeOverloaded)
+from parallax_tpu_torch.serve import mesh as serve_mesh
 from parallax_tpu_torch.serve.continuous import ContinuousScheduler
 
 
@@ -120,14 +137,23 @@ def _host(x) -> np.ndarray:
 
 class _Signature:
     """One captured (batch, length) signature: the static input buffers
-    its graph reads and the graph (None on the CPU, which runs
-    ``infer_fn`` eagerly)."""
+    its graph reads (this rank's rows where ``split``), the graph (None
+    on the CPU, which runs ``infer_fn`` eagerly) and whether the batch is
+    split over the mesh's ranks."""
 
-    __slots__ = ("inputs", "graph")
+    __slots__ = ("inputs", "graph", "split")
 
-    def __init__(self, inputs, graph):
+    def __init__(self, inputs, graph, split):
         self.inputs = inputs
         self.graph = graph
+        self.split = split
+
+
+def _gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's rows of output leaf ``x`` along dim 0, in rank order."""
+    if x.dtype == torch.bool:
+        return collectives.all_gather(x.to(torch.uint8), mesh.world).bool()
+    return collectives.all_gather(x, mesh.world)
 
 
 class ServeSession:
@@ -167,13 +193,34 @@ class ServeSession:
     ``device`` (default the card) is where the parameters are placed;
     it must match the program's device. On a machine without CUDA the
     default raises — pass ``device="cpu"`` (to the program too) to run on
-    the CPU.
+    the CPU. A given ``mesh`` brings its own device.
+
+    Over a mesh of ranks (an initialised process group) every rank
+    constructs the session with the same arguments; rank 0 is the leader
+    and serves (``submit``), the others follow (``submit`` raises
+    ``ValueError``) until the leader's ``close()``, which each
+    follower's ``close()`` waits for. While it serves, the mesh's
+    collectives belong to it. Not over more than one rank: the prefix
+    cache, ``prefill_only``, ``import_prefix_entry``, ``swap_params``,
+    and plans with tensor-, expert- or stage-parallel weights (for a
+    program, also gathered ones): each raises.
+
+    ``model=`` classifies the params on a batch of the model's loss feed:
+    ``plan_feed`` if given, else the program's ``plan_feed(max_batch)``,
+    else (one-shot) the example feed at the longest length bucket stacked
+    ``max_batch`` times, as the JAX session does (a model whose loss
+    reads other feeds than the served ones needs ``plan_feed``).
     """
 
     def __init__(self, infer_fn: Optional[Callable] = None,
                  params: Any = None, *,
                  example_feed: Optional[Dict[str, Any]] = None,
                  config: Optional[ParallaxConfig] = None,
+                 model: Optional[engine_lib.Model] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 num_partitions: Optional[int] = None,
+                 plan: Optional[engine_lib.ShardingPlan] = None,
+                 plan_feed: Optional[Dict[str, Any]] = None,
                  ragged_feeds: Sequence[str] = (),
                  pad_value=0, warmup: bool = True,
                  program=None,
@@ -188,9 +235,30 @@ class ServeSession:
                 "(continuous decode)")
         if params is None:
             raise ValueError("ServeSession needs a params tree")
-        self.device = resolve_device(device)
+        if plan is not None and model is not None:
+            raise ValueError("pass model= (place the tree by its plan) or "
+                             "plan= (a tree already placed), not both")
+        if mesh is None and plan is not None:
+            mesh = plan.mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_lib.build_mesh(
+            self.device, num_partitions=num_partitions)
+        self.rank = self.mesh.rank
+        self.leader = self.rank == 0
         self._config = config or ParallaxConfig()
         sc = self._config.serve_config
+        if self.mesh.size > 1 and sc.prefix_cache:
+            raise NotImplementedError(
+                "ServeConfig.prefix_cache over a mesh of ranks: a cached "
+                "request state is the leader's alone, and the followers "
+                "would have to keep theirs in step")
+        # the leader's headers to the followers (serve/mesh.py)
+        self._channel = serve_mesh.Channel(self.mesh) \
+            if self.mesh.size > 1 else None
+        self._follower = None      # a follower's replay thread
+        self._follow_error = None
+        self._plan_feed = plan_feed
         self.metrics = metrics if metrics is not None \
             else obs_metrics.MetricsRegistry()
         self._recompiles = self.metrics.counter("serve.recompiles")
@@ -224,18 +292,29 @@ class ServeSession:
                 raise ValueError(
                     f"program runs on {prog_dev}, the session on "
                     f"{self.device}")
-            self._params = _to_device(params, self.device)
+            self._params = self._place_params(params, model, plan, program)
             self._program = program
+            if self.mesh.size > 1:
+                program = serve_mesh.MeshProgram(
+                    program, self.mesh, self._tables, self._channel)
             self._batcher = None
             self._scheduler = ContinuousScheduler(
                 program, self._params, sc, self.metrics, self._queue,
                 on_deadline_breach=self._on_deadline_breach,
                 replica_id=replica_id, faults=faults,
-                on_fatal=on_fatal, on_error=on_error)
+                on_fatal=on_fatal, on_error=on_error,
+                follower=not self.leader)
             # graphs the program captured: the warmup's, and none after
             # (a params swap copies in place)
             self.metrics.gauge("serve.graph_captures").set_fn(
-                lambda: getattr(program, "captures", 0))
+                lambda: getattr(self._program, "captures", 0))
+            if self._channel is not None:
+                if self.leader:
+                    program.start_relay()
+                else:
+                    self._start_follower(
+                        serve_mesh.follow, program, self._params,
+                        self._scheduler._state, self._channel)
             return
         self._scheduler = None
         self._program = None
@@ -272,7 +351,7 @@ class ServeSession:
                     f"ragged feed {name!r} must have a length axis "
                     f"(ndim >= 1)")
         self._batch_buckets = sc.resolved_batch_buckets()
-        self._params = _to_device(params, self.device)
+        self._params = self._place_params(params, model, plan, None)
         # the admitted per-request signatures: a submit whose padded
         # feed is not one of these is REFUSED at admission (it could
         # only be served by a capture at serve time)
@@ -290,10 +369,121 @@ class ServeSession:
                         if g.graph is not None))
         if warmup:
             self.warmup()
+        self._batcher = None
+        if not self.leader:
+            self._start_follower(self._follow_batches)
+            return
         self._batcher = MicroBatcher(self._queue, self._run_batch,
                                      sc.max_batch, sc.max_wait_ms,
                                      on_error=on_error,
                                      on_fatal=on_fatal)
+
+    # -- placement over the mesh -------------------------------------------
+
+    def _place_params(self, params, model, plan, program):
+        """The served tree on this rank (module doc): taken as it lies
+        under ``plan``; this rank's parts by the engine's plan with
+        ``model``; else every leaf whole. Sets ``_plan``, ``_tables``
+        (the row-sharded tables the lookup scope registers) and
+        ``_gathered`` (leaves split over ranks and gathered for use)."""
+        self._borrowed = plan is not None
+        if plan is None and model is not None:
+            plan = engine_lib.plan_for_params(
+                model, self.mesh, self._config, params,
+                self._plan_example_batch(program))
+        self._plan = plan
+        self._tables, self._gathered = [], False
+        if plan is None:
+            return _to_device(params, self.device)
+        local = {engine_lib.EXPERT: "expert", engine_lib.STAGE: "stage",
+                 engine_lib.TP_COLUMN: "tensor", engine_lib.TP_ROW: "tensor"}
+        refused = sorted((path, local[pl]) for path, pl
+                         in plan.placements.items() if pl in local)
+        if any(kind == "expert" for _, kind in refused) \
+                and program is not None:
+            raise NotImplementedError(
+                f"serving expert-parallel weights ({refused}) over a mesh: "
+                f"a decode step would need the MoE all_to_all dispatch "
+                f"(ops.moe), which runs in training only; serve the model "
+                f"without model= (its weights whole on every rank)")
+        if refused:
+            raise NotImplementedError(
+                f"serving {refused} over a mesh: a rank's part of a "
+                f"tensor-, expert- or stage-parallel weight needs that "
+                f"parallelism's collectives in the served forward")
+        self._gathered = bool(plan.gathered)
+        if self._gathered and program is not None:
+            raise NotImplementedError(
+                f"serving a decode program with {plan.gathered} split over "
+                f"ranks and gathered for use: the program's graphs read "
+                f"the served leaves themselves")
+        if not self._borrowed:
+            params = plan.local_tree(_to_device(params, self.device))
+        flat = dict(classify.flatten(params))
+        self._tables = [(flat[p], plan.var_specs[p].shape, p)
+                        for p in plan.sharded_tables]
+        return params
+
+    def _plan_example_batch(self, program):
+        """A full-batch example feed for the plan's classification: the
+        caller's ``plan_feed``, the program's training feed
+        (``plan_feed``), or the one-shot example at the longest length
+        bucket."""
+        if self._plan_feed is not None:
+            return self._plan_feed
+        b = int(self._config.serve_config.max_batch)
+        if program is not None:
+            return program.plan_feed(b)
+        ex = self._padded_example(self._max_length_bucket())
+        return {k: np.stack([v] * b) for k, v in ex.items()}
+
+    def _max_length_bucket(self) -> Optional[int]:
+        lb = self._config.serve_config.length_buckets
+        return lb[-1] if lb and self._ragged else None
+
+    def _split(self, bucket: int) -> bool:
+        """Does a batch of ``bucket`` rows split over the mesh's ranks
+        (each its rows of dim 0)? Decided per bucket, so the placement is
+        part of the signature (``_batch_sharding_fn`` of the JAX
+        session)."""
+        return self.mesh.size > 1 and bucket % self.mesh.size == 0
+
+    def _rows(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's rows of a batch that splits over the ranks."""
+        n = next(iter(batch.values())).shape[0] // self.mesh.size
+        r = self.rank
+        return {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+
+    # -- the followers -----------------------------------------------------
+
+    def _start_follower(self, fn, *args) -> None:
+        def run():
+            try:
+                if self.device.type == "cuda":
+                    # a new thread starts on device 0; this rank's is its own
+                    torch.cuda.set_device(self.device)
+                fn(*args)
+            except BaseException as e:
+                self._follow_error = e
+                parallax_log.error("serving follower rank %d stopped: %s: "
+                                   "%s", self.rank, type(e).__name__, e)
+
+        self._follower = threading.Thread(
+            target=run, name=f"parallax-serve-follower-{self.rank}",
+            daemon=True)
+        self._follower.start()
+
+    def _follow_batches(self) -> None:
+        """A one-shot follower: each batch the leader formed runs through
+        its signature on this rank, until the leader's stop."""
+        while True:
+            msg = self._channel.recv()
+            if msg[0] == "stop":
+                return
+            batch = msg[1]
+            entry = self._entry(bucketing.batch_signature(batch), batch)
+            self._stage(entry, batch)
+            self._infer(entry)
 
     # -- the bounded signature set ----------------------------------------
 
@@ -320,23 +510,72 @@ class ServeSession:
                                for name, v in ex.items()}
 
     def _prepare(self, batch: Dict[str, np.ndarray]) -> _Signature:
-        """Static device inputs for ``batch``'s signature, filled with
-        ``batch``, and — on the card outside
-        ``compile.disable_capture()`` — ``infer_fn`` captured over them
-        (its warm call runs on these values)."""
+        """Static device inputs for ``batch``'s signature (this rank's
+        rows where it splits over the ranks), filled with ``batch``, and
+        — on the card outside ``compile.disable_capture()`` —
+        ``infer_fn`` captured over them (its warm call runs on these
+        values)."""
+        split = self._split(next(iter(batch.values())).shape[0])
+        rows = self._rows(batch) if split else batch
         inputs = {name: torch.from_numpy(np.ascontiguousarray(v)).to(
-            self.device) for name, v in batch.items()}
+            self.device) for name, v in rows.items()}
         graph = None
         if graphs_lib.capture_enabled(self.device):
-            graph = graphs_lib.capture(self._infer_call(inputs),
+            graph = graphs_lib.capture(self._infer_call(inputs, split),
                                        self.device)
-        return _Signature(inputs, graph)
+        return _Signature(inputs, graph, split)
 
-    def _infer_call(self, inputs):
+    def _infer_call(self, inputs, split: bool):
+        axes = mesh_lib.BATCH_AXES if split else ()
+
         def call():
-            with torch.no_grad():
-                return self._infer_fn(self._params, inputs)
+            with serve_mesh.lookup_scope(self.mesh, self._tables, axes):
+                params = self._plan.loss_view(self._params) \
+                    if self._gathered else self._params
+                return self._infer_fn(params, inputs)
         return call
+
+    def _entry(self, key, batch) -> _Signature:
+        """The signature of a formed batch; a miss is a capture at serve
+        time (every rank takes it together), counted loudly."""
+        entry = self._signatures.get(key)
+        if entry is None:
+            # the signature set was supposed to be closed — count it and
+            # serve the request anyway
+            self._recompiles.inc()
+            parallax_log.warning(
+                "serve dispatch missed the captured signature set (%s); "
+                "capturing at serve time — declare batch/length buckets "
+                "covering this shape", [(k, s) for k, s, _ in key])
+            entry = self._signatures[key] = self._prepare(batch)
+        return entry
+
+    def _stage(self, entry: _Signature, batch) -> None:
+        """This rank's rows of ``batch`` into the signature's inputs."""
+        for name, v in (self._rows(batch) if entry.split
+                        else batch).items():
+            src = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                entry.inputs[name].copy_(src.pin_memory(),
+                                         non_blocking=True)
+            else:
+                entry.inputs[name].copy_(src)
+
+    def _infer(self, entry: _Signature):
+        """One call of the signature: (the output tree's skeleton, its
+        leaves), gathered along dim 0 over the ranks where the batch was
+        split. A graph's outputs are overwritten by its next replay."""
+        if entry.graph is not None:
+            out = entry.graph.replay()
+        else:
+            out = self._infer_call(entry.inputs, entry.split)()
+        leaves: list = []
+        skel = _flatten(out, leaves)
+        if entry.split:
+            leaves = [_gather_rows(a, self.mesh)
+                      if isinstance(a, torch.Tensor) and a.ndim >= 1
+                      else a for a in leaves]
+        return skel, leaves
 
     def warmup(self) -> Dict[tuple, float]:
         """Capture every declared (batch, length) signature (on the
@@ -388,6 +627,10 @@ class ServeSession:
         ``rec`` is the fleet's lifecycle record when this submit is a
         failover hop (the record accumulates across hops); standalone
         submits get a fresh one (None with the obs layer disabled)."""
+        if not self.leader:
+            raise ValueError(
+                f"submit on rank {self.rank}: a serving mesh admits "
+                f"requests on rank 0, its leader; this rank follows")
         t_sub = time.perf_counter()
         sc = self._config.serve_config
         if self._faults is not None:
@@ -528,38 +771,20 @@ class ServeSession:
                 rows = rows + [rows[-1]] * (bucket - n)
             batch[name] = np.stack(rows)
         key = bucketing.batch_signature(batch)
-        entry = self._signatures.get(key)
         t_form = time.perf_counter()
-        if entry is None:
-            # a capture at serve time: the signature set was supposed to
-            # be closed — count it loudly and serve the request anyway
-            self._recompiles.inc()
-            parallax_log.warning(
-                "serve dispatch missed the captured signature set (%s); "
-                "capturing at serve time — declare batch/length buckets "
-                "covering this shape", [(k, s) for k, s, _ in key])
-            entry = self._signatures[key] = self._prepare(batch)
+        if self._channel is not None:
+            # the followers replay this batch (serve/mesh.py)
+            self._channel.send(("batch", batch))
+        entry = self._entry(key, batch)
         with trace.span("serve.h2d_place", bucket=bucket):
-            for name, v in batch.items():
-                src = torch.from_numpy(np.ascontiguousarray(v))
-                if self.device.type == "cuda":
-                    entry.inputs[name].copy_(src.pin_memory(),
-                                             non_blocking=True)
-                else:
-                    entry.inputs[name].copy_(src)
+            self._stage(entry, batch)
         t_host1 = time.perf_counter()
         # H2D is the feed path (any inference pays it, batched or not):
         # recorded on its own, NOT as batcher overhead
         self._h2d_ms.record((t_host1 - t_form) * 1e3)
         with trace.span("serve.infer", n=n, bucket=bucket):
-            if entry.graph is not None:
-                out = entry.graph.replay()
-            else:
-                out = self._infer_call(entry.inputs)()
-            # the copy to the host waits for the step; a graph's
-            # outputs are overwritten by its next replay
-            leaves: list = []
-            skel = _flatten(out, leaves)
+            # the copy to the host waits for the step
+            skel, leaves = self._infer(entry)
             leaves = [_host(a) for a in leaves]
         if fault_mode == "nan":
             # injected silent corruption: every float leaf becomes NaN
@@ -630,6 +855,7 @@ class ServeSession:
             raise ValueError(
                 "prefill_only requires continuous-decode mode "
                 "(program=...)")
+        self._one_rank("prefill_only")
         prog = self._program
         if not hasattr(prog, "prefix_key"):
             raise ValueError(
@@ -659,6 +885,7 @@ class ServeSession:
             raise ValueError(
                 "import_prefix_entry requires continuous-decode mode "
                 "(program=...)")
+        self._one_rank("import_prefix_entry")
         return self._scheduler.import_prefix(tenant, key, request_state,
                                              positions=positions)
 
@@ -677,6 +904,13 @@ class ServeSession:
         — the counterpart of the JAX package's swap without recompiles.
         Quiesce first (:meth:`idle`) so no sequence mixes weights.
         Counted in ``serve.hotswaps``."""
+        self._one_rank("swap_params")
+        if self._borrowed:
+            raise ValueError(
+                "swap_params on a session serving a training state's own "
+                "tensors (ParallaxSession.serve): they are the training "
+                "state's to update; serve a copy (ServeSession(..., "
+                "model=)) to swap weights")
         old = list(_leaves(self._params))
         new = list(_leaves(params))
         if [p for p, _ in old] != [p for p, _ in new]:
@@ -707,6 +941,12 @@ class ServeSession:
         parallax_log.info("serve: swapped params on replica %r in place "
                           "(%d leaves, no capture)", self.replica_id,
                           len(old))
+
+    def _one_rank(self, what: str) -> None:
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                f"{what} over a mesh of {self.mesh.size} ranks: it would "
+                f"have to reach every rank's copy of the served state")
 
     # -- replica probes --------------------------------------------------------
 
@@ -761,11 +1001,23 @@ class ServeSession:
             self._closed = True
         sc = self._config.serve_config
         self._queue.close()
+        if not self.leader:
+            # a follower ends with the leader's stop (its close)
+            self._follower.join()
+            if self._scheduler is not None:
+                self._scheduler._release()
+            if self._follow_error is not None:
+                raise RuntimeError(
+                    f"serving follower rank {self.rank} stopped before the "
+                    f"leader's close") from self._follow_error
+            return
         timeout = sc.drain_timeout_s if drain else 0.0
         if self._scheduler is not None:
             self._scheduler.drain(timeout)
         elif self._batcher is not None:
             self._batcher.drain(timeout)
+        if self._channel is not None:
+            self._channel.send(serve_mesh.STOP)
         n = self._queue.fail_all(ServeClosed("session closed"))
         if n:
             parallax_log.warning(

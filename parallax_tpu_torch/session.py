@@ -412,6 +412,7 @@ class ParallaxSession:
         # place_batch may build the engine from a prefetch thread
         self._build_lock = threading.Lock()
         self._prefetcher: Optional[Prefetcher] = None
+        self._warmup_threads: List[threading.Thread] = []
         # batches consumed, a NaN rollback's skipped ones included: the
         # input position the checkpoint commits (apart from the step)
         self._data_cursor = 0
@@ -1098,21 +1099,23 @@ class ParallaxSession:
 
         ``feed_dict``: an example feed to build the engine from when it
         does not exist yet (``prepare(feed_dict)`` first).
-        ``background=True`` is refused: a capture from a second thread
-        would race the training stream for the card (the capture's own
-        eager step and the graph's pool share the device with the steps
-        the loop dispatches meanwhile)."""
-        if background:
-            raise NotImplementedError(
-                "warmup(background=True) is not ported: capturing the "
-                "step's CUDA graph on a second thread would race the "
-                "training loop on the card; warm up before the loop")
+        ``background=True`` runs the captures on a daemon thread and
+        returns the ``threading.Thread`` (``join()`` it, or start stepping
+        at once). Each capture holds the engine's step lock against the
+        steps the loop dispatches meanwhile and runs on the state the
+        loop holds at that moment (``compile/warmup.py``); a step whose
+        bucket the thread has not reached yet captures it itself, and the
+        thread then skips it. A failure is logged as a warning and left
+        on the thread as ``error``: warmup is an optimisation, the loop
+        goes on."""
         if feed_dict is not None:
             self.prepare(feed_dict)
         if self._engine is None:
             raise ValueError(
                 "warmup needs an engine: pass feed_dict (or call "
                 "prepare(example_feed)) first")
+        if background:
+            return self._warmup_background(batch_sizes)
         t0 = time.perf_counter()
         with trace.span("session.warmup"):
             stats = self._engine.warmup(self._state, batch_sizes)
@@ -1125,6 +1128,30 @@ class ParallaxSession:
         self._ensure_flops()
         self.memwatch.capture_compiled(self._engine)
         return stats
+
+    def _warmup_background(self, batch_sizes) -> threading.Thread:
+        engine = self._engine
+
+        def live_state():
+            return self._state
+
+        def run():
+            try:
+                with trace.span("session.warmup", background=True):
+                    engine.warmup(live_state, batch_sizes)
+                with engine.step_lock:
+                    self._ensure_flops()
+                    self.memwatch.capture_compiled(engine)
+            except Exception as e:
+                thread.error = e
+                parallax_log.warning("background warmup failed: %s", e)
+
+        thread = threading.Thread(target=run, name="parallax-warmup",
+                                  daemon=True)
+        thread.error = None
+        self._warmup_threads.append(thread)
+        thread.start()
+        return thread
 
     def compile_stats(self) -> Dict[str, Any]:
         """JSON-ready compile/caching report, with the JAX session's keys:
@@ -1192,10 +1219,17 @@ class ParallaxSession:
 
     def serve(self, infer_fn=None, program=None, **kw):
         """Put the trained parameters behind a request queue: a
-        :class:`~parallax_tpu_torch.serve.session.ServeSession` on this
-        session's device, sharing its metrics registry (``serve.*``
-        next to ``session.*``), serving ``gather_params()`` (copied on
-        the device into the serve session's own leaves). Pass
+        :class:`~parallax_tpu_torch.serve.session.ServeSession` over the
+        engine's mesh, sharing this session's metrics registry
+        (``serve.*`` next to ``session.*``), serving the live parameters
+        as they lie under the engine's plan: no gather, no copy, each
+        rank's rows of a row-sharded table stay its own (the JAX
+        session's handoff, ``parallax_tpu/session.py:1798-1822``). Unlike
+        JAX's immutable arrays, these tensors are the ones the training
+        steps update in place: steps taken while it serves change what
+        it serves (on more than one rank, train again only after its
+        ``close()``: the mesh's collectives are the serving session's
+        meanwhile). Every rank calls it; rank 0 serves. Pass
         ``infer_fn(params, batch)`` for one-shot inference (plus
         ``example_feed=``) or ``program=`` for continuous decode;
         remaining kwargs forward to ``ServeSession``. Serving knobs come
@@ -1206,11 +1240,10 @@ class ParallaxSession:
             raise ValueError(
                 "serve() needs a built engine: call "
                 "prepare(example_feed) (or run a step) first")
-        kw.setdefault("device", self._device)
         kw.setdefault("flight", self.flight)
-        return ServeSession(infer_fn, self.gather_params(),
-                            program=program, config=self._config,
-                            metrics=self.metrics, **kw)
+        return ServeSession(infer_fn, self._state.params, program=program,
+                            config=self._config, metrics=self.metrics,
+                            plan=self._engine.plan, **kw)
 
     def push_weights(self, fleet) -> dict:
         """Train -> serve continuous deployment: hot-swap this session's
@@ -1996,6 +2029,11 @@ class ParallaxSession:
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None
+        for t in self._warmup_threads:
+            # a capture still running reads the engine and the state
+            # dropped below: it ends on its own, so wait for it
+            t.join()
+        self._warmup_threads = []
         if self.alerts is not None:
             try:
                 self.alerts.evaluate()

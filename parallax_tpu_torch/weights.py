@@ -326,12 +326,12 @@ def cnn_params_from_jax(np_variables, name, num_classes: int,
 def rank_shard(params, engine):
     """``params`` (a whole tree of tensors in the port's layout, e.g. from
     one of the functions above) as ``engine``'s rank holds it
-    (``Engine.local_part``): the rank's rows of every leaf the plan
+    (``ShardingPlan.local_part``): the rank's rows of every leaf the plan
     row-shards, its shard of every tensor-parallel leaf (of a fused
     ``wqkv``, the q, k and v columns of its heads), its experts of every
     expert weight, every other leaf as it is. Copy the result into
     ``sess.state.params`` leaf by leaf."""
-    return engine._local_tree(params)
+    return engine.plan.local_tree(params)
 
 
 def _host_array(a) -> torch.Tensor:

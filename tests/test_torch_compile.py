@@ -21,7 +21,9 @@
   tensor of the optimizer, model and slice states, and every parameter,
   keeps its storage. NMT and a small ResNet here; LM1B in
   ``test_torch_train.py``.
-* On the CPU ``warmup`` captures nothing and leaves the state bitwise.
+* On the CPU ``warmup`` captures nothing and leaves the state bitwise;
+  ``warmup(background=True)`` returns its thread and the losses of the
+  steps that overlap it are bitwise a foreground warmup's.
 
 All in float32 on the CPU.
 """
@@ -241,6 +243,37 @@ def test_compile_stats_and_engine_cache_equal_jax():
     tsess.close()
 
 
+def test_background_warmup_overlaps_and_lands():
+    """``tests/test_compile.py``'s background case: a ``Thread`` comes
+    back, both buckets land in ``warmup_seconds`` and no step after it
+    recompiles; steps dispatched while the thread runs give losses
+    bitwise equal to a foreground-warmed session's on the same
+    batches."""
+    import threading
+    batches = _stream()
+    losses = {}
+    for background in (False, True):
+        sess, *_ = tparallax.parallel_run(
+            tsimple.build_model(0.1), parallax_config=tparallax.Config(
+                run_option="AR", shape_buckets=BUCKETS), device="cpu")
+        sess.prepare(batches[0])
+        t = sess.warmup(background=background)
+        if background:
+            assert isinstance(t, threading.Thread)
+        losses[background] = [sess.run("loss", feed_dict=b).item()
+                              for b in batches]
+        if background:
+            t.join(timeout=120)
+            assert not t.is_alive() and t.error is None
+        assert sorted(sess.engine.warmup_seconds) == BUCKETS
+        assert sess.metrics.counter("engine.recompiles").value == 0
+        sess.run("loss", feed_dict=batches[2])
+        assert sess.metrics.counter("engine.recompiles").value == 0
+        assert sess.warmup() == {}
+        sess.close()
+    assert losses[True] == losses[False]
+
+
 def test_engine_cache_counts_equal_jax():
     counts = []
     for mod, registry in ((tcache, MetricsRegistry()), (jcache, None)):
@@ -263,8 +296,6 @@ def test_warmup_refusals():
     batch = _stream()[0]
     with pytest.raises(ValueError, match="shape_buckets"):
         sess.warmup(feed_dict=batch)
-    with pytest.raises(NotImplementedError, match="background"):
-        sess.warmup(background=True)
     # explicit sizes need no declared buckets
     assert sorted(sess.warmup(batch_sizes=[16, 64])) == [16, 64]
     sess.close()

@@ -1,5 +1,5 @@
-"""The port stands alone: neither ``parallax_tpu_torch``, nor
-``chip_smoke.py``, nor the elastic driver it runs
+"""The port stands alone: neither ``parallax_tpu_torch`` (its
+``examples/`` drivers too), nor ``chip_smoke.py``, nor the elastic driver it runs
 (``tests/torch_elastic_driver.py``) imports JAX or the JAX package, by
 their source and in a live interpreter where JAX cannot be imported at
 all."""
@@ -73,6 +73,11 @@ def test_package_imports_with_jax_blocked():
         "from parallax_tpu_torch.common import evaluation\n"
         "from parallax_tpu_torch.serve.adapters import "
         "MoeLMDecodeProgram\n"
+        "from parallax_tpu_torch.serve import mesh as serve_mesh\n"
+        "from parallax_tpu_torch.examples import (simple_driver, "
+        "lm1b_driver, lm1b_eval, nmt_driver, nmt_eval, "
+        "long_context_driver, cnn_benchmark_driver, cnn_eval, "
+        "skip_thoughts_driver)\n"
         "assert parallax_tpu_torch.moe_lm is moe_lm\n"
         "assert parallax_tpu_torch.MoeLMDecodeProgram is "
         "MoeLMDecodeProgram\n"

@@ -1055,7 +1055,7 @@ def layout_models(rank, world, runs):
             last["after"] = _flat_np(sess.gather_params())
             with torch.no_grad():
                 last["grads"] = {
-                    p: (_np(eng._whole(p, grads[p]) if p in eng.plan.split
+                    p: (_np(eng.plan.whole(p, grads[p]) if p in eng.plan.split
                             else grads[p]) if p in grads
                         else np.zeros_like(w))
                     for p, w in last["after"].items()}
@@ -1067,3 +1067,169 @@ def layout_models(rank, world, runs):
                                       _flat_np(sess.state.params).items()}}
         sess.close()
     return out
+
+
+# -- serving over the mesh ----------------------------------------------------
+
+
+def serve_toy_model():
+    """A model whose loss reads the served feed alone (``ids``), so the
+    serving session can classify its parameters on that feed."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch.core import optim
+    from parallax_tpu_torch.ops import collectives, embedding
+
+    def init_fn(gen, device):
+        return {"emb": torch.randn((32, 8), generator=gen, device=device),
+                "proj": {"w": torch.randn((8, 4), generator=gen,
+                                          device=device)}}
+
+    def loss_fn(params, batch):
+        h = embedding.embedding_lookup(params["emb"], batch["ids"]) \
+            @ params["proj"]["w"]
+        return collectives.global_mean(h ** 2)
+
+    return pt.Model(init_fn, loss_fn, optimizer=optim.sgd(0.1))
+
+
+def serve_toy_infer(params, batch):
+    from parallax_tpu_torch.ops import embedding
+    h = embedding.embedding_lookup(params["emb"], batch["ids"]) \
+        @ params["proj"]["w"]
+    return {"h": h, "n": h.sum(-1).sum(-1)}
+
+
+def _submit_all(sess, feeds, caps=None, bursts=None):
+    """Each request's result, submitted in ``bursts`` (lists of indices,
+    each burst waited for before the next) or all at once."""
+    bursts = bursts or [list(range(len(feeds)))]
+    out = [None] * len(feeds)
+    for burst in bursts:
+        reqs = {i: (sess.submit(feeds[i], max_new_tokens=caps[i])
+                    if caps is not None else sess.submit(feeds[i]))
+                for i in burst}
+        for i, r in reqs.items():
+            out[i] = r.result(timeout=60)
+    return out
+
+
+def _serve_case(rank, sess, feeds, caps=None, bursts=None, rows=None):
+    """The leader serves ``feeds``; a follower checks that it refuses a
+    submit. Every rank closes."""
+    res = {"rows": rows}
+    if rank == 0:
+        res["out"] = _submit_all(sess, feeds, caps, bursts)
+        res["recompiles"] = sess.stats()["serve.recompiles"]
+    else:
+        try:
+            sess.submit(feeds[0])
+            res["submit"] = None
+        except ValueError as e:
+            res["submit"] = str(e)
+    sess.close()
+    res["closed"] = True
+    return res
+
+
+def serve_mesh(rank, world, shape, oneshot, nmt_case, lm1b_cases,
+               handoff=None, moe=None):
+    """``ServeSession`` over the ``shape`` mesh: one-shot with a
+    row-sharded table, NMT and LM1B decode with the plan's row-sharded
+    tables (``model=``), and optionally ``session.serve()``'s handoff and
+    the expert-placement refusal."""
+    import parallax_tpu_torch as pt
+    from parallax_tpu_torch import weights
+    from parallax_tpu_torch.core import mesh as mesh_lib
+    from parallax_tpu_torch.models import lm1b, moe_lm, nmt
+
+    mesh = mesh_lib.build_mesh("cpu", shape=shape)
+    out = {"coords": mesh.coords}
+
+    def config(**sc):
+        return pt.Config(serve_config=pt.ServeConfig(**sc))
+
+    # one-shot: each rank its rows of emb, buckets split or whole
+    sess = pt.ServeSession(
+        serve_toy_infer, _to_torch(oneshot["init"]),
+        example_feed={"ids": np.zeros((3,), np.int32)},
+        model=serve_toy_model(), mesh=mesh,
+        config=config(max_batch=8, max_wait_ms=50.0))
+    split = {sig[0][1][0]: e.split for sig, e in sess._signatures.items()}
+    res = _serve_case(rank, sess, [{"ids": i} for i in oneshot["ids"]],
+                      bursts=oneshot["bursts"],
+                      rows=tuple(sess._params["emb"].shape))
+    res["split"] = split
+    out["oneshot"] = res
+
+    # NMT decode: emb row-sharded, out_proj dense
+    cfg = nmt.tiny_config(**nmt_case["cfg"], compute_dtype=torch.float32)
+    prog = pt.NMTDecodeProgram(cfg, **nmt_case["prog"], device="cpu")
+    sess = pt.ServeSession(
+        program=prog, params=weights.params_from_jax(
+            nmt_case["params"], cfg, device="cpu"),
+        model=nmt.build_model(cfg), mesh=mesh,
+        config=config(max_batch=4, max_queue=64))
+    out["nmt"] = _serve_case(rank, sess, [{"src": s}
+                                          for s in nmt_case["srcs"]],
+                             caps=nmt_case["caps"],
+                             rows=tuple(sess._params["emb"].shape))
+
+    # LM1B decode: the softmax table row-sharded, the argmax over ranks
+    out["lm1b"] = []
+    for case in lm1b_cases:
+        cfg = lm1b.tiny_config(compute_dtype=torch.float32)
+        prog = pt.LM1BDecodeProgram(cfg, max_src_len=8, max_len=8,
+                                    device="cpu")
+        sess = pt.ServeSession(
+            program=prog, params=weights.lm1b_params_from_jax(
+                case["params"], cfg, device="cpu"),
+            model=lm1b.build_model(cfg), mesh=mesh,
+            config=config(max_batch=4, max_queue=64))
+        out["lm1b"].append(_serve_case(
+            rank, sess, [{"ids": p} for p in case["prompts"]],
+            caps=case["caps"],
+            rows=tuple(sess._params["softmax_w"].shape)))
+
+    if moe is not None:
+        cfg = moe_lm.tiny_config(compute_dtype=torch.float32)
+        params = moe_lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        prog = pt.MoeLMDecodeProgram(cfg, max_src_len=8, max_len=8,
+                                     device="cpu")
+        try:
+            pt.ServeSession(program=prog, params=params,
+                            model=moe_lm.build_model(cfg), mesh=mesh,
+                            config=config(max_batch=4))
+            out["moe"] = None
+        except NotImplementedError as e:
+            out["moe"] = str(e)
+
+    if handoff is not None:
+        out["handoff"] = _serve_handoff(rank, world, shape, handoff)
+    return out
+
+
+def _serve_handoff(rank, world, shape, case):
+    """``ParallaxSession.serve()`` over the training mesh: the served
+    tensors are the engine's own (no gather, no copy)."""
+    import parallax_tpu_torch as pt
+    sess, *_ = pt.parallel_run(
+        toy_model(), parallax_config=pt.Config(
+            run_option="HYBRID", serve_config=pt.ServeConfig(
+                max_batch=4, max_wait_ms=20.0)),
+        num_partitions=shape[1], device="cpu")
+    _load(sess, case["init"], _share(case["batch"], rank, world))
+    sess.run("loss", feed_dict=_share(case["batch"], rank, world))
+    emb = sess.state.params["emb"]
+    srv = sess.serve(serve_toy_infer,
+                     example_feed={"ids": np.zeros((3,), np.int32)})
+    same = srv._params["emb"] is emb \
+        and srv._params["proj"]["w"] is sess.state.params["proj"]["w"]
+    res = _serve_case(rank, srv, [{"ids": i} for i in case["ids"]],
+                      rows=tuple(emb.shape))
+    res["same"] = same
+    whole = sess.gather_params()
+    res["whole"] = {"emb": _np(whole["emb"]),
+                    "w": _np(whole["proj"]["w"])}
+    sess.close()
+    return res
