@@ -490,6 +490,10 @@ SEED = 0
 # the tensor cores; 67 TF/s fp32 outside them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# TF32 on the tensor cores (dense): fp32 B4 and B6 form each product as
+# three TF32 products (split operands), so their tensor-core bound counts
+# three times the operations at this rate
+PEAK_TF32_OPS_PER_S = 495e12
 FP32_ATOL = 2e-5
 BF16_REL = 2e-2
 REPS = 20
@@ -634,6 +638,15 @@ def bound(bytes_moved: int, ops: int, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_tf32x3(bytes_moved: int, ops: int):
+    """(bound_ms, bound_by) of a split-operand (3xTF32) kernel: the bytes
+    over the memory rate against three TF32 products per operation over
+    the TF32 tensor-core rate."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3 * ops / PEAK_TF32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare(torch, got, want, dtype):
     """(max_abs_err, tolerance) of a kernel result against its plain
     version: atol 2e-5 in fp32, 2e-2 of the plain peak in bf16."""
@@ -715,10 +728,46 @@ BF16_ONLY = ("t2048", "t2048_causal", "bert", "lc_train", "moe_train",
              "lc_pipe")
 
 
+# the fp32 flash kernels redesigned as split-operand TF32 tensor-core
+# products (csrc/flash_attention_f32_sm90.cu); fp32 dq runs its first kernel
+FP32_SPLIT = ("flash_fwd_kernel", "flash_dkv_kernel")
+
+
 def flash_kernel_name(kernel, dtype_name):
     """The CUDA kernel a flash wrapper launches for the dtype: the sm90
-    (TMA + wgmma) kernels in bf16, the first kernels in fp32."""
-    return f"{kernel}_sm90" if dtype_name == "bfloat16" else kernel
+    (TMA + wgmma) kernels in bf16; in fp32 the split-operand TF32 ones
+    (``_tf32x3``) for the forward and dk/dv, the first kernel for dq."""
+    if dtype_name == "bfloat16":
+        return f"{kernel}_sm90"
+    return f"{kernel}_tf32x3" if kernel in FP32_SPLIT else kernel
+
+
+def first_fp32_kernel(torch, kernel, q, k, v, mask, causal, scale,
+                      dout=None, lse=None, delta=None):
+    """A call of the first fp32 forward or dk/dv kernel
+    (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``; off the
+    route since the split-operand redesign) on the wrapper's inputs, its
+    outputs in fresh buffers: the "earlier" time of the fp32 rows."""
+    from parallax_tpu_torch.ops import _cuda
+    from parallax_tpu_torch.ops import flash_attention as fa
+    B, Tq, H, hd = q.shape
+    Tk = k.shape[1]
+    mp = None if mask is None else mask.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "flash_fwd_kernel":
+        fn = _cuda.function("flash_attention", "pt_flash_fwd", fa._ARGTYPES)
+        out = torch.empty_like(q)
+        lse_out = torch.empty((B, H, Tq), dtype=torch.float32, device=DEVICE)
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp,
+                          out.data_ptr(), lse_out.data_ptr(), B, H, Tq, Tk,
+                          hd, scale, int(causal), stream)
+    fn = _cuda.function("flash_attention_bwd", "pt_flash_dkv",
+                        fa._DKV_ARGTYPES)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp,
+                      dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, hd, scale,
+                      int(causal), stream)
 
 
 def tflops(r):
@@ -813,15 +862,30 @@ def run_flash_case(torch, case, dtype):
     pairs = attended_pairs(torch, B, T, T, causal, mask)
     ops = 4 * H * hd * pairs
     bound_ms, bound_by = bound(bytes_moved, ops, dtype_name)
-    return {"kernel": "flash_attention_fwd", "case": label,
-            "dtype": dtype_name,
-            "shape": {"B": B, "T": T, "H": H, "hd": hd, "causal": causal,
-                      "mask": mask_kind},
-            "ok": ok, "max_abs_err": err, "tol": tol, "plain_rows": rows,
-            "lse_max_abs_err": lse_err, "ms": kernel_ms,
-            "device_ms": kernel_device_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops}
+    r = {"kernel": "flash_attention_fwd", "case": label,
+         "dtype": dtype_name,
+         "shape": {"B": B, "T": T, "H": H, "hd": hd, "causal": causal,
+                   "mask": mask_kind},
+         "ok": ok, "max_abs_err": err, "tol": tol, "plain_rows": rows,
+         "lse_max_abs_err": lse_err, "ms": kernel_ms,
+         "device_ms": kernel_device_ms,
+         "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops}
+    if dtype == torch.float32:
+        r.update(split_fp32_extras(
+            torch, "flash_fwd_kernel", bytes_moved, ops,
+            first_fp32_kernel(torch, "flash_fwd_kernel", q, k, v, mask,
+                              causal, scale)))
+    return r
+
+
+def split_fp32_extras(torch, kernel, bytes_moved, ops, earlier):
+    """An fp32 split-operand row's 3xTF32 tensor-core bound and the first
+    kernel's time on the same inputs (CUDA events and profiler)."""
+    bound3, bound3_by = bound_tf32x3(bytes_moved, ops)
+    return {"bound_tf32x3_ms": bound3, "bound_tf32x3_by": bound3_by,
+            "earlier_ms": time_ms(torch, earlier),
+            "earlier_device_ms": device_ms(torch, earlier, f"{kernel}<")}
 
 
 # -- phase 2: the paged-decode attention --------------------------------------
@@ -1035,8 +1099,18 @@ def phase_kernels(torch):
             f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms{warm} (device "
             f"{r['device_ms']} ms{rate}) plain "
             f"{r['plain_ms']:.4f} ms library {r['library_ms']} ms bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){split_note(r)}")
     return results
+
+
+def split_note(r):
+    """The log's note of an fp32 split-operand row: its 3xTF32 bound and
+    the first kernel's times."""
+    if "earlier_ms" not in r:
+        return ""
+    return (f"; 3xTF32 bound {r['bound_tf32x3_ms']:.5f} ms "
+            f"({r['bound_tf32x3_by']}), first kernel {r['earlier_ms']:.4f} "
+            f"ms (device {r['earlier_device_ms']} ms)")
 
 
 # -- phase 2: the flash-attention backward -----------------------------------
@@ -1152,6 +1226,10 @@ def run_flash_bwd_case(torch, case, dtype):
     }
     results = []
     dtype_name = str(dtype).split(".")[-1]
+    earlier = None
+    if dtype == torch.float32:
+        earlier = first_fp32_kernel(torch, "flash_dkv_kernel", q, k, v, mask,
+                                    causal, scale, dout, lse, delta)
     for name, (kernel, plain, kname, products, out_bytes) in calls.items():
         errs = [grad_compare(torch, a, e, dtype)
                 for a, e in zip(got[name], want[name])]
@@ -1180,6 +1258,9 @@ def run_flash_bwd_case(torch, case, dtype):
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention backward (dq, dk, dv)",
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops})
+        if earlier is not None and kname in FP32_SPLIT:
+            results[-1].update(split_fp32_extras(
+                torch, kname, in_bytes + out_bytes, ops, earlier))
     return results
 
 
@@ -1200,7 +1281,7 @@ def phase_flash_bwd_kernels(torch):
             f"{r['device_ms']} ms, {r['tflops']:.1f} TF/s) plain "
             f"{r['plain_ms']:.4f} ms SDPA bwd "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}){split_note(r)}")
     return results
 
 
@@ -3016,23 +3097,33 @@ def phase_nmt_train(torch):
 
 def phase_nmt_train_agreement(torch):
     """3 steps in fp32 (TF32 off) from the same weights through the
-    flash kernels and through the plain attention with autograd."""
+    flash kernels (fp32 B4 and B6 the split-operand TF32 ones, B5 the
+    first kernel) and through the plain attention with autograd."""
+    from parallax_tpu_torch.ops import flash_attention as fa
     losses = {}
     for name, pallas in (("kernel", True), ("plain", False)):
         cfg, sess = nmt_train_session(torch, use_pallas_attention=pallas,
                                       compute_dtype=torch.float32)
         batches = nmt_batches(cfg)
+        for counter in FLASH_COUNTERS:
+            setattr(fa, counter, 0)
         losses[name] = [float(sess.run("loss", feed_dict=batches[i]))
                         for i in range(3)]
+        if pallas:
+            launches = {c: getattr(fa, c) for c in FLASH_COUNTERS}
         sess.close()
         torch.cuda.empty_cache()
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
                                                losses["plain"])]
-    summary = {"losses": losses, "max_rel_diff": max(rel), "tol": 1e-4}
+    summary = {"losses": losses, "max_rel_diff": max(rel), "tol": 1e-4,
+               "launches": launches}
     log(f"[nmt-train-agree] {json.dumps(summary)}")
     if not max(rel) <= 1e-4:
         raise AssertionError(f"NMT kernel and plain losses differ by "
                              f"{max(rel)} relative > 1e-4")
+    if not all(launches.values()):
+        raise AssertionError(f"fp32 NMT training launched no flash kernel "
+                             f"of some kind: {launches}")
     return summary
 
 

@@ -135,6 +135,15 @@ class Graph:
         add_counters(self.launches)
         return self.outputs
 
+    def release(self) -> None:
+        """Destroy the captured graph now, whoever still holds this
+        object: a graph that recorded NCCL kernels holds a reference on
+        their communicator, and NCCL's destroy of that communicator
+        (``destroy_process_group``) waits until every such graph is
+        gone. The caller makes sure no replay is in flight."""
+        self.graph.reset()
+        self.outputs = None
+
 
 def capture(fn: Callable[[], object], device,
             generator: Optional[torch.Generator] = None,

@@ -10,8 +10,10 @@
 //   * a fully masked row yields out = 0 and lse = m + log(1e-30).
 // Inputs and output keep the public [B, T, H, hd] layout (the kernel
 // walks the strides, so no transpose is materialised); lse is
-// [B, H, Tq] fp32. fp32 inputs, hd in {64, 128}, any Tq / Tk; bf16 inputs
-// go to the wgmma kernel of flash_attention_sm90.cu.
+// [B, H, Tq] fp32. fp32 inputs, hd in {64, 128}, any Tq / Tk. This first
+// kernel is off the route: fp32 runs the split-operand TF32 tensor-core
+// forward of flash_attention_f32_sm90.cu, bf16 the wgmma kernel of
+// flash_attention_sm90.cu; it stays as the earlier time of the fp32 rows.
 //
 // What bounds it on the H100: the q/k/v/out bytes over 3.35 TB/s and the
 // 4*B*H*Tq*Tk*hd operations over 989 TF/s bf16 (data sheet) are close at
@@ -19,9 +21,11 @@
 // serving shape (one 64-token source); either way the bound is a few
 // microseconds. This first kernel does not reach for the tensor cores:
 // it runs its dots as fp32 FMAs on the CUDA cores out of shared memory,
-// which keeps fp32 results within 2e-5 of the plain version (a TF32
-// tensor-core product would not) and keeps the code short, and that is
-// what bounds it. The design keeps the [Tq, Tk] score matrix out
+// and that is what bounds it. One TF32 tensor-core product would break
+// the 2e-5 the fp32 results are held to; a product of split operands
+// (x = hi + lo, three TF32 products) does not, which is how
+// flash_attention_f32_sm90.cu keeps fp32 on the tensor cores. The design
+// keeps the [Tq, Tk] score matrix out
 // of device memory, as the TPU kernel does: one block per
 // (64-row q tile, head, batch) stages its q tile once, then streams
 // 64-row K/V tiles through shared memory with the online softmax held in

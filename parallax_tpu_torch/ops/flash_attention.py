@@ -5,8 +5,14 @@ Replaces ``parallax_tpu/ops/pallas_attention.py``: the forward TPU
 kernel ``_flash_fwd_kernel`` and the two backward ones,
 ``_flash_dq_kernel`` and ``_flash_dkv_kernel``. bf16 forward, dq and
 dk/dv run in ``csrc/flash_attention_sm90.cu`` (TMA-fed tiles, wgmma
-products, a producer warp); fp32 in ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu`` (fp32 FMAs). The forward streams 64-row
+products, a producer warp); fp32 forward and dk/dv in
+``csrc/flash_attention_f32_sm90.cu`` (mma.sync tensor-core products of
+split operands, x = tf32 hi + tf32 lo, three TF32 products each, which
+keeps the fp32 contract one TF32 product would break), fp32 dq in
+``csrc/flash_attention_bwd.cu`` (fp32 FMAs; the first fp32 forward and
+dk/dv kernels of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu`` stay built, off the route, as the
+earlier time chip_smoke.py reports beside the new). The forward streams 64-row
 K/V tiles past a resident q tile with the online softmax in registers;
 the backward recomputes p from the forward's lse, dq in one kernel (a
 block per q tile, streaming K/V) and dk/dv in another (a block per k
@@ -38,8 +44,9 @@ differentiates the plain attention instead (``_xla_attention_lse``): an
 explicit choice, never a fallback.
 
 Executor: a CUDA tensor launches the kernels (or raises: wrong dtype, an
-unsupported head dim, a bf16 base pointer off the 16 bytes TMA needs, a
-failed build); a CPU tensor takes the plain
+unsupported head dim, a base pointer off the 16 bytes that the bf16
+kernels' TMA and the fp32 forward's and dk/dv's cp.async need, a failed
+build); a CPU tensor takes the plain
 versions, which are also what ``chip_smoke.py`` holds the kernels
 against on the card. Launches are counted in ``launches`` (forward),
 ``launches_dq`` and ``launches_dkv``.
@@ -72,12 +79,15 @@ _DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
 _DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 # (source, launcher) of the forward, dq and dk/dv kernels by input dtype
-_FWD = {torch.float32: ("flash_attention", "pt_flash_fwd"),
+_FWD = {torch.float32: ("flash_attention_f32_sm90", "pt_flash_fwd_tf32x3"),
         torch.bfloat16: ("flash_attention_sm90", "pt_flash_fwd_sm90")}
 _DQ = {torch.float32: ("flash_attention_bwd", "pt_flash_dq"),
        torch.bfloat16: ("flash_attention_sm90", "pt_flash_dq_sm90")}
-_DKV = {torch.float32: ("flash_attention_bwd", "pt_flash_dkv"),
+_DKV = {torch.float32: ("flash_attention_f32_sm90", "pt_flash_dkv_tf32x3"),
         torch.bfloat16: ("flash_attention_sm90", "pt_flash_dkv_sm90")}
+# the sources that load 16-byte rows (TMA in bf16, cp.async in fp32): each
+# base pointer must lie on 16 bytes
+_ROW_LOADS = ("flash_attention_sm90", "flash_attention_f32_sm90")
 
 # kernel launches since the last reset (``launches = 0`` etc.)
 launches = 0        # forward
@@ -221,19 +231,20 @@ def _check_backward_inputs(q, k, v, kv_mask, dout, lse, delta) -> None:
                 f"{x.device}")
 
 
-def _check_tma_inputs(*tensors) -> None:
-    """What the bf16 (TMA) kernels need beyond the common checks: each
-    base pointer on 16 bytes, and at least one key."""
-    q, k = tensors[0], tensors[1]
-    if q.dtype != torch.bfloat16:
+def _check_row_loads(source, *tensors) -> None:
+    """What a kernel that loads 16-byte rows needs beyond the common
+    checks: each base pointer on 16 bytes; the bf16 (TMA) kernels also
+    need at least one key."""
+    if source not in _ROW_LOADS:
         return
     for x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(
-                "flash_attention: the bf16 kernels load by TMA, which "
-                "needs each tensor's base 16-byte aligned; got a view at "
+                f"flash_attention: the {tensors[0].dtype} kernels load "
+                "16-byte rows (TMA in bf16, cp.async in fp32), which needs "
+                "each tensor's base 16-byte aligned; got a view at "
                 f"{x.data_ptr():#x} (pass a contiguous copy)")
-    if k.shape[1] == 0:
+    if tensors[0].dtype == torch.bfloat16 and tensors[1].shape[1] == 0:
         raise ValueError("flash_attention: the bf16 kernels need Tk >= 1")
 
 
@@ -249,8 +260,8 @@ def _kernel(q, k, v, causal, scale, kv_mask):
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if B * Tq * H == 0:
         return out, lse
-    _check_tma_inputs(q, k, v)
     source, symbol = _FWD[q.dtype]
+    _check_row_loads(source, q, k, v)
     fn = _cuda.function(source, symbol, _ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               out.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, hd,
@@ -268,8 +279,8 @@ def _dq_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
     dq = torch.empty_like(q)
     if B * Tq * H == 0:
         return dq
-    _check_tma_inputs(q, k, v, dout)
     source, symbol = _DQ[q.dtype]
+    _check_row_loads(source, q, k, v, dout)
     fn = _cuda.function(source, symbol, _DQ_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -288,8 +299,8 @@ def _dkv_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if B * Tk * H == 0:
         return dk, dv
-    _check_tma_inputs(q, k, v, dout)
     source, symbol = _DKV[q.dtype]
+    _check_row_loads(source, q, k, v, dout)
     fn = _cuda.function(source, symbol, _DKV_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),

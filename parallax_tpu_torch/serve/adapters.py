@@ -211,6 +211,20 @@ class _ServeProgram(DecodeProgram):
         self.captures += 1
         return g
 
+    def release_graphs(self) -> None:
+        """Destroy every graph ``capture`` made (the next ``capture``
+        makes them anew). A graph over the serving mesh records its
+        NCCL collectives, and the communicators cannot be destroyed
+        while it lives (``graphs.Graph.release``)."""
+        g, self._graphs = self._graphs, None
+        if g is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for graph in [g.prefill, g.step, g.spec, *(g.chunks or ())]:
+            if graph is not None:
+                graph.release()
+
     def _live(self, params, state=None) -> Optional[_Graphs]:
         """The graphs, when they were captured on ``params`` (and
         ``state``) and capture is on in this thread."""

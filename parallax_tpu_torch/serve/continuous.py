@@ -112,7 +112,9 @@ class DecodeProgram:
     * ``prefix_key`` / ``prefill_tokens`` / ``copy_page`` (optional):
       the prefix cache's hooks (required for ``prefix_cache``).
     * ``capture(params, state)`` (optional): warm and capture on the
-      scheduler's own state.
+      scheduler's own state; ``release_graphs()`` (optional) destroys
+      what it captured, which a session over more than one rank calls
+      at ``close()`` (serve/session.py).
 
     Core callables:
 

@@ -200,7 +200,13 @@ class ServeSession:
     and serves (``submit``), the others follow (``submit`` raises
     ``ValueError``) until the leader's ``close()``, which each
     follower's ``close()`` waits for. While it serves, the mesh's
-    collectives belong to it. Not over more than one rank: the prefix
+    collectives belong to it. ``close()`` destroys the graphs the
+    session captured over the mesh (they hold its NCCL communicators,
+    which ``destroy_process_group`` cannot destroy while such a graph
+    lives), so after every rank's ``close()`` the caller has nothing to
+    release before ``destroy_process_group``; a decode program of the
+    caller's own that captures graphs gives ``release_graphs()`` for
+    that. Not over more than one rank: the prefix
     cache, ``prefill_only``, ``import_prefix_entry``, ``swap_params``,
     and plans with tensor-, expert- or stage-parallel weights (for a
     program, also gathered ones): each raises.
@@ -1006,6 +1012,7 @@ class ServeSession:
             self._follower.join()
             if self._scheduler is not None:
                 self._scheduler._release()
+            self._release_mesh_graphs()
             if self._follow_error is not None:
                 raise RuntimeError(
                     f"serving follower rank {self.rank} stopped before the "
@@ -1022,6 +1029,37 @@ class ServeSession:
         if n:
             parallax_log.warning(
                 "serve close: failed %d undrained request(s)", n)
+        self._release_mesh_graphs()
+
+    def _release_mesh_graphs(self) -> None:
+        """Over more than one rank, destroy the graphs the warmup
+        captured, once the serving loop has stopped: they record the
+        mesh's NCCL collectives, and NCCL's destroy of a communicator
+        (``destroy_process_group``) waits until every graph that holds
+        it is gone, which a closed session kept alive by any reference
+        would never let happen."""
+        if self.mesh.size == 1:
+            return
+        loop = self._scheduler if self._scheduler is not None \
+            else self._batcher
+        thread = getattr(loop, "_thread", None)
+        if thread is not None and thread.is_alive():
+            parallax_log.warning(
+                "serve close: the serving loop is still running; its "
+                "graphs stay alive and destroy_process_group will wait "
+                "for them")
+            return
+        if self._program is not None:
+            release = getattr(self._program, "release_graphs", None)
+            if release is not None:
+                release()
+            return
+        sigs = [e for e in self._signatures.values() if e.graph is not None]
+        if sigs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for e in sigs:
+            e.graph.release()
+            e.graph = None
 
     def __enter__(self) -> "ServeSession":
         return self

@@ -80,6 +80,57 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, Tq, Tk, H, hd, causal,
         assert torch.all(lse[0] < -1e29)
 
 
+# fp32 B4 and B6 (csrc/flash_attention_f32_sm90.cu, split-operand TF32
+# tensor-core products) at the sizes where their sums grow long: T 512
+# plain and causal, T 2048 causal, hd 128, and a fully masked row (batch 0)
+FP32_SPLIT_CASES = [
+    (8, 512, 512, 8, 64, False, False),
+    (8, 512, 512, 8, 64, True, False),
+    (2, 2048, 2048, 8, 64, True, False),
+    (4, 256, 256, 4, 128, False, True),
+    (2, 64, 64, 8, 64, False, True),
+]
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,hd,causal,masked", FP32_SPLIT_CASES)
+def test_fp32_split_forward_and_dkv_match_plain(cuda, B, Tq, Tk, H, hd,
+                                                causal, masked):
+    q, k, v, dout, mask = _flash_bwd_inputs(cuda, torch.float32, B, Tq, Tk,
+                                            H, hd, masked)
+    before = (fa.launches, fa.launches_dkv)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal, kv_mask=mask)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            kv_mask=mask)
+    delta = fa.flash_delta(ref, dout)
+    args = (q, k, v, mask, dout, ref_lse, delta, causal)
+    dk, dv = fa.flash_dkv(*args)
+    ref_dk, ref_dv = fa.flash_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+    _close(out, ref, torch.float32)
+    live = slice(1, None) if masked else slice(None)
+    _close(lse[live], ref_lse[live], torch.float32)
+    for got, want in ((dk, ref_dk), (dv, ref_dv)):
+        _grad_close(got, want, torch.float32)
+    if masked:
+        assert torch.all(out[0] == 0) and torch.all(lse[0] < -1e29)
+        assert torch.all(dk[0] == 0) and torch.all(dv[0] == 0)
+
+
+def test_fp32_dkv_is_bitwise_repeatable(cuda):
+    """fp32 dk/dv sums over q tiles in a fixed order inside one block: two
+    calls on the same inputs give the same bits."""
+    q, k, v, dout, mask = _flash_bwd_inputs(cuda, torch.float32, 2, 2048,
+                                            2048, 8, 64, False, seed=5)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    delta = fa.flash_delta(out, dout)
+    first = fa.flash_dkv(q, k, v, None, dout, lse, delta, True)
+    second = fa.flash_dkv(q, k, v, None, dout, lse, delta, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def _grad_close(got, want, dtype):
     """Gradients sum over a whole sequence: fp32 atol 2e-5 of max(1,
     peak), bf16 2e-2 of the peak."""
@@ -215,8 +266,10 @@ def _kernel_names(fn):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_dtype_picks_the_kernel(cuda, dtype):
-    """bf16 forward, dq and dk/dv launch the sm90 (TMA + wgmma) kernels,
-    fp32 the fp32-FMA ones; each call counts one launch either way."""
+    """bf16 forward, dq and dk/dv launch the sm90 (TMA + wgmma) kernels;
+    fp32 forward and dk/dv the split-operand TF32 ones (``_tf32x3``), fp32
+    dq the first (fp32-FMA) kernel; each call counts one launch either
+    way."""
     q, k, v, dout, mask = _flash_bwd_inputs(cuda, dtype, 2, 64, 64, 2, 64,
                                             True)
     out, lse = fa.flash_attention_plain(q, k, v, kv_mask=mask)
@@ -228,12 +281,15 @@ def test_flash_dtype_picks_the_kernel(cuda, dtype):
         fa.flash_dkv(q, k, v, mask, dout, lse, delta)))
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
         tuple(n + 1 for n in before)
-    for kernel in ("flash_fwd_kernel", "flash_dq_kernel",
-                   "flash_dkv_kernel"):
+    for kernel, split in (("flash_fwd_kernel", True),
+                          ("flash_dq_kernel", False),
+                          ("flash_dkv_kernel", True)):
         sm90 = [n for n in names if f"{kernel}_sm90" in n]
         fp32 = [n for n in names if kernel in n and "sm90" not in n]
         assert (len(sm90), len(fp32)) == \
             ((1, 0) if dtype == torch.bfloat16 else (0, 1)), names
+        if dtype == torch.float32:
+            assert ("_tf32x3" in fp32[0]) == split, names
 
 
 def test_flash_bf16_refuses_a_misaligned_view(cuda):
@@ -254,6 +310,27 @@ def test_flash_bf16_refuses_a_misaligned_view(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_dkv(good, good, good, None, bad, lse, lse)
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == before
+
+
+def test_flash_fp32_split_refuses_a_misaligned_view(cuda):
+    """The fp32 forward and dk/dv load 16-byte rows by cp.async: a
+    contiguous view that starts one element in raises before launching;
+    the fp32 dq (the first kernel, scalar loads) takes it."""
+    shape = (1, 64, 2, 64)
+    flat = torch.zeros(int(np.prod(shape)) + 1, device=cuda)
+    bad = flat[1:].view(shape)
+    good = torch.zeros(shape, device=cuda)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(bad, good, good)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_dkv(good, good, good, None, bad, lse, lse)
+    fa.flash_dq(good, good, good, None, bad, lse, lse)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+        (before[0], before[1] + 1, before[2])
 
 
 def _cuobjdump():

@@ -14,7 +14,8 @@ parameters:
   ``ServeSession(..., model=)``; each rank holds V/p rows; buckets that
   divide the ranks are split over them, the others go whole;
   ``serve.recompiles`` 0; ``submit`` on a follower raises; ``close()``
-  returns on every rank;
+  returns on every rank and releases the session's graphs (stand-ins
+  planted before it: the CPU captures none);
 * ``NMTDecodeProgram`` (``emb`` row-sharded, ``out_proj`` dense) and
   ``LM1BDecodeProgram`` (``softmax_w`` row-sharded, the greedy argmax
   over ranks) tokens identical to JAX's served tokens, once with a tie
@@ -238,6 +239,20 @@ def test_leader_and_followers(runs):
     for r in ranks[1:]:
         for c in [r["oneshot"], r["nmt"]] + r["lm1b"]:
             assert "leader" in c["submit"]
+
+
+def test_close_releases_the_mesh_graphs(runs):
+    """``close()`` over more than one rank destroys the session's graphs
+    (on a card they hold the mesh's NCCL communicators, and
+    ``destroy_process_group`` waits for every graph that does): the
+    decode programs' on every rank, the one-shot signatures' on the
+    leader (where stand-ins were planted)."""
+    _, _, _, ranks = runs
+    for rank, r in enumerate(ranks):
+        decode = [r["nmt"]] + r["lm1b"]
+        assert all(c["released"] == [True, True] for c in decode), rank
+        want = [True] * len(r["oneshot"]["split"]) if rank == 0 else []
+        assert r["oneshot"]["released"] == want, rank
 
 
 def test_serve_handoff_uses_engine_tensors(runs_1x2):

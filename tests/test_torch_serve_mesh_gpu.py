@@ -11,8 +11,8 @@ three), rank 0 leading and the others replaying its dispatches.
 * One-shot serving of an fp32 lookup-and-project model, buckets split
   over the ranks and whole: outputs within 1e-5 of one card's.
 
-Each rank holds V/p rows of every sharded table, and every rank returns
-from ``close()``. Needs two CUDA cards or more and skips with fewer; run
+Each rank holds V/p rows of every sharded table, every rank returns
+from ``close()``, and then from ``destroy_process_group()``. Needs two CUDA cards or more and skips with fewer; run
 it with ``python -m pytest --noconftest tests/test_torch_serve_mesh_gpu.py
 -m gpu`` on a machine with four.
 """
@@ -22,7 +22,6 @@ import faulthandler
 import multiprocessing
 import os
 import pickle
-import sys
 import time
 import traceback
 
@@ -150,11 +149,10 @@ def _rank(rank, world, shape, store, out_dir):
     except BaseException:
         traceback.print_exc()
         os._exit(1)
-    # the results are written: the rank ends without
-    # destroy_process_group, which hung on four cards after this serving
-    # (every rank inside it; ROADMAP Queue C)
-    sys.stderr.flush()
-    os._exit(0)
+    # every session is closed (the last one still referenced here): the
+    # teardown returns on every rank, since close() destroyed the graphs
+    # that held the mesh's NCCL communicators
+    torch.distributed.destroy_process_group()
 
 
 @pytest.fixture(scope="module")

@@ -1113,9 +1113,40 @@ def _submit_all(sess, feeds, caps=None, bursts=None):
     return out
 
 
+class _StandInGraph:
+    """Stands in for a captured graph (the CPU captures none): records
+    whether ``close()`` released it."""
+
+    released = False
+
+    def release(self):
+        self.released = True
+
+
+def _plant_graphs(rank, sess):
+    """Stand-in graphs where a card's session keeps its captured ones:
+    the decode program's (a ``_Graphs`` on no params, which every call
+    passes over, so a follower still replaying is not disturbed) and,
+    on the leader whose batcher is idle, each one-shot signature's."""
+    from parallax_tpu_torch.serve import adapters
+    planted = []
+    if sess._program is not None:
+        g = adapters._Graphs(None, None, None)
+        g.step = _StandInGraph()
+        g.chunks = [_StandInGraph()]
+        sess._program._graphs = g
+        planted += [g.step, *g.chunks]
+    elif rank == 0:
+        for entry in sess._signatures.values():
+            entry.graph = _StandInGraph()
+            planted.append(entry.graph)
+    return planted
+
+
 def _serve_case(rank, sess, feeds, caps=None, bursts=None, rows=None):
     """The leader serves ``feeds``; a follower checks that it refuses a
-    submit. Every rank closes."""
+    submit. Every rank closes; ``released`` says whether the close
+    released the stand-in graphs planted before it."""
     res = {"rows": rows}
     if rank == 0:
         res["out"] = _submit_all(sess, feeds, caps, bursts)
@@ -1126,8 +1157,10 @@ def _serve_case(rank, sess, feeds, caps=None, bursts=None, rows=None):
             res["submit"] = None
         except ValueError as e:
             res["submit"] = str(e)
+    planted = _plant_graphs(rank, sess)
     sess.close()
     res["closed"] = True
+    res["released"] = [g.released for g in planted]
     return res
 
 
