@@ -25,7 +25,9 @@ beside it. Phases:
    (``scaled_dot_product_attention`` for the flash forward), the
    bound from the H100 SXM data sheet and, for the flash kernels, the
    achieved TF/s (operations over device time). bf16 flash forward, dq
-   and dk/dv run the sm90 kernels (TMA + wgmma), fp32 the first kernels;
+   and dk/dv run the sm90 kernels (TMA + wgmma), fp32 the split-operand
+   TF32 kernels (``_tf32x3``: their 3xTF32 bound and the first fp32
+   kernel's time on the same inputs, "earlier", beside each row);
    the T 2048 cases (B 2, H 8, hd 64, causal and not) and BERT-large's
    attention (``bert``: B 32, T 512, H 16, hd 64, a padding mask whose
    lengths are drawn in [384, 512]) run in bf16 only.
@@ -61,12 +63,18 @@ beside it. Phases:
    timed beside the plain version, cuDNN's ``torch.nn.LSTM`` with the
    same projection (which also runs the input projection the kernels
    leave to the hoisted matmul; for B3 its forward plus backward less
-   its forward), the bound and the achieved TF/s. Each runs the kernel
-   ``ops/lstm.py``'s ``fwd_route`` or ``bwd_route`` picks, printed with
-   each case: the persistent kernels (``csrc/lstm_sm90.cu``) in bf16 at
-   the training shape, which must take them, the first kernels in fp32
-   and at the ragged shape. Then 10 back-to-back bf16 B2 calls and 10 B3
-   calls at the training shape must each give bit-identical results, and
+   its forward; in fp32 with cuDNN's TF32 off and again allowed), the
+   bound and the achieved TF/s. Each runs the kernel ``ops/lstm.py``'s
+   ``fwd_route`` or ``bwd_route`` picks, printed with each case: the
+   persistent kernels (``csrc/lstm_sm90.cu``) in bf16 at the training
+   shape, which must take them, the persistent fp32 forward
+   (``csrc/lstm_f32_sm90.cu``; its 3xTF32 bound and the first kernel's
+   time beside it) for fp32 B1 and B2 there and at the two fp32 shapes
+   where main paths launch it (``lm1b_eval``'s T 20, B 16 and the drift
+   sentinels' T 6, B 8, E 16, H 32, P 16), which must take it, and the
+   first kernels for fp32 B3 and at the ragged shape. Then 10
+   back-to-back bf16 B2 calls, 10 B3 calls and 10 fp32 B2 calls at the
+   training shape must each give bit-identical results, and
    B2's and B3's device time over T 1-40 (three allocations each) gives
    each one's time a step (``lstm-sweep``, ``lstm-bwd-sweep``), and B3 on
    the persistent kernel with 16 and with 32 units a block, in turns,
@@ -458,7 +466,10 @@ plain version and timed cold in turns.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, and its error, times and bound at
 the main-path case where it fares worst against its library call,
-beside every main-path case's (``main_path``). The whole
+beside every main-path case's (``main_path``), then the fp32
+split-operand kernels (``<name>_fp32``: B4-B6 at NMT training's widths,
+launched by ``nmt-train-agree``; B1 and B2 at the LM1B shape, launched
+by ``lm1b_eval`` and the drift sentinels). The whole
 record is also written to ``build/chip_smoke.json``.
 
 ``python3 chip_smoke.py --pair DIR`` is an A/B on one card instead: the
@@ -729,14 +740,14 @@ BF16_ONLY = ("t2048", "t2048_causal", "bert", "lc_train", "moe_train",
 
 
 # the fp32 flash kernels redesigned as split-operand TF32 tensor-core
-# products (csrc/flash_attention_f32_sm90.cu); fp32 dq runs its first kernel
-FP32_SPLIT = ("flash_fwd_kernel", "flash_dkv_kernel")
+# products (csrc/flash_attention_f32_sm90.cu): the forward, dq and dk/dv
+FP32_SPLIT = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 
 def flash_kernel_name(kernel, dtype_name):
     """The CUDA kernel a flash wrapper launches for the dtype: the sm90
-    (TMA + wgmma) kernels in bf16; in fp32 the split-operand TF32 ones
-    (``_tf32x3``) for the forward and dk/dv, the first kernel for dq."""
+    (TMA + wgmma) kernels in bf16, the split-operand TF32 ones
+    (``_tf32x3``) in fp32."""
     if dtype_name == "bfloat16":
         return f"{kernel}_sm90"
     return f"{kernel}_tf32x3" if kernel in FP32_SPLIT else kernel
@@ -744,7 +755,7 @@ def flash_kernel_name(kernel, dtype_name):
 
 def first_fp32_kernel(torch, kernel, q, k, v, mask, causal, scale,
                       dout=None, lse=None, delta=None):
-    """A call of the first fp32 forward or dk/dv kernel
+    """A call of the first fp32 forward, dq or dk/dv kernel
     (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``; off the
     route since the split-operand redesign) on the wrapper's inputs, its
     outputs in fresh buffers: the "earlier" time of the fp32 rows."""
@@ -761,6 +772,14 @@ def first_fp32_kernel(torch, kernel, q, k, v, mask, causal, scale,
         return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp,
                           out.data_ptr(), lse_out.data_ptr(), B, H, Tq, Tk,
                           hd, scale, int(causal), stream)
+    if kernel == "flash_dq_kernel":
+        fn = _cuda.function("flash_attention_bwd", "pt_flash_dq",
+                            fa._DQ_ARGTYPES)
+        dq = torch.empty_like(q)
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp,
+                          dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dq.data_ptr(), B, H, Tq, Tk, hd, scale,
+                          int(causal), stream)
     fn = _cuda.function("flash_attention_bwd", "pt_flash_dkv",
                         fa._DKV_ARGTYPES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -873,19 +892,23 @@ def run_flash_case(torch, case, dtype):
          "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops}
     if dtype == torch.float32:
         r.update(split_fp32_extras(
-            torch, "flash_fwd_kernel", bytes_moved, ops,
+            torch, bytes_moved, ops,
             first_fp32_kernel(torch, "flash_fwd_kernel", q, k, v, mask,
-                              causal, scale)))
+                              causal, scale), {"flash_fwd_kernel<": 1}))
     return r
 
 
-def split_fp32_extras(torch, kernel, bytes_moved, ops, earlier):
+def split_fp32_extras(torch, bytes_moved, ops, earlier, records,
+                      **timing):
     """An fp32 split-operand row's 3xTF32 tensor-core bound and the first
-    kernel's time on the same inputs (CUDA events and profiler)."""
+    kernel's time on the same inputs: ``earlier`` calls it, ``records``
+    are the profiler records a call leaves (as ``device_ms_per_call``
+    takes them) and ``timing`` goes to ``time_ms``."""
     bound3, bound3_by = bound_tf32x3(bytes_moved, ops)
     return {"bound_tf32x3_ms": bound3, "bound_tf32x3_by": bound3_by,
-            "earlier_ms": time_ms(torch, earlier),
-            "earlier_device_ms": device_ms(torch, earlier, f"{kernel}<")}
+            "earlier_ms": time_ms(torch, earlier, **timing),
+            "earlier_device_ms": device_ms_per_call(torch, earlier,
+                                                    records)}
 
 
 # -- phase 2: the paged-decode attention --------------------------------------
@@ -1226,10 +1249,6 @@ def run_flash_bwd_case(torch, case, dtype):
     }
     results = []
     dtype_name = str(dtype).split(".")[-1]
-    earlier = None
-    if dtype == torch.float32:
-        earlier = first_fp32_kernel(torch, "flash_dkv_kernel", q, k, v, mask,
-                                    causal, scale, dout, lse, delta)
     for name, (kernel, plain, kname, products, out_bytes) in calls.items():
         errs = [grad_compare(torch, a, e, dtype)
                 for a, e in zip(got[name], want[name])]
@@ -1258,9 +1277,12 @@ def run_flash_bwd_case(torch, case, dtype):
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention backward (dq, dk, dv)",
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops})
-        if earlier is not None and kname in FP32_SPLIT:
+        if dtype == torch.float32:
             results[-1].update(split_fp32_extras(
-                torch, kname, in_bytes + out_bytes, ops, earlier))
+                torch, in_bytes + out_bytes, ops,
+                first_fp32_kernel(torch, kname, q, k, v, mask, causal,
+                                  scale, dout, lse, delta),
+                {f"{kname}<": 1}))
     return results
 
 
@@ -1563,12 +1585,14 @@ LSTM_REPEATS = 10
 def lstm_kernel_records(name, route, T):
     """{CUDA activity name: records one call leaves} of an LSTM op on its
     route, as ops/lstm.py's fwd_route and bwd_route pick it: the
-    persistent kernels (csrc/lstm_sm90.cu) launch once a call; the first
-    ones (csrc/lstm.cu) three times a step, B3 once fewer and a memcpy of
-    dh_tot's last step."""
+    persistent kernels (csrc/lstm_sm90.cu, csrc/lstm_f32_sm90.cu) launch
+    once a call; the first ones (csrc/lstm.cu) three times a step, B3 once
+    fewer and a memcpy of dh_tot's last step."""
     if route == "lstm_sm90":
         return {"lstm_bwd_kernel_sm90" if name == "lstm_bwd"
                 else "lstm_fwd_kernel_sm90": 1}
+    if route == "lstm_f32_sm90":
+        return {"lstm_fwd_kernel_tf32x3": 1}
     if name == "lstm_bwd":
         return {"Memcpy DtoD": 1, "lstm_bwd_cell_kernel": T,
                 "lstm_bwd_dh_kernel": T - 1,
@@ -1608,6 +1632,13 @@ def lstm_cases():
     # (bench.py:420); "ragged" puts B, H and P off every tile
     return [("train", 20, 128, 512, 2048, 512),
             ("ragged", 7, 100, 200, 1000, 300)]
+
+
+# the fp32 shapes at which main paths launch the persistent fp32 forward:
+# lm1b_eval's held-out batch (B1) and the drift sentinels' pair
+# (obs/numwatch.py's lstm_drift_inputs; B2)
+LSTM_FP32_PATH_CASES = [("eval", 20, 16, 512, 2048, 512),
+                        ("sentinel", 6, 8, 16, 32, 16)]
 
 
 def lstm_close(torch, got, want, dtype):
@@ -1668,14 +1699,22 @@ def run_lstm_case(torch, case, dtype):
                                                    w_h, w_proj)),
     }
     # cuDNN: the forward with autograd on (B1's and B2's yardstick) and
-    # the forward plus backward, less the forward (B3's)
+    # the forward plus backward, less the forward (B3's); in fp32 also with
+    # cuDNN's TF32 allowed (torch's default; the script runs with it off),
+    # under which cuDNN may take one-pass TF32 products, which the port's
+    # 1e-4 contract rules out
     mod = cudnn_lstm(torch, x, w, b, w_proj)
     xg = x.clone().requires_grad_()
-    lib_fwd = time_ms(torch, lambda: mod(xg), reps=5, per_round=3)
-    lib_fb = time_ms(torch, lambda: torch.autograd.backward(
-        mod(xg)[0], gout.to(dtype)), reps=5, per_round=3)
-    library = {"lstm_fwd": lib_fwd, "lstm_fwd_res": lib_fwd,
-               "lstm_bwd": max(lib_fb - lib_fwd, 0.0)}
+    library, library_tf32 = {}, {}
+    for allow in ((False, True) if dtype == torch.float32 else (False,)):
+        torch.backends.cudnn.allow_tf32 = allow
+        lib_fwd = time_ms(torch, lambda: mod(xg), reps=5, per_round=3)
+        lib_fb = time_ms(torch, lambda: torch.autograd.backward(
+            mod(xg)[0], gout.to(dtype)), reps=5, per_round=3)
+        (library_tf32 if allow else library).update(
+            {"lstm_fwd": lib_fwd, "lstm_fwd_res": lib_fwd,
+             "lstm_bwd": max(lib_fb - lib_fwd, 0.0)})
+    torch.backends.cudnn.allow_tf32 = False
     del mod, xg
     xs, ws = x.element_size(), w.element_size()
     flops = lstm.pass_flops(T, B, H, P)
@@ -1707,6 +1746,14 @@ def run_lstm_case(torch, case, dtype):
                                    str(dtype).split(".")[-1])
         dev = device_ms_per_call(torch, kernel,
                                  lstm_kernel_records(name, kroute, T))
+        extras = {}
+        if kroute == "lstm_f32_sm90":
+            extras = split_fp32_extras(
+                torch, nbytes[name], flops,
+                first_fp32_lstm(torch, name, xw, w_h, w_proj),
+                lstm_kernel_records(name, "lstm", T), reps=10, per_round=3)
+        if name in library_tf32:
+            extras["library_tf32_ms"] = library_tf32[name]
         results.append({
             "kernel": name, "case": label,
             "dtype": str(dtype).split(".")[-1],
@@ -1722,9 +1769,26 @@ def run_lstm_case(torch, case, dtype):
             "tflops": flops / (dev * 1e-3) / 1e12 if dev else None,
             "plain_ms": time_ms(torch, plain, reps=3, per_round=1,
                                 warmup=1),
-            "library_ms": library[name], "library": "torch.nn.LSTM (cuDNN)",
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            "library_ms": library[name],
+            "library": "torch.nn.LSTM (cuDNN, TF32 off)",
+            "bound_ms": bound_ms, "bound_by": bound_by, **extras})
     return results
+
+
+def first_fp32_lstm(torch, name, xw, w_h, w_proj):
+    """A call of the first fp32 B1 or B2 kernel (csrc/lstm.cu; off the
+    route where the persistent fp32 forward takes the shape) on the
+    wrapper's inputs, its outputs in fresh buffers: the "earlier" time of
+    the fp32 rows."""
+    from parallax_tpu_torch.ops import lstm
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    hs = torch.empty((T, B, P), device=DEVICE)
+    gates = cseq = None
+    if name == "lstm_fwd_res":
+        gates = torch.empty((T, B, 4 * H), device=DEVICE)
+        cseq = torch.empty((T, B, H), device=DEVICE)
+    return lambda: lstm._first_fwd(name, xw, w_h, w_proj, hs, gates, cseq)
 
 
 def lstm_sm90_inputs(torch, T, seed):
@@ -1746,24 +1810,29 @@ def lstm_sm90_inputs(torch, T, seed):
 
 
 def lstm_repeatability(torch):
-    """LSTM_REPEATS back-to-back bf16 B2 calls and as many B3 calls at the
-    LM1B training shape: hs, gates and c, and d_xw and dh_total, must be
-    bit-identical (the persistent kernels' grid barriers and cross-block
-    reads must not depend on timing)."""
+    """LSTM_REPEATS back-to-back bf16 B2 calls, as many B3 calls and as
+    many fp32 B2 calls at the LM1B training shape: hs, gates and c, and
+    d_xw and dh_total, must be bit-identical (the persistent kernels' grid
+    barriers and cross-block reads must not depend on timing)."""
     from parallax_tpu_torch.ops import lstm
     T = lstm_cases()[0][1]
     xw, w_h, w_proj, gout, gates, cseq = lstm_sm90_inputs(torch, T,
                                                           SEED + 1)
+    xw32, wh32, wp32 = (x.float() for x in (xw, w_h, w_proj))
     calls = {
         "lstm_fwd_res": lambda: lstm.lstm_recurrence(xw, w_h, w_proj,
                                                      residuals=True),
         "lstm_bwd": lambda: lstm.lstm_bwd_recurrence(gout, gates, cseq,
-                                                     w_h, w_proj)}
+                                                     w_h, w_proj),
+        "lstm_fwd_res_fp32": lambda: lstm.lstm_recurrence(
+            xw32, wh32, wp32, residuals=True)}
     summary = {"calls": LSTM_REPEATS,
                "route": {"lstm_fwd_res":
                          lstm.device_fwd_route(xw, w_proj).source,
                          "lstm_bwd":
-                         lstm.device_bwd_route(gout, w_proj).source}}
+                         lstm.device_bwd_route(gout, w_proj).source,
+                         "lstm_fwd_res_fp32":
+                         lstm.device_fwd_route(xw32, wp32).source}}
     for name, call in calls.items():
         runs = [call() for _ in range(LSTM_REPEATS)]
         torch.cuda.synchronize()
@@ -1772,7 +1841,7 @@ def lstm_repeatability(torch):
     log(f"[lstm-repeat] {json.dumps(summary)}")
     differ = [name for name in calls if not summary[name]]
     if differ:
-        raise AssertionError(f"bf16 {differ} calls at the training shape "
+        raise AssertionError(f"{differ} calls at the training shape "
                              f"differ from one another")
     return summary
 
@@ -1855,7 +1924,8 @@ def lstm_bwd_groups(torch):
 def phase_lstm_kernels(torch):
     results = []
     for dtype in (torch.bfloat16, torch.float32):
-        for case in lstm_cases():
+        for case in lstm_cases() + (LSTM_FP32_PATH_CASES
+                                    if dtype == torch.float32 else []):
             results.extend(run_lstm_case(torch, case, dtype))
     for r in results:
         tf = f"{r['tflops']:.1f}" if r["tflops"] else "n/a"
@@ -1864,9 +1934,17 @@ def phase_lstm_kernels(torch):
             f"{'ok' if r['ok'] else 'FAILED'} err {r['max_abs_err']:.3g} "
             f"(tol {r['tol']:.3g}) kernel {r['ms']:.4f} ms (device "
             f"{r['device_ms']} ms, {tf} TF/s) plain {r['plain_ms']:.4f} ms "
-            f"cuDNN {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"cuDNN {r['library_ms']:.4f} ms{lstm_tf32_note(r)} bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){split_note(r)}")
     return results
+
+
+def lstm_tf32_note(r):
+    """The log's note of an fp32 LSTM row: cuDNN's time with its TF32
+    allowed."""
+    if "library_tf32_ms" not in r:
+        return " (TF32 off)" if r["dtype"] == "float32" else ""
+    return f" (TF32 off; {r['library_tf32_ms']:.4f} ms TF32 allowed)"
 
 
 # -- phase 6: LM1B training ---------------------------------------------------
@@ -2282,7 +2360,7 @@ def phase_obs_train(torch):
                              "the artifact")
     if not doc["detail"].get("stats_trail"):
         raise AssertionError("obs-train: no stats trail in the artifact")
-    if route != {"fwd": "lstm", "bwd": "lstm"}:
+    if route != {"fwd": "lstm_f32_sm90", "bwd": "lstm"}:
         raise AssertionError(f"obs-train: sentinel LSTM route {route}")
     if sentinel_launches != {"lstm_fwd": 0, "lstm_fwd_res": 4,
                              "lstm_bwd": 2, "paged_decode_attention": 2}:
@@ -3097,8 +3175,8 @@ def phase_nmt_train(torch):
 
 def phase_nmt_train_agreement(torch):
     """3 steps in fp32 (TF32 off) from the same weights through the
-    flash kernels (fp32 B4 and B6 the split-operand TF32 ones, B5 the
-    first kernel) and through the plain attention with autograd."""
+    flash kernels (fp32 B4-B6 all the split-operand ``_tf32x3`` ones) and
+    through the plain attention with autograd."""
     from parallax_tpu_torch.ops import flash_attention as fa
     losses = {}
     for name, pallas in (("kernel", True), ("plain", False)):
@@ -7083,6 +7161,21 @@ MAIN_PATH_CASES = {
                                "lc_serve"],
     "lstm_fwd": ["train"], "lstm_fwd_res": ["train"], "lstm_bwd": ["train"],
 }
+# the fp32 split-operand kernels (entries ``<name>_fp32`` of the line): the
+# paths that launch them are nmt-train-agree's fp32 NMT training (B4-B6 at
+# its widths), lm1b_eval's fp32 evaluation (B1, "eval") and the drift
+# sentinels (B2, "sentinel"); their cases here are the kernel phases' fp32
+# rows at those shapes
+FP32_MAIN_PATH_CASES = {
+    "flash_attention_fwd": ("flash_attention_f32_sm90",
+                            ["train_enc", "train_dec"]),
+    "flash_attention_dq": ("flash_attention_f32_sm90",
+                           ["train_enc", "train_dec", "train_cross"]),
+    "flash_attention_dkv": ("flash_attention_f32_sm90",
+                            ["train_enc", "train_dec", "train_cross"]),
+    "lstm_fwd": ("lstm_f32_sm90", ["eval"]),
+    "lstm_fwd_res": ("lstm_f32_sm90", ["sentinel"]),
+}
 
 
 def worst_case(rows):
@@ -7095,7 +7188,7 @@ def worst_case(rows):
     return max(timed, key=lambda r: r["ms"] / r["library_ms"])
 
 
-def kernel_line(results, launches):
+def kernel_line(results, launches, fp32_launches):
     """One entry per kernel, its numbers at the main-path case (bf16, the
     type the main paths launch it in) where it fares worst against its
     library call: ``case`` names it, and ``main_path`` gives every
@@ -7111,7 +7204,9 @@ def kernel_line(results, launches):
     the train phase's held-out loss and ``lm1b_eval``'s, B7's the serving
     paths' (NMT plain, speculative, prefix, fleet, disaggregated and over
     the mesh, causal LM unchunked and chunked, MoE LM). An LSTM entry
-    names the source of the route its case ran on."""
+    names the source of the route its case ran on. The fp32 split-operand
+    kernels follow as ``<name>_fp32`` entries at their fp32 cases
+    (``FP32_MAIN_PATH_CASES``), their launches ``fp32_launches``."""
     sm90_src = "parallax_tpu_torch/csrc/flash_attention_sm90.cu"
     meta = {
         "flash_attention_fwd": (
@@ -7143,6 +7238,25 @@ def kernel_line(results, launches):
                     "main_path": [{k: m[k] for k in (
                         "case", "max_abs_err", "ms", "plain_ms",
                         "bound_ms", "library_ms")} for m in rows]})
+    for name, (source, cases) in FP32_MAIN_PATH_CASES.items():
+        rows = [next(r for r in results if r["kernel"] == name
+                     and r["case"] == case and r["dtype"] == "float32")
+                for case in cases]
+        r = worst_case(rows)
+        out.append({"name": f"{name}_fp32", "route": "cuda",
+                    "source": f"parallax_tpu_torch/csrc/{source}.cu",
+                    "replaces": meta[name][1],
+                    "launches": fp32_launches[name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "bound_tf32x3_ms": r["bound_tf32x3_ms"],
+                    "library_ms": r["library_ms"], "case": r["case"],
+                    "earlier_ms": r["earlier_ms"],
+                    "main_path": [{k: m[k] for k in (
+                        "case", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "library_ms", "earlier_ms")}
+                        for m in rows]})
     return {"kernels": out}
 
 
@@ -7331,6 +7445,15 @@ def main() -> int:
         raise AssertionError(f"bf16 LSTM routes at the training shape "
                              f"{train_route}: B1, B2 and B3 must take the "
                              f"persistent kernels")
+    for case in ["train"] + [c[0] for c in LSTM_FP32_PATH_CASES]:
+        f32_route = {r["kernel"]: r["route"] for r in lstm_results
+                     if r["case"] == case and r["dtype"] == "float32"}
+        if f32_route != {"lstm_fwd": "lstm_f32_sm90",
+                         "lstm_fwd_res": "lstm_f32_sm90",
+                         "lstm_bwd": "lstm"}:
+            raise AssertionError(f"fp32 LSTM routes at {case} "
+                                 f"{f32_route}: B1 and B2 must take the "
+                                 f"persistent fp32 forward")
     lstm_repeat = phase("lstm-repeat", lstm_repeatability, torch)
     lstm_sweep = phase("lstm-sweep", lstm_step_sweep, torch)
     lstm_bwd_sweep = phase("lstm-bwd-sweep", lstm_step_sweep, torch,
@@ -7456,7 +7579,13 @@ def main() -> int:
             drivers["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     cases = results + lstm_results + [moe_b7]
-    line = kernel_line(cases, launches)
+    fp32_launches = {
+        "flash_attention_fwd": nmt_agree["launches"]["launches"],
+        "flash_attention_dq": nmt_agree["launches"]["launches_dq"],
+        "flash_attention_dkv": nmt_agree["launches"]["launches_dkv"],
+        "lstm_fwd": drivers["lm1b_eval"]["launches"]["lstm_fwd"],
+        "lstm_fwd_res": obs_train["sentinel_launches"]["lstm_fwd_res"]}
+    line = kernel_line(cases, launches, fp32_launches)
     record = {"card": card, "kernels": line["kernels"],
               "cases": cases, "paged_splits": paged_splits,
               "lstm_repeat": lstm_repeat,

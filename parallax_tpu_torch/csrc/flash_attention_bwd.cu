@@ -18,9 +18,9 @@
 // Inputs and outputs keep the public [B, T, H, hd] layout (the kernels walk
 // the strides); lse and delta are [B, H, Tq] fp32. fp32 inputs only: bf16
 // dq and dk/dv are the wgmma kernels of flash_attention_sm90.cu, and fp32
-// dk/dv runs the split-operand TF32 tensor-core kernel of
-// flash_attention_f32_sm90.cu (pt_flash_dkv here is off the route, the
-// earlier time of its rows); hd in
+// dq and dk/dv run the split-operand TF32 tensor-core kernels of
+// flash_attention_f32_sm90.cu (pt_flash_dq and pt_flash_dkv here are off
+// the route, the earlier times of their rows); hd in
 // {64, 128}, any Tq / Tk (the ragged tile edge is masked). `causal` is the
 // top-left aligned tril of the forward: q row i sees keys j <= i.
 //
@@ -43,7 +43,7 @@
 // operands keeps about 3 decimal digits, which would break the fp32
 // contract; a product of split operands (x = hi + lo, three TF32 products
 // summed in fp32) keeps it, which is what flash_attention_f32_sm90.cu does
-// for dk/dv; bf16 runs on wgmma with TMA-fed tiles
+// for dq and dk/dv; bf16 runs on wgmma with TMA-fed tiles
 // (flash_attention_sm90.cu).
 
 #include <cuda_runtime.h>

@@ -1,10 +1,12 @@
 // fp32 flash attention for Hopper (sm_90a) on the tensor cores: the
-// forward and dk/dv as split-operand (3xTF32) mma.sync products.
+// forward, dq and dk/dv as split-operand (3xTF32) mma.sync products.
 //
-// Replaces two TPU kernels of parallax_tpu/ops/pallas_attention.py for
-// fp32 inputs:
+// Replaces the three TPU kernels of parallax_tpu/ops/pallas_attention.py
+// for fp32 inputs:
 //   * pt_flash_fwd_tf32x3 <- `_flash_fwd_kernel` (its pl.pallas_call at
 //     line 141, launched by `_flash_forward`);
+//   * pt_flash_dq_tf32x3  <- `_flash_dq_kernel` (its pl.pallas_call at
+//     line 298, launched by `_flash_backward`);
 //   * pt_flash_dkv_tf32x3 <- `_flash_dkv_kernel` (its pl.pallas_call at
 //     line 326, launched by `_flash_backward`).
 // Same function, same rounding points as the plain versions of
@@ -15,14 +17,16 @@
 //     set to -1e30 and p is zeroed where the score is at or below
 //     -1e30 / 2: a fully masked row gives out = 0, lse = m + log(1e-30)
 //     and zero gradients;
-//   * the forward gives out and lse [B, H, Tq]; dk/dv recompute
+//   * the forward gives out and lse [B, H, Tq]; dq and dk/dv recompute
 //     p = exp(s - lse), take ds = p * (dO.v - delta) with delta from the
 //     caller (the lse cotangent already folded in), and write
-//     dv = sum_q p.dO and dk = sum_q ds.(scale q), unscaled.
+//     dq = scale * sum_k ds.k, dv = sum_q p.dO and dk = sum_q ds.(scale q),
+//     unscaled.
 // Inputs and outputs keep the public [B, T, H, hd] layout; hd 64 or 128,
-// any Tq / Tk, `causal` the top-left aligned tril. bf16 runs
-// flash_attention_sm90.cu; fp32 dq runs the first kernel of
-// flash_attention_bwd.cu.
+// any Tq / Tk, `causal` the top-left aligned tril; every base on 16 bytes
+// (ops/flash_attention.py copies a view that is not). bf16 runs
+// flash_attention_sm90.cu; the first fp32 kernels (flash_attention.cu,
+// flash_attention_bwd.cu) stay built, off the route.
 //
 // Why the split product keeps the fp32 contract. One TF32 product rounds
 // each operand to 10 mantissa bits, about 5e-4 relative, which moves
@@ -39,7 +43,7 @@
 // infinity cases. One more source of error is the tensor core's own: it
 // truncates each sum it writes, so a long running sum fed by mma directly
 // drifts toward zero (dv past 2e-5 of its peak at T 2048 causal). Every
-// product that feeds a running sum (the output, dk, dv) is therefore
+// product that feeds a running sum (the output, dq, dk, dv) is therefore
 // summed from zero into a temporary and added to the running sum in fp32
 // (mma3_add), which costs about 15 % of dk/dv's time and holds T 4096
 // within the contract. tools/torch_flash_fp32_variants.py builds both
@@ -54,22 +58,25 @@
 // the copy and the product.
 //
 // The layouts. One warp owns 16 rows of the resident tile (q rows in the
-// forward, k rows in dk/dv); a block is 4 warps, 64 rows, the resident
-// tile in shared memory. The streamed tiles (K/V in the forward, q/dO in
-// dk/dv) come through a ring of two shared-memory stages filled by 16-byte
+// forward and dq, k rows in dk/dv); a block is 4 warps, 64 rows, the
+// resident tile (q; q and dO in dq; K and V in dk/dv) in shared memory.
+// The streamed tiles (K/V in the forward and dq, q/dO in dk/dv) come
+// through a ring of two shared-memory stages filled by 16-byte
 // cp.async while the previous tile is multiplied, rows padded to hd + 4
 // floats: a fragment read of rows gid and columns tig (gid = lane / 4,
 // tig = lane % 4) and one of rows 2 tig, 2 tig + 1 and columns gid both
-// touch 32 distinct banks. The second product (P.V, P^T.dO, dS^T.q) takes
+// touch 32 distinct banks. The second product (P.V, dS.K, P^T.dO, dS^T.q)
+// takes
 // the first one's accumulator as its A operand with neither a shuffle nor
 // a trip through shared memory: the accumulator holds columns 2 tig and
 // 2 tig + 1 of an 8-column block where A wants columns tig and tig + 4,
 // so the second product's k index tig stands for column 2 tig and tig + 4
 // for 2 tig + 1, and its B fragment reads rows 2 tig and 2 tig + 1 to
 // match (a sum does not care in which order its k terms come). The online
-// softmax (m, l) and the output, or the dk/dv sums, stay in registers;
-// dk/dv sum over q tiles in a fixed order inside one block, no atomics, so
-// they are bitwise the same from run to run. dk/dv splits its resident K/V
+// softmax (m, l) and the output, or the dq or dk/dv sums, stay in
+// registers; dq sums over K tiles and dk/dv over q tiles in a fixed order
+// inside one block, no atomics, so they are bitwise the same from run to
+// run. dk/dv splits its resident K/V
 // fragments again for each q tile: keeping them split would take 128 more
 // registers a thread or twice the tile's shared memory (one block an SM),
 // and the re-split is about a sixth of the kernel's split work.
@@ -77,17 +84,20 @@
 // What bounds it on the H100: at B 8, T 512, H 8, hd 64 the forward does
 // 4.29 G operations, three TF32 products each: 0.026 ms at 495 TF/s TF32
 // (data sheet, dense), against 0.010 ms for its bytes at 3.35 TB/s; dk/dv
-// does twice the forward's products, 0.052 ms. So the tensor cores bound
-// both at the sizes that matter. What holds the kernels at about a fifth
-// of that (0.134 and 0.247 ms, chip_smoke.py on an H100): each mma needs
+// does twice the forward's products, 0.052 ms, and dq one and a half
+// times, 0.039 ms. So the tensor cores bound all three at the sizes that
+// matter. What holds the forward and dk/dv at about a fifth of that (0.134
+// and 0.247 ms, chip_smoke.py on an H100): each mma needs
 // its fragment split (five ALU operations a value) and each B fragment a
 // shared-memory read, which a warp of 16 rows does for its own rows alone.
 // The forward caps its registers to fit three blocks an SM (measured
 // faster than holding q's fragments in registers at two); dk/dv needs its
-// 255 registers for the four sums and runs two. Causal: the forward stops
-// at the last K tile the diagonal reaches and launches the longest q
-// tiles first; dk/dv starts at the first q tile that reaches the
-// diagonal; a warp whose 16 rows see none of a tile skips its products.
+// 255 registers for the four sums and runs two, and so does dq (its
+// resident q and dO tiles and ring take 103 KB at hd 64; one block at hd
+// 128). Causal: the forward and dq stop at the last K tile the diagonal
+// reaches and launch the longest q tiles first; dk/dv starts at the first
+// q tile that reaches the diagonal; a warp whose 16 rows see none of a
+// tile skips its products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -530,6 +540,153 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel_tf32x3(
   }
 }
 
+// B5: one block per (64-row q tile, head, batch), streaming BK-row K/V
+// tiles past the resident scaled-q and dO tiles; warp w owns q rows
+// 16 w .. 16 w + 15 and their dq sums.
+template <int HD, int BK>
+__global__ void __launch_bounds__(NT, 2) flash_dq_kernel_tf32x3(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int* __restrict__ kv_mask,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int H, int Tq,
+    int Tk, float scale, int causal) {
+  constexpr int LD = HD + 4;
+  constexpr int KS = HD / 8;     // k steps of Q.K^T and dO.V^T; n tiles of dQ
+  constexpr int NS = BK / 8;     // n tiles of S, dP; k steps of dQ
+  constexpr int STAGE = 2 * BK * LD;
+  extern __shared__ __align__(16) float smem[];
+  int* sMask = reinterpret_cast<int*>(smem + 2 * STAGE);   // [2][BK]
+  float* sQ = smem + 2 * STAGE + 2 * BK;                   // [BR][LD]
+  float* sO = sQ + BR * LD;                                // [BR][LD]
+
+  const int num_q = (Tq + BR - 1) / BR;
+  // causal: the longest q tiles (the most K tiles) first
+  const int qt = causal ? num_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long rs = (long)H * HD;
+  const float* qb = q + (long)b * Tq * rs + (long)h * HD;
+  const float* ob = dout + (long)b * Tq * rs + (long)h * HD;
+  const float* kb = k + (long)b * Tk * rs + (long)h * HD;
+  const float* vb = v + (long)b * Tk * rs + (long)h * HD;
+  const int* mb = kv_mask == nullptr ? nullptr : kv_mask + (long)b * Tk;
+
+  const int row0 = qt * BR + warp * WM;   // the warp's first q row
+  const int r0 = row0 + gid, r1 = r0 + 8;
+  const long lrow = ((long)b * H + h) * Tq;
+  const float lse0 = r0 < Tq ? lse[lrow + r0] : 0.f;
+  const float lse1 = r1 < Tq ? lse[lrow + r1] : 0.f;
+  const float dl0 = r0 < Tq ? delta[lrow + r0] : 0.f;
+  const float dl1 = r1 < Tq ? delta[lrow + r1] : 0.f;
+
+  float a_dq[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+    a_dq[n][0] = a_dq[n][1] = a_dq[n][2] = a_dq[n][3] = 0.f;
+
+  int num_k = (Tk + BK - 1) / BK;
+  if (causal) num_k = min(num_k, ((qt + 1) * BR + BK - 1) / BK);
+
+  auto load = [&](int kt, int st) {
+    float* sK = smem + st * STAGE;
+    load_rows<HD, LD>(sK, kb, rs, kt * BK, BK, Tk, tid);
+    load_rows<HD, LD>(sK + BK * LD, vb, rs, kt * BK, BK, Tk, tid);
+    if (mb != nullptr && tid < BK) {
+      const int t = kt * BK + tid;
+      cp_async4(sMask + st * BK + tid, mb + (t < Tk ? t : 0), t < Tk);
+    }
+    cp_commit();
+  };
+
+  if (num_k > 0) {
+    load_rows<HD, LD>(sQ, qb, rs, qt * BR, BR, Tq, tid);
+    load_rows<HD, LD>(sO, ob, rs, qt * BR, BR, Tq, tid);
+    load(0, 0);   // one group with the resident q and dO tiles
+  }
+  for (int kt = 0; kt < num_k; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < num_k) {
+      load(kt + 1, st ^ 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = smem + st * STAGE;
+    const float* sV = sK + BK * LD;
+    const int key0 = kt * BK;
+    if (!causal || key0 <= row0 + WM - 1) {
+      // S = Q.K^T and dP = dO.V^T: the accumulators of n tile n hold rows
+      // r0 ([n][0..1]) and r1 ([n][2..3]) at keys key0 + 8 n + 2 tig + (0, 1)
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        // the warp's q fragment, scaled in fp32 as the plain version does
+        const float* qp = sQ + (warp * WM + gid) * LD + kk * 8 + tig;
+        const float* op = sO + (warp * WM + gid) * LD + kk * 8 + tig;
+        FragA a, c;
+        a.set(qp[0] * scale, qp[8 * LD] * scale, qp[4] * scale,
+              qp[8 * LD + 4] * scale);
+        c.set(op[0], op[8 * LD], op[4], op[8 * LD + 4]);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float* kp = sK + (n * 8 + gid) * LD + kk * 8 + tig;
+          const float* vp = sV + (n * 8 + gid) * LD + kk * 8 + tig;
+          mma3(s[n], a, kp[0], kp[4]);
+          mma3(dp[n], c, vp[0], vp[4]);
+        }
+      }
+      // ds = p * (dP - delta) into dp, with the forward's masking
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = n * 8 + 2 * tig + e;
+          const int t = key0 + j;
+          const bool ok = mb != nullptr ? sMask[st * BK + j] > 0 : t < Tk;
+          const float s0 = ok && (!causal || t <= r0) ? s[n][e] : kNegInf;
+          const float s1 = ok && (!causal || t <= r1) ? s[n][2 + e] : kNegInf;
+          const float p0 = s0 > kNegInf * 0.5f ? expf(s0 - lse0) : 0.f;
+          const float p1 = s1 > kNegInf * 0.5f ? expf(s1 - lse1) : 0.f;
+          dp[n][e] = p0 * (dp[n][e] - dl0);
+          dp[n][2 + e] = p1 * (dp[n][2 + e] - dl1);
+        }
+      }
+      // dQ += dS.K: k step j is n tile j of dS, its k index tig standing
+      // for key 2 tig and tig + 4 for key 2 tig + 1
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        FragA a;
+        a.set(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+        const float* kp = sK + (j * 8 + 2 * tig) * LD + gid;
+#pragma unroll
+        for (int n = 0; n < KS; ++n)
+          mma3_add(a_dq[n], a, kp[n * 8], kp[LD + n * 8]);
+      }
+    }
+    __syncthreads();   // every read of this stage is done before its refill
+  }
+
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+    const int c = n * 8 + 2 * tig;
+    if (r0 < Tq)
+      *reinterpret_cast<float2*>(dq + ((long)b * Tq + r0) * rs +
+                                 (long)h * HD + c) =
+          make_float2(a_dq[n][0] * scale, a_dq[n][1] * scale);
+    if (r1 < Tq)
+      *reinterpret_cast<float2*>(dq + ((long)b * Tq + r1) * rs +
+                                 (long)h * HD + c) =
+          make_float2(a_dq[n][2] * scale, a_dq[n][3] * scale);
+  }
+}
+
 template <int HD, int BK>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* kv_mask, void* out, void* lse, int B,
@@ -572,6 +729,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int HD, int BK>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* kv_mask, const void* dout, const void* lse,
+                      const void* delta, void* dq, int B, int H, int Tq,
+                      int Tk, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * 2 * BK * (HD + 4) + 2 * BK +
+                                       2 * BR * (HD + 4));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_kernel_tf32x3<HD, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + BR - 1) / BR, H, B);
+  flash_dq_kernel_tf32x3<HD, BK><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(kv_mask),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), H, Tq, Tk,
+      scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The streamed tile is 64 rows at hd 64 and 32 at hd 128, which keeps the
@@ -605,6 +783,22 @@ extern "C" int pt_flash_dkv_tf32x3(const void* q, const void* k,
   if (hd == 128)
     return launch_dkv<128, 32>(q, k, v, kv_mask, dout, lse, delta, dk, dv,
                                B, H, Tq, Tk, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int pt_flash_dq_tf32x3(const void* q, const void* k,
+                                  const void* v, const void* kv_mask,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dq, int B, int H,
+                                  int Tq, int Tk, int hd, float scale,
+                                  int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch_dq<64, 64>(q, k, v, kv_mask, dout, lse, delta, dq, B, H,
+                             Tq, Tk, scale, causal, st);
+  if (hd == 128)
+    return launch_dq<128, 32>(q, k, v, kv_mask, dout, lse, delta, dq, B, H,
+                              Tq, Tk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

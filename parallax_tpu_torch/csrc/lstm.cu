@@ -22,6 +22,13 @@
 //     compute dtype, and dh = round_w(d_gates) @ w_h^T (round_w(d_gates) is
 //     the stored d_xw, which the dh kernel reads).
 //
+// What runs here: fp32 B3, and B1/B2 at the shapes the persistent
+// kernels do not take (ops/lstm.py's fwd_route and bwd_route): bf16 B1-B3
+// run csrc/lstm_sm90.cu and fp32 B1/B2 csrc/lstm_f32_sm90.cu where those
+// take the shape (the LM1B step, lm1b_eval and the drift sentinels on an
+// H100). This first version stays built for the rest, and chip_smoke.py
+// times it beside the fp32 persistent forward as that row's "earlier".
+//
 // Design: per-timestep launches, chosen over a persistent cooperative grid
 // because it is short and obviously right at any shape. Each step of the
 // forward is three launches (gates + cell; the projection, split over its

@@ -10,8 +10,9 @@
 //   B2 `_lstm_kernel_res` (pl.pallas_call at line 299): pt_lstm_fwd_sm90
 //                          with the two residual outputs
 //   B3 `_lstm_bwd_kernel` (pl.pallas_call at line 477): pt_lstm_bwd_sm90
-// fp32, and bf16 shapes these kernels do not take, stay on csrc/lstm.cu (a
-// wgmma on fp32 operands is TF32, about 3 decimal digits).
+// fp32 B1/B2 run csrc/lstm_f32_sm90.cu (split-operand TF32 mma.sync: a
+// wgmma on fp32 operands is one TF32 product, about 3 decimal digits);
+// fp32 B3 and the shapes neither takes stay on csrc/lstm.cu.
 //
 // Same function and rounding points as csrc/lstm.cu:
 //   * gates = xw_t (widened) + hs_{t-1} . w_h, fp32 accumulation; the

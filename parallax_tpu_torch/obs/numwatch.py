@@ -48,8 +48,9 @@ to the host.
 
 **Drift sentinels** (``DriftSentinel`` + the built-in pairs): shadow
 evals comparing a hand-written kernel against its plain executor — the
-LSTM forward with residuals and backward (B2/B3, ``csrc/lstm.cu`` at
-the pair's fp32 shape) against the plain backward on the weight
+LSTM forward with residuals and backward (B2/B3: at the pair's fp32
+shape ``csrc/lstm_f32_sm90.cu`` and ``csrc/lstm.cu``) against the plain
+backward on the weight
 gradient, and the paged decode (B7, ``csrc/paged_attention.cu``)
 against the plain gather on decode outputs — exporting rel-error /
 argmax-flip gauges. Argmax flips are margin-aware: a flip only counts
@@ -704,7 +705,8 @@ def lstm_drift_pair(T: int = 6, B: int = 8, E: int = 16, H: int = 32,
     backward (``lstm_scan(impl="kernel", bwd_impl="kernel")``),
     reference B2 forward + the plain backward (``bwd_impl="scan"``), as
     the JAX pair runs the Pallas forward under both backwards. At the
-    pair's fp32 shape the route takes the first kernels
+    pair's fp32 shape B2 takes the persistent fp32 forward
+    (``csrc/lstm_f32_sm90.cu``) and B3 the first kernel
     (``csrc/lstm.cu``). ``perturb`` scales the candidate by ``1 +
     perturb`` — an injected drift that tests the sentinel itself."""
 

@@ -42,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("flash_attention", "flash_attention_sm90",
                   "flash_attention_f32_sm90", "flash_attention_bwd",
-                  "paged_attention", "lstm", "lstm_sm90")
+                  "paged_attention", "lstm", "lstm_sm90", "lstm_f32_sm90")
 
 _libs: Dict[str, object] = {}   # loaded libraries and typed launchers
 _lock = threading.Lock()
@@ -167,6 +167,16 @@ def function(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":
         fn.argtypes = list(argtypes)
         _libs[key] = fn
     return fn
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its base lies on 16 bytes, else a contiguous copy
+    (a fresh allocation is aligned): what a kernel that loads 16-byte rows
+    (cp.async, TMA, vector loads) is handed in place of a view that starts
+    off a 16-byte boundary."""
+    if x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def check(name: str, code: int, what: str) -> None:

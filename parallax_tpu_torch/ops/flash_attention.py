@@ -5,14 +5,13 @@ Replaces ``parallax_tpu/ops/pallas_attention.py``: the forward TPU
 kernel ``_flash_fwd_kernel`` and the two backward ones,
 ``_flash_dq_kernel`` and ``_flash_dkv_kernel``. bf16 forward, dq and
 dk/dv run in ``csrc/flash_attention_sm90.cu`` (TMA-fed tiles, wgmma
-products, a producer warp); fp32 forward and dk/dv in
+products, a producer warp); fp32 forward, dq and dk/dv in
 ``csrc/flash_attention_f32_sm90.cu`` (mma.sync tensor-core products of
 split operands, x = tf32 hi + tf32 lo, three TF32 products each, which
-keeps the fp32 contract one TF32 product would break), fp32 dq in
-``csrc/flash_attention_bwd.cu`` (fp32 FMAs; the first fp32 forward and
-dk/dv kernels of ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu`` stay built, off the route, as the
-earlier time chip_smoke.py reports beside the new). The forward streams 64-row
+keeps the fp32 contract one TF32 product would break; the first fp32
+kernels of ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
+stay built, off the route, as the earlier time chip_smoke.py reports
+beside the new). The forward streams 64-row
 K/V tiles past a resident q tile with the online softmax in registers;
 the backward recomputes p from the forward's lse, dq in one kernel (a
 block per q tile, streaming K/V) and dk/dv in another (a block per k
@@ -44,12 +43,15 @@ differentiates the plain attention instead (``_xla_attention_lse``): an
 explicit choice, never a fallback.
 
 Executor: a CUDA tensor launches the kernels (or raises: wrong dtype, an
-unsupported head dim, a base pointer off the 16 bytes that the bf16
-kernels' TMA and the fp32 forward's and dk/dv's cp.async need, a failed
-build); a CPU tensor takes the plain
+unsupported head dim, a failed build); a CPU tensor takes the plain
 versions, which are also what ``chip_smoke.py`` holds the kernels
-against on the card. Launches are counted in ``launches`` (forward),
-``launches_dq`` and ``launches_dkv``.
+against on the card. Every kernel loads 16-byte rows (TMA in bf16,
+cp.async in fp32), which needs each base pointer on 16 bytes: the
+wrappers pass a contiguous copy of a q, k, v or dO view that is not
+(``_cuda.aligned``), so such a view gives the bits an aligned tensor
+gives.
+Launches are counted in ``launches`` (forward), ``launches_dq`` and
+``launches_dkv``.
 """
 
 from __future__ import annotations
@@ -66,28 +68,25 @@ from parallax_tpu_torch.ops import _cuda
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# pt_flash_fwd (fp32) and pt_flash_fwd_sm90 (bf16): (q, k, v, kv_mask,
+# pt_flash_fwd_tf32x3 (fp32), pt_flash_fwd_sm90 (bf16): (q, k, v, kv_mask,
 # out, lse, B, H, Tq, Tk, hd, scale, causal, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# pt_flash_dq (fp32) and pt_flash_dq_sm90 (bf16): (q, k, v, kv_mask, dout,
+# pt_flash_dq_tf32x3 (fp32), pt_flash_dq_sm90 (bf16): (q, k, v, kv_mask, dout,
 # lse, delta, dq, B, H, Tq, Tk, hd, scale, causal, stream)
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# pt_flash_dkv (fp32) and pt_flash_dkv_sm90 (bf16): (q, k, v, kv_mask,
+# pt_flash_dkv_tf32x3 (fp32), pt_flash_dkv_sm90 (bf16): (q, k, v, kv_mask,
 # dout, lse, delta, dk, dv, B, H, Tq, Tk, hd, scale, causal, stream)
 _DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 # (source, launcher) of the forward, dq and dk/dv kernels by input dtype
 _FWD = {torch.float32: ("flash_attention_f32_sm90", "pt_flash_fwd_tf32x3"),
         torch.bfloat16: ("flash_attention_sm90", "pt_flash_fwd_sm90")}
-_DQ = {torch.float32: ("flash_attention_bwd", "pt_flash_dq"),
+_DQ = {torch.float32: ("flash_attention_f32_sm90", "pt_flash_dq_tf32x3"),
        torch.bfloat16: ("flash_attention_sm90", "pt_flash_dq_sm90")}
 _DKV = {torch.float32: ("flash_attention_f32_sm90", "pt_flash_dkv_tf32x3"),
         torch.bfloat16: ("flash_attention_sm90", "pt_flash_dkv_sm90")}
-# the sources that load 16-byte rows (TMA in bf16, cp.async in fp32): each
-# base pointer must lie on 16 bytes
-_ROW_LOADS = ("flash_attention_sm90", "flash_attention_f32_sm90")
 
 # kernel launches since the last reset (``launches = 0`` etc.)
 launches = 0        # forward
@@ -231,21 +230,14 @@ def _check_backward_inputs(q, k, v, kv_mask, dout, lse, delta) -> None:
                 f"{x.device}")
 
 
-def _check_row_loads(source, *tensors) -> None:
-    """What a kernel that loads 16-byte rows needs beyond the common
-    checks: each base pointer on 16 bytes; the bf16 (TMA) kernels also
-    need at least one key."""
-    if source not in _ROW_LOADS:
-        return
-    for x in tensors:
-        if x.data_ptr() % 16:
-            raise ValueError(
-                f"flash_attention: the {tensors[0].dtype} kernels load "
-                "16-byte rows (TMA in bf16, cp.async in fp32), which needs "
-                "each tensor's base 16-byte aligned; got a view at "
-                f"{x.data_ptr():#x} (pass a contiguous copy)")
+def _row_loads(*tensors):
+    """The tensors (q, k, ...) a kernel is handed: every kernel loads
+    16-byte rows (TMA in bf16, cp.async in fp32), so each one on 16 bytes
+    (``_cuda.aligned`` copies a view that is not); the bf16 (TMA) kernels
+    also need at least one key."""
     if tensors[0].dtype == torch.bfloat16 and tensors[1].shape[1] == 0:
         raise ValueError("flash_attention: the bf16 kernels need Tk >= 1")
+    return tuple(_cuda.aligned(x) for x in tensors)
 
 
 def _mask_ptr(kv_mask):
@@ -261,7 +253,7 @@ def _kernel(q, k, v, causal, scale, kv_mask):
     if B * Tq * H == 0:
         return out, lse
     source, symbol = _FWD[q.dtype]
-    _check_row_loads(source, q, k, v)
+    q, k, v = _row_loads(q, k, v)
     fn = _cuda.function(source, symbol, _ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               out.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, hd,
@@ -280,7 +272,7 @@ def _dq_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
     if B * Tq * H == 0:
         return dq
     source, symbol = _DQ[q.dtype]
-    _check_row_loads(source, q, k, v, dout)
+    q, k, v, dout = _row_loads(q, k, v, dout)
     fn = _cuda.function(source, symbol, _DQ_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -300,7 +292,7 @@ def _dkv_kernel(q, k, v, kv_mask, dout, lse, delta, causal, scale):
     if B * Tk * H == 0:
         return dk, dv
     source, symbol = _DKV[q.dtype]
-    _check_row_loads(source, q, k, v, dout)
+    q, k, v, dout = _row_loads(q, k, v, dout)
     fn = _cuda.function(source, symbol, _DKV_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(kv_mask),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),

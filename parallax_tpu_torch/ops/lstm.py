@@ -9,9 +9,10 @@ w = [w_x; w_h] ([E+P, 4H], gate order i|f|g|o) splits by row:
   B1 (the primal forward), B2 (the forward under differentiation, which
   also saves the post-activation gates and the c trajectory) and B3
   (the time-reversed backward, which streams ``d_xw`` and the fp32
-  ``dh_total`` out). The kernels are ``parallax_tpu_torch/csrc/lstm.cu``
-  and, for bf16, ``csrc/lstm_sm90.cu``; their headers say how they are
-  laid out and what bounds them.
+  ``dh_total`` out). The kernels are ``parallax_tpu_torch/csrc/lstm.cu``,
+  ``csrc/lstm_sm90.cu`` (bf16) and ``csrc/lstm_f32_sm90.cu`` (the fp32
+  forward); their headers say how they are laid out and what bounds
+  them.
 
 Every weight gradient leaves the recurrence as one batched product with
 fp32 accumulation (``_bwd_epilogue``), the mirror of the hoist; these
@@ -28,10 +29,15 @@ Routing (``fwd_route`` for B1 and B2, ``bwd_route`` for B3, pure
 functions of dtype, shape and the card's SM count, decided before the
 launch): bf16 on the shapes the persistent kernels take goes to
 ``csrc/lstm_sm90.cu`` (one cooperative launch per pass, the weights
-resident in shared memory, the products on wgmma); fp32 (a TF32 wgmma
-would break the 1e-4 contract) and other bf16 shapes go to the first
-kernels, ``csrc/lstm.cu``. Nothing falls back: a build or launch failure
-raises.
+resident in shared memory, the products on wgmma); the fp32 forward on
+the shapes its persistent kernel takes to ``csrc/lstm_f32_sm90.cu`` (the
+same structure, its products split-operand TF32 mma.sync, x = tf32 hi +
+tf32 lo, three TF32 products each: one TF32 product would break the 1e-4
+contract); fp32 B3 and every other shape go to the first kernels,
+``csrc/lstm.cu``. At an H100's 132 SMs the LM1B step (T20 B128 H2048
+P512), ``examples/lm1b_eval``'s T20 B16 and the drift sentinels' pair
+(T6 B8 H32 P16, ``obs/numwatch.py``) take the persistent forwards in both
+dtypes. Nothing falls back: a build or launch failure raises.
 
 ``lstm_scan(impl="kernel")`` runs B2 and B3 through an
 ``autograd.Function`` when a gradient is wanted and B1 when it is not
@@ -93,6 +99,10 @@ _SM90_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
 #                  counter, T, B, H, P, groups, stages, stream)
 _SM90_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p]
+# pt_lstm_fwd_tf32x3(xw, w_h, w_proj, hs, gates, cseq, hfull, counter, T,
+#                    B, H, P, stream)
+_F32_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
 # the kernels split a contraction of length K into this many slices, of
 # at least 256 each, for at most 32
 _SPLIT_MIN, _SPLIT_MAX = 256, 32
@@ -110,6 +120,11 @@ SM90_STAGES = (4, 3, 2)
 # 16); a deeper ring than 2 stages was no faster
 SM90_BWD_GROUPS = (2, 1)
 SM90_BWD_STAGES = 2
+# the persistent fp32 forward's shared memory beside its w_h slice, in
+# bytes (csrc/lstm_f32_sm90.cu's 2 * kStage + kRed floats): two ring stages
+# of 128 rows of 72 floats and two 64 x 12 chunks of w_proj each, and the
+# projection's half sums (2 KB)
+F32_FIXED_SMEM = 4 * (2 * (128 * 72 + 2 * 64 * 12) + 512)
 
 # kernel launches since the last reset (assign 0 to reset)
 launches_fwd = 0        # B1
@@ -229,9 +244,11 @@ def lstm_scan_reference(x_seq, w, b, w_proj, *, out_dtype=None,
 
 class FwdRoute(NamedTuple):
     """Which kernel runs a B1/B2 (or, from ``bwd_route``, a B3) call:
-    ``source`` is ``"lstm_sm90"`` (the persistent kernel, ``groups`` x 16
-    hidden units a block, ``stages`` ring stages) or ``"lstm"`` (the first
-    kernel; groups = stages = 0)."""
+    ``source`` is ``"lstm_sm90"`` (the persistent bf16 kernel, ``groups``
+    x 16 hidden units a block, ``stages`` ring stages),
+    ``"lstm_f32_sm90"`` (the persistent fp32 forward, whose design is
+    fixed: 16 units a block, 2 stages; groups = stages = 0) or ``"lstm"``
+    (the first kernel; groups = stages = 0)."""
     source: str
     groups: int = 0
     stages: int = 0
@@ -246,6 +263,13 @@ def sm90_smem_bytes(groups: int, H: int, P: int, stages: int) -> int:
         + 2048 + 2 * stages * 8
 
 
+def f32_smem_bytes(P: int) -> int:
+    """Dynamic shared memory of the persistent fp32 forward: the w_h
+    slice (64 gate columns of P rounded up to 32, plus 8, floats), the
+    two ring stages and the projection's half sums."""
+    return 4 * 64 * (-(-P // 32) * 32 + 8) + F32_FIXED_SMEM
+
+
 def fwd_route(dtype: torch.dtype, T: int, B: int, H: int, P: int,
               sm_count: int) -> FwdRoute:
     """The kernel for a B1/B2 call, from dtype, shape and the card's SM
@@ -254,11 +278,20 @@ def fwd_route(dtype: torch.dtype, T: int, B: int, H: int, P: int,
     in (1, 2) whose H / 16G blocks all fit on the card (one a SM; the
     grid barriers need them all resident), P / 8 projection column tiles
     dividing the blocks, and shared memory that fits; it takes the
-    smallest such G and the deepest ring that fits. Everything else
-    runs the first kernel."""
+    smallest such G and the deepest ring that fits. The persistent fp32
+    forward takes fp32 with B <= 128, P a multiple of 8, H a multiple of
+    16 whose H / 16 blocks all fit on the card, and a w_h slice that fits
+    (P up to 544): ``("lstm_f32_sm90", 0, 0)``. Everything else runs the
+    first kernel."""
     first = FwdRoute("lstm")
-    if dtype != torch.bfloat16 or not (1 <= B <= SM90_MAX_B) \
-            or T < 1 or P < 8 or P % 8:
+    if not (1 <= B <= SM90_MAX_B) or T < 1 or P < 8 or P % 8:
+        return first
+    if dtype == torch.float32:
+        if H < 16 or H % 16 or H // 16 > sm_count \
+                or f32_smem_bytes(P) > SM90_SMEM:
+            return first
+        return FwdRoute("lstm_f32_sm90")
+    if dtype != torch.bfloat16:
         return first
     for groups in SM90_GROUPS:
         if H % (16 * groups):
@@ -363,6 +396,8 @@ def _kernel_fwd(xw, w_h, w_proj, residuals):
     route = device_fwd_route(xw, w_proj)
     if route.source == "lstm_sm90":
         _sm90_fwd(name, route, xw, w_h, w_proj, hs, gates, cseq)
+    elif route.source == "lstm_f32_sm90":
+        _f32_fwd(name, xw, w_h, w_proj, hs, gates, cseq)
     else:
         _first_fwd(name, xw, w_h, w_proj, hs, gates, cseq)
     if residuals:
@@ -394,6 +429,24 @@ def _sm90_fwd(name, route, xw, w_h, w_proj, hs, gates, cseq):
               counter.data_ptr(), T, B, H, P, route.groups, route.stages,
               torch.cuda.current_stream(xw.device).cuda_stream)
     _cuda.check("lstm_sm90", code, name)
+
+
+def _f32_fwd(name, xw, w_h, w_proj, hs, gates, cseq):
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    # 16-byte loads, where the first kernel it replaces took any base: a
+    # view off 16 bytes is copied, not refused
+    xw, w_h, w_proj = (_cuda.aligned(x) for x in (xw, w_h, w_proj))
+    hfull = torch.empty((B, H), dtype=torch.float32, device=xw.device)
+    counter = torch.zeros((1,), dtype=torch.int32, device=xw.device)
+    fn = _cuda.function("lstm_f32_sm90", "pt_lstm_fwd_tf32x3",
+                        _F32_ARGTYPES)
+    code = fn(xw.data_ptr(), w_h.data_ptr(), w_proj.data_ptr(),
+              hs.data_ptr(), None if gates is None else gates.data_ptr(),
+              None if cseq is None else cseq.data_ptr(), hfull.data_ptr(),
+              counter.data_ptr(), T, B, H, P,
+              torch.cuda.current_stream(xw.device).cuda_stream)
+    _cuda.check("lstm_f32_sm90", code, name)
 
 
 def _first_fwd(name, xw, w_h, w_proj, hs, gates, cseq):
@@ -685,12 +738,14 @@ def kernel_hbm_bytes(T, B, E, H, P, x_itemsize, w_itemsize, *,
 
 def pass_flops(T, B, H, P) -> int:
     """Operations of one pass of the recurrence (forward or backward):
-    the two recurrent products of every step."""
-    return 2 * T * B * (P * 4 * H + H * P)
+    the projection of every step and the gates product of every step but
+    one (the forward's at t = 0, where h_0 = 0; the backward's at t = 0,
+    whose dh no earlier step reads)."""
+    return 2 * B * ((T - 1) * P * 4 * H + T * H * P)
 
 
 __all__ = ["lstm_scan", "lstm_scan_reference", "lstm_recurrence",
-           "fwd_route", "bwd_route", "FwdRoute",
+           "fwd_route", "bwd_route", "FwdRoute", "f32_smem_bytes",
            "lstm_recurrence_plain", "lstm_bwd_recurrence",
            "lstm_bwd_recurrence_plain", "kernel_hbm_bytes", "pass_flops",
            "trace_records", "reset_trace_records"]

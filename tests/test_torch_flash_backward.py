@@ -182,6 +182,36 @@ def test_kernel_entry_refuses_what_it_does_not_take():
         tfa._dkv_kernel(q, q, q, None, q.bfloat16(), lse, lse, False, 0.125)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_misaligned_view_is_copied_not_refused(dtype):
+    """The kernels load 16-byte rows: the wrappers hand them an aligned
+    tensor as it is and a copy of a view that starts off 16 bytes (here
+    one element in), equal to it and aligned; the bf16 kernels still
+    refuse Tk 0."""
+    from parallax_tpu_torch.ops import _cuda
+    shape = (1, 64, 2, 64)
+    good = torch.randn(shape).to(dtype)
+    assert good.data_ptr() % 16 == 0
+    assert _cuda.aligned(good) is good
+    flat = torch.zeros(good.numel() + 1, dtype=dtype)
+    bad = flat[1:].view(shape)
+    bad.copy_(good)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    fixed = _cuda.aligned(bad)
+    assert fixed.data_ptr() % 16 == 0 and fixed.is_contiguous()
+    assert torch.equal(fixed, bad)
+    out = tfa._row_loads(good, good, bad, bad)
+    assert out[0] is good and out[1] is good
+    assert all(x.data_ptr() % 16 == 0 and torch.equal(x, bad)
+               for x in out[2:])
+    empty = torch.zeros((1, 0, 2, 64), dtype=dtype)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="Tk >= 1"):
+            tfa._row_loads(good, empty, empty)
+    else:
+        assert tfa._row_loads(good, empty, empty)[1] is empty
+
+
 # -- the bf16 dq kernel's rounding point, emulated --------------------------------
 
 

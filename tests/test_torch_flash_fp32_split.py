@@ -6,15 +6,18 @@ split as hi = tf32(x), lo = tf32(x - hi), rounded as ``cvt.rna.tf32.f32``
 does (nearest, ties away from zero), and every product a.b is summed as
 a_lo.b_hi + a_hi.b_lo + a_hi.b_hi. Here those three products are formed
 exactly (float64) and rounded once to fp32, at the places the kernels
-form them: the forward's Q.Kᵀ and P.V, and dk/dv's K.q̂ᵀ, V.dOᵀ, Pᵀ.dO and
+form them: the forward's Q.Kᵀ and P.V, dq's q̂.Kᵀ, dO.Vᵀ and dS.K (dq
+summed over K tiles from zero a tile at a time, as the kernel's running
+sum takes each tile's products), and dk/dv's K.q̂ᵀ, V.dOᵀ, Pᵀ.dO and
 dSᵀ.q̂, with the softmax, the masking and ds in fp32 as the plain versions
-take them. On seeded numpy inputs the split attention and its dk/dv stay
-within the card tests' 2e-5 (2e-5 of max(1, peak) for the gradients) of
-``flash_attention_plain`` and ``flash_dkv_plain``, and the forward within
-it of the JAX package's flash attention (its Pallas kernel in interpret
-mode); one TF32 product (operands rounded once) does not. What the
-tensor cores add beyond this, their truncating accumulation, is measured
-on the card (``tests/test_torch_kernels_gpu.py``).
+take them. On seeded numpy inputs the split attention, its dq and its
+dk/dv stay within the card tests' 2e-5 (2e-5 of max(1, peak) for the
+gradients) of ``flash_attention_plain``, ``flash_dq_plain`` and
+``flash_dkv_plain``, and the forward and dq within it of the JAX
+package's flash attention (its Pallas kernels in interpret mode); one
+TF32 product (operands rounded once) does not. What the tensor cores add
+beyond this, their truncating accumulation, is measured on the card
+(``tests/test_torch_kernels_gpu.py``).
 """
 
 import math
@@ -101,6 +104,33 @@ def dkv(q, k, v, kv_mask, dout, lse, delta, causal, product):
             product("bhqk,bqhd->bkhd", p, dout))
 
 
+def dq(q, k, v, kv_mask, dout, lse, delta, causal, product):
+    """dq of the dq kernel's arithmetic with ``product``: S, dP and ds
+    per K tile of the kernel's (64 keys at hd 64, 32 at hd 128), and dq
+    summed over the tiles from zero, each tile's dS.K added in fp32."""
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    qs = q * scale
+    Tq, Tk = q.shape[1], k.shape[1]
+    bk = 64 if hd == 64 else 32
+    acc = torch.zeros(q.shape)
+    rows = torch.arange(Tq)[:, None]
+    for k0 in range(0, Tk, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        s = product("bqhd,bkhd->bhqk", qs, kt)
+        if kv_mask is not None:
+            s = torch.where(kv_mask[:, None, None, k0:k0 + bk] > 0, s,
+                            NEG_INF)
+        if causal:
+            keys = k0 + torch.arange(kt.shape[1])[None, :]
+            s = torch.where(keys <= rows, s, NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        p = torch.where(s > NEG_INF / 2, p, 0.0)
+        ds = p * (product("bqhd,bkhd->bhqk", dout, vt) - delta[..., None])
+        acc = acc + product("bhqk,bkhd->bqhd", ds, kt)
+    return acc * scale
+
+
 def _inputs(B, Tq, Tk, H, hd, masked, seed=0):
     rng = np.random.default_rng(seed)
 
@@ -173,12 +203,37 @@ def test_split_dkv_within_the_fp32_tolerance(case):
         assert torch.all(dk[0] == 0) and torch.all(dv[0] == 0)
 
 
+def _dq_err(case, product):
+    """(err, tolerance, dq, the backward's inputs) of dq against the
+    plain version, on the plain forward's out and lse."""
+    B, Tq, Tk, H, hd, causal, masked = CASES[case]
+    q, k, v, dout, mask = _inputs(B, Tq, Tk, H, hd, masked)
+    out, lse = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                         kv_mask=mask)
+    delta = tfa.flash_delta(out, dout)
+    got = dq(q, k, v, mask, dout, lse, delta, causal, product)
+    want = tfa.flash_dq_plain(q, k, v, mask, dout, lse, delta, causal)
+    return ((got - want).abs().max().item(),
+            ATOL * max(1.0, want.abs().max().item()), got,
+            (q, k, v, dout, mask, out, lse))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_dq_within_the_fp32_tolerance(case):
+    err, tol, got, _ = _dq_err(case, product3)
+    assert err <= tol, (err, tol)
+    if CASES[case][-1]:
+        assert torch.all(got[0] == 0)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_one_tf32_product_breaks_the_fp32_tolerance(case):
     """The argument of the kernels' source note: rounding each operand
-    once puts the forward and dk and dv outside the fp32 tolerance."""
+    once puts the forward, dq, dk and dv outside the fp32 tolerance."""
     err, _, _, _ = _forward_err(case, product1)
     errs, _, _ = _dkv_errs(case, product1)
+    dq_err, dq_tol, _, _ = _dq_err(case, product1)
+    errs.append((dq_err, dq_tol))
     assert err > ATOL and all(e > t for e, t in errs), (err, errs)
 
 
@@ -198,3 +253,23 @@ def test_split_forward_matches_jax(case):
     live = slice(1, None) if masked else slice(None)
     np.testing.assert_allclose(lse[live].numpy(), np.asarray(jlse)[live],
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["t64_causal_masked", "hd128_ragged"])
+def test_split_dq_matches_jax(case):
+    """The emulated dq kernel against the JAX package's flash backward
+    (``_flash_backward``, the Pallas dq kernel in interpret mode, on
+    [B, H, T, D] operands) on the same numpy inputs and forward."""
+    _, tol, got, (q, k, v, dout, mask, out, lse) = _dq_err(case, product3)
+    causal = CASES[case][5]
+
+    def bhtd(x):
+        return jnp.asarray(x.transpose(1, 2).numpy())
+    jdq, _, _ = jfa._flash_backward(
+        bhtd(q), bhtd(k), bhtd(v),
+        None if mask is None else jnp.asarray(mask.numpy()), bhtd(out),
+        jnp.asarray(lse.numpy()), bhtd(dout), causal,
+        1.0 / math.sqrt(q.shape[-1]), 64, 64, True)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jdq).transpose(0, 2, 1, 3),
+                               atol=tol, rtol=0)

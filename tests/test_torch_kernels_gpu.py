@@ -131,6 +131,79 @@ def test_fp32_dkv_is_bitwise_repeatable(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B,Tq,Tk,H,hd,causal,masked", FP32_SPLIT_CASES)
+def test_fp32_split_dq_matches_plain(cuda, B, Tq, Tk, H, hd, causal,
+                                     masked):
+    """fp32 B5 (``flash_dq_kernel_tf32x3``) against its plain version on
+    the plain forward's lse, within 2e-5 of max(1, peak); one launch a
+    call; a fully masked row's dq is exact zeros."""
+    q, k, v, dout, mask = _flash_bwd_inputs(cuda, torch.float32, B, Tq, Tk,
+                                            H, hd, masked)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        kv_mask=mask)
+    delta = fa.flash_delta(out, dout)
+    args = (q, k, v, mask, dout, lse, delta, causal)
+    before = fa.launches_dq
+    dq = fa.flash_dq(*args)
+    ref = fa.flash_dq_plain(*args)
+    torch.cuda.synchronize()
+    assert fa.launches_dq == before + 1
+    _grad_close(dq, ref, torch.float32)
+    if masked:
+        assert torch.all(dq[0] == 0)
+
+
+def test_fp32_dq_is_bitwise_repeatable(cuda):
+    """fp32 dq sums over K tiles in a fixed order inside one block: two
+    calls on the same inputs give the same bits, and so does a call on a
+    second stream."""
+    q, k, v, dout, _ = _flash_bwd_inputs(cuda, torch.float32, 2, 2048, 2048,
+                                         8, 64, False, seed=5)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    delta = fa.flash_delta(out, dout)
+    args = (q, k, v, None, dout, lse, delta, True)
+    runs = [fa.flash_dq(*args) for _ in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append(fa.flash_dq(*args))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert torch.equal(run, runs[0])
+
+
+def _dq_float64(q, k, v, dout, causal):
+    """dq of causal or full attention in float64, from the fp32 inputs
+    (lse and delta in float64 too)."""
+    q, k, v, dout = (x.double() for x in (q, k, v, dout))
+    T, scale = q.shape[1], 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if causal:
+        s = s.masked_fill(~torch.ones((T, T), dtype=torch.bool,
+                                      device=q.device).tril(), -1e300)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    delta = (dout * out).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dout, v) - delta)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 2048, 8), (1, 4096, 2)])
+def test_fp32_dq_long_causal_sums_stay_near_float64(cuda, B, T, H):
+    """At causal T 2048 and 4096 dq sums up to T / 64 tiles of products:
+    summed from zero a tile step at a time and added in fp32, the kernel
+    stays within 2e-5 of max(1, peak) of a float64 dq (a running sum fed by
+    the tensor core directly would truncate its way out)."""
+    q, k, v, dout, _ = _flash_bwd_inputs(cuda, torch.float32, B, T, T, H,
+                                         64, False, seed=7)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    delta = fa.flash_delta(out, dout)
+    dq = fa.flash_dq(q, k, v, None, dout, lse, delta, True)
+    want = _dq_float64(q, k, v, dout, True)
+    torch.cuda.synchronize()
+    _grad_close(dq, want, torch.float32)
+
+
 def _grad_close(got, want, dtype):
     """Gradients sum over a whole sequence: fp32 atol 2e-5 of max(1,
     peak), bf16 2e-2 of the peak."""
@@ -267,9 +340,8 @@ def _kernel_names(fn):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_dtype_picks_the_kernel(cuda, dtype):
     """bf16 forward, dq and dk/dv launch the sm90 (TMA + wgmma) kernels;
-    fp32 forward and dk/dv the split-operand TF32 ones (``_tf32x3``), fp32
-    dq the first (fp32-FMA) kernel; each call counts one launch either
-    way."""
+    fp32 forward, dq and dk/dv the split-operand TF32 ones (``_tf32x3``);
+    each call counts one launch either way."""
     q, k, v, dout, mask = _flash_bwd_inputs(cuda, dtype, 2, 64, 64, 2, 64,
                                             True)
     out, lse = fa.flash_attention_plain(q, k, v, kv_mask=mask)
@@ -282,7 +354,7 @@ def test_flash_dtype_picks_the_kernel(cuda, dtype):
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
         tuple(n + 1 for n in before)
     for kernel, split in (("flash_fwd_kernel", True),
-                          ("flash_dq_kernel", False),
+                          ("flash_dq_kernel", True),
                           ("flash_dkv_kernel", True)):
         sm90 = [n for n in names if f"{kernel}_sm90" in n]
         fp32 = [n for n in names if kernel in n and "sm90" not in n]
@@ -292,45 +364,50 @@ def test_flash_dtype_picks_the_kernel(cuda, dtype):
             assert ("_tf32x3" in fp32[0]) == split, names
 
 
-def test_flash_bf16_refuses_a_misaligned_view(cuda):
-    """TMA needs each base pointer on 16 bytes: a contiguous view that
-    starts one element in raises instead of launching anything."""
-    shape = (1, 64, 2, 64)
-    flat = torch.zeros(int(np.prod(shape)) + 1, device=cuda,
-                       dtype=torch.bfloat16)
-    bad = flat[1:].view(shape)
-    good = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
-    assert bad.is_contiguous() and bad.data_ptr() % 16
-    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention(bad, good, good)
-    lse = torch.zeros((1, 2, 64), device=cuda)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_dq(good, good, good, None, bad, lse, lse)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_dkv(good, good, good, None, bad, lse, lse)
-    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == before
+def _misaligned_matches_aligned(cuda, dtype):
+    """Each of q, k, v and dO as a contiguous view one element in (off 16
+    bytes) through the forward, dq and dk/dv: the wrappers copy it, so the
+    results are bitwise those of the aligned tensors, one launch a call."""
+    shape = (2, 100, 2, 64)
+    q, k, v, dout, mask = _flash_bwd_inputs(cuda, dtype, 2, 100, 100, 2, 64,
+                                            True, seed=11)
+    mask[0, 0] = 1                       # batch 0 sees one key
+    out, lse = fa.flash_attention_plain(q, k, v, kv_mask=mask)
+    delta = fa.flash_delta(out, dout)
+
+    def calls(q, k, v, dout):
+        return (*fa.flash_attention_lse(q, k, v, kv_mask=mask),
+                fa.flash_dq(q, k, v, mask, dout, lse, delta),
+                *fa.flash_dkv(q, k, v, mask, dout, lse, delta))
+    want = calls(q, k, v, dout)
+    for i in range(4):
+        args = [q, k, v, dout]
+        flat = torch.zeros(args[i].numel() + 1, device=cuda, dtype=dtype)
+        bad = flat[1:].view(shape)
+        bad.copy_(args[i])
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        args[i] = bad
+        before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+        got = calls(*args)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+            tuple(n + 1 for n in before)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
 
 
-def test_flash_fp32_split_refuses_a_misaligned_view(cuda):
-    """The fp32 forward and dk/dv load 16-byte rows by cp.async: a
-    contiguous view that starts one element in raises before launching;
-    the fp32 dq (the first kernel, scalar loads) takes it."""
-    shape = (1, 64, 2, 64)
-    flat = torch.zeros(int(np.prod(shape)) + 1, device=cuda)
-    bad = flat[1:].view(shape)
-    good = torch.zeros(shape, device=cuda)
-    assert bad.is_contiguous() and bad.data_ptr() % 16
-    lse = torch.zeros((1, 2, 64), device=cuda)
-    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention(bad, good, good)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_dkv(good, good, good, None, bad, lse, lse)
-    fa.flash_dq(good, good, good, None, bad, lse, lse)
-    torch.cuda.synchronize()
-    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
-        (before[0], before[1] + 1, before[2])
+def test_flash_bf16_copies_a_misaligned_view(cuda):
+    """TMA needs each base pointer on 16 bytes: a view that starts one
+    element in is copied, not refused, and gives the aligned call's
+    bits."""
+    _misaligned_matches_aligned(cuda, torch.bfloat16)
+
+
+def test_flash_fp32_split_copies_a_misaligned_view(cuda):
+    """The fp32 forward, dq and dk/dv load 16-byte rows by cp.async: a view
+    that starts one element in is copied, not refused, and gives the
+    aligned call's bits."""
+    _misaligned_matches_aligned(cuda, torch.float32)
 
 
 def _cuobjdump():
@@ -684,24 +761,126 @@ def test_lstm_sm90_kernel_uses_tma_and_wgmma(cuda):
 
 
 def test_lstm_bf16_lm1b_shape_takes_the_sm90_route(cuda):
-    """At the LM1B step's shape bf16 B1 and B2 launch the persistent
-    kernel, one launch a call, and fp32 the first kernel; each call counts
-    one launch either way."""
+    """At the LM1B step's shape bf16 B1 and B2 launch the persistent bf16
+    kernel and fp32 the persistent fp32 one (``lstm_fwd_kernel_tf32x3``),
+    one launch a call, and neither the first kernel; each call counts one
+    launch either way."""
     T, B, H, P = 20, 128, 2048, 512
-    for dtype, sm90 in ((torch.bfloat16, True), (torch.float32, False)):
+    for dtype, source, kernel in (
+            (torch.bfloat16, "lstm_sm90", "lstm_fwd_kernel_sm90"),
+            (torch.float32, "lstm_f32_sm90", "lstm_fwd_kernel_tf32x3")):
         xw, w_h, w_proj, _ = _lstm_inputs(cuda, dtype, T, B, H, P)
-        assert (lstm.device_fwd_route(xw, w_proj).source == "lstm_sm90") \
-            == sm90
+        assert lstm.device_fwd_route(xw, w_proj).source == source
         before = (lstm.launches_fwd, lstm.launches_fwd_res)
         names = _kernel_names(lambda: (
             lstm.lstm_recurrence(xw, w_h, w_proj),
             lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)))
         assert (lstm.launches_fwd, lstm.launches_fwd_res) == \
             (before[0] + 1, before[1] + 1)
-        persistent = [n for n in names if "lstm_fwd_kernel_sm90" in n]
+        persistent = [n for n in names if kernel in n]
         first = [n for n in names if "lstm_gates_kernel" in n]
-        assert (len(persistent), len(first)) == \
-            ((2, 0) if sm90 else (0, 2)), names
+        assert (len(persistent), len(first)) == (2, 0), names
+
+
+# -- the persistent fp32 forward (B1, B2, csrc/lstm_f32_sm90.cu) ----------------
+
+
+@pytest.mark.parametrize("T,B,H,P", [
+    (20, 128, 2048, 512),       # the LM1B step: 128 blocks of 16 units
+    (20, 16, 2048, 512),        # lm1b_eval's batch: one 16-row warp
+    (6, 8, 32, 16),             # the drift sentinels' pair: 2 blocks
+    (1, 1, 256, 64),            # T 1 (no recurrent product), B 1
+    (3, 100, 512, 128),         # ragged rows (B 100)
+    (3, 128, 1040, 520),        # P and H off the 64-deep chunks
+])
+def test_lstm_f32_forward_matches_plain(cuda, T, B, H, P):
+    """fp32 B1 and B2 on the persistent 3xTF32 forward against the plain
+    version within 1e-4 of max(1, peak), one launch a call; B3 (the first
+    kernel) takes its residuals."""
+    xw, w_h, w_proj, gout = _lstm_inputs(cuda, torch.float32, T, B, H, P)
+    assert lstm.device_fwd_route(xw, w_proj).source == "lstm_f32_sm90"
+    before = (lstm.launches_fwd, lstm.launches_fwd_res)
+    hs = lstm.lstm_recurrence(xw, w_h, w_proj)
+    res = lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+    ref = lstm.lstm_recurrence_plain(xw, w_h, w_proj, residuals=True)
+    dxw, dhtot = lstm.lstm_bwd_recurrence(gout, res[1], res[2], w_h, w_proj)
+    ref_dxw, ref_dhtot = lstm.lstm_bwd_recurrence_plain(gout, ref[1], ref[2],
+                                                        w_h, w_proj)
+    torch.cuda.synchronize()
+    assert (lstm.launches_fwd, lstm.launches_fwd_res) == \
+        (before[0] + 1, before[1] + 1)
+    _lstm_close(hs, ref[0], torch.float32, "B1 hs")
+    for got, want, what in zip(res, ref, ("hs", "gates", "c")):
+        assert got.dtype == torch.float32
+        _lstm_close(got, want, torch.float32, f"B2 {what}")
+    _lstm_close(dxw, ref_dxw, torch.float32, "B3 d_xw")
+    _lstm_close(dhtot, ref_dhtot, torch.float32, "B3 dh_total")
+
+
+def test_lstm_f32_forward_is_bitwise_repeatable(cuda):
+    """10 back-to-back fp32 B2 calls at the LM1B shape give the same bits
+    in hs, gates and c, and so do calls on a second stream (one owner a
+    value, fixed sums, a fresh barrier counter a call)."""
+    xw, w_h, w_proj, _ = _lstm_inputs(cuda, torch.float32, 20, 128, 2048,
+                                      512)
+    first = lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+    runs = [lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+            for _ in range(9)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs += [lstm.lstm_recurrence(xw, w_h, w_proj, residuals=True)
+                 for _ in range(2)]
+    torch.cuda.synchronize()
+    for run in runs:
+        for got, want in zip(run, first):
+            assert torch.equal(got, want)
+
+
+def test_lstm_f32_forward_copies_a_misaligned_view(cuda):
+    """The fp32 persistent forward loads 16-byte rows where the first
+    kernel took any base: a view of xw, w_h or w_proj one element in is
+    copied, not refused, and gives the aligned call's bits."""
+    args = list(_lstm_inputs(cuda, torch.float32, 3, 64, 256, 64)[:3])
+    want = lstm.lstm_recurrence(*args, residuals=True)
+    for i in range(3):
+        flat = torch.zeros(args[i].numel() + 1, device=cuda)
+        bad = flat[1:].view(args[i].shape)
+        bad.copy_(args[i])
+        assert bad.data_ptr() % 16
+        call = list(args)
+        call[i] = bad
+        before = lstm.launches_fwd_res
+        got = lstm.lstm_recurrence(*call, residuals=True)
+        torch.cuda.synchronize()
+        assert lstm.launches_fwd_res == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
+
+
+def _sass_bodies(source, kernel):
+    """The SASS of each instantiation of ``kernel`` in the built library of
+    ``source``."""
+    _cuda.library(source)
+    sass = subprocess.run(
+        [_cuobjdump(), "-sass", str(_cuda.library_path(source))],
+        capture_output=True, text=True, check=True).stdout
+    return [part for part in sass.split("Function : ")[1:]
+            if kernel in part.split("\n", 1)[0]]
+
+
+def test_fp32_split_kernels_use_tf32_tensor_cores(cuda):
+    """The built libraries' SASS: the persistent fp32 LSTM forward (B1,
+    B2) and the fp32 dq (hd 64, 128) issue TF32 HMMA (mma.sync) and
+    LDGSTS (cp.async)."""
+    for source, kernel, count in (
+            ("lstm_f32_sm90", "lstm_fwd_kernel_tf32x3", 2),
+            ("flash_attention_f32_sm90", "flash_dq_kernel_tf32x3", 2)):
+        bodies = _sass_bodies(source, kernel)
+        assert len(bodies) == count, (source, len(bodies))
+        for body in bodies:
+            assert "HMMA" in body and "TF32" in body, source
+            assert "LDGSTS" in body, source
 
 
 def test_lstm_sm90_is_bitwise_repeatable(cuda):

@@ -184,8 +184,9 @@ def test_kernel_hbm_bytes_is_the_jax_byte_model():
     for bwd in ("kernel", "scan", "recompute"):
         assert tl.kernel_hbm_bytes(*flagship, bwd=bwd) == \
             pallas_lstm.kernel_hbm_bytes(*flagship, bwd=bwd)
+    # the gates product is skipped at one step of the 20: h_0 = 0
     assert tl.pass_flops(20, 128, 2048, 512) == \
-        2 * 20 * 128 * (512 * 4 * 2048 + 2048 * 512)
+        2 * 128 * (19 * 512 * 4 * 2048 + 20 * 2048 * 512)
 
 
 # -- the persistent bf16 forward (csrc/lstm_sm90.cu): its route and its
@@ -197,8 +198,8 @@ LM1B = (20, 128, 2048, 512)     # T, B, H, P of the LM1B training step
 @pytest.mark.parametrize("dtype,shape,sms,want", [
     # the LM1B step on an H100 SXM: 128 blocks of 16 units
     (torch.bfloat16, LM1B, 132, ("lstm_sm90", 1, 4)),
-    # fp32 keeps the first kernel (a TF32 wgmma breaks the 1e-4 contract)
-    (torch.float32, LM1B, 132, ("lstm", 0, 0)),
+    # fp32: the persistent 3xTF32 forward, 128 blocks of 16 units
+    (torch.float32, LM1B, 132, ("lstm_f32_sm90", 0, 0)),
     # P 33 (66-byte rows: no TMA), H 70 (not 16-unit groups), B 1
     (torch.bfloat16, (3, 1, 70, 33), 132, ("lstm", 0, 0)),
     # 114 SMs (H100 PCIe): 128 blocks of 16 cannot all be resident, 64
@@ -210,6 +211,20 @@ LM1B = (20, 128, 2048, 512)     # T, B, H, P of the LM1B training step
     (torch.bfloat16, (20, 130, 2048, 512), 132, ("lstm", 0, 0)),
     # H 4096: 16-unit groups would need 256 blocks
     (torch.bfloat16, (2, 64, 4096, 256), 132, ("lstm_sm90", 2, 4)),
+    # fp32: H 70 (not 16-unit blocks), P 33 (not 8-column tiles)
+    (torch.float32, (3, 1, 70, 32), 132, ("lstm", 0, 0)),
+    (torch.float32, (3, 1, 64, 33), 132, ("lstm", 0, 0)),
+    # fp32 at lm1b_eval's B 16 and the drift sentinels' pair (T6 B8 H32
+    # P16): the persistent forward
+    (torch.float32, (20, 16, 2048, 512), 132, ("lstm_f32_sm90", 0, 0)),
+    (torch.float32, (6, 8, 32, 16), 132, ("lstm_f32_sm90", 0, 0)),
+    # fp32 on 114 SMs (H100 PCIe): 128 blocks cannot all be resident, and
+    # the fp32 forward has no 32-unit blocks
+    (torch.float32, LM1B, 114, ("lstm", 0, 0)),
+    # fp32 B past 128; P whose w_h slice does not fit (576); P 544 fits
+    (torch.float32, (20, 130, 2048, 512), 132, ("lstm", 0, 0)),
+    (torch.float32, (3, 128, 1040, 576), 132, ("lstm", 0, 0)),
+    (torch.float32, (3, 128, 1040, 544), 132, ("lstm_f32_sm90", 0, 0)),
 ])
 def test_fwd_route_is_a_function_of_dtype_shape_and_sms(dtype, shape, sms,
                                                         want):
@@ -221,6 +236,8 @@ def test_fwd_route_is_a_function_of_dtype_shape_and_sms(dtype, shape, sms,
         assert blocks <= sms and blocks % (P // 8) == 0
         assert tl.sm90_smem_bytes(route.groups, H, P, route.stages) \
             <= tl.SM90_SMEM
+    if route.source == "lstm_f32_sm90":
+        assert H // 16 <= sms and tl.f32_smem_bytes(P) <= tl.SM90_SMEM
 
 
 def _sigmoid_ex2(x):
@@ -285,6 +302,119 @@ def test_sm90_arithmetic_stays_within_the_bf16_budget():
     want = tl.lstm_recurrence_plain(xw, w_h, w_proj, residuals=True)
     for g, w, what in zip(got, want, ("hs", "gates", "c")):
         _close(g.float().numpy(), w.float().numpy(), "bfloat16", what)
+
+
+# -- the persistent fp32 forward (csrc/lstm_f32_sm90.cu): its arithmetic -----
+
+# T20 (LM1B's steps) at narrow widths: the narrowest shape tried at which
+# one TF32 product breaks the fp32 budget with room (1.6e-4 to 2.9e-4 over
+# three seeds; T6 B8 H32 P16 gives 0.9e-4 to 1.4e-4)
+F32_NARROW = (20, 8, 32, 128, 64)
+
+
+def _tf32(x):
+    """fp32 rounded to TF32 as the kernel rounds it (cvt.rna.tf32.f32:
+    nearest, ties away from zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product3(a, b):
+    """a @ b as the kernel forms one 64-deep chunk: the three split
+    products (lo.hi, hi.lo, hi.hi), exact, rounded once to fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    d = torch.float64
+    return (al.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d)
+            + ah.to(d) @ bh.to(d)).float()
+
+
+def _product1(a, b):
+    """One TF32 product: each operand rounded once."""
+    return (_tf32(a).double() @ _tf32(b).double()).float()
+
+
+def _chunked_by(a, b, lo, hi, product):
+    """sum over 64-deep chunks k0 in [lo, hi) of ``product`` of the chunk,
+    in order, in fp32: each chunk summed from zero and added."""
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(lo, hi, 64):
+        k1 = min(k0 + 64, hi)
+        acc = acc + product(a[:, k0:k1], b[k0:k1])
+    return acc
+
+
+def _f32_emulation(xw, w_h, w_proj, product):
+    """The persistent fp32 forward's arithmetic on the CPU: gates = xw +
+    the recurrent product in 64-deep chunks of P, the cell in fp32, the
+    projection's two halves over H (one per warp group, the first holding
+    ceil(H / 128) chunks) each summed in chunks and added once."""
+    T, B, _ = xw.shape
+    H, P = w_proj.shape
+    half = min(H, (-(-H // 64) + 1) // 2 * 64)
+    c = torch.zeros((B, H))
+    hs, gates, cs = [], [], []
+    for t in range(T):
+        g = xw[t]
+        if t > 0:
+            g = _chunked_by(hs[-1], w_h, 0, P, product) + g
+        i, f, gg, o = g.chunk(4, dim=-1)
+        i, f = torch.sigmoid(i), torch.sigmoid(f + 1.0)
+        gg, o = torch.tanh(gg), torch.sigmoid(o)
+        c = f * c + i * gg
+        hf = o * torch.tanh(c)
+        hs.append(_chunked_by(hf, w_proj, 0, half, product)
+                  + _chunked_by(hf, w_proj, half, H, product))
+        gates.append(torch.cat([i, f, gg, o], dim=-1))
+        cs.append(c)
+    return torch.stack(hs), torch.stack(gates), torch.stack(cs)
+
+
+def _f32_xw(shape, seed=0):
+    x, w, b, wp, _ = _inputs(shape, seed)
+    tx, tw, tb, twp = _torch_args((x, w, b, wp), torch.float32)
+    w_x, w_h = tl._split_w(tw, twp)
+    return (x, w, b, wp), tl._hoisted_xw(tx, w_x, tb), w_h, twp
+
+
+def _f32_errs(got, want):
+    """max |got - want| of hs, gates and c, each against 1e-4 of max(1,
+    the peak): the fp32 LSTM kernels' contract."""
+    return [(float(np.abs(np.asarray(g, np.float32)
+                          - np.asarray(w, np.float32)).max()),
+             1e-4 * max(1.0, float(np.abs(np.asarray(w)).max())))
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [F32_NARROW], ids=str)
+def test_f32_split_arithmetic_matches_plain_and_jax(shape):
+    """The 3xTF32 recurrence, emulated, within 1e-4 of max(1, peak) of
+    lstm_recurrence_plain and of the JAX Pallas forward with residuals
+    (interpret mode) in hs, gates and c."""
+    arrs, xw, w_h, w_proj = _f32_xw(shape)
+    got = _f32_emulation(xw, w_h, w_proj, _product3)
+    plain = tl.lstm_recurrence_plain(xw, w_h, w_proj, residuals=True)
+    jx, jw, jb, jwp = _jax_args(arrs, jnp.float32)
+    jres = pallas_lstm._forward(jx, jw, jb, jwp, 128, True,
+                                save_residuals=True)
+    for want in ([_np(x) for x in plain], jres):
+        errs = _f32_errs([_np(g) for g in got], want)
+        assert all(e <= t for e, t in errs), errs
+
+
+def test_one_tf32_product_breaks_the_fp32_budget():
+    """The argument of the kernel's source note: rounding each operand of
+    the two products once moves hs, the gates and c past 1e-4 of the plain
+    version over T 20, where the split products stay within it."""
+    _, xw, w_h, w_proj = _f32_xw(F32_NARROW)
+    plain = [_np(x) for x in tl.lstm_recurrence_plain(xw, w_h, w_proj,
+                                                       residuals=True)]
+    one = _f32_errs([_np(g) for g in _f32_emulation(xw, w_h, w_proj,
+                                                    _product1)], plain)
+    split = _f32_errs([_np(g) for g in _f32_emulation(xw, w_h, w_proj,
+                                                      _product3)], plain)
+    assert all(e > t for e, t in one), one
+    assert all(e <= t / 100 for e, t in split), split
 
 
 # -- the persistent bf16 backward (csrc/lstm_sm90.cu): its route and its

@@ -1,15 +1,16 @@
 """The profile window on the card: ``torch.profiler`` over replayed CUDA
 graphs, and a window armed over a capture.
 
-A small LM1B (fp32, ``lstm_impl="kernel"``: the first LSTM kernels of
-``csrc/lstm.cu``, B2 as ``lstm_gates_kernel`` and B3 as
-``lstm_bwd_cell_kernel``, one launch a time step) trains on the card,
+A small LM1B (fp32, ``lstm_impl="kernel"``: B2 as the persistent fp32
+forward of ``csrc/lstm_f32_sm90.cu``, ``lstm_fwd_kernel_tf32x3``, one
+launch a step, and B3 as the first kernel of ``csrc/lstm.cu``,
+``lstm_bwd_cell_kernel`` one launch a time step) trains on the card,
 each step a replay of its captured graph.
 
 * A window over replayed steps (a warm-up step, then the traced ones)
-  holds every replayed kernel of its traced steps: B2's and B3's once a
-  time step and step, the launch counters' count less the warm-up
-  step's; the attribution reads the device track and joins kernels to
+  holds every replayed kernel of its traced steps: B2's once a step and
+  B3's once a time step and step, the launch counters' count less the
+  warm-up step's; the attribution reads the device track and joins kernels to
   their scopes (the sparse path's time is above 0).
 * A window armed before the first step, which captures the graph, is
   deferred one step: the capture succeeds (the steps after it replay),
@@ -78,7 +79,7 @@ def test_a_replayed_window_holds_the_kernels(cuda):
         assert (lstm.launches_fwd_res - before[0],
                 lstm.launches_bwd - before[1]) == (steps + 1, steps + 1)
         kernels = _kernels(outdir)
-        assert _count(kernels, "lstm_gates_kernel") == steps * T
+        assert _count(kernels, "lstm_fwd_kernel_tf32x3") == steps
         assert _count(kernels, "lstm_bwd_cell_kernel") == steps * T
         a = sess.profile_summary()
         assert a["track_basis"] == "device" and a["steps"] == steps
@@ -101,7 +102,7 @@ def test_a_window_over_a_capture_is_deferred(cuda):
         assert sess.metrics.counter(
             "engine.executable_cache.hits").value == 3
         assert sess._profile.deferred_steps == 1
-        assert _count(_kernels(outdir), "lstm_gates_kernel") == 2 * T
+        assert _count(_kernels(outdir), "lstm_fwd_kernel_tf32x3") == 2
         assert sess.profile_summary()["steps"] == 2
     finally:
         sess.close()
